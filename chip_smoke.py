@@ -1,0 +1,498 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (`sc2bench_tpu_torch`) on one
+NVIDIA GPU.
+
+Run from the repository root with `python3 chip_smoke.py` (no arguments,
+one card). It imports nothing of JAX or of `sc2bench_tpu`. Phases, each of
+which fails loudly with a nonzero exit:
+
+ 1. build the CUDA rANS kernels from `sc2bench_tpu_torch/csrc/` (nvcc,
+    sm_90a) and print the build seconds and ptxas register counts;
+ 2. hold each of the four kernels against its plain PyTorch version on the
+    card at the flagship shapes (55x55x24 latent: 384 lanes x 190 steps;
+    batch 1 for the compacted kernels, 8 images for the aligned ones) and
+    on a ragged case (72 lanes, n not a multiple of 72): bit-equal
+    streams/lengths/states, packed bytes equal to the numpy oracle and
+    equal between the two layouts, symbols back with valid=True, and
+    valid=False for a corrupted stream; print median kernel and plain ms;
+ 3. drive the main path, batch 1: `stream_deploy_device` of the
+    full-width ResNet-50 + FP-24 model (1000 classes, seeded random
+    weights) on 16 float 224x224 images and 4 uint8 images through
+    `input_norm`; the compacted kernels must have launched once per image,
+    and two images are checked against a reference built from the same
+    symbols with the plain (CPU) coder;
+ 4. the same images with `wire_batch=8`: the aligned kernels launched,
+    per-image wire sizes and the data-size summary equal to phase 3,
+    logits within rtol=atol=1e-3 of phase 3 (the tail runs at batch 8,
+    where cuDNN may sum in another order);
+ 5. print the kernels line, the card's name and power limit, and last
+    `{"ok": true, "device": {...}}`.
+
+Without a CUDA device, or outside a checkout of the repository, it exits
+with an error before printing any result.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+SOURCE = 'sc2bench_tpu_torch/csrc/rans_cyclic.cu'
+PALLAS = 'sc2bench_tpu/ops/rans/pallas_kernel.py'
+REPLACES = {
+    'rans_cyclic_encode': f'{PALLAS}:397 _encode_kernel',
+    'rans_cyclic_decode': f'{PALLAS}:54 _decode_kernel',
+    'rans_cyclic_encode_aligned': f'{PALLAS}:130 _encode_kernel_aligned',
+    'rans_cyclic_decode_aligned': f'{PALLAS}:95 _decode_kernel_aligned',
+}
+N_FLOAT, N_UINT8, WIRE_BATCH, HW = 16, 4, 8, 224
+LOGIT_TOL = 1e-3
+# H100 SXM published peaks: HBM bytes/s, and
+# the non-tensor-core rate used for the kernels' integer operations
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+# integer operations per coded symbol, counted from the kernels' code:
+# encode = compare, shift, mask, select, divide, remainder, shift, two adds
+# and the stream write; decode = one compare+add per CDF entry searched
+# plus mask, shift, multiply, add, subtract, compare, shift, or, add
+ENCODE_OPS_PER_SYMBOL = 10
+DECODE_OPS_PER_SYMBOL = 9
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def time_ms(torch, fn, reps):
+    """Median milliseconds of `fn` on the card (CUDA events per call,
+    after two warm-up calls)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(nbytes, ops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            'bytes' if t_bytes >= t_ops else 'operations')
+
+
+def build_model(torch, device, seed, bottleneck=24, target=256,
+                stage_sizes=(3, 4, 6, 3), classes=1000):
+    """The flagship model with seeded random weights: He-normal convs, BN
+    affine and statistics near identity (bn3 scales not zero)."""
+    from sc2bench_tpu_torch.models.backbone import splittable_resnet
+    torch.manual_seed(seed)
+    model = splittable_resnet(
+        {'key': 'FPBasedResNetBottleneck',
+         'kwargs': {'num_bottleneck_channels': bottleneck,
+                    'num_target_channels': target}},
+        stage_sizes=stage_sizes, num_classes=classes, device=device)
+    gen = torch.Generator(device='cpu').manual_seed(seed)
+
+    def rand(shape, lo, hi):
+        return (torch.rand(shape, generator=gen) * (hi - lo) + lo).to(device)
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                fan_in = m.weight[0].numel()
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
+                               .to(device) * (2.0 / fan_in) ** 0.5)
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.copy_(rand(m.weight.shape, 0.2, 0.6))
+                m.bias.copy_(rand(m.bias.shape, -0.1, 0.1))
+                m.running_mean.copy_(rand(m.running_mean.shape, -0.1, 0.1))
+                m.running_var.copy_(rand(m.running_var.shape, 0.5, 1.5))
+        # halve the last encoder conv: the latent (std ~0.9 on unit-normal
+        # images) then stays inside the +-10 support of fresh quantiles,
+        # as a trained model's latent does
+        model.bottleneck_layer.encoder[-1].weight.mul_(0.5)
+    return model
+
+
+def draw_symbols(tables, n, rng):
+    """n cyclic symbols (position p codes channel p % C) drawn from the
+    tables' own distributions, inside the coded support."""
+    cdf, cdf_len, off = tables.quantized_cdf, tables.cdf_length, tables.offset
+    c = cdf.shape[0]
+    idx = np.arange(n) % c
+    u = rng.integers(0, 1 << 16, n)
+    sym = np.empty(n, np.int32)
+    for ch in range(c):
+        m = idx == ch
+        row = cdf[ch][:cdf_len[ch]]
+        v = np.clip(np.searchsorted(row, u[m], side='right') - 1,
+                    0, cdf_len[ch] - 3)
+        sym[m] = v + off[ch]
+    return sym
+
+
+def oracle_wire(td, sym, tables, lanes):
+    """Packed wire bytes from the numpy oracle alone."""
+    c = tables.quantized_cdf.shape[0]
+    streams, states = td.numpy_oracle_encode(
+        sym, np.arange(len(sym)) % c, tables.quantized_cdf,
+        tables.cdf_length, tables.offset, num_lanes=lanes,
+        cyclic_channels=c)
+    lengths = np.asarray([len(s) for s in streams], np.uint16)
+    body = [np.asarray([lanes, 0], np.uint16).tobytes(), lengths.tobytes(),
+            states.astype(np.uint32).tobytes()]
+    body += [np.asarray(s, np.uint16).tobytes() for s in streams]
+    return b''.join(body)
+
+
+def kernel_case(torch, td, kernels, tables, lanes, n, k, rng, device):
+    """Phase 2 checks for one (lanes, n, k) case. Returns the inputs and
+    outputs the timing step needs."""
+    c = tables.quantized_cdf.shape[0]
+    rows = np.stack([draw_symbols(tables, n, rng) for _ in range(k)])
+    cdf_lane, len_lane, off_lane = td.lane_tables(
+        tables.quantized_cdf, tables.cdf_length, tables.offset, lanes, c,
+        device)
+    sym3, _, _ = td._blocks(torch.from_numpy(rows).to(device), lanes,
+                            off_lane)
+    vc = (sym3 - off_lane).contiguous()
+    steps = vc.shape[1]
+    tag = f'lanes={lanes} n={n} k={k}'
+    errs = {}
+
+    def compare(name, got, ref):
+        for a, b in zip(got, ref):
+            if a is None and b is None:
+                continue
+            diff = (a.to(torch.int64) - b.to(torch.int64)).abs()
+            err = int(diff.max()) if diff.numel() else 0
+            errs[name] = max(errs.get(name, 0), err)
+            check(err == 0 and a.shape == b.shape and a.dtype == b.dtype,
+                  f'{name} differs from its plain version ({tag})')
+
+    enc = kernels.cyclic_encode(cdf_lane, vc)
+    compare('rans_cyclic_encode', enc, td.cyclic_encode_plain(cdf_lane, vc))
+    enca = kernels.cyclic_encode_aligned(cdf_lane, vc, want_masks=True)
+    compare('rans_cyclic_encode_aligned', enca,
+            td.cyclic_encode_plain(cdf_lane, vc, aligned=True,
+                                   want_masks=True))
+    for r in range(k):
+        wire = td.pack_stream({'streams': enc[0][r], 'lengths': enc[1][r],
+                               'states': enc[2][r]})
+        wire_a = td.pack_stream_aligned(
+            {'streams': enca[0][r], 'lengths': enca[1][r],
+             'states': enca[2][r], 'masks': enca[3][r]})
+        check(wire == wire_a, f'compacted and aligned wires differ ({tag})')
+        check(wire == oracle_wire(td, rows[r], tables, lanes),
+              f'packed bytes differ from the numpy oracle ({tag})')
+
+    for name, streams, aligned in (
+            ('rans_cyclic_decode', enc[0], False),
+            ('rans_cyclic_decode_aligned', enca[0], True)):
+        fn = kernels.cyclic_decode_aligned if aligned \
+            else kernels.cyclic_decode
+        out, xend = fn(streams, enc[2], cdf_lane, len_lane, off_lane, steps)
+        compare(name, (out, xend), td.cyclic_decode_plain(
+            streams, enc[2], cdf_lane, len_lane, off_lane, steps,
+            aligned=aligned))
+        flat = out.reshape(k, -1)[:, :n].cpu().numpy()
+        check(np.array_equal(flat, rows), f'{name} lost symbols ({tag})')
+        check(bool((xend == td.RANS_L).all()),
+              f'{name}: valid=False on a good stream ({tag})')
+        bad = enc[2].clone()
+        bad[0, lanes // 3] ^= 0x5A5A
+        _, xbad = fn(streams, bad, cdf_lane, len_lane, off_lane, steps)
+        check(not bool((xbad[0] == td.RANS_L).all()),
+              f'{name}: valid=True on a corrupted stream ({tag})')
+    torch.cuda.synchronize()
+    return dict(vc=vc, cdf_lane=cdf_lane, len_lane=len_lane,
+                off_lane=off_lane, steps=steps, enc=enc, enca=enca,
+                errs=errs)
+
+
+def kernel_phase(torch, td, kernels, tables, device):
+    """Phase 2: every kernel against its plain version; timings at the
+    main path's shapes (batch 1 compacted, WIRE_BATCH aligned)."""
+    rng = np.random.default_rng(1234)
+    c = tables.quantized_cdf.shape[0]
+    n = 55 * 55 * c
+    lanes = td.auto_lanes(n, cyclic_channels=c)
+    flag = kernel_case(torch, td, kernels, tables, lanes, n, WIRE_BATCH,
+                       rng, device)
+    ragged = kernel_case(torch, td, kernels, tables, 72, 5000, 2, rng,
+                         device)
+    log(f'phase 2: kernels equal their plain versions (lanes={lanes}, '
+        f'steps={flag["steps"]}, cols={tables.quantized_cdf.shape[1]}; '
+        f'ragged lanes=72 n=5000)')
+
+    steps, cols = flag['steps'], flag['cdf_lane'].shape[1]
+    cdf_lane, len_lane, off_lane = (flag['cdf_lane'], flag['len_lane'],
+                                    flag['off_lane'])
+    vc1 = flag['vc'][:1].contiguous()
+    enc1 = [t[:1].contiguous() for t in flag['enc']]
+    enca = flag['enca']
+    k8 = WIRE_BATCH
+    search = int(len_lane.sum())          # CDF entries scanned per row
+    table_bytes = 4 * lanes * cols + 8 * lanes
+
+    def enc_cost(k):
+        nbytes = 4 * k * steps * lanes + 4 * lanes * cols \
+            + 4 * k * lanes * steps + 4 * k * lanes + 8 * k * lanes
+        return bound(nbytes, ENCODE_OPS_PER_SYMBOL * k * steps * lanes)
+
+    def dec_cost(k, width):
+        nbytes = 4 * k * lanes * width + 8 * k * lanes + table_bytes \
+            + 4 * k * steps * lanes + 8 * k * lanes
+        ops = k * steps * (2 * search + DECODE_OPS_PER_SYMBOL * lanes)
+        return bound(nbytes, ops)
+
+    specs = {
+        'rans_cyclic_encode': (
+            lambda: kernels.cyclic_encode(cdf_lane, vc1),
+            lambda: td.cyclic_encode_plain(cdf_lane, vc1), enc_cost(1)),
+        'rans_cyclic_decode': (
+            lambda: kernels.cyclic_decode(enc1[0], enc1[2], cdf_lane,
+                                          len_lane, off_lane, steps),
+            lambda: td.cyclic_decode_plain(enc1[0], enc1[2], cdf_lane,
+                                           len_lane, off_lane, steps),
+            dec_cost(1, steps)),
+        'rans_cyclic_encode_aligned': (
+            lambda: kernels.cyclic_encode_aligned(cdf_lane, flag['vc']),
+            lambda: td.cyclic_encode_plain(cdf_lane, flag['vc'],
+                                           aligned=True), enc_cost(k8)),
+        'rans_cyclic_decode_aligned': (
+            lambda: kernels.cyclic_decode_aligned(
+                enca[0], enca[2], cdf_lane, len_lane, off_lane, steps),
+            lambda: td.cyclic_decode_plain(
+                enca[0], enca[2], cdf_lane, len_lane, off_lane, steps,
+                aligned=True), dec_cost(k8, steps)),
+    }
+    stats = {}
+    for name, (kern, plain, (bound_ms, bound_by)) in specs.items():
+        ms = time_ms(torch, kern, reps=50)
+        plain_ms = time_ms(torch, plain, reps=5)
+        err = max(flag['errs'][name], ragged['errs'][name])
+        stats[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, max_abs_err=err)
+        log(f'phase 2: {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, '
+            f'bound {bound_ms:.6f} ms ({bound_by})')
+    return stats
+
+
+def main_path(torch, kernels, rt, rt_u8, images, images_u8):
+    """Phases 3 and 4: the deploy loop, batch 1 then wire_batch."""
+    from sc2bench_tpu_torch.analysis import get_binary_object_size
+    from sc2bench_tpu_torch.ops.rans.device import (device_rans_encode,
+                                                    pack_stream)
+    classes = rt.module.fc.out_features
+    # warm both paths (cuDNN set-up) outside the counted windows
+    rt.stream_deploy_device(images[:2])
+    rt.stream_deploy_device(images[:WIRE_BATCH], wire_batch=WIRE_BATCH)
+    rt_u8.stream_deploy_device(images_u8[:1])
+
+    # ---- phase 3: batch 1 ----
+    for r in (rt, rt_u8):
+        r.clear_analysis()
+        r.activate_analysis()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    logits1 = rt.stream_deploy_device(images)
+    dt1 = time.perf_counter() - t0
+    logits_u8 = rt_u8.stream_deploy_device(images_u8)
+    counts1 = dict(kernels.LAUNCHES)
+    n_img = len(images) + len(images_u8)
+    check(counts1['rans_cyclic_encode'] == n_img
+          and counts1['rans_cyclic_decode'] == n_img,
+          f'batch-1 path launched {counts1}, expected {n_img} each')
+    check(counts1['rans_cyclic_encode_aligned'] == 0
+          and counts1['rans_cyclic_decode_aligned'] == 0,
+          f'batch-1 path launched aligned kernels: {counts1}')
+    sizes1 = list(rt.analyzers[0].file_size_list)
+    summary1 = rt.summarize()[0]
+    summary_u8 = rt_u8.summarize()[0]
+    for lg in logits1 + logits_u8:
+        check(tuple(lg.shape) == (1, classes) and bool(torch.isfinite(lg).all()),
+              f'bad logits {tuple(lg.shape)}')
+    check(len(sizes1) == len(images) and all(s > 0 for s in sizes1),
+          f'accounted sizes {sizes1}')
+    log(f'phase 3: batch 1, {len(images)} float images: '
+        f'{len(images) / dt1:.2f} img/s; data size {summary1}')
+    log(f'phase 3: {len(images_u8)} uint8 images via input_norm: '
+        f'data size {summary_u8}')
+
+    # reference: the same symbols through the plain coder on the CPU give
+    # the kernels' wire bytes, and the decoder+tail on those symbols (no
+    # rANS) give the served logits
+    cdf, cdf_len, off = (rt.codec.tables.quantized_cdf,
+                         rt.codec.tables.cdf_length, rt.codec.tables.offset)
+    for i in (0, len(images) - 1):
+        flat, shape = rt._symbols_nhwc(images[i])
+        lanes = rt._auto_wire_lanes(shape)
+        ref = device_rans_encode(flat.reshape(-1).cpu(), cdf, cdf_len, off,
+                                 num_lanes=lanes, cyclic_channels=shape[-1])
+        wire = rt._pull_device_wire(rt.encode_device_wire(images[i]))
+        check(wire == pack_stream(ref), f'image {i}: wire differs from the '
+              'plain coder on the same symbols')
+        check(sizes1[i] == get_binary_object_size(
+            {'strings': [[wire]], 'shape': shape[:2]}),
+              f'image {i}: accounted size differs from the packed wire')
+        with torch.no_grad():
+            direct = rt._decode_tail(flat, shape)
+        check(torch.allclose(direct, logits1[i], rtol=1e-5, atol=1e-5),
+              f'image {i}: served logits differ from the decoder on the '
+              'encoder symbols')
+    # uint8 path: equal wire to the same normalization done in float
+    mean = torch.tensor(NORM[0], device=rt.device)[:, None, None]
+    std = torch.tensor(NORM[1], device=rt.device)[:, None, None]
+    as_float = (images_u8[0].float() / 255.0 - mean) / std
+    check(rt_u8._pull_device_wire(rt_u8.encode_device_wire(images_u8[0]))
+          == rt._pull_device_wire(rt.encode_device_wire(as_float)),
+          'uint8 input_norm wire differs from the float path')
+    log('phase 3: wire bytes equal the plain coder; logits equal the '
+        'decoder on the encoder symbols; uint8 path equals float')
+
+    # ---- phase 4: wire_batch ----
+    rt.clear_analysis()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    logits_b = rt.stream_deploy_device(images, wire_batch=WIRE_BATCH)
+    dt2 = time.perf_counter() - t0
+    counts2 = dict(kernels.LAUNCHES)
+    groups = -(-len(images) // WIRE_BATCH)
+    check(counts2['rans_cyclic_encode_aligned'] == groups
+          and counts2['rans_cyclic_decode_aligned'] == groups,
+          f'wire_batch path launched {counts2}, expected {groups} each')
+    check(counts2['rans_cyclic_encode'] == 0
+          and counts2['rans_cyclic_decode'] == 0,
+          f'wire_batch path launched batch-1 kernels: {counts2}')
+    sizes2 = list(rt.analyzers[0].file_size_list)
+    summary2 = rt.summarize()[0]
+    check(sizes2 == sizes1, 'wire_batch per-image sizes differ from batch 1')
+    check(summary2 == summary1, f'wire_batch summary {summary2} != '
+          f'batch-1 summary {summary1}')
+    worst = 0.0
+    for a, b in zip(logits1, logits_b):
+        check(tuple(b.shape) == (1, classes), f'bad logits {tuple(b.shape)}')
+        check(torch.allclose(b, a, rtol=LOGIT_TOL, atol=LOGIT_TOL),
+              'wire_batch logits differ from batch 1')
+        worst = max(worst, float((b - a).abs().max()))
+    log(f'phase 4: wire_batch={WIRE_BATCH}: {len(images) / dt2:.2f} img/s; '
+        f'sizes and summary equal batch 1; max |logit diff| {worst:.3e}')
+    return {**{k: counts1[k] for k in ('rans_cyclic_encode',
+                                       'rans_cyclic_decode')},
+            **{k: counts2[k] for k in ('rans_cyclic_encode_aligned',
+                                       'rans_cyclic_decode_aligned')}}
+
+
+NORM = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
+
+
+def smi_line():
+    out = subprocess.run(
+        ['nvidia-smi', '--id=0', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        timeout=60)
+    check(out.returncode == 0, f'nvidia-smi failed: {out.stderr.strip()}')
+    return out.stdout.strip()
+
+
+def run():
+    try:
+        import torch
+    except ImportError as e:
+        raise SmokeFailure(f'PyTorch is not installed: {e}') from e
+    check(torch.cuda.is_available(), 'no CUDA device is available')
+    check(os.path.isdir(os.path.join(REPO, 'sc2bench_tpu_torch')),
+          f'{REPO} is not a checkout of the repository '
+          '(sc2bench_tpu_torch/ is missing)')
+    sys.path.insert(0, REPO)
+    from sc2bench_tpu_torch.models.runtime import SplitClassifierRuntime
+    from sc2bench_tpu_torch.ops.rans import device as td
+    from sc2bench_tpu_torch.ops.rans import kernels
+    device = torch.device('cuda', 0)
+    log(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
+        f'{torch.cuda.get_device_name(0)}')
+
+    # ---- phase 1: build ----
+    t0 = time.perf_counter()
+    lib = kernels.build_library()
+    log(f'phase 1: built {os.path.relpath(lib, REPO)} in '
+        f'{time.perf_counter() - t0:.1f} s')
+    with open(str(lib)[:-3] + '.log') as f:
+        for line in f:
+            if 'registers' in line or 'spill' in line:
+                log('  ptxas: ' + line.strip())
+
+    model = build_model(torch, device, seed=0)
+    rt = SplitClassifierRuntime(model, device=device)
+    rt.update()
+    rt.eval()
+    rt_u8 = SplitClassifierRuntime(model, input_norm=NORM, device=device)
+    rt_u8.update()
+    rt_u8.eval()
+    tables = rt.codec.tables
+    log(f'model: ResNet-50 + FP-24, latent {rt._latent_shape((1, 3, HW, HW))}'
+        f', tables {tables.quantized_cdf.shape}')
+
+    # ---- phase 2 ----
+    stats = kernel_phase(torch, td, kernels, tables, device)
+
+    # ---- phases 3 and 4 ----
+    rng = np.random.default_rng(2024)
+    images = [torch.from_numpy(rng.normal(0, 1, (1, 3, HW, HW))
+                               .astype(np.float32)).to(device)
+              for _ in range(N_FLOAT)]
+    images_u8 = [torch.from_numpy(rng.integers(0, 256, (1, 3, HW, HW),
+                                               dtype=np.uint8)).to(device)
+                 for _ in range(N_UINT8)]
+    launches = main_path(torch, kernels, rt, rt_u8, images, images_u8)
+
+    rows = [dict(name=name, route='cuda', source=SOURCE,
+                 replaces=REPLACES[name], launches=launches[name],
+                 max_abs_err=stats[name]['max_abs_err'],
+                 ms=stats[name]['ms'], plain_ms=stats[name]['plain_ms'],
+                 bound_ms=stats[name]['bound_ms'],
+                 bound_by=stats[name]['bound_by'], library_ms=None)
+            for name in kernels.KERNELS]
+    for r in rows:
+        check(r['launches'] > 0, f'{r["name"]} never launched on the path')
+    print(json.dumps({'kernels': rows}), flush=True)
+    print(smi_line(), flush=True)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}), flush=True)
+
+
+def main():
+    try:
+        run()
+    except SmokeFailure as e:
+        print(f'chip_smoke: FAILED: {e}', file=sys.stderr, flush=True)
+        return 1
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,0 +1,98 @@
+#!/usr/bin/env python3
+"""Where the device time of the port's deploy loop goes, on one GPU.
+
+Builds the flagship model as `chip_smoke.py` does (ResNet-50 + FP-24,
+seeded random weights), warms up, then traces `stream_deploy_device` with
+`torch.profiler` over N images at batch 1 and at `wire_batch=8`. For each
+mode it prints one JSON line: wall seconds, images/s, device busy time
+(sum of kernel times on the card), the idle share of the wall window, the
+rANS kernels' share of device time, and the top kernels by device time.
+
+    python3 profile_deploy.py [--out profile.json]
+
+Needs a CUDA device; it exits with an error without one.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+RANS = ('rans_encode_kernel', 'rans_decode_kernel')
+N_IMAGES = 32
+
+
+def profile_mode(torch, rt, images, wire_batch):
+    from torch.profiler import ProfilerActivity, profile
+    rt.stream_deploy_device(images[:8], wire_batch=wire_batch)   # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rt.stream_deploy_device(images, wire_batch=wire_batch)
+        wall = time.perf_counter() - t0
+    from torch.autograd import DeviceType
+    by_name = {}
+    for evt in prof.key_averages():
+        # kernels only: a CPU op's self device time repeats its kernels'
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        dev_us = evt.self_device_time_total
+        if dev_us > 0:
+            by_name[evt.key] = by_name.get(evt.key, 0.0) + dev_us
+    busy_us = sum(by_name.values())
+    rans_us = sum(v for k, v in by_name.items() if any(r in k for r in RANS))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {
+        'mode': f'wire_batch={wire_batch}' if wire_batch else 'batch 1',
+        'images': len(images), 'wall_s': wall,
+        'images_per_s': len(images) / wall,
+        'device_busy_ms': busy_us / 1e3,
+        'device_idle_share': max(0.0, 1.0 - busy_us / 1e6 / wall),
+        'rans_share_of_device': rans_us / busy_us if busy_us else None,
+        'top_kernels_ms': [[k[:90], v / 1e3] for k, v in top],
+    }
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--out', help='also write the results to this JSON '
+                    'file')
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print('profile_deploy: no CUDA device is available', file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from chip_smoke import HW, build_model, smi_line
+    from sc2bench_tpu_torch.models.runtime import SplitClassifierRuntime
+    device = torch.device('cuda', 0)
+    rt = SplitClassifierRuntime(build_model(torch, device, seed=0),
+                                device=device)
+    rt.update()
+    rt.eval()
+    rng = np.random.default_rng(2024)
+    images = [torch.from_numpy(rng.normal(0, 1, (1, 3, HW, HW))
+                               .astype(np.float32)).to(device)
+              for _ in range(N_IMAGES)]
+    card = smi_line()
+    results = []
+    for wire_batch in (None, 8):
+        r = profile_mode(torch, rt, images, wire_batch)
+        r['card'] = card
+        results.append(r)
+        print(json.dumps(r), flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or '.', exist_ok=True)
+        with open(args.out, 'w') as f:
+            json.dump(results, f, indent=1)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,0 +1,20 @@
+"""sc2bench_tpu_torch: the PyTorch/CUDA port of `sc2bench_tpu`.
+
+The module paths and class names mirror the JAX package so that each
+counterpart is easy to find; inside, the code is PyTorch (NCHW convs,
+`nn.Module`s, an explicit `device`). The package imports nothing of JAX
+and nothing of `sc2bench_tpu`: where it needs code from there it keeps its
+own copy.
+
+Ported so far (the Entropic Student device-rANS deploy path):
+  device.py            default-device helper (CUDA unless asked)
+  ops/                 GDN, factorized entropy bottleneck, coding tables,
+                       the cyclic-lane rANS codec and its CUDA kernels
+  models/              ResNet tail, FP bottleneck, SplittableResNet and
+                       the deploy runtime
+  analysis.py          data-size accounting
+  utils/convert.py     Flax variables -> this package's state_dict
+  csrc/                hand-written CUDA sources, built at first use
+"""
+
+__version__ = '0.1.0'

@@ -1,0 +1,75 @@
+"""Split-point bottleneck layers over NCHW (counterpart of
+`sc2bench_tpu/models/layer.py`).
+
+The deploy path uses `encode_ops` (latent -> integer symbols
+round(y - median)) and `decode_ops` (symbols -> decoded feature). Symbols
+stay NCHW here; the runtime flattens them channels-last before coding.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.entropy.factorized import EntropyBottleneck
+from ..ops.gdn import GDN1
+
+
+class FPBasedResNetBottleneck(nn.Module):
+    """Factorized-prior bottleneck replacing ResNet stem+layer1: 3-conv GDN
+    encoder (stride 4 total), entropy bottleneck over the latent, 3-conv
+    IGDN decoder. CompressAI key space (`encoder.0` ... `decoder.4`,
+    `entropy_bottleneck`)."""
+
+    def __init__(self, num_input_channels: int = 3,
+                 num_bottleneck_channels: int = 24,
+                 num_target_channels: int = 256):
+        super().__init__()
+        enc = [num_input_channels, num_bottleneck_channels * 4,
+               num_bottleneck_channels * 2, num_bottleneck_channels]
+        dec = [enc[-1], num_target_channels * 2, num_target_channels,
+               num_target_channels]
+        self.encoder = nn.Sequential(
+            nn.Conv2d(enc[0], enc[1], 5, stride=2, padding=2, bias=False),
+            GDN1(enc[1]),
+            nn.Conv2d(enc[1], enc[2], 5, stride=2, padding=2, bias=False),
+            GDN1(enc[2]),
+            nn.Conv2d(enc[2], enc[3], 2, stride=1, padding=0, bias=False))
+        self.decoder = nn.Sequential(
+            nn.Conv2d(dec[0], dec[1], 2, stride=1, padding=1, bias=False),
+            GDN1(dec[1], inverse=True),
+            nn.Conv2d(dec[1], dec[2], 2, stride=1, padding=0, bias=False),
+            GDN1(dec[2], inverse=True),
+            nn.Conv2d(dec[2], dec[3], 2, stride=1, padding=1, bias=False))
+        self.entropy_bottleneck = EntropyBottleneck(enc[3])
+        self.out_channels = dec[3]
+
+    def latent_shape(self, height: int, width: int) -> tuple:
+        """(h, w, c) of the latent for an input of height x width."""
+        for m in self.encoder:
+            if isinstance(m, nn.Conv2d):
+                (k, _), (s, _), (p, _) = m.kernel_size, m.stride, m.padding
+                height = (height + 2 * p - k) // s + 1
+                width = (width + 2 * p - k) // s + 1
+        return height, width, self.encoder[-1].out_channels
+
+    def encode_ops(self, x: torch.Tensor, medians: torch.Tensor) -> dict:
+        """Latent integer symbols round(y - median), NCHW int32."""
+        y = self.encoder(x)
+        symbols = torch.round(y - medians[:, None, None]).to(torch.int32)
+        return {'symbols': symbols}
+
+    def decode_ops(self, symbols: torch.Tensor,
+                   medians: torch.Tensor) -> torch.Tensor:
+        y_hat = symbols.to(torch.float32) + medians[:, None, None]
+        return self.decoder(y_hat)
+
+
+LAYERS = {'FPBasedResNetBottleneck': FPBasedResNetBottleneck}
+
+
+def get_layer(key: str, **kwargs) -> nn.Module:
+    """Bottleneck layer by registry name (only the ported ones)."""
+    if key not in LAYERS:
+        raise KeyError(f'bottleneck layer {key!r} is not ported yet; '
+                       f'ported: {sorted(LAYERS)}')
+    return LAYERS[key](**kwargs)

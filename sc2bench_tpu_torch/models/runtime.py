@@ -1,0 +1,373 @@
+"""Deploy-path runtime (counterpart of `sc2bench_tpu/models/runtime.py`).
+
+`SplitClassifierRuntime` owns the model, its coding tables (built by
+`update()`) and the analyzers, and serves the device-rANS wire:
+
+    encode_device_wire     image -> encoder -> round(y - median) -> rANS
+                           streams on the device (rANS encode kernel)
+    decode_device_streams  streams -> rANS decode kernel -> IGDN decoder
+                           -> ResNet layer2-4 -> logits
+
+`stream_deploy_device` runs that loop over a stream of images, batch 1 or
+`wire_batch=k` images per coding launch (time-aligned streams), and
+accounts each image's exact wire size.
+
+Numerics: symbols are bit-identical to the float32 reference only if the
+encoder runs in true float32. cuDNN runs float32 convolutions in TF32 by
+default, which moves symbols across rounding boundaries, so a runtime on a
+CUDA device sets `torch.backends.cudnn.allow_tf32 = False` and
+`torch.backends.cuda.matmul.allow_tf32 = False` (process-wide flags).
+
+The host CompressAI-format coder, and with it the escape path for
+out-of-support latents, is not ported yet: where the JAX runtime re-codes
+such an image on the host, this runtime raises.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from ..analysis import AnalyzerHolder
+from ..device import resolve_device
+from ..ops.entropy.tables import CodingTables, build_factorized_tables
+from ..ops.rans.device import (auto_lanes, device_rans_decode,
+                               device_rans_encode, pack_stream)
+from .layer import FPBasedResNetBottleneck
+
+
+def add_timing(timings, key, dt):
+    """Accumulate into a caller-owned timings dict (None: no-op)."""
+    if timings is not None:
+        timings[key] = timings.get(key, 0.0) + dt
+
+
+class FactorizedCodec:
+    """Coding tables for an `EntropyBottleneck`-only bottleneck (FP)."""
+
+    def __init__(self):
+        self.tables: CodingTables | None = None
+
+    def update(self, module):
+        self.tables = build_factorized_tables(
+            module.bottleneck_layer.entropy_bottleneck)
+
+
+class SplitClassifierRuntime(AnalyzerHolder):
+    """Runtime for `SplittableResNet` with an FP bottleneck: `update()`,
+    `bottleneck_updated`, the analyzable surface and the device-rANS wire.
+    Images are NCHW tensors (or arrays): float, or uint8 when the runtime
+    has `input_norm=(mean, std)`."""
+
+    def __init__(self, module, analyzer_configs=None, analysis_unit='KB',
+                 input_norm=None, device=None):
+        if analyzer_configs is None:
+            analyzer_configs = [{'key': 'FileSizeAnalyzer',
+                                 'kwargs': {'unit': analysis_unit}}]
+        super().__init__(analyzer_configs)
+        self.device = resolve_device(device)
+        if self.device.type == 'cuda':
+            # true float32 encoder: byte-identical bitstreams (module doc)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        self.module = module.to(self.device)
+        self.bottleneck_updated = False
+        self.training = False
+        # uint8 images are converted to (x/255 - mean)/std on the device
+        if input_norm is not None:
+            mean, std = input_norm
+            self._norm_mean = torch.as_tensor(mean, dtype=torch.float32,
+                                              device=self.device)
+            self._norm_std = torch.as_tensor(std, dtype=torch.float32,
+                                             device=self.device)
+        else:
+            self._norm_mean = None
+        self._bneck = module.bottleneck_layer
+        if not isinstance(self._bneck, FPBasedResNetBottleneck):
+            raise NotImplementedError(
+                f'{type(self._bneck).__name__} is not ported yet; the port '
+                'serves the FP bottleneck')
+        self.codec = FactorizedCodec()
+        self._medians = None
+        self._tables_dev = None
+
+    # ---- reference API surface -----------------------------------------
+    def update(self):
+        """Build the coding tables from the learned entropy-bottleneck
+        parameters and keep device copies for the wire."""
+        self.codec.update(self.module)
+        t = self.codec.tables
+        self._medians = torch.as_tensor(t.medians, device=self.device)
+        self._tables_dev = tuple(
+            torch.as_tensor(a, dtype=torch.int32, device=self.device)
+            for a in (t.quantized_cdf, t.cdf_length, t.offset))
+        self.bottleneck_updated = True
+        return True
+
+    def train(self, mode=True):
+        self.training = mode
+        self.module.train(mode)
+        return self
+
+    def eval(self):
+        return self.train(False)
+
+    def _prep_input(self, x):
+        """To the runtime's device; uint8 -> normalized float32 there.
+        uint8 without `input_norm` is rejected: raw 0-255 values would
+        reach the network."""
+        x = torch.as_tensor(x, device=self.device)
+        if x.dtype == torch.uint8:
+            if self._norm_mean is None:
+                raise ValueError(
+                    'uint8 input requires input_norm=(mean, std) on the '
+                    'runtime; configure input_norm or convert to '
+                    'normalized float32 first')
+            x = x.to(torch.float32) / 255.0
+            x = (x - self._norm_mean[:, None, None]) \
+                / self._norm_std[:, None, None]
+        return x
+
+    # ---- device-rANS wire -----------------------------------------------
+    def _latent_shape(self, x_shape):
+        """(h, w, c) of the bottleneck latent for an NCHW input shape."""
+        return self._bneck.latent_shape(int(x_shape[-2]), int(x_shape[-1]))
+
+    @staticmethod
+    def _auto_wire_lanes(latent_shape):
+        """Cyclic lane count (a multiple of C) for a latent shape."""
+        return auto_lanes(int(np.prod(latent_shape)),
+                          cyclic_channels=int(latent_shape[-1]))
+
+    def _symbols_nhwc(self, x):
+        """Encoder + round(y - median), flattened channels-last: lane j
+        then always codes channel j mod C, as in the JAX wire format."""
+        sym = self._bneck.encode_ops(self._prep_input(x),
+                                     self._medians)['symbols']
+        n, c, h, w = sym.shape
+        return sym.permute(0, 2, 3, 1).reshape(n, -1), (h, w, c)
+
+    def _with_meta(self, out, shape):
+        # ok + exact wire size in one small tensor, read once at harvest
+        out['meta'] = torch.stack([out['ok'].to(torch.int32), out['nbytes']],
+                                  dim=-1)
+        out['shape'] = shape
+        return out
+
+    @torch.no_grad()
+    def encode_device_wire(self, x, num_lanes=None):
+        """Mobile side: encoder and rANS encode on the device, compacted
+        streams (`device_rans_encode`)."""
+        flat, shape = self._symbols_nhwc(x)
+        if num_lanes is None:
+            num_lanes = self._auto_wire_lanes(shape)
+        cdf, cdf_len, off = self._tables_dev
+        out = device_rans_encode(flat.reshape(-1), cdf, cdf_len, off,
+                                 num_lanes=num_lanes,
+                                 cyclic_channels=shape[-1])
+        return self._with_meta(out, shape)
+
+    @torch.no_grad()
+    def encode_device_wire_batch(self, xs_list, num_lanes=None):
+        """`encode_device_wire` for k images with ONE coding launch over
+        time-aligned streams. The encoder runs per image, at the batch-1
+        shape: cuDNN may choose another algorithm for a batch of k, and its
+        float sums could move a symbol across a rounding boundary, while
+        each image's bitstream must equal its batch-1 one."""
+        rows = [self._symbols_nhwc(x) for x in xs_list]
+        shape = rows[0][1]
+        if any(s != shape for _, s in rows):
+            raise ValueError('encode_device_wire_batch needs images of one '
+                             'shape')
+        if num_lanes is None:
+            num_lanes = self._auto_wire_lanes(shape)
+        cdf, cdf_len, off = self._tables_dev
+        out = device_rans_encode(torch.cat([f for f, _ in rows]), cdf,
+                                 cdf_len, off, num_lanes=num_lanes,
+                                 cyclic_channels=shape[-1], aligned=True)
+        return self._with_meta(out, shape)
+
+    def _decode_tail(self, flat, shape):
+        h, w, c = shape
+        sym = flat.reshape(-1, h, w, c).permute(0, 3, 1, 2)
+        feat = self._bneck.decode_ops(sym, self._medians)
+        return self.module.forward_tail(feat).to(torch.float32)
+
+    @torch.no_grad()
+    def decode_device_streams(self, streams, states, shape, num_lanes=None):
+        """Server side from device-resident (or uploaded) compacted streams:
+        rANS decode + bottleneck decoder + tail. Returns (logits (1, K),
+        valid)."""
+        if num_lanes is None:
+            num_lanes = self._auto_wire_lanes(shape)
+        cdf, cdf_len, off = self._tables_dev
+        flat, valid = device_rans_decode(
+            streams, states, cdf, cdf_len, off,
+            n_symbols=int(np.prod(shape)), num_lanes=num_lanes,
+            cyclic_channels=shape[-1], device=self.device)
+        return self._decode_tail(flat, shape), valid
+
+    @torch.no_grad()
+    def decode_device_streams_batch(self, streams, states, shape,
+                                    num_lanes=None):
+        """k images' time-aligned streams (k, N, T) -> (logits (k, K),
+        valid (k,)), one decode launch and one batched tail."""
+        if num_lanes is None:
+            num_lanes = self._auto_wire_lanes(shape)
+        cdf, cdf_len, off = self._tables_dev
+        flat, valid = device_rans_decode(
+            streams, states, cdf, cdf_len, off,
+            n_symbols=int(np.prod(shape)), num_lanes=num_lanes,
+            cyclic_channels=shape[-1], aligned=True, device=self.device)
+        return self._decode_tail(flat, shape), valid
+
+    def _pull_device_wire(self, ops):
+        """Pack the device streams into the wire bytes: lengths first, then
+        only the used prefix of the stream matrix crosses to the host."""
+        lengths = ops['lengths'].cpu().numpy()
+        lmax = max(int(lengths.max()), 1)
+        return pack_stream({'streams': ops['streams'][:, :lmax].cpu().numpy(),
+                            'lengths': lengths,
+                            'states': ops['states'].cpu().numpy()})
+
+    def _throttle(self, inflight: deque, depth: int):
+        """Bound the queued device work to `depth` items without reading
+        any result: wait on the event of the item `depth` places back."""
+        if self.device.type != 'cuda':
+            return
+        ev = torch.cuda.Event()
+        ev.record()
+        inflight.append(ev)
+        while len(inflight) > max(int(depth), 1):
+            inflight.popleft().synchronize()
+
+    @staticmethod
+    def _check_wire(i, ok, valid):
+        if not ok:
+            raise RuntimeError(
+                f'image {i}: ok=False, latent symbol outside the CDF '
+                'support; the host escape coder is not ported yet')
+        if not valid:
+            raise RuntimeError(
+                f'image {i}: valid=False, a rANS lane did not return to '
+                'its initial state after decoding')
+
+    def stream_deploy_device(self, images, depth: int = 8, workers: int = 4,
+                             num_lanes: int | None = None,
+                             pull_wire: bool = False,
+                             wire_batch: int | None = None,
+                             timings: dict | None = None):
+        """Serve a stream of images through the device-rANS wire: encode
+        and entropy-code on the device, decode from the device-resident
+        streams, and account each image's exact wire size. Returns the
+        logits, one (1, K) tensor per image.
+
+        `depth` bounds the images in flight; `workers` is accepted for
+        signature parity with the JAX runtime (eager PyTorch needs no host
+        pool). The [ok, nbytes] metas and `valid` flags are read once,
+        after the stream drains; an image that fails either raises
+        RuntimeError. `pull_wire=True` packs and accounts the real wire
+        bytes per image. `wire_batch=k` codes k images per launch."""
+        del workers
+        images = list(images)
+        n = len(images)
+        if n == 0:
+            return []
+        if num_lanes is None:
+            num_lanes = self._auto_wire_lanes(
+                self._latent_shape(images[0].shape))
+        if wire_batch is not None and wire_batch > 1:
+            if pull_wire:
+                raise ValueError('wire_batch grouping does not support '
+                                 'pull_wire packing')
+            return self._stream_deploy_device_batched(
+                images, wire_batch, depth, num_lanes, timings)
+
+        staged, inflight = [], deque()
+        for i, x in enumerate(images):
+            ops = self.encode_device_wire(x, num_lanes=num_lanes)
+            t0 = time.perf_counter()
+            logits, valid = self.decode_device_streams(
+                ops['streams'], ops['states'], ops['shape'],
+                num_lanes=num_lanes)
+            add_timing(timings, 'decode_dispatch', time.perf_counter() - t0)
+            shape_hw = ops['shape'][:2]
+            if pull_wire:
+                # packing needs the stream content: sync here
+                ok, nbytes = ops['meta'].tolist()
+                self._check_wire(i, ok, bool(valid))
+                wire = self._pull_device_wire(ops)
+                if len(wire) != nbytes:
+                    raise RuntimeError(f'image {i}: packed {len(wire)} '
+                                       f'bytes, encoder reported {nbytes}')
+                staged.append((wire, shape_hw, logits))
+                continue
+            staged.append((ops['meta'], shape_hw, logits, valid))
+            self._throttle(inflight, depth)
+
+        t_acct = time.perf_counter()
+        results = []
+        if pull_wire:
+            for wire, shape_hw, logits in staged:
+                self.analyze({'strings': [[wire]], 'shape': shape_hw})
+                results.append(logits)
+        else:
+            metas = torch.stack([s[0] for s in staged]).cpu().numpy()
+            valids = torch.stack([s[3] for s in staged]).cpu().numpy()
+            for i, (_, shape_hw, logits, _) in enumerate(staged):
+                self._check_wire(i, int(metas[i, 0]), bool(valids[i]))
+                # the pickled size of a bytes object depends only on its
+                # length: account the exact wire size without its content
+                self.analyze({'strings': [[bytes(int(metas[i, 1]))]],
+                              'shape': shape_hw})
+                results.append(logits)
+        add_timing(timings, 'account_d2h', time.perf_counter() - t_acct)
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        return results
+
+    def _stream_deploy_device_batched(self, images, k, depth, num_lanes,
+                                      timings):
+        """Groups of up to k consecutive same-shape images per coding
+        launch; per-image bitstreams, byte accounting and logits match the
+        batch-1 path. The last group may be short (eager PyTorch has no
+        fixed program shape to pad to)."""
+        n = len(images)
+        groups, i = [], 0
+        while i < n:
+            j = i + 1
+            while j < n and j - i < k \
+                    and tuple(images[j].shape) == tuple(images[i].shape):
+                j += 1
+            groups.append((i, j))
+            i = j
+
+        staged, inflight = [], deque()
+        for j0, j1 in groups:
+            ops = self.encode_device_wire_batch(images[j0:j1],
+                                                num_lanes=num_lanes)
+            t0 = time.perf_counter()
+            logits, valid = self.decode_device_streams_batch(
+                ops['streams'], ops['states'], ops['shape'],
+                num_lanes=num_lanes)
+            add_timing(timings, 'decode_dispatch', time.perf_counter() - t0)
+            staged.append((ops['meta'], ops['shape'][:2], logits, valid))
+            self._throttle(inflight, depth)
+
+        t_acct = time.perf_counter()
+        metas = torch.cat([s[0] for s in staged]).cpu().numpy()
+        valids = torch.cat([s[3] for s in staged]).cpu().numpy()
+        results, i = [], 0
+        for _, shape_hw, logits, _ in staged:
+            for j in range(logits.shape[0]):
+                self._check_wire(i, int(metas[i, 0]), bool(valids[i]))
+                self.analyze({'strings': [[bytes(int(metas[i, 1]))]],
+                              'shape': shape_hw})
+                results.append(logits[j:j + 1])
+                i += 1
+        add_timing(timings, 'account_d2h', time.perf_counter() - t_acct)
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        return results

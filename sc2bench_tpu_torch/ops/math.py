@@ -1,0 +1,65 @@
+"""Numeric primitives for the entropy-model stack (counterpart of
+`sc2bench_tpu/ops/math.py`).
+
+Only what the deploy path needs: `lower_bound` (forward) and the host-side
+16-bit CDF quantizer, a copy of the JAX package's numpy function.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def lower_bound(x: torch.Tensor, bound: float) -> torch.Tensor:
+    """max(x, bound). Forward only: the deploy path takes no gradient
+    (the pass-through-on-descent gradient comes with the training slice)."""
+    return torch.clamp_min(x, bound)
+
+
+def softplus_inv(y: float) -> float:
+    """Inverse of softplus on floats (host-side init helper)."""
+    return float(np.log(np.expm1(y)))
+
+
+def pmf_to_quantized_cdf(pmf: np.ndarray, precision: int = 16) -> np.ndarray:
+    """Quantize a pmf (including a final tail-mass entry) to an integer CDF
+    with `2**precision` total mass and no zero-frequency symbols.
+
+    Same semantics as CompressAI's C++ `pmf_to_quantized_cdf`: per-symbol
+    `round(p * 2^precision)` in float32, integer renormalization by
+    truncating division, partial sum with the final entry pinned to
+    `2^precision`, then zero-width intervals widened by stealing one count
+    from the lowest-frequency symbol with freq > 1. Returns an int32 cdf of
+    length len(pmf)+1 with cdf[0]=0, cdf[-1]=2**precision."""
+    pmf32 = np.asarray(pmf, dtype=np.float32)
+    if np.any(pmf32 < 0) or not np.all(np.isfinite(pmf32)):
+        raise ValueError('pmf must be finite and non-negative')
+    total_mass = 1 << precision
+    # C++: std::round(p * (1 << precision)) evaluated in float32
+    freqs = np.round(pmf32 * np.float32(total_mass)).astype(np.uint64)
+    total = int(freqs.sum())
+    if total == 0:
+        raise ValueError('pmf sums to zero')
+    # integer renormalization: (2^precision * f) / total, truncating
+    freqs = (np.uint64(total_mass) * freqs) // np.uint64(total)
+    cdf = np.zeros(len(pmf32) + 1, dtype=np.int64)
+    np.cumsum(freqs, out=cdf[1:])
+    cdf[-1] = total_mass
+    for i in range(len(cdf) - 1):
+        if cdf[i] == cdf[i + 1]:
+            # steal one count from the lowest-frequency symbol with freq > 1
+            best_freq, best_steal = None, -1
+            for j in range(len(cdf) - 1):
+                freq = cdf[j + 1] - cdf[j]
+                if freq > 1 and (best_freq is None or freq < best_freq):
+                    best_freq, best_steal = freq, j
+            if best_steal < 0:
+                raise ValueError(
+                    'cannot normalize pmf: too many symbols for precision')
+            if best_steal < i:
+                cdf[best_steal + 1:i + 1] -= 1
+            else:
+                cdf[i + 1:best_steal + 1] += 1
+    if cdf[0] != 0 or cdf[-1] != total_mass or np.any(np.diff(cdf) <= 0):
+        raise ValueError('quantized cdf is not a valid 16-bit table')
+    return cdf.astype(np.int32)

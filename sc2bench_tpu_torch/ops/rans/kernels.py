@@ -1,0 +1,221 @@
+"""Launch wrappers for the four cyclic-lane rANS CUDA kernels
+(`sc2bench_tpu_torch/csrc/rans_cyclic.cu`).
+
+Each wrapper takes tensors on one device. For CPU tensors it runs the
+kernel's plain PyTorch version from `device.py`; for CUDA tensors it
+launches the kernel or raises -- there is no fallback. The CUDA source is
+compiled with nvcc for sm_90a into a shared library with a plain C
+interface the first time a kernel is needed, under
+`sc2bench_tpu_torch/build/`, and loaded with ctypes.
+
+`LAUNCHES` counts kernel launches per kernel name; a wrapper adds one where
+it launches its kernel and nowhere else, so a caller can show that a path
+went through the kernels (`reset_launches()` zeroes the counts).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+from .device import cyclic_decode_plain, cyclic_encode_plain
+
+_PKG = Path(__file__).resolve().parents[2]
+SOURCE = _PKG / 'csrc' / 'rans_cyclic.cu'
+BUILD_DIR = _PKG / 'build'
+
+KERNELS = ('rans_cyclic_encode', 'rans_cyclic_decode',
+           'rans_cyclic_encode_aligned', 'rans_cyclic_decode_aligned')
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get('CUDA_HOME') or os.environ.get('CUDA_PATH')
+    if home and (Path(home) / 'bin' / 'nvcc').exists():
+        return str(Path(home) / 'bin' / 'nvcc')
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    default = Path('/usr/local/cuda/bin/nvcc')
+    if default.exists():
+        return str(default)
+    raise RuntimeError('nvcc not found: set CUDA_HOME to the CUDA toolkit')
+
+
+def build_library() -> Path:
+    """Compile `csrc/rans_cyclic.cu` (sm_90a) into a shared library named
+    by the source's hash, unless it is already built. Returns its path;
+    the compiler's output (with ptxas register counts) is kept beside it."""
+    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
+    lib = BUILD_DIR / f'librans_cyclic_{digest}.so'
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f'.{os.getpid()}.tmp')
+    cmd = [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
+           '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
+           '-Xptxas', '-v', '-o', str(tmp), str(SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    (BUILD_DIR / f'librans_cyclic_{digest}.log').write_text(log)
+    if proc.returncode != 0:
+        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{log}')
+    os.replace(tmp, lib)
+    return lib
+
+
+def _library():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build_library()))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            enc = [p, i, p, i, i, i, p, p, p]            # + masks?, stream
+            dec = [p, i, p, p, i, p, p, i, i, i, p, p]   # + stream
+            for name, args in (('rans_cyclic_encode', enc + [p]),
+                               ('rans_cyclic_encode_aligned', enc + [p, p]),
+                               ('rans_cyclic_decode', dec + [p]),
+                               ('rans_cyclic_decode_aligned', dec + [p])):
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = i
+            _lib = lib
+    return _lib
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f'{name} is on {t.device}, expected {device}')
+    if t.dtype != dtype:
+        raise ValueError(f'{name} has dtype {t.dtype}, expected {dtype}')
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f'{name} has shape {tuple(t.shape)}, expected '
+                         f'{tuple(shape)}')
+    if not t.is_contiguous():
+        raise ValueError(f'{name} must be contiguous')
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    fn = getattr(_library(), name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f'{name} launch failed: CUDA error {rc}')
+    LAUNCHES[name] += 1
+
+
+def _require_cuda(t: torch.Tensor) -> None:
+    if t.device.type != 'cuda':
+        raise ValueError(f'rANS kernels run on CPU or CUDA tensors, '
+                         f'got {t.device}')
+
+
+def _encode_args(cdf_lane: torch.Tensor, vc: torch.Tensor):
+    _require_cuda(vc)
+    k, steps, lanes = vc.shape
+    if k * lanes == 0 or steps == 0:
+        raise ValueError(f'empty encode: vc shape {tuple(vc.shape)}')
+    _check(vc, 'vc', torch.int32, (k, steps, lanes), vc.device)
+    _check(cdf_lane, 'cdf_lane', torch.int32, (lanes, cdf_lane.shape[1]),
+           vc.device)
+    dev = vc.device
+    streams = torch.empty((k, lanes, steps), dtype=torch.int32, device=dev)
+    lengths = torch.empty((k, lanes), dtype=torch.int32, device=dev)
+    states = torch.empty((k, lanes), dtype=torch.int64, device=dev)
+    args = (cdf_lane.data_ptr(), cdf_lane.shape[1], vc.data_ptr(), k, steps,
+            lanes, streams.data_ptr(), lengths.data_ptr(), states.data_ptr())
+    return args, (streams, lengths, states)
+
+
+def cyclic_encode(cdf_lane: torch.Tensor, vc: torch.Tensor):
+    """Kernel 1, compacted encode: `vc` (k, T, N) int32 in-support values,
+    `cdf_lane` (N, cols) int32 -> (streams (k, N, T) int32 compacted in
+    decode order, lengths (k, N) int32, states (k, N) int64)."""
+    if vc.device.type == 'cpu':
+        return cyclic_encode_plain(cdf_lane, vc)
+    args, outs = _encode_args(cdf_lane, vc)
+    _launch('rans_cyclic_encode', vc.device, *args)
+    return outs
+
+
+def cyclic_encode_aligned(cdf_lane: torch.Tensor, vc: torch.Tensor,
+                          want_masks: bool = False):
+    """Kernel 3, aligned encode: as `cyclic_encode`, but column t of
+    streams holds step t's chunk (0 where none). Returns
+    (streams, lengths, states, masks (k, N, T) bool or None)."""
+    if vc.device.type == 'cpu':
+        return cyclic_encode_plain(cdf_lane, vc, aligned=True,
+                                   want_masks=want_masks)
+    args, (streams, lengths, states) = _encode_args(cdf_lane, vc)
+    masks = torch.empty(streams.shape, dtype=torch.bool,
+                        device=vc.device) if want_masks else None
+    _launch('rans_cyclic_encode_aligned', vc.device, *args,
+            masks.data_ptr() if masks is not None else None)
+    return streams, lengths, states, masks
+
+
+def _decode_args(streams, states, cdf_lane, len_lane, off_lane, steps):
+    _require_cuda(streams)
+    k, lanes, width = streams.shape
+    if k * lanes == 0 or steps <= 0:
+        raise ValueError(f'empty decode: streams shape '
+                         f'{tuple(streams.shape)}, steps {steps}')
+    dev = streams.device
+    _check(streams, 'streams', torch.int32, (k, lanes, width), dev)
+    _check(states, 'states', torch.int64, (k, lanes), dev)
+    _check(cdf_lane, 'cdf_lane', torch.int32, (lanes, cdf_lane.shape[1]),
+           dev)
+    _check(len_lane, 'len_lane', torch.int32, (lanes,), dev)
+    _check(off_lane, 'off_lane', torch.int32, (lanes,), dev)
+    out = torch.empty((k, steps, lanes), dtype=torch.int32, device=dev)
+    xend = torch.empty((k, lanes), dtype=torch.int64, device=dev)
+    args = (streams.data_ptr(), width, states.data_ptr(),
+            cdf_lane.data_ptr(), cdf_lane.shape[1], len_lane.data_ptr(),
+            off_lane.data_ptr(), k, int(steps), lanes, out.data_ptr(),
+            xend.data_ptr())
+    return args, (out, xend)
+
+
+def cyclic_decode(streams, states, cdf_lane, len_lane, off_lane,
+                  steps: int):
+    """Kernel 2, compacted decode: streams (k, N, W) int32, states (k, N)
+    int64 -> (symbols (k, T, N) int32 with offsets added, final states
+    (k, N) int64). A read past a lane's row yields 0."""
+    if streams.device.type == 'cpu':
+        return cyclic_decode_plain(streams, states, cdf_lane, len_lane,
+                                   off_lane, steps)
+    args, outs = _decode_args(streams, states, cdf_lane, len_lane,
+                              off_lane, steps)
+    _launch('rans_cyclic_decode', streams.device, *args)
+    return outs
+
+
+def cyclic_decode_aligned(streams, states, cdf_lane, len_lane, off_lane,
+                          steps: int):
+    """Kernel 4, aligned decode: streams (k, N, T) int32 with step t's
+    chunk at column t; outputs as `cyclic_decode`."""
+    if streams.device.type == 'cpu':
+        return cyclic_decode_plain(streams, states, cdf_lane, len_lane,
+                                   off_lane, steps, aligned=True)
+    if streams.shape[-1] != steps:
+        raise ValueError(f'aligned streams must be {steps} wide, got '
+                         f'{streams.shape[-1]}')
+    args, outs = _decode_args(streams, states, cdf_lane, len_lane,
+                              off_lane, steps)
+    _launch('rans_cyclic_decode_aligned', streams.device, *args)
+    return outs

@@ -1,0 +1,85 @@
+"""Flax variables -> this package's `state_dict`.
+
+Carries the JAX package's weights across: `state_dict_from_flax` takes
+`{'params': ..., 'batch_stats': ...}` as nested dicts of numpy arrays (no
+JAX needed) and returns the torch key space of `SplittableResNet`
+(torchvision ResNet names, CompressAI bottleneck names):
+
+  Conv kernel (kH, kW, I, O)       -> Conv2d.weight (O, I, kH, kW)
+  Dense kernel (I, O)              -> Linear.weight (O, I)
+  BatchNorm scale/bias, mean/var   -> weight/bias, running_mean/running_var
+  GDN beta/gamma (stored values)   -> beta/gamma, unchanged
+  EntropyBottleneck matrix_i/bias_i/factor_i/quantiles
+                                   -> _matrix{i}/_bias{i}/_factor{i}/quantiles
+                                      (same (C, r, d)/(C, 1, 3) shapes)
+"""
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+# flax scope path ('/'-joined) -> torch module path
+_FP_SCOPES = {
+    'enc_conv0': 'encoder.0', 'enc_gdn0': 'encoder.1',
+    'enc_conv1': 'encoder.2', 'enc_gdn1': 'encoder.3',
+    'enc_conv2': 'encoder.4',
+    'dec_conv0': 'decoder.0', 'dec_igdn0': 'decoder.1',
+    'dec_conv1': 'decoder.2', 'dec_igdn1': 'decoder.3',
+    'dec_conv2': 'decoder.4',
+    'entropy_bottleneck': 'entropy_bottleneck',
+}
+
+_RULES = [(rf'^bottleneck_layer/{k}$', f'bottleneck_layer.{v}')
+          for k, v in _FP_SCOPES.items()] + [
+    (r'^layer(\d)/block(\d+)/(conv\d|bn\d)$', r'layer\1.\2.\3'),
+    (r'^layer(\d)/block(\d+)/downsample_conv$', r'layer\1.\2.downsample.0'),
+    (r'^layer(\d)/block(\d+)/downsample_bn$', r'layer\1.\2.downsample.1'),
+    (r'^fc$', 'fc'),
+]
+
+
+def _torch_scope(scope: str) -> str:
+    for pattern, repl in _RULES:
+        m = re.fullmatch(pattern, scope)
+        if m:
+            return m.expand(repl)
+    raise KeyError(f'no torch counterpart for flax scope {scope!r}')
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix, k, np.asarray(v)
+
+
+def _param_leaf(leaf: str, value: np.ndarray):
+    """(torch leaf name, converted array) for one flax param leaf."""
+    if leaf == 'kernel':
+        if value.ndim == 4:                       # HWIO -> OIHW
+            return 'weight', np.transpose(value, (3, 2, 0, 1))
+        return 'weight', value.T                  # Dense (I, O) -> (O, I)
+    if leaf == 'scale':
+        return 'weight', value
+    m = re.fullmatch(r'(matrix|bias|factor)_(\d+)', leaf)
+    if m:
+        return f'_{m.group(1)}{m.group(2)}', value
+    return leaf, value                            # bias, beta, gamma, quantiles
+
+
+def state_dict_from_flax(variables: dict) -> dict:
+    """Flax `{'params', 'batch_stats'}` of the JAX `SplittableResNet` (FP
+    bottleneck) -> a state_dict that `load_state_dict` takes strictly."""
+    out = {}
+    for scope, leaf, value in _leaves(variables['params']):
+        name, arr = _param_leaf(leaf, value)
+        out[f"{_torch_scope('/'.join(scope))}.{name}"] = arr
+    for scope, leaf, value in _leaves(variables.get('batch_stats', {})):
+        path = _torch_scope('/'.join(scope))
+        out[f'{path}.running_{leaf}'] = value
+        out[f'{path}.num_batches_tracked'] = np.asarray(0, np.int64)
+    return {k: torch.from_numpy(np.ascontiguousarray(v).copy())
+            for k, v in out.items()}

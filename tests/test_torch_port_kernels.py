@@ -1,0 +1,187 @@
+"""The four cyclic-lane rANS CUDA kernels against their plain PyTorch
+versions.
+
+This file imports neither JAX nor `sc2bench_tpu`, so it also runs where
+only the port is installed. The `cuda` tests need a card and skip without
+one; on a machine with a card run them with
+`python -m pytest tests/test_torch_port_kernels.py -m cuda --noconftest`
+(the suite's conftest configures JAX). The CPU tests pin the plain
+versions themselves against the numpy oracle on edge-case tables."""
+import numpy as np
+import pytest
+import torch
+
+from sc2bench_tpu_torch.ops.rans import device as td
+from sc2bench_tpu_torch.ops.rans import kernels
+
+
+def _tables(num_dists, support, seed):
+    rng = np.random.default_rng(seed)
+    max_len = support + 2
+    cdf = np.zeros((num_dists, max_len + 1), np.int32)
+    cdf_length = np.full(num_dists, max_len + 1, np.int32)
+    offset = rng.integers(-20, -5, num_dists).astype(np.int32)
+    for c in range(num_dists):
+        w = rng.uniform(0.05, 1.0, max_len)
+        freqs = np.maximum((w / w.sum() * (1 << 16)).astype(np.int64), 1)
+        freqs[-1] += (1 << 16) - freqs.sum()
+        cdf[c, 1:] = np.cumsum(freqs)
+    return cdf, cdf_length, offset
+
+
+def _symbols(cdf, cdf_length, offset, n, seed):
+    """Cyclic symbols drawn from each row's distribution, in support."""
+    c = cdf.shape[0]
+    rng = np.random.default_rng(seed)
+    idx = np.arange(n) % c
+    u = rng.integers(0, 1 << 16, n)
+    sym = np.empty(n, np.int32)
+    for ch in range(c):
+        m = idx == ch
+        row = cdf[ch][:cdf_length[ch]]
+        v = np.clip(np.searchsorted(row, u[m], side='right') - 1,
+                    0, cdf_length[ch] - 3)
+        sym[m] = v + offset[ch]
+    return sym
+
+
+def _skewed_tables():
+    """Rows at the edges of the 16-bit arithmetic: a symbol of frequency
+    65534 (renormalizes at the top of the state range), a uniform row,
+    and ragged cdf_length with zero padding past it."""
+    cdf = np.zeros((3, 9), np.int32)
+    cdf[0, :4] = [0, 65534, 65535, 65536]
+    cdf[1, :9] = np.linspace(0, 65536, 9).astype(np.int32)
+    cdf[2, :5] = [0, 1, 2, 65535, 65536]
+    return cdf, np.asarray([4, 9, 5], np.int32), \
+        np.asarray([0, -3, 7], np.int32)
+
+
+# (channels, lanes, n): lane counts not multiples of 32 or 128, n not a
+# multiple of the lane count, the flagship 384 x 190 shape
+CASES = [(8, 48, 400), (24, 72, 5000), (24, 384, 72600), (6, 6, 97)]
+
+
+@pytest.mark.parametrize('aligned', [False, True])
+@pytest.mark.parametrize('tables', ['random', 'skewed'])
+def test_plain_versions_equal_numpy_oracle(tables, aligned):
+    if tables == 'random':
+        cdf, cdf_length, offset = _tables(6, 19, seed=4)
+    else:
+        cdf, cdf_length, offset = _skewed_tables()
+    c, lanes, n = cdf.shape[0], 3 * cdf.shape[0], 701
+    sym = _symbols(cdf, cdf_length, offset, n, seed=9)
+    enc = td.device_rans_encode(torch.from_numpy(sym), cdf, cdf_length,
+                                offset, num_lanes=lanes, cyclic_channels=c,
+                                aligned=aligned, want_masks=aligned)
+    assert bool(enc['ok'])
+    o_streams, o_states = td.numpy_oracle_encode(
+        sym, np.arange(n) % c, cdf, cdf_length, offset, num_lanes=lanes,
+        cyclic_channels=c)
+    np.testing.assert_array_equal(enc['states'].numpy(), o_states)
+    wire = td.pack_stream_aligned(enc) if aligned else td.pack_stream(enc)
+    streams, _ = td.unpack_stream(wire)
+    assert [list(streams[j, :len(s)]) for j, s in enumerate(o_streams)] \
+        == o_streams
+    dec, valid = td.device_rans_decode(
+        enc['streams'], enc['states'], cdf, cdf_length, offset, n_symbols=n,
+        num_lanes=lanes, cyclic_channels=c, aligned=aligned)
+    assert bool(valid)
+    np.testing.assert_array_equal(dec.numpy(), sym)
+
+
+def test_compacted_decode_reads_zero_past_the_row():
+    """A stream row cut short decodes as if padded with zeros (the
+    reference kernel's one-hot read), so the result is not valid."""
+    cdf, cdf_length, offset = _tables(8, 21, seed=1)
+    sym = _symbols(cdf, cdf_length, offset, 960, seed=2)
+    enc = td.device_rans_encode(torch.from_numpy(sym), cdf, cdf_length,
+                                offset, num_lanes=48, cyclic_channels=8)
+    width = int(enc['lengths'].max())
+    cut = enc['streams'][:, :width - 1].contiguous()
+    padded = torch.cat([cut, torch.zeros((48, 5), dtype=torch.int32)], 1)
+    a = td.device_rans_decode(cut, enc['states'], cdf, cdf_length, offset,
+                              n_symbols=960, num_lanes=48,
+                              cyclic_channels=8)
+    b = td.device_rans_decode(padded, enc['states'], cdf, cdf_length,
+                              offset, n_symbols=960, num_lanes=48,
+                              cyclic_channels=8)
+    assert torch.equal(a[0], b[0]) and not bool(a[1]) and not bool(b[1])
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernels have no CPU mode)')
+    return torch.device('cuda')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('C,lanes,n', CASES)
+def test_kernels_equal_plain_versions_on_the_card(C, lanes, n):
+    dev = _card()
+    cdf, cdf_length, offset = _tables(C, 21, seed=C)
+    rows = np.stack([_symbols(cdf, cdf_length, offset, n, seed=s)
+                     for s in (1, 2)])
+    cdf_lane, len_lane, off_lane = td.lane_tables(
+        cdf, cdf_length, offset, lanes, C, dev)
+    sym3, _, _ = td._blocks(torch.from_numpy(rows).to(dev), lanes,
+                            off_lane)
+    vc = (sym3 - off_lane).contiguous()
+    steps = vc.shape[1]
+    kernels.reset_launches()
+    for aligned in (False, True):
+        plain = td.cyclic_encode_plain(cdf_lane, vc, aligned=aligned,
+                                       want_masks=aligned)
+        got = (kernels.cyclic_encode_aligned(cdf_lane, vc, True) if aligned
+               else kernels.cyclic_encode(cdf_lane, vc))
+        for a, b in zip(plain, got):
+            assert torch.equal(a, b)
+        dec = kernels.cyclic_decode_aligned if aligned \
+            else kernels.cyclic_decode
+        out, xend = dec(got[0], got[2], cdf_lane, len_lane, off_lane, steps)
+        pout, pxend = td.cyclic_decode_plain(got[0], got[2], cdf_lane,
+                                             len_lane, off_lane, steps,
+                                             aligned=aligned)
+        torch.cuda.synchronize()
+        assert torch.equal(out, pout) and torch.equal(xend, pxend)
+        assert bool((xend == td.RANS_L).all())
+        flat = out.reshape(2, -1)[:, :n].cpu().numpy()
+        np.testing.assert_array_equal(flat, rows)
+    assert set(kernels.LAUNCHES.values()) == {1}
+
+
+@pytest.mark.cuda
+def test_skewed_tables_on_the_card():
+    dev = _card()
+    cdf, cdf_length, offset = _skewed_tables()
+    sym = _symbols(cdf, cdf_length, offset, 701, seed=9)
+    kernels.reset_launches()
+    for aligned in (False, True):
+        ref = td.device_rans_encode(torch.from_numpy(sym), cdf, cdf_length,
+                                    offset, num_lanes=9, cyclic_channels=3,
+                                    aligned=aligned)
+        got = td.device_rans_encode(torch.from_numpy(sym).to(dev), cdf,
+                                    cdf_length, offset, num_lanes=9,
+                                    cyclic_channels=3, aligned=aligned)
+        for k in ('streams', 'lengths', 'states', 'nbytes'):
+            assert torch.equal(ref[k], got[k].cpu()), k
+        dec, valid = td.device_rans_decode(
+            got['streams'], got['states'], cdf, cdf_length, offset,
+            n_symbols=701, num_lanes=9, cyclic_channels=3, aligned=aligned)
+        assert bool(valid)
+        np.testing.assert_array_equal(dec.cpu().numpy(), sym)
+    assert set(kernels.LAUNCHES.values()) == {1}
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_bad_arguments_on_the_card():
+    dev = _card()
+    cdf_lane = torch.zeros((8, 5), dtype=torch.int32, device=dev)
+    vc = torch.zeros((1, 4, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match='dtype'):
+        kernels.cyclic_encode(cdf_lane, vc.to(torch.int64))
+    with pytest.raises(ValueError, match='contiguous'):
+        kernels.cyclic_encode(cdf_lane, vc.transpose(1, 2).contiguous()
+                              .transpose(1, 2))
+    with pytest.raises(ValueError, match='on'):
+        kernels.cyclic_encode(cdf_lane.cpu(), vc)
