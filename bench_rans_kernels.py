@@ -1,0 +1,120 @@
+#!/usr/bin/env python3
+"""Times the port's four rANS kernels at the flagship shape on one GPU.
+
+    python3 bench_rans_kernels.py
+
+Run from a checkout's root; it times that checkout's `sc2bench_tpu_torch`
+and takes its timing helpers from the `chip_smoke.py` beside it. To compare
+two commits on one card, copy both scripts into an unpacked copy of the
+other commit and run parent, change, change, parent in one run.
+
+Inputs: coding tables of a fresh `EntropyBottleneck(24)` (23-column rows,
+as the flagship's), symbols drawn from them (numpy seed 1234), 55x55x24
+latents on 384 lanes x 190 steps; one image for the batch-1 kernels, eight
+for the aligned ones.
+
+Two times per kernel, in milliseconds:
+  per_call_ms  median over REPS of CUDA events around ONE wrapper call
+               on an idle card: the host's dispatch (argument checks,
+               allocation, the ctypes call) plus the kernel; the `ms` of
+               `chip_smoke.py`'s kernels line;
+  device_ms    CUDA events around REPS calls queued back to back behind
+               a sleep kernel that outlasts their dispatch, divided by
+               REPS: the card's time per launch, host excluded.
+Also `steps_sweep`: the batch-1 kernels' device_ms on 384 lanes at T = 32,
+190 and 600 steps, whose slope is the time of one step of the chain and
+whose intercept is the fixed cost of a launch (prologue, write-out, launch
+gap). Prints one JSON line with the card's name and power limit. Needs a
+CUDA device.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPS = 200
+
+
+def flagship_inputs(torch, td, device, images, n=55 * 55 * 24):
+    """Lane tables and in-support symbol blocks (k, T, 384) drawn from
+    a fresh EntropyBottleneck(24)'s tables; T = 190 at the default n."""
+    from sc2bench_tpu_torch.ops.entropy.factorized import EntropyBottleneck
+    from sc2bench_tpu_torch.ops.entropy.tables import build_factorized_tables
+    torch.manual_seed(0)
+    t = build_factorized_tables(EntropyBottleneck(24))
+    cdf, cdf_len, off = t.quantized_cdf, t.cdf_length, t.offset
+    c = cdf.shape[0]
+    lanes = td.auto_lanes(55 * 55 * 24, cyclic_channels=c)
+    rng = np.random.default_rng(1234)
+    idx = np.arange(n) % c
+    rows = np.empty((images, n), np.int32)
+    for i in range(images):
+        u = rng.integers(0, 1 << 16, n)
+        for ch in range(c):
+            m = idx == ch
+            v = np.searchsorted(cdf[ch][:cdf_len[ch]], u[m], side='right') - 1
+            rows[i, m] = np.clip(v, 0, cdf_len[ch] - 3) + off[ch]
+    cdf_lane, len_lane, off_lane = td.lane_tables(cdf, cdf_len, off, lanes, c,
+                                                  device)
+    sym3, _, _ = td._blocks(torch.from_numpy(rows).to(device), lanes,
+                            off_lane)
+    return (sym3 - off_lane).contiguous(), cdf_lane, len_lane, off_lane
+
+
+def kernel_calls(torch, td, kernels, device, wire_batch=8,
+                 n=55 * 55 * 24):
+    """name -> zero-argument call of each kernel at the flagship shapes
+    (or at `n` symbols per image on the flagship's 384 lanes)."""
+    vc8, cdf_lane, len_lane, off_lane = flagship_inputs(torch, td, device,
+                                                        wire_batch, n)
+    vc1 = vc8[:1].contiguous()
+    steps = vc1.shape[1]
+    streams, _, states = kernels.cyclic_encode(cdf_lane, vc1)
+    astreams, _, astates, _ = kernels.cyclic_encode_aligned(cdf_lane, vc8)
+    return {
+        'rans_cyclic_encode': lambda: kernels.cyclic_encode(cdf_lane, vc1),
+        'rans_cyclic_decode': lambda: kernels.cyclic_decode(
+            streams, states, cdf_lane, len_lane, off_lane, steps),
+        'rans_cyclic_encode_aligned':
+            lambda: kernels.cyclic_encode_aligned(cdf_lane, vc8),
+        'rans_cyclic_decode_aligned': lambda: kernels.cyclic_decode_aligned(
+            astreams, astates, cdf_lane, len_lane, off_lane, steps),
+    }
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit('bench_rans_kernels: no CUDA device is available')
+    sys.path.insert(0, HERE)
+    from chip_smoke import device_ms, per_call_ms
+    from sc2bench_tpu_torch.ops.rans import device as td
+    from sc2bench_tpu_torch.ops.rans import kernels
+    device = torch.device('cuda', 0)
+    kernels.build_library()
+    out = {}
+    for name, fn in kernel_calls(torch, td, kernels, device).items():
+        out[name] = {'per_call_ms': per_call_ms(torch, fn, REPS),
+                     'device_ms': device_ms(torch, fn, REPS)}
+    sweep = {}
+    for steps in (32, 190, 600):
+        calls = kernel_calls(torch, td, kernels, device, wire_batch=1,
+                             n=384 * steps)
+        for name in ('rans_cyclic_encode', 'rans_cyclic_decode'):
+            sweep.setdefault(name, {})[steps] = device_ms(
+                torch, calls[name], REPS)
+    smi = subprocess.run(
+        ['nvidia-smi', '--id=0', '--query-gpu=name,power.limit,clocks.sm',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(json.dumps({'repo': HERE, 'card': smi,
+                      'kernels': out, 'steps_sweep': sweep}), flush=True)
+
+
+if __name__ == '__main__':
+    main()

@@ -9,23 +9,33 @@ which fails loudly with a nonzero exit:
  1. build the CUDA rANS kernels from `sc2bench_tpu_torch/csrc/` (nvcc,
     sm_90a) and print the build seconds and ptxas register counts;
  2. hold each of the four kernels against its plain PyTorch version on the
-    card at the flagship shapes (55x55x24 latent: 384 lanes x 190 steps;
-    batch 1 for the compacted kernels, 8 images for the aligned ones) and
-    on a ragged case (72 lanes, n not a multiple of 72): bit-equal
+    card at the flagship shapes (55x55x24 latent: 384 lanes x 190 steps,
+    8 images) and on edge cases: 72 and 168 lanes (not multiples of 32),
+    n not a multiple of the lanes, k > 1, T = 600 (many staging tiles), a
+    225-column CDF row, and frequency-1 symbols. Bit-equal
     streams/lengths/states, packed bytes equal to the numpy oracle and
     equal between the two layouts, symbols back with valid=True, and
-    valid=False for a corrupted stream; print median kernel and plain ms;
+    valid=False for a corrupted stream; print each kernel's ms (CUDA
+    events around one call on an idle card, host dispatch included),
+    device ms (launches queued behind a sleep kernel), plain ms, and the
+    SM clocks;
  3. drive the main path, batch 1: `stream_deploy_device` of the
     full-width ResNet-50 + FP-24 model (1000 classes, seeded random
     weights) on 16 float 224x224 images and 4 uint8 images through
     `input_norm`; the compacted kernels must have launched once per image,
-    and two images are checked against a reference built from the same
-    symbols with the plain (CPU) coder;
- 4. the same images with `wire_batch=8`: the aligned kernels launched,
-    per-image wire sizes and the data-size summary equal to phase 3,
-    logits within rtol=atol=1e-3 of phase 3 (the tail runs at batch 8,
-    where cuDNN may sum in another order);
- 5. print the kernels line, the card's name and power limit, and last
+    no image may have taken the host escape path, and two images are
+    checked against a reference built from the same symbols with the
+    plain (CPU) coder;
+ 4. the same images with `wire_batch=8`: the aligned kernels launched, no
+    escapes, per-image wire sizes and the data-size summary equal to
+    phase 3, logits within rtol=atol=1e-3 of phase 3 (the tail runs at
+    batch 8, where cuDNN may sum in another order);
+ 5. the escape path: an image whose latent leaves the CDF support among
+    normal images, batch 1 and `wire_batch=8`: its accounted size equals
+    that of `rt.encode(x)`, its logits equal `rt.decode(**rt.encode(x))`,
+    the other images' sizes equal a run without it, and the run counts
+    exactly one `ok=False` escape and no `valid=False` one;
+ 6. print the kernels line, the card's name and power limit, and last
     `{"ok": true, "device": {...}}`.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -78,9 +88,10 @@ def log(msg):
     print(msg, flush=True)
 
 
-def time_ms(torch, fn, reps):
-    """Median milliseconds of `fn` on the card (CUDA events per call,
-    after two warm-up calls)."""
+def per_call_ms(torch, fn, reps):
+    """Median ms of CUDA events around one call on an idle card, after two
+    warm-up calls: the host's dispatch (argument checks, allocation, the
+    ctypes call) plus the kernel."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -94,6 +105,36 @@ def time_ms(torch, fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, reps):
+    """Device ms per call of `reps` calls queued back to back: a sleep
+    kernel holds the card while the host enqueues them, so the events
+    see only device work. The sleep is twice the measured enqueue time."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # cycles at 2 GHz, at or above the H100's top SM clock: at any lower
+    # clock the sleep only lasts longer
+    torch.cuda._sleep(int(2 * enqueue_s * 2e9) + 1000)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    end.record()
+    queued_s = time.perf_counter() - t0
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    if queued_s > 2 * enqueue_s:
+        raise SmokeFailure(f'enqueue took {queued_s:.4f} s, longer than the '
+                           'sleep covering it: the timing saw idle gaps')
+    return ms
 
 
 def bound(nbytes, ops):
@@ -153,6 +194,25 @@ def draw_symbols(tables, n, rng):
     return sym
 
 
+def synthetic_tables(channels, support, seed, rare=False, skew=1):
+    """Random CDF rows of `support` + 2 entries. With `rare=True`, value 1
+    of every row has frequency 1; `skew` > 1 gives many symbols of
+    frequency 2, so one coarse decode bucket (256 slots) holds many."""
+    from sc2bench_tpu_torch.ops.entropy.tables import CodingTables
+    rng = np.random.default_rng(seed)
+    cols = support + 2
+    cdf = np.zeros((channels, cols), np.int32)
+    for c in range(channels):
+        w = rng.uniform(0.05, 1.0, cols - 1) ** skew
+        freqs = np.maximum((w / w.sum() * (1 << 16)).astype(np.int64), 2)
+        if rare:
+            freqs[1] = 1
+        freqs[np.argmax(freqs)] += (1 << 16) - freqs.sum()
+        cdf[c, 1:] = np.cumsum(freqs)
+    return CodingTables(cdf, np.full(channels, cols, np.int32),
+                        rng.integers(-20, -5, channels).astype(np.int32))
+
+
 def oracle_wire(td, sym, tables, lanes):
     """Packed wire bytes from the numpy oracle alone."""
     c = tables.quantized_cdf.shape[0]
@@ -167,11 +227,15 @@ def oracle_wire(td, sym, tables, lanes):
     return b''.join(body)
 
 
-def kernel_case(torch, td, kernels, tables, lanes, n, k, rng, device):
-    """Phase 2 checks for one (lanes, n, k) case. Returns the inputs and
-    outputs the timing step needs."""
+def kernel_case(torch, td, kernels, tables, lanes, n, k, rng, device,
+                rare=False):
+    """Phase 2 checks for one (lanes, n, k) case; `rare=True` sets every
+    seventh symbol to value 1 (frequency 1 in `synthetic_tables(...,
+    rare=True)`). Returns the inputs and outputs the timing step needs."""
     c = tables.quantized_cdf.shape[0]
     rows = np.stack([draw_symbols(tables, n, rng) for _ in range(k)])
+    if rare:
+        rows[:, ::7] = 1 + tables.offset[np.arange(n)[::7] % c]
     cdf_lane, len_lane, off_lane = td.lane_tables(
         tables.quantized_cdf, tables.cdf_length, tables.offset, lanes, c,
         device)
@@ -179,7 +243,7 @@ def kernel_case(torch, td, kernels, tables, lanes, n, k, rng, device):
                             off_lane)
     vc = (sym3 - off_lane).contiguous()
     steps = vc.shape[1]
-    tag = f'lanes={lanes} n={n} k={k}'
+    tag = f'lanes={lanes} n={n} k={k} cols={cdf_lane.shape[1]}'
     errs = {}
 
     def compare(name, got, ref):
@@ -193,7 +257,8 @@ def kernel_case(torch, td, kernels, tables, lanes, n, k, rng, device):
                   f'{name} differs from its plain version ({tag})')
 
     enc = kernels.cyclic_encode(cdf_lane, vc)
-    compare('rans_cyclic_encode', enc, td.cyclic_encode_plain(cdf_lane, vc))
+    plain = td.cyclic_encode_plain(cdf_lane, vc)
+    compare('rans_cyclic_encode', enc, plain)
     enca = kernels.cyclic_encode_aligned(cdf_lane, vc, want_masks=True)
     compare('rans_cyclic_encode_aligned', enca,
             td.cyclic_encode_plain(cdf_lane, vc, aligned=True,
@@ -241,11 +306,27 @@ def kernel_phase(torch, td, kernels, tables, device):
     lanes = td.auto_lanes(n, cyclic_channels=c)
     flag = kernel_case(torch, td, kernels, tables, lanes, n, WIRE_BATCH,
                        rng, device)
-    ragged = kernel_case(torch, td, kernels, tables, 72, 5000, 2, rng,
-                         device)
+    edge = [kernel_case(torch, td, kernels, tables, 72, 5000, 2, rng,
+                        device),
+            kernel_case(torch, td, kernels, tables, 168, 168 * 77 + 5, 3,
+                        rng, device),
+            kernel_case(torch, td, kernels, tables, lanes, lanes * 600, 2,
+                        rng, device),
+            kernel_case(torch, td, kernels,
+                        synthetic_tables(8, 223, 5, skew=24), 40,
+                        40 * 50 - 3, 2, rng, device),
+            kernel_case(torch, td, kernels,
+                        synthetic_tables(6, 19, 6, rare=True), 30, 3001, 2,
+                        rng, device, rare=True)]
     log(f'phase 2: kernels equal their plain versions (lanes={lanes}, '
-        f'steps={flag["steps"]}, cols={tables.quantized_cdf.shape[1]}; '
-        f'ragged lanes=72 n=5000)')
+        f'steps={flag["steps"]}, cols={tables.quantized_cdf.shape[1]}, k=8; '
+        'edge cases: 72 lanes n=5000 k=2; 168 lanes k=3; T=600; '
+        '225-column rows; frequency-1 symbols)')
+    cols = tables.quantized_cdf.shape[1]
+    log(f'phase 2: batch-1 kernels take up to '
+        f'{kernels.max_steps(cols, False, device)} steps (encode) and '
+        f'{kernels.max_steps(cols, True, device)} stream columns (decode) '
+        f'at {cols} columns')
 
     steps, cols = flag['steps'], flag['cdf_lane'].shape[1]
     cdf_lane, len_lane, off_lane = (flag['cdf_lane'], flag['len_lane'],
@@ -289,15 +370,22 @@ def kernel_phase(torch, td, kernels, tables, device):
                 enca[0], enca[2], cdf_lane, len_lane, off_lane, steps,
                 aligned=True), dec_cost(k8, steps)),
     }
+    # ms: one call on an idle card, host dispatch included; device_ms:
+    # the card's time per launch, launches queued back to back
     stats = {}
     for name, (kern, plain, (bound_ms, bound_by)) in specs.items():
-        ms = time_ms(torch, kern, reps=50)
-        plain_ms = time_ms(torch, plain, reps=5)
-        err = max(flag['errs'][name], ragged['errs'][name])
-        stats[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, max_abs_err=err)
-        log(f'phase 2: {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, '
-            f'bound {bound_ms:.6f} ms ({bound_by})')
+        ms = per_call_ms(torch, kern, reps=50)
+        dev_ms = device_ms(torch, kern, reps=200)
+        plain_ms = per_call_ms(torch, plain, reps=5)
+        err = max(case['errs'][name] for case in [flag] + edge)
+        stats[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           max_abs_err=err)
+        log(f'phase 2: {name}: kernel {ms:.4f} ms per call ({dev_ms:.4f} '
+            f'ms on the card), plain {plain_ms:.3f} ms, bound '
+            f'{bound_ms:.6f} ms ({bound_by})')
+    clocks = smi_query('clocks.sm,clocks.max.sm')
+    log(f'phase 2: SM clock now, max (MHz): {clocks}')
     return stats
 
 
@@ -316,6 +404,7 @@ def main_path(torch, kernels, rt, rt_u8, images, images_u8):
     for r in (rt, rt_u8):
         r.clear_analysis()
         r.activate_analysis()
+        r.escapes = {'ok': 0, 'valid': 0}
     kernels.reset_launches()
     t0 = time.perf_counter()
     logits1 = rt.stream_deploy_device(images)
@@ -329,6 +418,9 @@ def main_path(torch, kernels, rt, rt_u8, images, images_u8):
     check(counts1['rans_cyclic_encode_aligned'] == 0
           and counts1['rans_cyclic_decode_aligned'] == 0,
           f'batch-1 path launched aligned kernels: {counts1}')
+    for r in (rt, rt_u8):
+        check(r.escapes == {'ok': 0, 'valid': 0},
+              f'batch-1 path sent images to the host coder: {r.escapes}')
     sizes1 = list(rt.analyzers[0].file_size_list)
     summary1 = rt.summarize()[0]
     summary_u8 = rt_u8.summarize()[0]
@@ -375,6 +467,7 @@ def main_path(torch, kernels, rt, rt_u8, images, images_u8):
 
     # ---- phase 4: wire_batch ----
     rt.clear_analysis()
+    rt.escapes = {'ok': 0, 'valid': 0}
     kernels.reset_launches()
     t0 = time.perf_counter()
     logits_b = rt.stream_deploy_device(images, wire_batch=WIRE_BATCH)
@@ -387,6 +480,8 @@ def main_path(torch, kernels, rt, rt_u8, images, images_u8):
     check(counts2['rans_cyclic_encode'] == 0
           and counts2['rans_cyclic_decode'] == 0,
           f'wire_batch path launched batch-1 kernels: {counts2}')
+    check(rt.escapes == {'ok': 0, 'valid': 0},
+          f'wire_batch path sent images to the host coder: {rt.escapes}')
     sizes2 = list(rt.analyzers[0].file_size_list)
     summary2 = rt.summarize()[0]
     check(sizes2 == sizes1, 'wire_batch per-image sizes differ from batch 1')
@@ -406,12 +501,64 @@ def main_path(torch, kernels, rt, rt_u8, images, images_u8):
                                        'rans_cyclic_decode_aligned')}}
 
 
+def deploy(rt, images, wire_batch):
+    """(per-image accounted sizes, logits, escapes) of one
+    `stream_deploy_device`."""
+    rt.clear_analysis()
+    rt.activate_analysis()
+    rt.escapes = {'ok': 0, 'valid': 0}
+    logits = rt.stream_deploy_device(images, wire_batch=wire_batch)
+    return list(rt.analyzers[0].file_size_list), logits, dict(rt.escapes)
+
+
+def escape_phase(torch, rt, images):
+    """Phase 5: an image whose latent leaves the CDF support (a normal
+    image scaled up) among normal images is re-coded on the host coder."""
+    from sc2bench_tpu_torch.analysis import get_binary_object_size
+    classes = rt.module.fc.out_features
+    x_esc = None
+    for scale in (30.0, 100.0, 1000.0):
+        if not bool(rt.encode_device_wire(images[-1] * scale)['ok']):
+            x_esc = images[-1] * scale
+            break
+    check(x_esc is not None, 'no scaled image left the CDF support')
+    compressed = rt.encode(x_esc)
+    want_size = get_binary_object_size(compressed)
+    want_logits = rt.decode(**compressed)
+    normal, pos = images[:WIRE_BATCH - 1], 3
+    stream = normal[:pos] + [x_esc] + normal[pos:]
+    for wire_batch in (None, WIRE_BATCH):
+        tag = f'wire_batch={wire_batch}' if wire_batch else 'batch 1'
+        clean_sizes, _, clean_esc = deploy(rt, normal, wire_batch)
+        sizes, logits, esc = deploy(rt, stream, wire_batch)
+        check(clean_esc == {'ok': 0, 'valid': 0},
+              f'{tag}: normal images escaped: {clean_esc}')
+        check(esc == {'ok': 1, 'valid': 0},
+              f'{tag}: escapes {esc}, expected one ok=False and no '
+              'valid=False')
+        check(len(logits) == len(stream), f'{tag}: {len(logits)} results')
+        for lg in logits:
+            check(tuple(lg.shape) == (1, classes)
+                  and bool(torch.isfinite(lg).all()),
+                  f'{tag}: bad logits {tuple(lg.shape)}')
+        check(sizes[pos] == want_size, f'{tag}: escape image accounted '
+              f'{sizes[pos]}, rt.encode(x) gives {want_size}')
+        check(torch.allclose(logits[pos], want_logits, rtol=1e-5, atol=1e-5),
+              f'{tag}: escape logits differ from rt.decode(**rt.encode(x))')
+        check(sizes[:pos] + sizes[pos + 1:] == clean_sizes,
+              f'{tag}: the other images\' sizes changed')
+    log(f'phase 5: escape image (scale {scale:g}) re-coded on the host '
+        f'coder at batch 1 and wire_batch={WIRE_BATCH}: size {want_size} '
+        f'KB equals rt.encode(x), logits equal rt.decode, other sizes '
+        'unchanged, one ok=False escape and no valid=False one')
+
+
 NORM = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
 
 
-def smi_line():
+def smi_query(fields):
     out = subprocess.run(
-        ['nvidia-smi', '--id=0', '--query-gpu=name,power.limit',
+        ['nvidia-smi', '--id=0', f'--query-gpu={fields}',
          '--format=csv,noheader'], capture_output=True, text=True,
         timeout=60)
     check(out.returncode == 0, f'nvidia-smi failed: {out.stderr.strip()}')
@@ -469,17 +616,21 @@ def run():
                  for _ in range(N_UINT8)]
     launches = main_path(torch, kernels, rt, rt_u8, images, images_u8)
 
+    # ---- phase 5 ----
+    escape_phase(torch, rt, images)
+
     rows = [dict(name=name, route='cuda', source=SOURCE,
                  replaces=REPLACES[name], launches=launches[name],
                  max_abs_err=stats[name]['max_abs_err'],
-                 ms=stats[name]['ms'], plain_ms=stats[name]['plain_ms'],
+                 ms=stats[name]['ms'], device_ms=stats[name]['device_ms'],
+                 plain_ms=stats[name]['plain_ms'],
                  bound_ms=stats[name]['bound_ms'],
                  bound_by=stats[name]['bound_by'], library_ms=None)
             for name in kernels.KERNELS]
     for r in rows:
         check(r['launches'] > 0, f'{r["name"]} never launched on the path')
     print(json.dumps({'kernels': rows}), flush=True)
-    print(smi_line(), flush=True)
+    print(smi_query('name,power.limit'), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

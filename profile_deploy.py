@@ -23,7 +23,7 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-RANS = ('rans_encode_kernel', 'rans_decode_kernel')
+RANS = ('rans_encode', 'rans_decode')
 N_IMAGES = 32
 
 
@@ -69,7 +69,7 @@ def main():
         print('profile_deploy: no CUDA device is available', file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from chip_smoke import HW, build_model, smi_line
+    from chip_smoke import HW, build_model, smi_query
     from sc2bench_tpu_torch.models.runtime import SplitClassifierRuntime
     device = torch.device('cuda', 0)
     rt = SplitClassifierRuntime(build_model(torch, device, seed=0),
@@ -80,7 +80,7 @@ def main():
     images = [torch.from_numpy(rng.normal(0, 1, (1, 3, HW, HW))
                                .astype(np.float32)).to(device)
               for _ in range(N_IMAGES)]
-    card = smi_line()
+    card = smi_query('name,power.limit')
     results = []
     for wire_batch in (None, 8):
         r = profile_mode(torch, rt, images, wire_batch)

@@ -1,7 +1,7 @@
 // Cyclic-lane rANS encode/decode kernels for Hopper (sm_90a).
 //
-// Four kernels, one thread per (image, lane). They replace the Pallas TPU
-// kernels of sc2bench_tpu/ops/rans/pallas_kernel.py:
+// Four kernels. They replace the Pallas TPU kernels of
+// sc2bench_tpu/ops/rans/pallas_kernel.py:
 //
 //   rans_cyclic_encode          <- _encode_kernel          (batch-1 encode,
 //                                  compacted streams)
@@ -17,17 +17,55 @@
 //
 // What bounds them on this card: each lane is a serial chain of T dependent
 // steps (T = 190 at the flagship 55x55x24 latent over 384 lanes), and the
-// whole problem is k*N threads -- 384 at batch 1, a few warps on a few of
-// the 132 SMs. The bytes moved (~0.3 MB at batch 1) and the integer
-// operations are far below the card's rates, so the time is the latency of
-// the chain: per step an L1 load of the CDF entries, an integer divide (or
-// a short search), and a dependent state update. The design keeps the state
-// in a register, reads each lane's row from L1 (the rows of all lanes fit),
-// reads the step's symbols coalesced across lanes, and uses CUDA's exact
-// 32-bit divide in place of the TPU's f32 quotient with its +-2 correction.
-// The TPU kernels' one-hot "gather-free" reads and their 128-lane inert
-// padding are gone: a thread per lane with a bounds guard replaces them.
-// Batching k images gives the card more independent chains (wire_batch).
+// whole problem is k*N lanes -- 384 at batch 1. The bytes moved (~0.3 MB at
+// batch 1) and the integer operations are far below the card's rates, so the
+// time is the latency of the chain: T times the dependent cycles of one step,
+// plus the launch.
+//
+// The batch-1 pair (rans_cyclic_encode, rans_cyclic_decode) is built for
+// that latency:
+//   - one warp per block, each block 32 lanes of one image, so that the 384
+//     lanes of a batch-1 image spread over 12 SMs and each chain has an SM
+//     sub-partition nearly to itself;
+//   - the block's inputs (the encoder's symbol columns vc[img, :, lane0:+32],
+//     the decoder's stream rows streams[img, lane0:+32, :]) are staged into
+//     shared memory by cp.async in tiles of kTile steps or columns,
+//     double-buffered, so the next tile is in flight while the chain runs;
+//   - each lane's CDF row becomes a shared-memory table of (start, freq)
+//     per symbol, laid out [symbol][lane] so a warp's lookups never share a
+//     bank; the decoder adds a coarse table of 256 buckets (slot >> 8 ->
+//     lowest candidate symbol) and finishes with a short forward scan, in
+//     place of a scan over the whole row;
+//   - the encoder's emitted chunks go to a per-lane u16 row in shared memory
+//     (emission e at column T-1-e, so a finished lane's chunks sit at
+//     [T-count, T) in decode order); after the chain the warp writes the
+//     block's 32 x T output region (compacted rows, zero tails) with
+//     coalesced stores;
+//   - the encoder divides by a per-(lane, symbol) reciprocal, one 64-bit
+//     multiply and a shift (`reciprocal48`), which measured faster than
+//     the hardware 32-bit divide on an H100 (PERF.md).
+// Then the dependent chain touches only shared memory and registers. The
+// shared memory a block needs grows with T (encoder) or min(W, T) (decoder);
+// rans_cyclic_max_steps gives the largest that fits.
+//
+// Measured on an H100 (bench_rans_kernels.py, 384 lanes, T = 32..600): a
+// decode step costs about 285 SM cycles and an encode step about 120, plus
+// 8-10 us per launch (prologue, write-out, launch gap). With one warp
+// per SM sub-partition nothing hides the chain: each step is ~20 dependent
+// instructions (SASS), and ptxas rebuilds the shared addresses from S2R and
+// constant loads inside the loop. A coarse table holding whole entries (one
+// dependent load a step instead of two) measured no faster, because that
+// address path, not the load, is the longer chain.
+//
+// The wire_batch pair (the *_aligned kernels) keeps the first design: one
+// thread per (image, lane) in blocks of 128, CDF rows read through L1, CUDA's
+// exact 32-bit divide, and a linear CDF scan in the decoder.
+//
+// Both designs hold the plain versions' contract bit for bit on valid
+// tables: CDF rows non-decreasing from 0 to 2^16 within cdf_length, every
+// coded symbol of frequency >= 1, stream values in 0..65535. A read past a
+// lane's stream row yields 0, and the final states say whether each lane
+// returned to 2^16.
 //
 // Layouts (all row-major, int32 unless stated):
 //   cdf_lane (N, cols); len_lane, off_lane (N,)
@@ -38,7 +76,8 @@
 //   masks    (k, N, T)  uint8 (torch.bool), aligned encode only, optional
 //
 // Each C entry point launches on the given stream and returns
-// cudaGetLastError().
+// cudaGetLastError(), or cudaErrorInvalidValue (without launching) when the
+// shapes need more shared memory than a block can have.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -46,15 +85,350 @@
 namespace {
 
 constexpr uint32_t kRansL = 1u << 16;
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;   // aligned kernels: threads per block
+constexpr int kWarp = 32;       // batch-1 kernels: lanes (threads) per block
+constexpr int kTile = 32;       // steps / stream columns per staged tile
+constexpr int kBuckets = 256;   // coarse decode table: slot >> 8
 
-template <bool kAligned>
+// ---- asynchronous global -> shared copies --------------------------------
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(dst), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most one group (the newest) is still in flight
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// the block's `n` contiguous CDF entries into shared memory, coalesced; the
+// copies join the next committed group
+__device__ __forceinline__ void stage_rows(int32_t* dst, const int32_t* src,
+                                           int n, int l) {
+  for (int e = l; e < n; e += kWarp) cp_async4(dst + e, src + e);
+}
+
+// ---- exact division by a reciprocal ----------------------------------------
+//
+// reciprocal48(fr) = m = ceil(2^48 / fr) for fr in [1, 2^16], and then
+// floor(x / fr) == (x * m) >> 48 for every state the encoder divides,
+// x < fr * 2^16 (after renormalisation x < fr << 16, or x < 2^16 when
+// fr << 16 wraps to 0 at fr = 2^16). Proof: let d = m*fr - 2^48, so
+// 0 <= d < fr. Then x*m / 2^48 = x/fr + x*d / (fr * 2^48), and
+// x*d < fr*2^16 * fr <= 2^48, so the second term is below 1/fr. With
+// x = q*fr + r, r <= fr - 1: q <= x*m / 2^48 < q + (r + 1)/fr <= q + 1, so
+// the floor is q. The product fits 64 bits: x*m <= (fr*2^16 - 1)(2^48 + d)/fr
+// = 2^64 + 2^16*d - (2^48 + d)/fr, and 2^16*d*fr < 2^16 * 2^32 = 2^48, so
+// x*m < 2^64.
+// m is computed exactly: __ddiv_ru gives the least double >= 2^48/fr, and
+// the integer ceil(2^48/fr) < 2^53 is itself a double >= 2^48/fr, so the
+// rounded quotient lies between 2^48/fr and that integer and its ceil is it.
+__device__ __forceinline__ uint64_t reciprocal48(uint32_t fr) {
+  return static_cast<uint64_t>(
+      ceil(__ddiv_ru(281474976710656.0, static_cast<double>(fr))));
+}
+
+// ---- shared-memory plans (bytes) -------------------------------------------
+
+// encoder: (start, freq, m_lo, m_hi) per [symbol][lane], two symbol tiles,
+// the block's raw CDF rows, the lanes' counts, then the u16 output rows of
+// pitch T+1
+inline size_t encode_smem(int cols, int steps) {
+  return sizeof(uint4) * cols * kWarp + sizeof(int32_t) * 2 * kTile * kWarp
+         + sizeof(int32_t) * cols * kWarp + sizeof(int32_t) * kWarp
+         + sizeof(uint16_t) * kWarp * (static_cast<size_t>(steps) + 1);
+}
+
+// decoder: (start, freq) per [symbol][lane], the coarse table, two stream
+// tiles, the block's raw CDF rows, then the u16 stream rows of pitch
+// min(W, T)+1
+inline size_t decode_smem(int cols, int width, int steps) {
+  const int wc = width < steps ? width : steps;
+  return sizeof(uint2) * cols * kWarp + sizeof(uint16_t) * kBuckets * kWarp
+         + sizeof(int32_t) * 2 * kTile * kWarp
+         + sizeof(int32_t) * cols * kWarp
+         + sizeof(uint16_t) * kWarp * (static_cast<size_t>(wc) + 1);
+}
+
+inline int smem_optin() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  return bytes;
+}
+
+// ---- batch-1 encode --------------------------------------------------------
+
+__global__ void __launch_bounds__(kWarp)
+rans_encode_warp_kernel(const int32_t* __restrict__ cdf_lane, int cols,
+                        const int32_t* __restrict__ vc, int steps, int lanes,
+                        int32_t* __restrict__ streams,
+                        int32_t* __restrict__ lengths,
+                        int64_t* __restrict__ states) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int chunks = (lanes + kWarp - 1) / kWarp;
+  const int img = blockIdx.x / chunks;
+  const int lane0 = (blockIdx.x % chunks) * kWarp;
+  const int l = threadIdx.x;
+  const int lane = lane0 + l;
+  const bool active = lane < lanes;
+  const int nrow = min(kWarp, lanes - lane0);
+  const int pitch = steps + 1;
+  uint4* tab = reinterpret_cast<uint4*>(smem);                 // [cols][32]
+  int32_t* vtile = reinterpret_cast<int32_t*>(tab + cols * kWarp);
+  int32_t* raw = vtile + 2 * kTile * kWarp;                    // [32][cols]
+  int32_t* counts = raw + cols * kWarp;                        // [32]
+  uint16_t* obuf = reinterpret_cast<uint16_t*>(counts + kWarp);
+  const int32_t* v_img = vc + static_cast<int64_t>(img) * steps * lanes;
+  const int ntiles = (steps + kTile - 1) / kTile;
+
+  // stage tile s (steps [s*kTile, s*kTile+kTile)) of the block's symbol
+  // columns into buffer s&1: per step, 32 lanes' int32 values, coalesced;
+  // an empty group for s < 0 keeps the wait count uniform
+  auto stage = [&](int s) {
+    if (s >= 0 && active) {
+      int32_t* dst = vtile + (s & 1) * kTile * kWarp;
+      const int t0 = s * kTile, t1 = min(t0 + kTile, steps);
+      for (int t = t0; t < t1; ++t)
+        cp_async4(dst + (t - t0) * kWarp + l,
+                  v_img + static_cast<int64_t>(t) * lanes + lane);
+    }
+    cp_async_commit();
+  };
+  // the block's CDF rows (contiguous) go with the first symbol tile; the
+  // symbols are coded in reverse order, so the last tile comes first
+  stage_rows(raw, cdf_lane + static_cast<int64_t>(lane0) * cols, nrow * cols,
+             l);
+  stage(ntiles - 1);
+  stage(ntiles - 2);
+  cp_async_wait_one();
+  __syncwarp();
+
+  // lane tables: each thread expands its own lane's row (unrolled: the
+  // reciprocals of neighbouring entries are independent)
+  if (active) {
+    const int32_t* row = raw + l * cols;
+#pragma unroll 4
+    for (int v = 0; v < cols; ++v) {
+      const uint32_t st = static_cast<uint32_t>(row[v]);
+      const uint32_t fr =
+          v + 1 < cols ? static_cast<uint32_t>(row[v + 1]) - st : 0u;
+      const uint64_t m = fr ? reciprocal48(fr) : 0;
+      tab[v * kWarp + l] = make_uint4(st, fr, static_cast<uint32_t>(m),
+                                      static_cast<uint32_t>(m >> 32));
+    }
+  }
+  __syncwarp();
+
+  uint32_t x = kRansL;
+  int count = 0;
+  uint16_t* orow = obuf + l * pitch;
+  for (int s = ntiles - 1; s >= 0; --s) {
+    cp_async_wait_one();          // tile s has landed (s-1 may be in flight)
+    __syncwarp();
+    if (active) {
+      const int32_t* vt = vtile + (s & 1) * kTile * kWarp;
+      const int t0 = s * kTile, t1 = min(t0 + kTile, steps);
+      // the symbols and table entries do not depend on the state: fetch
+      // step t-1's entry and step t-2's symbol while step t runs
+      int vn = t1 - 2 >= t0 ? vt[(t1 - 2 - t0) * kWarp + l] : 0;
+      uint4 next = tab[vt[(t1 - 1 - t0) * kWarp + l] * kWarp + l];
+      for (int t = t1 - 1; t >= t0; --t) {
+        const uint4 e = next;
+        if (t - 1 >= t0) next = tab[vn * kWarp + l];
+        if (t - 2 >= t0) vn = vt[(t - 2 - t0) * kWarp + l];
+        const uint32_t st = e.x, fr = e.y;
+        // uint32 arithmetic throughout, wrapping exactly as the reference's
+        const bool renorm = x >= (fr << 16);
+        if (renorm) {
+          // the count-th emission goes to column steps-1-count
+          orow[steps - 1 - count] = static_cast<uint16_t>(x & 0xFFFFu);
+          ++count;
+          x >>= 16;
+        }
+        const uint64_t m = (static_cast<uint64_t>(e.w) << 32) | e.z;
+        const uint32_t q =
+            static_cast<uint32_t>((static_cast<uint64_t>(x) * m) >> 48);
+        x = (q << 16) + (x - q * fr) + st;
+      }
+    }
+    __syncwarp();                 // buffer s&1 is read; refill it
+    stage(s - 2);
+  }
+  if (active) {
+    counts[l] = count;
+    const int64_t gid = static_cast<int64_t>(img) * lanes + lane;
+    lengths[gid] = count;
+    states[gid] = static_cast<int64_t>(x);
+  }
+  __syncwarp();
+
+  // coalesced write-out of the block's rows: chunks at the front in decode
+  // order, zeros after; four rows at a time so their shared loads overlap
+  int32_t* out = streams + (static_cast<int64_t>(img) * lanes + lane0) * steps;
+  for (int r0 = 0; r0 < nrow; r0 += 4) {
+    int cnt[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) cnt[i] = r0 + i < nrow ? counts[r0 + i] : 0;
+    for (int c = l; c < steps; c += kWarp) {
+      int32_t val[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        val[i] = c < cnt[i] ? obuf[(r0 + i) * pitch + (steps - cnt[i]) + c]
+                            : 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (r0 + i < nrow)
+          out[static_cast<int64_t>(r0 + i) * steps + c] = val[i];
+    }
+  }
+}
+
+// ---- batch-1 decode --------------------------------------------------------
+
+__global__ void __launch_bounds__(kWarp)
+rans_decode_warp_kernel(const int32_t* __restrict__ streams, int width,
+                        const int64_t* __restrict__ states,
+                        const int32_t* __restrict__ cdf_lane, int cols,
+                        const int32_t* __restrict__ len_lane,
+                        const int32_t* __restrict__ off_lane, int steps,
+                        int lanes, int32_t* __restrict__ out,
+                        int64_t* __restrict__ xend) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int chunks = (lanes + kWarp - 1) / kWarp;
+  const int img = blockIdx.x / chunks;
+  const int lane0 = (blockIdx.x % chunks) * kWarp;
+  const int l = threadIdx.x;
+  const int lane = lane0 + l;
+  const bool active = lane < lanes;
+  const int nrow = min(kWarp, lanes - lane0);
+  // a lane reads at most one chunk per step, so column ptr <= t < steps:
+  // only the first min(W, T) columns can ever be read
+  const int wc = min(width, steps);
+  const int pitch = wc + 1;
+  uint2* tab = reinterpret_cast<uint2*>(smem);                 // [cols][32]
+  uint16_t* coarse = reinterpret_cast<uint16_t*>(tab + cols * kWarp);
+  int32_t* stile = reinterpret_cast<int32_t*>(coarse + kBuckets * kWarp);
+  int32_t* raw = stile + 2 * kWarp * kTile;                    // [32][cols]
+  uint16_t* rowbuf = reinterpret_cast<uint16_t*>(raw + cols * kWarp);
+  const int32_t* s_blk =
+      streams + (static_cast<int64_t>(img) * lanes + lane0) * width;
+  const int ncol = (wc + kTile - 1) / kTile;
+
+  // stage stream columns [s*kTile, s*kTile+kTile) of the block's rows into
+  // buffer s&1 (per row, 32 consecutive int32, coalesced)
+  auto stage = [&](int s) {
+    const int c = s * kTile + l;
+    if (s < ncol && c < wc) {
+      int32_t* dst = stile + (s & 1) * kWarp * kTile;
+      for (int r = 0; r < nrow; ++r)
+        cp_async4(dst + r * kTile + l,
+                  s_blk + static_cast<int64_t>(r) * width + c);
+    }
+    cp_async_commit();
+  };
+  stage_rows(raw, cdf_lane + static_cast<int64_t>(lane0) * cols, nrow * cols,
+             l);
+  stage(0);
+  stage(1);
+  uint32_t x = 0;
+  int len = 0, off = 0;
+  if (active) {
+    x = static_cast<uint32_t>(states[static_cast<int64_t>(img) * lanes
+                                     + lane]);
+    len = min(len_lane[lane], cols);
+    off = off_lane[lane];
+  }
+  cp_async_wait_one();           // the CDF rows and stream tile 0
+  __syncwarp();
+
+  if (active) {
+    // lane table, and the coarse table: coarse[b] = largest v < len with
+    // cdf[v] <= b << 8, i.e. the smallest v whose cdf[v+1] exceeds b << 8
+    // (for a non-decreasing row); the symbol of any slot in bucket b is at
+    // or after it
+    const int32_t* row = raw + l * cols;
+    int b = 0;
+    for (int v = 0; v < cols; ++v) {
+      const uint32_t st = static_cast<uint32_t>(row[v]);
+      const uint32_t nx = v + 1 < cols ? static_cast<uint32_t>(row[v + 1])
+                                       : st;
+      tab[v * kWarp + l] = make_uint2(st, nx - st);
+      if (v + 1 < len)
+        for (; b < kBuckets && (static_cast<uint32_t>(b) << 8) < nx; ++b)
+          coarse[b * kWarp + l] = static_cast<uint16_t>(v);
+    }
+    for (; b < kBuckets; ++b) coarse[b * kWarp + l] = 0;
+  }
+
+  int32_t* o = out + static_cast<int64_t>(img) * steps * lanes + lane;
+  const uint16_t* row = rowbuf + l * pitch;
+  int ptr = 0;
+  for (int s = 0; s * kTile < steps; ++s) {
+    if (s < ncol) {
+      // tile s has landed: narrow it into the u16 rows, then refill its
+      // buffer with tile s+2
+      cp_async_wait_one();
+      __syncwarp();
+      const int c = s * kTile + l;
+      if (c < wc) {
+        // eight rows at a time, loads before stores, so the loads overlap
+        const int32_t* src = stile + (s & 1) * kWarp * kTile;
+        for (int r0 = 0; r0 < nrow; r0 += 8) {
+          int32_t val[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            val[i] = r0 + i < nrow ? src[(r0 + i) * kTile + l] : 0;
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            if (r0 + i < nrow)
+              rowbuf[(r0 + i) * pitch + c] = static_cast<uint16_t>(val[i]);
+        }
+      }
+      __syncwarp();
+      stage(s + 2);
+    }
+    if (!active) continue;
+    const int t1 = min(s * kTile + kTile, steps);
+    for (int t = s * kTile; t < t1; ++t) {
+      const uint32_t slot = x & 0xFFFFu;
+      // the coarse bucket's first candidate, then a forward scan while
+      // cdf[v+1] = start + freq <= slot: usually no step for narrow rows
+      int v = coarse[(slot >> 8) * kWarp + l];
+      uint2 e = tab[v * kWarp + l];
+      while (v + 1 < len && e.x + e.y <= slot) e = tab[++v * kWarp + l];
+      // the next chunk does not depend on x: load it off the chain; a read
+      // past the lane's row yields 0, as the reference's one-hot
+      const uint32_t chunk = ptr < wc ? row[ptr] : 0u;
+      x = e.y * (x >> 16) + slot - e.x;
+      if (x < kRansL) {
+        x = (x << 16) | chunk;
+        ++ptr;
+      }
+      o[static_cast<int64_t>(t) * lanes] = v + off;
+    }
+  }
+  if (active)
+    xend[static_cast<int64_t>(img) * lanes + lane] = static_cast<int64_t>(x);
+}
+
+// ---- wire_batch (aligned) kernels: the first design ------------------------
+
 __global__ void __launch_bounds__(kThreads)
-rans_encode_kernel(const int32_t* __restrict__ cdf_lane, int cols,
-                   const int32_t* __restrict__ vc, int num_images, int steps,
-                   int lanes, int32_t* __restrict__ streams,
-                   int32_t* __restrict__ lengths, int64_t* __restrict__ states,
-                   uint8_t* __restrict__ masks) {
+rans_encode_aligned_kernel(const int32_t* __restrict__ cdf_lane, int cols,
+                           const int32_t* __restrict__ vc, int num_images,
+                           int steps, int lanes, int32_t* __restrict__ streams,
+                           int32_t* __restrict__ lengths,
+                           int64_t* __restrict__ states,
+                           uint8_t* __restrict__ masks) {
   const int64_t gid = static_cast<int64_t>(blockIdx.x) * blockDim.x
                       + threadIdx.x;
   if (gid >= static_cast<int64_t>(num_images) * lanes) return;
@@ -77,36 +451,23 @@ rans_encode_kernel(const int32_t* __restrict__ cdf_lane, int cols,
     const uint32_t chunk = x & 0xFFFFu;
     if (renorm) x >>= 16;
     x = ((x / fr) << 16) + (x % fr) + st;
-    if (kAligned) {
-      out[t] = renorm ? static_cast<int32_t>(chunk) : 0;
-      if (mrow) mrow[t] = renorm ? 1 : 0;
-    } else if (renorm) {
-      // emission e goes to column steps-1-e: once the loop ends, the
-      // chunks sit at [steps-count, steps) already in decode order
-      out[steps - 1 - count] = static_cast<int32_t>(chunk);
-    }
+    out[t] = renorm ? static_cast<int32_t>(chunk) : 0;
+    if (mrow) mrow[t] = renorm ? 1 : 0;
     count += renorm ? 1 : 0;
-  }
-  if (!kAligned) {
-    // compact to the front (source index >= destination, so a forward
-    // copy is safe) and zero the rest of the row
-    const int base = steps - count;
-    for (int i = 0; i < count; ++i) out[i] = out[base + i];
-    for (int i = count; i < steps; ++i) out[i] = 0;
   }
   lengths[gid] = count;
   states[gid] = static_cast<int64_t>(x);
 }
 
-template <bool kAligned>
 __global__ void __launch_bounds__(kThreads)
-rans_decode_kernel(const int32_t* __restrict__ streams, int width,
-                   const int64_t* __restrict__ states,
-                   const int32_t* __restrict__ cdf_lane, int cols,
-                   const int32_t* __restrict__ len_lane,
-                   const int32_t* __restrict__ off_lane, int num_images,
-                   int steps, int lanes, int32_t* __restrict__ out,
-                   int64_t* __restrict__ xend) {
+rans_decode_aligned_kernel(const int32_t* __restrict__ streams, int width,
+                           const int64_t* __restrict__ states,
+                           const int32_t* __restrict__ cdf_lane, int cols,
+                           const int32_t* __restrict__ len_lane,
+                           const int32_t* __restrict__ off_lane,
+                           int num_images, int steps, int lanes,
+                           int32_t* __restrict__ out,
+                           int64_t* __restrict__ xend) {
   const int64_t gid = static_cast<int64_t>(blockIdx.x) * blockDim.x
                       + threadIdx.x;
   if (gid >= static_cast<int64_t>(num_images) * lanes) return;
@@ -119,7 +480,6 @@ rans_decode_kernel(const int32_t* __restrict__ streams, int width,
   int32_t* o = out + static_cast<int64_t>(img) * steps * lanes + lane;
 
   uint32_t x = static_cast<uint32_t>(states[gid]);
-  int ptr = 0;
   for (int t = 0; t < steps; ++t) {
     const int32_t slot = static_cast<int32_t>(x & 0xFFFFu);
     // v = (number of entries below cdf_length with cdf[i] <= slot) - 1,
@@ -131,17 +491,7 @@ rans_decode_kernel(const int32_t* __restrict__ streams, int width,
     const uint32_t st = static_cast<uint32_t>(row[v]);
     const uint32_t fr = static_cast<uint32_t>(row[v + 1]) - st;
     x = fr * (x >> 16) + static_cast<uint32_t>(slot) - st;
-    if (x < kRansL) {
-      uint32_t chunk;
-      if (kAligned) {
-        chunk = static_cast<uint32_t>(s[t]);
-      } else {
-        // a read past the lane's row yields 0, as the reference's one-hot
-        chunk = ptr < width ? static_cast<uint32_t>(s[ptr]) : 0u;
-        ++ptr;
-      }
-      x = (x << 16) | chunk;
-    }
+    if (x < kRansL) x = (x << 16) | static_cast<uint32_t>(s[t]);
     o[static_cast<int64_t>(t) * lanes] = v + off;
   }
   xend[gid] = static_cast<int64_t>(x);
@@ -152,18 +502,48 @@ inline unsigned blocks_for(int num_images, int lanes) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
 
+inline unsigned warp_blocks(int num_images, int lanes) {
+  return static_cast<unsigned>(num_images)
+         * static_cast<unsigned>((lanes + kWarp - 1) / kWarp);
+}
+
+// raise a kernel's dynamic shared-memory cap when `bytes` needs it;
+// false when no block can have that much
+template <typename Kernel>
+bool fit_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return true;
+  if (bytes > static_cast<size_t>(smem_optin())) return false;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes)) == cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
+
+// Largest steps T (decode = 0: encode) or stream width min(W, T)
+// (decode = 1) that the batch-1 kernels take for CDF rows of `cols` entries
+// on the current device.
+int rans_cyclic_max_steps(int decode, int cols) {
+  const int64_t avail = smem_optin();
+  const int64_t fixed = decode ? static_cast<int64_t>(decode_smem(cols, 0, 0))
+                               : static_cast<int64_t>(encode_smem(cols, 0));
+  // both plans add kWarp u16 per step or column beyond `fixed`
+  const int64_t per = static_cast<int64_t>(sizeof(uint16_t)) * kWarp;
+  return avail < fixed ? 0 : static_cast<int>((avail - fixed) / per);
+}
 
 int rans_cyclic_encode(const int32_t* cdf_lane, int cols, const int32_t* vc,
                        int num_images, int steps, int lanes, int32_t* streams,
                        int32_t* lengths, int64_t* states,
                        cudaStream_t stream) {
-  rans_encode_kernel<false><<<blocks_for(num_images, lanes), kThreads, 0,
-                              stream>>>(cdf_lane, cols, vc, num_images, steps,
-                                        lanes, streams, lengths, states,
-                                        nullptr);
+  const size_t smem = encode_smem(cols, steps);
+  if (!fit_smem(rans_encode_warp_kernel, smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  rans_encode_warp_kernel<<<warp_blocks(num_images, lanes), kWarp, smem,
+                            stream>>>(cdf_lane, cols, vc, steps, lanes,
+                                      streams, lengths, states);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -172,10 +552,10 @@ int rans_cyclic_encode_aligned(const int32_t* cdf_lane, int cols,
                                int lanes, int32_t* streams, int32_t* lengths,
                                int64_t* states, uint8_t* masks,
                                cudaStream_t stream) {
-  rans_encode_kernel<true><<<blocks_for(num_images, lanes), kThreads, 0,
-                             stream>>>(cdf_lane, cols, vc, num_images, steps,
-                                       lanes, streams, lengths, states,
-                                       masks);
+  rans_encode_aligned_kernel<<<blocks_for(num_images, lanes), kThreads, 0,
+                               stream>>>(cdf_lane, cols, vc, num_images,
+                                         steps, lanes, streams, lengths,
+                                         states, masks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -185,10 +565,13 @@ int rans_cyclic_decode(const int32_t* streams, int width,
                        const int32_t* off_lane, int num_images, int steps,
                        int lanes, int32_t* out, int64_t* xend,
                        cudaStream_t stream) {
-  rans_decode_kernel<false><<<blocks_for(num_images, lanes), kThreads, 0,
-                              stream>>>(streams, width, states, cdf_lane,
-                                        cols, len_lane, off_lane, num_images,
-                                        steps, lanes, out, xend);
+  const size_t smem = decode_smem(cols, width, steps);
+  if (!fit_smem(rans_decode_warp_kernel, smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  rans_decode_warp_kernel<<<warp_blocks(num_images, lanes), kWarp, smem,
+                            stream>>>(streams, width, states, cdf_lane, cols,
+                                      len_lane, off_lane, steps, lanes, out,
+                                      xend);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -198,10 +581,10 @@ int rans_cyclic_decode_aligned(const int32_t* streams, int width,
                                const int32_t* off_lane, int num_images,
                                int steps, int lanes, int32_t* out,
                                int64_t* xend, cudaStream_t stream) {
-  rans_decode_kernel<true><<<blocks_for(num_images, lanes), kThreads, 0,
-                             stream>>>(streams, width, states, cdf_lane, cols,
-                                       len_lane, off_lane, num_images, steps,
-                                       lanes, out, xend);
+  rans_decode_aligned_kernel<<<blocks_for(num_images, lanes), kThreads, 0,
+                               stream>>>(streams, width, states, cdf_lane,
+                                         cols, len_lane, off_lane,
+                                         num_images, steps, lanes, out, xend);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,18 +12,24 @@
 `wire_batch=k` images per coding launch (time-aligned streams), and
 accounts each image's exact wire size.
 
+The host CompressAI-format coder (`encode`/`decode`, `ops/rans/coder.py`)
+is the escape path: an image whose latent leaves the CDF support
+(`ok=False`) or whose device decode fails (`valid=False`) is re-coded on
+the host, accounted with those bytes, and served from that path's logits,
+as in the JAX runtime. `SplitClassifierRuntime.escapes` counts them by the
+check that failed. `ok=False` is a property of the data; the device coder
+is exact, so `valid=False` means a faulty kernel or stream, and each one is
+also logged as a warning.
+
 Numerics: symbols are bit-identical to the float32 reference only if the
 encoder runs in true float32. cuDNN runs float32 convolutions in TF32 by
 default, which moves symbols across rounding boundaries, so a runtime on a
 CUDA device sets `torch.backends.cudnn.allow_tf32 = False` and
 `torch.backends.cuda.matmul.allow_tf32 = False` (process-wide flags).
-
-The host CompressAI-format coder, and with it the escape path for
-out-of-support latents, is not ported yet: where the JAX runtime re-codes
-such an image on the host, this runtime raises.
 """
 from __future__ import annotations
 
+import logging
 import time
 from collections import deque
 
@@ -33,9 +39,12 @@ import torch
 from ..analysis import AnalyzerHolder
 from ..device import resolve_device
 from ..ops.entropy.tables import CodingTables, build_factorized_tables
+from ..ops.rans.coder import RansCoder
 from ..ops.rans.device import (auto_lanes, device_rans_decode,
                                device_rans_encode, pack_stream)
 from .layer import FPBasedResNetBottleneck
+
+logger = logging.getLogger(__name__)
 
 
 def add_timing(timings, key, dt):
@@ -44,15 +53,42 @@ def add_timing(timings, key, dt):
         timings[key] = timings.get(key, 0.0) + dt
 
 
+def _channel_major(symbols: np.ndarray) -> np.ndarray:
+    """(h, w, c) -> channel-major flat order (c, h*w) for per-channel CDFs."""
+    return np.transpose(symbols, (2, 0, 1)).reshape(symbols.shape[-1], -1)
+
+
 class FactorizedCodec:
-    """Coding tables for an `EntropyBottleneck`-only bottleneck (FP)."""
+    """Coding tables and host coder for an `EntropyBottleneck`-only
+    bottleneck (FP)."""
 
     def __init__(self):
         self.tables: CodingTables | None = None
+        self.coder: RansCoder | None = None
 
     def update(self, module):
         self.tables = build_factorized_tables(
             module.bottleneck_layer.entropy_bottleneck)
+        self.coder = RansCoder(self.tables.quantized_cdf,
+                               self.tables.cdf_length, self.tables.offset)
+
+    def compress_symbols(self, symbols: np.ndarray):
+        """symbols: (n, h, w, c) int32 -> list of per-sample byte strings,
+        coded channel-major (symbol order of the JAX codec)."""
+        n, h, w, c = symbols.shape
+        indexes = np.repeat(np.arange(c, dtype=np.int32), h * w)
+        return [self.coder.encode_with_indexes(
+            _channel_major(symbols[i]).ravel(), indexes) for i in range(n)]
+
+    def decompress_symbols(self, strings, shape, channels):
+        """Inverse of `compress_symbols`: -> (n, h, w, c) int32."""
+        h, w = shape
+        indexes = np.repeat(np.arange(channels, dtype=np.int32), h * w)
+        out = []
+        for s in strings:
+            flat = self.coder.decode_with_indexes(s, indexes)
+            out.append(np.transpose(flat.reshape(channels, h, w), (1, 2, 0)))
+        return np.stack(out)
 
 
 class SplitClassifierRuntime(AnalyzerHolder):
@@ -90,6 +126,8 @@ class SplitClassifierRuntime(AnalyzerHolder):
                 f'{type(self._bneck).__name__} is not ported yet; the port '
                 'serves the FP bottleneck')
         self.codec = FactorizedCodec()
+        # images re-coded on the host coder, by the check they failed
+        self.escapes = {'ok': 0, 'valid': 0}
         self._medians = None
         self._tables_dev = None
 
@@ -129,6 +167,41 @@ class SplitClassifierRuntime(AnalyzerHolder):
             x = (x - self._norm_mean[:, None, None]) \
                 / self._norm_std[:, None, None]
         return x
+
+    # ---- host coder (escape path) ----------------------------------------
+    @torch.no_grad()
+    def encode(self, x):
+        """Mobile side with the host coder: the encoder runs on the
+        runtime's device, the symbols cross to the host and are coded
+        there. Returns the compressed object {'strings', 'shape'}."""
+        flat, (h, w, c) = self._symbols_nhwc(x)
+        symbols = flat.reshape(-1, h, w, c).cpu().numpy()
+        return {'strings': [self.codec.compress_symbols(symbols)],
+                'shape': (h, w)}
+
+    @torch.no_grad()
+    def decode(self, strings, shape):
+        """Host decoding, then the decoded symbols go back to the device
+        for the IGDN decoder and the tail. Returns logits (n, K)."""
+        channels = self.codec.tables.medians.shape[0]
+        symbols = self.codec.decompress_symbols(strings[0], shape, channels)
+        flat = torch.from_numpy(symbols.reshape(len(symbols), -1))
+        return self._decode_tail(flat.to(self.device),
+                                 (*shape, channels))
+
+    def _escape(self, x, ok, index):
+        """Re-code image `index` on the host coder: count the escape by
+        the check it failed (`ok`, else `valid`), account its bytes and
+        return that path's logits."""
+        flag = 'valid' if ok else 'ok'
+        self.escapes[flag] += 1
+        if flag == 'valid':
+            logger.warning('image %d: device rANS decode did not return to '
+                           'its initial state (valid=False); re-coded on the '
+                           'host coder', index)
+        compressed = self.encode(x)
+        self.analyze(compressed)
+        return self.decode(**compressed)
 
     # ---- device-rANS wire -----------------------------------------------
     def _latent_shape(self, x_shape):
@@ -243,17 +316,6 @@ class SplitClassifierRuntime(AnalyzerHolder):
         while len(inflight) > max(int(depth), 1):
             inflight.popleft().synchronize()
 
-    @staticmethod
-    def _check_wire(i, ok, valid):
-        if not ok:
-            raise RuntimeError(
-                f'image {i}: ok=False, latent symbol outside the CDF '
-                'support; the host escape coder is not ported yet')
-        if not valid:
-            raise RuntimeError(
-                f'image {i}: valid=False, a rANS lane did not return to '
-                'its initial state after decoding')
-
     def stream_deploy_device(self, images, depth: int = 8, workers: int = 4,
                              num_lanes: int | None = None,
                              pull_wire: bool = False,
@@ -267,9 +329,13 @@ class SplitClassifierRuntime(AnalyzerHolder):
         `depth` bounds the images in flight; `workers` is accepted for
         signature parity with the JAX runtime (eager PyTorch needs no host
         pool). The [ok, nbytes] metas and `valid` flags are read once,
-        after the stream drains; an image that fails either raises
-        RuntimeError. `pull_wire=True` packs and accounts the real wire
-        bytes per image. `wire_batch=k` codes k images per launch."""
+        after the stream drains; an image that fails either (a latent
+        symbol outside the CDF support, or a lane that did not return to
+        its initial state) is re-coded on the host coder, accounted with
+        those bytes, served from that path's logits, and counted in
+        `escapes`. `pull_wire=True`
+        packs and accounts the real wire bytes per image. `wire_batch=k`
+        codes k images per launch."""
         del workers
         images = list(images)
         n = len(images)
@@ -297,12 +363,15 @@ class SplitClassifierRuntime(AnalyzerHolder):
             if pull_wire:
                 # packing needs the stream content: sync here
                 ok, nbytes = ops['meta'].tolist()
-                self._check_wire(i, ok, bool(valid))
-                wire = self._pull_device_wire(ops)
-                if len(wire) != nbytes:
-                    raise RuntimeError(f'image {i}: packed {len(wire)} '
-                                       f'bytes, encoder reported {nbytes}')
-                staged.append((wire, shape_hw, logits))
+                if ok and bool(valid):
+                    wire = self._pull_device_wire(ops)
+                    if len(wire) != nbytes:
+                        raise RuntimeError(
+                            f'image {i}: packed {len(wire)} bytes, encoder '
+                            f'reported {nbytes}')
+                    staged.append((wire, shape_hw, logits, ok))
+                else:
+                    staged.append((None, shape_hw, None, ok))
                 continue
             staged.append((ops['meta'], shape_hw, logits, valid))
             self._throttle(inflight, depth)
@@ -310,14 +379,19 @@ class SplitClassifierRuntime(AnalyzerHolder):
         t_acct = time.perf_counter()
         results = []
         if pull_wire:
-            for wire, shape_hw, logits in staged:
+            for i, (wire, shape_hw, logits, ok) in enumerate(staged):
+                if wire is None:
+                    results.append(self._escape(images[i], ok, i))
+                    continue
                 self.analyze({'strings': [[wire]], 'shape': shape_hw})
                 results.append(logits)
         else:
             metas = torch.stack([s[0] for s in staged]).cpu().numpy()
             valids = torch.stack([s[3] for s in staged]).cpu().numpy()
             for i, (_, shape_hw, logits, _) in enumerate(staged):
-                self._check_wire(i, int(metas[i, 0]), bool(valids[i]))
+                if not metas[i, 0] or not valids[i]:
+                    results.append(self._escape(images[i], metas[i, 0], i))
+                    continue
                 # the pickled size of a bytes object depends only on its
                 # length: account the exact wire size without its content
                 self.analyze({'strings': [[bytes(int(metas[i, 1]))]],
@@ -362,7 +436,10 @@ class SplitClassifierRuntime(AnalyzerHolder):
         results, i = [], 0
         for _, shape_hw, logits, _ in staged:
             for j in range(logits.shape[0]):
-                self._check_wire(i, int(metas[i, 0]), bool(valids[i]))
+                if not metas[i, 0] or not valids[i]:
+                    results.append(self._escape(images[i], metas[i, 0], i))
+                    i += 1
+                    continue
                 self.analyze({'strings': [[bytes(int(metas[i, 1]))]],
                               'shape': shape_hw})
                 results.append(logits[j:j + 1])

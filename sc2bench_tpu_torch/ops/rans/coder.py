@@ -1,0 +1,228 @@
+"""Host rANS coder in the CompressAI-style byte format (counterpart of
+`sc2bench_tpu/ops/rans/coder.py`, single-stream coding with indexes).
+
+Format: 32-bit state, 8-bit renormalization, 16-bit probability precision.
+A symbol outside its CDF row's support escapes to the row's last slot and
+its overflow is bypass-coded in 4-bit chunks, so every int32 symbol codes.
+This is what the device wire cannot do; the runtime re-codes an image here
+when its latent leaves the support (`ok=False`) or its device decode fails
+(`valid=False`).
+
+Two implementations of one format:
+  - `host.cpp`, compiled with g++ into `sc2bench_tpu_torch/build/` the
+    first time a coder needs it (named by the source's hash) and bound with
+    ctypes. A failed build raises; nothing drops silently to Python.
+  - the pure-Python reference below, which runs only when the caller asks
+    for it (`RansCoder(..., use_cpp=False)`), as the tests do.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+
+import numpy as np
+
+from .kernels import BUILD_DIR
+
+SOURCE = Path(__file__).resolve().parent / 'host.cpp'
+
+_PRECISION = 16
+_BYPASS_BITS = 4
+_MAX_BYPASS = (1 << _BYPASS_BITS) - 1
+_RANS_L = 1 << 23
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def build_library() -> Path:
+    """Compile `host.cpp` with g++ into a shared library named by the
+    source's hash, unless it is already built. Returns its path."""
+    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
+    lib = BUILD_DIR / f'libhost_rans_{digest}.so'
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f'.{os.getpid()}.tmp')
+    cmd = ['g++', '-O3', '-std=c++17', '-shared', '-fPIC', '-o', str(tmp),
+           str(SOURCE)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except FileNotFoundError as e:
+        raise RuntimeError('g++ not found: the host rANS coder needs a C++ '
+                           'compiler') from e
+    if proc.returncode != 0:
+        raise RuntimeError(f'g++ failed ({proc.returncode}):\n'
+                           f'{proc.stdout}{proc.stderr}')
+    os.replace(tmp, lib)
+    return lib
+
+
+def _library():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build_library()))
+            i32p = ctypes.POINTER(ctypes.c_int32)
+            u8p = ctypes.POINTER(ctypes.c_uint8)
+            i = ctypes.c_int
+            lib.rans_encode_with_indexes.restype = i
+            lib.rans_encode_with_indexes.argtypes = [
+                i32p, i32p, i, i32p, i, i32p, i32p, u8p, i]
+            lib.rans_decode_with_indexes.restype = i
+            lib.rans_decode_with_indexes.argtypes = [
+                u8p, i, i32p, i, i32p, i, i32p, i32p, i32p]
+            _lib = lib
+    return _lib
+
+
+def _as_i32(a):
+    return np.ascontiguousarray(a, dtype=np.int32)
+
+
+def _i32p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+def _u8p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+# ---------------------------------------------------------------------------
+# Pure-Python reference codec (same bitstream format as host.cpp).
+# ---------------------------------------------------------------------------
+
+def _py_encode(symbols, indexes, cdfs, cdf_lengths, offsets) -> bytes:
+    ops = []
+    for sym, idx in zip(symbols.tolist(), indexes.tolist()):
+        cdf = cdfs[idx]
+        max_value = int(cdf_lengths[idx]) - 2
+        value = sym - int(offsets[idx])
+        raw_val = None
+        if value < 0:
+            raw_val, value = -2 * value - 1, max_value
+        elif value >= max_value:
+            raw_val, value = 2 * (value - max_value), max_value
+        ops.append((int(cdf[value]), int(cdf[value + 1] - cdf[value])))
+        if raw_val is not None:
+            bfreq = 1 << (_PRECISION - _BYPASS_BITS)
+            n_bypass = 0
+            while (raw_val >> (n_bypass * _BYPASS_BITS)) != 0:
+                n_bypass += 1
+            val = n_bypass
+            while val >= _MAX_BYPASS:
+                ops.append((_MAX_BYPASS << (_PRECISION - _BYPASS_BITS), bfreq))
+                val -= _MAX_BYPASS
+            ops.append((val << (_PRECISION - _BYPASS_BITS), bfreq))
+            for j in range(n_bypass):
+                chunk = (raw_val >> (j * _BYPASS_BITS)) & _MAX_BYPASS
+                ops.append((chunk << (_PRECISION - _BYPASS_BITS), bfreq))
+
+    x = _RANS_L
+    buf = bytearray()
+    for start, freq in reversed(ops):
+        x_max = ((_RANS_L >> _PRECISION) << 8) * freq
+        while x >= x_max:
+            buf.append(x & 0xff)
+            x >>= 8
+        x = ((x // freq) << _PRECISION) + (x % freq) + start
+    for _ in range(4):
+        buf.append(x & 0xff)
+        x >>= 8
+    return bytes(reversed(buf))
+
+
+def _py_decode(data: bytes, indexes, cdfs, cdf_lengths, offsets) -> np.ndarray:
+    pos = 0
+    x = 0
+    for _ in range(4):
+        x = (x << 8) | (data[pos] if pos < len(data) else 0)
+        pos += 1
+
+    mask = (1 << _PRECISION) - 1
+
+    def advance(start, freq):
+        nonlocal x, pos
+        x = freq * (x >> _PRECISION) + (x & mask) - start
+        while x < _RANS_L:
+            x = (x << 8) | (data[pos] if pos < len(data) else 0)
+            pos += 1
+
+    def get_bypass():
+        val = (x & mask) >> (_PRECISION - _BYPASS_BITS)
+        advance(val << (_PRECISION - _BYPASS_BITS),
+                1 << (_PRECISION - _BYPASS_BITS))
+        return val
+
+    out = np.empty(len(indexes), np.int32)
+    for i, idx in enumerate(indexes.tolist()):
+        cdf = cdfs[idx]
+        max_value = int(cdf_lengths[idx]) - 2
+        slot = x & mask
+        s = int(np.searchsorted(cdf[:int(cdf_lengths[idx])], slot, 'right')) - 1
+        advance(int(cdf[s]), int(cdf[s + 1] - cdf[s]))
+        value = s
+        if s == max_value:
+            n_bypass = 0
+            while True:
+                val = get_bypass()
+                n_bypass += val
+                if val != _MAX_BYPASS:
+                    break
+            raw_val = 0
+            for j in range(n_bypass):
+                raw_val |= get_bypass() << (j * _BYPASS_BITS)
+            value = (-(raw_val + 1) // 2 if raw_val & 1
+                     else raw_val // 2 + max_value)
+        out[i] = value + int(offsets[idx])
+    return out
+
+
+class RansCoder:
+    """Host range coder bound to one set of coding tables (rows of
+    `quantized_cdf`, selected per symbol by its index)."""
+
+    def __init__(self, quantized_cdf: np.ndarray, cdf_length: np.ndarray,
+                 offset: np.ndarray, use_cpp: bool = True):
+        self.cdfs = _as_i32(quantized_cdf)
+        self.cdf_lengths = _as_i32(cdf_length)
+        self.offsets = _as_i32(offset)
+        self.cdf_stride = self.cdfs.shape[1]
+        self.lib = _library() if use_cpp else None
+
+    def encode_with_indexes(self, symbols, indexes) -> bytes:
+        symbols = _as_i32(symbols).ravel()
+        indexes = _as_i32(indexes).ravel()
+        if symbols.shape != indexes.shape:
+            raise ValueError(f'{symbols.size} symbols but {indexes.size} '
+                             'indexes')
+        if self.lib is None:
+            return _py_encode(symbols, indexes, self.cdfs, self.cdf_lengths,
+                              self.offsets)
+        capacity = max(1024, symbols.size * 8)
+        while True:
+            out = np.empty(capacity, np.uint8)
+            n = self.lib.rans_encode_with_indexes(
+                _i32p(symbols), _i32p(indexes), symbols.size,
+                _i32p(self.cdfs), self.cdf_stride, _i32p(self.cdf_lengths),
+                _i32p(self.offsets), _u8p(out), capacity)
+            if n >= 0:
+                return out[:n].tobytes()
+            capacity *= 4
+
+    def decode_with_indexes(self, data: bytes, indexes) -> np.ndarray:
+        indexes = _as_i32(indexes).ravel()
+        if self.lib is None:
+            return _py_decode(data, indexes, self.cdfs, self.cdf_lengths,
+                              self.offsets)
+        byte_arr = np.frombuffer(data, np.uint8)
+        out = np.empty(indexes.size, np.int32)
+        self.lib.rans_decode_with_indexes(
+            _u8p(byte_arr), byte_arr.size, _i32p(indexes), indexes.size,
+            _i32p(self.cdfs), self.cdf_stride, _i32p(self.cdf_lengths),
+            _i32p(self.offsets), _i32p(out))
+        return out

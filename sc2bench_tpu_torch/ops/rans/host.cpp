@@ -1,0 +1,227 @@
+// Byte-aligned rANS range coder with escape/bypass coding.
+//
+// The port's copy of the host coder of sc2bench_tpu/ops/rans/rans.cpp
+// (single-stream encode/decode with indexes only), the entropy-coding stage
+// the reference gets from CompressAI's C++ rANS. Runs on the host: the
+// bitstream is serial and CPU-bound; symbols/indexes arrive as int32 arrays
+// computed on the GPU. Built with g++ and bound with ctypes
+// (sc2bench_tpu_torch/ops/rans/coder.py). The runtime uses it for the
+// escape path of the device wire: images whose latent leaves the CDF
+// support are re-coded here.
+//
+// Design: 32-bit rANS state, 8-bit renormalization, 16-bit probability
+// precision. Out-of-range symbols escape to the final CDF slot and the
+// overflow magnitude is bypass-coded in 4-bit chunks (count first, unary in
+// base-15, then LSB-first chunks). Encoding walks the op list in reverse so
+// the decoder reads forward.
+//
+// One change from the reference: the escape magnitude is held in 64 bits.
+// The reference counts its chunks with a u32 shift, which reaches a shift by
+// 32 (undefined; on x86 it never ends) once the magnitude needs 8 chunks,
+// |value| >= 2^27; and -2 * value - 1 overflows int32 at INT_MIN. In 64 bits
+// every int32 symbol codes, with the bytes of the Python reference, which are
+// the reference's wherever it terminates.
+
+#include <cstdint>
+#include <cstring>
+#include <vector>
+
+namespace {
+
+constexpr uint32_t kRansL = 1u << 23;   // lower bound of the state interval
+constexpr int kPrecision = 16;          // probability bits
+constexpr int kBypassBits = 4;
+constexpr int32_t kMaxBypass = (1 << kBypassBits) - 1;
+
+struct RansEncState {
+    uint32_t x = kRansL;
+    std::vector<uint8_t> buf;  // filled back-to-front conceptually; we push and reverse
+
+    inline void put(uint32_t start, uint32_t freq) {
+        uint32_t x_max = ((kRansL >> kPrecision) << 8) * freq;
+        while (x >= x_max) {
+            buf.push_back(static_cast<uint8_t>(x & 0xff));
+            x >>= 8;
+        }
+        x = ((x / freq) << kPrecision) + (x % freq) + start;
+    }
+
+    // Append `kBypassBits` raw bits (value in [0, kMaxBypass]) as a uniform
+    // symbol: start = val << (precision - bits), freq = 1 << (precision - bits).
+    inline void put_bypass(uint32_t val) {
+        constexpr uint32_t freq = 1u << (kPrecision - kBypassBits);
+        put(val << (kPrecision - kBypassBits), freq);
+    }
+
+    inline void flush() {
+        for (int i = 0; i < 4; ++i) {
+            buf.push_back(static_cast<uint8_t>(x & 0xff));
+            x >>= 8;
+        }
+    }
+};
+
+struct RansDecState {
+    uint32_t x = 0;
+    const uint8_t* ptr;
+    const uint8_t* end;
+
+    inline void init(const uint8_t* bytes, int n) {
+        // Stream is stored with the flush bytes first (encoder output is
+        // reversed): read 4 state bytes big-to-small.
+        ptr = bytes;
+        end = bytes + n;
+        x = 0;
+        for (int i = 0; i < 4; ++i)
+            x = (x << 8) | (ptr < end ? *ptr++ : 0);
+    }
+
+    inline uint32_t peek() const { return x & ((1u << kPrecision) - 1); }
+
+    inline void advance(uint32_t start, uint32_t freq) {
+        x = freq * (x >> kPrecision) + peek() - start;
+        while (x < kRansL)
+            x = (x << 8) | (ptr < end ? *ptr++ : 0);
+    }
+
+    inline uint32_t get_bypass() {
+        uint32_t slot = peek();
+        uint32_t val = slot >> (kPrecision - kBypassBits);
+        constexpr uint32_t freq = 1u << (kPrecision - kBypassBits);
+        advance(val << (kPrecision - kBypassBits), freq);
+        return val;
+    }
+};
+
+struct Op {
+    uint32_t start;
+    uint32_t freq;
+};
+
+}  // namespace
+
+namespace {
+
+inline void emit_symbol_ops(std::vector<Op>& ops, const int32_t* cdf,
+                            int32_t max_value, int64_t value) {
+    uint64_t raw_val = 0;
+    bool escape = false;
+    if (value < 0) {
+        raw_val = static_cast<uint64_t>(-2 * value - 1);
+        value = max_value;
+        escape = true;
+    } else if (value >= max_value) {
+        raw_val = static_cast<uint64_t>(2 * (value - max_value));
+        value = max_value;
+        escape = true;
+    }
+    ops.push_back({static_cast<uint32_t>(cdf[value]),
+                   static_cast<uint32_t>(cdf[value + 1] - cdf[value])});
+    if (escape) {
+        int32_t n_bypass = 0;
+        while ((raw_val >> (n_bypass * kBypassBits)) != 0) ++n_bypass;
+        int32_t val = n_bypass;
+        while (val >= kMaxBypass) {
+            ops.push_back({static_cast<uint32_t>(kMaxBypass)
+                               << (kPrecision - kBypassBits),
+                           1u << (kPrecision - kBypassBits)});
+            val -= kMaxBypass;
+        }
+        ops.push_back({static_cast<uint32_t>(val)
+                           << (kPrecision - kBypassBits),
+                       1u << (kPrecision - kBypassBits)});
+        for (int32_t j = 0; j < n_bypass; ++j) {
+            const uint32_t chunk = static_cast<uint32_t>(
+                (raw_val >> (j * kBypassBits)) & kMaxBypass);
+            ops.push_back({chunk << (kPrecision - kBypassBits),
+                           1u << (kPrecision - kBypassBits)});
+        }
+    }
+}
+
+inline int64_t read_symbol_escape(RansDecState& dec, int32_t max_value) {
+    int32_t n_bypass = 0;
+    uint32_t val;
+    do {
+        val = dec.get_bypass();
+        n_bypass += static_cast<int32_t>(val);
+    } while (val == static_cast<uint32_t>(kMaxBypass));
+    // a valid stream has at most 9 chunks (raw_val < 2^34); more would
+    // shift past 64 bits
+    uint64_t raw_val = 0;
+    for (int32_t j = 0; j < n_bypass; ++j) {
+        const uint64_t chunk = dec.get_bypass();
+        if (j < 16) raw_val |= chunk << (j * kBypassBits);
+    }
+    return (raw_val & 1) ? -static_cast<int64_t>((raw_val + 1) >> 1)
+                         : static_cast<int64_t>(raw_val >> 1) + max_value;
+}
+
+}  // namespace
+
+
+extern "C" {
+
+// Encode n symbols. cdfs is row-major (num_dists, cdf_stride); row i holds
+// cdf_lengths[i] int32 entries, cdf[0]=0 .. cdf[len-1]=65536. Returns number
+// of bytes written to `out`, or -1 if out_capacity is insufficient.
+int rans_encode_with_indexes(const int32_t* symbols, const int32_t* indexes,
+                             int n, const int32_t* cdfs, int cdf_stride,
+                             const int32_t* cdf_lengths, const int32_t* offsets,
+                             uint8_t* out, int out_capacity) {
+    std::vector<Op> ops;
+    ops.reserve(static_cast<size_t>(n) + 16);
+    for (int i = 0; i < n; ++i) {
+        const int32_t idx = indexes[i];
+        const int32_t* cdf = cdfs + static_cast<int64_t>(idx) * cdf_stride;
+        const int32_t cdf_len = cdf_lengths[idx];
+        emit_symbol_ops(ops, cdf, cdf_len - 2,
+                        static_cast<int64_t>(symbols[i]) - offsets[idx]);
+    }
+
+    RansEncState enc;
+    enc.buf.reserve(static_cast<size_t>(n) * 2 + 8);
+    for (auto it = ops.rbegin(); it != ops.rend(); ++it)
+        enc.put(it->start, it->freq);
+    enc.flush();
+
+    const int total = static_cast<int>(enc.buf.size());
+    if (total > out_capacity) return -1;
+    // Reverse: decoder reads flush bytes first, then ops forward.
+    for (int i = 0; i < total; ++i)
+        out[i] = enc.buf[total - 1 - i];
+    return total;
+}
+
+// Decode n symbols from `bytes`. Writes int32 values (offset re-applied).
+int rans_decode_with_indexes(const uint8_t* bytes, int n_bytes,
+                             const int32_t* indexes, int n,
+                             const int32_t* cdfs, int cdf_stride,
+                             const int32_t* cdf_lengths, const int32_t* offsets,
+                             int32_t* out) {
+    RansDecState dec;
+    dec.init(bytes, n_bytes);
+    for (int i = 0; i < n; ++i) {
+        const int32_t idx = indexes[i];
+        const int32_t* cdf = cdfs + static_cast<int64_t>(idx) * cdf_stride;
+        const int32_t cdf_len = cdf_lengths[idx];
+        const int32_t max_value = cdf_len - 2;
+        const uint32_t slot = dec.peek();
+        // binary search: largest s with cdf[s] <= slot
+        int lo = 0, hi = cdf_len - 1;
+        while (hi - lo > 1) {
+            int mid = (lo + hi) >> 1;
+            if (static_cast<uint32_t>(cdf[mid]) <= slot) lo = mid;
+            else hi = mid;
+        }
+        const int s = lo;
+        dec.advance(static_cast<uint32_t>(cdf[s]),
+                    static_cast<uint32_t>(cdf[s + 1] - cdf[s]));
+        const int64_t value = (s == max_value)
+            ? read_symbol_escape(dec, max_value) : s;
+        out[i] = static_cast<int32_t>(value + offsets[idx]);
+    }
+    return 0;
+}
+
+}  // extern "C"

@@ -11,6 +11,13 @@ interface the first time a kernel is needed, under
 `LAUNCHES` counts kernel launches per kernel name; a wrapper adds one where
 it launches its kernel and nowhere else, so a caller can show that a path
 went through the kernels (`reset_launches()` zeroes the counts).
+
+The batch-1 kernels (`cyclic_encode`, `cyclic_decode`) stage a block's
+inputs and tables in shared memory, so they take at most
+`max_steps(cols, decode)` steps (encode) or stream columns min(W, T)
+(decode); a wrapper raises beyond that. On an H100 (227 KB a block) with
+the flagship's 23-column CDF rows that is 3,271 steps and 3,109 columns,
+against 190 at 224x224 and 2,048 at 2048x2048.
 """
 from __future__ import annotations
 
@@ -39,7 +46,7 @@ _lib_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
+    for name in LAUNCHES:
         LAUNCHES[name] = 0
 
 
@@ -89,7 +96,8 @@ def _library():
             for name, args in (('rans_cyclic_encode', enc + [p]),
                                ('rans_cyclic_encode_aligned', enc + [p, p]),
                                ('rans_cyclic_decode', dec + [p]),
-                               ('rans_cyclic_decode_aligned', dec + [p])):
+                               ('rans_cyclic_decode_aligned', dec + [p]),
+                               ('rans_cyclic_max_steps', [i, i])):
                 fn = getattr(lib, name)
                 fn.argtypes = args
                 fn.restype = i
@@ -117,6 +125,29 @@ def _launch(name: str, device: torch.device, *args) -> None:
     if rc != 0:
         raise RuntimeError(f'{name} launch failed: CUDA error {rc}')
     LAUNCHES[name] += 1
+
+
+_max_steps: dict = {}
+
+
+def max_steps(cols: int, decode: bool, device) -> int:
+    """Largest steps T (encode) or stream columns min(W, T) (decode) that
+    the batch-1 kernels take for `cols`-entry CDF rows on `device`."""
+    key = (torch.device(device), int(cols), bool(decode))
+    if key not in _max_steps:
+        with torch.cuda.device(device):
+            _max_steps[key] = int(_library().rans_cyclic_max_steps(
+                int(decode), int(cols)))
+    return _max_steps[key]
+
+
+def _check_fits(name: str, cols: int, n: int, decode: bool, device) -> None:
+    limit = max_steps(cols, decode, device)
+    if n > limit:
+        what = 'stream columns' if decode else 'steps'
+        raise ValueError(f'{name} takes at most {limit} {what} with '
+                         f'{cols}-entry CDF rows on this device, got {n}; '
+                         'raise num_lanes')
 
 
 def _require_cuda(t: torch.Tensor) -> None:
@@ -149,6 +180,8 @@ def cyclic_encode(cdf_lane: torch.Tensor, vc: torch.Tensor):
     if vc.device.type == 'cpu':
         return cyclic_encode_plain(cdf_lane, vc)
     args, outs = _encode_args(cdf_lane, vc)
+    _check_fits('rans_cyclic_encode', cdf_lane.shape[1], vc.shape[1], False,
+                vc.device)
     _launch('rans_cyclic_encode', vc.device, *args)
     return outs
 
@@ -201,6 +234,8 @@ def cyclic_decode(streams, states, cdf_lane, len_lane, off_lane,
                                    off_lane, steps)
     args, outs = _decode_args(streams, states, cdf_lane, len_lane,
                               off_lane, steps)
+    _check_fits('rans_cyclic_decode', cdf_lane.shape[1],
+                min(streams.shape[2], int(steps)), True, streams.device)
     _launch('rans_cyclic_decode', streams.device, *args)
     return outs
 

@@ -7,6 +7,9 @@ one; on a machine with a card run them with
 `python -m pytest tests/test_torch_port_kernels.py -m cuda --noconftest`
 (the suite's conftest configures JAX). The CPU tests pin the plain
 versions themselves against the numpy oracle on edge-case tables."""
+import math
+from fractions import Fraction
+
 import numpy as np
 import pytest
 import torch
@@ -57,9 +60,48 @@ def _skewed_tables():
         np.asarray([0, -3, 7], np.int32)
 
 
+def _wide_tables():
+    """Two 225-entry rows with many frequency-2 symbols (a coarse decode
+    bucket of 256 slots then holds up to ~20 symbols) and a row of the
+    flagship's width with a frequency-1 symbol at value 1."""
+    rng = np.random.default_rng(12)
+    cdf = np.zeros((3, 225), np.int32)
+    for c, width in ((0, 225), (1, 225), (2, 23)):
+        w = rng.uniform(0.05, 1.0, width - 1) ** 24
+        freqs = np.maximum((w / w.sum() * (1 << 16)).astype(np.int64), 2)
+        if c == 2:
+            freqs[1] = 1
+        freqs[np.argmax(freqs)] += (1 << 16) - freqs.sum()
+        cdf[c, 1:width] = np.cumsum(freqs)
+    return cdf, np.asarray([225, 225, 23], np.int32), \
+        np.asarray([-100, -3, -9], np.int32)
+
+
 # (channels, lanes, n): lane counts not multiples of 32 or 128, n not a
-# multiple of the lane count, the flagship 384 x 190 shape
-CASES = [(8, 48, 400), (24, 72, 5000), (24, 384, 72600), (6, 6, 97)]
+# multiple of the lane count, the flagship 384 x 190 shape, and 600 steps
+# (many staging tiles of the batch-1 kernels)
+CASES = [(8, 48, 400), (24, 72, 5000), (24, 384, 72600), (6, 6, 97),
+         (24, 168, 168 * 77 + 5), (24, 384, 384 * 600)]
+
+
+def test_reciprocal_division_is_exact_at_boundary_states():
+    """The batch-1 encoder divides a state x < fr * 2^16 by fr as
+    (x * m) >> 48 with m = ceil(2^48 / fr), m computed on the card as
+    ceil of the upward-rounded double quotient. Checked in Python ints for
+    every frequency at the states where a floor goes wrong first: either
+    side of each multiple of fr near 0 and near the top of the range."""
+    for fr in range(1, (1 << 16) + 1):
+        m = -(-(1 << 48) // fr)
+        d = (1 << 48) / fr                       # round to nearest
+        if Fraction(d) * fr < (1 << 48):         # round up instead
+            d = math.nextafter(d, math.inf)
+        assert math.ceil(d) == m
+        top = fr << 16
+        for x in (0, 1, fr - 1, fr, fr + 1, 2 * fr - 1, top - fr - 1,
+                  top - fr, top - 2, top - 1):
+            if 0 <= x < top:
+                assert x * m < 1 << 64
+                assert (x * m) >> 48 == x // fr, (fr, x)
 
 
 @pytest.mark.parametrize('aligned', [False, True])
@@ -147,7 +189,7 @@ def test_kernels_equal_plain_versions_on_the_card(C, lanes, n):
         assert bool((xend == td.RANS_L).all())
         flat = out.reshape(2, -1)[:, :n].cpu().numpy()
         np.testing.assert_array_equal(flat, rows)
-    assert set(kernels.LAUNCHES.values()) == {1}
+    assert {kernels.LAUNCHES[k] for k in kernels.KERNELS} == {1}
 
 
 @pytest.mark.cuda
@@ -170,7 +212,60 @@ def test_skewed_tables_on_the_card():
             n_symbols=701, num_lanes=9, cyclic_channels=3, aligned=aligned)
         assert bool(valid)
         np.testing.assert_array_equal(dec.cpu().numpy(), sym)
-    assert set(kernels.LAUNCHES.values()) == {1}
+    assert {kernels.LAUNCHES[k] for k in kernels.KERNELS} == {1}
+
+
+@pytest.mark.cuda
+def test_batch1_kernels_on_wide_and_frequency_1_rows_on_the_card():
+    """The batch-1 kernels on rows where a coarse decode bucket holds many symbols, and on a
+    frequency-1 symbol coded every seventh position, k=3: bit-equal to
+    the plain versions, valid on the round trip, invalid when a state is
+    corrupted."""
+    dev = _card()
+    cdf, cdf_length, offset = _wide_tables()
+    c, lanes, n = 3, 45, 45 * 60 - 7
+    rows = np.stack([_symbols(cdf, cdf_length, offset, n, seed=s)
+                     for s in (1, 2, 3)])
+    rare = np.arange(n) % c == 2
+    rows[:, rare & (np.arange(n) % 7 == 0)] = 1 + offset[2]
+    cdf_lane, len_lane, off_lane = td.lane_tables(
+        cdf, cdf_length, offset, lanes, c, dev)
+    sym3, _, _ = td._blocks(torch.from_numpy(rows).to(dev), lanes,
+                            off_lane)
+    vc = (sym3 - off_lane).contiguous()
+    steps = vc.shape[1]
+    plain = td.cyclic_encode_plain(cdf_lane, vc)
+    for a, b in zip(plain, kernels.cyclic_encode(cdf_lane, vc)):
+        assert torch.equal(a, b)
+    streams, _, states = plain
+    out, xend = kernels.cyclic_decode(streams, states, cdf_lane, len_lane,
+                                      off_lane, steps)
+    pout, pxend = td.cyclic_decode_plain(streams, states, cdf_lane,
+                                         len_lane, off_lane, steps)
+    assert torch.equal(out, pout) and torch.equal(xend, pxend)
+    assert bool((xend == td.RANS_L).all())
+    np.testing.assert_array_equal(out.reshape(3, -1)[:, :n].cpu().numpy(),
+                                  rows)
+    bad = states.clone()
+    bad[1, 7] ^= 0x5A5A
+    out, xend = kernels.cyclic_decode(streams, bad, cdf_lane, len_lane,
+                                      off_lane, steps)
+    pout, pxend = td.cyclic_decode_plain(streams, bad, cdf_lane, len_lane,
+                                         off_lane, steps)
+    assert torch.equal(out, pout) and torch.equal(xend, pxend)
+    assert not bool((xend[1] == td.RANS_L).all())
+
+
+@pytest.mark.cuda
+def test_batch1_kernels_refuse_steps_beyond_shared_memory_on_the_card():
+    dev = _card()
+    cols = 23
+    limit = kernels.max_steps(cols, False, dev)
+    assert limit >= 2048
+    cdf_lane = torch.zeros((32, cols), dtype=torch.int32, device=dev)
+    vc = torch.zeros((1, limit + 1, 32), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match='at most'):
+        kernels.cyclic_encode(cdf_lane, vc)
 
 
 @pytest.mark.cuda

@@ -234,20 +234,6 @@ def test_uint8_input_norm_equals_float_path(models):
         prt.encode_device_wire(img)
 
 
-def test_escape_raises_naming_the_image(models):
-    """An out-of-support latent (ok=False) is not skipped or re-coded: the
-    runtime raises and names the image."""
-    _, _, prt, images = models
-    prt.update()
-    cdf, cdf_len, off = prt._tables_dev
-    prt._tables_dev = (cdf, cdf_len, off + 100)   # every symbol escapes
-    try:
-        with pytest.raises(RuntimeError, match=r'image 0: ok=False'):
-            prt.stream_deploy_device([_nchw(x) for x in images])
-    finally:
-        prt.update()
-
-
 def test_entry_points_need_a_card_unless_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     cfg = {'key': 'FPBasedResNetBottleneck',
