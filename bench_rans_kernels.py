@@ -21,11 +21,14 @@ Two times per kernel, in milliseconds:
   device_ms    CUDA events around REPS calls queued back to back behind
                a sleep kernel that outlasts their dispatch, divided by
                REPS: the card's time per launch, host excluded.
-Also `steps_sweep`: the batch-1 kernels' device_ms on 384 lanes at T = 32,
-190 and 600 steps, whose slope is the time of one step of the chain and
-whose intercept is the fixed cost of a launch (prologue, write-out, launch
-gap). Prints one JSON line with the card's name and power limit. Needs a
-CUDA device.
+Also `steps_sweep`: each kernel's device_ms on 384 lanes at T = 32, 190
+and 600 steps (one image for the batch-1 kernels, eight for the aligned
+ones), whose slope is the time of one step of the chain and whose
+intercept is the fixed cost of a launch (prologue, write-out, launch gap);
+`wire_batch_sweep`: the aligned kernels' device_ms at the flagship
+shape for k = 1, 8, 32, 64 and 128 images a launch, whose slope is the
+cost of one more image in the throughput regime. Prints one JSON line with
+the card's name and power limit. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -87,6 +90,18 @@ def kernel_calls(torch, td, kernels, device, wire_batch=8,
     }
 
 
+def aligned_calls(kernels, vc, cdf_lane, len_lane, off_lane):
+    """name -> zero-argument call of each aligned kernel on `vc`."""
+    steps = vc.shape[1]
+    streams, _, states, _ = kernels.cyclic_encode_aligned(cdf_lane, vc)
+    return {
+        'rans_cyclic_encode_aligned':
+            lambda: kernels.cyclic_encode_aligned(cdf_lane, vc),
+        'rans_cyclic_decode_aligned': lambda: kernels.cyclic_decode_aligned(
+            streams, states, cdf_lane, len_lane, off_lane, steps),
+    }
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -103,17 +118,24 @@ def main():
                      'device_ms': device_ms(torch, fn, REPS)}
     sweep = {}
     for steps in (32, 190, 600):
-        calls = kernel_calls(torch, td, kernels, device, wire_batch=1,
-                             n=384 * steps)
-        for name in ('rans_cyclic_encode', 'rans_cyclic_decode'):
-            sweep.setdefault(name, {})[steps] = device_ms(
-                torch, calls[name], REPS)
+        calls = kernel_calls(torch, td, kernels, device, n=384 * steps)
+        for name, fn in calls.items():
+            sweep.setdefault(name, {})[steps] = device_ms(torch, fn, REPS)
+    vc128, cdf_lane, len_lane, off_lane = flagship_inputs(torch, td, device,
+                                                          128)
+    batches = {k: vc128[:k].contiguous() for k in (1, 8, 32, 64, 128)}
+    wire_sweep = {}
+    for k, vc in batches.items():
+        calls = aligned_calls(kernels, vc, cdf_lane, len_lane, off_lane)
+        for name, fn in calls.items():
+            wire_sweep.setdefault(name, {})[k] = device_ms(torch, fn, REPS)
     smi = subprocess.run(
         ['nvidia-smi', '--id=0', '--query-gpu=name,power.limit,clocks.sm',
          '--format=csv,noheader'], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(json.dumps({'repo': HERE, 'card': smi,
-                      'kernels': out, 'steps_sweep': sweep}), flush=True)
+                      'kernels': out, 'steps_sweep': sweep,
+                      'wire_batch_sweep': wire_sweep}), flush=True)
 
 
 if __name__ == '__main__':

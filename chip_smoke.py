@@ -15,10 +15,14 @@ which fails loudly with a nonzero exit:
     225-column CDF row, and frequency-1 symbols. Bit-equal
     streams/lengths/states, packed bytes equal to the numpy oracle and
     equal between the two layouts, symbols back with valid=True, and
-    valid=False for a corrupted stream; print each kernel's ms (CUDA
-    events around one call on an idle card, host dispatch included),
-    device ms (launches queued behind a sleep kernel), plain ms, and the
-    SM clocks;
+    valid=False for a corrupted stream. The aligned (wire_batch) pair also
+    at k = 128 (the throughput mode's wire_batch) and k = 1, 3, 5 on the
+    flagship lanes, and at a T beyond the batch-1 pair's limit, with the
+    wrappers raising beyond their CDF-width limit. Print each kernel's ms
+    (CUDA events around one call on an idle card, host dispatch
+    included), device ms (launches queued behind a sleep kernel), plain
+    ms, the aligned pair's device ms at k = 8 and k = 128 with the images
+    per block (G) each used, and the SM clocks;
  3. drive the main path, batch 1: `stream_deploy_device` of the
     full-width ResNet-50 + FP-24 model (1000 classes, seeded random
     weights) on 16 float 224x224 images and 4 uint8 images through
@@ -107,10 +111,11 @@ def per_call_ms(torch, fn, reps):
     return statistics.median(times)
 
 
-def device_ms(torch, fn, reps):
+def device_ms(torch, fn, reps, tries=3):
     """Device ms per call of `reps` calls queued back to back: a sleep
     kernel holds the card while the host enqueues them, so the events
-    see only device work. The sleep is twice the measured enqueue time."""
+    see only device work. The sleep is twice the measured enqueue time;
+    a run whose enqueue outlasted it saw idle gaps and is taken again."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -118,23 +123,24 @@ def device_ms(torch, fn, reps):
         fn()
     enqueue_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    # cycles at 2 GHz, at or above the H100's top SM clock: at any lower
-    # clock the sleep only lasts longer
-    torch.cuda._sleep(int(2 * enqueue_s * 2e9) + 1000)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    end.record()
-    queued_s = time.perf_counter() - t0
-    end.synchronize()
-    ms = start.elapsed_time(end) / reps
-    if queued_s > 2 * enqueue_s:
-        raise SmokeFailure(f'enqueue took {queued_s:.4f} s, longer than the '
-                           'sleep covering it: the timing saw idle gaps')
-    return ms
+    for _ in range(tries):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        # cycles at 2 GHz, at or above the H100's top SM clock: at any
+        # lower clock the sleep only lasts longer
+        torch.cuda._sleep(int(2 * enqueue_s * 2e9) + 1000)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued_s = time.perf_counter() - t0
+        end.synchronize()
+        if queued_s <= 2 * enqueue_s:
+            return start.elapsed_time(end) / reps
+    raise SmokeFailure(f'enqueue took {queued_s:.4f} s in each of {tries} '
+                       'runs, longer than the sleep covering it: the timing '
+                       'saw idle gaps')
 
 
 def bound(nbytes, ops):
@@ -228,10 +234,11 @@ def oracle_wire(td, sym, tables, lanes):
 
 
 def kernel_case(torch, td, kernels, tables, lanes, n, k, rng, device,
-                rare=False):
+                rare=False, batch1=True):
     """Phase 2 checks for one (lanes, n, k) case; `rare=True` sets every
     seventh symbol to value 1 (frequency 1 in `synthetic_tables(...,
-    rare=True)`). Returns the inputs and outputs the timing step needs."""
+    rare=True)`); `batch1=False` checks the aligned pair only, without the
+    numpy oracle. Returns the inputs and outputs the timing step needs."""
     c = tables.quantized_cdf.shape[0]
     rows = np.stack([draw_symbols(tables, n, rng) for _ in range(k)])
     if rare:
@@ -256,40 +263,48 @@ def kernel_case(torch, td, kernels, tables, lanes, n, k, rng, device,
             check(err == 0 and a.shape == b.shape and a.dtype == b.dtype,
                   f'{name} differs from its plain version ({tag})')
 
-    enc = kernels.cyclic_encode(cdf_lane, vc)
-    plain = td.cyclic_encode_plain(cdf_lane, vc)
-    compare('rans_cyclic_encode', enc, plain)
     enca = kernels.cyclic_encode_aligned(cdf_lane, vc, want_masks=True)
     compare('rans_cyclic_encode_aligned', enca,
             td.cyclic_encode_plain(cdf_lane, vc, aligned=True,
                                    want_masks=True))
-    for r in range(k):
-        wire = td.pack_stream({'streams': enc[0][r], 'lengths': enc[1][r],
-                               'states': enc[2][r]})
-        wire_a = td.pack_stream_aligned(
-            {'streams': enca[0][r], 'lengths': enca[1][r],
-             'states': enca[2][r], 'masks': enca[3][r]})
-        check(wire == wire_a, f'compacted and aligned wires differ ({tag})')
-        check(wire == oracle_wire(td, rows[r], tables, lanes),
-              f'packed bytes differ from the numpy oracle ({tag})')
+    states = enca[2]
+    decoders = [('rans_cyclic_decode_aligned', enca[0], True)]
+    enc = None
+    if batch1:
+        enc = kernels.cyclic_encode(cdf_lane, vc)
+        compare('rans_cyclic_encode', enc,
+                td.cyclic_encode_plain(cdf_lane, vc))
+        decoders.insert(0, ('rans_cyclic_decode', enc[0], False))
+        for r in range(k):
+            wire = td.pack_stream({'streams': enc[0][r],
+                                   'lengths': enc[1][r],
+                                   'states': enc[2][r]})
+            wire_a = td.pack_stream_aligned(
+                {'streams': enca[0][r], 'lengths': enca[1][r],
+                 'states': enca[2][r], 'masks': enca[3][r]})
+            check(wire == wire_a,
+                  f'compacted and aligned wires differ ({tag})')
+            check(wire == oracle_wire(td, rows[r], tables, lanes),
+                  f'packed bytes differ from the numpy oracle ({tag})')
 
-    for name, streams, aligned in (
-            ('rans_cyclic_decode', enc[0], False),
-            ('rans_cyclic_decode_aligned', enca[0], True)):
+    for name, streams, aligned in decoders:
         fn = kernels.cyclic_decode_aligned if aligned \
             else kernels.cyclic_decode
-        out, xend = fn(streams, enc[2], cdf_lane, len_lane, off_lane, steps)
+        out, xend = fn(streams, states, cdf_lane, len_lane, off_lane, steps)
         compare(name, (out, xend), td.cyclic_decode_plain(
-            streams, enc[2], cdf_lane, len_lane, off_lane, steps,
+            streams, states, cdf_lane, len_lane, off_lane, steps,
             aligned=aligned))
         flat = out.reshape(k, -1)[:, :n].cpu().numpy()
         check(np.array_equal(flat, rows), f'{name} lost symbols ({tag})')
         check(bool((xend == td.RANS_L).all()),
               f'{name}: valid=False on a good stream ({tag})')
-        bad = enc[2].clone()
-        bad[0, lanes // 3] ^= 0x5A5A
-        _, xbad = fn(streams, bad, cdf_lane, len_lane, off_lane, steps)
-        check(not bool((xbad[0] == td.RANS_L).all()),
+        bad = states.clone()
+        bad[k - 1, lanes // 3] ^= 0x5A5A
+        out, xbad = fn(streams, bad, cdf_lane, len_lane, off_lane, steps)
+        compare(name, (out, xbad), td.cyclic_decode_plain(
+            streams, bad, cdf_lane, len_lane, off_lane, steps,
+            aligned=aligned))
+        check(not bool((xbad[k - 1] == td.RANS_L).all()),
               f'{name}: valid=True on a corrupted stream ({tag})')
     torch.cuda.synchronize()
     return dict(vc=vc, cdf_lane=cdf_lane, len_lane=len_lane,
@@ -323,6 +338,39 @@ def kernel_phase(torch, td, kernels, tables, device):
         'edge cases: 72 lanes n=5000 k=2; 168 lanes k=3; T=600; '
         '225-column rows; frequency-1 symbols)')
     cols = tables.quantized_cdf.shape[1]
+    long_steps = kernels.max_steps(cols, False, device) + 5
+    # the aligned pair alone: the throughput mode's k = 128, k not a
+    # multiple of the block's images, and a T the batch-1 pair refuses
+    wide = kernel_case(torch, td, kernels, tables, lanes, n, 128, rng,
+                       device, batch1=False)
+    edge += [kernel_case(torch, td, kernels, tables, lanes, n, k, rng,
+                         device, batch1=False) for k in (1, 3, 5)]
+    edge.append(kernel_case(torch, td, kernels, tables, 48,
+                            48 * long_steps - 7, 2, rng, device,
+                            batch1=False))
+    max_cols = {d: kernels.aligned_max_cols(d, device) for d in (0, 1)}
+    for decode, limit in max_cols.items():
+        check(limit >= 225, f'aligned kernels take only {limit} columns')
+        z = torch.zeros((32, limit + 1), dtype=torch.int32, device=device)
+        try:
+            if decode:
+                kernels.cyclic_decode_aligned(
+                    torch.zeros((1, 32, 4), dtype=torch.int32,
+                                device=device),
+                    torch.zeros((1, 32), dtype=torch.int64, device=device),
+                    z, z[:, 0].contiguous(), z[:, 0].contiguous(), 4)
+            else:
+                kernels.cyclic_encode_aligned(
+                    z, torch.zeros((1, 4, 32), dtype=torch.int32,
+                                   device=device))
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused, f'aligned wrapper took {limit + 1}-column rows')
+    log(f'phase 2: aligned pair equals its plain versions at k=128, at '
+        f'k=1, 3, 5 and at T={long_steps} (48 lanes); it takes CDF rows '
+        f'of up to {max_cols[0]} (encode) and {max_cols[1]} (decode) '
+        'columns and raises beyond')
     log(f'phase 2: batch-1 kernels take up to '
         f'{kernels.max_steps(cols, False, device)} steps (encode) and '
         f'{kernels.max_steps(cols, True, device)} stream columns (decode) '
@@ -372,18 +420,41 @@ def kernel_phase(torch, td, kernels, tables, device):
     }
     # ms: one call on an idle card, host dispatch included; device_ms:
     # the card's time per launch, launches queued back to back
+    enca128 = wide['enca']
+    k128 = {
+        'rans_cyclic_encode_aligned': (
+            lambda: kernels.cyclic_encode_aligned(cdf_lane, wide['vc']),
+            enc_cost(128)),
+        'rans_cyclic_decode_aligned': (
+            lambda: kernels.cyclic_decode_aligned(
+                enca128[0], enca128[2], cdf_lane, len_lane, off_lane,
+                steps), dec_cost(128, steps)),
+    }
     stats = {}
     for name, (kern, plain, (bound_ms, bound_by)) in specs.items():
         ms = per_call_ms(torch, kern, reps=50)
         dev_ms = device_ms(torch, kern, reps=200)
         plain_ms = per_call_ms(torch, plain, reps=5)
-        err = max(case['errs'][name] for case in [flag] + edge)
+        err = max(case['errs'].get(name, 0)
+                  for case in [flag, wide] + edge)
         stats[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=bound_by,
                            max_abs_err=err)
         log(f'phase 2: {name}: kernel {ms:.4f} ms per call ({dev_ms:.4f} '
             f'ms on the card), plain {plain_ms:.3f} ms, bound '
             f'{bound_ms:.6f} ms ({bound_by})')
+        if name in k128:
+            kern, (bound128, _) = k128[name]
+            stats[name].update(device_ms_k128=device_ms(torch, kern, 200),
+                               bound_ms_k128=bound128)
+    log('phase 2: aligned pair on the card, k=8 / k=128: '
+        + ', '.join(f'{name} {stats[name]["device_ms"]:.4f} / '
+                    f'{stats[name]["device_ms_k128"]:.4f} ms (bound '
+                    f'{stats[name]["bound_ms"]:.6f} / '
+                    f'{stats[name]["bound_ms_k128"]:.6f}; images per block '
+                    f'G={kernels.aligned_group("decode" in name, k8, lanes)}'
+                    f' / {kernels.aligned_group("decode" in name, 128, lanes)}'
+                    ')' for name in k128))
     clocks = smi_query('clocks.sm,clocks.max.sm')
     log(f'phase 2: SM clock now, max (MHz): {clocks}')
     return stats
@@ -625,7 +696,10 @@ def run():
                  ms=stats[name]['ms'], device_ms=stats[name]['device_ms'],
                  plain_ms=stats[name]['plain_ms'],
                  bound_ms=stats[name]['bound_ms'],
-                 bound_by=stats[name]['bound_by'], library_ms=None)
+                 bound_by=stats[name]['bound_by'], library_ms=None,
+                 **{key: stats[name][key]
+                    for key in ('device_ms_k128', 'bound_ms_k128')
+                    if key in stats[name]})
             for name in kernels.KERNELS]
     for r in rows:
         check(r['launches'] > 0, f'{r["name"]} never launched on the path')

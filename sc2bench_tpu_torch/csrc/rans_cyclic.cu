@@ -57,11 +57,46 @@
 // dependent load a step instead of two) measured no faster, because that
 // address path, not the load, is the longer chain.
 //
-// The wire_batch pair (the *_aligned kernels) keeps the first design: one
-// thread per (image, lane) in blocks of 128, CDF rows read through L1, CUDA's
-// exact 32-bit divide, and a linear CDF scan in the decoder.
+// The wire_batch pair (rans_cyclic_encode_aligned, rans_cyclic_decode_aligned)
+// codes k images at once, and step t's chunk sits at stream column t, so no
+// lane needs a pointer or a compaction. It is built for both regimes of k:
+// at k = 8 (3,072 lanes) it is latency-bound like the batch-1 pair; at
+// k = 128 (49,152 lanes, ~75 MB in and out) the bytes start to count.
+//   - a block holds the same 32 lanes for G images, one warp per image. The lane tables depend on the
+//     lane only, so the G warps build one set together, each taking a share
+//     of the symbol values (and of the decoder's 256 coarse buckets), then
+//     one barrier; a block's prologue, the encoder's reciprocals above all,
+//     costs 1/G of the batch-1 pair's per image. Warps beyond the last
+//     image help build the tables, then leave. G follows a rule measured
+//     on an H100 (aligned_group): 4 to encode, 4 or 8 to decode;
+//   - each warp stages its own image's inputs tile by tile with cp.async,
+//     double-buffered: the encoder's symbol columns vc[img, t, lane0:+32]
+//     in reverse, the decoder's stream rows streams[img, lane0:+32, c:c+32]
+//     (row pitch kTile+1, so that a lane's column reads never share a
+//     bank). Shared memory does not grow with T, so any T is taken;
+//   - the encoder writes each step's chunk into a per-warp ring of 64
+//     columns (u16, the renorm bits kept a word per tile) and, when a tile
+//     is done, stores from each of its 32 rows the 32 columns that start at
+//     the row's first 32-byte sector boundary at or after the tile: whole
+//     sectors, coalesced. Rows are T int32 apart (760 bytes at T = 190), so
+//     tile-aligned stores would cut a sector at both ends of every row
+//     segment; a variant that did so was slower at k = 128 and no faster at
+//     k = 8. The decoder's symbol store out[img, t, lane0:+32] is whole
+//     128-byte lines as it is;
+//   - the encoder divides by reciprocal48, as the batch-1 encoder does.
+// The tables grow with the CDF width: rans_cyclic_aligned_max_cols gives
+// the largest that the rule's groups take.
 //
-// Both designs hold the plain versions' contract bit for bit on valid
+// Measured on an H100 (bench_rans_kernels.py, flagship shape): 0.0186 ms
+// (encode) and 0.0374 ms (decode) at k = 8, against 0.0403 and 0.1190 for
+// the first design (one thread per (image, lane), CDF rows through L1, the
+// hardware divide, a linear CDF scan); 0.0428 and 0.0539 ms at k = 128,
+// about twice the bytes bound, against 0.202 and 0.229. At k <= 32 the
+// time is one warp's chain, as for the batch-1 pair; from k = 64 each more
+// image costs about 0.28 us (encode) and 0.23 us (decode), where the
+// stores and the reads of the staged tiles compete with the chains.
+//
+// Both pairs hold the plain versions' contract bit for bit on valid
 // tables: CDF rows non-decreasing from 0 to 2^16 within cdf_length, every
 // coded symbol of frequency >= 1, stream values in 0..65535. A read past a
 // lane's stream row yields 0, and the final states say whether each lane
@@ -77,7 +112,8 @@
 //
 // Each C entry point launches on the given stream and returns
 // cudaGetLastError(), or cudaErrorInvalidValue (without launching) when the
-// shapes need more shared memory than a block can have.
+// shapes need more shared memory than a block can have, or when aligned
+// streams are not T columns wide.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -85,10 +121,17 @@
 namespace {
 
 constexpr uint32_t kRansL = 1u << 16;
-constexpr int kThreads = 128;   // aligned kernels: threads per block
-constexpr int kWarp = 32;       // batch-1 kernels: lanes (threads) per block
+constexpr int kWarp = 32;       // lanes per block (batch 1: threads)
 constexpr int kTile = 32;       // steps / stream columns per staged tile
 constexpr int kBuckets = 256;   // coarse decode table: slot >> 8
+// aligned kernels: images (warps) per block, as aligned_group picks them
+constexpr int kEncodeGroup = 4;
+constexpr int kMaxDecodeGroup = 8;
+constexpr int kRing = 2 * kTile;        // aligned encoder: output ring columns
+constexpr int kRingPitch = kRing + 2;   // its row pitch in u16 (33 words)
+// aligned encoder, per warp: two symbol tiles, the output ring, its bits
+constexpr int kEncodeWarpWords =
+    2 * kTile * kWarp + kWarp * kRingPitch / 2 + 2 * kWarp;
 
 // ---- asynchronous global -> shared copies --------------------------------
 
@@ -155,6 +198,21 @@ inline size_t decode_smem(int cols, int width, int steps) {
          + sizeof(int32_t) * 2 * kTile * kWarp
          + sizeof(int32_t) * cols * kWarp
          + sizeof(uint16_t) * kWarp * (static_cast<size_t>(wc) + 1);
+}
+
+// aligned encoder: (start, freq, m_lo, m_hi) per [symbol][lane], then per
+// warp two symbol tiles [kTile][32] int32, an output ring [32][kRingPitch]
+// u16 and its renorm bits [32][2] u32
+inline size_t encode_aligned_smem(int cols, int group) {
+  return sizeof(uint4) * cols * kWarp
+         + sizeof(int32_t) * group * kEncodeWarpWords;
+}
+
+// aligned decoder: (start, freq) per [symbol][lane], the coarse table, then
+// per warp two stream tiles [32][kTile+1]
+inline size_t decode_aligned_smem(int cols, int group) {
+  return sizeof(uint2) * cols * kWarp + sizeof(uint16_t) * kBuckets * kWarp
+         + sizeof(int32_t) * group * 2 * kWarp * (kTile + 1);
 }
 
 inline int smem_optin() {
@@ -420,46 +478,169 @@ rans_decode_warp_kernel(const int32_t* __restrict__ streams, int width,
     xend[static_cast<int64_t>(img) * lanes + lane] = static_cast<int64_t>(x);
 }
 
-// ---- wire_batch (aligned) kernels: the first design ------------------------
+// ---- wire_batch (aligned) kernels ------------------------------------------
+//
+// Grid (lane groups, image groups); block: `group` warps, warp w coding
+// image blockIdx.y * group + w on lanes blockIdx.x * 32 + [0, 32).
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kEncodeGroup * kWarp)
 rans_encode_aligned_kernel(const int32_t* __restrict__ cdf_lane, int cols,
                            const int32_t* __restrict__ vc, int num_images,
                            int steps, int lanes, int32_t* __restrict__ streams,
                            int32_t* __restrict__ lengths,
                            int64_t* __restrict__ states,
                            uint8_t* __restrict__ masks) {
-  const int64_t gid = static_cast<int64_t>(blockIdx.x) * blockDim.x
-                      + threadIdx.x;
-  if (gid >= static_cast<int64_t>(num_images) * lanes) return;
-  const int img = static_cast<int>(gid / lanes);
-  const int lane = static_cast<int>(gid % lanes);
-  const int32_t* row = cdf_lane + static_cast<int64_t>(lane) * cols;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int group = blockDim.x / kWarp;
+  const int w = threadIdx.x / kWarp;
+  const int l = threadIdx.x % kWarp;
+  const int lane0 = blockIdx.x * kWarp;
+  const int lane = lane0 + l;
+  const int img = blockIdx.y * group + w;
+  const bool has_img = img < num_images;
+  const bool active = has_img && lane < lanes;
+  const int nrow = min(kWarp, lanes - lane0);
+  uint4* tab = reinterpret_cast<uint4*>(smem);                 // [cols][32]
+  int32_t* vtile = reinterpret_cast<int32_t*>(tab + cols * kWarp)
+                   + w * kEncodeWarpWords;                     // [2][kTile][32]
+  uint16_t* ring = reinterpret_cast<uint16_t*>(vtile + 2 * kTile * kWarp);
+  uint32_t* rbits = reinterpret_cast<uint32_t*>(ring + kWarp * kRingPitch);
+  const int64_t row0 = static_cast<int64_t>(img) * lanes + lane0;
   const int32_t* v_img = vc + static_cast<int64_t>(img) * steps * lanes;
-  int32_t* out = streams + gid * steps;
-  uint8_t* mrow = masks ? masks + gid * steps : nullptr;
+  const int ntiles = (steps + kTile - 1) / kTile;
+  // the warp's output rows; row r's column 0 lies ph0 + r * phs int32
+  // (mod 8) past a 32-byte sector boundary, so its first boundary at or
+  // after a column t0 = 32s is column t0 + dcol[r & 7]
+  int32_t* out_w = streams + row0 * steps;
+  uint8_t* mask_w = masks ? masks + row0 * steps : nullptr;
+  const int ph0 = static_cast<int>((row0 * steps) & 7);
+  const int phs = steps & 7;
+  int dcol[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) dcol[i] = (-(ph0 + i * phs)) & 7;
+
+  // stage tile s of the warp's symbol columns into buffer s&1 (per step,
+  // 32 lanes' int32 values, coalesced); an empty group for s < 0 keeps the
+  // wait count uniform. Coded in reverse: the last tile comes first.
+  auto stage = [&](int s) {
+    if (s >= 0 && active) {
+      int32_t* dst = vtile + (s & 1) * kTile * kWarp;
+      const int t0 = s * kTile, t1 = min(t0 + kTile, steps);
+      for (int t = t0; t < t1; ++t)
+        cp_async4(dst + (t - t0) * kWarp + l,
+                  v_img + static_cast<int64_t>(t) * lanes + lane);
+    }
+    cp_async_commit();
+  };
+  stage(ntiles - 1);
+  stage(ntiles - 2);
+
+  // the block's lane tables, while the first tiles land: warp w expands
+  // symbol values w, w + group, ... of the 32 lanes' rows
+  if (lane < lanes) {
+    const int32_t* row = cdf_lane + static_cast<int64_t>(lane) * cols;
+#pragma unroll 4
+    for (int v = w; v < cols; v += group) {
+      const uint32_t st = static_cast<uint32_t>(__ldg(row + v));
+      const uint32_t fr =
+          v + 1 < cols ? static_cast<uint32_t>(__ldg(row + v + 1)) - st : 0u;
+      const uint64_t m = fr ? reciprocal48(fr) : 0;
+      tab[v * kWarp + l] = make_uint4(st, fr, static_cast<uint32_t>(m),
+                                      static_cast<uint32_t>(m >> 32));
+    }
+  }
+  __syncthreads();
+  if (!has_img) return;
 
   uint32_t x = kRansL;
   int count = 0;
-  // rANS encodes in reverse symbol order
-  for (int t = steps - 1; t >= 0; --t) {
-    const int v = v_img[static_cast<int64_t>(t) * lanes + lane];
-    const uint32_t st = static_cast<uint32_t>(row[v]);
-    const uint32_t fr = static_cast<uint32_t>(row[v + 1]) - st;
-    // uint32 arithmetic throughout, wrapping exactly as the reference's
-    const bool renorm = x >= (fr << 16);
-    const uint32_t chunk = x & 0xFFFFu;
-    if (renorm) x >>= 16;
-    x = ((x / fr) << 16) + (x % fr) + st;
-    out[t] = renorm ? static_cast<int32_t>(chunk) : 0;
-    if (mrow) mrow[t] = renorm ? 1 : 0;
-    count += renorm ? 1 : 0;
+  uint16_t* orow = ring + l * kRingPitch;
+  for (int s = ntiles - 1; s >= 0; --s) {
+    const int t0 = s * kTile, t1 = min(t0 + kTile, steps);
+    cp_async_wait_one();          // tile s has landed (s-1 may be in flight)
+    __syncwarp();
+    if (active) {
+      uint32_t bits = 0;
+      const int32_t* vt = vtile + (s & 1) * kTile * kWarp;
+      // the symbols and table entries do not depend on the state: fetch
+      // step t-1's entry and step t-2's symbol while step t runs
+      int vn = t1 - 2 >= t0 ? vt[(t1 - 2 - t0) * kWarp + l] : 0;
+      uint4 next = tab[vt[(t1 - 1 - t0) * kWarp + l] * kWarp + l];
+      for (int t = t1 - 1; t >= t0; --t) {
+        const uint4 e = next;
+        if (t - 1 >= t0) next = tab[vn * kWarp + l];
+        if (t - 2 >= t0) vn = vt[(t - 2 - t0) * kWarp + l];
+        const uint32_t st = e.x, fr = e.y;
+        // uint32 arithmetic throughout, wrapping exactly as the reference's
+        const bool renorm = x >= (fr << 16);
+        // column t of the ring: the chunk, 0 where none; bit t - t0: renorm
+        orow[t & (kRing - 1)] = static_cast<uint16_t>(renorm ? x : 0u);
+        bits |= static_cast<uint32_t>(renorm) << (t - t0);
+        count += renorm;
+        if (renorm) x >>= 16;
+        const uint64_t m = (static_cast<uint64_t>(e.w) << 32) | e.z;
+        const uint32_t q =
+            static_cast<uint32_t>((static_cast<uint64_t>(x) * m) >> 48);
+        x = (q << 16) + (x - q * fr) + st;
+      }
+      rbits[l * 2 + (s & 1)] = bits;
+    }
+    __syncwarp();                 // buffer s&1 is read, the ring written
+    stage(s - 2);
+    // coalesced write-out: columns >= t0 are final. Each of the warp's rows
+    // stores the 32 columns from its first 32-byte sector boundary at or
+    // after t0 (the columns above were stored after tile s+1), so no store
+    // but a row's head writes part of a sector; eight rows' shared loads
+    // go before their stores
+    for (int r0 = 0; r0 < nrow; r0 += 8) {
+      uint32_t val[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)         // row r0 + i < 32: in the ring
+        val[i] = r0 + i < nrow
+                     ? ring[(r0 + i) * kRingPitch
+                            + ((t0 + dcol[i] + l) & (kRing - 1))]
+                     : 0u;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = t0 + dcol[i] + l;
+        if (r0 + i < nrow && col < steps)
+          out_w[(r0 + i) * steps + col] = static_cast<int32_t>(val[i]);
+      }
+    }
+    if (mask_w) {
+      for (int r0 = 0; r0 < nrow; r0 += 8) {
+        uint32_t bit[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          bit[i] = r0 + i < nrow
+                       ? rbits[(r0 + i) * 2 + (((t0 + dcol[i] + l) >> 5) & 1)]
+                       : 0u;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int col = t0 + dcol[i] + l;
+          if (r0 + i < nrow && col < steps)
+            mask_w[(r0 + i) * steps + col] = (bit[i] >> (col & 31)) & 1u;
+        }
+      }
+    }
+    if (s == 0) {
+      // the rows' heads: the columns before their first sector boundary
+      for (int r = 0; r < nrow; ++r) {
+        if (l < ((-(ph0 + r * phs)) & 7) && l < steps) {
+          out_w[r * steps + l] = ring[r * kRingPitch + l];
+          if (mask_w) mask_w[r * steps + l] = (rbits[r * 2] >> l) & 1u;
+        }
+      }
+    }
+    __syncwarp();                 // the ring is free for tile s-1
   }
-  lengths[gid] = count;
-  states[gid] = static_cast<int64_t>(x);
+  if (active) {
+    lengths[row0 + l] = count;
+    states[row0 + l] = static_cast<int64_t>(x);
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxDecodeGroup * kWarp)
 rans_decode_aligned_kernel(const int32_t* __restrict__ streams, int width,
                            const int64_t* __restrict__ states,
                            const int32_t* __restrict__ cdf_lane, int cols,
@@ -468,38 +649,124 @@ rans_decode_aligned_kernel(const int32_t* __restrict__ streams, int width,
                            int num_images, int steps, int lanes,
                            int32_t* __restrict__ out,
                            int64_t* __restrict__ xend) {
-  const int64_t gid = static_cast<int64_t>(blockIdx.x) * blockDim.x
-                      + threadIdx.x;
-  if (gid >= static_cast<int64_t>(num_images) * lanes) return;
-  const int img = static_cast<int>(gid / lanes);
-  const int lane = static_cast<int>(gid % lanes);
-  const int32_t* row = cdf_lane + static_cast<int64_t>(lane) * cols;
-  const int len = min(len_lane[lane], cols);
-  const int off = off_lane[lane];
-  const int32_t* s = streams + gid * width;
-  int32_t* o = out + static_cast<int64_t>(img) * steps * lanes + lane;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int group = blockDim.x / kWarp;
+  const int w = threadIdx.x / kWarp;
+  const int l = threadIdx.x % kWarp;
+  const int lane0 = blockIdx.x * kWarp;
+  const int lane = lane0 + l;
+  const int img = blockIdx.y * group + w;
+  const bool has_img = img < num_images;
+  const bool active = has_img && lane < lanes;
+  const int nrow = min(kWarp, lanes - lane0);
+  // step t reads column t of a row T wide (width == steps)
+  const int spitch = kTile + 1;
+  uint2* tab = reinterpret_cast<uint2*>(smem);                 // [cols][32]
+  uint16_t* coarse = reinterpret_cast<uint16_t*>(tab + cols * kWarp);
+  int32_t* stile = reinterpret_cast<int32_t*>(coarse + kBuckets * kWarp)
+                   + w * 2 * kWarp * spitch;                   // [2][32][33]
+  const int64_t row0 = static_cast<int64_t>(img) * lanes + lane0;
+  const int32_t* s_blk = streams + row0 * width;
+  const int ntiles = (steps + kTile - 1) / kTile;
 
-  uint32_t x = static_cast<uint32_t>(states[gid]);
-  for (int t = 0; t < steps; ++t) {
-    const int32_t slot = static_cast<int32_t>(x & 0xFFFFu);
-    // v = (number of entries below cdf_length with cdf[i] <= slot) - 1,
-    // the largest such index for a monotone row; row[0] == 0 <= slot and
-    // row[len-1] == 2^16 > slot keep v in [0, len-2]
-    int cnt = 0;
-    for (int i = 0; i < len; ++i) cnt += row[i] <= slot ? 1 : 0;
-    const int v = max(cnt - 1, 0);
-    const uint32_t st = static_cast<uint32_t>(row[v]);
-    const uint32_t fr = static_cast<uint32_t>(row[v + 1]) - st;
-    x = fr * (x >> 16) + static_cast<uint32_t>(slot) - st;
-    if (x < kRansL) x = (x << 16) | static_cast<uint32_t>(s[t]);
-    o[static_cast<int64_t>(t) * lanes] = v + off;
+  // stage stream columns [s*kTile, s*kTile+kTile) of the warp's rows into
+  // buffer s&1 (per row, 32 consecutive int32, coalesced)
+  auto stage = [&](int s) {
+    const int c = s * kTile + l;
+    if (has_img && s < ntiles && c < steps) {
+      int32_t* dst = stile + (s & 1) * kWarp * spitch + l;
+      for (int r = 0; r < nrow; ++r)
+        cp_async4(dst + r * spitch,
+                  s_blk + static_cast<int64_t>(r) * width + c);
+    }
+    cp_async_commit();
+  };
+  stage(0);
+  stage(1);
+
+  // the block's lane tables, while the first tiles land: warp w expands
+  // symbol values w, w + group, ...; then fills its share of the coarse
+  // table, coarse[b] = the smallest v < len-1 with cdf[v+1] > b << 8 (0
+  // where none), the lowest candidate symbol of any slot in bucket b
+  int len = 0;
+  if (lane < lanes) {
+    len = min(len_lane[lane], cols);
+    const int32_t* row = cdf_lane + static_cast<int64_t>(lane) * cols;
+#pragma unroll 4
+    for (int v = w; v < cols; v += group) {
+      const uint32_t st = static_cast<uint32_t>(__ldg(row + v));
+      const uint32_t nx =
+          v + 1 < cols ? static_cast<uint32_t>(__ldg(row + v + 1)) : st;
+      tab[v * kWarp + l] = make_uint2(st, nx - st);
+    }
   }
-  xend[gid] = static_cast<int64_t>(x);
+  __syncthreads();
+  if (lane < lanes) {
+    const int share = kBuckets / group;
+    const int b1 = (w + 1) * share;
+    int b = w * share;
+    for (int v = 0; v + 1 < len && b < b1; ++v) {
+      const uint2 e = tab[v * kWarp + l];
+      for (; b < b1 && (static_cast<uint32_t>(b) << 8) < e.x + e.y; ++b)
+        coarse[b * kWarp + l] = static_cast<uint16_t>(v);
+    }
+    for (; b < b1; ++b) coarse[b * kWarp + l] = 0;
+  }
+  __syncthreads();
+  if (!has_img) return;
+
+  uint32_t x = 0;
+  int off = 0;
+  if (active) {
+    x = static_cast<uint32_t>(states[row0 + l]);
+    off = off_lane[lane];
+  }
+  int32_t* o = out + static_cast<int64_t>(img) * steps * lanes + lane;
+  for (int s = 0; s < ntiles; ++s) {
+    cp_async_wait_one();          // tile s has landed (s+1 may be in flight)
+    __syncwarp();
+    if (active) {
+      const int t0 = s * kTile, t1 = min(t0 + kTile, steps);
+      const int32_t* srow = stile + (s & 1) * kWarp * spitch + l * spitch
+                            - t0;
+      for (int t = t0; t < t1; ++t, o += lanes) {
+        const uint32_t slot = x & 0xFFFFu;
+        // the coarse bucket's first candidate, then a forward scan while
+        // cdf[v+1] = start + freq <= slot: usually no step for narrow rows
+        int v = coarse[(slot >> 8) * kWarp + l];
+        uint2 e = tab[v * kWarp + l];
+        while (v + 1 < len && e.x + e.y <= slot) e = tab[++v * kWarp + l];
+        // the chunk does not depend on x: loaded off the chain
+        const uint32_t chunk = static_cast<uint32_t>(srow[t]);
+        x = e.y * (x >> 16) + slot - e.x;
+        if (x < kRansL) x = (x << 16) | chunk;
+        *o = v + off;
+      }
+    }
+    __syncwarp();                 // buffer s&1 is read; refill it
+    stage(s + 2);
+  }
+  if (active) xend[row0 + l] = static_cast<int64_t>(x);
 }
 
-inline unsigned blocks_for(int num_images, int lanes) {
-  const int64_t n = static_cast<int64_t>(num_images) * lanes;
-  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
+// The rule for G, from device times on an H100 at the
+// flagship shape (PERF.md): the encoder is fastest at G = 4 for every k;
+// the decoder at G = 4 while a G = 4 grid has at most one block per SM
+// (k <= 32 there), and at G = 8 beyond, where its per-block prologue (the
+// coarse table) is shared by more images.
+inline int aligned_group(int decode, int num_images, int lanes) {
+  if (!decode) return kEncodeGroup;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int64_t blocks = static_cast<int64_t>((num_images + 3) / 4)
+                         * ((lanes + kWarp - 1) / kWarp);
+  return blocks <= sms ? 4 : kMaxDecodeGroup;
+}
+
+inline dim3 aligned_grid(int num_images, int lanes, int group) {
+  return dim3(static_cast<unsigned>((lanes + kWarp - 1) / kWarp),
+              static_cast<unsigned>((num_images + group - 1) / group));
 }
 
 inline unsigned warp_blocks(int num_images, int lanes) {
@@ -534,6 +801,25 @@ int rans_cyclic_max_steps(int decode, int cols) {
   return avail < fixed ? 0 : static_cast<int>((avail - fixed) / per);
 }
 
+// Largest CDF row width `cols` that the aligned encoder (decode = 0) or
+// decoder (decode = 1) takes on the current device, at the largest group
+// its rule launches; any T.
+int rans_cyclic_aligned_max_cols(int decode) {
+  const int64_t avail = smem_optin();
+  const int64_t fixed =
+      decode ? static_cast<int64_t>(decode_aligned_smem(0, kMaxDecodeGroup))
+             : static_cast<int64_t>(encode_aligned_smem(0, kEncodeGroup));
+  const int64_t per = static_cast<int64_t>(
+      decode ? sizeof(uint2) * kWarp : sizeof(uint4) * kWarp);
+  return avail < fixed ? 0 : static_cast<int>((avail - fixed) / per);
+}
+
+// The group that an aligned encode (decode = 0) or decode launch of
+// `num_images` images on `lanes` lanes uses on the current device.
+int rans_cyclic_aligned_group(int decode, int num_images, int lanes) {
+  return aligned_group(decode, num_images, lanes);
+}
+
 int rans_cyclic_encode(const int32_t* cdf_lane, int cols, const int32_t* vc,
                        int num_images, int steps, int lanes, int32_t* streams,
                        int32_t* lengths, int64_t* states,
@@ -552,10 +838,14 @@ int rans_cyclic_encode_aligned(const int32_t* cdf_lane, int cols,
                                int lanes, int32_t* streams, int32_t* lengths,
                                int64_t* states, uint8_t* masks,
                                cudaStream_t stream) {
-  rans_encode_aligned_kernel<<<blocks_for(num_images, lanes), kThreads, 0,
-                               stream>>>(cdf_lane, cols, vc, num_images,
-                                         steps, lanes, streams, lengths,
-                                         states, masks);
+  const int group = aligned_group(0, num_images, lanes);
+  const size_t smem = encode_aligned_smem(cols, group);
+  if (!fit_smem(rans_encode_aligned_kernel, smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  rans_encode_aligned_kernel<<<aligned_grid(num_images, lanes, group),
+                               group * kWarp, smem, stream>>>(
+      cdf_lane, cols, vc, num_images, steps, lanes, streams, lengths, states,
+      masks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -581,10 +871,15 @@ int rans_cyclic_decode_aligned(const int32_t* streams, int width,
                                const int32_t* off_lane, int num_images,
                                int steps, int lanes, int32_t* out,
                                int64_t* xend, cudaStream_t stream) {
-  rans_decode_aligned_kernel<<<blocks_for(num_images, lanes), kThreads, 0,
-                               stream>>>(streams, width, states, cdf_lane,
-                                         cols, len_lane, off_lane,
-                                         num_images, steps, lanes, out, xend);
+  if (width != steps) return static_cast<int>(cudaErrorInvalidValue);
+  const int group = aligned_group(1, num_images, lanes);
+  const size_t smem = decode_aligned_smem(cols, group);
+  if (!fit_smem(rans_decode_aligned_kernel, smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  rans_decode_aligned_kernel<<<aligned_grid(num_images, lanes, group),
+                               group * kWarp, smem, stream>>>(
+      streams, width, states, cdf_lane, cols, len_lane, off_lane, num_images,
+      steps, lanes, out, xend);
   return static_cast<int>(cudaGetLastError());
 }
 

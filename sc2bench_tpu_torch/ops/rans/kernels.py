@@ -18,6 +18,12 @@ inputs and tables in shared memory, so they take at most
 (decode); a wrapper raises beyond that. On an H100 (227 KB a block) with
 the flagship's 23-column CDF rows that is 3,271 steps and 3,109 columns,
 against 190 at 224x224 and 2,048 at 2048x2048.
+
+The aligned (`wire_batch`) kernels take any T, but their shared lane tables
+grow with the CDF width: they take rows of at most
+`aligned_max_cols(decode)` entries (355 to encode and 580 to decode on an
+H100), and a wrapper raises beyond that. `aligned_group` says how many
+images share a block's tables at a given shape.
 """
 from __future__ import annotations
 
@@ -97,7 +103,9 @@ def _library():
                                ('rans_cyclic_encode_aligned', enc + [p, p]),
                                ('rans_cyclic_decode', dec + [p]),
                                ('rans_cyclic_decode_aligned', dec + [p]),
-                               ('rans_cyclic_max_steps', [i, i])):
+                               ('rans_cyclic_max_steps', [i, i]),
+                               ('rans_cyclic_aligned_max_cols', [i]),
+                               ('rans_cyclic_aligned_group', [i, i, i])):
                 fn = getattr(lib, name)
                 fn.argtypes = args
                 fn.restype = i
@@ -128,6 +136,7 @@ def _launch(name: str, device: torch.device, *args) -> None:
 
 
 _max_steps: dict = {}
+_max_cols: dict = {}
 
 
 def max_steps(cols: int, decode: bool, device) -> int:
@@ -139,6 +148,31 @@ def max_steps(cols: int, decode: bool, device) -> int:
             _max_steps[key] = int(_library().rans_cyclic_max_steps(
                 int(decode), int(cols)))
     return _max_steps[key]
+
+
+def aligned_max_cols(decode: bool, device) -> int:
+    """Largest CDF row width that the aligned encoder (or decoder) takes
+    on `device`, at any k and any T."""
+    key = (torch.device(device), bool(decode))
+    if key not in _max_cols:
+        with torch.cuda.device(device):
+            _max_cols[key] = int(_library().rans_cyclic_aligned_max_cols(
+                int(decode)))
+    return _max_cols[key]
+
+
+def aligned_group(decode: bool, num_images: int, lanes: int) -> int:
+    """Images per block that an aligned encode (or decode) launch at this
+    shape uses on the current device."""
+    return int(_library().rans_cyclic_aligned_group(
+        int(decode), int(num_images), int(lanes)))
+
+
+def _check_cols(name: str, cols: int, decode: bool, device) -> None:
+    limit = aligned_max_cols(decode, device)
+    if cols > limit:
+        raise ValueError(f'{name} takes CDF rows of at most {limit} entries '
+                         f'on this device, got {cols}')
 
 
 def _check_fits(name: str, cols: int, n: int, decode: bool, device) -> None:
@@ -195,6 +229,8 @@ def cyclic_encode_aligned(cdf_lane: torch.Tensor, vc: torch.Tensor,
         return cyclic_encode_plain(cdf_lane, vc, aligned=True,
                                    want_masks=want_masks)
     args, (streams, lengths, states) = _encode_args(cdf_lane, vc)
+    _check_cols('rans_cyclic_encode_aligned', cdf_lane.shape[1], False,
+                vc.device)
     masks = torch.empty(streams.shape, dtype=torch.bool,
                         device=vc.device) if want_masks else None
     _launch('rans_cyclic_encode_aligned', vc.device, *args,
@@ -252,5 +288,7 @@ def cyclic_decode_aligned(streams, states, cdf_lane, len_lane, off_lane,
                          f'{streams.shape[-1]}')
     args, outs = _decode_args(streams, states, cdf_lane, len_lane,
                               off_lane, steps)
+    _check_cols('rans_cyclic_decode_aligned', cdf_lane.shape[1], True,
+                streams.device)
     _launch('rans_cyclic_decode_aligned', streams.device, *args)
     return outs

@@ -268,6 +268,112 @@ def test_batch1_kernels_refuse_steps_beyond_shared_memory_on_the_card():
         kernels.cyclic_encode(cdf_lane, vc)
 
 
+def _aligned_check(dev, tables, lanes, n, k, rare=False):
+    """The aligned pair against the plain versions, masks included:
+    bit-equal, the symbols back with valid=True, and valid=False with the
+    plain version's outputs after a state is corrupted. With
+    `rare=True` value 1 of channel 2 (frequency 1 in `_wide_tables`) is
+    coded at every seventh position."""
+    cdf, cdf_length, offset = tables
+    c = cdf.shape[0]
+    rows = np.stack([_symbols(cdf, cdf_length, offset, n, seed=s)
+                     for s in range(k)])
+    if rare:
+        pos = np.arange(n)
+        rows[:, (pos % c == 2) & (pos % 7 == 0)] = 1 + offset[2]
+    cdf_lane, len_lane, off_lane = td.lane_tables(
+        cdf, cdf_length, offset, lanes, c, dev)
+    sym3, _, _ = td._blocks(torch.from_numpy(rows).to(dev), lanes,
+                            off_lane)
+    vc = (sym3 - off_lane).contiguous()
+    steps = vc.shape[1]
+    plain = td.cyclic_encode_plain(cdf_lane, vc, aligned=True,
+                                   want_masks=True)
+    streams, _, states, _ = plain
+    bad = states.clone()
+    bad[k - 1, lanes // 3] ^= 0x5A5A
+    ref = td.cyclic_decode_plain(streams, states, cdf_lane, len_lane,
+                                 off_lane, steps, aligned=True)
+    ref_bad = td.cyclic_decode_plain(streams, bad, cdf_lane, len_lane,
+                                     off_lane, steps, aligned=True)
+    got = kernels.cyclic_encode_aligned(cdf_lane, vc, True)
+    out, xend = kernels.cyclic_decode_aligned(
+        streams, states, cdf_lane, len_lane, off_lane, steps)
+    out_bad, xend_bad = kernels.cyclic_decode_aligned(
+        streams, bad, cdf_lane, len_lane, off_lane, steps)
+    torch.cuda.synchronize()
+    for a, b in zip(plain, got):
+        assert torch.equal(a, b)
+    assert torch.equal(out, ref[0]) and torch.equal(xend, ref[1])
+    assert torch.equal(out_bad, ref_bad[0])
+    assert torch.equal(xend_bad, ref_bad[1])
+    assert bool((xend == td.RANS_L).all())
+    assert not bool((xend_bad[k - 1] == td.RANS_L).all())
+    np.testing.assert_array_equal(
+        out.reshape(k, -1)[:, :n].cpu().numpy(), rows)
+    return steps
+
+
+# (k, lanes, n): the flagship 384 x 190 at k not a multiple of the block
+# group (4 images a block) and at k = 128 (the throughput mode's
+# wire_batch, where the decoder takes 8), lane counts not multiples of 32,
+# and 600 steps
+ALIGNED_CASES = [(1, 384, 72600), (3, 384, 72600), (5, 384, 72600),
+                 (128, 384, 72600), (3, 72, 5000), (3, 168, 168 * 77 + 5),
+                 (2, 384, 384 * 600)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('k,lanes,n', ALIGNED_CASES)
+def test_aligned_kernels_equal_plain_versions_on_the_card(k, lanes, n):
+    dev = _card()
+    if lanes == 384:
+        assert kernels.aligned_group(False, k, lanes) == 4
+        assert kernels.aligned_group(True, k, lanes) == (8 if k == 128 else 4)
+    _aligned_check(dev, _tables(24, 21, seed=k), lanes, n, k)
+
+
+@pytest.mark.cuda
+def test_aligned_kernels_take_steps_beyond_the_batch1_limit_on_the_card():
+    """The aligned pair's shared memory does not grow with T: it takes a
+    T where the batch-1 pair raises."""
+    dev = _card()
+    lanes = 48
+    steps = kernels.max_steps(23, False, dev) + 5
+    tables = _tables(8, 21, seed=3)
+    assert _aligned_check(dev, tables, lanes, lanes * steps - 7, 2) == steps
+    cdf_lane = torch.zeros((lanes, 23), dtype=torch.int32, device=dev)
+    vc = torch.zeros((1, steps, lanes), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match='at most'):
+        kernels.cyclic_encode(cdf_lane, vc)
+
+
+@pytest.mark.cuda
+def test_aligned_kernels_on_wide_and_frequency_1_rows_on_the_card():
+    dev = _card()
+    _aligned_check(dev, _wide_tables(), 45, 45 * 60 - 7, 3, rare=True)
+
+
+@pytest.mark.cuda
+def test_aligned_kernels_refuse_rows_beyond_shared_memory_on_the_card():
+    dev = _card()
+    for decode in (False, True):
+        assert kernels.aligned_max_cols(decode, dev) >= 225
+    cols = kernels.aligned_max_cols(False, dev) + 1
+    cdf_lane = torch.zeros((32, cols), dtype=torch.int32, device=dev)
+    vc = torch.zeros((1, 4, 32), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match='at most'):
+        kernels.cyclic_encode_aligned(cdf_lane, vc)
+    cols = kernels.aligned_max_cols(True, dev) + 1
+    cdf_lane = torch.zeros((32, cols), dtype=torch.int32, device=dev)
+    streams = torch.zeros((1, 32, 4), dtype=torch.int32, device=dev)
+    states = torch.zeros((1, 32), dtype=torch.int64, device=dev)
+    lens = torch.full((32,), cols, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match='at most'):
+        kernels.cyclic_decode_aligned(streams, states, cdf_lane, lens,
+                                      torch.zeros_like(lens), 4)
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_bad_arguments_on_the_card():
     dev = _card()

@@ -182,8 +182,8 @@ def _deploy(rt, images, **kw):
     return [np.asarray(o) for o in out], sizes, summary
 
 
-@pytest.mark.parametrize('kw', [{}, {'wire_batch': 2}],
-                         ids=['batch1', 'wire_batch2'])
+@pytest.mark.parametrize('kw', [{}, {'wire_batch': 2}, {'wire_batch': 3}],
+                         ids=['batch1', 'wire_batch2', 'wire_batch3'])
 def test_stream_deploy_device_equals_jax(models, kw):
     _, jrt, prt, images = models
     j_logits, j_sizes, j_summary = _deploy(

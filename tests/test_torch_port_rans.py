@@ -191,6 +191,43 @@ def test_batched_rows_equal_single_encodes(aligned):
     np.testing.assert_array_equal(dec.numpy(), rows)
 
 
+def test_aligned_batch_equals_jax_xla_and_oracle_per_image():
+    """A wire_batch-shaped call: k=5 images coded at once in the aligned
+    layout, T = 46 steps (not a multiple of the kernels' 32-step tiles).
+    Each row equals the JAX XLA path's encode of that image and the numpy
+    oracle's, and the batched decode returns every row as JAX does."""
+    C, lanes, n, k = 24, 72, 72 * 45 + 5, 5
+    cdf, cdf_length, offset, idx, _ = _case(C, n)
+    tables = (cdf, cdf_length, offset)
+    rows = np.stack([_case(C, n, seed=r)[-1] for r in range(k)])
+    got = _port_encode(rows, tables, lanes, C, aligned=True)
+    assert tuple(got['streams'].shape) == (k, lanes, 46)
+    dec, valid = td.device_rans_decode(
+        got['streams'], got['states'], *tables, n_symbols=n,
+        num_lanes=lanes, cyclic_channels=C, aligned=True)
+    assert valid.tolist() == [True] * k
+    np.testing.assert_array_equal(dec.numpy(), rows)
+    for r in range(k):
+        ref = _jax_encode(rows[r], idx, tables, lanes, C, aligned=True)
+        one = {key: got[key][r] for key in ('streams', 'lengths', 'states',
+                                            'ok', 'nbytes', 'masks')}
+        _assert_encode_equal(ref, one, aligned=True)
+        assert td.pack_stream_aligned(one) == jd.pack_stream_aligned(ref)
+        o_streams, o_states = td.numpy_oracle_encode(
+            rows[r], idx, cdf, cdf_length, offset, num_lanes=lanes,
+            cyclic_channels=C)
+        np.testing.assert_array_equal(one['states'].numpy(), o_states)
+        streams, _ = td.unpack_stream(td.pack_stream_aligned(one))
+        for j in range(lanes):
+            assert list(streams[j, :len(o_streams[j])]) == o_streams[j]
+        jdec, jvalid = jd.device_rans_decode(
+            ref['streams'], ref['states'], idx, cdf, cdf_length, offset,
+            n_symbols=n, num_lanes=lanes, cyclic_channels=C, backend='xla',
+            aligned=True)
+        assert bool(jvalid)
+        np.testing.assert_array_equal(np.asarray(jdec), dec[r].numpy())
+
+
 def test_aligned_wire_equals_compacted_wire():
     cdf, cdf_length, offset, _, sym = _case(24, 5000)
     tables = (cdf, cdf_length, offset)
