@@ -39,7 +39,21 @@ which fails loudly with a nonzero exit:
     that of `rt.encode(x)`, its logits equal `rt.decode(**rt.encode(x))`,
     the other images' sizes equal a run without it, and the run counts
     exactly one `ok=False` escape and no `valid=False` one;
- 6. print the kernels line, the card's name and power limit, and last
+ 6. the classification test CLI (`sc2bench_tpu_torch.tasks.
+    image_classification`) on the flagship config: phase 1's model saved
+    with the port's `save_ckpt` is the student, the teacher is random
+    (`allow_missing_teacher`), the test loader is 32 synthetic 224x224
+    images of 1000 classes at batch 1. Once on the host wire and once
+    with `deploy_wire: device`; each prints acc1, acc5, the data-size
+    summary and the mean model_time, and the teacher's acc1 prints once.
+    The device-wire run must launch `rans_cyclic_encode`/`_decode` once
+    per image and no image may escape; its per-image sizes must equal a
+    direct `stream_deploy_device` of the same images; the host-wire run
+    launches no kernel, and its sizes must equal a direct `stream_deploy`,
+    which prints the host wire's time per image by stage (wait for the
+    symbols, host coding, decode dispatch); the two wires must give the
+    same acc1 and logits within 1e-3 (same symbols, another coder);
+ 7. print the kernels line, the card's name and power limit, and last
     `{"ok": true, "device": {...}}`.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -67,6 +81,10 @@ REPLACES = {
 }
 N_FLOAT, N_UINT8, WIRE_BATCH, HW = 16, 4, 8, 224
 LOGIT_TOL = 1e-3
+FLAGSHIP_CONFIG = ('configs/ilsvrc2012/supervised_compression/'
+                   'entropic_student/'
+                   'splitable_resnet50-fp-beta0.16_from_resnet50.yaml')
+N_CLI = 32
 # H100 SXM published peaks: HBM bytes/s, and
 # the non-tensor-core rate used for the kernels' integer operations
 HBM_BYTES_PER_S = 3.35e12
@@ -624,6 +642,119 @@ def escape_phase(torch, rt, images):
         'unchanged, one ok=False escape and no valid=False one')
 
 
+def cli_phase(torch, kernels, model):
+    """Phase 6: the test CLI on the flagship config, host wire then device
+    wire. Returns the device-wire run's launch counts."""
+    import tempfile
+    from sc2bench_tpu_torch.datasets.image import \
+        SyntheticClassificationDataset
+    from sc2bench_tpu_torch.models.runtime import SplitClassifierRuntime
+    from sc2bench_tpu_torch.tasks.image_classification import main as cli
+    from sc2bench_tpu_torch.utils.ckpt import save_ckpt
+    loader = {'dataset': {'key': 'SyntheticClassificationDataset',
+                          'kwargs': {'num_samples': N_CLI,
+                                     'image_size': [HW, HW],
+                                     'num_classes': 1000}},
+              'batch_size': 1}
+    # the served logits, caught where the engine's stream returns them
+    served = []
+    originals = {name: getattr(SplitClassifierRuntime, name)
+                 for name in ('stream_deploy', 'stream_deploy_device')}
+
+    def catching(fn):
+        def stream(self, images, *args, **kwargs):
+            out = fn(self, images, *args, **kwargs)
+            served.extend(out)
+            return out
+        return stream
+
+    runs = {}
+    try:
+        for name, fn in originals.items():
+            setattr(SplitClassifierRuntime, name, catching(fn))
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = os.path.join(tmp, 'student.ckpt')
+            save_ckpt(ckpt, model.state_dict())
+            over = {'allow_missing_teacher': True,
+                    'models': {'student_model': {'ckpt': ckpt}},
+                    'test': {'test_data_loader': loader}}
+            for wire in ('host', 'device'):
+                served.clear()
+                args = ['--config', os.path.join(REPO, FLAGSHIP_CONFIG),
+                        '--json', json.dumps({**over, 'deploy_wire': wire}),
+                        '-test_only']
+                if wire == 'device':
+                    args.append('-student_only')
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                out = cli(args)
+                wall = time.perf_counter() - t0
+                runs[wire] = dict(out, wall=wall,
+                                  launches=dict(kernels.LAUNCHES),
+                                  logits=torch.cat(served))
+    finally:
+        for name, fn in originals.items():
+            setattr(SplitClassifierRuntime, name, fn)
+
+    host, dev = runs['host'], runs['device']
+    rt = dev['engine'].runtime
+    check(all(v == 0 for v in host['launches'].values()),
+          f'the host wire launched kernels: {host["launches"]}')
+    want = {'rans_cyclic_encode': N_CLI, 'rans_cyclic_decode': N_CLI,
+            'rans_cyclic_encode_aligned': 0, 'rans_cyclic_decode_aligned': 0}
+    check(dev['launches'] == want, f'the device wire launched '
+          f'{dev["launches"]}, expected {want}')
+    check(rt.escapes == {'ok': 0, 'valid': 0},
+          f'device-wire images escaped: {rt.escapes}')
+    for wire, run in runs.items():
+        lg = run['logits']
+        check(tuple(lg.shape) == (N_CLI, 1000)
+              and bool(torch.isfinite(lg).all()),
+              f'{wire} wire: bad logits {tuple(lg.shape)}')
+        check(run['summaries'][0]['num_samples'] == N_CLI,
+              f'{wire} wire: summary {run["summaries"]}')
+    check(host['result']['acc1'] == dev['result']['acc1']
+          and host['result']['acc5'] == dev['result']['acc5'],
+          f'wires differ: host {host["result"]}, device {dev["result"]}')
+    worst = float((host['logits'] - dev['logits']).abs().max())
+    check(worst <= LOGIT_TOL, f'wires\' logits differ by {worst:.3e}')
+    sizes = list(rt.analyzers[0].file_size_list)
+    data = SyntheticClassificationDataset(num_samples=N_CLI,
+                                          image_size=(HW, HW))
+    images = [torch.from_numpy(np.ascontiguousarray(
+        data[i][0].transpose(2, 0, 1)[None])).to(rt.device)
+        for i in range(N_CLI)]
+    rt.clear_analysis()
+    rt.stream_deploy_device(images)
+    check(list(rt.analyzers[0].file_size_list) == sizes,
+          'CLI device-wire sizes differ from a direct stream_deploy_device')
+    # the host wire's breakdown, on the host-wire engine's runtime
+    hrt = host['engine'].runtime
+    sizes = list(hrt.analyzers[0].file_size_list)
+    hrt.clear_analysis()
+    timings = {}
+    t0 = time.perf_counter()
+    hrt.stream_deploy(images, timings=timings)
+    wall = time.perf_counter() - t0
+    check(list(hrt.analyzers[0].file_size_list) == sizes,
+          'CLI host-wire sizes differ from a direct stream_deploy')
+    log(f'phase 6: host wire, direct stream_deploy of the {N_CLI} images: '
+        f'{N_CLI / wall:.2f} img/s; per image, ms: ' + ', '.join(
+            f'{k} {1e3 * v / N_CLI:.3f}' for k, v in sorted(timings.items())))
+    for wire, run in runs.items():
+        res, summary = run['result'], run['summaries'][0]
+        log(f'phase 6: {wire} wire, {N_CLI} images of 224x224 through the '
+            f'CLI: acc1 {res["acc1"]}, acc5 {res["acc5"]}, data size '
+            f'{summary}, model_time {res["model_time"]:.6f} s per image '
+            f'({1 / res["model_time"]:.2f} img/s); CLI wall {run["wall"]:.2f}'
+            ' s')
+    log(f'phase 6: teacher (random weights) acc1 {host["teacher"]["acc1"]}, '
+        f'acc5 {host["teacher"]["acc5"]}; device wire: escapes {rt.escapes}, '
+        f'launches {dev["launches"]}, sizes equal a direct '
+        f'stream_deploy_device; max |logit diff| between wires {worst:.3e}')
+    return dev['launches']
+
+
 NORM = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
 
 
@@ -690,6 +821,9 @@ def run():
     # ---- phase 5 ----
     escape_phase(torch, rt, images)
 
+    # ---- phase 6 ----
+    cli_launches = cli_phase(torch, kernels, model)
+
     rows = [dict(name=name, route='cuda', source=SOURCE,
                  replaces=REPLACES[name], launches=launches[name],
                  max_abs_err=stats[name]['max_abs_err'],
@@ -697,6 +831,7 @@ def run():
                  plain_ms=stats[name]['plain_ms'],
                  bound_ms=stats[name]['bound_ms'],
                  bound_by=stats[name]['bound_by'], library_ms=None,
+                 launches_cli=cli_launches[name],
                  **{key: stats[name][key]
                     for key in ('device_ms_k128', 'bound_ms_k128')
                     if key in stats[name]})

@@ -1,7 +1,9 @@
-"""Compressed-size analysis (counterpart of `sc2bench_tpu/analysis.py`).
+"""Compressed-size and model-size analysis (counterpart of
+`sc2bench_tpu/analysis.py`).
 
 Data size is the pickled size of the compressed object, so the numbers are
-equal to the JAX package's when the object pickled is the same.
+equal to the JAX package's when the object pickled is the same. Encoder
+size is dtype bits x parameter count, split by parameter-name prefix.
 """
 from __future__ import annotations
 
@@ -11,6 +13,8 @@ import sys
 
 import numpy as np
 
+from .registry import lookup, register_analyzer
+
 logger = logging.getLogger(__name__)
 
 
@@ -19,6 +23,7 @@ def get_binary_object_size(obj, unit_size: int = 1024) -> float:
     return sys.getsizeof(pickle.dumps(obj)) / unit_size
 
 
+@register_analyzer
 class FileSizeAnalyzer:
     """Compressed-object size per sample; summarize() reports mean/std."""
 
@@ -48,11 +53,8 @@ class FileSizeAnalyzer:
         self.file_size_list.clear()
 
 
-ANALYZERS = {'FileSizeAnalyzer': FileSizeAnalyzer}
-
-
 def get_analyzer(cls_name, **kwargs):
-    cls = ANALYZERS.get(cls_name)
+    cls = lookup('analyzer', cls_name)
     return None if cls is None else cls(**kwargs)
 
 
@@ -86,3 +88,51 @@ class AnalyzerHolder:
     def clear_analysis(self):
         for analyzer in self.analyzers:
             analyzer.clear()
+
+
+def check_if_analyzable(module) -> bool:
+    return isinstance(module, AnalyzerHolder) or (
+        hasattr(module, 'activate_analysis') and hasattr(module, 'analyze'))
+
+
+_DTYPE_BITS = {
+    'int64': 64, 'float64': 64,
+    'int32': 32, 'float32': 32, 'uint32': 32,
+    'int16': 16, 'float16': 16, 'bfloat16': 16, 'uint16': 16,
+    'int8': 8, 'uint8': 8,
+    'bool': 2,
+}
+
+
+def analyze_model_size(params, encoder_paths=None, additional_rest_paths=None,
+                       ignores_dtype_error=True):
+    """Bits of the parameters of the whole model / the encoder / the rest,
+    split by dotted-name prefix. `params` maps names to tensors or arrays:
+    `dict(model.named_parameters())` counts what the JAX package counts
+    over Flax `params` (no BatchNorm statistics); a `state_dict()` adds the
+    buffers."""
+    encoder_path_set = set(encoder_paths or [])
+    additional_rest_path_set = set(additional_rest_paths or [])
+    model_size = encoder_size = rest_size = 0
+    for path, v in params.items():
+        param_count = int(np.prod(tuple(v.shape)))
+        dtype_name = str(v.dtype).removeprefix('torch.')
+        if dtype_name not in _DTYPE_BITS:
+            msg = f'For {path}, dtype `{dtype_name}` is not expected'
+            if ignores_dtype_error:
+                logger.warning(msg)
+                continue
+            raise TypeError(msg)
+        param_size = _DTYPE_BITS[dtype_name] * param_count
+        model_size += param_size
+        matched = False
+        for encoder_path in encoder_path_set:
+            if path.startswith(encoder_path):
+                encoder_size += param_size
+                if path in additional_rest_path_set:
+                    rest_size += param_size
+                matched = True
+                break
+        if not matched:
+            rest_size += param_size
+    return {'model': model_size, 'encoder': encoder_size, 'rest': rest_size}

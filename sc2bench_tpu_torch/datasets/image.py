@@ -1,0 +1,160 @@
+"""Host-side image data pipelines (counterpart of
+`sc2bench_tpu/datasets/image.py`), for one process.
+
+Loaders yield `(x, y)` numpy batches: x is NHWC (float32, or uint8 when
+every image is uint8), y int64. The engine turns x into an NCHW tensor.
+ImageFolder layout as ILSVRC-2012 (`val/<wnid>/*.JPEG`); the synthetic
+dataset stands in where no data is mounted.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from pathlib import Path
+
+import numpy as np
+
+from ..registry import get, register_dataset
+
+IMG_EXTENSIONS = {'.jpg', '.jpeg', '.png', '.ppm', '.bmp', '.webp'}
+
+
+@register_dataset
+class ImageFolderDataset:
+    """ImageNet-style directory dataset: root/<class>/<image>."""
+
+    def __init__(self, root, transform=None, **kwargs):
+        self.root = Path(root).expanduser()
+        self.transform = transform
+        classes = sorted(d.name for d in self.root.iterdir() if d.is_dir())
+        self.class_to_idx = {c: i for i, c in enumerate(classes)}
+        self.samples = [
+            (p, self.class_to_idx[c]) for c in classes
+            for p in sorted((self.root / c).iterdir())
+            if p.suffix.lower() in IMG_EXTENSIONS]
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, idx):
+        from PIL import Image
+        path, target = self.samples[idx]
+        img = Image.open(path).convert('RGB')
+        if self.transform is not None:
+            img = self.transform(img)
+        return img, target
+
+
+@register_dataset
+class SyntheticClassificationDataset:
+    """Deterministic random images (HWC), image i from seed + i: unit
+    normal float32, or uniform uint8 with `normalized=False`."""
+
+    def __init__(self, num_samples=64, image_size=(224, 224),
+                 num_classes=1000, seed=0, normalized=True, **kwargs):
+        self.num_samples = num_samples
+        self.image_size = tuple(image_size)
+        self.num_classes = num_classes
+        self.seed = seed
+        self.normalized = normalized
+
+    def __len__(self):
+        return self.num_samples
+
+    def __getitem__(self, idx):
+        rng = np.random.default_rng(self.seed + idx)
+        h, w = self.image_size
+        if self.normalized:
+            img = rng.normal(0, 1, (h, w, 3)).astype(np.float32)
+        else:
+            img = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+        target = int(rng.integers(0, self.num_classes))
+        return img, target
+
+
+class DataLoader:
+    """Batched loader with optional shuffle (seeded by the epoch) and a
+    background thread that prepares the next batches while the caller
+    works."""
+
+    def __init__(self, dataset, batch_size=1, shuffle=False, drop_last=False):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.epoch = 0
+
+    @staticmethod
+    def _collate(batch):
+        xs, ys = zip(*batch)
+        arrs = [np.asarray(x) for x in xs]
+        if all(a.dtype == np.uint8 for a in arrs):
+            # uint8 stays uint8: the runtime normalizes on the device
+            # (input_norm), and a quarter of the bytes cross to it
+            x = np.stack(arrs)
+        else:
+            x = np.stack([a.astype(np.float32) for a in arrs])
+        return x, np.asarray(ys, np.int64)
+
+    def __len__(self):
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last \
+            else -(-n // self.batch_size)
+
+    def _batches(self):
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.epoch).shuffle(idx)
+        bs = self.batch_size
+        end = len(idx) - (len(idx) % bs) if self.drop_last else len(idx)
+        for start in range(0, end, bs):
+            yield self._collate(
+                [self.dataset[int(i)] for i in idx[start:start + bs]])
+        self.epoch += 1
+
+    def __iter__(self):
+        q: queue.Queue = queue.Queue(maxsize=2)
+        sentinel = object()
+        failure = []
+
+        def producer():
+            try:
+                for b in self._batches():
+                    q.put(b)
+            except Exception as e:  # handed to the consumer below
+                failure.append(e)
+            finally:
+                q.put(sentinel)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        while True:
+            item = q.get()
+            if item is sentinel:
+                break
+            yield item
+        t.join()
+        if failure:
+            raise failure[0]
+
+
+def build_dataset(dataset_config):
+    """A dataset from its config (`key` and `kwargs`) via the registry."""
+    key = dataset_config.get('key', dataset_config.get('type'))
+    return get('dataset', key)(**dataset_config.get('kwargs', {}))
+
+
+def build_sharded_loader(split_config):
+    """DataLoader from a split config. The port runs in one process: in a
+    `torch.distributed` group of more than one process it raises, since
+    each would score the whole dataset."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        raise NotImplementedError(
+            'sharding a loader over processes is not ported yet '
+            '(ROADMAP Queue A item 12)')
+    return DataLoader(build_dataset(split_config['dataset']),
+                      batch_size=split_config.get('batch_size', 1),
+                      shuffle=split_config.get('shuffle', False),
+                      drop_last=split_config.get('drop_last', False))

@@ -1,7 +1,7 @@
 """Splittable classification backbone (counterpart of
 `sc2bench_tpu/models/backbone.py`): the stem+layer1 of a ResNet replaced
 by a learned bottleneck; layer2-4 and the classifier form the server-side
-tail.
+tail. Both builders register under the 'model' namespace.
 """
 from __future__ import annotations
 
@@ -11,8 +11,9 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..registry import register_model
 from .layer import get_layer
-from .resnet import BottleneckBlock, ResNetStage
+from .resnet import BottleneckBlock, ResNet, ResNetStage
 
 STAGE_SIZES = {'resnet50': (3, 4, 6, 3), 'resnet101': (3, 4, 23, 3),
                'resnet152': (3, 8, 36, 3)}
@@ -34,12 +35,29 @@ class SplittableResNet(nn.Module):
         self.layer4 = ResNetStage(c, 512, stage_sizes[3], strides=2)
         self.fc = nn.Linear(512 * BottleneckBlock.expansion, num_classes)
 
+    def forward(self, x: torch.Tensor, mode: str = 'finetune'
+                ) -> torch.Tensor:
+        """Logits without a bitstream: the bottleneck's `mode` forward,
+        then the tail."""
+        return self.forward_tail(self.bottleneck_layer(x, mode=mode))
+
     def forward_tail(self, feature: torch.Tensor) -> torch.Tensor:
         """Server-side tail from a decoded bottleneck feature (NCHW)."""
         z = self.layer4(self.layer3(self.layer2(feature)))
         return self.fc(torch.mean(z, dim=(2, 3)))
 
 
+@register_model(name='resnet')
+def resnet_builder(stage_sizes=(3, 4, 6, 3), num_classes=1000,
+                   device=None) -> ResNet:
+    """Config-resolvable plain ResNet of any stage sizes, placed on
+    `device` (CUDA unless asked otherwise)."""
+    dev = resolve_device(device)
+    return ResNet(stage_sizes=tuple(stage_sizes),
+                  num_classes=num_classes).to(dev)
+
+
+@register_model
 def splittable_resnet(bottleneck_config: dict, resnet_name: str = 'resnet50',
                       num_classes: int = 1000, stage_sizes=None,
                       device=None) -> SplittableResNet:

@@ -4,6 +4,8 @@
 The deploy path uses `encode_ops` (latent -> integer symbols
 round(y - median)) and `decode_ops` (symbols -> decoded feature). Symbols
 stay NCHW here; the runtime flattens them channels-last before coding.
+`forward(x, mode='finetune')` is the deterministic eval forward without a
+bitstream. Layers register under the 'layer' namespace of `registry.py`.
 """
 from __future__ import annotations
 
@@ -12,8 +14,10 @@ from torch import nn
 
 from ..ops.entropy.factorized import EntropyBottleneck
 from ..ops.gdn import GDN1
+from ..registry import get, register_layer
 
 
+@register_layer
 class FPBasedResNetBottleneck(nn.Module):
     """Factorized-prior bottleneck replacing ResNet stem+layer1: 3-conv GDN
     encoder (stride 4 total), entropy bottleneck over the latent, 3-conv
@@ -52,6 +56,20 @@ class FPBasedResNetBottleneck(nn.Module):
                 width = (width + 2 * p - k) // s + 1
         return height, width, self.encoder[-1].out_channels
 
+    def forward(self, x: torch.Tensor, mode: str = 'finetune'
+                ) -> torch.Tensor:
+        """Encoder, quantization, decoder. 'finetune' (after `update()`):
+        the latent is dequantized with the medians, round(y - median) +
+        median, and carries no gradient."""
+        if mode == 'train':
+            raise NotImplementedError(
+                "the 'train' (noise) forward comes with the training slice "
+                '(ROADMAP Queue A item 6)')
+        if mode != 'finetune':
+            raise ValueError(f'unknown mode {mode} (deploy uses encode_ops)')
+        y_hat = self.entropy_bottleneck(self.encoder(x), mode='dequantize')
+        return self.decoder(y_hat.detach())
+
     def encode_ops(self, x: torch.Tensor, medians: torch.Tensor) -> dict:
         """Latent integer symbols round(y - median), NCHW int32."""
         y = self.encoder(x)
@@ -64,12 +82,7 @@ class FPBasedResNetBottleneck(nn.Module):
         return self.decoder(y_hat)
 
 
-LAYERS = {'FPBasedResNetBottleneck': FPBasedResNetBottleneck}
-
-
 def get_layer(key: str, **kwargs) -> nn.Module:
-    """Bottleneck layer by registry name (only the ported ones)."""
-    if key not in LAYERS:
-        raise KeyError(f'bottleneck layer {key!r} is not ported yet; '
-                       f'ported: {sorted(LAYERS)}')
-    return LAYERS[key](**kwargs)
+    """Bottleneck layer by registry name; `KeyError` names the registered
+    ones when `key` is not among them."""
+    return get('layer', key)(**kwargs)

@@ -1,10 +1,13 @@
-"""ResNet v1.5 blocks over NCHW (counterpart of
-`sc2bench_tpu/models/resnet.py`): the classification tail behind the
-splittable models. Torchvision key space (`conv1`, `bn1`, ...,
-`downsample.0/1`); BatchNorm with eps 1e-5.
+"""ResNet v1.5 over NCHW (counterpart of `sc2bench_tpu/models/resnet.py`):
+the full classifier (the teacher) and the blocks of the classification
+tail behind the splittable models. Torchvision key space (`conv1`, `bn1`,
+`layer1.0.conv1`, ..., `downsample.0/1`, `fc`); BatchNorm with eps 1e-5.
 """
 from __future__ import annotations
 
+from typing import Callable, Sequence
+
+import torch
 from torch import nn
 
 
@@ -52,3 +55,47 @@ class ResNetStage(nn.Sequential):
                 in_channels, filters, strides=strides if i == 0 else 1))
             in_channels = filters * BottleneckBlock.expansion
         super().__init__(*layers)
+
+
+class ResNet(nn.Module):
+    """Stem (7x7/2 conv, BN, ReLU, 3x3/2 max pool), layer1-4, global
+    average pool and fc. `stage_sizes`: (3, 4, 6, 3) is ResNet-50,
+    (3, 4, 23, 3) ResNet-101, (3, 8, 36, 3) ResNet-152."""
+
+    def __init__(self, stage_sizes: Sequence[int], num_classes: int = 1000):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = nn.BatchNorm2d(64, eps=1e-5)
+        self.relu = nn.ReLU()
+        self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+        c = 64
+        for i, (filters, blocks) in enumerate(zip((64, 128, 256, 512),
+                                                  stage_sizes)):
+            setattr(self, f'layer{i + 1}', ResNetStage(
+                c, filters, blocks, strides=1 if i == 0 else 2))
+            c = filters * BottleneckBlock.expansion
+        self.fc = nn.Linear(c, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        return self.fc(torch.mean(x, dim=(2, 3)))
+
+
+def resnet50(**kwargs) -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 6, 3), **kwargs)
+
+
+def resnet101(**kwargs) -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 23, 3), **kwargs)
+
+
+def resnet152(**kwargs) -> ResNet:
+    return ResNet(stage_sizes=(3, 8, 36, 3), **kwargs)
+
+
+RESNET_BUILDERS: dict[str, Callable[..., ResNet]] = {
+    'resnet50': resnet50,
+    'resnet101': resnet101,
+    'resnet152': resnet152,
+}

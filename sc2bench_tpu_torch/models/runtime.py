@@ -12,8 +12,15 @@
 `wire_batch=k` images per coding launch (time-aligned streams), and
 accounts each image's exact wire size.
 
+`stream_deploy` is the same loop with the entropy coding on the host (the
+JAX runtime's default wire): int16 symbols cross to the host, the cyclic
+int16 coder of `ops/rans/coder.py` codes and decodes them, and the
+decoded symbols go back to the device for the decoder and tail.
+`__call__` is the reference's forward: deploy through `encode`/`decode`
+once the tables are built, the 'finetune' forward while training.
+
 The host CompressAI-format coder (`encode`/`decode`, `ops/rans/coder.py`)
-is the escape path: an image whose latent leaves the CDF support
+is also the escape path: an image whose latent leaves the CDF support
 (`ok=False`) or whose device decode fails (`valid=False`) is re-coded on
 the host, accounted with those bytes, and served from that path's logits,
 as in the JAX runtime. `SplitClassifierRuntime.escapes` counts them by the
@@ -90,6 +97,22 @@ class FactorizedCodec:
             out.append(np.transpose(flat.reshape(channels, h, w), (1, 2, 0)))
         return np.stack(out)
 
+    def compress_wire(self, symbols: np.ndarray):
+        """symbols: (n, h, w, c) int16, the device layout -> per-sample byte
+        strings on the cyclic int16 wire: the NHWC ravel, symbol i coded
+        with channel i mod c (the host reorders nothing)."""
+        n, h, w, c = symbols.shape
+        flat = symbols.reshape(n, -1)
+        return [self.coder.encode_cyclic_i16(flat[i], c) for i in range(n)]
+
+    def decompress_wire(self, strings, shape, channels):
+        """Inverse of `compress_wire`: -> (n, h, w, c) int16."""
+        h, w = shape
+        return np.stack([
+            self.coder.decode_cyclic_i16(s, h * w * channels,
+                                         channels).reshape(h, w, channels)
+            for s in strings])
+
 
 class SplitClassifierRuntime(AnalyzerHolder):
     """Runtime for `SplittableResNet` with an FP bottleneck: `update()`,
@@ -108,7 +131,7 @@ class SplitClassifierRuntime(AnalyzerHolder):
             # true float32 encoder: byte-identical bitstreams (module doc)
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
-        self.module = module.to(self.device)
+        self.module = module.to(self.device).eval()
         self.bottleneck_updated = False
         self.training = False
         # uint8 images are converted to (x/255 - mean)/std on the device
@@ -144,13 +167,31 @@ class SplitClassifierRuntime(AnalyzerHolder):
         self.bottleneck_updated = True
         return True
 
+    def get_aux_module(self):
+        return self._bneck
+
     def train(self, mode=True):
+        """Set the flag `__call__` dispatches on. The module stays in eval
+        mode: BatchNorm uses its running statistics on every path, as the
+        JAX runtime's forward does (`train=False`)."""
         self.training = mode
-        self.module.train(mode)
         return self
 
     def eval(self):
         return self.train(False)
+
+    @torch.no_grad()
+    def __call__(self, x):
+        """Deploy through the host coder when the tables are built and the
+        runtime is in eval mode; the 'finetune' forward (no bitstream) when
+        they are built and it is training. Before `update()` the 'train'
+        (noise) forward would run, which comes with the training slice."""
+        if self.bottleneck_updated and not self.training:
+            compressed = self.encode(x)
+            self.analyze(compressed)
+            return self.decode(**compressed)
+        mode = 'finetune' if self.bottleneck_updated else 'train'
+        return self.module(self._prep_input(x), mode=mode).to(torch.float32)
 
     def _prep_input(self, x):
         """To the runtime's device; uint8 -> normalized float32 there.
@@ -202,6 +243,86 @@ class SplitClassifierRuntime(AnalyzerHolder):
         compressed = self.encode(x)
         self.analyze(compressed)
         return self.decode(**compressed)
+
+    # ---- host wire (stream_deploy) -----------------------------------------
+    @torch.no_grad()
+    def encode_device(self, x):
+        """Mobile side of the host wire, on the device: encoder and
+        round(y - median), symbols (n, h, w, c) narrowed to int16, the wire
+        dtype (the JAX runtime's `to_wire`; lossless while
+        |round(y - median)| < 2^15)."""
+        flat, (h, w, c) = self._symbols_nhwc(x)
+        return {'symbols': flat.reshape(-1, h, w, c).to(torch.int16)}
+
+    def _encode_to_host(self, x):
+        """Dispatch `encode_device` and the copy of its symbols to the
+        host. Returns the host tensor and, on a CUDA device, the event after
+        which it holds the symbols (None on the CPU)."""
+        sym = self.encode_device(x)['symbols']
+        if self.device.type != 'cuda':
+            return sym, None
+        host = sym.to('cpu', non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return host, ready
+
+    @torch.no_grad()
+    def stream_deploy(self, images, depth: int = 8,
+                      timings: dict | None = None, decode_batch: int = 1):
+        """Serve a stream of images through the host coder at batch 1, the
+        reference's eval protocol: per image, the encoder on the device,
+        the cyclic int16 wire coded and decoded on the host with its size
+        accounted, then the decoder and tail on the device. Returns the
+        logits, one tensor per image.
+
+        Up to `depth` encodes (and the copies of their symbols) are queued
+        on the device ahead of the host coder, so the card works while the
+        host codes; one host thread codes. `decode_batch=k` runs the
+        decoder and tail once per k images; each image is still coded and
+        accounted alone."""
+        images = list(images)
+        if not images:
+            return []
+        channels = self.codec.tables.medians.shape[0]
+        results, decoded = [], []
+
+        def flush():
+            t0 = time.perf_counter()
+            sym = torch.from_numpy(np.concatenate(decoded)).to(self.device)
+            logits = self._decode_tail(sym.reshape(len(sym), -1),
+                                       tuple(sym.shape[1:]))
+            results.extend(torch.split(logits, [len(d) for d in decoded]))
+            decoded.clear()
+            add_timing(timings, 'decode_dispatch', time.perf_counter() - t0)
+
+        def host_stage(host, ready):
+            t0 = time.perf_counter()
+            if ready is not None:
+                ready.synchronize()
+            sym = host.numpy()
+            t1 = time.perf_counter()
+            compressed = {'strings': [self.codec.compress_wire(sym)],
+                          'shape': tuple(sym.shape[1:3])}
+            self.analyze(compressed)
+            decoded.append(self.codec.decompress_wire(
+                compressed['strings'][0], compressed['shape'], channels))
+            add_timing(timings, 'd2h_sync', t1 - t0)
+            add_timing(timings, 'host_code', time.perf_counter() - t1)
+            if len(decoded) == max(int(decode_batch), 1):
+                flush()
+
+        in_flight = deque()
+        for x in images:
+            if len(in_flight) >= max(int(depth), 1):
+                host_stage(*in_flight.popleft())
+            in_flight.append(self._encode_to_host(x))
+        while in_flight:
+            host_stage(*in_flight.popleft())
+        if decoded:
+            flush()
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        return results
 
     # ---- device-rANS wire -----------------------------------------------
     def _latent_shape(self, x_shape):

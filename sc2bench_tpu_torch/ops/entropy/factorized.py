@@ -2,8 +2,9 @@
 `sc2bench_tpu/ops/entropy/factorized.py:EntropyBottleneck`).
 
 Deploy needs the learned density's parameters, the medians and the table
-construction (`tables.py`); the noise and likelihood modes come with the
-training slice. Parameter names and shapes are CompressAI's:
+construction (`tables.py`); the fine-tune forward needs the 'dequantize'
+mode. The noise and likelihood modes come with the training slice.
+Parameter names and shapes are CompressAI's:
 `_matrix{i}` (C, r, d), `_bias{i}` and `_factor{i}` (C, r, 1),
 `quantiles` (C, 1, 3).
 """
@@ -43,6 +44,19 @@ class EntropyBottleneck(nn.Module):
     def medians(self) -> torch.Tensor:
         """Per-channel medians of the learned density, shape (C,)."""
         return self.quantiles[:, 0, 1]
+
+    def forward(self, x: torch.Tensor, mode: str = 'dequantize'
+                ) -> torch.Tensor:
+        """Quantized latent y_hat of an NCHW latent. 'dequantize' (the
+        post-update fine-tune forward): round(y - median) + median."""
+        if mode == 'noise':
+            raise NotImplementedError(
+                "the 'noise' mode and the likelihoods come with the "
+                'training slice (ROADMAP Queue A item 6)')
+        if mode != 'dequantize':
+            raise ValueError(f'unknown mode: {mode}')
+        medians = self.medians().detach()[:, None, None]
+        return torch.round(x - medians) + medians
 
     def numpy_params(self) -> dict:
         """The density parameters as host float32 arrays under the JAX

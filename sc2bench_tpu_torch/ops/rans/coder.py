@@ -1,12 +1,15 @@
 """Host rANS coder in the CompressAI-style byte format (counterpart of
-`sc2bench_tpu/ops/rans/coder.py`, single-stream coding with indexes).
+`sc2bench_tpu/ops/rans/coder.py`: single-stream coding with indexes, and
+the cyclic int16 wire).
 
 Format: 32-bit state, 8-bit renormalization, 16-bit probability precision.
 A symbol outside its CDF row's support escapes to the row's last slot and
 its overflow is bypass-coded in 4-bit chunks, so every int32 symbol codes.
 This is what the device wire cannot do; the runtime re-codes an image here
 when its latent leaves the support (`ok=False`) or its device decode fails
-(`valid=False`).
+(`valid=False`). The cyclic int16 wire (`encode_cyclic_i16`) is the host
+wire of `stream_deploy`: int16 symbols in NHWC-flat order, symbol i coded
+with distribution i mod C.
 
 Two implementations of one format:
   - `host.cpp`, compiled with g++ into `sc2bench_tpu_torch/build/` the
@@ -76,6 +79,13 @@ def _library():
             lib.rans_decode_with_indexes.restype = i
             lib.rans_decode_with_indexes.argtypes = [
                 u8p, i, i32p, i, i32p, i, i32p, i32p, i32p]
+            i16p = ctypes.POINTER(ctypes.c_int16)
+            lib.rans_encode_cyclic_i16.restype = i
+            lib.rans_encode_cyclic_i16.argtypes = [
+                i16p, i, i, i32p, i, i32p, i32p, u8p, i]
+            lib.rans_decode_cyclic_i16_coarse.restype = i
+            lib.rans_decode_cyclic_i16_coarse.argtypes = [
+                u8p, i, i, i, i32p, i, i32p, i32p, i16p, i, i16p]
             _lib = lib
     return _lib
 
@@ -90,6 +100,25 @@ def _i32p(a):
 
 def _u8p(a):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def _i16p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int16))
+
+
+def _cyclic_indexes(n: int, num_dists: int) -> np.ndarray:
+    """Distribution of each position of the cyclic wire: i mod num_dists."""
+    return (np.arange(n) % num_dists).astype(np.int32)
+
+
+def _coarse_lut(cdfs, cdf_lengths) -> np.ndarray:
+    """(num_dists, 256) int16: for each 256-slot bucket, the last symbol
+    whose CDF entry is at or below the bucket's first slot; the decoder
+    scans forward from there."""
+    slots = np.arange(0, 1 << _PRECISION, 256)
+    return np.ascontiguousarray(np.stack([
+        np.searchsorted(cdfs[i, :int(cdf_lengths[i])], slots, 'right') - 1
+        for i in range(cdfs.shape[0])]).astype(np.int16))
 
 
 # ---------------------------------------------------------------------------
@@ -193,6 +222,8 @@ class RansCoder:
         self.offsets = _as_i32(offset)
         self.cdf_stride = self.cdfs.shape[1]
         self.lib = _library() if use_cpp else None
+        self._coarse = _coarse_lut(self.cdfs, self.cdf_lengths) \
+            if use_cpp else None
 
     def encode_with_indexes(self, symbols, indexes) -> bytes:
         symbols = _as_i32(symbols).ravel()
@@ -225,4 +256,48 @@ class RansCoder:
             _u8p(byte_arr), byte_arr.size, _i32p(indexes), indexes.size,
             _i32p(self.cdfs), self.cdf_stride, _i32p(self.cdf_lengths),
             _i32p(self.offsets), _i32p(out))
+        return out
+
+    # ---- cyclic int16 wire (the device's channels-last layout) ----------
+    def _check_dists(self, num_dists):
+        if not 0 < num_dists <= self.cdfs.shape[0]:
+            raise ValueError(f'num_dists {num_dists} not in '
+                             f'[1, {self.cdfs.shape[0]}]')
+
+    def encode_cyclic_i16(self, symbols, num_dists: int) -> bytes:
+        """Code a channels-last flat int16 buffer whose symbol i uses
+        distribution i mod num_dists (the NHWC ravel of a latent), in the
+        format of `encode_with_indexes`."""
+        self._check_dists(num_dists)
+        symbols = np.ascontiguousarray(symbols, dtype=np.int16).ravel()
+        if self.lib is None:
+            return _py_encode(symbols.astype(np.int32),
+                              _cyclic_indexes(symbols.size, num_dists),
+                              self.cdfs, self.cdf_lengths, self.offsets)
+        capacity = max(1024, symbols.size * 8)
+        while True:
+            out = np.empty(capacity, np.uint8)
+            n = self.lib.rans_encode_cyclic_i16(
+                _i16p(symbols), symbols.size, num_dists, _i32p(self.cdfs),
+                self.cdf_stride, _i32p(self.cdf_lengths),
+                _i32p(self.offsets), _u8p(out), capacity)
+            if n >= 0:
+                return out[:n].tobytes()
+            capacity *= 4
+
+    def decode_cyclic_i16(self, data: bytes, n: int,
+                          num_dists: int) -> np.ndarray:
+        """Inverse of `encode_cyclic_i16`: n symbols as int16, the wire
+        dtype."""
+        self._check_dists(num_dists)
+        if self.lib is None:
+            return _py_decode(data, _cyclic_indexes(n, num_dists), self.cdfs,
+                              self.cdf_lengths,
+                              self.offsets).astype(np.int16)
+        byte_arr = np.frombuffer(data, np.uint8)
+        out = np.empty(n, np.int16)
+        self.lib.rans_decode_cyclic_i16_coarse(
+            _u8p(byte_arr), byte_arr.size, n, num_dists, _i32p(self.cdfs),
+            self.cdf_stride, _i32p(self.cdf_lengths), _i32p(self.offsets),
+            _i16p(self._coarse), self._coarse.shape[1], _i16p(out))
         return out

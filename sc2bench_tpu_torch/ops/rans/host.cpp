@@ -1,13 +1,14 @@
 // Byte-aligned rANS range coder with escape/bypass coding.
 //
 // The port's copy of the host coder of sc2bench_tpu/ops/rans/rans.cpp
-// (single-stream encode/decode with indexes only), the entropy-coding stage
+// (single-stream encode/decode with indexes, and the cyclic int16 wire with
+// its coarse-table decoder), the entropy-coding stage
 // the reference gets from CompressAI's C++ rANS. Runs on the host: the
 // bitstream is serial and CPU-bound; symbols/indexes arrive as int32 arrays
 // computed on the GPU. Built with g++ and bound with ctypes
 // (sc2bench_tpu_torch/ops/rans/coder.py). The runtime uses it for the
-// escape path of the device wire: images whose latent leaves the CDF
-// support are re-coded here.
+// host wire of stream_deploy (cyclic int16) and for the escape path of the
+// device wire: images whose latent leaves the CDF support are re-coded here.
 //
 // Design: 32-bit rANS state, 8-bit renormalization, 16-bit probability
 // precision. Out-of-range symbols escape to the final CDF slot and the
@@ -222,6 +223,87 @@ int rans_decode_with_indexes(const uint8_t* bytes, int n_bytes,
         out[i] = static_cast<int32_t>(value + offsets[idx]);
     }
     return 0;
+}
+
+// Cyclic int16 wire: symbols in the device's NHWC-flat (channels-last)
+// order, symbol i coded with distribution i % num_dists, so the host builds
+// no index array, transposes nothing and never widens to int32. Same
+// bitstream format as rans_encode_with_indexes; only the symbol order
+// differs from the channel-major coding of the host codec.
+int rans_encode_cyclic_i16(const int16_t* symbols, int n, int num_dists,
+                           const int32_t* cdfs, int cdf_stride,
+                           const int32_t* cdf_lengths, const int32_t* offsets,
+                           uint8_t* out, int out_capacity) {
+    std::vector<Op> ops;
+    ops.reserve(static_cast<size_t>(n) + 16);
+    int idx = 0;
+    for (int i = 0; i < n; ++i) {
+        const int32_t* cdf = cdfs + static_cast<int64_t>(idx) * cdf_stride;
+        emit_symbol_ops(ops, cdf, cdf_lengths[idx] - 2,
+                        static_cast<int64_t>(symbols[i]) - offsets[idx]);
+        if (++idx == num_dists) idx = 0;
+    }
+    RansEncState enc;
+    enc.buf.reserve(static_cast<size_t>(n) * 2 + 8);
+    for (auto it = ops.rbegin(); it != ops.rend(); ++it)
+        enc.put(it->start, it->freq);
+    enc.flush();
+    const int total = static_cast<int>(enc.buf.size());
+    if (total > out_capacity) return -1;
+    for (int i = 0; i < total; ++i)
+        out[i] = enc.buf[total - 1 - i];
+    return total;
+}
+
+}  // extern "C"
+
+namespace {
+
+// Decode with a 256-entry coarse table per distribution (slot >> 8 -> the
+// first symbol whose interval can hold the slot) and a short forward scan
+// over the CDF row: every row stays in L1 whatever the index order.
+template <typename IndexFn, typename OutT>
+inline int coarse_decode_core(const uint8_t* bytes, int n_bytes, int n,
+                              const int32_t* cdfs, int cdf_stride,
+                              const int32_t* cdf_lengths,
+                              const int32_t* offsets, const int16_t* coarse,
+                              int coarse_stride, OutT* out, IndexFn idx_of) {
+    RansDecState dec;
+    dec.init(bytes, n_bytes);
+    for (int i = 0; i < n; ++i) {
+        const int32_t idx = idx_of(i);
+        const int32_t* cdf = cdfs + static_cast<int64_t>(idx) * cdf_stride;
+        const int32_t max_value = cdf_lengths[idx] - 2;
+        const uint32_t slot = dec.peek();
+        int s = coarse[static_cast<int64_t>(idx) * coarse_stride
+                       + (slot >> 8)];
+        while (static_cast<uint32_t>(cdf[s + 1]) <= slot) ++s;
+        dec.advance(static_cast<uint32_t>(cdf[s]),
+                    static_cast<uint32_t>(cdf[s + 1] - cdf[s]));
+        const int64_t value = (s == max_value)
+            ? read_symbol_escape(dec, max_value) : s;
+        out[i] = static_cast<OutT>(value + offsets[idx]);
+    }
+    return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Inverse of rans_encode_cyclic_i16: n int16 symbols, distribution
+// i % num_dists, through the coarse table (num_dists rows of coarse_stride).
+int rans_decode_cyclic_i16_coarse(const uint8_t* bytes, int n_bytes, int n,
+                                  int num_dists, const int32_t* cdfs,
+                                  int cdf_stride,
+                                  const int32_t* cdf_lengths,
+                                  const int32_t* offsets,
+                                  const int16_t* coarse, int coarse_stride,
+                                  int16_t* out) {
+    return coarse_decode_core(
+        bytes, n_bytes, n, cdfs, cdf_stride, cdf_lengths, offsets, coarse,
+        coarse_stride, out,
+        [num_dists](int i) { return static_cast<int32_t>(i % num_dists); });
 }
 
 }  // extern "C"

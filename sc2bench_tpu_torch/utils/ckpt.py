@@ -1,0 +1,91 @@
+"""Checkpoint save/load (counterpart of `sc2bench_tpu/utils/ckpt.py`).
+
+The port's own format is `torch.save` of a state dict. Beside the file,
+as in the JAX package, `<path>.tables.pkl` holds the coding tables and
+`<path>.meta.pkl` any metadata (both optional; `update()` rebuilds the
+tables from the parameters anyway).
+
+`load_ckpt` also reads a checkpoint that the JAX package's `save_ckpt`
+wrote (Flax msgpack of the variables) and converts it with
+`state_dict_from_flax`. It tells the two formats apart by the file's first
+bytes: a `torch.save` file is a zip archive, a Flax one a msgpack map.
+"""
+from __future__ import annotations
+
+import dataclasses
+import pickle
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .convert import state_dict_from_flax
+
+_TABLES_SUFFIX = '.tables.pkl'
+_META_SUFFIX = '.meta.pkl'
+_ZIP_MAGIC = b'PK\x03\x04'
+_MSGPACK_NDARRAY = 1          # Flax's msgpack ext type of an ndarray
+
+
+def save_ckpt(path, state_dict, tables=None, meta=None):
+    """Write `state_dict` (tensors moved to the CPU) and the optional
+    sidecars; `tables` is a `CodingTables`."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, path)
+    if tables is not None:
+        Path(str(path) + _TABLES_SUFFIX).write_bytes(pickle.dumps(
+            {k: v for k, v in dataclasses.asdict(tables).items()
+             if v is not None}))
+    if meta is not None:
+        Path(str(path) + _META_SUFFIX).write_bytes(pickle.dumps(meta))
+
+
+def _msgpack_ext(code, data):
+    import msgpack
+    if code != _MSGPACK_NDARRAY:
+        return msgpack.ExtType(code, data)
+    shape, dtype, buffer = msgpack.unpackb(data, raw=True)
+    return np.frombuffer(buffer, dtype=np.dtype(dtype.decode())).reshape(
+        shape)
+
+
+def load_flax_ckpt(path) -> dict:
+    """State dict of a checkpoint written by the JAX package's `save_ckpt`
+    (`flax.serialization.to_bytes` of `{'params', 'batch_stats'}`: msgpack
+    maps, arrays as ext type 1 holding (shape, dtype name, bytes))."""
+    try:
+        import msgpack
+    except ImportError as e:
+        raise ImportError(
+            f'{path} is a Flax (msgpack) checkpoint; reading it needs the '
+            '`msgpack` package, which is not installed') from e
+    variables = msgpack.unpackb(Path(path).read_bytes(),
+                                ext_hook=_msgpack_ext, raw=False)
+    return state_dict_from_flax(variables)
+
+
+def _is_msgpack_map(head: bytes) -> bool:
+    return bool(head) and (0x80 <= head[0] <= 0x8f or head[0] in (0xde, 0xdf))
+
+
+def load_ckpt(path):
+    """(state_dict, tables state or None, meta or None) of a checkpoint in
+    the port's format or the JAX package's, chosen by the file's first
+    bytes. A missing file raises `FileNotFoundError`."""
+    path = Path(path)
+    with open(path, 'rb') as f:
+        head = f.read(4)
+    if head == _ZIP_MAGIC:
+        state_dict = torch.load(path, map_location='cpu', weights_only=True)
+    elif _is_msgpack_map(head):
+        state_dict = load_flax_ckpt(path)
+    else:
+        raise ValueError(f'{path} is neither a torch.save checkpoint nor a '
+                         'Flax msgpack one')
+    sidecars = []
+    for suffix in (_TABLES_SUFFIX, _META_SUFFIX):
+        side = Path(str(path) + suffix)
+        sidecars.append(pickle.loads(side.read_bytes())
+                        if side.exists() else None)
+    return (state_dict, *sidecars)

@@ -2,8 +2,8 @@
 
 Carries the JAX package's weights across: `state_dict_from_flax` takes
 `{'params': ..., 'batch_stats': ...}` as nested dicts of numpy arrays (no
-JAX needed) and returns the torch key space of `SplittableResNet`
-(torchvision ResNet names, CompressAI bottleneck names):
+JAX needed) and returns the torch key space of `SplittableResNet` and
+`ResNet` (torchvision ResNet names, CompressAI bottleneck names):
 
   Conv kernel (kH, kW, I, O)       -> Conv2d.weight (O, I, kH, kW)
   Dense kernel (I, O)              -> Linear.weight (O, I)
@@ -33,6 +33,7 @@ _FP_SCOPES = {
 
 _RULES = [(rf'^bottleneck_layer/{k}$', f'bottleneck_layer.{v}')
           for k, v in _FP_SCOPES.items()] + [
+    (r'^stem/(conv1|bn1)$', r'\1'),
     (r'^layer(\d)/block(\d+)/(conv\d|bn\d)$', r'layer\1.\2.\3'),
     (r'^layer(\d)/block(\d+)/downsample_conv$', r'layer\1.\2.downsample.0'),
     (r'^layer(\d)/block(\d+)/downsample_bn$', r'layer\1.\2.downsample.1'),
@@ -72,7 +73,8 @@ def _param_leaf(leaf: str, value: np.ndarray):
 
 def state_dict_from_flax(variables: dict) -> dict:
     """Flax `{'params', 'batch_stats'}` of the JAX `SplittableResNet` (FP
-    bottleneck) -> a state_dict that `load_state_dict` takes strictly."""
+    bottleneck) or `ResNet` -> a state_dict that `load_state_dict` takes
+    strictly."""
     out = {}
     for scope, leaf, value in _leaves(variables['params']):
         name, arr = _param_leaf(leaf, value)
@@ -81,5 +83,5 @@ def state_dict_from_flax(variables: dict) -> dict:
         path = _torch_scope('/'.join(scope))
         out[f'{path}.running_{leaf}'] = value
         out[f'{path}.num_batches_tracked'] = np.asarray(0, np.int64)
-    return {k: torch.from_numpy(np.ascontiguousarray(v).copy())
+    return {k: torch.from_numpy(np.array(v, order='C', copy=True))
             for k, v in out.items()}

@@ -1,0 +1,76 @@
+"""Metric logging with windowed smoothing (counterpart of
+`sc2bench_tpu/utils/metrics.py`). One process: there is nothing to
+synchronize, so `synchronize_between_processes` does nothing."""
+from __future__ import annotations
+
+from collections import defaultdict, deque
+
+import numpy as np
+
+
+class SmoothedValue:
+    """Track a series with a smoothing window + global total/count."""
+
+    def __init__(self, window_size=20, fmt='{median:.4f} ({global_avg:.4f})'):
+        self.deque = deque(maxlen=window_size)
+        self.total = 0.0
+        self.count = 0
+        self.fmt = fmt
+
+    def update(self, value, n=1):
+        self.deque.append(value)
+        self.count += n
+        self.total += value * n
+
+    def synchronize_between_processes(self):
+        """Single process: the totals are already global."""
+
+    @property
+    def median(self):
+        return float(np.median(self.deque)) if self.deque else 0.0
+
+    @property
+    def avg(self):
+        return float(np.mean(self.deque)) if self.deque else 0.0
+
+    @property
+    def global_avg(self):
+        return self.total / max(self.count, 1)
+
+    @property
+    def max(self):
+        return max(self.deque) if self.deque else 0.0
+
+    @property
+    def value(self):
+        return self.deque[-1] if self.deque else 0.0
+
+    def __str__(self):
+        return self.fmt.format(median=self.median, avg=self.avg,
+                               global_avg=self.global_avg, max=self.max,
+                               value=self.value)
+
+
+class MetricLogger:
+    def __init__(self, delimiter='  '):
+        self.meters = defaultdict(SmoothedValue)
+        self.delimiter = delimiter
+
+    def update(self, **kwargs):
+        for k, v in kwargs.items():
+            if hasattr(v, 'item'):
+                v = float(v)
+            self.meters[k].update(v)
+
+    def __getattr__(self, attr):
+        if attr in self.meters:
+            return self.meters[attr]
+        raise AttributeError(attr)
+
+    def synchronize_between_processes(self):
+        for meter in self.meters.values():
+            meter.synchronize_between_processes()
+
+    def __str__(self):
+        return self.delimiter.join(
+            f'{name}: {meter}' for name, meter in self.meters.items())

@@ -162,3 +162,68 @@ def test_invalid_decode_is_recoded_not_raised(models, wire_batch,  # noqa: F811
         np.testing.assert_array_equal(logits[i], clean_logits[i])
     assert all(tuple(lg.shape) == (1, 10) for lg in logits)
     assert torch.isfinite(torch.as_tensor(np.stack(logits))).all()
+
+
+@pytest.mark.parametrize('use_cpp', [True, False], ids=['cpp', 'python'])
+@pytest.mark.parametrize('num_dists,n', [(1, 97), (3, 600), (5, 601),
+                                         (5, 3)])
+def test_cyclic_i16_wire_bytes_equal_jax(use_cpp, num_dists, n):
+    """The cyclic int16 wire (symbol i coded with distribution
+    i mod num_dists; n not always a multiple of it) gives the JAX
+    `encode_cyclic_i16` bytes, escapes to the int16 limits included, and
+    decodes back to the int16 symbols."""
+    cdf, lengths, offset = _tables()
+    rng = np.random.default_rng(num_dists * 1000 + n)
+    sym = rng.integers(-6, 8, n).astype(np.int16)
+    sym[::7] = rng.choice([-1, -40, 9, 77, -3000, 32767, -32768],
+                          sym[::7].size)
+    ref = JaxRansCoder(cdf, lengths, offset).encode_cyclic_i16(sym, num_dists)
+    ours = RansCoder(cdf, lengths, offset, use_cpp=use_cpp)
+    data = ours.encode_cyclic_i16(sym, num_dists)
+    assert data == ref
+    back = ours.decode_cyclic_i16(data, n, num_dists)
+    assert back.dtype == np.int16
+    np.testing.assert_array_equal(back, sym)
+
+
+def test_cyclic_i16_wire_rejects_bad_num_dists():
+    cdf, lengths, offset = _tables()
+    ours = RansCoder(cdf, lengths, offset)
+    for bad in (0, cdf.shape[0] + 1):
+        with pytest.raises(ValueError, match='num_dists'):
+            ours.encode_cyclic_i16(np.zeros(4, np.int16), bad)
+        with pytest.raises(ValueError, match='num_dists'):
+            ours.decode_cyclic_i16(b'\0' * 8, 4, bad)
+
+
+def _stream(rt, images, **kw):
+    rt.clear_analysis()
+    rt.activate_analysis()
+    out = rt.stream_deploy(images, **kw)
+    sizes = list(rt.analyzers[0].file_size_list)
+    summary = rt.summarize()
+    rt.deactivate_analysis()
+    return [np.asarray(o) for o in out], sizes, summary
+
+
+@pytest.mark.parametrize('kw', [{}, {'decode_batch': 4}, {'depth': 1}],
+                         ids=['batch1', 'decode_batch4', 'depth1'])
+def test_stream_deploy_host_wire_equals_jax(models, kw):  # noqa: F811
+    """The host-coder deploy loop (cyclic int16 wire), an escaping image
+    among the stream: per-image sizes and the summary equal the JAX
+    runtime's; logits agree within rtol=atol=1e-4, one (1, K) per image."""
+    _, jrt, prt, images = models
+    stream = [images[0], images[1] * ESCAPE_SCALE, images[2], images[0]]
+    j_logits, j_sizes, j_summary = _stream(
+        jrt, [jnp.asarray(x) for x in stream], workers=1, **kw)
+    p_logits, p_sizes, p_summary = _stream(
+        prt, [_nchw(x) for x in stream], **kw)
+    assert p_sizes == j_sizes
+    assert p_summary == j_summary
+    assert len(p_logits) == len(j_logits) == len(stream)
+    for a, b in zip(j_logits, p_logits):
+        assert a.shape == b.shape == (1, 10)
+        np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-4)
+    # the wire carries the device's int16 symbols
+    sym = prt.encode_device(_nchw(images[0]))['symbols']
+    assert sym.dtype == torch.int16 and tuple(sym.shape[1:]) == (15, 15, 8)
