@@ -27,8 +27,12 @@ ones), whose slope is the time of one step of the chain and whose
 intercept is the fixed cost of a launch (prologue, write-out, launch gap);
 `wire_batch_sweep`: the aligned kernels' device_ms at the flagship
 shape for k = 1, 8, 32, 64 and 128 images a launch, whose slope is the
-cost of one more image in the throughput regime. Prints one JSON line with
-the card's name and power limit. Needs a CUDA device.
+cost of one more image in the throughput regime; `wide_rows`: each
+kernel's device_ms at the flagship shape with synthetic CDF rows of 600
+and 1,200 columns (`chip_smoke.synthetic_tables`), beyond the shared-memory
+table plans, with the bytes of the device table buffer each launch read
+(`kernels.table_bytes`; 0 = shared tables). Prints one JSON line with the
+card's name and power limit. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -43,14 +47,18 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPS = 200
 
 
-def flagship_inputs(torch, td, device, images, n=55 * 55 * 24):
+def flagship_inputs(torch, td, device, images, n=55 * 55 * 24,
+                    tables=None):
     """Lane tables and in-support symbol blocks (k, T, 384) drawn from
-    a fresh EntropyBottleneck(24)'s tables; T = 190 at the default n."""
+    `tables` (by default a fresh EntropyBottleneck(24)'s); T = 190 at the
+    default n."""
     from sc2bench_tpu_torch.ops.entropy.factorized import EntropyBottleneck
     from sc2bench_tpu_torch.ops.entropy.tables import build_factorized_tables
-    torch.manual_seed(0)
-    t = build_factorized_tables(EntropyBottleneck(24))
-    cdf, cdf_len, off = t.quantized_cdf, t.cdf_length, t.offset
+    if tables is None:
+        torch.manual_seed(0)
+        tables = build_factorized_tables(EntropyBottleneck(24))
+    cdf, cdf_len, off = (tables.quantized_cdf, tables.cdf_length,
+                         tables.offset)
     c = cdf.shape[0]
     lanes = td.auto_lanes(55 * 55 * 24, cyclic_channels=c)
     rng = np.random.default_rng(1234)
@@ -70,11 +78,12 @@ def flagship_inputs(torch, td, device, images, n=55 * 55 * 24):
 
 
 def kernel_calls(torch, td, kernels, device, wire_batch=8,
-                 n=55 * 55 * 24):
+                 n=55 * 55 * 24, tables=None):
     """name -> zero-argument call of each kernel at the flagship shapes
-    (or at `n` symbols per image on the flagship's 384 lanes)."""
+    (or at `n` symbols per image on the flagship's 384 lanes), with the
+    CDF rows of `tables` (by default the flagship's)."""
     vc8, cdf_lane, len_lane, off_lane = flagship_inputs(torch, td, device,
-                                                        wire_batch, n)
+                                                        wire_batch, n, tables)
     vc1 = vc8[:1].contiguous()
     steps = vc1.shape[1]
     streams, _, states = kernels.cyclic_encode(cdf_lane, vc1)
@@ -107,7 +116,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit('bench_rans_kernels: no CUDA device is available')
     sys.path.insert(0, HERE)
-    from chip_smoke import device_ms, per_call_ms
+    from chip_smoke import device_ms, per_call_ms, synthetic_tables
     from sc2bench_tpu_torch.ops.rans import device as td
     from sc2bench_tpu_torch.ops.rans import kernels
     device = torch.device('cuda', 0)
@@ -129,13 +138,26 @@ def main():
         calls = aligned_calls(kernels, vc, cdf_lane, len_lane, off_lane)
         for name, fn in calls.items():
             wire_sweep.setdefault(name, {})[k] = device_ms(torch, fn, REPS)
+    wide = {}
+    if hasattr(kernels, 'table_bytes'):
+        for cols in (600, 1200):
+            tables = synthetic_tables(24, cols - 2, cols)
+            calls = kernel_calls(torch, td, kernels, device, tables=tables)
+            for name, fn in calls.items():
+                k = 1 if name in ('rans_cyclic_encode',
+                                  'rans_cyclic_decode') else 8
+                wide.setdefault(name, {})[cols] = {
+                    'device_ms': device_ms(torch, fn, REPS),
+                    'table_bytes': kernels.table_bytes(
+                        name, cols, 190, 190, k, 384, device)}
     smi = subprocess.run(
         ['nvidia-smi', '--id=0', '--query-gpu=name,power.limit,clocks.sm',
          '--format=csv,noheader'], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(json.dumps({'repo': HERE, 'card': smi,
                       'kernels': out, 'steps_sweep': sweep,
-                      'wire_batch_sweep': wire_sweep}), flush=True)
+                      'wire_batch_sweep': wire_sweep, 'wide_rows': wide}),
+          flush=True)
 
 
 if __name__ == '__main__':

@@ -17,8 +17,9 @@ which fails loudly with a nonzero exit:
     equal between the two layouts, symbols back with valid=True, and
     valid=False for a corrupted stream. The aligned (wire_batch) pair also
     at k = 128 (the throughput mode's wire_batch) and k = 1, 3, 5 on the
-    flagship lanes, and at a T beyond the batch-1 pair's limit, with the
-    wrappers raising beyond their CDF-width limit. Print each kernel's ms
+    flagship lanes, and at a T beyond the batch-1 pair's limit. All four
+    at 600- and 1,200-column CDF rows (k = 1 and 8, the flagship's lanes),
+    which read their lane tables from device memory. Print each kernel's ms
     (CUDA events around one call on an idle card, host dispatch
     included), device ms (launches queued behind a sleep kernel), plain
     ms, the aligned pair's device ms at k = 8 and k = 128 with the images
@@ -53,7 +54,28 @@ which fails loudly with a nonzero exit:
     which prints the host wire's time per image by stage (wait for the
     symbols, host coding, decode dispatch); the two wires must give the
     same acc1 and logits within 1e-3 (same symbols, another coder);
- 7. print the kernels line, the card's name and power limit, and last
+ 7. training on the card: the CLI without `-test_only` on the flagship
+    Entropic Student config (phase 1's model as the student, a random
+    teacher, synthetic 224x224 loaders of 1000 classes: 64 training
+    images at batch 32 with drop_last, 32 validation images at batch 32;
+    stage 1 two epochs with `epoch_to_update: 2`, stage 2 one epoch), then
+    16 test images at batch 1 on the device wire; then one epoch (two
+    steps) of the end-to-end config with `epoch_to_update: 1` and 8 test
+    images. Per stage it prints the first and last step's loss detail,
+    img/s over the steps after the first (host clock behind
+    `torch.cuda.synchronize()`) and the peak device memory; per run the
+    test's acc1, data size and escapes. It fails on a non-finite loss; on
+    a teacher parameter, a stage-1-frozen layer2-4 tensor or any BN
+    statistic that stage 1 changed; on an encoder or density parameter
+    that stage 2 changed, or quantiles it did not; on tables not built
+    after training; unless each test launched `rans_cyclic_encode` and
+    `_decode` once per image; on a `valid=False` decode; and unless the
+    test sizes equal a direct `stream_deploy_device`. Escapes are counted,
+    not failed (a few steps on noise may leave the support). Last, one
+    flagship stage-1 step at batch 2 on the card and on the CPU from the
+    same state, batch and noise: loss detail, gradients and updated
+    parameters within rtol 1e-3;
+ 8. print the kernels line, the card's name and power limit, and last
     `{"ok": true, "device": {...}}`.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -63,6 +85,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -85,6 +108,10 @@ FLAGSHIP_CONFIG = ('configs/ilsvrc2012/supervised_compression/'
                    'entropic_student/'
                    'splitable_resnet50-fp-beta0.16_from_resnet50.yaml')
 N_CLI = 32
+END_TO_END_CONFIG = ('configs/ilsvrc2012/supervised_compression/end-to-end/'
+                     'splitable_resnet50-fp-beta1.024e-7.yaml')
+# phase 7: synthetic 224x224 loaders, 1000 classes
+N_TRAIN, N_VAL, TRAIN_BATCH, N_TRAIN_TEST, N_E2E_TEST = 64, 32, 32, 16, 8
 # H100 SXM published peaks: HBM bytes/s, and
 # the non-tensor-core rate used for the kernels' integer operations
 HBM_BYTES_PER_S = 3.35e12
@@ -356,7 +383,7 @@ def kernel_phase(torch, td, kernels, tables, device):
         'edge cases: 72 lanes n=5000 k=2; 168 lanes k=3; T=600; '
         '225-column rows; frequency-1 symbols)')
     cols = tables.quantized_cdf.shape[1]
-    long_steps = kernels.max_steps(cols, False, device) + 5
+    long_steps = kernels.max_steps(False, device) + 5
     # the aligned pair alone: the throughput mode's k = 128, k not a
     # multiple of the block's images, and a T the batch-1 pair refuses
     wide = kernel_case(torch, td, kernels, tables, lanes, n, 128, rng,
@@ -366,33 +393,27 @@ def kernel_phase(torch, td, kernels, tables, device):
     edge.append(kernel_case(torch, td, kernels, tables, 48,
                             48 * long_steps - 7, 2, rng, device,
                             batch1=False))
-    max_cols = {d: kernels.aligned_max_cols(d, device) for d in (0, 1)}
-    for decode, limit in max_cols.items():
-        check(limit >= 225, f'aligned kernels take only {limit} columns')
-        z = torch.zeros((32, limit + 1), dtype=torch.int32, device=device)
-        try:
-            if decode:
-                kernels.cyclic_decode_aligned(
-                    torch.zeros((1, 32, 4), dtype=torch.int32,
-                                device=device),
-                    torch.zeros((1, 32), dtype=torch.int64, device=device),
-                    z, z[:, 0].contiguous(), z[:, 0].contiguous(), 4)
-            else:
-                kernels.cyclic_encode_aligned(
-                    z, torch.zeros((1, 4, 32), dtype=torch.int32,
-                                   device=device))
-            refused = False
-        except ValueError:
-            refused = True
-        check(refused, f'aligned wrapper took {limit + 1}-column rows')
     log(f'phase 2: aligned pair equals its plain versions at k=128, at '
-        f'k=1, 3, 5 and at T={long_steps} (48 lanes); it takes CDF rows '
-        f'of up to {max_cols[0]} (encode) and {max_cols[1]} (decode) '
-        'columns and raises beyond')
+        f'k=1, 3, 5 and at T={long_steps} (48 lanes)')
+    # rows wider than the shared-memory plans: lane tables in device memory
+    for support in (598, 1198):
+        wide_tables = synthetic_tables(c, support, support)
+        wcols = wide_tables.quantized_cdf.shape[1]
+        plans = {f'{name} k={k}': kernels.table_bytes(
+            name, wcols, flag['steps'], flag['steps'], k, lanes, device)
+            for name in kernels.KERNELS for k in (1, WIRE_BATCH)}
+        check(plans['rans_cyclic_encode k=1'] > 0,
+              f'{wcols}-column rows kept their tables in shared memory')
+        edge += [kernel_case(torch, td, kernels, wide_tables, lanes, n, k,
+                             rng, device) for k in (1, WIRE_BATCH)]
+        log(f'phase 2: all four kernels equal their plain versions at '
+            f'{wcols}-column rows (k=1 and {WIRE_BATCH}, {lanes} lanes); '
+            'global-table buffers, bytes: ' + ', '.join(
+                f'{name} {b}' for name, b in plans.items()))
     log(f'phase 2: batch-1 kernels take up to '
-        f'{kernels.max_steps(cols, False, device)} steps (encode) and '
-        f'{kernels.max_steps(cols, True, device)} stream columns (decode) '
-        f'at {cols} columns')
+        f'{kernels.max_steps(False, device)} steps (encode) and '
+        f'{kernels.max_steps(True, device)} stream columns (decode) at any '
+        'CDF width')
 
     steps, cols = flag['steps'], flag['cdf_lane'].shape[1]
     cdf_lane, len_lane, off_lane = (flag['cdf_lane'], flag['len_lane'],
@@ -646,16 +667,10 @@ def cli_phase(torch, kernels, model):
     """Phase 6: the test CLI on the flagship config, host wire then device
     wire. Returns the device-wire run's launch counts."""
     import tempfile
-    from sc2bench_tpu_torch.datasets.image import \
-        SyntheticClassificationDataset
     from sc2bench_tpu_torch.models.runtime import SplitClassifierRuntime
     from sc2bench_tpu_torch.tasks.image_classification import main as cli
     from sc2bench_tpu_torch.utils.ckpt import save_ckpt
-    loader = {'dataset': {'key': 'SyntheticClassificationDataset',
-                          'kwargs': {'num_samples': N_CLI,
-                                     'image_size': [HW, HW],
-                                     'num_classes': 1000}},
-              'batch_size': 1}
+    loader = synthetic_split(N_CLI, 1, seed=0)
     # the served logits, caught where the engine's stream returns them
     served = []
     originals = {name: getattr(SplitClassifierRuntime, name)
@@ -719,11 +734,7 @@ def cli_phase(torch, kernels, model):
     worst = float((host['logits'] - dev['logits']).abs().max())
     check(worst <= LOGIT_TOL, f'wires\' logits differ by {worst:.3e}')
     sizes = list(rt.analyzers[0].file_size_list)
-    data = SyntheticClassificationDataset(num_samples=N_CLI,
-                                          image_size=(HW, HW))
-    images = [torch.from_numpy(np.ascontiguousarray(
-        data[i][0].transpose(2, 0, 1)[None])).to(rt.device)
-        for i in range(N_CLI)]
+    images = synthetic_images(torch, N_CLI, rt.device)
     rt.clear_analysis()
     rt.stream_deploy_device(images)
     check(list(rt.analyzers[0].file_size_list) == sizes,
@@ -753,6 +764,278 @@ def cli_phase(torch, kernels, model):
         f'launches {dev["launches"]}, sizes equal a direct '
         f'stream_deploy_device; max |logit diff| between wires {worst:.3e}')
     return dev['launches']
+
+
+def synthetic_split(n, batch, seed, **extra):
+    """A loader config of `n` synthetic HWxHW images of 1000 classes."""
+    return {'dataset': {'key': 'SyntheticClassificationDataset',
+                        'kwargs': {'num_samples': n, 'image_size': [HW, HW],
+                                   'num_classes': 1000, 'seed': seed}},
+            'batch_size': batch, **extra}
+
+
+def synthetic_images(torch, n, device, seed=0):
+    """The images of `synthetic_split(n, 1, seed)`, NCHW on `device`."""
+    from sc2bench_tpu_torch.datasets.image import \
+        SyntheticClassificationDataset
+    data = SyntheticClassificationDataset(num_samples=n, image_size=(HW, HW),
+                                          seed=seed)
+    return [torch.from_numpy(np.ascontiguousarray(
+        data[i][0].transpose(2, 0, 1)[None])).to(device) for i in range(n)]
+
+
+def snapshot(module):
+    return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+
+def recording(torch, base, records):
+    """`base` (a training box class) that records, per stage, the student's
+    and teacher's state at its start, each step's loss detail and
+    host-clock seconds (behind `torch.cuda.synchronize()`), and the peak
+    device memory since the stage began."""
+
+    class Recording(base):
+        def __init__(self, student, stage_config, **kwargs):
+            torch.cuda.synchronize()
+            teacher = kwargs.get('teacher')
+            self._record = {'name': stage_config.get('name'), 'steps': [],
+                            'student': snapshot(student),
+                            'teacher': None if teacher is None
+                            else snapshot(teacher)}
+            records.append(self._record)
+            torch.cuda.reset_peak_memory_stats()
+            super().__init__(student, stage_config, **kwargs)
+
+        def train_step(self, x, y):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = super().train_step(x, y)
+            torch.cuda.synchronize()
+            self._record['steps'].append((
+                {k: float(v) for k, v in metrics['loss'].items()},
+                time.perf_counter() - t0, int(x.shape[0])))
+            self._record['peak'] = torch.cuda.max_memory_allocated()
+            return metrics
+
+    return Recording
+
+
+def train_cli(torch, kernels, config, over, n_test):
+    """One train-then-test CLI run on the device wire; returns its output,
+    the stage records, the launches of its test and the test images."""
+    import sc2bench_tpu_torch.train.engine as engine_module
+    from sc2bench_tpu_torch.tasks.image_classification import main as cli
+    records = []
+    boxes = {name: getattr(engine_module, name)
+             for name in ('DistillationBox', 'TrainingBox')}
+    try:
+        for name, cls in boxes.items():
+            setattr(engine_module, name, recording(torch, cls, records))
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = cli(['--config', os.path.join(REPO, config), '--json',
+                   json.dumps({**over, 'deploy_wire': 'device'}),
+                   '-student_only'])
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        for name, cls in boxes.items():
+            setattr(engine_module, name, cls)
+    images = synthetic_images(torch, n_test, out['engine'].runtime.device)
+    return dict(out, wall=wall, launches=launches, records=records,
+                images=images)
+
+
+def check_test_of_training(torch, run, n_test, tag):
+    """The trained model's device-wire test: one launch of each batch-1
+    kernel per image, no valid=False, sizes equal a direct
+    `stream_deploy_device`. Escapes (ok=False) are counted, not failed."""
+    engine = run['engine']
+    rt = engine.runtime
+    check(rt.bottleneck_updated, f'{tag}: tables not built after training')
+    want = {'rans_cyclic_encode': n_test, 'rans_cyclic_decode': n_test,
+            'rans_cyclic_encode_aligned': 0, 'rans_cyclic_decode_aligned': 0}
+    check(run['launches'] == want, f'{tag}: the test launched '
+          f'{run["launches"]}, expected {want}')
+    escapes = dict(rt.escapes)
+    check(escapes['valid'] == 0, f'{tag}: valid=False decodes: {escapes}')
+    check(run['summaries'][0]['num_samples'] == n_test,
+          f'{tag}: summary {run["summaries"]}')
+    sizes = list(rt.analyzers[0].file_size_list)
+    rt.clear_analysis()
+    logits = rt.stream_deploy_device(run['images'])
+    check(list(rt.analyzers[0].file_size_list) == sizes,
+          f'{tag}: CLI sizes differ from a direct stream_deploy_device')
+    check(all(bool(torch.isfinite(lg).all()) for lg in logits),
+          f'{tag}: non-finite logits')
+    return escapes
+
+
+def log_stages(run, tag):
+    for rec in run['records']:
+        steps = rec['steps']
+        for i, (loss, _, _) in ((0, steps[0]), (len(steps) - 1, steps[-1])):
+            check(all(np.isfinite(v) for v in loss.values()),
+                  f'{tag} {rec["name"]} step {i}: loss {loss}')
+        later = steps[1:]
+        rate = sum(n for _, _, n in later) / sum(t for _, t, _ in later)
+        log(f'phase 7: {tag} {rec["name"]}: {len(steps)} steps of '
+            f'{steps[0][2]} images; loss detail, first step '
+            f'{steps[0][0]}, last step {steps[-1][0]}; {rate:.2f} img/s '
+            f'over steps 2-{len(steps)} (first step {steps[0][1]:.3f} s); '
+            f'peak memory {rec["peak"] / 2 ** 30:.3f} GiB')
+    res, summary = run['result'], run['summaries'][0]
+    log(f'phase 7: {tag} test, device wire: acc1 {res["acc1"]}, acc5 '
+        f'{res["acc5"]}, data size {summary}, escapes {run["escapes"]}, '
+        f'launches {run["launches"]}; CLI wall {run["wall"]:.2f} s')
+
+
+def changed(before, after, keys):
+    """The keys whose tensors differ between two state snapshots."""
+    return [k for k in keys if not bool((before[k] == after[k]).all())]
+
+
+def train_phase(torch, kernels, model):
+    """Phase 7: the train-then-test CLI on the card: the flagship Entropic
+    Student config (two stages) and an end-to-end config, each tested on
+    the device wire. Returns the Entropic Student test's launch counts."""
+    import tempfile
+    from sc2bench_tpu_torch.utils.ckpt import save_ckpt
+    loaders = {'train_data_loader': synthetic_split(
+        N_TRAIN, TRAIN_BATCH, seed=1000, shuffle=True, drop_last=True),
+        'val_data_loader': synthetic_split(N_VAL, TRAIN_BATCH, seed=2000)}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, 'student.ckpt')
+        save_ckpt(ckpt, model.state_dict())
+        es = train_cli(torch, kernels, FLAGSHIP_CONFIG, {
+            'allow_missing_teacher': True,
+            'models': {'student_model': {'ckpt': ckpt}},
+            'train': {**loaders,
+                      'stage1': {'num_epochs': 2, 'epoch_to_update': 2},
+                      'stage2': {'num_epochs': 1}},
+            'test': {'test_data_loader': synthetic_split(N_TRAIN_TEST, 1,
+                                                         seed=0)}},
+            N_TRAIN_TEST)
+        e2e = train_cli(torch, kernels, END_TO_END_CONFIG, {
+            'models': {'model': {'ckpt': ckpt}},
+            'train': {**loaders, 'num_epochs': 1, 'epoch_to_update': 1},
+            'test': {'test_data_loader': synthetic_split(N_E2E_TEST, 1,
+                                                         seed=0)}},
+            N_E2E_TEST)
+    steps = N_TRAIN // TRAIN_BATCH
+    for tag, run, want in (('entropic student', es,
+                            [('stage1', 2 * steps), ('stage2', steps)]),
+                           ('end-to-end', e2e, [('train', steps)])):
+        got = [(r['name'], len(r['steps'])) for r in run['records']]
+        check(got == want, f'{tag}: stages and steps {got}, expected {want}')
+    # what each Entropic Student stage may change
+    s0, s1 = es['records'][0]['student'], es['records'][1]['student']
+    s2 = snapshot(es['engine'].student)
+    teacher_moved = changed(es['records'][0]['teacher'],
+                            snapshot(es['engine'].teacher),
+                            es['records'][0]['teacher'])
+    check(not teacher_moved, f'teacher changed: {teacher_moved[:3]}')
+    buffers = {k for k, _ in es['engine'].student.named_buffers()}
+    frozen1 = [k for k in s0 if k.split('.')[0] in ('layer2', 'layer3',
+                                                   'layer4') or k in buffers]
+    moved = changed(s0, s1, frozen1)
+    check(not moved, f'stage 1 changed frozen layer2-4 or BN statistics: '
+          f'{moved[:3]}')
+    check(changed(s0, s1, [k for k in s0 if '.encoder.' in k]),
+          'stage 1 left the encoder unchanged')
+    density = [k for k in s1 if '.encoder.' in k or re.search(
+        r'entropy_bottleneck\._(matrix|bias|factor)\d', k)]
+    moved = changed(s1, s2, density)
+    check(not moved, f'stage 2 changed the frozen encoder or density: '
+          f'{moved[:3]}')
+    check(changed(s1, s2, ['bottleneck_layer.entropy_bottleneck.quantiles']),
+          'stage 2 left the quantiles unchanged')
+    for tag, run, n in (('entropic student', es, N_TRAIN_TEST),
+                        ('end-to-end', e2e, N_E2E_TEST)):
+        run['escapes'] = check_test_of_training(torch, run, n, tag)
+        log_stages(run, tag)
+    log('phase 7: teacher unchanged; stage 1 left layer2-4 and every BN '
+        'statistic as they were and moved the encoder; stage 2 left the '
+        'encoder and the density as they were and moved the quantiles; '
+        'test sizes equal a direct stream_deploy_device')
+    step_on_card_and_cpu(torch, model)
+    return es['launches'], e2e['launches']
+
+
+def step_on_card_and_cpu(torch, model, devices=('cuda', 'cpu')):
+    """One flagship stage-1 step at batch 2 on the card and on the CPU from
+    the same state, batch and noise: loss detail within rtol 1e-3,
+    gradients within rtol 1e-3 (atol 1e-3 max|g| of each tensor), updated
+    parameters within rtol 1e-3 (atol 1e-2 lr) where |g| > 0.1 max|g|:
+    Adam's first step, lr * g / (|g| + eps), turns a small gradient's
+    float error into a difference of up to 2 lr."""
+    import copy
+    import sc2bench_tpu_torch.ops.entropy.factorized as factorized
+    from sc2bench_tpu_torch.config import load_config
+    from sc2bench_tpu_torch.models.registry import load_classification_model
+    from sc2bench_tpu_torch.train.box import DistillationBox
+    cfg = load_config(os.path.join(REPO, FLAGSHIP_CONFIG))
+    torch.manual_seed(7)
+    teacher = load_classification_model(cfg['models']['teacher_model'],
+                                        device='cpu')
+    student = copy.deepcopy(model).cpu()
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 3, HW, HW), generator=gen)
+    y = torch.tensor([1, 2])
+    noise = {}
+
+    def fixed_noise(v, generator):
+        if v.shape not in noise:
+            noise[v.shape] = torch.rand(v.shape, generator=gen) - 0.5
+        return v + noise[v.shape].to(v.device)
+
+    original = factorized.quantize_noise
+    out = {}
+    try:
+        factorized.quantize_noise = fixed_noise
+        for dev in devices:
+            s, t = copy.deepcopy(student).to(dev), copy.deepcopy(teacher)
+            box = DistillationBox(s, cfg['train']['stage1'], teacher=t.to(dev),
+                                  steps_per_epoch=2, student_mode='train',
+                                  generator=torch.Generator(device=dev))
+            m = box.train_step(x.to(dev), y.to(dev))
+            out[dev] = ({k: float(v) for k, v in m['loss'].items()},
+                        {n: (p.detach().cpu(), p.grad.cpu())
+                         for n, p in s.named_parameters()
+                         if p.grad is not None})
+    finally:
+        factorized.quantize_noise = original
+    (loss_c, params_c), (loss_p, params_p) = (out[d] for d in devices)
+    for k, v in loss_p.items():
+        check(abs(loss_c[k] - v) <= 1e-3 * abs(v),
+              f'card vs CPU step: loss {k} {loss_c[k]} vs {v}')
+    check(params_c.keys() == params_p.keys(), 'card vs CPU: other params')
+    lr = float(cfg['train']['stage1']['optimizer']['kwargs']['lr'])
+    worst_g = worst_u = 0.0
+    compared = 0
+    for n, (p_ref, g_ref) in params_p.items():
+        p, g = params_c[n]
+        scale = float(g_ref.abs().max()) or 1.0
+        dg = (g - g_ref).abs()
+        worst_g = max(worst_g, float(dg.max()) / scale)
+        check(bool((dg <= 1e-3 * g_ref.abs() + 1e-3 * scale).all()),
+              f'card vs CPU: gradient of {n}, max |dg| / max|g| '
+              f'{float(dg.max()) / scale:.3e}')
+        # Adam's first step is lr * g / (|g| + eps), about lr * sign(g):
+        # compared where the gradient stands clear of its tolerance
+        sure = g_ref.abs() > 0.1 * scale
+        dp = (p - p_ref).abs()[sure]
+        compared += dp.numel()
+        if dp.numel():
+            worst_u = max(worst_u, float(dp.max()) / lr)
+            tol = (1e-3 * p_ref.abs() + 1e-2 * lr)[sure]
+            check(bool((dp <= tol).all()),
+                  f'card vs CPU: updated {n}, max |dp| '
+                  f'{float(dp.max()):.3e} ({float(dp.max()) / lr:.3e} lr)')
+    log(f'phase 7: one flagship stage-1 step at batch 2, card vs CPU: loss '
+        f'{loss_c} vs {loss_p}; gradients: max |dg| / max|g| '
+        f'{worst_g:.3e}; updated parameters: max |dp| {worst_u:.3e} lr over '
+        f'the {compared} elements whose |g| > 0.1 max|g|')
 
 
 NORM = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
@@ -824,6 +1107,9 @@ def run():
     # ---- phase 6 ----
     cli_launches = cli_phase(torch, kernels, model)
 
+    # ---- phase 7 ----
+    train_launches, e2e_launches = train_phase(torch, kernels, model)
+
     rows = [dict(name=name, route='cuda', source=SOURCE,
                  replaces=REPLACES[name], launches=launches[name],
                  max_abs_err=stats[name]['max_abs_err'],
@@ -832,6 +1118,8 @@ def run():
                  bound_ms=stats[name]['bound_ms'],
                  bound_by=stats[name]['bound_by'], library_ms=None,
                  launches_cli=cli_launches[name],
+                 launches_train=train_launches[name],
+                 launches_train_e2e=e2e_launches[name],
                  **{key: stats[name][key]
                     for key in ('device_ms_k128', 'bound_ms_k128')
                     if key in stats[name]})

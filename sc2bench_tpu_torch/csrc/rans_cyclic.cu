@@ -46,7 +46,8 @@
 //     the hardware 32-bit divide on an H100 (PERF.md).
 // Then the dependent chain touches only shared memory and registers. The
 // shared memory a block needs grows with T (encoder) or min(W, T) (decoder);
-// rans_cyclic_max_steps gives the largest that fits.
+// rans_cyclic_max_steps gives the largest that fits when the lane tables are
+// in global memory (below).
 //
 // Measured on an H100 (bench_rans_kernels.py, 384 lanes, T = 32..600): a
 // decode step costs about 285 SM cycles and an encode step about 120, plus
@@ -84,8 +85,19 @@
 //     k = 8. The decoder's symbol store out[img, t, lane0:+32] is whole
 //     128-byte lines as it is;
 //   - the encoder divides by reciprocal48, as the batch-1 encoder does.
-// The tables grow with the CDF width: rans_cyclic_aligned_max_cols gives
-// the largest that the rule's groups take.
+//
+// Wide CDF rows. The lane tables grow with the CDF width (16 bytes an entry
+// to encode, 8 to decode, per lane). When a launch's shared-memory plan
+// with the tables does not fit a block, the same kernels run with the
+// tables in global memory (template parameter kGlobalTables): a first
+// kernel, build_lane_tables_kernel, writes them into a buffer the caller
+// passes ([lane chunk][symbol][32 lanes], the shared layout for every
+// chunk), and the coding kernel reads them through L1. Only the staging
+// (and the decoder's fixed coarse table) then stays in shared memory, so
+// the aligned pair takes rows of any width and the batch-1 pair's step
+// limit no longer depends on the width. rans_cyclic_table_bytes tells the
+// caller which plan a launch takes and how large a buffer it needs. Narrow
+// rows (the flagship's 23 columns) keep the shared tables and their code.
 //
 // Measured on an H100 (bench_rans_kernels.py, flagship shape): 0.0186 ms
 // (encode) and 0.0374 ms (decode) at k = 8, against 0.0403 and 0.1190 for
@@ -113,7 +125,9 @@
 // Each C entry point launches on the given stream and returns
 // cudaGetLastError(), or cudaErrorInvalidValue (without launching) when the
 // shapes need more shared memory than a block can have, or when aligned
-// streams are not T columns wide.
+// streams are not T columns wide. Its `tables` argument is null for the
+// shared-memory plan, else a device buffer of rans_cyclic_table_bytes bytes
+// for the global-table plan.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -180,6 +194,9 @@ __device__ __forceinline__ uint64_t reciprocal48(uint32_t fr) {
 
 // ---- shared-memory plans (bytes) -------------------------------------------
 
+// Each plan takes `cols`, the CDF entries a lane's tables hold in shared
+// memory: the row width, or 0 when the tables are in global memory.
+//
 // encoder: (start, freq, m_lo, m_hi) per [symbol][lane], two symbol tiles,
 // the block's raw CDF rows, the lanes' counts, then the u16 output rows of
 // pitch T+1
@@ -223,15 +240,68 @@ inline int smem_optin() {
   return bytes;
 }
 
+// ---- lane tables in global memory ------------------------------------------
+//
+// Entry v of lane chunk*32 + l at tables[(chunk * cols + v) * 32 + l]: the
+// encoder's (start, freq, m_lo, m_hi), the decoder's (start, freq), with
+// freq = cdf[v+1] - cdf[v] (0 for the last entry), as the kernels build
+// them in shared memory. Lanes past the last are zero.
+
+__device__ __forceinline__ void put_entry(uint4* e, uint32_t st, uint32_t fr) {
+  const uint64_t m = fr ? reciprocal48(fr) : 0;
+  *e = make_uint4(st, fr, static_cast<uint32_t>(m),
+                  static_cast<uint32_t>(m >> 32));
+}
+
+__device__ __forceinline__ void put_entry(uint2* e, uint32_t st, uint32_t fr) {
+  *e = make_uint2(st, fr);
+}
+
+template <typename Entry>
+__global__ void build_lane_tables_kernel(const int32_t* __restrict__ cdf_lane,
+                                         int cols, int lanes,
+                                         Entry* __restrict__ tables) {
+  const int64_t total =
+      static_cast<int64_t>((lanes + kWarp - 1) / kWarp) * cols * kWarp;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < total; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int l = static_cast<int>(i % kWarp);
+    const int64_t cv = i / kWarp;
+    const int v = static_cast<int>(cv % cols);
+    const int lane = static_cast<int>(cv / cols) * kWarp + l;
+    uint32_t st = 0, fr = 0;
+    if (lane < lanes) {
+      const int32_t* row = cdf_lane + static_cast<int64_t>(lane) * cols;
+      st = static_cast<uint32_t>(row[v]);
+      fr = v + 1 < cols ? static_cast<uint32_t>(row[v + 1]) - st : 0u;
+    }
+    put_entry(tables + i, st, fr);
+  }
+}
+
+template <typename Entry>
+void build_lane_tables(const int32_t* cdf_lane, int cols, int lanes,
+                       Entry* tables, cudaStream_t stream) {
+  const int64_t total =
+      static_cast<int64_t>((lanes + kWarp - 1) / kWarp) * cols * kWarp;
+  const int64_t want = (total + 255) / 256;
+  const unsigned blocks = static_cast<unsigned>(want < 1024 ? want : 1024);
+  build_lane_tables_kernel<Entry><<<blocks, 256, 0, stream>>>(
+      cdf_lane, cols, lanes, tables);
+}
+
 // ---- batch-1 encode --------------------------------------------------------
 
+template <bool kGlobalTables>
 __global__ void __launch_bounds__(kWarp)
 rans_encode_warp_kernel(const int32_t* __restrict__ cdf_lane, int cols,
                         const int32_t* __restrict__ vc, int steps, int lanes,
                         int32_t* __restrict__ streams,
                         int32_t* __restrict__ lengths,
-                        int64_t* __restrict__ states) {
+                        int64_t* __restrict__ states,
+                        const uint4* __restrict__ gtab) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int scols = kGlobalTables ? 0 : cols;   // table entries held here
   const int chunks = (lanes + kWarp - 1) / kWarp;
   const int img = blockIdx.x / chunks;
   const int lane0 = (blockIdx.x % chunks) * kWarp;
@@ -240,11 +310,14 @@ rans_encode_warp_kernel(const int32_t* __restrict__ cdf_lane, int cols,
   const bool active = lane < lanes;
   const int nrow = min(kWarp, lanes - lane0);
   const int pitch = steps + 1;
-  uint4* tab = reinterpret_cast<uint4*>(smem);                 // [cols][32]
-  int32_t* vtile = reinterpret_cast<int32_t*>(tab + cols * kWarp);
+  uint4* stab = reinterpret_cast<uint4*>(smem);               // [cols][32]
+  int32_t* vtile = reinterpret_cast<int32_t*>(stab + scols * kWarp);
   int32_t* raw = vtile + 2 * kTile * kWarp;                    // [32][cols]
-  int32_t* counts = raw + cols * kWarp;                        // [32]
+  int32_t* counts = raw + scols * kWarp;                       // [32]
   uint16_t* obuf = reinterpret_cast<uint16_t*>(counts + kWarp);
+  const uint4* tab = stab;
+  if (kGlobalTables)
+    tab = gtab + static_cast<int64_t>(blockIdx.x % chunks) * cols * kWarp;
   const int32_t* v_img = vc + static_cast<int64_t>(img) * steps * lanes;
   const int ntiles = (steps + kTile - 1) / kTile;
 
@@ -263,8 +336,9 @@ rans_encode_warp_kernel(const int32_t* __restrict__ cdf_lane, int cols,
   };
   // the block's CDF rows (contiguous) go with the first symbol tile; the
   // symbols are coded in reverse order, so the last tile comes first
-  stage_rows(raw, cdf_lane + static_cast<int64_t>(lane0) * cols, nrow * cols,
-             l);
+  if (!kGlobalTables)
+    stage_rows(raw, cdf_lane + static_cast<int64_t>(lane0) * cols,
+               nrow * cols, l);
   stage(ntiles - 1);
   stage(ntiles - 2);
   cp_async_wait_one();
@@ -272,7 +346,7 @@ rans_encode_warp_kernel(const int32_t* __restrict__ cdf_lane, int cols,
 
   // lane tables: each thread expands its own lane's row (unrolled: the
   // reciprocals of neighbouring entries are independent)
-  if (active) {
+  if (!kGlobalTables && active) {
     const int32_t* row = raw + l * cols;
 #pragma unroll 4
     for (int v = 0; v < cols; ++v) {
@@ -280,8 +354,8 @@ rans_encode_warp_kernel(const int32_t* __restrict__ cdf_lane, int cols,
       const uint32_t fr =
           v + 1 < cols ? static_cast<uint32_t>(row[v + 1]) - st : 0u;
       const uint64_t m = fr ? reciprocal48(fr) : 0;
-      tab[v * kWarp + l] = make_uint4(st, fr, static_cast<uint32_t>(m),
-                                      static_cast<uint32_t>(m >> 32));
+      stab[v * kWarp + l] = make_uint4(st, fr, static_cast<uint32_t>(m),
+                                       static_cast<uint32_t>(m >> 32));
     }
   }
   __syncwarp();
@@ -352,6 +426,7 @@ rans_encode_warp_kernel(const int32_t* __restrict__ cdf_lane, int cols,
 
 // ---- batch-1 decode --------------------------------------------------------
 
+template <bool kGlobalTables>
 __global__ void __launch_bounds__(kWarp)
 rans_decode_warp_kernel(const int32_t* __restrict__ streams, int width,
                         const int64_t* __restrict__ states,
@@ -359,8 +434,10 @@ rans_decode_warp_kernel(const int32_t* __restrict__ streams, int width,
                         const int32_t* __restrict__ len_lane,
                         const int32_t* __restrict__ off_lane, int steps,
                         int lanes, int32_t* __restrict__ out,
-                        int64_t* __restrict__ xend) {
+                        int64_t* __restrict__ xend,
+                        const uint2* __restrict__ gtab) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int scols = kGlobalTables ? 0 : cols;   // table entries held here
   const int chunks = (lanes + kWarp - 1) / kWarp;
   const int img = blockIdx.x / chunks;
   const int lane0 = (blockIdx.x % chunks) * kWarp;
@@ -372,11 +449,14 @@ rans_decode_warp_kernel(const int32_t* __restrict__ streams, int width,
   // only the first min(W, T) columns can ever be read
   const int wc = min(width, steps);
   const int pitch = wc + 1;
-  uint2* tab = reinterpret_cast<uint2*>(smem);                 // [cols][32]
-  uint16_t* coarse = reinterpret_cast<uint16_t*>(tab + cols * kWarp);
+  uint2* stab = reinterpret_cast<uint2*>(smem);               // [cols][32]
+  uint16_t* coarse = reinterpret_cast<uint16_t*>(stab + scols * kWarp);
   int32_t* stile = reinterpret_cast<int32_t*>(coarse + kBuckets * kWarp);
   int32_t* raw = stile + 2 * kWarp * kTile;                    // [32][cols]
-  uint16_t* rowbuf = reinterpret_cast<uint16_t*>(raw + cols * kWarp);
+  uint16_t* rowbuf = reinterpret_cast<uint16_t*>(raw + scols * kWarp);
+  const uint2* tab = stab;
+  if (kGlobalTables)
+    tab = gtab + static_cast<int64_t>(blockIdx.x % chunks) * cols * kWarp;
   const int32_t* s_blk =
       streams + (static_cast<int64_t>(img) * lanes + lane0) * width;
   const int ncol = (wc + kTile - 1) / kTile;
@@ -393,8 +473,9 @@ rans_decode_warp_kernel(const int32_t* __restrict__ streams, int width,
     }
     cp_async_commit();
   };
-  stage_rows(raw, cdf_lane + static_cast<int64_t>(lane0) * cols, nrow * cols,
-             l);
+  if (!kGlobalTables)
+    stage_rows(raw, cdf_lane + static_cast<int64_t>(lane0) * cols,
+               nrow * cols, l);
   stage(0);
   stage(1);
   uint32_t x = 0;
@@ -413,16 +494,26 @@ rans_decode_warp_kernel(const int32_t* __restrict__ streams, int width,
     // cdf[v] <= b << 8, i.e. the smallest v whose cdf[v+1] exceeds b << 8
     // (for a non-decreasing row); the symbol of any slot in bucket b is at
     // or after it
-    const int32_t* row = raw + l * cols;
     int b = 0;
-    for (int v = 0; v < cols; ++v) {
-      const uint32_t st = static_cast<uint32_t>(row[v]);
-      const uint32_t nx = v + 1 < cols ? static_cast<uint32_t>(row[v + 1])
-                                       : st;
-      tab[v * kWarp + l] = make_uint2(st, nx - st);
-      if (v + 1 < len)
-        for (; b < kBuckets && (static_cast<uint32_t>(b) << 8) < nx; ++b)
+    if (!kGlobalTables) {
+      const int32_t* row = raw + l * cols;
+      for (int v = 0; v < cols; ++v) {
+        const uint32_t st = static_cast<uint32_t>(row[v]);
+        const uint32_t nx = v + 1 < cols ? static_cast<uint32_t>(row[v + 1])
+                                         : st;
+        stab[v * kWarp + l] = make_uint2(st, nx - st);
+        if (v + 1 < len)
+          for (; b < kBuckets && (static_cast<uint32_t>(b) << 8) < nx; ++b)
+            coarse[b * kWarp + l] = static_cast<uint16_t>(v);
+      }
+    } else {
+      // the table is built: cdf[v+1] = start + freq of entry v
+      for (int v = 0; v + 1 < len && b < kBuckets; ++v) {
+        const uint2 e = tab[v * kWarp + l];
+        for (; b < kBuckets && (static_cast<uint32_t>(b) << 8) < e.x + e.y;
+             ++b)
           coarse[b * kWarp + l] = static_cast<uint16_t>(v);
+      }
     }
     for (; b < kBuckets; ++b) coarse[b * kWarp + l] = 0;
   }
@@ -483,14 +574,17 @@ rans_decode_warp_kernel(const int32_t* __restrict__ streams, int width,
 // Grid (lane groups, image groups); block: `group` warps, warp w coding
 // image blockIdx.y * group + w on lanes blockIdx.x * 32 + [0, 32).
 
+template <bool kGlobalTables>
 __global__ void __launch_bounds__(kEncodeGroup * kWarp)
 rans_encode_aligned_kernel(const int32_t* __restrict__ cdf_lane, int cols,
                            const int32_t* __restrict__ vc, int num_images,
                            int steps, int lanes, int32_t* __restrict__ streams,
                            int32_t* __restrict__ lengths,
                            int64_t* __restrict__ states,
-                           uint8_t* __restrict__ masks) {
+                           uint8_t* __restrict__ masks,
+                           const uint4* __restrict__ gtab) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int scols = kGlobalTables ? 0 : cols;   // table entries held here
   const int group = blockDim.x / kWarp;
   const int w = threadIdx.x / kWarp;
   const int l = threadIdx.x % kWarp;
@@ -500,9 +594,12 @@ rans_encode_aligned_kernel(const int32_t* __restrict__ cdf_lane, int cols,
   const bool has_img = img < num_images;
   const bool active = has_img && lane < lanes;
   const int nrow = min(kWarp, lanes - lane0);
-  uint4* tab = reinterpret_cast<uint4*>(smem);                 // [cols][32]
-  int32_t* vtile = reinterpret_cast<int32_t*>(tab + cols * kWarp)
+  uint4* stab = reinterpret_cast<uint4*>(smem);               // [cols][32]
+  int32_t* vtile = reinterpret_cast<int32_t*>(stab + scols * kWarp)
                    + w * kEncodeWarpWords;                     // [2][kTile][32]
+  const uint4* tab = stab;
+  if (kGlobalTables)
+    tab = gtab + static_cast<int64_t>(blockIdx.x) * cols * kWarp;
   uint16_t* ring = reinterpret_cast<uint16_t*>(vtile + 2 * kTile * kWarp);
   uint32_t* rbits = reinterpret_cast<uint32_t*>(ring + kWarp * kRingPitch);
   const int64_t row0 = static_cast<int64_t>(img) * lanes + lane0;
@@ -537,7 +634,7 @@ rans_encode_aligned_kernel(const int32_t* __restrict__ cdf_lane, int cols,
 
   // the block's lane tables, while the first tiles land: warp w expands
   // symbol values w, w + group, ... of the 32 lanes' rows
-  if (lane < lanes) {
+  if (!kGlobalTables && lane < lanes) {
     const int32_t* row = cdf_lane + static_cast<int64_t>(lane) * cols;
 #pragma unroll 4
     for (int v = w; v < cols; v += group) {
@@ -545,8 +642,8 @@ rans_encode_aligned_kernel(const int32_t* __restrict__ cdf_lane, int cols,
       const uint32_t fr =
           v + 1 < cols ? static_cast<uint32_t>(__ldg(row + v + 1)) - st : 0u;
       const uint64_t m = fr ? reciprocal48(fr) : 0;
-      tab[v * kWarp + l] = make_uint4(st, fr, static_cast<uint32_t>(m),
-                                      static_cast<uint32_t>(m >> 32));
+      stab[v * kWarp + l] = make_uint4(st, fr, static_cast<uint32_t>(m),
+                                       static_cast<uint32_t>(m >> 32));
     }
   }
   __syncthreads();
@@ -640,6 +737,7 @@ rans_encode_aligned_kernel(const int32_t* __restrict__ cdf_lane, int cols,
   }
 }
 
+template <bool kGlobalTables>
 __global__ void __launch_bounds__(kMaxDecodeGroup * kWarp)
 rans_decode_aligned_kernel(const int32_t* __restrict__ streams, int width,
                            const int64_t* __restrict__ states,
@@ -648,8 +746,10 @@ rans_decode_aligned_kernel(const int32_t* __restrict__ streams, int width,
                            const int32_t* __restrict__ off_lane,
                            int num_images, int steps, int lanes,
                            int32_t* __restrict__ out,
-                           int64_t* __restrict__ xend) {
+                           int64_t* __restrict__ xend,
+                           const uint2* __restrict__ gtab) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int scols = kGlobalTables ? 0 : cols;   // table entries held here
   const int group = blockDim.x / kWarp;
   const int w = threadIdx.x / kWarp;
   const int l = threadIdx.x % kWarp;
@@ -661,10 +761,13 @@ rans_decode_aligned_kernel(const int32_t* __restrict__ streams, int width,
   const int nrow = min(kWarp, lanes - lane0);
   // step t reads column t of a row T wide (width == steps)
   const int spitch = kTile + 1;
-  uint2* tab = reinterpret_cast<uint2*>(smem);                 // [cols][32]
-  uint16_t* coarse = reinterpret_cast<uint16_t*>(tab + cols * kWarp);
+  uint2* stab = reinterpret_cast<uint2*>(smem);               // [cols][32]
+  uint16_t* coarse = reinterpret_cast<uint16_t*>(stab + scols * kWarp);
   int32_t* stile = reinterpret_cast<int32_t*>(coarse + kBuckets * kWarp)
                    + w * 2 * kWarp * spitch;                   // [2][32][33]
+  const uint2* tab = stab;
+  if (kGlobalTables)
+    tab = gtab + static_cast<int64_t>(blockIdx.x) * cols * kWarp;
   const int64_t row0 = static_cast<int64_t>(img) * lanes + lane0;
   const int32_t* s_blk = streams + row0 * width;
   const int ntiles = (steps + kTile - 1) / kTile;
@@ -693,11 +796,11 @@ rans_decode_aligned_kernel(const int32_t* __restrict__ streams, int width,
     len = min(len_lane[lane], cols);
     const int32_t* row = cdf_lane + static_cast<int64_t>(lane) * cols;
 #pragma unroll 4
-    for (int v = w; v < cols; v += group) {
+    for (int v = w; !kGlobalTables && v < cols; v += group) {
       const uint32_t st = static_cast<uint32_t>(__ldg(row + v));
       const uint32_t nx =
           v + 1 < cols ? static_cast<uint32_t>(__ldg(row + v + 1)) : st;
-      tab[v * kWarp + l] = make_uint2(st, nx - st);
+      stab[v * kWarp + l] = make_uint2(st, nx - st);
     }
   }
   __syncthreads();
@@ -785,33 +888,73 @@ bool fit_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes)) == cudaSuccess;
 }
 
+
+// the shared-memory plan of one launch of kernel `kernel` (0 encode,
+// 1 decode, 2 aligned encode, 3 aligned decode) with `cols` table entries
+// in shared memory
+inline size_t launch_smem(int kernel, int cols, int width, int steps,
+                          int num_images, int lanes) {
+  switch (kernel) {
+    case 0: return encode_smem(cols, steps);
+    case 1: return decode_smem(cols, width, steps);
+    case 2: return encode_aligned_smem(
+        cols, aligned_group(0, num_images, lanes));
+    default: return decode_aligned_smem(
+        cols, aligned_group(1, num_images, lanes));
+  }
+}
+
+// launch one coding kernel: with its tables in shared memory when `tables`
+// is null, else after build_lane_tables writes them into `tables`
+template <typename Entry, typename Shared, typename Global, typename... Args>
+int launch_coder(Shared shared_kernel, Global global_kernel, dim3 grid,
+                 int threads, size_t smem_shared, size_t smem_global,
+                 const int32_t* cdf_lane, int cols, int lanes, void* tables,
+                 cudaStream_t stream, Args... args) {
+  if (tables == nullptr) {
+    if (!fit_smem(shared_kernel, smem_shared))
+      return static_cast<int>(cudaErrorInvalidValue);
+    shared_kernel<<<grid, threads, smem_shared, stream>>>(
+        args..., static_cast<const Entry*>(nullptr));
+  } else {
+    if (!fit_smem(global_kernel, smem_global))
+      return static_cast<int>(cudaErrorInvalidValue);
+    Entry* tab = static_cast<Entry*>(tables);
+    build_lane_tables<Entry>(cdf_lane, cols, lanes, tab, stream);
+    global_kernel<<<grid, threads, smem_global, stream>>>(
+        args..., static_cast<const Entry*>(tab));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 // Largest steps T (decode = 0: encode) or stream width min(W, T)
-// (decode = 1) that the batch-1 kernels take for CDF rows of `cols` entries
-// on the current device.
-int rans_cyclic_max_steps(int decode, int cols) {
+// (decode = 1) that the batch-1 kernels take on the current device, at any
+// CDF width (the global-table plan's staging bound).
+int rans_cyclic_max_steps(int decode) {
   const int64_t avail = smem_optin();
-  const int64_t fixed = decode ? static_cast<int64_t>(decode_smem(cols, 0, 0))
-                               : static_cast<int64_t>(encode_smem(cols, 0));
+  const int64_t fixed = decode ? static_cast<int64_t>(decode_smem(0, 0, 0))
+                               : static_cast<int64_t>(encode_smem(0, 0));
   // both plans add kWarp u16 per step or column beyond `fixed`
   const int64_t per = static_cast<int64_t>(sizeof(uint16_t)) * kWarp;
   return avail < fixed ? 0 : static_cast<int>((avail - fixed) / per);
 }
 
-// Largest CDF row width `cols` that the aligned encoder (decode = 0) or
-// decoder (decode = 1) takes on the current device, at the largest group
-// its rule launches; any T.
-int rans_cyclic_aligned_max_cols(int decode) {
-  const int64_t avail = smem_optin();
-  const int64_t fixed =
-      decode ? static_cast<int64_t>(decode_aligned_smem(0, kMaxDecodeGroup))
-             : static_cast<int64_t>(encode_aligned_smem(0, kEncodeGroup));
-  const int64_t per = static_cast<int64_t>(
-      decode ? sizeof(uint2) * kWarp : sizeof(uint4) * kWarp);
-  return avail < fixed ? 0 : static_cast<int>((avail - fixed) / per);
+// 0 when a launch of kernel `kernel` (0 encode, 1 decode, 2 aligned encode,
+// 3 aligned decode) at this shape keeps its lane tables in shared memory;
+// else the bytes of the global table buffer it needs.
+int64_t rans_cyclic_table_bytes(int kernel, int cols, int width, int steps,
+                                int num_images, int lanes) {
+  if (launch_smem(kernel, cols, width, steps, num_images, lanes)
+      <= static_cast<size_t>(smem_optin()))
+    return 0;
+  const int64_t entry = (kernel == 0 || kernel == 2) ? sizeof(uint4)
+                                                     : sizeof(uint2);
+  return static_cast<int64_t>((lanes + kWarp - 1) / kWarp) * cols * kWarp
+         * entry;
 }
 
 // The group that an aligned encode (decode = 0) or decode launch of
@@ -822,47 +965,41 @@ int rans_cyclic_aligned_group(int decode, int num_images, int lanes) {
 
 int rans_cyclic_encode(const int32_t* cdf_lane, int cols, const int32_t* vc,
                        int num_images, int steps, int lanes, int32_t* streams,
-                       int32_t* lengths, int64_t* states,
+                       int32_t* lengths, int64_t* states, void* tables,
                        cudaStream_t stream) {
-  const size_t smem = encode_smem(cols, steps);
-  if (!fit_smem(rans_encode_warp_kernel, smem))
-    return static_cast<int>(cudaErrorInvalidValue);
-  rans_encode_warp_kernel<<<warp_blocks(num_images, lanes), kWarp, smem,
-                            stream>>>(cdf_lane, cols, vc, steps, lanes,
-                                      streams, lengths, states);
-  return static_cast<int>(cudaGetLastError());
+  return launch_coder<uint4>(
+      rans_encode_warp_kernel<false>, rans_encode_warp_kernel<true>,
+      dim3(warp_blocks(num_images, lanes)), kWarp, encode_smem(cols, steps),
+      encode_smem(0, steps), cdf_lane, cols, lanes, tables, stream, cdf_lane,
+      cols, vc, steps, lanes, streams, lengths, states);
 }
 
 int rans_cyclic_encode_aligned(const int32_t* cdf_lane, int cols,
                                const int32_t* vc, int num_images, int steps,
                                int lanes, int32_t* streams, int32_t* lengths,
-                               int64_t* states, uint8_t* masks,
+                               int64_t* states, uint8_t* masks, void* tables,
                                cudaStream_t stream) {
   const int group = aligned_group(0, num_images, lanes);
-  const size_t smem = encode_aligned_smem(cols, group);
-  if (!fit_smem(rans_encode_aligned_kernel, smem))
-    return static_cast<int>(cudaErrorInvalidValue);
-  rans_encode_aligned_kernel<<<aligned_grid(num_images, lanes, group),
-                               group * kWarp, smem, stream>>>(
-      cdf_lane, cols, vc, num_images, steps, lanes, streams, lengths, states,
-      masks);
-  return static_cast<int>(cudaGetLastError());
+  return launch_coder<uint4>(
+      rans_encode_aligned_kernel<false>, rans_encode_aligned_kernel<true>,
+      aligned_grid(num_images, lanes, group), group * kWarp,
+      encode_aligned_smem(cols, group), encode_aligned_smem(0, group),
+      cdf_lane, cols, lanes, tables, stream, cdf_lane, cols, vc, num_images,
+      steps, lanes, streams, lengths, states, masks);
 }
 
 int rans_cyclic_decode(const int32_t* streams, int width,
                        const int64_t* states, const int32_t* cdf_lane,
                        int cols, const int32_t* len_lane,
                        const int32_t* off_lane, int num_images, int steps,
-                       int lanes, int32_t* out, int64_t* xend,
+                       int lanes, int32_t* out, int64_t* xend, void* tables,
                        cudaStream_t stream) {
-  const size_t smem = decode_smem(cols, width, steps);
-  if (!fit_smem(rans_decode_warp_kernel, smem))
-    return static_cast<int>(cudaErrorInvalidValue);
-  rans_decode_warp_kernel<<<warp_blocks(num_images, lanes), kWarp, smem,
-                            stream>>>(streams, width, states, cdf_lane, cols,
-                                      len_lane, off_lane, steps, lanes, out,
-                                      xend);
-  return static_cast<int>(cudaGetLastError());
+  return launch_coder<uint2>(
+      rans_decode_warp_kernel<false>, rans_decode_warp_kernel<true>,
+      dim3(warp_blocks(num_images, lanes)), kWarp,
+      decode_smem(cols, width, steps), decode_smem(0, width, steps), cdf_lane,
+      cols, lanes, tables, stream, streams, width, states, cdf_lane, cols,
+      len_lane, off_lane, steps, lanes, out, xend);
 }
 
 int rans_cyclic_decode_aligned(const int32_t* streams, int width,
@@ -870,17 +1007,16 @@ int rans_cyclic_decode_aligned(const int32_t* streams, int width,
                                int cols, const int32_t* len_lane,
                                const int32_t* off_lane, int num_images,
                                int steps, int lanes, int32_t* out,
-                               int64_t* xend, cudaStream_t stream) {
+                               int64_t* xend, void* tables,
+                               cudaStream_t stream) {
   if (width != steps) return static_cast<int>(cudaErrorInvalidValue);
   const int group = aligned_group(1, num_images, lanes);
-  const size_t smem = decode_aligned_smem(cols, group);
-  if (!fit_smem(rans_decode_aligned_kernel, smem))
-    return static_cast<int>(cudaErrorInvalidValue);
-  rans_decode_aligned_kernel<<<aligned_grid(num_images, lanes, group),
-                               group * kWarp, smem, stream>>>(
-      streams, width, states, cdf_lane, cols, len_lane, off_lane, num_images,
-      steps, lanes, out, xend);
-  return static_cast<int>(cudaGetLastError());
+  return launch_coder<uint2>(
+      rans_decode_aligned_kernel<false>, rans_decode_aligned_kernel<true>,
+      aligned_grid(num_images, lanes, group), group * kWarp,
+      decode_aligned_smem(cols, group), decode_aligned_smem(0, group),
+      cdf_lane, cols, lanes, tables, stream, streams, width, states, cdf_lane,
+      cols, len_lane, off_lane, num_images, steps, lanes, out, xend);
 }
 
 }  // extern "C"

@@ -2,6 +2,10 @@
 `sc2bench_tpu/models/backbone.py`): the stem+layer1 of a ResNet replaced
 by a learned bottleneck; layer2-4 and the classifier form the server-side
 tail. Both builders register under the 'model' namespace.
+
+`forward(x, mode, generator, io)` fills the dict `io` with the JAX
+package's captured intermediates: `bottleneck_layer_out`, `layer2_out` ...
+`layer4_out`, and in the 'train' mode `bottleneck_layer.eb_out`.
 """
 from __future__ import annotations
 
@@ -35,15 +39,27 @@ class SplittableResNet(nn.Module):
         self.layer4 = ResNetStage(c, 512, stage_sizes[3], strides=2)
         self.fc = nn.Linear(512 * BottleneckBlock.expansion, num_classes)
 
-    def forward(self, x: torch.Tensor, mode: str = 'finetune'
-                ) -> torch.Tensor:
-        """Logits without a bitstream: the bottleneck's `mode` forward,
-        then the tail."""
-        return self.forward_tail(self.bottleneck_layer(x, mode=mode))
+    def forward(self, x: torch.Tensor, mode: str = 'train',
+                generator: torch.Generator | None = None,
+                io: dict | None = None) -> torch.Tensor:
+        """Logits without a bitstream: the bottleneck's `mode` forward
+        ('train' draws its noise from `generator`), then the tail. With
+        `io`, the intermediates under their JAX names."""
+        sub = {} if io is not None else None
+        z = self.bottleneck_layer(x, mode=mode, generator=generator, io=sub)
+        if io is not None:
+            io.update({f'bottleneck_layer.{k}': v for k, v in sub.items()})
+            io['bottleneck_layer_out'] = z
+        return self.forward_tail(z, io=io)
 
-    def forward_tail(self, feature: torch.Tensor) -> torch.Tensor:
+    def forward_tail(self, feature: torch.Tensor, io: dict | None = None
+                     ) -> torch.Tensor:
         """Server-side tail from a decoded bottleneck feature (NCHW)."""
-        z = self.layer4(self.layer3(self.layer2(feature)))
+        z = feature
+        for i in (2, 3, 4):
+            z = getattr(self, f'layer{i}')(z)
+            if io is not None:
+                io[f'layer{i}_out'] = z
         return self.fc(torch.mean(z, dim=(2, 3)))
 
 

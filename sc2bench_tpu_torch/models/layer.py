@@ -4,8 +4,10 @@
 The deploy path uses `encode_ops` (latent -> integer symbols
 round(y - median)) and `decode_ops` (symbols -> decoded feature). Symbols
 stay NCHW here; the runtime flattens them channels-last before coding.
-`forward(x, mode='finetune')` is the deterministic eval forward without a
-bitstream. Layers register under the 'layer' namespace of `registry.py`.
+`forward(x, mode='train', generator=...)` is the training forward (noisy
+latent, likelihoods for the rate loss); `forward(x, mode='finetune')` the
+deterministic forward without a bitstream. Layers register under the
+'layer' namespace of `registry.py`.
 """
 from __future__ import annotations
 
@@ -56,19 +58,27 @@ class FPBasedResNetBottleneck(nn.Module):
                 width = (width + 2 * p - k) // s + 1
         return height, width, self.encoder[-1].out_channels
 
-    def forward(self, x: torch.Tensor, mode: str = 'finetune'
-                ) -> torch.Tensor:
-        """Encoder, quantization, decoder. 'finetune' (after `update()`):
-        the latent is dequantized with the medians, round(y - median) +
-        median, and carries no gradient."""
+    def forward(self, x: torch.Tensor, mode: str = 'train',
+                generator: torch.Generator | None = None,
+                io: dict | None = None) -> torch.Tensor:
+        """Encoder, quantization, decoder. 'train' (before `update()`): the
+        latent plus uniform noise from `generator`, and `io['eb_out'] =
+        (y_hat, likelihoods)` for the rate loss when `io` is given.
+        'finetune' (after it): the latent dequantized with the medians,
+        round(y - median) + median, carrying no gradient."""
+        y = self.encoder(x)
         if mode == 'train':
-            raise NotImplementedError(
-                "the 'train' (noise) forward comes with the training slice "
-                '(ROADMAP Queue A item 6)')
-        if mode != 'finetune':
+            y_hat, likelihoods = self.entropy_bottleneck(
+                y, mode='noise', generator=generator)
+            if io is not None:
+                io['eb_out'] = (y_hat, likelihoods)
+        elif mode == 'finetune':
+            # the likelihoods are not needed: the quantized latent alone
+            y_hat = self.entropy_bottleneck.quantize(y, 'dequantize')
+            y_hat = y_hat.detach()
+        else:
             raise ValueError(f'unknown mode {mode} (deploy uses encode_ops)')
-        y_hat = self.entropy_bottleneck(self.encoder(x), mode='dequantize')
-        return self.decoder(y_hat.detach())
+        return self.decoder(y_hat)
 
     def encode_ops(self, x: torch.Tensor, medians: torch.Tensor) -> dict:
         """Latent integer symbols round(y - median), NCHW int32."""

@@ -1,14 +1,44 @@
 """ResNet v1.5 over NCHW (counterpart of `sc2bench_tpu/models/resnet.py`):
 the full classifier (the teacher) and the blocks of the classification
 tail behind the splittable models. Torchvision key space (`conv1`, `bn1`,
-`layer1.0.conv1`, ..., `downsample.0/1`, `fc`); BatchNorm with eps 1e-5.
+`layer1.0.conv1`, ..., `downsample.0/1`, `fc`); BatchNorm with eps 1e-5
+that keeps its running statistics as Flax's does (`BatchNorm2d`).
+
+`forward(x, io=...)` records each stage's output in the dict `io` under
+the JAX package's names (`layer1_out` ... `layer4_out`), the counterpart
+of its `sow('intermediates', ...)`, for the distillation losses.
 """
 from __future__ import annotations
 
 from typing import Callable, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm whose train-mode update of `running_var` uses the biased
+    batch variance, as Flax's `nn.BatchNorm` does (torch's uses the
+    unbiased one); momentum 0.1 on the batch value equals Flax's 0.9 on
+    the old one. Normalization is torch's own in both modes."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        # torch's op updates copies of the statistics (the autograd graph
+        # keeps them); its running var is (1-m)*old + m*var*n/(n-1), so
+        # ((n-1)*that + (1-m)*old)/n = (1-m)*old + m*var, Flax's
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
+                         self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.copy_(mean)
+            self.running_var.mul_(1.0 - self.momentum).add_(
+                var, alpha=n - 1).div_(n)
+            self.num_batches_tracked.add_(1)
+        return y
 
 
 class BottleneckBlock(nn.Module):
@@ -22,19 +52,19 @@ class BottleneckBlock(nn.Module):
         super().__init__()
         out = filters * self.expansion
         self.conv1 = nn.Conv2d(in_channels, filters, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(filters, eps=1e-5)
+        self.bn1 = BatchNorm2d(filters, eps=1e-5)
         self.conv2 = nn.Conv2d(filters, filters, 3, stride=strides,
                                padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(filters, eps=1e-5)
+        self.bn2 = BatchNorm2d(filters, eps=1e-5)
         self.conv3 = nn.Conv2d(filters, out, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(out, eps=1e-5)
+        self.bn3 = BatchNorm2d(out, eps=1e-5)
         nn.init.zeros_(self.bn3.weight)
         self.relu = nn.ReLU()
         self.downsample = None
         if in_channels != out or strides != 1:
             self.downsample = nn.Sequential(
                 nn.Conv2d(in_channels, out, 1, stride=strides, bias=False),
-                nn.BatchNorm2d(out, eps=1e-5))
+                BatchNorm2d(out, eps=1e-5))
 
     def forward(self, x):
         y = self.relu(self.bn1(self.conv1(x)))
@@ -65,7 +95,7 @@ class ResNet(nn.Module):
     def __init__(self, stage_sizes: Sequence[int], num_classes: int = 1000):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=1e-5)
+        self.bn1 = BatchNorm2d(64, eps=1e-5)
         self.relu = nn.ReLU()
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         c = 64
@@ -76,9 +106,14 @@ class ResNet(nn.Module):
             c = filters * BottleneckBlock.expansion
         self.fc = nn.Linear(c, num_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, io: dict | None = None
+                ) -> torch.Tensor:
+        """Logits; with `io`, each stage's output as `layer{i}_out`."""
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
-        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        for i in range(1, 5):
+            x = getattr(self, f'layer{i}')(x)
+            if io is not None:
+                io[f'layer{i}_out'] = x
         return self.fc(torch.mean(x, dim=(2, 3)))
 
 

@@ -17,7 +17,8 @@ JAX runtime's default wire): int16 symbols cross to the host, the cyclic
 int16 coder of `ops/rans/coder.py` codes and decodes them, and the
 decoded symbols go back to the device for the decoder and tail.
 `__call__` is the reference's forward: deploy through `encode`/`decode`
-once the tables are built, the 'finetune' forward while training.
+once the tables are built, the 'finetune' forward while training, and the
+'train' (noise) forward before `update()`.
 
 The host CompressAI-format coder (`encode`/`decode`, `ops/rans/coder.py`)
 is also the escape path: an image whose latent leaves the CDF support
@@ -181,17 +182,22 @@ class SplitClassifierRuntime(AnalyzerHolder):
         return self.train(False)
 
     @torch.no_grad()
-    def __call__(self, x):
+    def __call__(self, x, generator: torch.Generator | None = None):
         """Deploy through the host coder when the tables are built and the
         runtime is in eval mode; the 'finetune' forward (no bitstream) when
-        they are built and it is training. Before `update()` the 'train'
-        (noise) forward would run, which comes with the training slice."""
+        they are built and it is training; before `update()` the 'train'
+        forward, its noise from `generator` (by default a new one seeded
+        with 0, as the JAX runtime's default key). BatchNorm uses its
+        running statistics on every path."""
         if self.bottleneck_updated and not self.training:
             compressed = self.encode(x)
             self.analyze(compressed)
             return self.decode(**compressed)
         mode = 'finetune' if self.bottleneck_updated else 'train'
-        return self.module(self._prep_input(x), mode=mode).to(torch.float32)
+        if mode == 'train' and generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        return self.module(self._prep_input(x), mode=mode,
+                           generator=generator).to(torch.float32)
 
     def _prep_input(self, x):
         """To the runtime's device; uint8 -> normalized float32 there.

@@ -1,8 +1,11 @@
 """Numeric primitives for the entropy-model stack (counterpart of
 `sc2bench_tpu/ops/math.py`).
 
-Only what the deploy path needs: `lower_bound` (forward) and the host-side
-16-bit CDF quantizer, a copy of the JAX package's numpy function.
+`lower_bound`/`upper_bound` with CompressAI's pass-through gradients,
+uniform-noise and straight-through quantization, and the host-side 16-bit
+CDF quantizer, a copy of the JAX package's numpy function. Training noise
+comes from an explicit `torch.Generator` on the tensor's device, never from
+the global random state.
 """
 from __future__ import annotations
 
@@ -10,10 +13,76 @@ import numpy as np
 import torch
 
 
+class _LowerBound(torch.autograd.Function):
+    """max(x, bound); the gradient passes where x >= bound or where it
+    pushes x upward (a negative gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, bound):
+        ctx.save_for_backward(x)
+        ctx.bound = bound
+        return torch.clamp_min(x, bound)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return torch.where((x >= ctx.bound) | (g < 0), g,
+                           torch.zeros_like(g)), None
+
+
+class _UpperBound(torch.autograd.Function):
+    """min(x, bound); the gradient passes where x <= bound or where it
+    pushes x downward (a positive gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, bound):
+        ctx.save_for_backward(x)
+        ctx.bound = bound
+        return torch.clamp_max(x, bound)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return torch.where((x <= ctx.bound) | (g > 0), g,
+                           torch.zeros_like(g)), None
+
+
 def lower_bound(x: torch.Tensor, bound: float) -> torch.Tensor:
-    """max(x, bound). Forward only: the deploy path takes no gradient
-    (the pass-through-on-descent gradient comes with the training slice)."""
-    return torch.clamp_min(x, bound)
+    """max(x, bound) with a gradient that still flows below the bound when
+    it pushes x upward (likelihoods clipped at the bound keep training)."""
+    return _LowerBound.apply(x, bound)
+
+
+def upper_bound(x: torch.Tensor, bound: float) -> torch.Tensor:
+    """min(x, bound) with the mirrored pass-through gradient."""
+    return _UpperBound.apply(x, bound)
+
+
+def ste_round(x: torch.Tensor) -> torch.Tensor:
+    """round() with a straight-through (identity) gradient."""
+    return x + (torch.round(x) - x).detach()
+
+
+def quantize_noise(x: torch.Tensor, generator: torch.Generator
+                   ) -> torch.Tensor:
+    """Training-time quantization: x + U(-0.5, 0.5), the noise drawn from
+    `generator` (on x's device)."""
+    noise = torch.empty_like(x).uniform_(-0.5, 0.5, generator=generator)
+    return x + noise
+
+
+def quantize_dequantize(x: torch.Tensor, means=None) -> torch.Tensor:
+    """round(x - means) + means, with no gradient trick: callers detach."""
+    if means is None:
+        return torch.round(x)
+    return torch.round(x - means) + means
+
+
+def quantize_symbols(x: torch.Tensor, means=None) -> torch.Tensor:
+    """Integer symbols for entropy coding: round(x - means) as int32."""
+    if means is not None:
+        x = x - means
+    return torch.round(x).to(torch.int32)
 
 
 def softplus_inv(y: float) -> float:

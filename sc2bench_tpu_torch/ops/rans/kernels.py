@@ -12,18 +12,17 @@ interface the first time a kernel is needed, under
 it launches its kernel and nowhere else, so a caller can show that a path
 went through the kernels (`reset_launches()` zeroes the counts).
 
-The batch-1 kernels (`cyclic_encode`, `cyclic_decode`) stage a block's
-inputs and tables in shared memory, so they take at most
-`max_steps(cols, decode)` steps (encode) or stream columns min(W, T)
-(decode); a wrapper raises beyond that. On an H100 (227 KB a block) with
-the flagship's 23-column CDF rows that is 3,271 steps and 3,109 columns,
-against 190 at 224x224 and 2,048 at 2048x2048.
-
-The aligned (`wire_batch`) kernels take any T, but their shared lane tables
-grow with the CDF width: they take rows of at most
-`aligned_max_cols(decode)` entries (355 to encode and 580 to decode on an
-H100), and a wrapper raises beyond that. `aligned_group` says how many
-images share a block's tables at a given shape.
+Every kernel keeps its lane tables (16 or 8 bytes per CDF entry and lane)
+in shared memory when they fit beside the block's staging; when they do
+not (wide CDF rows), the wrapper allocates a table buffer in device memory
+and the same kernel, in its global-table form, reads them from there
+(`table_bytes` says which, per launch). So every kernel takes CDF rows of
+any width. The batch-1 kernels (`cyclic_encode`, `cyclic_decode`) also
+stage each lane's stream row in shared memory, so they take at most
+`max_steps(decode)` steps (encode) or stream columns min(W, T) (decode),
+whatever the width; a wrapper raises beyond that. The aligned
+(`wire_batch`) kernels take any T. `aligned_group` says how many images
+share a block's tables at a given shape.
 """
 from __future__ import annotations
 
@@ -97,18 +96,19 @@ def _library():
         if _lib is None:
             lib = ctypes.CDLL(str(build_library()))
             p, i = ctypes.c_void_p, ctypes.c_int
-            enc = [p, i, p, i, i, i, p, p, p]            # + masks?, stream
-            dec = [p, i, p, p, i, p, p, i, i, i, p, p]   # + stream
-            for name, args in (('rans_cyclic_encode', enc + [p]),
-                               ('rans_cyclic_encode_aligned', enc + [p, p]),
-                               ('rans_cyclic_decode', dec + [p]),
-                               ('rans_cyclic_decode_aligned', dec + [p]),
-                               ('rans_cyclic_max_steps', [i, i]),
-                               ('rans_cyclic_aligned_max_cols', [i]),
-                               ('rans_cyclic_aligned_group', [i, i, i])):
+            enc = [p, i, p, i, i, i, p, p, p]      # + masks?, tables, stream
+            dec = [p, i, p, p, i, p, p, i, i, i, p, p]   # + tables, stream
+            for name, args, res in (
+                    ('rans_cyclic_encode', enc + [p, p], i),
+                    ('rans_cyclic_encode_aligned', enc + [p, p, p], i),
+                    ('rans_cyclic_decode', dec + [p, p], i),
+                    ('rans_cyclic_decode_aligned', dec + [p, p], i),
+                    ('rans_cyclic_max_steps', [i], i),
+                    ('rans_cyclic_table_bytes', [i] * 6, ctypes.c_int64),
+                    ('rans_cyclic_aligned_group', [i, i, i], i)):
                 fn = getattr(lib, name)
                 fn.argtypes = args
-                fn.restype = i
+                fn.restype = res
             _lib = lib
     return _lib
 
@@ -125,40 +125,53 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f'{name} must be contiguous')
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
+def _launch(name: str, device: torch.device, tables, *args) -> None:
+    """Launch kernel `name` with its lane tables in shared memory, or in
+    the device buffer `tables` (kept alive here until the launch is
+    queued: the caching allocator orders its reuse on this stream)."""
     fn = getattr(_library(), name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*args, stream)
+        rc = fn(*args, tables.data_ptr() if tables is not None else None,
+                stream)
     if rc != 0:
         raise RuntimeError(f'{name} launch failed: CUDA error {rc}')
     LAUNCHES[name] += 1
 
 
 _max_steps: dict = {}
-_max_cols: dict = {}
+_table_bytes: dict = {}
 
 
-def max_steps(cols: int, decode: bool, device) -> int:
+def max_steps(decode: bool, device) -> int:
     """Largest steps T (encode) or stream columns min(W, T) (decode) that
-    the batch-1 kernels take for `cols`-entry CDF rows on `device`."""
-    key = (torch.device(device), int(cols), bool(decode))
+    the batch-1 kernels take on `device`, at any CDF width."""
+    key = (torch.device(device), bool(decode))
     if key not in _max_steps:
         with torch.cuda.device(device):
             _max_steps[key] = int(_library().rans_cyclic_max_steps(
-                int(decode), int(cols)))
+                int(decode)))
     return _max_steps[key]
 
 
-def aligned_max_cols(decode: bool, device) -> int:
-    """Largest CDF row width that the aligned encoder (or decoder) takes
-    on `device`, at any k and any T."""
-    key = (torch.device(device), bool(decode))
-    if key not in _max_cols:
+def table_bytes(name: str, cols: int, width: int, steps: int,
+                num_images: int, lanes: int, device) -> int:
+    """0 when a launch of kernel `name` at this shape keeps its lane tables
+    in shared memory; else the bytes of the device buffer it reads them
+    from."""
+    key = (torch.device(device), name, cols, width, steps, num_images, lanes)
+    if key not in _table_bytes:
         with torch.cuda.device(device):
-            _max_cols[key] = int(_library().rans_cyclic_aligned_max_cols(
-                int(decode)))
-    return _max_cols[key]
+            _table_bytes[key] = int(_library().rans_cyclic_table_bytes(
+                KERNELS.index(name), cols, width, steps, num_images, lanes))
+    return _table_bytes[key]
+
+
+def _tables_buffer(name, cols, width, steps, num_images, lanes, device):
+    """The global table buffer a launch needs, or None (shared tables)."""
+    nbytes = table_bytes(name, cols, width, steps, num_images, lanes, device)
+    return torch.empty(nbytes, dtype=torch.uint8, device=device) \
+        if nbytes else None
 
 
 def aligned_group(decode: bool, num_images: int, lanes: int) -> int:
@@ -168,20 +181,12 @@ def aligned_group(decode: bool, num_images: int, lanes: int) -> int:
         int(decode), int(num_images), int(lanes)))
 
 
-def _check_cols(name: str, cols: int, decode: bool, device) -> None:
-    limit = aligned_max_cols(decode, device)
-    if cols > limit:
-        raise ValueError(f'{name} takes CDF rows of at most {limit} entries '
-                         f'on this device, got {cols}')
-
-
-def _check_fits(name: str, cols: int, n: int, decode: bool, device) -> None:
-    limit = max_steps(cols, decode, device)
+def _check_fits(name: str, n: int, decode: bool, device) -> None:
+    limit = max_steps(decode, device)
     if n > limit:
         what = 'stream columns' if decode else 'steps'
-        raise ValueError(f'{name} takes at most {limit} {what} with '
-                         f'{cols}-entry CDF rows on this device, got {n}; '
-                         'raise num_lanes')
+        raise ValueError(f'{name} takes at most {limit} {what} on this '
+                         f'device, got {n}; raise num_lanes')
 
 
 def _require_cuda(t: torch.Tensor) -> None:
@@ -214,9 +219,11 @@ def cyclic_encode(cdf_lane: torch.Tensor, vc: torch.Tensor):
     if vc.device.type == 'cpu':
         return cyclic_encode_plain(cdf_lane, vc)
     args, outs = _encode_args(cdf_lane, vc)
-    _check_fits('rans_cyclic_encode', cdf_lane.shape[1], vc.shape[1], False,
-                vc.device)
-    _launch('rans_cyclic_encode', vc.device, *args)
+    k, steps, lanes = vc.shape
+    _check_fits('rans_cyclic_encode', steps, False, vc.device)
+    tables = _tables_buffer('rans_cyclic_encode', cdf_lane.shape[1], steps,
+                            steps, k, lanes, vc.device)
+    _launch('rans_cyclic_encode', vc.device, tables, *args)
     return outs
 
 
@@ -229,11 +236,12 @@ def cyclic_encode_aligned(cdf_lane: torch.Tensor, vc: torch.Tensor,
         return cyclic_encode_plain(cdf_lane, vc, aligned=True,
                                    want_masks=want_masks)
     args, (streams, lengths, states) = _encode_args(cdf_lane, vc)
-    _check_cols('rans_cyclic_encode_aligned', cdf_lane.shape[1], False,
-                vc.device)
+    k, steps, lanes = vc.shape
     masks = torch.empty(streams.shape, dtype=torch.bool,
                         device=vc.device) if want_masks else None
-    _launch('rans_cyclic_encode_aligned', vc.device, *args,
+    tables = _tables_buffer('rans_cyclic_encode_aligned', cdf_lane.shape[1],
+                            steps, steps, k, lanes, vc.device)
+    _launch('rans_cyclic_encode_aligned', vc.device, tables, *args,
             masks.data_ptr() if masks is not None else None)
     return streams, lengths, states, masks
 
@@ -270,9 +278,12 @@ def cyclic_decode(streams, states, cdf_lane, len_lane, off_lane,
                                    off_lane, steps)
     args, outs = _decode_args(streams, states, cdf_lane, len_lane,
                               off_lane, steps)
-    _check_fits('rans_cyclic_decode', cdf_lane.shape[1],
-                min(streams.shape[2], int(steps)), True, streams.device)
-    _launch('rans_cyclic_decode', streams.device, *args)
+    k, lanes, width = streams.shape
+    _check_fits('rans_cyclic_decode', min(width, int(steps)), True,
+                streams.device)
+    tables = _tables_buffer('rans_cyclic_decode', cdf_lane.shape[1], width,
+                            int(steps), k, lanes, streams.device)
+    _launch('rans_cyclic_decode', streams.device, tables, *args)
     return outs
 
 
@@ -288,7 +299,8 @@ def cyclic_decode_aligned(streams, states, cdf_lane, len_lane, off_lane,
                          f'{streams.shape[-1]}')
     args, outs = _decode_args(streams, states, cdf_lane, len_lane,
                               off_lane, steps)
-    _check_cols('rans_cyclic_decode_aligned', cdf_lane.shape[1], True,
-                streams.device)
-    _launch('rans_cyclic_decode_aligned', streams.device, *args)
+    k, lanes, width = streams.shape
+    tables = _tables_buffer('rans_cyclic_decode_aligned', cdf_lane.shape[1],
+                            width, int(steps), k, lanes, streams.device)
+    _launch('rans_cyclic_decode_aligned', streams.device, tables, *args)
     return outs

@@ -1,8 +1,8 @@
 """Global string -> object registries (counterpart of
 `sc2bench_tpu/registry.py`).
 
-Layers, models, analyzers and datasets register under a namespace with the
-`register_*` decorators; configs name them as `{key, kwargs}` and the
+Layers, models, analyzers, datasets and losses register under a namespace
+with the `register_*` decorators; configs name them as `{key, kwargs}` and the
 builders look them up here.
 
 Configs list the JAX package's modules under `dependencies`
@@ -98,3 +98,4 @@ register_layer = _shorthand('layer')
 register_model = _shorthand('model')
 register_analyzer = _shorthand('analyzer')
 register_dataset = _shorthand('dataset')
+register_loss = _shorthand('loss')

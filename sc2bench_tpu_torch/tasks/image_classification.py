@@ -1,17 +1,19 @@
-"""Classification test CLI of the port (counterpart of
-`script/task/image_classification.py`, the test-only protocol).
+"""Classification CLI of the port (counterpart of
+`script/task/image_classification.py`).
 
     python -m sc2bench_tpu_torch.tasks.image_classification \\
         --config configs/ilsvrc2012/supervised_compression/...yaml \\
-        [--json '{...}'] -test_only [-student_only] [--device cpu]
+        [--json '{...}'] [-test_only] [-student_only] [--device cpu] \\
+        [--seed 42] [--dst_ckpt path] [-resume] [-adjust_lr]
 
-YAML config (+ `--json` deep override) -> teacher and student -> tables
+YAML config (+ `--json` deep override) -> teacher and student -> without
+`-test_only`, the config's training stages (`--dst_ckpt` keeps the best
+checkpoint and the resume state, `-resume` continues from it) -> tables
 built -> top-1/top-5 and the data-size summary of the student at batch 1
 through the real bitstream (`deploy_wire: device` in the config selects
 the device-rANS wire, else the host coder) -> top-1/top-5 of the teacher
 unless `-student_only`. The device is the card unless `--device cpu`; it
-raises when there is none. Training is not ported yet: without
-`-test_only` it raises.
+raises when there is none.
 """
 from __future__ import annotations
 
@@ -36,9 +38,16 @@ def get_argparser():
     parser.add_argument('--device', default='cuda',
                         help="torch device; 'cpu' runs the plain PyTorch "
                         'path')
+    parser.add_argument('--seed', type=int, default=42,
+                        help="seed of the training forward's noise")
+    parser.add_argument('--dst_ckpt', help='checkpoint output path')
     parser.add_argument('-test_only', action='store_true',
-                        help='only test the model (training is not ported '
-                        'yet, so this is required)')
+                        help='only test the model')
+    parser.add_argument('-resume', action='store_true',
+                        help='resume training from the dst_ckpt train state')
+    parser.add_argument('-adjust_lr', action='store_true',
+                        help='multiply the learning rates by the number of '
+                        'data-parallel processes (one here)')
     parser.add_argument('-student_only', action='store_true',
                         help='test the student model only')
     parser.add_argument('-log_config', action='store_true',
@@ -49,21 +58,24 @@ def get_argparser():
 def main(argv=None):
     """Run the CLI on `argv` (default: the process's arguments). Returns
     {'result': student metrics, 'summaries': data-size summaries,
-    'teacher': teacher metrics or None, 'engine': the engine}."""
+    'teacher': teacher metrics or None, 'best': the best validation acc1
+    of training or None, 'engine': the engine}."""
     args = get_argparser().parse_args(argv)
     handlers = [logging.StreamHandler()]
     if args.run_log:
         Path(args.run_log).parent.mkdir(parents=True, exist_ok=True)
         handlers.append(logging.FileHandler(args.run_log))
     logging.basicConfig(level=logging.INFO, handlers=handlers)
-    if not args.test_only:
-        raise NotImplementedError(
-            'training is not ported yet (ROADMAP Queue A item 6); run with '
-            '-test_only')
     config = load_config(args.config, args.json)
+    if args.adjust_lr:
+        config['adjust_lr'] = True
     if args.log_config:
         logger.info('config: %s', config)
-    engine = ClassificationEngine(config, device=args.device)
+    engine = ClassificationEngine(config, device=args.device, seed=args.seed)
+    best = None
+    if not args.test_only:
+        best = engine.train(dst_ckpt=args.dst_ckpt, resume=args.resume)
+        logger.info('best validation acc1: %s', best)
     result, summaries = engine.test()
     logger.info('test result: %s', result)
     for s in summaries:
@@ -73,7 +85,7 @@ def main(argv=None):
     if not args.student_only and engine.teacher is not None and test_cfg:
         teacher = engine.evaluate_teacher(engine.build_loader(test_cfg))
     return {'result': result, 'summaries': summaries, 'teacher': teacher,
-            'engine': engine}
+            'best': best, 'engine': engine}
 
 
 if __name__ == '__main__':

@@ -1,0 +1,114 @@
+"""Training and distillation boxes (counterpart of
+`sc2bench_tpu/train/box.py`).
+
+A box is one training stage: the student, an optional teacher, the
+config's criterion and the stage's optimizers. The teacher and the student
+run with an explicit `io` dict that their forwards fill with the captured
+intermediates under the JAX package's dotted names; that dict is the
+criterion's input, as the flattened Flax capture is in JAX.
+
+One step, as the JAX step computes it:
+  1. the teacher's forward in eval mode, without gradients;
+  2. the student's forward in `student_mode` ('train': noisy latent and
+     likelihoods; 'finetune': the dequantized latent), BatchNorm in train
+     mode only when the stage sets `train_bn`;
+  3. loss = criterion + the aux (quantile) loss of every entropy
+     bottleneck;
+  4. backward;
+  5. the optimizers step (`optim.StageOptimizer`);
+  6. metrics {'loss': detail, 'aux_loss', 'acc1'}, tensors on the device.
+A new box, and so new optimizer state, comes with each stage. The
+teacher's parameters never change.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..loss import build_criterion
+from ..ops.entropy.factorized import EntropyBottleneck
+from .optim import StageOptimizer
+
+DEFAULT_CRITERION = {'key': 'CrossEntropyLoss',
+                     'kwargs': {'module_path': 'output'}}
+DEFAULT_OPTIMIZER = {'key': 'SGD', 'kwargs': {'lr': 0.01}}
+
+
+def factorized_aux_loss(model: torch.nn.Module) -> torch.Tensor:
+    """Sum of `aux_loss()` over every `EntropyBottleneck` in `model` (only
+    `quantiles` get its gradient)."""
+    total = None
+    for m in model.modules():
+        if isinstance(m, EntropyBottleneck):
+            a = m.aux_loss()
+            total = a if total is None else total + a
+    if total is None:
+        return torch.zeros((), device=next(model.parameters()).device)
+    return total
+
+
+class DistillationBox:
+    """One stage: teacher (frozen, eval) + student + criterion + the
+    stage's optimizers. `student_mode` is 'train' before `update()` and
+    'finetune' after; `generator` supplies the 'train' mode's noise."""
+
+    def __init__(self, student: torch.nn.Module, stage_config: dict,
+                 teacher: torch.nn.Module | None = None,
+                 steps_per_epoch: int = 1, student_mode: str = 'train',
+                 generator: torch.Generator | None = None):
+        self.student = student
+        self.teacher = teacher
+        self.stage_config = stage_config
+        self.student_mode = student_mode
+        self.generator = generator
+        self.num_epochs = int(stage_config.get('num_epochs', 1))
+        self.criterion = build_criterion(
+            stage_config.get('criterion', DEFAULT_CRITERION))
+        self.train_bn = stage_config.get('train_bn', True)
+        self.optim = StageOptimizer(
+            student, stage_config.get('optimizer', DEFAULT_OPTIMIZER),
+            stage_config.get('scheduler'),
+            stage_config.get('frozen_modules', []),
+            steps_per_epoch=steps_per_epoch, num_epochs=self.num_epochs,
+            grad_accum_step=int(stage_config.get('grad_accum_step', 1)),
+            aux_lr=float(stage_config.get('aux_lr', 1e-3)))
+        if teacher is not None:
+            teacher.eval().requires_grad_(False)
+
+    def _teacher_io(self, x) -> dict:
+        if self.teacher is None:
+            return {}
+        io = {}
+        with torch.no_grad():
+            io['output'] = self.teacher(x, io=io)
+        return io
+
+    def train_step(self, x: torch.Tensor, y: torch.Tensor) -> dict:
+        """One optimizer step on the batch (x NCHW, y labels); returns the
+        step's metrics as device tensors."""
+        teacher_io = self._teacher_io(x)
+        self.student.train(self.train_bn)
+        try:
+            io = {}
+            out = self.student(x, mode=self.student_mode,
+                               generator=self.generator, io=io)
+            io['output'] = out
+            main_loss, detail = self.criterion(io, teacher_io, y)
+            aux = factorized_aux_loss(self.student)
+            self.optim.zero_grad()
+            (main_loss + aux).backward()
+            self.optim.step()
+        finally:
+            self.student.eval()
+        metrics = {'loss': {k: v.detach() for k, v in detail.items()},
+                   'aux_loss': aux.detach()}
+        if y is not None and out.ndim == 2:
+            metrics['acc1'] = (out.detach().argmax(-1) == y).to(
+                torch.float32).mean()
+        return metrics
+
+
+class TrainingBox(DistillationBox):
+    """Teacher-free stage."""
+
+    def __init__(self, student, stage_config, **kwargs):
+        super().__init__(student, stage_config, teacher=None, **kwargs)

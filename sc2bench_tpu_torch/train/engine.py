@@ -1,16 +1,27 @@
-"""Classification engine, the test-only half (counterpart of
+"""Classification engine (counterpart of
 `sc2bench_tpu/train/engine.py:ClassificationEngine`).
 
 From a config it builds the teacher and the student (registry builders,
 checkpoints), copies the teacher's layer2-4 and fc into the student as the
 JAX engine does, and wraps the student in a `SplitClassifierRuntime`.
-`test()` builds the tables and scores the student at batch 1 through the
-real bitstream, with the data size of every image accounted: on the host
-coder (`stream_deploy`, the default) or, with `deploy_wire: device` in the
-config, on the device-rANS kernels (`stream_deploy_device`).
+
+`train()` runs the config's stages (`train.stage1..N`, or the flat train
+config as one stage): a `DistillationBox` with a teacher (Entropic
+Student), else a `TrainingBox` (end to end). At `epoch_to_update` the
+runtime builds the tables and the box switches to the 'finetune' forward.
+Each epoch ends with the 'finetune' validation; the best acc1 is saved
+with `save_ckpt` and the resume state with `save_train_state` when a
+destination is given. The 'train' forward's noise comes from a generator
+on the engine's device seeded with the engine's `seed`.
+
+`test()` builds the tables (unless training did) and scores the student
+at batch 1 through the real bitstream, with the data size of every image
+accounted: on the host coder (`stream_deploy`, the default) or, with
+`deploy_wire: device` in the config, on the device-rANS kernels
+(`stream_deploy_device`).
 
 Loaders yield NHWC numpy batches; the engine hands the runtime and the
-models NCHW tensors on its device. Training and the wrapper (input- and
+models NCHW tensors on its device. The wrapper (input- and
 feature-compression) configs are not ported yet.
 """
 from __future__ import annotations
@@ -21,13 +32,16 @@ import time
 import numpy as np
 import torch
 
+from ..config import train_stage_configs
 from ..datasets.image import build_sharded_loader
 from ..device import resolve_device
 from ..models.registry import load_classification_model
 from ..models.runtime import SplitClassifierRuntime
 from ..registry import import_dependencies
-from ..utils.ckpt import load_ckpt
+from ..utils.ckpt import (load_ckpt, load_train_state, save_ckpt,
+                          save_train_state)
 from ..utils.metrics import MetricLogger
+from .box import DistillationBox, TrainingBox
 
 logger = logging.getLogger(__name__)
 
@@ -37,6 +51,67 @@ TAIL_PREFIXES = ('layer2', 'layer3', 'layer4', 'fc')
 STREAM_CHUNK = 64
 DEFAULT_TEST_LOADER = {'dataset': {'key': 'SyntheticClassificationDataset',
                                    'kwargs': {}}, 'batch_size': 1}
+DEFAULT_TRAIN_LOADER = {'dataset': {'key': 'SyntheticClassificationDataset',
+                                    'kwargs': {}},
+                        'batch_size': 8, 'shuffle': True}
+DEFAULT_VAL_LOADER = {'dataset': {'key': 'SyntheticClassificationDataset',
+                                  'kwargs': {}}, 'batch_size': 8}
+
+
+def scale_stage_lrs(stages, world_size: int = 1):
+    """The reference's `-adjust_lr`: every stage's optimizer learning rate
+    times the number of data-parallel processes. The port trains in one
+    process, so the stages come back unchanged; for more, copies with the
+    scaled rates (the input shares subtrees with the loaded config)."""
+    if world_size <= 1:
+        return stages
+    out = []
+    for stage_cfg in stages:
+        stage_cfg = dict(stage_cfg)
+        opt = stage_cfg.get('optimizer')
+        if opt and 'lr' in opt.get('kwargs', {}):
+            kwargs = dict(opt['kwargs'])
+            kwargs['lr'] = float(kwargs['lr']) * world_size
+            stage_cfg['optimizer'] = {**opt, 'kwargs': kwargs}
+            logger.info('adjust_lr: stage %s lr %s -> %s (world=%d)',
+                        stage_cfg.get('name'), opt['kwargs']['lr'],
+                        kwargs['lr'], world_size)
+        out.append(stage_cfg)
+    return out
+
+
+class MetricAccumulator:
+    """Running sums of the step losses on the device: `push` adds a
+    step's loss and aux scalars without a host transfer; every `interval`
+    steps `drain` reads them once, aborts on a non-finite sum (NaN and Inf
+    propagate through it, so no step is missed) and feeds the meter."""
+
+    def __init__(self, meter, interval: int = 50):
+        self.meter = meter
+        self.interval = max(int(interval), 1)
+        self._sums = None
+        self._pending = 0
+
+    def push(self, loss, aux):
+        step = torch.stack([torch.as_tensor(loss, dtype=torch.float32),
+                            torch.as_tensor(aux, dtype=torch.float32)])
+        self._sums = step if self._sums is None else self._sums + step
+        self._pending += 1
+        if self._pending >= self.interval:
+            self.drain()
+
+    def drain(self):
+        if self._pending == 0:
+            return
+        ls, axs = (float(v) for v in self._sums.cpu())
+        n = self._pending
+        self._sums = None
+        self._pending = 0
+        if not np.isfinite(ls):
+            raise ValueError(f'loss sum over the last {n} steps is {ls}; '
+                             'aborting')
+        self.meter.meters['loss'].update(ls / n, n=n)
+        self.meter.meters['aux'].update(axs / n, n=n)
 
 
 def top_k_accuracy(logits, targets, ks=(1, 5)):
@@ -77,13 +152,15 @@ def _eval_loop_accumulated(meter, data_loader, logits_fn):
 
 
 class ClassificationEngine:
-    """Builds the models and loaders from a config dict and runs the test
-    protocol, on `device` (CUDA unless asked otherwise)."""
+    """Builds the models and loaders from a config dict, trains and runs
+    the test protocol, on `device` (CUDA unless asked otherwise). `seed`
+    seeds the training noise."""
 
-    def __init__(self, config, device=None):
+    def __init__(self, config, device=None, seed: int = 42):
         import_dependencies(config.get('dependencies'))
         self.config = config
         self.device = resolve_device(device)
+        self.seed = int(seed)
         models_config = config.get('models', {})
         if 'wrapper' in models_config:
             raise NotImplementedError(
@@ -218,10 +295,81 @@ class ClassificationEngine:
         logger.info('teacher eval: %s', result)
         return result
 
-    def train(self, *args, **kwargs):
-        raise NotImplementedError(
-            'training is not ported yet (ROADMAP Queue A item 6); run the '
-            'test protocol (test(), -test_only)')
+    def _box(self, stage_cfg, steps_per_epoch, generator):
+        mode = 'finetune' if self.runtime.bottleneck_updated else 'train'
+        kwargs = dict(steps_per_epoch=steps_per_epoch, student_mode=mode,
+                      generator=generator)
+        if self.teacher is not None:
+            return DistillationBox(self.student, stage_cfg,
+                                   teacher=self.teacher, **kwargs)
+        return TrainingBox(self.student, stage_cfg, **kwargs)
+
+    def train(self, dst_ckpt=None, resume: bool = False):
+        """Run the config's training stages; returns the best validation
+        acc1. `resume=True` restores the state saved beside `dst_ckpt`
+        and, when its stage is the first stage, continues after the saved
+        epoch (the JAX engine's rule)."""
+        train_config = self.config.get('train', {})
+        stages = train_stage_configs(train_config)
+        if self.config.get('adjust_lr'):
+            stages = scale_stage_lrs(stages)
+        train_loader = self.build_loader(train_config.get(
+            'train_data_loader', DEFAULT_TRAIN_LOADER))
+        val_loader = self.build_loader(train_config.get(
+            'val_data_loader', DEFAULT_VAL_LOADER))
+        # the NaN/Inf abort reads a device-side loss sum every k steps
+        nan_check_interval = int(train_config.get('nan_check_interval', 50))
+        generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        best_metric, resumed = -1.0, False
+        for stage_cfg in stages:
+            name = stage_cfg.get('name')
+            logger.info('=== stage %s ===', name)
+            box = self._box(stage_cfg, max(len(train_loader), 1), generator)
+            epoch_to_update = stage_cfg.get('epoch_to_update')
+            num_epochs = int(stage_cfg.get('num_epochs', 1))
+            start_epoch = 0
+            if resume and dst_ckpt and not resumed:
+                saved = load_train_state(dst_ckpt)
+                if saved is not None:
+                    resumed = True
+                    best_metric = saved['best_metric']
+                    if saved['stage'] == name:
+                        self.student.load_state_dict(saved['model'])
+                        box.optim.load_state_dict(saved['optimizer'])
+                        start_epoch = saved['epoch'] + 1
+                        logger.info('resumed stage %s at epoch %d', name,
+                                    start_epoch)
+            for epoch in range(start_epoch, num_epochs):
+                meter = MetricLogger()
+                acc = MetricAccumulator(meter, nan_check_interval)
+                for x, y in train_loader:
+                    metrics = box.train_step(
+                        self._to_device(x),
+                        torch.as_tensor(y, device=self.device))
+                    acc.push(sum(metrics['loss'].values()),
+                             metrics['aux_loss'])
+                acc.drain()
+                logger.info('stage %s epoch %d: %s', name, epoch, str(meter))
+                if epoch_to_update is not None \
+                        and epoch + 1 >= int(epoch_to_update) \
+                        and not self.runtime.bottleneck_updated:
+                    self.runtime.update()
+                    box.student_mode = 'finetune'
+                    logger.info('bottleneck updated (tables built)')
+                metric = self.evaluate(val_loader).get('acc1', 0.0)
+                if metric > best_metric:
+                    best_metric = metric
+                    if dst_ckpt:
+                        save_ckpt(dst_ckpt, self.student.state_dict(),
+                                  meta={'best_metric': best_metric})
+                if dst_ckpt:
+                    save_train_state(dst_ckpt, self.student.state_dict(),
+                                     box.optim.state_dict(), epoch, name,
+                                     best_metric)
+        # the test protocol expects tables
+        if not self.runtime.bottleneck_updated:
+            self.runtime.update()
+        return best_metric
 
     def test(self):
         """(metrics, data-size summaries) of the student on the test loader:

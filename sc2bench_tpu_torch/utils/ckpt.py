@@ -9,6 +9,11 @@ tables from the parameters anyway).
 wrote (Flax msgpack of the variables) and converts it with
 `state_dict_from_flax`. It tells the two formats apart by the file's first
 bytes: a `torch.save` file is a zip archive, a Flax one a msgpack map.
+
+`save_train_state`/`load_train_state` keep the state to resume training
+from, at `<path>.train_state` in the port's own format (`torch.save` of
+the student's state dict, the stage's optimizer and schedule state, the
+epoch, the stage name and the best metric).
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from .convert import state_dict_from_flax
 
 _TABLES_SUFFIX = '.tables.pkl'
 _META_SUFFIX = '.meta.pkl'
+_TRAIN_SUFFIX = '.train_state'
 _ZIP_MAGIC = b'PK\x03\x04'
 _MSGPACK_NDARRAY = 1          # Flax's msgpack ext type of an ndarray
 
@@ -89,3 +95,23 @@ def load_ckpt(path):
         sidecars.append(pickle.loads(side.read_bytes())
                         if side.exists() else None)
     return (state_dict, *sidecars)
+
+
+def save_train_state(path, state_dict, optimizer_state, epoch: int,
+                     stage: str, best_metric: float) -> None:
+    """Write the state to resume training from beside `path`."""
+    target = Path(str(path) + _TRAIN_SUFFIX)
+    target.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({'model': {k: v.detach().cpu()
+                          for k, v in state_dict.items()},
+                'optimizer': optimizer_state, 'epoch': int(epoch),
+                'stage': stage, 'best_metric': float(best_metric)}, target)
+
+
+def load_train_state(path, map_location='cpu'):
+    """The payload `save_train_state` wrote beside `path` ({'model',
+    'optimizer', 'epoch', 'stage', 'best_metric'}), or None."""
+    target = Path(str(path) + _TRAIN_SUFFIX)
+    if not target.exists():
+        return None
+    return torch.load(target, map_location=map_location, weights_only=True)

@@ -12,6 +12,11 @@ JAX needed) and returns the torch key space of `SplittableResNet` and
   EntropyBottleneck matrix_i/bias_i/factor_i/quantiles
                                    -> _matrix{i}/_bias{i}/_factor{i}/quantiles
                                       (same (C, r, d)/(C, 1, 3) shapes)
+
+`flax_param_path` is the inverse on names: a torch parameter name ->
+its Flax path, dotted (`bottleneck_layer.encoder.0.weight` ->
+`bottleneck_layer.enc_conv0.kernel`), the space in which configs name
+frozen and module-wise parameter groups.
 """
 from __future__ import annotations
 
@@ -85,3 +90,36 @@ def state_dict_from_flax(variables: dict) -> dict:
         out[f'{path}.num_batches_tracked'] = np.asarray(0, np.int64)
     return {k: torch.from_numpy(np.array(v, order='C', copy=True))
             for k, v in out.items()}
+
+
+_INVERSE_RULES = [(rf'^bottleneck_layer\.{re.escape(v)}$',
+                   f'bottleneck_layer.{k}')
+                  for k, v in _FP_SCOPES.items()] + [
+    (r'^(conv1|bn1)$', r'stem.\1'),
+    (r'^layer(\d)\.(\d+)\.(conv\d|bn\d)$', r'layer\1.block\2.\3'),
+    (r'^layer(\d)\.(\d+)\.downsample\.0$', r'layer\1.block\2.downsample_conv'),
+    (r'^layer(\d)\.(\d+)\.downsample\.1$', r'layer\1.block\2.downsample_bn'),
+    (r'^fc$', 'fc'),
+]
+
+
+def flax_param_path(name: str) -> str:
+    """Dotted Flax path of the parameter `name` of the port's
+    `SplittableResNet` (FP bottleneck) or `ResNet`."""
+    module, leaf = name.rsplit('.', 1)
+    for pattern, repl in _INVERSE_RULES:
+        m = re.fullmatch(pattern, module)
+        if m:
+            scope = m.expand(repl)
+            break
+    else:
+        raise KeyError(f'no flax counterpart for torch module {module!r}')
+    if leaf == 'weight':
+        last = scope.rsplit('.', 1)[-1]
+        leaf = 'scale' if re.fullmatch(r'bn\d|downsample_bn', last) \
+            else 'kernel'
+    else:
+        m = re.fullmatch(r'_(matrix|bias|factor)(\d+)', leaf)
+        if m:
+            leaf = f'{m.group(1)}_{m.group(2)}'
+    return f'{scope}.{leaf}'

@@ -136,8 +136,8 @@ def test_call_and_finetune_forward_equal_jax(models):  # noqa: F811
     """`__call__` deploys through the host coder in eval mode (data size
     accounted) and runs the 'finetune' forward while training, BatchNorm
     on its running statistics on both sides; the module's own 'finetune'
-    forward is the same. Before `update()` the 'train' forward is not
-    ported and raises."""
+    forward is the same. Before `update()` it runs the 'train' forward,
+    its noise from a generator seeded with 0."""
     _, jrt, prt, images = models
     x = images[0]
     try:
@@ -168,8 +168,12 @@ def test_call_and_finetune_forward_equal_jax(models):  # noqa: F811
     fresh = SplitClassifierRuntime(prt.module, device='cpu')
     assert not prt.module.training
     assert not fresh.train().module.training
-    with pytest.raises(NotImplementedError, match='training slice'):
-        fresh(_nchw(x))
+    got = fresh(_nchw(x))
+    with torch.no_grad():
+        want = fresh.module(_nchw(x), mode='train',
+                            generator=torch.Generator().manual_seed(0))
+    assert torch.equal(got, want) and torch.isfinite(got).all()
+    assert not torch.equal(got, fresh.module(_nchw(x), mode='finetune'))
 
 
 def test_analyze_model_size_equals_jax(models):  # noqa: F811
@@ -348,12 +352,11 @@ def test_loader_equals_jax_and_runs_in_one_process(normalized, monkeypatch):
 
 
 def test_cli_needs_test_only_and_a_card(monkeypatch):
-    with pytest.raises(NotImplementedError, match='-test_only'):
-        main(['--config', TINY])
+    """Without a card the CLI raises, training or testing; wrapper
+    configs raise whatever the device."""
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
-    with pytest.raises(RuntimeError, match='no CUDA device'):
-        main(['--config', TINY, '-test_only'])
+    for extra in ([], ['-test_only']):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            main(['--config', TINY, *extra])
     with pytest.raises(NotImplementedError, match='item 8'):
         ClassificationEngine({'models': {'wrapper': {}}}, device='cpu')
-    with pytest.raises(NotImplementedError, match='item 6'):
-        ClassificationEngine(load_config(TINY), device='cpu').train()

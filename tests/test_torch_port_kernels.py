@@ -260,7 +260,7 @@ def test_batch1_kernels_on_wide_and_frequency_1_rows_on_the_card():
 def test_batch1_kernels_refuse_steps_beyond_shared_memory_on_the_card():
     dev = _card()
     cols = 23
-    limit = kernels.max_steps(cols, False, dev)
+    limit = kernels.max_steps(False, dev)
     assert limit >= 2048
     cdf_lane = torch.zeros((32, cols), dtype=torch.int32, device=dev)
     vc = torch.zeros((1, limit + 1, 32), dtype=torch.int32, device=dev)
@@ -339,7 +339,7 @@ def test_aligned_kernels_take_steps_beyond_the_batch1_limit_on_the_card():
     T where the batch-1 pair raises."""
     dev = _card()
     lanes = 48
-    steps = kernels.max_steps(23, False, dev) + 5
+    steps = kernels.max_steps(False, dev) + 5
     tables = _tables(8, 21, seed=3)
     assert _aligned_check(dev, tables, lanes, lanes * steps - 7, 2) == steps
     cdf_lane = torch.zeros((lanes, 23), dtype=torch.int32, device=dev)
@@ -355,23 +355,48 @@ def test_aligned_kernels_on_wide_and_frequency_1_rows_on_the_card():
 
 
 @pytest.mark.cuda
-def test_aligned_kernels_refuse_rows_beyond_shared_memory_on_the_card():
+@pytest.mark.parametrize('support', [597, 1197], ids=['600cols', '1200cols'])
+@pytest.mark.parametrize('k', [1, 8])
+def test_all_kernels_take_wide_rows_on_the_card(support, k):
+    """CDF rows of 600 and 1,200 entries on the flagship's 384 lanes,
+    beyond the shared-memory plans (all four at 1,200; at 600 the aligned
+    decoder's four-image blocks still hold them): those launches read
+    their lane tables from a device buffer, and all four kernels stay
+    bit-equal to their plain versions, batch 1 and aligned."""
     dev = _card()
-    for decode in (False, True):
-        assert kernels.aligned_max_cols(decode, dev) >= 225
-    cols = kernels.aligned_max_cols(False, dev) + 1
-    cdf_lane = torch.zeros((32, cols), dtype=torch.int32, device=dev)
-    vc = torch.zeros((1, 4, 32), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match='at most'):
-        kernels.cyclic_encode_aligned(cdf_lane, vc)
-    cols = kernels.aligned_max_cols(True, dev) + 1
-    cdf_lane = torch.zeros((32, cols), dtype=torch.int32, device=dev)
-    streams = torch.zeros((1, 32, 4), dtype=torch.int32, device=dev)
-    states = torch.zeros((1, 32), dtype=torch.int64, device=dev)
-    lens = torch.full((32,), cols, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match='at most'):
-        kernels.cyclic_decode_aligned(streams, states, cdf_lane, lens,
-                                      torch.zeros_like(lens), 4)
+    tables = _tables(24, support, seed=support + k)
+    cols = tables[0].shape[1]
+    lanes, n = 384, 72600
+    steps = n // lanes + 1
+    for name in kernels.KERNELS:
+        wide = kernels.table_bytes(name, cols, steps, steps, k, lanes, dev)
+        assert wide > 0 or (cols == 600
+                            and name == 'rans_cyclic_decode_aligned'), name
+        assert kernels.table_bytes(name, 23, steps, steps, k, lanes,
+                                   dev) == 0, name
+    kernels.reset_launches()
+    assert _aligned_check(dev, tables, lanes, n, k) == steps
+    cdf, cdf_length, offset = tables
+    rows = np.stack([_symbols(cdf, cdf_length, offset, n, seed=s)
+                     for s in range(k)])
+    cdf_lane, len_lane, off_lane = td.lane_tables(
+        cdf, cdf_length, offset, lanes, 24, dev)
+    sym3, _, _ = td._blocks(torch.from_numpy(rows).to(dev), lanes,
+                            off_lane)
+    vc = (sym3 - off_lane).contiguous()
+    plain = td.cyclic_encode_plain(cdf_lane, vc)
+    got = kernels.cyclic_encode(cdf_lane, vc)
+    out, xend = kernels.cyclic_decode(got[0], got[2], cdf_lane, len_lane,
+                                      off_lane, steps)
+    pout, pxend = td.cyclic_decode_plain(got[0], got[2], cdf_lane, len_lane,
+                                         off_lane, steps)
+    torch.cuda.synchronize()
+    for a, b in zip(plain, got):
+        assert torch.equal(a, b)
+    assert torch.equal(out, pout) and torch.equal(xend, pxend)
+    np.testing.assert_array_equal(out.reshape(k, -1)[:, :n].cpu().numpy(),
+                                  rows)
+    assert {kernels.LAUNCHES[name] for name in kernels.KERNELS} == {1, 2}
 
 
 @pytest.mark.cuda

@@ -250,10 +250,11 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     """Every module of sc2bench_tpu_torch imports with jax, flax and
-    sc2bench_tpu blocked, and the classification CLI runs a config that
-    lists the JAX package's modules as dependencies."""
+    sc2bench_tpu blocked, and the classification CLI tests, and trains
+    then tests, a config that lists the JAX package's modules as
+    dependencies."""
     code = r'''
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys
 class Block:
     def find_spec(self, name, path=None, target=None):
         if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sc2bench_tpu'):
@@ -265,9 +266,15 @@ names = [m.name for m in pkgutil.walk_packages(
 for n in names:
     importlib.import_module(n)
 from sc2bench_tpu_torch.tasks.image_classification import main
-out = main(['--config', 'configs/sample/tiny_entropic_student.yaml',
-            '-test_only', '-student_only', '--device', 'cpu'])
-assert out['summaries'][0]['num_samples'] == 4, out
+small = {'stage_sizes': [1, 1, 1, 1]}
+over = {'models': {'teacher_model': {'key': 'resnet', 'kwargs': small},
+                   'student_model': {'kwargs': small}}}
+for extra in (['-test_only'], []):
+    out = main(['--config', 'configs/sample/tiny_entropic_student.yaml',
+                '--json', json.dumps(over), '-student_only', '--device',
+                'cpu', *extra])
+    assert out['summaries'][0]['num_samples'] == 4, out
+assert out['best'] is not None
 bad = [m for m in sys.modules
        if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sc2bench_tpu')]
 assert not bad, bad
@@ -276,4 +283,4 @@ print(len(names))
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 25
+    assert int(out.stdout.strip().splitlines()[-1]) >= 28
