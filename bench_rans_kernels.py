@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times the port's four rANS kernels at the flagship shape on one GPU.
+"""Times the port's eight rANS kernels at the flagship shapes on one GPU.
 
     python3 bench_rans_kernels.py
 
@@ -31,8 +31,13 @@ cost of one more image in the throughput regime; `wide_rows`: each
 kernel's device_ms at the flagship shape with synthetic CDF rows of 600
 and 1,200 columns (`chip_smoke.synthetic_tables`), beyond the shared-memory
 table plans, with the bytes of the device table buffer each launch read
-(`kernels.table_bytes`; 0 = shared tables). Prints one JSON line with the
-card's name and power limit. Needs a CUDA device.
+(`kernels.table_bytes`; 0 = shared tables); `indexed`: the four general
+per-index kernels at the MSHP y shape (55x55x24 on 512 lanes x 142 steps,
+the default Gaussian tables, rows and symbols from
+`chip_smoke.indexed_inputs`, numpy seed 4321): per_call_ms and device_ms
+of the batch-1 pair at k = 1, and device_ms of the aligned pair at k = 1,
+8 and 128. Prints one JSON line with the card's name and power limit.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -111,16 +116,54 @@ def aligned_calls(kernels, vc, cdf_lane, len_lane, off_lane):
     }
 
 
+def indexed_calls(torch, td, kernels, device, indexed_inputs, per_call_ms,
+                  device_ms):
+    """Times of the indexed kernels at the MSHP y shape (see the module
+    doc)."""
+    from sc2bench_tpu_torch.ops.entropy.tables import build_gaussian_tables
+    tables = build_gaussian_tables()
+    n = 55 * 55 * 24
+    lanes = td.auto_lanes(n)
+    inp = indexed_inputs(torch, td, tables, lanes, n, 128,
+                         np.random.default_rng(4321), device)
+    cdf, cdf_len, off, steps = (inp['cdf'], inp['cdf_len'], inp['off'],
+                                inp['steps'])
+    out = {}
+    vc1, idx1 = inp['vc'][:1].contiguous(), inp['idx3'][:1].contiguous()
+    streams, _, states = kernels.indexed_encode(cdf, vc1, idx1)
+    for name, fn in (
+            ('rans_indexed_encode',
+             lambda: kernels.indexed_encode(cdf, vc1, idx1)),
+            ('rans_indexed_decode',
+             lambda: kernels.indexed_decode(streams, states, cdf, cdf_len,
+                                            off, idx1, steps))):
+        out[name] = {'per_call_ms': per_call_ms(torch, fn, REPS),
+                     'device_ms': device_ms(torch, fn, REPS)}
+    for k in (1, 8, 128):
+        vc, idx = inp['vc'][:k].contiguous(), inp['idx3'][:k].contiguous()
+        astreams, _, astates, _ = kernels.indexed_encode_aligned(cdf, vc,
+                                                                 idx)
+        for name, fn in (
+                ('rans_indexed_encode_aligned',
+                 lambda: kernels.indexed_encode_aligned(cdf, vc, idx)),
+                ('rans_indexed_decode_aligned',
+                 lambda: kernels.indexed_decode_aligned(
+                     astreams, astates, cdf, cdf_len, off, idx, steps))):
+            out.setdefault(name, {})[k] = device_ms(torch, fn, 50)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit('bench_rans_kernels: no CUDA device is available')
     sys.path.insert(0, HERE)
-    from chip_smoke import device_ms, per_call_ms, synthetic_tables
+    from chip_smoke import (device_ms, indexed_inputs, per_call_ms,
+                            synthetic_tables)
     from sc2bench_tpu_torch.ops.rans import device as td
     from sc2bench_tpu_torch.ops.rans import kernels
     device = torch.device('cuda', 0)
-    kernels.build_library()
+    kernels.build_libraries()
     out = {}
     for name, fn in kernel_calls(torch, td, kernels, device).items():
         out[name] = {'per_call_ms': per_call_ms(torch, fn, REPS),
@@ -150,13 +193,16 @@ def main():
                     'device_ms': device_ms(torch, fn, REPS),
                     'table_bytes': kernels.table_bytes(
                         name, cols, 190, 190, k, 384, device)}
+    indexed = indexed_calls(torch, td, kernels, device, indexed_inputs,
+                            per_call_ms, device_ms)
     smi = subprocess.run(
         ['nvidia-smi', '--id=0', '--query-gpu=name,power.limit,clocks.sm',
          '--format=csv,noheader'], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(json.dumps({'repo': HERE, 'card': smi,
                       'kernels': out, 'steps_sweep': sweep,
-                      'wire_batch_sweep': wire_sweep, 'wide_rows': wide}),
+                      'wire_batch_sweep': wire_sweep, 'wide_rows': wide,
+                      'indexed': indexed}),
           flush=True)
 
 

@@ -6,24 +6,29 @@ Run from the repository root with `python3 chip_smoke.py` (no arguments,
 one card). It imports nothing of JAX or of `sc2bench_tpu`. Phases, each of
 which fails loudly with a nonzero exit:
 
- 1. build the CUDA rANS kernels from `sc2bench_tpu_torch/csrc/` (nvcc,
-    sm_90a) and print the build seconds and ptxas register counts;
- 2. hold each of the four kernels against its plain PyTorch version on the
-    card at the flagship shapes (55x55x24 latent: 384 lanes x 190 steps,
-    8 images) and on edge cases: 72 and 168 lanes (not multiples of 32),
-    n not a multiple of the lanes, k > 1, T = 600 (many staging tiles), a
-    225-column CDF row, and frequency-1 symbols. Bit-equal
+ 1. build the CUDA rANS kernels from `sc2bench_tpu_torch/csrc/` (one nvcc
+    per source, sm_90a, started together) and print the build seconds and
+    ptxas register counts;
+ 2. hold each of the four cyclic kernels against its plain PyTorch version
+    on the card at the flagship shapes (55x55x24 latent: 384 lanes x 190
+    steps, 8 images) and on edge cases: 72 and 168 lanes (not multiples of
+    32), n not a multiple of the lanes, k > 1, T = 600 (many staging
+    tiles), a 225-column CDF row, and frequency-1 symbols. Bit-equal
     streams/lengths/states, packed bytes equal to the numpy oracle and
     equal between the two layouts, symbols back with valid=True, and
     valid=False for a corrupted stream. The aligned (wire_batch) pair also
     at k = 128 (the throughput mode's wire_batch) and k = 1, 3, 5 on the
     flagship lanes, and at a T beyond the batch-1 pair's limit. All four
     at 600- and 1,200-column CDF rows (k = 1 and 8, the flagship's lanes),
-    which read their lane tables from device memory. Print each kernel's ms
+    which read their lane tables from device memory. The same checks for
+    the four general per-index kernels at the MSHP y shape (55x55x24 on
+    512 lanes x 142 steps, the default Gaussian tables) at k = 1 and 8,
+    and at 100 lanes (n = 2,345, k = 3) and at T = 4,000 (40 lanes), with
+    rows 0 and 63 and frequency-1 tail symbols. Print each kernel's ms
     (CUDA events around one call on an idle card, host dispatch
     included), device ms (launches queued behind a sleep kernel), plain
-    ms, the aligned pair's device ms at k = 8 and k = 128 with the images
-    per block (G) each used, and the SM clocks;
+    ms and bound ms, the aligned cyclic pair's device ms at k = 8 and
+    k = 128 with the images per block (G) each used, and the SM clocks;
  3. drive the main path, batch 1: `stream_deploy_device` of the
     full-width ResNet-50 + FP-24 model (1000 classes, seeded random
     weights) on 16 float 224x224 images and 4 uint8 images through
@@ -75,8 +80,27 @@ which fails loudly with a nonzero exit:
     flagship stage-1 step at batch 2 on the card and on the CPU from the
     same state, batch and noise: loss detail, gradients and updated
     parameters within rtol 1e-3;
- 8. print the kernels line, the card's name and power limit, and last
-    `{"ok": true, "device": {...}}`.
+ 8. one 2,584 px image through the FP model at batch 1 on auto lanes
+    (3,072 lanes x 3,251 steps, beyond the batch-1 decoder's limit): it
+    must be served through the aligned pair at k = 1 with no escape, its
+    size equal to the plain coder's wire;
+ 9. MSHP serving: ResNet-50 + `MSHPBasedResNetBottleneck` (24/256/16),
+    1000 classes, seeded random weights with h_s's scales spread
+    (`spread_mshp_scales`), phase 3's 16 float images: the y indexes must
+    use at least 8 of the 64 rows; at batch 1 the cyclic pair (z) and the
+    indexed pair (y) launch once per image, at `wire_batch=8` the four
+    aligned kernels once per group; no escape, equal sizes, logits within
+    1e-3; two images decode to the host path's y and z symbols with
+    logits within 1e-3 of `rt.decode(**rt.encode(x))`; a scaled image
+    takes the ok=False escape with `rt.encode`'s size; img/s both ways;
+10. the test CLI on the MSHP flagship config (phase 6's checks, the
+    indexed pair launching once per image too), then its two stages at 2
+    steps each (batch 32) and 8 test images on the device wire: stage 1
+    must leave layer2-4 and the BN statistics alone, stage 2 g_a, h_a,
+    h_s and the density; img/s and peak memory per stage;
+11. print the kernels line (all eight kernels; it fails if one never
+    launched on its path or differs from its plain version), the card's
+    name and power limit, and last `{"ok": true, "device": {...}}`.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 with an error before printing any result.
@@ -94,13 +118,23 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-SOURCE = 'sc2bench_tpu_torch/csrc/rans_cyclic.cu'
+SOURCES = {'cyclic': 'sc2bench_tpu_torch/csrc/rans_cyclic.cu',
+           'indexed': 'sc2bench_tpu_torch/csrc/rans_indexed.cu'}
 PALLAS = 'sc2bench_tpu/ops/rans/pallas_kernel.py'
+SCAN = 'sc2bench_tpu/ops/rans/device.py'
 REPLACES = {
     'rans_cyclic_encode': f'{PALLAS}:397 _encode_kernel',
     'rans_cyclic_decode': f'{PALLAS}:54 _decode_kernel',
     'rans_cyclic_encode_aligned': f'{PALLAS}:130 _encode_kernel_aligned',
     'rans_cyclic_decode_aligned': f'{PALLAS}:95 _decode_kernel_aligned',
+    'rans_indexed_encode': f'{SCAN}:551 step + :591 _finish_encode '
+                           '(XLA scan, no Pallas kernel)',
+    'rans_indexed_decode': f'{SCAN}:704 step with :409 cdf_bisect '
+                           '(XLA scan, no Pallas kernel)',
+    'rans_indexed_encode_aligned': f'{SCAN}:551 step, aligned=True '
+                                   '(:578-587; XLA scan, no Pallas kernel)',
+    'rans_indexed_decode_aligned': f'{SCAN}:688-702 step_a (XLA scan, no '
+                                   'Pallas kernel)',
 }
 N_FLOAT, N_UINT8, WIRE_BATCH, HW = 16, 4, 8, 224
 LOGIT_TOL = 1e-3
@@ -108,6 +142,14 @@ FLAGSHIP_CONFIG = ('configs/ilsvrc2012/supervised_compression/'
                    'entropic_student/'
                    'splitable_resnet50-fp-beta0.16_from_resnet50.yaml')
 N_CLI = 32
+MSHP_CONFIG = ('configs/ilsvrc2012/supervised_compression/'
+               'entropic_student/'
+               'splitable_resnet50-mshp-beta0.16_from_resnet50.yaml')
+# the kernels a batch-1 image launches once each on the device wire
+FP_BATCH1 = ('rans_cyclic_encode', 'rans_cyclic_decode')
+MSHP_BATCH1 = FP_BATCH1 + ('rans_indexed_encode', 'rans_indexed_decode')
+# phase 8's image: a 645x645x24 latent, 3,072 lanes x 3,251 steps
+BIG_HW = 2584
 END_TO_END_CONFIG = ('configs/ilsvrc2012/supervised_compression/end-to-end/'
                      'splitable_resnet50-fp-beta1.024e-7.yaml')
 # phase 7: synthetic 224x224 loaders, 1000 classes
@@ -195,13 +237,16 @@ def bound(nbytes, ops):
 
 
 def build_model(torch, device, seed, bottleneck=24, target=256,
-                stage_sizes=(3, 4, 6, 3), classes=1000):
+                stage_sizes=(3, 4, 6, 3), classes=1000,
+                key='FPBasedResNetBottleneck'):
     """The flagship model with seeded random weights: He-normal convs, BN
-    affine and statistics near identity (bn3 scales not zero)."""
+    affine and statistics near identity (bn3 scales not zero). `key`
+    names the bottleneck (FP, or MSHP with its default 16 latent
+    channels)."""
     from sc2bench_tpu_torch.models.backbone import splittable_resnet
     torch.manual_seed(seed)
     model = splittable_resnet(
-        {'key': 'FPBasedResNetBottleneck',
+        {'key': key,
          'kwargs': {'num_bottleneck_channels': bottleneck,
                     'num_target_channels': target}},
         stage_sizes=stage_sizes, num_classes=classes, device=device)
@@ -212,8 +257,10 @@ def build_model(torch, device, seed, bottleneck=24, target=256,
 
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, torch.nn.Conv2d):
-                fan_in = m.weight[0].numel()
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                w = m.weight if isinstance(m, torch.nn.Conv2d) \
+                    else m.weight.transpose(0, 1)
+                fan_in = w[0].numel()
                 m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
                                .to(device) * (2.0 / fan_in) ** 0.5)
             elif isinstance(m, torch.nn.BatchNorm2d):
@@ -224,7 +271,31 @@ def build_model(torch, device, seed, bottleneck=24, target=256,
         # halve the last encoder conv: the latent (std ~0.9 on unit-normal
         # images) then stays inside the +-10 support of fresh quantiles,
         # as a trained model's latent does
-        model.bottleneck_layer.encoder[-1].weight.mul_(0.5)
+        bneck = model.bottleneck_layer
+        last = bneck.encoder[-1] if hasattr(bneck, 'encoder') \
+            else bneck.g_a[-1]
+        last.weight.mul_(0.5)
+    return model
+
+
+def spread_mshp_scales(torch, model, image, median=0.8):
+    """Make an MSHP model's predicted scales positive and spread over the
+    Gaussian table, as a trained model's are: h_s's last convolution gets
+    |w| on its scale channels, channel c times 2^(c/4), scaled so that
+    channel 0's median scale on `image` is `median`; its mean channels are
+    damped (x 0.1). y then stays inside the support (|y - mean| well below
+    6 scales) while its rows cover tens of the 64."""
+    bneck = model.bottleneck_layer
+    conv = bneck.h_s[-1]
+    bch = conv.out_channels // 2
+    with torch.no_grad():
+        w = conv.weight
+        mult = 2.0 ** (torch.arange(bch, device=w.device) / 4.0)
+        w[:bch] = w[:bch].abs() * mult[:, None, None, None]
+        w[bch:] *= 0.1
+        z = bneck.h_a(bneck.hyper_input(bneck.g_a(image)))
+        scales, _ = bneck.gaussian_params(bneck.h_s(torch.round(z)))
+        w[:bch] *= median / float(scales[0, 0].median())
     return model
 
 
@@ -499,6 +570,219 @@ def kernel_phase(torch, td, kernels, tables, device):
     return stats
 
 
+# ---- the general per-index kernels (phase 2) -------------------------------
+
+def gaussian_symbols(tables, n, rng, tails=False):
+    """(rows, symbols) of n positions over all rows of the Gaussian
+    tables (row 0 and the last among them), symbols drawn from each row's
+    distribution; with `tails`, every fifth symbol uniform over its row's
+    support, which codes many frequency-1 tail symbols."""
+    cdf, cdf_len, off = tables.quantized_cdf, tables.cdf_length, tables.offset
+    idx = rng.integers(0, cdf.shape[0], n).astype(np.int32)
+    idx[:2] = (0, cdf.shape[0] - 1)
+    u = rng.integers(0, 1 << 16, n)
+    vals = np.empty(n, np.int64)
+    for r in np.unique(idx):
+        m = idx == r
+        vals[m] = np.clip(np.searchsorted(cdf[r][:cdf_len[r]], u[m],
+                                          side='right') - 1, 0,
+                          cdf_len[r] - 3)
+    if tails:
+        pick = np.arange(n) % 5 == 0
+        vals[pick] = rng.integers(0, cdf_len[idx[pick]] - 2)
+    return idx, (vals + off[idx]).astype(np.int32)
+
+
+def indexed_inputs(torch, td, tables, lanes, n, k, rng, device,
+                   tails=False):
+    """Blocks (vc, idx3) of k images of n general-path symbols on `lanes`
+    lanes, with the tables on the card and the host rows and symbols."""
+    draws = [gaussian_symbols(tables, n, rng, tails=tails and i % 2 == 1)
+             for i in range(k)]
+    idx = np.stack([d[0] for d in draws])
+    rows = np.stack([d[1] for d in draws])
+    cdf, cdf_len, off = (torch.from_numpy(a).to(device) for a in (
+        tables.quantized_cdf, tables.cdf_length, tables.offset))
+    sym3, idx3 = td._index_blocks(torch.from_numpy(rows).to(device),
+                                  torch.from_numpy(idx).to(device), lanes,
+                                  off[0])
+    return dict(vc=(sym3 - off[idx3]).contiguous(), idx3=idx3.contiguous(),
+                cdf=cdf, cdf_len=cdf_len, off=off, idx=idx, rows=rows,
+                steps=sym3.shape[1])
+
+
+def indexed_case(torch, td, kernels, tables, lanes, n, k, rng, device,
+                 tails=False):
+    """Phase 2 checks of the four indexed kernels for one (lanes, n, k)
+    case: bit-equal to the plain versions (a corrupted state included),
+    packed bytes equal to the numpy oracle with per-index rows and equal
+    between the layouts, the symbols back with valid=True, valid=False on
+    the corrupted stream."""
+    inp = indexed_inputs(torch, td, tables, lanes, n, k, rng, device, tails)
+    vc, idx3, steps = inp['vc'], inp['idx3'], inp['steps']
+    cdf, cdf_len, off = inp['cdf'], inp['cdf_len'], inp['off']
+    tag = f'indexed lanes={lanes} n={n} k={k} T={steps}'
+    errs = {}
+
+    def compare(name, got, ref):
+        for a, b in zip(got, ref):
+            if a is None and b is None:
+                continue
+            diff = (a.to(torch.int64) - b.to(torch.int64)).abs()
+            err = int(diff.max()) if diff.numel() else 0
+            errs[name] = max(errs.get(name, 0), err)
+            check(err == 0 and a.shape == b.shape and a.dtype == b.dtype,
+                  f'{name} differs from its plain version ({tag})')
+
+    enc = kernels.indexed_encode(cdf, vc, idx3)
+    compare('rans_indexed_encode', enc, td.indexed_encode_plain(cdf, vc,
+                                                                idx3))
+    enca = kernels.indexed_encode_aligned(cdf, vc, idx3, want_masks=True)
+    compare('rans_indexed_encode_aligned', enca, td.indexed_encode_plain(
+        cdf, vc, idx3, aligned=True, want_masks=True))
+    for r in range(k):
+        wire = td.pack_stream({'streams': enc[0][r], 'lengths': enc[1][r],
+                               'states': enc[2][r]})
+        check(wire == td.pack_stream_aligned(
+            {'streams': enca[0][r], 'lengths': enca[1][r],
+             'states': enca[2][r], 'masks': enca[3][r]}),
+              f'compacted and aligned wires differ ({tag})')
+        check(wire == indexed_oracle_wire(td, inp['rows'][r], inp['idx'][r],
+                                          tables, lanes),
+              f'packed bytes differ from the numpy oracle ({tag})')
+    for name, (streams, _, states, *_), aligned in (
+            ('rans_indexed_decode', enc, False),
+            ('rans_indexed_decode_aligned', enca, True)):
+        fn = kernels.indexed_decode_aligned if aligned \
+            else kernels.indexed_decode
+        bad = states.clone()
+        bad[k - 1, lanes // 3] ^= 0x5A5A
+        outs = []
+        for st in (states, bad):
+            got = fn(streams, st, cdf, cdf_len, off, idx3, steps)
+            compare(name, got, td.indexed_decode_plain(
+                streams, st, cdf, cdf_len, off, idx3, steps,
+                aligned=aligned))
+            outs.append(got)
+        (out, xend), (_, xbad) = outs
+        check(np.array_equal(out.reshape(k, -1)[:, :n].cpu().numpy(),
+                             inp['rows']), f'{name} lost symbols ({tag})')
+        check(bool((xend == td.RANS_L).all()),
+              f'{name}: valid=False on a good stream ({tag})')
+        check(not bool((xbad[k - 1] == td.RANS_L).all()),
+              f'{name}: valid=True on a corrupted stream ({tag})')
+    torch.cuda.synchronize()
+    return dict(inp, enc=enc, enca=enca, errs=errs)
+
+
+def indexed_oracle_wire(td, sym, idx, tables, lanes):
+    """Packed wire bytes of the general layout from the numpy oracle."""
+    streams, states = td.numpy_oracle_encode(
+        sym, idx, tables.quantized_cdf, tables.cdf_length, tables.offset,
+        num_lanes=lanes)
+    lengths = np.asarray([len(s) for s in streams], np.uint16)
+    body = [np.asarray([lanes, 0], np.uint16).tobytes(), lengths.tobytes(),
+            states.astype(np.uint32).tobytes()]
+    body += [np.asarray(s, np.uint16).tobytes() for s in streams]
+    return b''.join(body)
+
+
+def indexed_costs(inp, tables, k, lengths, decode):
+    """(bound ms, bound_by) of one indexed launch on `inp`'s first k
+    images, each input read once and each output written once. Both read
+    the symbol rows (int32), the table entries this data codes
+    (cdf[row, v] and cdf[row, v + 1]) and the int64 states in or out. The
+    encoder reads the int32 symbols and writes the whole (k, lanes, steps)
+    int32 stream array (the compacted one zeroes its tail) and the int32
+    lengths. The decoder reads the chunks the streams hold (`lengths`, the
+    encoder's per-lane counts) and each used row's length and offset, and
+    writes the int32 symbols and the final states. Integer operations per
+    symbol as counted from the kernels' code, the decoder's bisection by
+    the probes each symbol's row needs."""
+    cols = tables.quantized_cdf.shape[1]
+    vc = inp['vc'][:k].cpu().numpy().astype(np.int64)
+    rows = inp['idx3'][:k].cpu().numpy().astype(np.int64)
+    pos = rows * cols + vc
+    entries = np.unique(np.concatenate([pos.ravel(), pos.ravel() + 1])).size
+    sym = vc.size
+    lanes = vc.shape[-1]
+    nbytes = 4 * entries + 4 * sym + 4 * sym + 8 * k * lanes
+    if decode:
+        probes = np.ceil(np.log2(np.maximum(
+            tables.cdf_length[rows] - 1, 2))).sum()
+        nbytes += 4 * int(lengths[:k].sum()) + 8 * np.unique(rows).size
+        ops = 4 * probes + DECODE_OPS_PER_SYMBOL * sym
+    else:
+        nbytes += 4 * sym + 4 * k * lanes
+        ops = ENCODE_OPS_PER_SYMBOL * sym
+    return bound(nbytes, ops)
+
+
+def indexed_phase(torch, td, kernels, tables, device):
+    """Phase 2 (general path): the four indexed kernels against their
+    plain versions at the MSHP y shape (55x55x24 on 512 lanes x 142 steps,
+    the default Gaussian tables) at k = 1 and 8, and on edge cases;
+    timings at the main path's shapes (batch 1 compacted, WIRE_BATCH
+    aligned)."""
+    rng = np.random.default_rng(4321)
+    n = 55 * 55 * 24
+    lanes = td.auto_lanes(n)
+    flag = indexed_case(torch, td, kernels, tables, lanes, n, WIRE_BATCH,
+                        rng, device)
+    one = indexed_case(torch, td, kernels, tables, lanes, n, 1, rng, device)
+    edge = [indexed_case(torch, td, kernels, tables, 100, 2345, 3, rng,
+                         device, tails=True),
+            indexed_case(torch, td, kernels, tables, 40, 40 * 4000 - 7, 2,
+                         rng, device, tails=True)]
+    log(f'phase 2: indexed kernels equal their plain versions (lanes='
+        f'{lanes}, steps={flag["steps"]}, Gaussian tables '
+        f'{tables.quantized_cdf.shape}, k=1 and {WIRE_BATCH}; edge cases: '
+        '100 lanes n=2345 k=3 and 40 lanes T=4000 k=2, rows 0 and 63, '
+        'frequency-1 tail symbols); packed bytes equal the numpy oracle')
+    steps = flag['steps']
+    cdf, cdf_len, off = flag['cdf'], flag['cdf_len'], flag['off']
+    vc1, idx1 = one['vc'], one['idx3']
+    enc1, enca = one['enc'], flag['enca']
+    specs = {
+        'rans_indexed_encode': (
+            lambda: kernels.indexed_encode(cdf, vc1, idx1),
+            lambda: td.indexed_encode_plain(cdf, vc1, idx1),
+            indexed_costs(one, tables, 1, enc1[1], False)),
+        'rans_indexed_decode': (
+            lambda: kernels.indexed_decode(enc1[0], enc1[2], cdf, cdf_len,
+                                           off, idx1, steps),
+            lambda: td.indexed_decode_plain(enc1[0], enc1[2], cdf, cdf_len,
+                                            off, idx1, steps),
+            indexed_costs(one, tables, 1, enc1[1], True)),
+        'rans_indexed_encode_aligned': (
+            lambda: kernels.indexed_encode_aligned(cdf, flag['vc'],
+                                                   flag['idx3']),
+            lambda: td.indexed_encode_plain(cdf, flag['vc'], flag['idx3'],
+                                            aligned=True),
+            indexed_costs(flag, tables, WIRE_BATCH, enca[1], False)),
+        'rans_indexed_decode_aligned': (
+            lambda: kernels.indexed_decode_aligned(
+                enca[0], enca[2], cdf, cdf_len, off, flag['idx3'], steps),
+            lambda: td.indexed_decode_plain(
+                enca[0], enca[2], cdf, cdf_len, off, flag['idx3'], steps,
+                aligned=True),
+            indexed_costs(flag, tables, WIRE_BATCH, enca[1], True)),
+    }
+    stats = {}
+    for name, (kern, plain, (bound_ms, bound_by)) in specs.items():
+        ms = per_call_ms(torch, kern, reps=30)
+        dev_ms = device_ms(torch, kern, reps=100)
+        plain_ms = per_call_ms(torch, plain, reps=3)
+        err = max(case['errs'].get(name, 0) for case in [flag, one] + edge)
+        stats[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           max_abs_err=err)
+        log(f'phase 2: {name}: kernel {ms:.4f} ms per call ({dev_ms:.4f} '
+            f'ms on the card), plain {plain_ms:.3f} ms, bound '
+            f'{bound_ms:.6f} ms ({bound_by})')
+    return stats
+
+
 def main_path(torch, kernels, rt, rt_u8, images, images_u8):
     """Phases 3 and 4: the deploy loop, batch 1 then wire_batch."""
     from sc2bench_tpu_torch.analysis import get_binary_object_size
@@ -526,8 +810,9 @@ def main_path(torch, kernels, rt, rt_u8, images, images_u8):
           and counts1['rans_cyclic_decode'] == n_img,
           f'batch-1 path launched {counts1}, expected {n_img} each')
     check(counts1['rans_cyclic_encode_aligned'] == 0
-          and counts1['rans_cyclic_decode_aligned'] == 0,
-          f'batch-1 path launched aligned kernels: {counts1}')
+          and counts1['rans_cyclic_decode_aligned'] == 0
+          and all(counts1[k] == 0 for k in kernels.INDEXED_KERNELS),
+          f'batch-1 path launched aligned or indexed kernels: {counts1}')
     for r in (rt, rt_u8):
         check(r.escapes == {'ok': 0, 'valid': 0},
               f'batch-1 path sent images to the host coder: {r.escapes}')
@@ -663,9 +948,10 @@ def escape_phase(torch, rt, images):
         'unchanged, one ok=False escape and no valid=False one')
 
 
-def cli_phase(torch, kernels, model):
-    """Phase 6: the test CLI on the flagship config, host wire then device
-    wire. Returns the device-wire run's launch counts."""
+def cli_phase(torch, kernels, model, config=FLAGSHIP_CONFIG,
+              per_image=FP_BATCH1, tag='phase 6'):
+    """Phase 6: the test CLI on the flagship config (or `config`), host
+    wire then device wire. Returns the device-wire run's launch counts."""
     import tempfile
     from sc2bench_tpu_torch.models.runtime import SplitClassifierRuntime
     from sc2bench_tpu_torch.tasks.image_classification import main as cli
@@ -695,7 +981,7 @@ def cli_phase(torch, kernels, model):
                     'test': {'test_data_loader': loader}}
             for wire in ('host', 'device'):
                 served.clear()
-                args = ['--config', os.path.join(REPO, FLAGSHIP_CONFIG),
+                args = ['--config', os.path.join(REPO, config),
                         '--json', json.dumps({**over, 'deploy_wire': wire}),
                         '-test_only']
                 if wire == 'device':
@@ -715,8 +1001,7 @@ def cli_phase(torch, kernels, model):
     rt = dev['engine'].runtime
     check(all(v == 0 for v in host['launches'].values()),
           f'the host wire launched kernels: {host["launches"]}')
-    want = {'rans_cyclic_encode': N_CLI, 'rans_cyclic_decode': N_CLI,
-            'rans_cyclic_encode_aligned': 0, 'rans_cyclic_decode_aligned': 0}
+    want = expected_launches(kernels, per_image, N_CLI)
     check(dev['launches'] == want, f'the device wire launched '
           f'{dev["launches"]}, expected {want}')
     check(rt.escapes == {'ok': 0, 'valid': 0},
@@ -749,17 +1034,17 @@ def cli_phase(torch, kernels, model):
     wall = time.perf_counter() - t0
     check(list(hrt.analyzers[0].file_size_list) == sizes,
           'CLI host-wire sizes differ from a direct stream_deploy')
-    log(f'phase 6: host wire, direct stream_deploy of the {N_CLI} images: '
+    log(f'{tag}: host wire, direct stream_deploy of the {N_CLI} images: '
         f'{N_CLI / wall:.2f} img/s; per image, ms: ' + ', '.join(
             f'{k} {1e3 * v / N_CLI:.3f}' for k, v in sorted(timings.items())))
     for wire, run in runs.items():
         res, summary = run['result'], run['summaries'][0]
-        log(f'phase 6: {wire} wire, {N_CLI} images of 224x224 through the '
+        log(f'{tag}: {wire} wire, {N_CLI} images of 224x224 through the '
             f'CLI: acc1 {res["acc1"]}, acc5 {res["acc5"]}, data size '
             f'{summary}, model_time {res["model_time"]:.6f} s per image '
             f'({1 / res["model_time"]:.2f} img/s); CLI wall {run["wall"]:.2f}'
             ' s')
-    log(f'phase 6: teacher (random weights) acc1 {host["teacher"]["acc1"]}, '
+    log(f'{tag}: teacher (random weights) acc1 {host["teacher"]["acc1"]}, '
         f'acc5 {host["teacher"]["acc5"]}; device wire: escapes {rt.escapes}, '
         f'launches {dev["launches"]}, sizes equal a direct '
         f'stream_deploy_device; max |logit diff| between wires {worst:.3e}')
@@ -846,15 +1131,20 @@ def train_cli(torch, kernels, config, over, n_test):
                 images=images)
 
 
-def check_test_of_training(torch, run, n_test, tag):
+def expected_launches(kernels, per_image, n):
+    """Every kernel's expected count: n for those in `per_image`, else 0."""
+    return {k: (n if k in per_image else 0) for k in kernels.ALL_KERNELS}
+
+
+def check_test_of_training(torch, kernels, run, n_test, tag,
+                           per_image=FP_BATCH1):
     """The trained model's device-wire test: one launch of each batch-1
-    kernel per image, no valid=False, sizes equal a direct
+    kernel of its path per image, no valid=False, sizes equal a direct
     `stream_deploy_device`. Escapes (ok=False) are counted, not failed."""
     engine = run['engine']
     rt = engine.runtime
     check(rt.bottleneck_updated, f'{tag}: tables not built after training')
-    want = {'rans_cyclic_encode': n_test, 'rans_cyclic_decode': n_test,
-            'rans_cyclic_encode_aligned': 0, 'rans_cyclic_decode_aligned': 0}
+    want = expected_launches(kernels, per_image, n_test)
     check(run['launches'] == want, f'{tag}: the test launched '
           f'{run["launches"]}, expected {want}')
     escapes = dict(rt.escapes)
@@ -871,7 +1161,7 @@ def check_test_of_training(torch, run, n_test, tag):
     return escapes
 
 
-def log_stages(run, tag):
+def log_stages(run, tag, phase='phase 7'):
     for rec in run['records']:
         steps = rec['steps']
         for i, (loss, _, _) in ((0, steps[0]), (len(steps) - 1, steps[-1])):
@@ -879,13 +1169,13 @@ def log_stages(run, tag):
                   f'{tag} {rec["name"]} step {i}: loss {loss}')
         later = steps[1:]
         rate = sum(n for _, _, n in later) / sum(t for _, t, _ in later)
-        log(f'phase 7: {tag} {rec["name"]}: {len(steps)} steps of '
+        log(f'{phase}: {tag} {rec["name"]}: {len(steps)} steps of '
             f'{steps[0][2]} images; loss detail, first step '
             f'{steps[0][0]}, last step {steps[-1][0]}; {rate:.2f} img/s '
             f'over steps 2-{len(steps)} (first step {steps[0][1]:.3f} s); '
             f'peak memory {rec["peak"] / 2 ** 30:.3f} GiB')
     res, summary = run['result'], run['summaries'][0]
-    log(f'phase 7: {tag} test, device wire: acc1 {res["acc1"]}, acc5 '
+    log(f'{phase}: {tag} test, device wire: acc1 {res["acc1"]}, acc5 '
         f'{res["acc5"]}, data size {summary}, escapes {run["escapes"]}, '
         f'launches {run["launches"]}; CLI wall {run["wall"]:.2f} s')
 
@@ -952,7 +1242,7 @@ def train_phase(torch, kernels, model):
           'stage 2 left the quantiles unchanged')
     for tag, run, n in (('entropic student', es, N_TRAIN_TEST),
                         ('end-to-end', e2e, N_E2E_TEST)):
-        run['escapes'] = check_test_of_training(torch, run, n, tag)
+        run['escapes'] = check_test_of_training(torch, kernels, run, n, tag)
         log_stages(run, tag)
     log('phase 7: teacher unchanged; stage 1 left layer2-4 and every BN '
         'statistic as they were and moved the encoder; stage 2 left the '
@@ -1038,6 +1328,243 @@ def step_on_card_and_cpu(torch, model, devices=('cuda', 'cpu')):
         f'the {compared} elements whose |g| > 0.1 max|g|')
 
 
+def big_image_phase(torch, kernels, rt):
+    """Phase 8: one 2,584 px image at batch 1 on auto lanes: a 645x645x24
+    latent of 3,072 lanes x 3,251 steps, beyond the batch-1 decoder's
+    limit, coded through the aligned pair at k = 1 with no escape; its
+    accounted size equals the plain coder's wire on the same symbols."""
+    from sc2bench_tpu_torch.analysis import get_binary_object_size
+    from sc2bench_tpu_torch.ops.rans.device import (device_rans_encode,
+                                                    pack_stream,
+                                                    pack_stream_aligned)
+    x = torch.from_numpy(np.random.default_rng(77).normal(
+        0, 1, (1, 3, BIG_HW, BIG_HW)).astype(np.float32)).to(rt.device)
+    shape = rt._latent_shape(x.shape)
+    lanes = rt._auto_wire_lanes(shape)
+    steps = -(-int(np.prod(shape)) // lanes)
+    check((lanes, steps) == (3072, 3251), f'{BIG_HW} px: {lanes} lanes x '
+          f'{steps} steps, expected 3072 x 3251')
+    check(not kernels.batch1_fits(steps, rt.device),
+          f'{steps} steps fit the batch-1 kernels: no repair to show')
+    rt.clear_analysis()
+    rt.activate_analysis()
+    rt.escapes = {'ok': 0, 'valid': 0}
+    rt.stream_deploy_device([x])                      # warm
+    rt.clear_analysis()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    logits = rt.stream_deploy_device([x])
+    dt = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    want = expected_launches(kernels, ('rans_cyclic_encode_aligned',
+                                       'rans_cyclic_decode_aligned'), 1)
+    check(counts == want, f'{BIG_HW} px launched {counts}, expected {want}')
+    check(rt.escapes == {'ok': 0, 'valid': 0},
+          f'{BIG_HW} px image escaped: {rt.escapes}')
+    check(bool(torch.isfinite(logits[0]).all()), 'non-finite logits')
+    size = rt.analyzers[0].file_size_list[0]
+    flat, _ = rt._symbols_nhwc(x)
+    t = rt.codec.tables
+    plain = device_rans_encode(flat.reshape(-1).cpu(), t.quantized_cdf,
+                               t.cdf_length, t.offset, num_lanes=lanes,
+                               cyclic_channels=shape[-1])
+    wire = (pack_stream_aligned if plain['aligned'] else pack_stream)(plain)
+    check(size == get_binary_object_size({'strings': [[wire]],
+                                          'shape': shape[:2]}),
+          f'{BIG_HW} px: accounted {size} KB, the plain coder gives '
+          f'{len(wire)} bytes')
+    check(rt._pull_device_wire(rt.encode_device_wire(x)) == wire,
+          f'{BIG_HW} px: the packed wire differs from the plain coder')
+    log(f'phase 8: one {BIG_HW}x{BIG_HW} image at batch 1 ({shape} latent, '
+        f'{lanes} lanes x {steps} steps, beyond the batch-1 limit of '
+        f'{kernels.max_steps(True, rt.device)} decode columns): served '
+        f'through the aligned pair at k = 1 in {dt:.3f} s, no escape, '
+        f'{size} KB equal to the plain coder\'s wire')
+
+
+def hyper_symbols(torch, rt, x):
+    """The host path's and the encoder's y and z symbols of one image:
+    (encoder y, encoder z, host-decoded y, host-decoded z), NHWC numpy."""
+    ops = rt._hyper_ops(x)
+    compressed = rt.encode(x)
+    codec = rt.codec
+    z_host = codec.decompress_symbols(compressed['strings'][1],
+                                      compressed['shape'],
+                                      rt._bneck.num_latent_channels)
+    idx, _ = rt._hyper_scales(torch.from_numpy(z_host).to(rt.device))
+    y_host = codec.decompress_y(compressed['strings'][0],
+                                idx.cpu().numpy())
+    nhwc = [ops[k].permute(0, 2, 3, 1).cpu().numpy()
+            for k in ('y_symbols', 'z_symbols')]
+    return nhwc + [y_host, z_host]
+
+
+def device_symbols(rt, x):
+    """y and z symbols decoded by the device wire's kernels, NHWC numpy."""
+    from sc2bench_tpu_torch.ops.rans.device import device_rans_decode
+    ops = rt.encode_device_wire_hyper(x)
+    (hy, wy, cy), (hz, wz, cz) = ops['shapes']
+    y_lanes, z_lanes = ops['lanes']
+    cdf, cdf_len, off = rt._tables_dev
+    z, _ = device_rans_decode(ops['z']['streams'], ops['z']['states'], cdf,
+                              cdf_len, off, n_symbols=hz * wz * cz,
+                              num_lanes=z_lanes, cyclic_channels=cz,
+                              aligned=ops['z']['aligned'])
+    z = z.reshape(1, hz, wz, cz)
+    idx = rt._hyper_scales(z)[0].reshape(-1)
+    g_cdf, g_len, g_off = rt._gtables_dev
+    y, _ = device_rans_decode(ops['y']['streams'], ops['y']['states'], g_cdf,
+                              g_len, g_off, n_symbols=hy * wy * cy,
+                              num_lanes=y_lanes, indexes=idx,
+                              aligned=ops['y']['aligned'])
+    return y.reshape(1, hy, wy, cy).cpu().numpy(), z.cpu().numpy()
+
+
+def mshp_serve_phase(torch, kernels, rt, images):
+    """Phase 9: the MSHP deploy loop at full width, batch 1 then
+    wire_batch; returns the launch counts of both runs."""
+    from sc2bench_tpu_torch.analysis import get_binary_object_size
+    classes = rt.module.fc.out_features
+    rows = set()
+    for x in images:
+        rows |= set(np.unique(rt._hyper_ops(x)['y_indexes'].cpu().numpy())
+                    .tolist())
+    check(len(rows) >= 8, f'the y indexes use {len(rows)} of the 64 rows')
+    rt.stream_deploy_device(images[:2])
+    rt.stream_deploy_device(images[:WIRE_BATCH], wire_batch=WIRE_BATCH)
+    runs = {}
+    for wire_batch in (None, WIRE_BATCH):
+        rt.clear_analysis()
+        rt.activate_analysis()
+        rt.escapes = {'ok': 0, 'valid': 0}
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        logits = rt.stream_deploy_device(images, wire_batch=wire_batch)
+        dt = time.perf_counter() - t0
+        runs[wire_batch] = dict(logits=logits, dt=dt,
+                                launches=dict(kernels.LAUNCHES),
+                                sizes=list(rt.analyzers[0].file_size_list),
+                                summary=rt.summarize()[0],
+                                escapes=dict(rt.escapes))
+    b1, bk = runs[None], runs[WIRE_BATCH]
+    n = len(images)
+    groups = -(-n // WIRE_BATCH)
+    want1 = expected_launches(kernels, MSHP_BATCH1, n)
+    wantk = expected_launches(kernels, [k + '_aligned' for k in MSHP_BATCH1],
+                              groups)
+    check(b1['launches'] == want1, f'MSHP batch 1 launched '
+          f'{b1["launches"]}, expected {want1}')
+    check(bk['launches'] == wantk, f'MSHP wire_batch launched '
+          f'{bk["launches"]}, expected {wantk}')
+    for tag, run in (('batch 1', b1), ('wire_batch', bk)):
+        check(run['escapes'] == {'ok': 0, 'valid': 0},
+              f'MSHP {tag}: images escaped: {run["escapes"]}')
+        for lg in run['logits']:
+            check(tuple(lg.shape) == (1, classes)
+                  and bool(torch.isfinite(lg).all()),
+                  f'MSHP {tag}: bad logits {tuple(lg.shape)}')
+    check(bk['sizes'] == b1['sizes'], 'MSHP wire_batch sizes differ from '
+          'batch 1')
+    worst = max(float((a - b).abs().max())
+                for a, b in zip(b1['logits'], bk['logits']))
+    check(worst <= LOGIT_TOL, f'MSHP wire_batch logits differ by {worst}')
+    # two images against the host path
+    host_worst = 0.0
+    for i in (0, n - 1):
+        y_enc, z_enc, y_host, z_host = hyper_symbols(torch, rt, images[i])
+        y_dev, z_dev = device_symbols(rt, images[i])
+        for name, a, b in (('y', y_dev, y_host), ('z', z_dev, z_host),
+                           ('y', y_enc, y_host), ('z', z_enc, z_host)):
+            check(np.array_equal(a, b), f'MSHP image {i}: {name} symbols '
+                  'differ between the device wire and the host path')
+        want = rt.decode(**rt.encode(images[i]))
+        diff = float((b1['logits'][i] - want).abs().max())
+        host_worst = max(host_worst, diff)
+        check(diff <= LOGIT_TOL, f'MSHP image {i}: logits differ from the '
+              f'host path by {diff}')
+    # the escape
+    x_esc = None
+    for scale in (30.0, 100.0, 1000.0):
+        if not bool(rt.encode_device_wire_hyper(images[-1] * scale)['meta']
+                    [0]):
+            x_esc = images[-1] * scale
+            break
+    check(x_esc is not None, 'no scaled image left the Gaussian support')
+    want_size = get_binary_object_size(rt.encode(x_esc))
+    rt.clear_analysis()
+    rt.escapes = {'ok': 0, 'valid': 0}
+    stream = images[:2] + [x_esc]
+    logits = rt.stream_deploy_device(stream)
+    check(rt.escapes == {'ok': 1, 'valid': 0},
+          f'MSHP escape: escapes {rt.escapes}')
+    sizes = list(rt.analyzers[0].file_size_list)
+    check(sizes[2] == want_size and sizes[:2] == b1['sizes'][:2],
+          f'MSHP escape: sizes {sizes}, rt.encode gives {want_size}')
+    check(all(bool(torch.isfinite(lg).all()) for lg in logits),
+          'MSHP escape: non-finite logits')
+    log(f'phase 9: MSHP-24/256/16 ResNet-50, {n} float 224x224 images: '
+        f'y indexes use {len(rows)} of 64 rows; batch 1 '
+        f'{n / b1["dt"]:.2f} img/s, wire_batch={WIRE_BATCH} '
+        f'{n / bk["dt"]:.2f} img/s; data size {b1["summary"]} (equal at '
+        f'both); max |logit diff| batch 1 vs wire_batch {worst:.3e}, vs the '
+        f'host path {host_worst:.3e} (y and z symbols equal); escape image '
+        f'(scale {scale:g}) re-coded on the host coder, {want_size} KB; '
+        f'launches batch 1 {b1["launches"]}, wire_batch {bk["launches"]}')
+    return b1['launches'], bk['launches']
+
+
+def mshp_train_phase(torch, kernels, model):
+    """Phase 10 (second half): the MSHP flagship config's two stages at 2
+    steps each (batch 32), then 8 test images on the device wire."""
+    import tempfile
+    from sc2bench_tpu_torch.utils.ckpt import save_ckpt
+    loaders = {'train_data_loader': synthetic_split(
+        N_TRAIN, TRAIN_BATCH, seed=1000, shuffle=True, drop_last=True),
+        'val_data_loader': synthetic_split(N_VAL, TRAIN_BATCH, seed=2000)}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, 'student.ckpt')
+        save_ckpt(ckpt, model.state_dict())
+        run = train_cli(torch, kernels, MSHP_CONFIG, {
+            'allow_missing_teacher': True,
+            'models': {'student_model': {'ckpt': ckpt}},
+            'train': {**loaders,
+                      'stage1': {'num_epochs': 1, 'epoch_to_update': 1},
+                      'stage2': {'num_epochs': 1}},
+            'test': {'test_data_loader': synthetic_split(N_E2E_TEST, 1,
+                                                         seed=0)}},
+            N_E2E_TEST)
+    steps = N_TRAIN // TRAIN_BATCH
+    got = [(r['name'], len(r['steps'])) for r in run['records']]
+    check(got == [('stage1', steps), ('stage2', steps)],
+          f'MSHP stages and steps {got}')
+    s0, s1 = run['records'][0]['student'], run['records'][1]['student']
+    s2 = snapshot(run['engine'].student)
+    buffers = {k for k, _ in run['engine'].student.named_buffers()}
+    frozen1 = [k for k in s0 if k.split('.')[0] in ('layer2', 'layer3',
+                                                   'layer4') or k in buffers]
+    moved = changed(s0, s1, frozen1)
+    check(not moved, f'MSHP stage 1 changed layer2-4 or BN statistics: '
+          f'{moved[:3]}')
+    check(changed(s0, s1, [k for k in s0 if '.g_a.' in k]),
+          'MSHP stage 1 left g_a unchanged')
+    frozen2 = [k for k in s1 if re.search(r'bottleneck_layer\.(g_a|h_a|h_s)'
+                                          r'\.', k) or re.search(
+        r'entropy_bottleneck\._(matrix|bias|factor)\d', k)]
+    moved = changed(s1, s2, frozen2)
+    check(not moved, f'MSHP stage 2 changed g_a, h_a, h_s or the density: '
+          f'{moved[:3]}')
+    check(changed(s1, s2, [k for k in s1 if '.g_s.' in k]),
+          'MSHP stage 2 left g_s unchanged')
+    run['escapes'] = check_test_of_training(torch, kernels, run, N_E2E_TEST,
+                                            'MSHP', per_image=MSHP_BATCH1)
+    log_stages(run, 'MSHP', phase='phase 10')
+    log('phase 10: MSHP stage 1 left layer2-4 and every BN statistic as '
+        'they were and moved g_a; stage 2 left g_a, h_a, h_s and the '
+        'density as they were and moved g_s; test sizes equal a direct '
+        'stream_deploy_device')
+    return run['launches']
+
+
 NORM = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
 
 
@@ -1069,13 +1596,17 @@ def run():
 
     # ---- phase 1: build ----
     t0 = time.perf_counter()
-    lib = kernels.build_library()
-    log(f'phase 1: built {os.path.relpath(lib, REPO)} in '
-        f'{time.perf_counter() - t0:.1f} s')
-    with open(str(lib)[:-3] + '.log') as f:
-        for line in f:
-            if 'registers' in line or 'spill' in line:
-                log('  ptxas: ' + line.strip())
+    libs = kernels.build_libraries()
+    log(f'phase 1: built ' + ', '.join(os.path.relpath(lib, REPO)
+                                      for lib in libs)
+        + f' in {time.perf_counter() - t0:.1f} s (one nvcc per source, '
+        'started together)')
+    for lib in libs:
+        with open(str(lib)[:-3] + '.log') as f:
+            for line in f:
+                if 'registers' in line or 'spill' in line:
+                    log(f'  ptxas ({os.path.basename(lib)}): '
+                        + line.strip())
 
     model = build_model(torch, device, seed=0)
     rt = SplitClassifierRuntime(model, device=device)
@@ -1087,11 +1618,6 @@ def run():
     tables = rt.codec.tables
     log(f'model: ResNet-50 + FP-24, latent {rt._latent_shape((1, 3, HW, HW))}'
         f', tables {tables.quantized_cdf.shape}')
-
-    # ---- phase 2 ----
-    stats = kernel_phase(torch, td, kernels, tables, device)
-
-    # ---- phases 3 and 4 ----
     rng = np.random.default_rng(2024)
     images = [torch.from_numpy(rng.normal(0, 1, (1, 3, HW, HW))
                                .astype(np.float32)).to(device)
@@ -1099,6 +1625,23 @@ def run():
     images_u8 = [torch.from_numpy(rng.integers(0, 256, (1, 3, HW, HW),
                                                dtype=np.uint8)).to(device)
                  for _ in range(N_UINT8)]
+    mshp = spread_mshp_scales(torch, build_model(
+        torch, device, seed=1, key='MSHPBasedResNetBottleneck'), images[0])
+    rt_m = SplitClassifierRuntime(mshp, device=device)
+    rt_m.update()
+    rt_m.eval()
+    log(f'model: ResNet-50 + MSHP-24/256/16, latents '
+        f'{rt_m._latent_shape((1, 3, HW, HW))}, y on '
+        f'{rt_m._default_lanes((1, 3, HW, HW))} lanes, Gaussian tables '
+        f'{rt_m.codec.g_tables.quantized_cdf.shape}, bottleneck parameters '
+        f'{sum(p.numel() for p in mshp.bottleneck_layer.parameters())}')
+
+    # ---- phase 2 ----
+    stats = kernel_phase(torch, td, kernels, tables, device)
+    stats.update(indexed_phase(torch, td, kernels, rt_m.codec.g_tables,
+                               device))
+
+    # ---- phases 3 and 4 ----
     launches = main_path(torch, kernels, rt, rt_u8, images, images_u8)
 
     # ---- phase 5 ----
@@ -1110,22 +1653,47 @@ def run():
     # ---- phase 7 ----
     train_launches, e2e_launches = train_phase(torch, kernels, model)
 
-    rows = [dict(name=name, route='cuda', source=SOURCE,
-                 replaces=REPLACES[name], launches=launches[name],
-                 max_abs_err=stats[name]['max_abs_err'],
-                 ms=stats[name]['ms'], device_ms=stats[name]['device_ms'],
-                 plain_ms=stats[name]['plain_ms'],
-                 bound_ms=stats[name]['bound_ms'],
-                 bound_by=stats[name]['bound_by'], library_ms=None,
-                 launches_cli=cli_launches[name],
-                 launches_train=train_launches[name],
-                 launches_train_e2e=e2e_launches[name],
-                 **{key: stats[name][key]
-                    for key in ('device_ms_k128', 'bound_ms_k128')
-                    if key in stats[name]})
-            for name in kernels.KERNELS]
+    # ---- phase 8: the batch-1 wire beyond the batch-1 kernels' limit ----
+    big_image_phase(torch, kernels, rt)
+
+    # ---- phase 9: MSHP serving ----
+    mshp_b1, mshp_bk = mshp_serve_phase(torch, kernels, rt_m, images)
+
+    # ---- phase 10: MSHP test CLI and training ----
+    mshp_cli = cli_phase(torch, kernels, mshp, config=MSHP_CONFIG,
+                         per_image=MSHP_BATCH1, tag='phase 10')
+    mshp_train = mshp_train_phase(torch, kernels, mshp)
+
+    rows = []
+    for name in kernels.ALL_KERNELS:
+        indexed = name in kernels.INDEXED_KERNELS
+        aligned = name.endswith('_aligned')
+        main = (mshp_bk if aligned else mshp_b1) if indexed \
+            else launches
+        row = dict(name=name, route='cuda',
+                   source=SOURCES['indexed' if indexed else 'cyclic'],
+                   replaces=REPLACES[name], launches=main[name],
+                   max_abs_err=stats[name]['max_abs_err'],
+                   ms=stats[name]['ms'], device_ms=stats[name]['device_ms'],
+                   plain_ms=stats[name]['plain_ms'],
+                   bound_ms=stats[name]['bound_ms'],
+                   bound_by=stats[name]['bound_by'], library_ms=None,
+                   launches_mshp_batch1=mshp_b1[name],
+                   launches_mshp_wire_batch=mshp_bk[name],
+                   launches_mshp_cli=mshp_cli[name],
+                   launches_mshp_train=mshp_train[name],
+                   **{key: stats[name][key]
+                      for key in ('device_ms_k128', 'bound_ms_k128')
+                      if key in stats[name]})
+        if not indexed:
+            row.update(launches_cli=cli_launches[name],
+                       launches_train=train_launches[name],
+                       launches_train_e2e=e2e_launches[name])
+        rows.append(row)
     for r in rows:
         check(r['launches'] > 0, f'{r["name"]} never launched on the path')
+        check(r['max_abs_err'] == 0, f'{r["name"]} differs from its plain '
+              f'version by {r["max_abs_err"]}')
     print(json.dumps({'kernels': rows}), flush=True)
     print(smi_query('name,power.limit'), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Where the device time of the port's deploy loop goes, on one GPU.
 
-Builds the flagship model as `chip_smoke.py` does (ResNet-50 + FP-24,
-seeded random weights), warms up, then traces `stream_deploy_device` with
-`torch.profiler` over N images at batch 1 and at `wire_batch=8`. For each
-mode it prints one JSON line: wall seconds, images/s, device busy time
-(sum of kernel times on the card), the idle share of the wall window, the
-rANS kernels' share of device time, and the top kernels by device time.
+Builds the flagship model as `chip_smoke.py` does (ResNet-50 + FP-24, or
+with `--model mshp` ResNet-50 + MSHP-24/256/16 with its scales spread as in
+`chip_smoke.py` phase 9; seeded random weights), warms up, then traces
+`stream_deploy_device` with `torch.profiler` over N images at batch 1 and
+at `wire_batch=8`. For each mode it prints one JSON line: wall seconds,
+images/s, device busy time (sum of kernel times on the card), the idle
+share of the wall window, the rANS kernels' share of device time (cyclic
+and indexed), and the top kernels by device time.
 
-    python3 profile_deploy.py [--out profile.json]
+    python3 profile_deploy.py [--model fp|mshp] [--out profile.json]
 
 Needs a CUDA device; it exits with an error without one.
 """
@@ -23,7 +25,7 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-RANS = ('rans_encode', 'rans_decode')
+RANS = ('rans_encode', 'rans_decode', 'rans_indexed')
 N_IMAGES = 32
 
 
@@ -61,6 +63,8 @@ def profile_mode(torch, rt, images, wire_batch):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--model', choices=('fp', 'mshp'), default='fp',
+                    help='the bottleneck of the ResNet-50 model')
     ap.add_argument('--out', help='also write the results to this JSON '
                     'file')
     args = ap.parse_args()
@@ -69,22 +73,28 @@ def main():
         print('profile_deploy: no CUDA device is available', file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from chip_smoke import HW, build_model, smi_query
+    from chip_smoke import HW, build_model, smi_query, spread_mshp_scales
     from sc2bench_tpu_torch.models.runtime import SplitClassifierRuntime
     device = torch.device('cuda', 0)
-    rt = SplitClassifierRuntime(build_model(torch, device, seed=0),
-                                device=device)
-    rt.update()
-    rt.eval()
     rng = np.random.default_rng(2024)
     images = [torch.from_numpy(rng.normal(0, 1, (1, 3, HW, HW))
                                .astype(np.float32)).to(device)
               for _ in range(N_IMAGES)]
+    if args.model == 'mshp':
+        model = spread_mshp_scales(torch, build_model(
+            torch, device, seed=1, key='MSHPBasedResNetBottleneck'),
+            images[0])
+    else:
+        model = build_model(torch, device, seed=0)
+    rt = SplitClassifierRuntime(model, device=device)
+    rt.update()
+    rt.eval()
     card = smi_query('name,power.limit')
     results = []
     for wire_batch in (None, 8):
         r = profile_mode(torch, rt, images, wire_batch)
         r['card'] = card
+        r['model'] = args.model
         results.append(r)
         print(json.dumps(r), flush=True)
     if args.out:

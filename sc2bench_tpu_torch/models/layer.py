@@ -8,6 +8,14 @@ stay NCHW here; the runtime flattens them channels-last before coding.
 latent, likelihoods for the rate loss); `forward(x, mode='finetune')` the
 deterministic forward without a bitstream. Layers register under the
 'layer' namespace of `registry.py`.
+
+The hyperprior bottlenecks (`SHPBasedResNetBottleneck`,
+`MSHPBasedResNetBottleneck`) code two latents: z = h_a(y) with the
+factorized prior, and y with a Gaussian whose scales (and, for MSHP,
+means) h_s predicts from the quantized z. Their `encode_ops` gives y's
+symbols and table indexes and z's symbols; `decode_scales` recomputes the
+indexes (and the means) from z's symbols, as the receiver must, and
+`decode_ops` takes those means.
 """
 from __future__ import annotations
 
@@ -15,6 +23,7 @@ import torch
 from torch import nn
 
 from ..ops.entropy.factorized import EntropyBottleneck
+from ..ops.entropy.gaussian import GaussianConditional
 from ..ops.gdn import GDN1
 from ..registry import get, register_layer
 
@@ -90,6 +99,186 @@ class FPBasedResNetBottleneck(nn.Module):
                    medians: torch.Tensor) -> torch.Tensor:
         y_hat = symbols.to(torch.float32) + medians[:, None, None]
         return self.decoder(y_hat)
+
+
+def _conv_out(size: int, stack) -> int:
+    """Spatial size after the convolutions of `stack` (transposed ones
+    included)."""
+    for m in stack:
+        if isinstance(m, nn.Conv2d):
+            (k, _), (s, _), (p, _) = m.kernel_size, m.stride, m.padding
+            size = (size + 2 * p - k) // s + 1
+        elif isinstance(m, nn.ConvTranspose2d):
+            (k, _), (s, _), (p, _) = m.kernel_size, m.stride, m.padding
+            size = (size - 1) * s - 2 * p + k
+    return size
+
+
+@register_layer
+class SHPBasedResNetBottleneck(nn.Module):
+    """Scale-hyperprior bottleneck replacing ResNet stem+layer1: g_a/g_s
+    conv+GDN stacks as in the FP bottleneck, the hyper-encoder h_a over
+    |y|, and the hyper-decoder h_s, whose output is the per-element scale
+    of the Gaussian conditional. Reference key space (`g_a.*`, `g_s.*`,
+    `h_a.*`, `h_s.*`, `entropy_bottleneck`).
+
+    h_s upsamples with `ConvTranspose2d(5, stride 2, padding 1)`: size
+    2 * in + 1 (14 -> 29 -> 59, then a valid 5x5 convolution gives 55),
+    the size of the JAX package's input-dilated `ConvTranspose` with
+    padding 3, whose kernel is this one flipped (`utils/convert.py`)."""
+
+    def __init__(self, num_input_channels: int = 3,
+                 num_latent_channels: int = 16,
+                 num_bottleneck_channels: int = 24,
+                 num_target_channels: int = 256):
+        super().__init__()
+        g_a = [num_input_channels, num_bottleneck_channels * 4,
+               num_bottleneck_channels * 2, num_bottleneck_channels]
+        g_s = [g_a[-1], num_target_channels * 2, num_target_channels,
+               num_target_channels]
+        bch, lch = g_a[3], num_latent_channels
+        self.num_latent_channels = lch
+        self.g_a = nn.Sequential(
+            nn.Conv2d(g_a[0], g_a[1], 5, stride=2, padding=2, bias=False),
+            GDN1(g_a[1]),
+            nn.Conv2d(g_a[1], g_a[2], 5, stride=2, padding=2, bias=False),
+            GDN1(g_a[2]),
+            nn.Conv2d(g_a[2], g_a[3], 2, stride=1, padding=0, bias=False))
+        self.g_s = nn.Sequential(
+            nn.Conv2d(g_s[0], g_s[1], 2, stride=1, padding=1, bias=False),
+            GDN1(g_s[1], inverse=True),
+            nn.Conv2d(g_s[1], g_s[2], 2, stride=1, padding=0, bias=False),
+            GDN1(g_s[2], inverse=True),
+            nn.Conv2d(g_s[2], g_s[3], 2, stride=1, padding=1, bias=False))
+        self.h_a = self.make_h_a(bch, lch)
+        self.h_s = self.make_h_s(bch, lch)
+        self.entropy_bottleneck = EntropyBottleneck(lch)
+        self.gaussian_conditional = GaussianConditional()
+        self.out_channels = g_s[3]
+
+    @staticmethod
+    def make_h_a(bch: int, lch: int) -> nn.Sequential:
+        return nn.Sequential(
+            nn.Conv2d(bch, lch, 5, stride=2, padding=1, bias=False),
+            nn.ReLU(),
+            nn.Conv2d(lch, lch, 5, stride=2, padding=2, bias=False))
+
+    @staticmethod
+    def make_h_s(bch: int, lch: int) -> nn.Sequential:
+        return nn.Sequential(
+            nn.ConvTranspose2d(lch, lch, 5, stride=2, padding=1, bias=False),
+            nn.LeakyReLU(0.01),
+            nn.ConvTranspose2d(lch, lch, 5, stride=2, padding=1, bias=False),
+            nn.LeakyReLU(0.01),
+            nn.Conv2d(lch, bch, 5, stride=1, padding=0, bias=False))
+
+    def hyper_input(self, y: torch.Tensor) -> torch.Tensor:
+        return torch.abs(y)
+
+    def gaussian_params(self, h_s_out: torch.Tensor):
+        """(scales, means): the scale hyperprior predicts scales only."""
+        return h_s_out, None
+
+    def latent_shape(self, height: int, width: int) -> tuple:
+        """((hy, wy, cy), (hz, wz, cz)) of the y and z latents for an
+        input of height x width."""
+        hy, wy = _conv_out(height, self.g_a), _conv_out(width, self.g_a)
+        return ((hy, wy, self.g_a[-1].out_channels),
+                (_conv_out(hy, self.h_a), _conv_out(wy, self.h_a),
+                 self.num_latent_channels))
+
+    def forward(self, x: torch.Tensor, mode: str = 'train',
+                generator: torch.Generator | None = None,
+                io: dict | None = None) -> torch.Tensor:
+        """g_a, the hyperprior and g_s. 'train' (before `update()`): z and
+        then y plus uniform noise, both from `generator`, and
+        `io['eb_out'] = (z_hat, z_likelihoods)`, `io['gc_out'] = (y_hat,
+        y_likelihoods)` when `io` is given. 'finetune' (after it): z
+        dequantized with its medians, y with the predicted means, y_hat
+        carrying no gradient."""
+        y = self.g_a(x)
+        z = self.h_a(self.hyper_input(y))
+        if mode == 'train':
+            z_hat, z_lik = self.entropy_bottleneck(z, mode='noise',
+                                                   generator=generator)
+            scales, means = self.gaussian_params(self.h_s(z_hat))
+            y_hat, y_lik = self.gaussian_conditional(
+                y, scales, means, mode='noise', generator=generator)
+            if io is not None:
+                io['eb_out'] = (z_hat, z_lik)
+                io['gc_out'] = (y_hat, y_lik)
+        elif mode == 'finetune':
+            z_hat = self.entropy_bottleneck.quantize(z, 'dequantize')
+            _, means = self.gaussian_params(self.h_s(z_hat))
+            y_hat = (torch.round(y) if means is None
+                     else torch.round(y - means) + means).detach()
+        else:
+            raise ValueError(f'unknown mode {mode} (deploy uses encode_ops)')
+        return self.g_s(y_hat)
+
+    # ---- deploy path -------------------------------------------------------
+    def encode_ops(self, x: torch.Tensor, z_medians: torch.Tensor,
+                   scale_table: torch.Tensor) -> dict:
+        """NCHW int32 `y_symbols` (round(y - means)), `y_indexes` (the
+        Gaussian table rows) and `z_symbols` (round(z - medians)). The
+        indexes come from z's symbols, as the decoder will compute them."""
+        y = self.g_a(x)
+        z = self.h_a(self.hyper_input(y))
+        z_symbols = torch.round(z - z_medians[:, None, None]).to(torch.int32)
+        indexes, means = self.decode_scales(z_symbols, z_medians,
+                                            scale_table)
+        y_symbols = torch.round(y if means is None else y - means)
+        return {'y_symbols': y_symbols.to(torch.int32),
+                'y_indexes': indexes, 'z_symbols': z_symbols}
+
+    def decode_scales(self, z_symbols: torch.Tensor, z_medians: torch.Tensor,
+                      scale_table: torch.Tensor):
+        """(y indexes NCHW int32, means or None) from z's symbols."""
+        z_hat = z_symbols.to(torch.float32) + z_medians[:, None, None]
+        scales, means = self.gaussian_params(self.h_s(z_hat))
+        return self.gaussian_conditional.build_indexes(
+            scales, scale_table), means
+
+    def decode_ops(self, y_symbols: torch.Tensor,
+                   means: torch.Tensor | None) -> torch.Tensor:
+        """The decoded feature: g_s of y's symbols plus the means that
+        `decode_scales` gave with y's indexes (MSHP; None for SHP)."""
+        y_hat = y_symbols.to(torch.float32)
+        if means is not None:
+            y_hat = y_hat + means
+        return self.g_s(y_hat)
+
+
+@register_layer
+class MSHPBasedResNetBottleneck(SHPBasedResNetBottleneck):
+    """Mean-scale hyperprior: h_a sees y itself (LeakyReLU in place of
+    ReLU); h_s emits twice the bottleneck channels, split into scales and
+    means along the channels."""
+
+    @staticmethod
+    def make_h_a(bch: int, lch: int) -> nn.Sequential:
+        return nn.Sequential(
+            nn.Conv2d(bch, lch, 5, stride=2, padding=1, bias=False),
+            nn.LeakyReLU(0.01),
+            nn.Conv2d(lch, lch, 5, stride=2, padding=2, bias=False))
+
+    @staticmethod
+    def make_h_s(bch: int, lch: int) -> nn.Sequential:
+        return nn.Sequential(
+            nn.ConvTranspose2d(lch, lch, 5, stride=2, padding=1, bias=False),
+            nn.LeakyReLU(0.01),
+            nn.ConvTranspose2d(lch, lch * 3 // 2, 5, stride=2, padding=1,
+                               bias=False),
+            nn.LeakyReLU(0.01),
+            nn.Conv2d(lch * 3 // 2, bch * 2, 5, stride=1, padding=0,
+                      bias=False))
+
+    def hyper_input(self, y: torch.Tensor) -> torch.Tensor:
+        return y
+
+    def gaussian_params(self, h_s_out: torch.Tensor):
+        scales, means = torch.chunk(h_s_out, 2, dim=1)
+        return scales, means
 
 
 def get_layer(key: str, **kwargs) -> nn.Module:

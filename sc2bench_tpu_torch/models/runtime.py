@@ -12,6 +12,16 @@
 `wire_batch=k` images per coding launch (time-aligned streams), and
 accounts each image's exact wire size.
 
+A hyperprior bottleneck (SHP/MSHP) codes two latents per image, z then y
+on the wire: z with the factorized tables on the cyclic kernels, y with
+the Gaussian tables on the general per-index kernels, its rows (the scale
+indexes) computed by h_s from z's symbols. The decoder decodes z,
+recomputes the indexes from the decoded z and decodes y, so the indexes
+must be bit-equal on both sides: h_s runs per image at the batch-1 shape
+on both, on contiguous NCHW input, with cuDNN's deterministic algorithms
+and no benchmarking (`_exact_cudnn`). An image's size is that of both
+wires, accounted under z's spatial shape as in the JAX runtime.
+
 `stream_deploy` is the same loop with the entropy coding on the host (the
 JAX runtime's default wire): int16 symbols cross to the host, the cyclic
 int16 coder of `ops/rans/coder.py` codes and decodes them, and the
@@ -37,6 +47,7 @@ CUDA device sets `torch.backends.cudnn.allow_tf32 = False` and
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from collections import deque
@@ -46,11 +57,13 @@ import torch
 
 from ..analysis import AnalyzerHolder
 from ..device import resolve_device
-from ..ops.entropy.tables import CodingTables, build_factorized_tables
+from ..ops.entropy.tables import (CodingTables, build_factorized_tables,
+                                  build_gaussian_tables)
 from ..ops.rans.coder import RansCoder
 from ..ops.rans.device import (auto_lanes, device_rans_decode,
-                               device_rans_encode, pack_stream)
-from .layer import FPBasedResNetBottleneck
+                               device_rans_encode, pack_stream,
+                               pack_stream_aligned)
+from .layer import FPBasedResNetBottleneck, SHPBasedResNetBottleneck
 
 logger = logging.getLogger(__name__)
 
@@ -59,6 +72,29 @@ def add_timing(timings, key, dt):
     """Accumulate into a caller-owned timings dict (None: no-op)."""
     if timings is not None:
         timings[key] = timings.get(key, 0.0) + dt
+
+
+@contextlib.contextmanager
+def _exact_cudnn():
+    """cuDNN's deterministic algorithms and no benchmarking, for the
+    convolutions whose output must be bit-equal at encode and decode
+    (the hyperprior's h_s); the previous flags come back after."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
+def _nhwc(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 2, 3, 1)
+
+
+def _nchw(t: torch.Tensor) -> torch.Tensor:
+    """NHWC -> contiguous NCHW (the layout the encoder's convolutions saw)."""
+    return t.permute(0, 3, 1, 2).contiguous()
 
 
 def _channel_major(symbols: np.ndarray) -> np.ndarray:
@@ -115,11 +151,52 @@ class FactorizedCodec:
             for s in strings])
 
 
+class HyperpriorCodec(FactorizedCodec):
+    """Coding tables and host coders of an SHP/MSHP bottleneck: z with the
+    factorized tables (`FactorizedCodec`), y with the Gaussian tables, each
+    symbol with its own row (the scale index)."""
+
+    def __init__(self):
+        super().__init__()
+        self.g_tables: CodingTables | None = None
+        self.g_coder: RansCoder | None = None
+
+    def update(self, module, scale_table=None):
+        super().update(module)
+        self.g_tables = build_gaussian_tables(scale_table)
+        self.g_coder = RansCoder(self.g_tables.quantized_cdf,
+                                 self.g_tables.cdf_length,
+                                 self.g_tables.offset)
+
+    def compress_y(self, y_symbols: np.ndarray, y_indexes: np.ndarray):
+        """(n, h, w, c) symbols and indexes -> per-sample byte strings, in
+        the NHWC ravel order."""
+        return [self.g_coder.encode_with_indexes(y_symbols[i].ravel(),
+                                                 y_indexes[i].ravel())
+                for i in range(y_symbols.shape[0])]
+
+    def decompress_y(self, strings, y_indexes: np.ndarray):
+        return np.stack([
+            self.g_coder.decode_with_indexes(s, y_indexes[i].ravel())
+            .reshape(y_indexes[i].shape) for i, s in enumerate(strings)])
+
+    def compress_y_wire(self, y_symbols: np.ndarray, y_indexes: np.ndarray):
+        """`compress_y` of int16 symbols and indexes, the wire dtype."""
+        return [self.g_coder.encode_with_indexes_i16(y_symbols[i],
+                                                     y_indexes[i])
+                for i in range(y_symbols.shape[0])]
+
+    def decompress_y_wire(self, strings, y_indexes: np.ndarray):
+        return np.stack([
+            self.g_coder.decode_with_indexes_i16(s, y_indexes[i])
+            .reshape(y_indexes[i].shape) for i, s in enumerate(strings)])
+
+
 class SplitClassifierRuntime(AnalyzerHolder):
-    """Runtime for `SplittableResNet` with an FP bottleneck: `update()`,
-    `bottleneck_updated`, the analyzable surface and the device-rANS wire.
-    Images are NCHW tensors (or arrays): float, or uint8 when the runtime
-    has `input_norm=(mean, std)`."""
+    """Runtime for `SplittableResNet` with an FP, SHP or MSHP bottleneck:
+    `update()`, `bottleneck_updated`, the analyzable surface and the
+    device-rANS wire. Images are NCHW tensors (or arrays): float, or uint8
+    when the runtime has `input_norm=(mean, std)`."""
 
     def __init__(self, module, analyzer_configs=None, analysis_unit='KB',
                  input_norm=None, device=None):
@@ -145,28 +222,43 @@ class SplitClassifierRuntime(AnalyzerHolder):
         else:
             self._norm_mean = None
         self._bneck = module.bottleneck_layer
-        if not isinstance(self._bneck, FPBasedResNetBottleneck):
+        self.hyper = isinstance(self._bneck, SHPBasedResNetBottleneck)
+        if not self.hyper and not isinstance(self._bneck,
+                                             FPBasedResNetBottleneck):
             raise NotImplementedError(
                 f'{type(self._bneck).__name__} is not ported yet; the port '
-                'serves the FP bottleneck')
-        self.codec = FactorizedCodec()
+                'serves the FP, SHP and MSHP bottlenecks')
+        self.codec = HyperpriorCodec() if self.hyper else FactorizedCodec()
         # images re-coded on the host coder, by the check they failed
         self.escapes = {'ok': 0, 'valid': 0}
         self._medians = None
         self._tables_dev = None
+        self._gtables_dev = None
+        self._scale_table = None
 
     # ---- reference API surface -----------------------------------------
-    def update(self):
+    def update(self, scale_table=None):
         """Build the coding tables from the learned entropy-bottleneck
-        parameters and keep device copies for the wire."""
-        self.codec.update(self.module)
+        parameters (and, for a hyperprior, the Gaussian tables of
+        `scale_table`, by default the 64-entry log-spaced one) and keep
+        device copies for the wire."""
+        if self.hyper:
+            self.codec.update(self.module, scale_table)
+            g = self.codec.g_tables
+            self._scale_table = torch.as_tensor(g.scale_table,
+                                                device=self.device)
+            self._gtables_dev = self._device_tables(g)
+        else:
+            self.codec.update(self.module)
         t = self.codec.tables
         self._medians = torch.as_tensor(t.medians, device=self.device)
-        self._tables_dev = tuple(
-            torch.as_tensor(a, dtype=torch.int32, device=self.device)
-            for a in (t.quantized_cdf, t.cdf_length, t.offset))
+        self._tables_dev = self._device_tables(t)
         self.bottleneck_updated = True
         return True
+
+    def _device_tables(self, t: CodingTables):
+        return tuple(torch.as_tensor(a, dtype=torch.int32, device=self.device)
+                     for a in (t.quantized_cdf, t.cdf_length, t.offset))
 
     def get_aux_module(self):
         return self._bneck
@@ -219,8 +311,18 @@ class SplitClassifierRuntime(AnalyzerHolder):
     @torch.no_grad()
     def encode(self, x):
         """Mobile side with the host coder: the encoder runs on the
-        runtime's device, the symbols cross to the host and are coded
-        there. Returns the compressed object {'strings', 'shape'}."""
+        runtime's device, the symbols (and a hyperprior's y indexes) cross
+        to the host and are coded there. Returns the compressed object
+        {'strings', 'shape'}: one list of strings for FP; y's then z's for
+        a hyperprior, whose shape is z's."""
+        if self.hyper:
+            ops = {k: _nhwc(v).cpu().numpy()
+                   for k, v in self._hyper_ops(x).items()}
+            z_sym = ops['z_symbols']
+            return {'strings': [self.codec.compress_y(ops['y_symbols'],
+                                                      ops['y_indexes']),
+                                self.codec.compress_symbols(z_sym)],
+                    'shape': tuple(z_sym.shape[1:3])}
         flat, (h, w, c) = self._symbols_nhwc(x)
         symbols = flat.reshape(-1, h, w, c).cpu().numpy()
         return {'strings': [self.codec.compress_symbols(symbols)],
@@ -229,12 +331,53 @@ class SplitClassifierRuntime(AnalyzerHolder):
     @torch.no_grad()
     def decode(self, strings, shape):
         """Host decoding, then the decoded symbols go back to the device
-        for the IGDN decoder and the tail. Returns logits (n, K)."""
+        for the decoder and the tail (a hyperprior's y indexes are
+        recomputed there from the decoded z first). Returns logits (n, K)."""
+        if self.hyper:
+            z_sym = self.codec.decompress_symbols(
+                strings[1], shape, self._bneck.num_latent_channels)
+            z = torch.from_numpy(z_sym).to(self.device)
+            y_idx, means = self._hyper_scales(z)
+            y_sym = self.codec.decompress_y(strings[0], y_idx.cpu().numpy())
+            return self._decode_tail_hyper(
+                torch.from_numpy(y_sym).to(self.device), means)
         channels = self.codec.tables.medians.shape[0]
         symbols = self.codec.decompress_symbols(strings[0], shape, channels)
         flat = torch.from_numpy(symbols.reshape(len(symbols), -1))
         return self._decode_tail(flat.to(self.device),
                                  (*shape, channels))
+
+    # ---- hyperprior pieces -----------------------------------------------
+    def _hyper_ops(self, x) -> dict:
+        """NCHW `encode_ops` of each image at the batch-1 shape (the shape
+        the decoder's h_s sees), concatenated."""
+        x = self._prep_input(x)
+        with _exact_cudnn():
+            ops = [self._bneck.encode_ops(x[i:i + 1], self._medians,
+                                          self._scale_table)
+                   for i in range(x.shape[0])]
+        return {k: torch.cat([o[k] for o in ops]) for k in ops[0]}
+
+    def _hyper_scales(self, z_nhwc: torch.Tensor):
+        """(y indexes (n, hy, wy, cy) int32, means NCHW or None) from z's
+        symbols (n, hz, wz, cz), h_s per image at the batch-1 shape, as
+        the encoder computed them."""
+        z = _nchw(z_nhwc)
+        with _exact_cudnn():
+            out = [self._bneck.decode_scales(z[i:i + 1], self._medians,
+                                             self._scale_table)
+                   for i in range(z.shape[0])]
+        means = (None if out[0][1] is None
+                 else torch.cat([m for _, m in out]))
+        return _nhwc(torch.cat([idx for idx, _ in out])), means
+
+    def _decode_tail_hyper(self, y_nhwc: torch.Tensor,
+                           means: torch.Tensor | None) -> torch.Tensor:
+        """Decoder and tail from y's symbols (NHWC) and the means of
+        `_hyper_scales`."""
+        with _exact_cudnn():
+            feat = self._bneck.decode_ops(_nchw(y_nhwc), means)
+        return self.module.forward_tail(feat).to(torch.float32)
 
     def _escape(self, x, ok, index):
         """Re-code image `index` on the host coder: count the escape by
@@ -253,24 +396,41 @@ class SplitClassifierRuntime(AnalyzerHolder):
     # ---- host wire (stream_deploy) -----------------------------------------
     @torch.no_grad()
     def encode_device(self, x):
-        """Mobile side of the host wire, on the device: encoder and
+        """Mobile side of the host wire, on the device: the encoder and
         round(y - median), symbols (n, h, w, c) narrowed to int16, the wire
         dtype (the JAX runtime's `to_wire`; lossless while
-        |round(y - median)| < 2^15)."""
+        |round(y - median)| < 2^15). A hyperprior's y symbols, y indexes
+        and z symbols, each (n, h, w, c) int16."""
+        if self.hyper:
+            return {k: _nhwc(v).to(torch.int16)
+                    for k, v in self._hyper_ops(x).items()}
         flat, (h, w, c) = self._symbols_nhwc(x)
         return {'symbols': flat.reshape(-1, h, w, c).to(torch.int16)}
 
     def _encode_to_host(self, x):
-        """Dispatch `encode_device` and the copy of its symbols to the
-        host. Returns the host tensor and, on a CUDA device, the event after
-        which it holds the symbols (None on the CPU)."""
-        sym = self.encode_device(x)['symbols']
+        """Dispatch `encode_device` and the copy of its tensors to the
+        host. Returns the host tensors and, on a CUDA device, the event
+        after which they hold the symbols (None on the CPU)."""
+        ops = self.encode_device(x)
         if self.device.type != 'cuda':
-            return sym, None
-        host = sym.to('cpu', non_blocking=True)
+            return ops, None
+        host = {k: v.to('cpu', non_blocking=True) for k, v in ops.items()}
         ready = torch.cuda.Event()
         ready.record()
         return host, ready
+
+    def _decode_hyper_wire(self, strings, shape):
+        """A hyperprior's host wire: z from the cyclic int16 stream, y's
+        indexes recomputed on the device and shipped back as int16, y from
+        the int16 indexed stream. Returns logits."""
+        z_sym = self.codec.decompress_wire(strings[1], shape,
+                                           self._bneck.num_latent_channels)
+        z = torch.from_numpy(z_sym).to(self.device)
+        y_idx, means = self._hyper_scales(z)
+        y_sym = self.codec.decompress_y_wire(
+            strings[0], y_idx.to(torch.int16).cpu().numpy())
+        return self._decode_tail_hyper(
+            torch.from_numpy(y_sym).to(self.device), means)
 
     @torch.no_grad()
     def stream_deploy(self, images, depth: int = 8,
@@ -285,10 +445,16 @@ class SplitClassifierRuntime(AnalyzerHolder):
         on the device ahead of the host coder, so the card works while the
         host codes; one host thread codes. `decode_batch=k` runs the
         decoder and tail once per k images; each image is still coded and
-        accounted alone."""
+        accounted alone. A hyperprior codes y on the int16 indexed wire
+        and z on the cyclic one, and decodes each image as it comes
+        (`decode_batch` 1 only, as in the JAX runtime)."""
         images = list(images)
         if not images:
             return []
+        if self.hyper and int(decode_batch) > 1:
+            raise ValueError('decode_batch > 1 is implemented for the '
+                             'factorized-prior bottleneck only; run a '
+                             'hyperprior with decode_batch=1')
         channels = self.codec.tables.medians.shape[0]
         results, decoded = [], []
 
@@ -305,15 +471,32 @@ class SplitClassifierRuntime(AnalyzerHolder):
             t0 = time.perf_counter()
             if ready is not None:
                 ready.synchronize()
-            sym = host.numpy()
+            ops = {k: v.numpy() for k, v in host.items()}
             t1 = time.perf_counter()
-            compressed = {'strings': [self.codec.compress_wire(sym)],
-                          'shape': tuple(sym.shape[1:3])}
+            if self.hyper:
+                z_sym = ops['z_symbols']
+                compressed = {
+                    'strings': [self.codec.compress_y_wire(ops['y_symbols'],
+                                                           ops['y_indexes']),
+                                self.codec.compress_wire(z_sym)],
+                    'shape': tuple(z_sym.shape[1:3])}
+            else:
+                sym = ops['symbols']
+                compressed = {'strings': [self.codec.compress_wire(sym)],
+                              'shape': tuple(sym.shape[1:3])}
             self.analyze(compressed)
+            t2 = time.perf_counter()
+            add_timing(timings, 'd2h_sync', t1 - t0)
+            add_timing(timings, 'host_code', t2 - t1)
+            if self.hyper:
+                results.append(self._decode_hyper_wire(
+                    compressed['strings'], compressed['shape']))
+                add_timing(timings, 'decode_dispatch',
+                           time.perf_counter() - t2)
+                return
             decoded.append(self.codec.decompress_wire(
                 compressed['strings'][0], compressed['shape'], channels))
-            add_timing(timings, 'd2h_sync', t1 - t0)
-            add_timing(timings, 'host_code', time.perf_counter() - t1)
+            add_timing(timings, 'host_code', time.perf_counter() - t2)
             if len(decoded) == max(int(decode_batch), 1):
                 flush()
 
@@ -332,7 +515,8 @@ class SplitClassifierRuntime(AnalyzerHolder):
 
     # ---- device-rANS wire -----------------------------------------------
     def _latent_shape(self, x_shape):
-        """(h, w, c) of the bottleneck latent for an NCHW input shape."""
+        """(h, w, c) of the bottleneck latent for an NCHW input shape; for a
+        hyperprior ((hy, wy, cy), (hz, wz, cz))."""
         return self._bneck.latent_shape(int(x_shape[-2]), int(x_shape[-1]))
 
     @staticmethod
@@ -340,6 +524,22 @@ class SplitClassifierRuntime(AnalyzerHolder):
         """Cyclic lane count (a multiple of C) for a latent shape."""
         return auto_lanes(int(np.prod(latent_shape)),
                           cyclic_channels=int(latent_shape[-1]))
+
+    @staticmethod
+    def _auto_hyper_lanes_from_shapes(shapes):
+        """(y lanes, z lanes): y on the general path (a power of two), z
+        cyclic (a multiple of its channels)."""
+        (hy, wy, cy), (hz, wz, cz) = shapes
+        return (auto_lanes(hy * wy * cy),
+                auto_lanes(hz * wz * cz, cyclic_channels=cz))
+
+    def _default_lanes(self, x_shape):
+        """The lane count `stream_deploy_device` uses when given none: y's
+        for a hyperprior."""
+        shape = self._latent_shape(x_shape)
+        if self.hyper:
+            return self._auto_hyper_lanes_from_shapes(shape)[0]
+        return self._auto_wire_lanes(shape)
 
     def _symbols_nhwc(self, x):
         """Encoder + round(y - median), flattened channels-last: lane j
@@ -359,7 +559,8 @@ class SplitClassifierRuntime(AnalyzerHolder):
     @torch.no_grad()
     def encode_device_wire(self, x, num_lanes=None):
         """Mobile side: encoder and rANS encode on the device, compacted
-        streams (`device_rans_encode`)."""
+        streams (`device_rans_encode`; aligned at k = 1 when the latent is
+        beyond the batch-1 kernels, and then `aligned` says so)."""
         flat, shape = self._symbols_nhwc(x)
         if num_lanes is None:
             num_lanes = self._auto_wire_lanes(shape)
@@ -396,17 +597,18 @@ class SplitClassifierRuntime(AnalyzerHolder):
         return self.module.forward_tail(feat).to(torch.float32)
 
     @torch.no_grad()
-    def decode_device_streams(self, streams, states, shape, num_lanes=None):
-        """Server side from device-resident (or uploaded) compacted streams:
-        rANS decode + bottleneck decoder + tail. Returns (logits (1, K),
-        valid)."""
+    def decode_device_streams(self, streams, states, shape, num_lanes=None,
+                              aligned: bool = False):
+        """Server side from device-resident (or uploaded) streams, compacted
+        unless `aligned` (the encode result's): rANS decode + bottleneck
+        decoder + tail. Returns (logits (1, K), valid)."""
         if num_lanes is None:
             num_lanes = self._auto_wire_lanes(shape)
         cdf, cdf_len, off = self._tables_dev
         flat, valid = device_rans_decode(
             streams, states, cdf, cdf_len, off,
             n_symbols=int(np.prod(shape)), num_lanes=num_lanes,
-            cyclic_channels=shape[-1], device=self.device)
+            cyclic_channels=shape[-1], aligned=aligned, device=self.device)
         return self._decode_tail(flat, shape), valid
 
     @torch.no_grad()
@@ -414,23 +616,136 @@ class SplitClassifierRuntime(AnalyzerHolder):
                                     num_lanes=None):
         """k images' time-aligned streams (k, N, T) -> (logits (k, K),
         valid (k,)), one decode launch and one batched tail."""
-        if num_lanes is None:
-            num_lanes = self._auto_wire_lanes(shape)
+        return self.decode_device_streams(streams, states, shape,
+                                          num_lanes=num_lanes, aligned=True)
+
+    # ---- hyperprior device wire -------------------------------------------
+    def _hyper_encode(self, xs_list, num_lanes, aligned):
+        """Both latents of k same-shape images coded on the device: z on
+        the cyclic kernels, y on the per-index ones (batched when
+        `aligned`)."""
+        ops = [self._hyper_ops(x) for x in xs_list]
+        shapes = self._latent_shape(xs_list[0].shape)
+        if any(tuple(o['z_symbols'].shape[1:]) != tuple(
+                ops[0]['z_symbols'].shape[1:]) for o in ops):
+            raise ValueError('a hyperprior wire batch needs images of one '
+                             'shape')
+        auto_y, z_lanes = self._auto_hyper_lanes_from_shapes(shapes)
+        num_lanes = auto_y if num_lanes is None else num_lanes
+
+        def flat(key):
+            t = torch.cat([_nhwc(o[key]).reshape(1, -1) for o in ops])
+            return t if aligned else t[0]
+
         cdf, cdf_len, off = self._tables_dev
-        flat, valid = device_rans_decode(
-            streams, states, cdf, cdf_len, off,
-            n_symbols=int(np.prod(shape)), num_lanes=num_lanes,
-            cyclic_channels=shape[-1], aligned=True, device=self.device)
-        return self._decode_tail(flat, shape), valid
+        z_out = device_rans_encode(flat('z_symbols'), cdf, cdf_len, off,
+                                   num_lanes=z_lanes,
+                                   cyclic_channels=shapes[1][-1],
+                                   aligned=aligned)
+        g_cdf, g_len, g_off = self._gtables_dev
+        y_out = device_rans_encode(flat('y_symbols'), g_cdf, g_len, g_off,
+                                   num_lanes=num_lanes, aligned=aligned,
+                                   indexes=flat('y_indexes'))
+        meta = torch.stack([(z_out['ok'] & y_out['ok']).to(torch.int32),
+                            z_out['nbytes'] + y_out['nbytes']], dim=-1)
+        return {'z': z_out, 'y': y_out, 'meta': meta, 'shapes': shapes,
+                'lanes': (num_lanes, z_lanes)}
+
+    @torch.no_grad()
+    def encode_device_wire_hyper(self, x, num_lanes=None):
+        """SHP/MSHP mobile side: the encoder, then z (factorized tables,
+        cyclic lanes) and y (Gaussian tables, per-element indexes computed
+        on the device, `num_lanes` general lanes) coded on the device,
+        compacted streams. `meta` is [ok_z & ok_y, nbytes_z + nbytes_y];
+        `lanes` the (y, z) lane counts the decoder uses."""
+        return self._hyper_encode([x], num_lanes, aligned=False)
+
+    @torch.no_grad()
+    def encode_device_wire_hyper_batch(self, xs_list, num_lanes=None):
+        """`encode_device_wire_hyper` of k images with one coding launch per
+        latent over time-aligned streams; the encoder and h_s per image at
+        the batch-1 shape. `meta` is (k, 2)."""
+        return self._hyper_encode(list(xs_list), num_lanes, aligned=True)
+
+    @torch.no_grad()
+    def decode_device_streams_hyper(self, ops):
+        """Server side of `encode_device_wire_hyper` (or of its batch, whose
+        aligned streams it decodes with h_s per image at the batch-1 shape
+        and the decoder and tail batched): decode z, recompute y's indexes
+        and means from it (bit-equal to the encoder's), decode y, then the
+        decoder and tail on those means. Returns (logits (k, K), valid (k,)), or (logits (1, K),
+        valid) for a batch-1 result."""
+        (hy, wy, cy), (hz, wz, cz) = ops['shapes']
+        y_lanes, z_lanes = ops['lanes']
+        z, y = ops['z'], ops['y']
+        cdf, cdf_len, off = self._tables_dev
+        z_flat, z_valid = device_rans_decode(
+            z['streams'], z['states'], cdf, cdf_len, off,
+            n_symbols=hz * wz * cz, num_lanes=z_lanes, cyclic_channels=cz,
+            aligned=z['aligned'], device=self.device)
+        z_sym = z_flat.reshape(-1, hz, wz, cz)
+        y_idx, means = self._hyper_scales(z_sym)
+        y_idx = y_idx.reshape(z_sym.shape[0], -1)
+        g_cdf, g_len, g_off = self._gtables_dev
+        y_flat, y_valid = device_rans_decode(
+            y['streams'], y['states'], g_cdf, g_len, g_off,
+            n_symbols=hy * wy * cy, num_lanes=y_lanes, aligned=y['aligned'],
+            device=self.device,
+            indexes=y_idx if z_flat.dim() == 2 else y_idx[0])
+        logits = self._decode_tail_hyper(y_flat.reshape(-1, hy, wy, cy),
+                                         means)
+        return logits, z_valid & y_valid
+
+    decode_device_streams_hyper_batch = decode_device_streams_hyper
+
+    # ---- one serving loop for both bottleneck kinds ------------------------
+    def _wire_encode(self, x, num_lanes):
+        if self.hyper:
+            return self.encode_device_wire_hyper(x, num_lanes=num_lanes)
+        return self.encode_device_wire(x, num_lanes=num_lanes)
+
+    def _wire_decode(self, ops, num_lanes):
+        if self.hyper:
+            return self.decode_device_streams_hyper(ops)
+        return self.decode_device_streams(
+            ops['streams'], ops['states'], ops['shape'], num_lanes=num_lanes,
+            aligned=ops['aligned'])
+
+    def _wire_encode_batch(self, xs_list, num_lanes):
+        if self.hyper:
+            return self.encode_device_wire_hyper_batch(xs_list,
+                                                       num_lanes=num_lanes)
+        return self.encode_device_wire_batch(xs_list, num_lanes=num_lanes)
+
+    def _wire_decode_batch(self, ops, num_lanes):
+        if self.hyper:
+            return self.decode_device_streams_hyper_batch(ops)
+        return self.decode_device_streams_batch(
+            ops['streams'], ops['states'], ops['shape'], num_lanes=num_lanes)
+
+    def _shape_hw(self, ops):
+        """The spatial shape accounted with an image: z's for a
+        hyperprior."""
+        return ops['shapes'][1][:2] if self.hyper else ops['shape'][:2]
 
     def _pull_device_wire(self, ops):
-        """Pack the device streams into the wire bytes: lengths first, then
-        only the used prefix of the stream matrix crosses to the host."""
+        """Pack the device streams into the wire bytes (a hyperprior's: z's
+        then y's, each self-describing). Compacted streams: lengths first,
+        then only the used prefix crosses to the host; aligned ones with
+        their masks."""
+        if self.hyper and 'z' in ops:
+            return self._pull_device_wire(ops['z']) \
+                + self._pull_device_wire(ops['y'])
         lengths = ops['lengths'].cpu().numpy()
+        states = ops['states'].cpu().numpy()
+        if ops.get('aligned'):
+            return pack_stream_aligned({
+                'streams': ops['streams'].cpu().numpy(),
+                'masks': ops['masks'].cpu().numpy(), 'lengths': lengths,
+                'states': states})
         lmax = max(int(lengths.max()), 1)
         return pack_stream({'streams': ops['streams'][:, :lmax].cpu().numpy(),
-                            'lengths': lengths,
-                            'states': ops['states'].cpu().numpy()})
+                            'lengths': lengths, 'states': states})
 
     def _throttle(self, inflight: deque, depth: int):
         """Bound the queued device work to `depth` items without reading
@@ -462,15 +777,15 @@ class SplitClassifierRuntime(AnalyzerHolder):
         those bytes, served from that path's logits, and counted in
         `escapes`. `pull_wire=True`
         packs and accounts the real wire bytes per image. `wire_batch=k`
-        codes k images per launch."""
+        codes k images per launch. A hyperprior codes z and y of each image
+        and accounts both wires together; `num_lanes` is then y's."""
         del workers
         images = list(images)
         n = len(images)
         if n == 0:
             return []
         if num_lanes is None:
-            num_lanes = self._auto_wire_lanes(
-                self._latent_shape(images[0].shape))
+            num_lanes = self._default_lanes(images[0].shape)
         if wire_batch is not None and wire_batch > 1:
             if pull_wire:
                 raise ValueError('wire_batch grouping does not support '
@@ -480,13 +795,11 @@ class SplitClassifierRuntime(AnalyzerHolder):
 
         staged, inflight = [], deque()
         for i, x in enumerate(images):
-            ops = self.encode_device_wire(x, num_lanes=num_lanes)
+            ops = self._wire_encode(x, num_lanes)
             t0 = time.perf_counter()
-            logits, valid = self.decode_device_streams(
-                ops['streams'], ops['states'], ops['shape'],
-                num_lanes=num_lanes)
+            logits, valid = self._wire_decode(ops, num_lanes)
             add_timing(timings, 'decode_dispatch', time.perf_counter() - t0)
-            shape_hw = ops['shape'][:2]
+            shape_hw = self._shape_hw(ops)
             if pull_wire:
                 # packing needs the stream content: sync here
                 ok, nbytes = ops['meta'].tolist()
@@ -547,14 +860,11 @@ class SplitClassifierRuntime(AnalyzerHolder):
 
         staged, inflight = [], deque()
         for j0, j1 in groups:
-            ops = self.encode_device_wire_batch(images[j0:j1],
-                                                num_lanes=num_lanes)
+            ops = self._wire_encode_batch(images[j0:j1], num_lanes)
             t0 = time.perf_counter()
-            logits, valid = self.decode_device_streams_batch(
-                ops['streams'], ops['states'], ops['shape'],
-                num_lanes=num_lanes)
+            logits, valid = self._wire_decode_batch(ops, num_lanes)
             add_timing(timings, 'decode_dispatch', time.perf_counter() - t0)
-            staged.append((ops['meta'], ops['shape'][:2], logits, valid))
+            staged.append((ops['meta'], self._shape_hw(ops), logits, valid))
             self._throttle(inflight, depth)
 
         t_acct = time.perf_counter()

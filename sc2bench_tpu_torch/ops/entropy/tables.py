@@ -4,7 +4,10 @@
 A host-side numpy copy of the JAX package's evaluation: elementwise +/-
 stay float32, transcendentals and the tiny per-channel matmul evaluate in
 float64 and round to float32. The quantized tables are therefore
-bit-identical to the JAX package's for the same parameters.
+bit-identical to the JAX package's for the same parameters: the factorized
+prior's (`build_factorized_tables`) and the Gaussian conditional's
+(`build_gaussian_tables`, one row per entry of the scale table, with
+scipy's normal quantile and erfc).
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import dataclasses
 import numpy as np
 
 from ..math import pmf_to_quantized_cdf
+from .gaussian import get_scale_table
 
 
 @dataclasses.dataclass
@@ -22,8 +26,10 @@ class CodingTables:
     quantized_cdf: np.ndarray   # int32 (num_dists, max_cdf_length)
     cdf_length: np.ndarray      # int32 (num_dists,)
     offset: np.ndarray          # int32 (num_dists,)
-    # Per-channel medians used to center symbols.
+    # Per-channel medians (factorized prior only) used to center symbols.
     medians: np.ndarray | None = None
+    # The scale of each row (Gaussian conditional only), float32.
+    scale_table: np.ndarray | None = None
 
 
 def _pack_rows(pmfs, pmf_lengths, tail_masses, precision=16):
@@ -104,3 +110,42 @@ def build_factorized_tables(bottleneck, precision: int = 16) -> CodingTables:
     return CodingTables(quantized_cdf=cdf, cdf_length=cdf_length,
                         offset=-minima.astype(np.int32),
                         medians=medians.astype(np.float32))
+
+
+def _std_cdf(x):
+    """Standard normal CDF through erfc, float32 result (CompressAI's
+    `_standardized_cumulative`: 0.5 * erfc(-x / sqrt(2)))."""
+    from scipy.special import erfc
+    const = np.float64(-(2.0 ** -0.5))
+    return (0.5 * erfc(const * np.asarray(x, np.float64))
+            ).astype(np.float32)
+
+
+def build_gaussian_tables(scale_table: np.ndarray | None = None,
+                          tail_mass: float = 1e-9,
+                          precision: int = 16) -> CodingTables:
+    """Tables of a `GaussianConditional`: row i codes N(0, scale_i^2) over
+    [-c_i, c_i], c_i = ceil(scale_i * Phi^-1(1 - tail_mass / 2)), in
+    float32 with CompressAI's operation order."""
+    from scipy.stats import norm
+    if scale_table is None:
+        scale_table = get_scale_table()
+    scale_table = np.asarray(scale_table, np.float32)
+    multiplier = -norm.ppf(tail_mass / 2)
+    pmf_center = np.ceil(scale_table * np.float32(multiplier)).astype(
+        np.int32)
+    pmf_length = 2 * pmf_center + 1
+    max_length = int(pmf_length.max())
+    samples = np.abs(np.arange(max_length, dtype=np.int32)[None, :]
+                     - pmf_center[:, None]).astype(np.float32)
+    scales = scale_table[:, None]
+    upper = _std_cdf(((np.float32(0.5) - samples) / scales
+                      ).astype(np.float32))
+    lower = _std_cdf(((np.float32(-0.5) - samples) / scales
+                      ).astype(np.float32))
+    pmf = (upper - lower).astype(np.float32)
+    tail_masses = (2 * lower[:, 0]).astype(np.float32)
+    cdf, cdf_length = _pack_rows(pmf, pmf_length, tail_masses, precision)
+    return CodingTables(quantized_cdf=cdf, cdf_length=cdf_length,
+                        offset=-pmf_center.astype(np.int32),
+                        scale_table=scale_table)

@@ -114,21 +114,22 @@ def pmf_to_quantized_cdf(pmf: np.ndarray, precision: int = 16) -> np.ndarray:
     cdf = np.zeros(len(pmf32) + 1, dtype=np.int64)
     np.cumsum(freqs, out=cdf[1:])
     cdf[-1] = total_mass
-    for i in range(len(cdf) - 1):
-        if cdf[i] == cdf[i + 1]:
-            # steal one count from the lowest-frequency symbol with freq > 1
-            best_freq, best_steal = None, -1
-            for j in range(len(cdf) - 1):
-                freq = cdf[j + 1] - cdf[j]
-                if freq > 1 and (best_freq is None or freq < best_freq):
-                    best_freq, best_steal = freq, j
-            if best_steal < 0:
-                raise ValueError(
-                    'cannot normalize pmf: too many symbols for precision')
-            if best_steal < i:
-                cdf[best_steal + 1:i + 1] -= 1
-            else:
-                cdf[i + 1:best_steal + 1] += 1
+    # A steal turns its own zero interval into 1 and lowers one interval
+    # of freq > 1 by one: no other interval becomes or stops being zero, so
+    # the zero intervals are found once, in the order they are fixed.
+    for i in np.flatnonzero(cdf[:-1] == cdf[1:]):
+        # steal one count from the lowest-frequency symbol with freq > 1
+        # (the first of equals)
+        freqs = np.diff(cdf)
+        stealable = np.where(freqs > 1, freqs, np.iinfo(np.int64).max)
+        best_steal = int(np.argmin(stealable))
+        if freqs[best_steal] <= 1:
+            raise ValueError(
+                'cannot normalize pmf: too many symbols for precision')
+        if best_steal < i:
+            cdf[best_steal + 1:i + 1] -= 1
+        else:
+            cdf[i + 1:best_steal + 1] += 1
     if cdf[0] != 0 or cdf[-1] != total_mass or np.any(np.diff(cdf) <= 0):
         raise ValueError('quantized cdf is not a valid 16-bit table')
     return cdf.astype(np.int32)

@@ -9,7 +9,8 @@ This is what the device wire cannot do; the runtime re-codes an image here
 when its latent leaves the support (`ok=False`) or its device decode fails
 (`valid=False`). The cyclic int16 wire (`encode_cyclic_i16`) is the host
 wire of `stream_deploy`: int16 symbols in NHWC-flat order, symbol i coded
-with distribution i mod C.
+with distribution i mod C. The hyperprior's y-stream crosses as int16
+symbols with int16 per-element indexes (`encode_with_indexes_i16`).
 
 Two implementations of one format:
   - `host.cpp`, compiled with g++ into `sc2bench_tpu_torch/build/` the
@@ -86,6 +87,12 @@ def _library():
             lib.rans_decode_cyclic_i16_coarse.restype = i
             lib.rans_decode_cyclic_i16_coarse.argtypes = [
                 u8p, i, i, i, i32p, i, i32p, i32p, i16p, i, i16p]
+            lib.rans_encode_with_indexes_i16.restype = i
+            lib.rans_encode_with_indexes_i16.argtypes = [
+                i16p, i16p, i, i32p, i, i32p, i32p, u8p, i]
+            lib.rans_decode_with_indexes_i16_coarse.restype = i
+            lib.rans_decode_with_indexes_i16_coarse.argtypes = [
+                u8p, i, i16p, i, i32p, i, i32p, i32p, i16p, i, i16p]
             _lib = lib
     return _lib
 
@@ -300,4 +307,44 @@ class RansCoder:
             _u8p(byte_arr), byte_arr.size, n, num_dists, _i32p(self.cdfs),
             self.cdf_stride, _i32p(self.cdf_lengths), _i32p(self.offsets),
             _i16p(self._coarse), self._coarse.shape[1], _i16p(out))
+        return out
+
+    # ---- indexed int16 wire (the hyperprior's y-stream) --------------------
+    def encode_with_indexes_i16(self, symbols, indexes) -> bytes:
+        """`encode_with_indexes` of int16 symbols and int16 per-element
+        indexes, neither widened on the host."""
+        symbols = np.ascontiguousarray(symbols, dtype=np.int16).ravel()
+        indexes = np.ascontiguousarray(indexes, dtype=np.int16).ravel()
+        if symbols.shape != indexes.shape:
+            raise ValueError(f'{symbols.size} symbols but {indexes.size} '
+                             'indexes')
+        if self.lib is None:
+            return _py_encode(symbols.astype(np.int32),
+                              indexes.astype(np.int32), self.cdfs,
+                              self.cdf_lengths, self.offsets)
+        capacity = max(1024, symbols.size * 8)
+        while True:
+            out = np.empty(capacity, np.uint8)
+            n = self.lib.rans_encode_with_indexes_i16(
+                _i16p(symbols), _i16p(indexes), symbols.size,
+                _i32p(self.cdfs), self.cdf_stride, _i32p(self.cdf_lengths),
+                _i32p(self.offsets), _u8p(out), capacity)
+            if n >= 0:
+                return out[:n].tobytes()
+            capacity *= 4
+
+    def decode_with_indexes_i16(self, data: bytes, indexes) -> np.ndarray:
+        """Inverse of `encode_with_indexes_i16`: int16 symbols."""
+        indexes = np.ascontiguousarray(indexes, dtype=np.int16).ravel()
+        if self.lib is None:
+            return _py_decode(data, indexes.astype(np.int32), self.cdfs,
+                              self.cdf_lengths,
+                              self.offsets).astype(np.int16)
+        byte_arr = np.frombuffer(data, np.uint8)
+        out = np.empty(indexes.size, np.int16)
+        self.lib.rans_decode_with_indexes_i16_coarse(
+            _u8p(byte_arr), byte_arr.size, _i16p(indexes), indexes.size,
+            _i32p(self.cdfs), self.cdf_stride, _i32p(self.cdf_lengths),
+            _i32p(self.offsets), _i16p(self._coarse), self._coarse.shape[1],
+            _i16p(out))
         return out

@@ -1,16 +1,19 @@
-"""Cyclic-lane interleaved rANS codec ("tpu-lane-v1" wire format), the
+"""Lane-interleaved rANS codec ("tpu-lane-v1" wire format), the
 counterpart of `sc2bench_tpu/ops/rans/device.py`.
 
 N independent rANS lanes code a flat symbol array: lane j codes positions
 j, j+N, j+2N, ... The state is 32-bit, the probability precision 16 bits
 and renormalization moves 16 bits at a time, so each encode step emits
-exactly 0 or 1 u16 and each decode step reads exactly 0 or 1. In the
-cyclic layout (lanes a multiple of the channel count C, symbols flattened
-channels-last) lane j always codes channel j mod C, so each lane codes
-against one fixed CDF row.
-
-Only the cyclic branch is ported; the general per-index branch (hyperprior
-y-streams, JAHP) comes with the slices that use it.
+exactly 0 or 1 u16 and each decode step reads exactly 0 or 1. Two ways to
+choose each symbol's CDF row:
+  cyclic   lanes a multiple of the channel count C, symbols flattened
+           channels-last: lane j always codes channel j mod C, so each lane
+           codes against one fixed row (the factorized prior's latents);
+  general  any lane count, each symbol p with its own row indexes[p] (the
+           hyperprior's y-stream, one of the Gaussian tables' rows), the
+           decoder finding each symbol by bisection of its row
+           (`cdf_bisect`). It runs where `cyclic_channels` is None or the
+           lane count is not a multiple of it, as in the JAX package.
 
 Two in-memory stream layouts give the same packed wire bytes:
   compacted  streams[j, :lengths[j]] are lane j's chunks in decode order
@@ -18,13 +21,19 @@ Two in-memory stream layouts give the same packed wire bytes:
   aligned    streams[j, t] is the chunk emitted while coding symbol row t,
              0 where none (`wire_batch` path; the decoder reads column t
              directly, no per-lane pointer).
+The batch-1 cyclic kernels stage each lane's row in shared memory and take
+at most `kernels.max_steps` steps; a compacted cyclic encode beyond that
+(or beyond the decoder's limit) is coded in the aligned layout at k = 1,
+whose packed bytes are the same, and its result says so (`aligned`).
 
 The per-lane loops have two implementations with one contract:
-  - the CUDA kernels in `kernels.py` (`csrc/rans_cyclic.cu`), which
-    `device_rans_encode`/`device_rans_decode` launch for CUDA tensors;
+  - the CUDA kernels in `kernels.py` (`csrc/rans_cyclic.cu`,
+    `csrc/rans_indexed.cu`), which `device_rans_encode`/
+    `device_rans_decode` launch for CUDA tensors;
   - the plain PyTorch versions below (`cyclic_encode_plain`,
-    `cyclic_decode_plain`), which the same wrappers run for CPU tensors
-    and which the tests and `chip_smoke.py` hold the kernels against.
+    `cyclic_decode_plain`, `indexed_encode_plain`, `indexed_decode_plain`),
+    which the same wrappers run for CPU tensors and which the tests and
+    `chip_smoke.py` hold the kernels against.
 
 Torch-side dtypes: streams int32 (values 0..65535), lengths int32, states
 int64 (values 0..2^32-1). The plain versions carry the state in int64,
@@ -66,9 +75,8 @@ def lane_tables(quantized_cdf, cdf_length, offset, num_lanes: int,
     cdf_length (N,) int32, offset (N,) int32) of channel j mod C."""
     lanes, c = int(num_lanes), int(cyclic_channels)
     if lanes % c:
-        raise NotImplementedError(
-            f'num_lanes={lanes} is not a multiple of cyclic_channels={c}: '
-            'the general (non-cyclic) rANS path is not ported yet')
+        raise ValueError(f'num_lanes={lanes} is not a multiple of '
+                         f'cyclic_channels={c}: not a cyclic layout')
     lane_ch = torch.arange(lanes, device=device) % c
     return tuple(
         torch.as_tensor(a, dtype=torch.int32, device=device)[lane_ch]
@@ -89,6 +97,24 @@ def _blocks(symbols: torch.Tensor, num_lanes: int, pad_value: torch.Tensor):
     return symbols.reshape(k, steps, lanes), n, pad
 
 
+def _index_blocks(symbols: torch.Tensor, indexes: torch.Tensor,
+                  num_lanes: int, pad_symbol: torch.Tensor):
+    """The general layout's blocks: (k, n) symbols and their rows -> two
+    (k, steps, lanes) lane-major blocks, pad positions coded as row 0's
+    lowest in-support symbol `pad_symbol` (offset[0])."""
+    k, n = indexes.shape
+    lanes = int(num_lanes)
+    steps = -(-n // lanes)
+    pad = steps * lanes - n
+    if pad:
+        indexes = torch.cat([indexes, indexes.new_zeros((k, pad))], dim=1)
+        if symbols is not None:
+            symbols = torch.cat([symbols, pad_symbol.expand(k, pad)], dim=1)
+    if symbols is not None:
+        symbols = symbols.reshape(k, steps, lanes)
+    return symbols, indexes.reshape(k, steps, lanes)
+
+
 def _batched(a: torch.Tensor, ndim: int):
     """(a with a leading batch dim, whether one was added)."""
     if a.dim() == ndim:
@@ -96,20 +122,50 @@ def _batched(a: torch.Tensor, ndim: int):
     return a, False
 
 
+def _is_cyclic(num_lanes: int, cyclic_channels) -> bool:
+    return bool(cyclic_channels) and int(num_lanes) % int(cyclic_channels) \
+        == 0
+
+
+def _row_indexes(indexes, k: int, n: int, cyclic_channels,
+                 device) -> torch.Tensor:
+    """(k, n) int32 rows of the general path: the caller's `indexes` ((n,)
+    shared by the batch, or (k, n)), else p mod C for `cyclic_channels=C`
+    at a lane count that is not a multiple of C."""
+    if indexes is None:
+        if not cyclic_channels:
+            raise ValueError('the general (per-index) rANS path needs '
+                             '`indexes` or `cyclic_channels`')
+        indexes = torch.arange(n, device=device) % int(cyclic_channels)
+    idx = torch.as_tensor(indexes, device=device).to(torch.int32)
+    idx = idx.reshape(-1, n) if idx.numel() != n else idx.reshape(1, n)
+    return idx.expand(k, n) if idx.shape[0] == 1 else idx
+
+
+def _tables_on(quantized_cdf, cdf_length, offset, device):
+    return tuple(torch.as_tensor(a, dtype=torch.int32, device=device)
+                 .contiguous() for a in (quantized_cdf, cdf_length, offset))
+
+
 def device_rans_encode(symbols, quantized_cdf, cdf_length, offset,
-                       num_lanes: int, cyclic_channels: int,
+                       num_lanes: int, cyclic_channels: int | None = None,
                        aligned: bool = False, want_masks: bool = False,
-                       device=None):
+                       device=None, indexes=None):
     """Encode flat int `symbols` (n,) -- or a batch (k, n), each row coded
-    independently -- in the cyclic lane layout (position p codes channel
-    p mod C). Returns a dict (batch dims leading when batched):
+    independently. In the cyclic layout position p codes channel p mod C;
+    in the general one (`cyclic_channels` None or not dividing the lanes)
+    position p codes row `indexes[p]` ((n,) or (k, n)). Returns a dict
+    (batch dims leading when batched):
       streams (N, L) int32   per-lane u16 chunks (compacted or aligned)
       lengths (N,) int32     chunks per lane
       states  (N,) int64     final per-lane states (decoder init)
       ok      () bool        all symbols in CDF support
       nbytes  () int32       exact packed wire size
       n_symbols int
-    plus `masks` (N, L) bool with `aligned=True, want_masks=True`.
+      aligned bool           the layout the streams hold
+    plus `masks` (N, L) bool when the streams are aligned and the caller
+    asked for them (`want_masks`) or asked for compacted streams that the
+    batch-1 cyclic kernels cannot hold (see the module doc).
 
     A tensor `symbols` is coded where it lies (CUDA: the hand-written
     kernels; CPU: their plain versions); other array types go to `device`
@@ -120,39 +176,61 @@ def device_rans_encode(symbols, quantized_cdf, cdf_length, offset,
                                   device=resolve_device(device))
     dev = symbols.device
     sym, single = _batched(symbols.to(torch.int32), 1)
-    cdf_lane, len_lane, off_lane = lane_tables(
-        quantized_cdf, cdf_length, offset, num_lanes, cyclic_channels, dev)
-    sym3, n, _ = _blocks(sym, num_lanes, off_lane)
     lanes = int(num_lanes)
-    v = sym3 - off_lane
-    maxv = len_lane - 2                          # escape slot excluded
+    k, n = sym.shape
+    steps = -(-n // lanes)
+    if _is_cyclic(lanes, cyclic_channels):
+        cdf_lane, len_lane, off_lane = lane_tables(
+            quantized_cdf, cdf_length, offset, lanes, cyclic_channels, dev)
+        sym3, _, _ = _blocks(sym, lanes, off_lane)
+        v = sym3 - off_lane
+        maxv = len_lane - 2                      # escape slot excluded
+        if not aligned and not kernels.batch1_fits(steps, dev):
+            aligned, want_masks = True, True
+        encode, encode_aligned = kernels.cyclic_encode, \
+            kernels.cyclic_encode_aligned
+        table, rows = cdf_lane, ()
+    else:
+        cdf, cdf_len, off = _tables_on(quantized_cdf, cdf_length, offset,
+                                       dev)
+        idx = _row_indexes(indexes, k, n, cyclic_channels, dev)
+        sym3, idx3 = _index_blocks(sym, idx, lanes, off[0])
+        v = sym3 - off[idx3]
+        maxv = cdf_len[idx3] - 2                 # escape slot excluded
+        encode, encode_aligned = kernels.indexed_encode, \
+            kernels.indexed_encode_aligned
+        table, rows = cdf, (idx3.contiguous(),)
     ok = ((v >= 0) & (v < maxv)).flatten(1).all(dim=1)
-    vc = torch.minimum(torch.clamp_min(v, 0), maxv - 1).contiguous()
+    args = (table, torch.minimum(torch.clamp_min(v, 0), maxv - 1)
+            .contiguous()) + rows
     masks = None
     if aligned:
-        streams, lengths, states, masks = kernels.cyclic_encode_aligned(
-            cdf_lane, vc, want_masks)
+        streams, lengths, states, masks = encode_aligned(*args, want_masks)
     else:
-        streams, lengths, states = kernels.cyclic_encode(cdf_lane, vc)
+        streams, lengths, states = encode(*args)
     nbytes = (4 + 6 * lanes + 2 * lengths.sum(dim=1)).to(torch.int32)
     out = {'streams': streams, 'lengths': lengths, 'states': states,
            'ok': ok, 'nbytes': nbytes}
     if masks is not None:
         out['masks'] = masks
     if single:
-        out = {k: t[0] for k, t in out.items()}
+        out = {key: t[0] for key, t in out.items()}
     out['n_symbols'] = n
+    out['aligned'] = aligned
     return out
 
 
 def device_rans_decode(streams, states, quantized_cdf, cdf_length, offset,
-                       n_symbols: int, num_lanes: int, cyclic_channels: int,
-                       aligned: bool = False, device=None):
+                       n_symbols: int, num_lanes: int,
+                       cyclic_channels: int | None = None,
+                       aligned: bool = False, device=None, indexes=None):
     """Decode (N, L) `streams` + (N,) `states` -- or a batch (k, N, L) +
     (k, N) -- back into flat int32 symbols (n_symbols,) / (k, n_symbols).
     Returns (symbols, valid): `valid` is true where every lane ended at
     RANS_L, which a corrupt stream cannot pass. `aligned=True` consumes the
-    time-aligned layout. Device placement as in `device_rans_encode`."""
+    time-aligned layout (pass the encode result's `aligned`). The layout
+    and `indexes` are chosen as in `device_rans_encode`; device placement
+    too."""
     from . import kernels
     if not isinstance(streams, torch.Tensor):
         streams = torch.as_tensor(np.asarray(streams).astype(np.int32),
@@ -164,23 +242,34 @@ def device_rans_decode(streams, states, quantized_cdf, cdf_length, offset,
     streams, single = _batched(streams.to(torch.int32), 2)
     states, _ = _batched(states, 1)
     lanes = int(num_lanes)
-    steps = -(-int(n_symbols) // lanes)
-    cdf_lane, len_lane, off_lane = lane_tables(
-        quantized_cdf, cdf_length, offset, lanes, cyclic_channels, dev)
+    n = int(n_symbols)
+    steps = -(-n // lanes)
     if aligned:
         if streams.shape[-1] < steps:
             raise ValueError(
                 f'aligned decode needs stream width >= steps ({steps}); got '
                 f'{streams.shape[-1]} -- compacted wire?')
-        out, xend = kernels.cyclic_decode_aligned(
-            streams[..., :steps].contiguous(), states.contiguous(),
-            cdf_lane, len_lane, off_lane, steps)
+        streams = streams[..., :steps]
+    streams, states = streams.contiguous(), states.contiguous()
+    if _is_cyclic(lanes, cyclic_channels):
+        cdf_lane, len_lane, off_lane = lane_tables(
+            quantized_cdf, cdf_length, offset, lanes, cyclic_channels, dev)
+        decode = kernels.cyclic_decode_aligned if aligned \
+            else kernels.cyclic_decode
+        out, xend = decode(streams, states, cdf_lane, len_lane, off_lane,
+                           steps)
     else:
-        out, xend = kernels.cyclic_decode(
-            streams.contiguous(), states.contiguous(), cdf_lane, len_lane,
-            off_lane, steps)
+        cdf, cdf_len, off = _tables_on(quantized_cdf, cdf_length, offset,
+                                       dev)
+        idx = _row_indexes(indexes, streams.shape[0], n, cyclic_channels,
+                           dev)
+        _, idx3 = _index_blocks(None, idx, lanes, None)
+        decode = kernels.indexed_decode_aligned if aligned \
+            else kernels.indexed_decode
+        out, xend = decode(streams, states, cdf, cdf_len, off,
+                           idx3.contiguous(), steps)
     valid = (xend == RANS_L).all(dim=1)
-    flat = out.reshape(out.shape[0], -1)[:, :int(n_symbols)]
+    flat = out.reshape(out.shape[0], -1)[:, :n]
     if single:
         return flat[0], valid[0]
     return flat, valid
@@ -198,25 +287,17 @@ def _row_lookup(cdf_lane: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
     return cdf_lane.reshape(-1).to(torch.int64)[base + col]
 
 
-def cyclic_encode_plain(cdf_lane: torch.Tensor, vc: torch.Tensor,
-                        aligned: bool = False, want_masks: bool = False):
-    """Reverse-order rANS encode of in-support values `vc` (k, T, N) int32
-    against lane rows `cdf_lane` (N, cols) int32.
-
-    Returns (streams (k, N, T) int32, lengths (k, N) int32,
-    states (k, N) int64) and, with `aligned=True`, masks (k, N, T) bool or
-    None. Compacted streams hold each lane's chunks at the front in decode
-    order (`_finish_encode`); aligned streams hold step t's chunk at
-    column t."""
-    k, steps, lanes = vc.shape
-    vcl = vc.to(torch.int64)
-    start = _row_lookup(cdf_lane, vcl)
-    freq = _row_lookup(cdf_lane, vcl + 1) - start
-    x = torch.full((k, lanes), RANS_L, dtype=torch.int64, device=vc.device)
+def _encode_plain(start: torch.Tensor, freq: torch.Tensor, aligned: bool,
+                  want_masks: bool):
+    """The reverse-order encode loop over (k, T, N) int64 chunk starts and
+    frequencies: compacted or aligned streams as the kernels give them."""
+    k, steps, lanes = start.shape
+    x = torch.full((k, lanes), RANS_L, dtype=torch.int64,
+                   device=start.device)
     chunks = torch.zeros((k, steps, lanes), dtype=torch.int64,
-                         device=vc.device)
+                         device=start.device)
     masks = torch.zeros((k, steps, lanes), dtype=torch.bool,
-                        device=vc.device)
+                        device=start.device)
     for t in range(steps - 1, -1, -1):
         st, fr = start[:, t], freq[:, t]
         renorm = x >= ((fr << 16) & _MASK32)
@@ -234,6 +315,33 @@ def cyclic_encode_plain(cdf_lane: torch.Tensor, vc: torch.Tensor,
     order = torch.sort((~masks).to(torch.uint8), dim=1, stable=True).indices
     streams = torch.take_along_dim(emitted, order, dim=1)
     return streams.transpose(1, 2).contiguous(), lengths, x
+
+
+def cyclic_encode_plain(cdf_lane: torch.Tensor, vc: torch.Tensor,
+                        aligned: bool = False, want_masks: bool = False):
+    """Reverse-order rANS encode of in-support values `vc` (k, T, N) int32
+    against lane rows `cdf_lane` (N, cols) int32.
+
+    Returns (streams (k, N, T) int32, lengths (k, N) int32,
+    states (k, N) int64) and, with `aligned=True`, masks (k, N, T) bool or
+    None. Compacted streams hold each lane's chunks at the front in decode
+    order (`_finish_encode`); aligned streams hold step t's chunk at
+    column t."""
+    vcl = vc.to(torch.int64)
+    start = _row_lookup(cdf_lane, vcl)
+    freq = _row_lookup(cdf_lane, vcl + 1) - start
+    return _encode_plain(start, freq, aligned, want_masks)
+
+
+def indexed_encode_plain(cdf: torch.Tensor, vc: torch.Tensor,
+                         idx: torch.Tensor, aligned: bool = False,
+                         want_masks: bool = False):
+    """`cyclic_encode_plain` of the general layout: value vc[i, t, j] coded
+    against row idx[i, t, j] of `cdf` (R, cols) int32; same outputs."""
+    flat = cdf.reshape(-1).to(torch.int64)
+    pos = idx.to(torch.int64) * cdf.shape[1] + vc.to(torch.int64)
+    start = flat[pos]
+    return _encode_plain(start, flat[pos + 1] - start, aligned, want_masks)
 
 
 def cyclic_decode_plain(streams: torch.Tensor, states: torch.Tensor,
@@ -272,6 +380,66 @@ def cyclic_decode_plain(streams: torch.Tensor, states: torch.Tensor,
             ptr = ptr + need.to(torch.int64)
         x = torch.where(need, ((x << 16) | chunk) & _MASK32, x)
         out[:, t] = (v + off_lane.to(torch.int64)).to(torch.int32)
+    return out, x
+
+
+def cdf_bisect(cdf: torch.Tensor, cdf_len: torch.Tensor, idx: torch.Tensor,
+               slot: torch.Tensor, steps: int | None = None) -> torch.Tensor:
+    """v with cdf[idx, v] <= slot < cdf[idx, v+1], int64: a fixed-depth
+    binary search from (lo, hi) = (0, len - 1), point lookups only. Every
+    row starts at 0 and ends at 2^16 > slot within cdf_len, and `steps` >=
+    ceil(log2(row width)) probes reach hi == lo + 1 (the kernels stop
+    there)."""
+    cols = cdf.shape[-1]
+    if steps is None:
+        steps = max(int(np.ceil(np.log2(max(int(cols), 2)))), 1)
+    flat = cdf.reshape(-1).to(torch.int64)
+    row = idx.to(torch.int64) * cols
+    lo = torch.zeros_like(row)
+    hi = torch.clamp_max(cdf_len.to(torch.int64)[idx.to(torch.int64)],
+                         cols) - 1
+    for _ in range(steps):
+        mid = (lo + hi) // 2
+        go_right = flat[row + mid] <= slot
+        lo = torch.where(go_right, mid, lo)
+        hi = torch.where(go_right, hi, mid)
+    return lo
+
+
+def indexed_decode_plain(streams: torch.Tensor, states: torch.Tensor,
+                         cdf: torch.Tensor, cdf_len: torch.Tensor,
+                         off: torch.Tensor, idx: torch.Tensor, steps: int,
+                         aligned: bool = False):
+    """`cyclic_decode_plain` of the general layout: step t of lane j
+    decodes against row idx[i, t, j] of `cdf` (R, cols), its symbol found
+    by `cdf_bisect`. Returns (symbols (k, steps, N) int32 with the row
+    offset added, final states (k, N) int64)."""
+    k, lanes, width = streams.shape
+    dev = streams.device
+    flat = cdf.reshape(-1).to(torch.int64)
+    cols = cdf.shape[1]
+    s = torch.cat([streams.to(torch.int64),
+                   torch.zeros((k, lanes, 1), dtype=torch.int64,
+                               device=dev)], dim=2)
+    x = states.to(torch.int64).clone()
+    ptr = torch.zeros((k, lanes), dtype=torch.int64, device=dev)
+    off64 = off.to(torch.int64)
+    out = torch.empty((k, steps, lanes), dtype=torch.int32, device=dev)
+    for t in range(steps):
+        rows = idx[:, t].to(torch.int64)
+        slot = x & _MASK16
+        v = cdf_bisect(cdf, cdf_len, rows, slot)
+        st = flat[rows * cols + v]
+        fr = flat[rows * cols + v + 1] - st
+        x = (fr * (x >> 16) + slot - st) & _MASK32
+        need = x < RANS_L
+        if aligned:
+            chunk = s[:, :, t]
+        else:
+            chunk = torch.gather(s, 2, ptr.clamp_max(width)[..., None])[..., 0]
+            ptr = ptr + need.to(torch.int64)
+        x = torch.where(need, ((x << 16) | chunk) & _MASK32, x)
+        out[:, t] = (v + off64[rows]).to(torch.int32)
     return out, x
 
 

@@ -255,6 +255,35 @@ int rans_encode_cyclic_i16(const int16_t* symbols, int n, int num_dists,
     return total;
 }
 
+// int16 indexed wire (the hyperprior's y-stream): int16 symbols and int16
+// per-element distribution indexes, in the device's NHWC-flat order; same
+// bitstream format as rans_encode_with_indexes.
+int rans_encode_with_indexes_i16(const int16_t* symbols,
+                                 const int16_t* indexes, int n,
+                                 const int32_t* cdfs, int cdf_stride,
+                                 const int32_t* cdf_lengths,
+                                 const int32_t* offsets, uint8_t* out,
+                                 int out_capacity) {
+    std::vector<Op> ops;
+    ops.reserve(static_cast<size_t>(n) + 16);
+    for (int i = 0; i < n; ++i) {
+        const int32_t idx = indexes[i];
+        const int32_t* cdf = cdfs + static_cast<int64_t>(idx) * cdf_stride;
+        emit_symbol_ops(ops, cdf, cdf_lengths[idx] - 2,
+                        static_cast<int64_t>(symbols[i]) - offsets[idx]);
+    }
+    RansEncState enc;
+    enc.buf.reserve(static_cast<size_t>(n) * 2 + 8);
+    for (auto it = ops.rbegin(); it != ops.rend(); ++it)
+        enc.put(it->start, it->freq);
+    enc.flush();
+    const int total = static_cast<int>(enc.buf.size());
+    if (total > out_capacity) return -1;
+    for (int i = 0; i < total; ++i)
+        out[i] = enc.buf[total - 1 - i];
+    return total;
+}
+
 }  // extern "C"
 
 namespace {
@@ -304,6 +333,21 @@ int rans_decode_cyclic_i16_coarse(const uint8_t* bytes, int n_bytes, int n,
         bytes, n_bytes, n, cdfs, cdf_stride, cdf_lengths, offsets, coarse,
         coarse_stride, out,
         [num_dists](int i) { return static_cast<int32_t>(i % num_dists); });
+}
+
+// Inverse of rans_encode_with_indexes_i16: n int16 symbols, distribution
+// indexes[i], through the coarse table.
+int rans_decode_with_indexes_i16_coarse(const uint8_t* bytes, int n_bytes,
+                                        const int16_t* indexes, int n,
+                                        const int32_t* cdfs, int cdf_stride,
+                                        const int32_t* cdf_lengths,
+                                        const int32_t* offsets,
+                                        const int16_t* coarse,
+                                        int coarse_stride, int16_t* out) {
+    return coarse_decode_core(
+        bytes, n_bytes, n, cdfs, cdf_stride, cdf_lengths, offsets, coarse,
+        coarse_stride, out,
+        [indexes](int i) { return static_cast<int32_t>(indexes[i]); });
 }
 
 }  // extern "C"

@@ -1,12 +1,14 @@
-"""Launch wrappers for the four cyclic-lane rANS CUDA kernels
-(`sc2bench_tpu_torch/csrc/rans_cyclic.cu`).
+"""Launch wrappers for the rANS CUDA kernels: the four cyclic-lane ones
+(`sc2bench_tpu_torch/csrc/rans_cyclic.cu`) and the four general per-index
+ones (`sc2bench_tpu_torch/csrc/rans_indexed.cu`).
 
 Each wrapper takes tensors on one device. For CPU tensors it runs the
 kernel's plain PyTorch version from `device.py`; for CUDA tensors it
 launches the kernel or raises -- there is no fallback. The CUDA source is
 compiled with nvcc for sm_90a into a shared library with a plain C
-interface the first time a kernel is needed, under
-`sc2bench_tpu_torch/build/`, and loaded with ctypes.
+interface (one per source) the first time a kernel is needed, under
+`sc2bench_tpu_torch/build/`, and loaded with ctypes; `build_libraries`
+runs the two compilers at once.
 
 `LAUNCHES` counts kernel launches per kernel name; a wrapper adds one where
 it launches its kernel and nowhere else, so a caller can show that a path
@@ -20,9 +22,13 @@ and the same kernel, in its global-table form, reads them from there
 any width. The batch-1 kernels (`cyclic_encode`, `cyclic_decode`) also
 stage each lane's stream row in shared memory, so they take at most
 `max_steps(decode)` steps (encode) or stream columns min(W, T) (decode),
-whatever the width; a wrapper raises beyond that. The aligned
-(`wire_batch`) kernels take any T. `aligned_group` says how many images
-share a block's tables at a given shape.
+whatever the width; a wrapper raises beyond that (`device.py` routes such
+a latent to the aligned pair, `batch1_fits`). The aligned (`wire_batch`)
+kernels take any T. `aligned_group` says how many images share a block's
+tables at a given shape.
+
+The indexed kernels read the whole CDF table (rows x cols) from device
+memory, one thread per (image, lane), and stage nothing: any T, any width.
 """
 from __future__ import annotations
 
@@ -36,17 +42,24 @@ from pathlib import Path
 
 import torch
 
-from .device import cyclic_decode_plain, cyclic_encode_plain
+from .device import (cyclic_decode_plain, cyclic_encode_plain,
+                     indexed_decode_plain, indexed_encode_plain)
 
 _PKG = Path(__file__).resolve().parents[2]
 SOURCE = _PKG / 'csrc' / 'rans_cyclic.cu'
+INDEXED_SOURCE = _PKG / 'csrc' / 'rans_indexed.cu'
 BUILD_DIR = _PKG / 'build'
 
 KERNELS = ('rans_cyclic_encode', 'rans_cyclic_decode',
            'rans_cyclic_encode_aligned', 'rans_cyclic_decode_aligned')
-LAUNCHES = dict.fromkeys(KERNELS, 0)
+INDEXED_KERNELS = ('rans_indexed_encode', 'rans_indexed_decode',
+                   'rans_indexed_encode_aligned',
+                   'rans_indexed_decode_aligned')
+ALL_KERNELS = KERNELS + INDEXED_KERNELS
+LAUNCHES = dict.fromkeys(ALL_KERNELS, 0)
 
 _lib = None
+_indexed_lib = None
 _lib_lock = threading.Lock()
 
 
@@ -68,33 +81,52 @@ def _nvcc() -> str:
     raise RuntimeError('nvcc not found: set CUDA_HOME to the CUDA toolkit')
 
 
-def build_library() -> Path:
-    """Compile `csrc/rans_cyclic.cu` (sm_90a) into a shared library named
-    by the source's hash, unless it is already built. Returns its path;
-    the compiler's output (with ptxas register counts) is kept beside it."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    lib = BUILD_DIR / f'librans_cyclic_{digest}.so'
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f'.{os.getpid()}.tmp')
-    cmd = [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
-           '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
-           '-Xptxas', '-v', '-o', str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    (BUILD_DIR / f'librans_cyclic_{digest}.log').write_text(log)
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{log}')
-    os.replace(tmp, lib)
-    return lib
+def _library_path(source: Path) -> Path:
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f'lib{source.stem}_{digest}.so'
+
+
+def _nvcc_command(source: Path, out: Path) -> list:
+    return [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a',
+            '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
+            '-Xptxas', '-v', '-o', str(out), str(source)]
+
+
+def build_libraries(sources=(SOURCE, INDEXED_SOURCE)) -> list:
+    """Compile each CUDA source (sm_90a) into a shared library named by
+    the source's hash, unless it is already built; the compilers run at
+    once. Returns the libraries' paths; each compiler's output (with
+    ptxas register counts) is kept beside its library (`.log`)."""
+    libs = [_library_path(src) for src in sources]
+    todo = [(src, lib) for src, lib in zip(sources, libs)
+            if not lib.exists()]
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for src, lib in todo:
+        tmp = lib.with_suffix(f'.{os.getpid()}.tmp')
+        procs.append((lib, tmp, subprocess.Popen(
+            _nvcc_command(src, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for lib, tmp, proc in procs:
+        log = proc.communicate()[0]
+        lib.with_suffix('.log').write_text(log)
+        if proc.returncode != 0:
+            failed.append(f'{lib.name}: nvcc failed ({proc.returncode}):\n'
+                          f'{log}')
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError('\n'.join(failed))
+    return libs
 
 
 def _library():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
+            lib = ctypes.CDLL(str(build_libraries((SOURCE,))[0]))
             p, i = ctypes.c_void_p, ctypes.c_int
             enc = [p, i, p, i, i, i, p, p, p]      # + masks?, tables, stream
             dec = [p, i, p, p, i, p, p, i, i, i, p, p]   # + tables, stream
@@ -111,6 +143,26 @@ def _library():
                 fn.restype = res
             _lib = lib
     return _lib
+
+
+def _indexed_library():
+    global _indexed_lib
+    with _lib_lock:
+        if _indexed_lib is None:
+            lib = ctypes.CDLL(str(build_libraries((INDEXED_SOURCE,))[0]))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            enc = [p, i, p, p, i, i, i, p, p, p]      # + masks?, stream
+            dec = [p, i, p, p, i, p, p, p, i, i, i, p, p]   # + stream
+            for name, args in (
+                    ('rans_indexed_encode', enc + [p]),
+                    ('rans_indexed_encode_aligned', enc + [p, p]),
+                    ('rans_indexed_decode', dec + [p]),
+                    ('rans_indexed_decode_aligned', dec + [p])):
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = i
+            _indexed_lib = lib
+    return _indexed_lib
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -152,6 +204,16 @@ def max_steps(decode: bool, device) -> int:
             _max_steps[key] = int(_library().rans_cyclic_max_steps(
                 int(decode)))
     return _max_steps[key]
+
+
+def batch1_fits(steps: int, device) -> bool:
+    """Whether the batch-1 cyclic kernels take a latent of `steps` steps on
+    `device`, encode and decode (compacted streams of width T): always on
+    the CPU, whose plain versions have no limit."""
+    device = torch.device(device)
+    if device.type != 'cuda':
+        return True
+    return steps <= min(max_steps(False, device), max_steps(True, device))
 
 
 def table_bytes(name: str, cols: int, width: int, steps: int,
@@ -303,4 +365,117 @@ def cyclic_decode_aligned(streams, states, cdf_lane, len_lane, off_lane,
     tables = _tables_buffer('rans_cyclic_decode_aligned', cdf_lane.shape[1],
                             width, int(steps), k, lanes, streams.device)
     _launch('rans_cyclic_decode_aligned', streams.device, tables, *args)
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# General per-index kernels (csrc/rans_indexed.cu)
+# ---------------------------------------------------------------------------
+
+def _launch_indexed(name: str, device: torch.device, *args) -> None:
+    fn = getattr(_indexed_library(), name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f'{name} launch failed: CUDA error {rc}')
+    LAUNCHES[name] += 1
+
+
+def _indexed_encode_args(cdf: torch.Tensor, vc: torch.Tensor,
+                         idx: torch.Tensor):
+    _require_cuda(vc)
+    k, steps, lanes = vc.shape
+    if k * lanes == 0 or steps == 0:
+        raise ValueError(f'empty encode: vc shape {tuple(vc.shape)}')
+    dev = vc.device
+    _check(vc, 'vc', torch.int32, (k, steps, lanes), dev)
+    _check(idx, 'idx', torch.int32, (k, steps, lanes), dev)
+    _check(cdf, 'cdf', torch.int32, (cdf.shape[0], cdf.shape[1]), dev)
+    streams = torch.empty((k, lanes, steps), dtype=torch.int32, device=dev)
+    lengths = torch.empty((k, lanes), dtype=torch.int32, device=dev)
+    states = torch.empty((k, lanes), dtype=torch.int64, device=dev)
+    args = (cdf.data_ptr(), cdf.shape[1], vc.data_ptr(), idx.data_ptr(), k,
+            steps, lanes, streams.data_ptr(), lengths.data_ptr(),
+            states.data_ptr())
+    return args, (streams, lengths, states)
+
+
+def indexed_encode(cdf: torch.Tensor, vc: torch.Tensor, idx: torch.Tensor):
+    """Indexed kernel 1, compacted encode: `vc` (k, T, N) int32 in-support
+    values, `idx` (k, T, N) int32 their rows of `cdf` (R, cols) int32 ->
+    (streams (k, N, T) int32 compacted in decode order, lengths (k, N)
+    int32, states (k, N) int64)."""
+    if vc.device.type == 'cpu':
+        return indexed_encode_plain(cdf, vc, idx)
+    args, outs = _indexed_encode_args(cdf, vc, idx)
+    _launch_indexed('rans_indexed_encode', vc.device, *args)
+    return outs
+
+
+def indexed_encode_aligned(cdf: torch.Tensor, vc: torch.Tensor,
+                           idx: torch.Tensor, want_masks: bool = False):
+    """Indexed kernel 3, aligned encode: as `indexed_encode`, but column t
+    of streams holds step t's chunk (0 where none). Returns
+    (streams, lengths, states, masks (k, N, T) bool or None)."""
+    if vc.device.type == 'cpu':
+        return indexed_encode_plain(cdf, vc, idx, aligned=True,
+                                    want_masks=want_masks)
+    args, (streams, lengths, states) = _indexed_encode_args(cdf, vc, idx)
+    masks = torch.empty(streams.shape, dtype=torch.bool,
+                        device=vc.device) if want_masks else None
+    _launch_indexed('rans_indexed_encode_aligned', vc.device, *args,
+                    masks.data_ptr() if masks is not None else None)
+    return streams, lengths, states, masks
+
+
+def _indexed_decode_args(streams, states, cdf, cdf_len, off, idx, steps):
+    _require_cuda(streams)
+    k, lanes, width = streams.shape
+    if k * lanes == 0 or steps <= 0:
+        raise ValueError(f'empty decode: streams shape '
+                         f'{tuple(streams.shape)}, steps {steps}')
+    dev = streams.device
+    rows = cdf.shape[0]
+    _check(streams, 'streams', torch.int32, (k, lanes, width), dev)
+    _check(states, 'states', torch.int64, (k, lanes), dev)
+    _check(cdf, 'cdf', torch.int32, (rows, cdf.shape[1]), dev)
+    _check(cdf_len, 'cdf_len', torch.int32, (rows,), dev)
+    _check(off, 'off', torch.int32, (rows,), dev)
+    _check(idx, 'idx', torch.int32, (k, int(steps), lanes), dev)
+    out = torch.empty((k, steps, lanes), dtype=torch.int32, device=dev)
+    xend = torch.empty((k, lanes), dtype=torch.int64, device=dev)
+    args = (streams.data_ptr(), width, states.data_ptr(), cdf.data_ptr(),
+            cdf.shape[1], cdf_len.data_ptr(), off.data_ptr(), idx.data_ptr(),
+            k, int(steps), lanes, out.data_ptr(), xend.data_ptr())
+    return args, (out, xend)
+
+
+def indexed_decode(streams, states, cdf, cdf_len, off, idx, steps: int):
+    """Indexed kernel 2, compacted decode: streams (k, N, W) int32, states
+    (k, N) int64, `idx` (k, T, N) int32 rows of `cdf` -> (symbols (k, T, N)
+    int32 with the row offsets added, final states (k, N) int64). A read
+    past a lane's row yields 0."""
+    if streams.device.type == 'cpu':
+        return indexed_decode_plain(streams, states, cdf, cdf_len, off, idx,
+                                    steps)
+    args, outs = _indexed_decode_args(streams, states, cdf, cdf_len, off,
+                                      idx, steps)
+    _launch_indexed('rans_indexed_decode', streams.device, *args)
+    return outs
+
+
+def indexed_decode_aligned(streams, states, cdf, cdf_len, off, idx,
+                           steps: int):
+    """Indexed kernel 4, aligned decode: streams (k, N, T) int32 with step
+    t's chunk at column t; outputs as `indexed_decode`."""
+    if streams.device.type == 'cpu':
+        return indexed_decode_plain(streams, states, cdf, cdf_len, off, idx,
+                                    steps, aligned=True)
+    if streams.shape[-1] != steps:
+        raise ValueError(f'aligned streams must be {steps} wide, got '
+                         f'{streams.shape[-1]}')
+    args, outs = _indexed_decode_args(streams, states, cdf, cdf_len, off,
+                                      idx, steps)
+    _launch_indexed('rans_indexed_decode_aligned', streams.device, *args)
     return outs

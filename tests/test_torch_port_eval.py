@@ -91,8 +91,10 @@ def test_registry_maps_the_jax_package_and_names_what_it_knows(caplog):
     assert port_module_name('sc2bench_tpu_x') == 'sc2bench_tpu_x'
     assert get('model', 'splittable_resnet') is splittable_resnet
     assert get('model', 'resnet') is resnet_builder
-    with pytest.raises(KeyError, match='FPBasedResNetBottleneck'):
-        get_layer('SHPBasedResNetBottleneck')
+    with pytest.raises(KeyError, match='MSHPBasedResNetBottleneck'):
+        get_layer('larger_resnet_bottleneck')
+    assert type(get_layer('SHPBasedResNetBottleneck')).__name__ \
+        == 'SHPBasedResNetBottleneck'
     with pytest.raises(KeyError, match='splittable_resnet'):
         load_classification_model({'key': 'no_such_model'}, device='cpu')
 

@@ -411,3 +411,243 @@ def test_wrappers_refuse_bad_arguments_on_the_card():
                               .transpose(1, 2))
     with pytest.raises(ValueError, match='on'):
         kernels.cyclic_encode(cdf_lane.cpu(), vc)
+
+
+# ---- the batch-1 routing beyond the cyclic kernels' limit -----------------
+
+def _fp_runtime(bch=4, target=16):
+    from sc2bench_tpu_torch.models.backbone import splittable_resnet
+    from sc2bench_tpu_torch.models.runtime import SplitClassifierRuntime
+    torch.manual_seed(0)
+    model = splittable_resnet(
+        {'key': 'FPBasedResNetBottleneck',
+         'kwargs': {'num_bottleneck_channels': bch,
+                    'num_target_channels': target}},
+        stage_sizes=(1, 1, 1, 1), num_classes=5, device='cpu')
+    rt = SplitClassifierRuntime(model, device='cpu')
+    rt.update()
+    return rt.eval()
+
+
+def test_batch1_latent_beyond_the_limit_is_coded_aligned(monkeypatch):
+    """With the batch-1 kernels' limit stubbed at 40 steps, a compacted
+    cyclic encode of 50 steps is coded in the aligned layout at k = 1 and
+    says so: its packed bytes equal the compacted plain version's and the
+    numpy oracle's, and it decodes. A latent within the limit stays
+    compacted. The runtime serves such images at batch 1 with the sizes,
+    packed wires and logits of an unstubbed run, and no escape."""
+    cdf, cdf_length, offset = _tables(8, 21, seed=3)
+    lanes, n = 48, 48 * 50 - 5
+    sym = _symbols(cdf, cdf_length, offset, n, seed=4)
+    ref = td.device_rans_encode(torch.from_numpy(sym), cdf, cdf_length,
+                                offset, num_lanes=lanes, cyclic_channels=8)
+    assert not ref['aligned']
+    rt = _fp_runtime()
+    images = [torch.randn((1, 3, 64, 64), generator=torch.Generator()
+                          .manual_seed(s)) for s in range(3)]
+
+    def serve(**kw):
+        rt.clear_analysis()
+        rt.activate_analysis()
+        rt.escapes = {'ok': 0, 'valid': 0}
+        logits = rt.stream_deploy_device(images, **kw)
+        return logits, list(rt.analyzers[0].file_size_list), \
+            dict(rt.escapes)
+
+    want_logits, want_sizes, _ = serve()
+    want_pulled = serve(pull_wire=True)[1]
+    want_wire = rt._pull_device_wire(rt.encode_device_wire(images[0]))
+    monkeypatch.setattr(kernels, 'batch1_fits',
+                        lambda steps, device: steps <= 40)
+    enc = td.device_rans_encode(torch.from_numpy(sym), cdf, cdf_length,
+                                offset, num_lanes=lanes, cyclic_channels=8)
+    assert enc['aligned'] and enc['masks'].shape == enc['streams'].shape
+    o_streams, o_states = td.numpy_oracle_encode(
+        sym, np.arange(n) % 8, cdf, cdf_length, offset, num_lanes=lanes,
+        cyclic_channels=8)
+    oracle = b''.join(
+        [np.asarray([lanes, 0], np.uint16).tobytes(),
+         np.asarray([len(s) for s in o_streams], np.uint16).tobytes(),
+         o_states.astype(np.uint32).tobytes()]
+        + [np.asarray(s, np.uint16).tobytes() for s in o_streams])
+    assert td.pack_stream_aligned(enc) == td.pack_stream(ref) == oracle
+    dec, valid = td.device_rans_decode(
+        enc['streams'], enc['states'], cdf, cdf_length, offset, n_symbols=n,
+        num_lanes=lanes, cyclic_channels=8, aligned=enc['aligned'])
+    assert bool(valid)
+    np.testing.assert_array_equal(dec.numpy(), sym)
+    short = td.device_rans_encode(torch.from_numpy(sym[:lanes * 40]), cdf,
+                                  cdf_length, offset, num_lanes=lanes,
+                                  cyclic_channels=8)
+    assert not short['aligned'] and 'masks' not in short
+    # the runtime: a 16x16x4 latent on its auto lanes is beyond 40 steps
+    ops = rt.encode_device_wire(images[0])
+    assert ops['aligned'] and rt._pull_device_wire(ops) == want_wire
+    logits, sizes, escapes = serve()
+    assert sizes == want_sizes and escapes == {'ok': 0, 'valid': 0}
+    for a, b in zip(logits, want_logits):
+        assert torch.equal(a, b)
+    assert serve(pull_wire=True)[1] == want_pulled
+
+
+# ---- the general per-index kernels ----------------------------------------
+
+def _gaussian_rows(n, seed, tails=False):
+    """Default Gaussian tables, rows spread over all 64 (row 0 of 5
+    entries and row 63 of 3,133 among them), symbols from each row's
+    distribution; with `tails`, every fifth symbol uniform over the row's
+    support, which codes many frequency-1 tail symbols."""
+    from sc2bench_tpu_torch.ops.entropy.tables import build_gaussian_tables
+    t = build_gaussian_tables()
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, 64, n).astype(np.int32)
+    idx[:2] = (0, 63)
+    u = rng.integers(0, 1 << 16, n)
+    vals = np.empty(n, np.int64)
+    for r in np.unique(idx):
+        m = idx == r
+        row = t.quantized_cdf[r][:t.cdf_length[r]]
+        vals[m] = np.clip(np.searchsorted(row, u[m], side='right') - 1, 0,
+                          t.cdf_length[r] - 3)
+    if tails:
+        pick = np.arange(n) % 5 == 0
+        vals[pick] = rng.integers(0, t.cdf_length[idx[pick]] - 2)
+    return t, idx, (vals + t.offset[idx]).astype(np.int32)
+
+
+# (k, lanes, n): the flagship y (512 lanes x 142 steps) at k = 1 and 8,
+# lanes not a multiple of 32 with n not a multiple of the lanes, and
+# T = 4,000 (beyond the batch-1 cyclic limit)
+INDEXED_CASES = [(1, 512, 72600), (8, 512, 72600), (3, 100, 2345),
+                 (2, 40, 40 * 4000 - 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('k,lanes,n', INDEXED_CASES)
+def test_indexed_kernels_equal_plain_versions_on_the_card(k, lanes, n):
+    dev = _card()
+    cases = [_gaussian_rows(n, seed=s, tails=s % 2 == 1) for s in range(k)]
+    t = cases[0][0]
+    idx = np.stack([c[1] for c in cases])
+    rows = np.stack([c[2] for c in cases])
+    cdf, cdf_len, off = (torch.from_numpy(a).to(dev) for a in (
+        t.quantized_cdf, t.cdf_length, t.offset))
+    sym3, idx3 = td._index_blocks(torch.from_numpy(rows).to(dev),
+                                  torch.from_numpy(idx).to(dev), lanes,
+                                  off[0])
+    vc = (sym3 - off[idx3]).contiguous()
+    idx3 = idx3.contiguous()
+    steps = vc.shape[1]
+    kernels.reset_launches()
+    for aligned in (False, True):
+        plain = td.indexed_encode_plain(cdf, vc, idx3, aligned=aligned,
+                                        want_masks=aligned)
+        got = (kernels.indexed_encode_aligned(cdf, vc, idx3, True) if aligned
+               else kernels.indexed_encode(cdf, vc, idx3))
+        for a, b in zip(plain, got):
+            assert torch.equal(a, b)
+        dec = kernels.indexed_decode_aligned if aligned \
+            else kernels.indexed_decode
+        streams, states = got[0], got[2]
+        bad = states.clone()
+        bad[k - 1, lanes // 3] ^= 0x5A5A
+        decoded = []
+        for st in (states, bad):
+            out, xend = dec(streams, st, cdf, cdf_len, off, idx3, steps)
+            pout, pxend = td.indexed_decode_plain(
+                streams, st, cdf, cdf_len, off, idx3, steps,
+                aligned=aligned)
+            torch.cuda.synchronize()
+            assert torch.equal(out, pout) and torch.equal(xend, pxend)
+            decoded.append((out, xend))
+        (out, xend), (_, xbad) = decoded
+        assert bool((xend == td.RANS_L).all())
+        np.testing.assert_array_equal(
+            out.reshape(k, -1)[:, :n].cpu().numpy(), rows)
+        assert not bool((xbad[k - 1] == td.RANS_L).all())
+        if not aligned:
+            for r in range(k):
+                o_streams, o_states = td.numpy_oracle_encode(
+                    rows[r], idx[r], t.quantized_cdf, t.cdf_length,
+                    t.offset, num_lanes=lanes)
+                np.testing.assert_array_equal(states[r].cpu().numpy(),
+                                              o_states)
+                wire = td.pack_stream({'streams': streams[r],
+                                       'lengths': got[1][r],
+                                       'states': states[r]})
+                packed, _ = td.unpack_stream(wire)
+                assert [list(packed[j, :len(s)])
+                        for j, s in enumerate(o_streams)] == o_streams
+    assert [kernels.LAUNCHES[name]
+            for name in kernels.INDEXED_KERNELS] == [1, 2, 1, 2]
+
+
+@pytest.mark.cuda
+def test_indexed_wrappers_launch_or_raise_on_the_card():
+    dev = _card()
+    cdf = torch.zeros((4, 9), dtype=torch.int32, device=dev)
+    vc = torch.zeros((1, 4, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match='dtype'):
+        kernels.indexed_encode(cdf, vc, vc.to(torch.int64))
+    with pytest.raises(ValueError, match='shape'):
+        kernels.indexed_encode(cdf, vc, vc[:, :3].contiguous())
+    with pytest.raises(ValueError, match='wide'):
+        kernels.indexed_decode_aligned(
+            torch.zeros((1, 8, 5), dtype=torch.int32, device=dev),
+            torch.zeros((1, 8), dtype=torch.int64, device=dev), cdf,
+            torch.zeros(4, dtype=torch.int32, device=dev),
+            torch.zeros(4, dtype=torch.int32, device=dev), vc, 4)
+
+
+@pytest.mark.cuda
+def test_batch1_serves_a_latent_beyond_the_kernel_limit_on_the_card():
+    """A 320x320 image at num_lanes=24: a 79x79x24 latent of 6,241 steps,
+    beyond the batch-1 kernels' limit, served by `stream_deploy_device` at
+    batch 1 through the aligned pair at k = 1: the wire equals the plain
+    version's and the numpy oracle's, and the logits equal `wire_batch=1`
+    and the decoder on the encoder's symbols."""
+    dev = _card()
+    from sc2bench_tpu_torch.models.backbone import splittable_resnet
+    from sc2bench_tpu_torch.models.runtime import SplitClassifierRuntime
+    torch.manual_seed(0)
+    model = splittable_resnet(
+        {'key': 'FPBasedResNetBottleneck',
+         'kwargs': {'num_bottleneck_channels': 24,
+                    'num_target_channels': 64}},
+        stage_sizes=(1, 1, 1, 1), num_classes=10, device=dev)
+    with torch.no_grad():
+        model.bottleneck_layer.encoder[-1].weight.mul_(0.5)
+    rt = SplitClassifierRuntime(model, device=dev)
+    rt.update()
+    rt.eval()
+    x = torch.randn((1, 3, 320, 320), generator=torch.Generator()
+                    .manual_seed(1)).to(dev)
+    flat, shape = rt._symbols_nhwc(x)
+    assert shape == (79, 79, 24)
+    assert not kernels.batch1_fits(79 * 79, dev)
+    ops = rt.encode_device_wire(x, num_lanes=24)
+    assert ops['aligned'] and bool(ops['ok'])
+    t = rt.codec.tables
+    tables = (t.quantized_cdf, t.cdf_length, t.offset)
+    sym = flat.reshape(-1).cpu()
+    plain = td.device_rans_encode(sym, *tables, num_lanes=24,
+                                  cyclic_channels=24)
+    wire = rt._pull_device_wire(ops)
+    assert wire == td.pack_stream(plain)
+    o_streams, o_states = td.numpy_oracle_encode(
+        sym.numpy(), np.arange(sym.numel()) % 24, *tables, num_lanes=24,
+        cyclic_channels=24)
+    np.testing.assert_array_equal(plain['states'].numpy(), o_states)
+    kernels.reset_launches()
+    rt.activate_analysis()
+    rt.escapes = {'ok': 0, 'valid': 0}
+    logits = rt.stream_deploy_device([x], num_lanes=24)
+    assert rt.escapes == {'ok': 0, 'valid': 0}
+    assert kernels.LAUNCHES['rans_cyclic_encode_aligned'] == 1
+    assert kernels.LAUNCHES['rans_cyclic_decode_aligned'] == 1
+    assert kernels.LAUNCHES['rans_cyclic_encode'] == 0
+    again = rt.stream_deploy_device([x], num_lanes=24, wire_batch=1)
+    assert torch.equal(logits[0], again[0])
+    with torch.no_grad():
+        direct = rt._decode_tail(flat, shape)
+    assert torch.allclose(logits[0], direct, rtol=1e-5, atol=1e-5)

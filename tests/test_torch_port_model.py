@@ -252,7 +252,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     """Every module of sc2bench_tpu_torch imports with jax, flax and
     sc2bench_tpu blocked, and the classification CLI tests, and trains
     then tests, a config that lists the JAX package's modules as
-    dependencies."""
+    dependencies; with an MSHP student it tests on the device wire. One
+    thread: the suite runs this beside other workers."""
     code = r'''
 import importlib, json, pkgutil, sys
 class Block:
@@ -275,12 +276,23 @@ for extra in (['-test_only'], []):
                 'cpu', *extra])
     assert out['summaries'][0]['num_samples'] == 4, out
 assert out['best'] is not None
+mshp = {'key': 'MSHPBasedResNetBottleneck',
+        'kwargs': {'num_bottleneck_channels': 8, 'num_target_channels': 256,
+                   'num_latent_channels': 4}}
+over['models']['student_model'] = {
+    'kwargs': {**small, 'bottleneck_config': mshp}}
+out = main(['--config', 'configs/sample/tiny_entropic_student.yaml',
+            '--json', json.dumps({**over, 'deploy_wire': 'device'}),
+            '-student_only', '-test_only', '--device', 'cpu'])
+assert out['engine'].runtime.hyper, out
+assert out['summaries'][0]['num_samples'] == 4, out
 bad = [m for m in sys.modules
        if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sc2bench_tpu')]
 assert not bad, bad
 print(len(names))
 '''
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, 'OMP_NUM_THREADS': '1'})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 28
+    assert int(out.stdout.strip().splitlines()[-1]) >= 29

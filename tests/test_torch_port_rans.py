@@ -252,11 +252,27 @@ def test_flagship_lane_layout():
     assert (lanes, -(-n // lanes)) == (384, 190)
 
 
-def test_general_path_is_not_ported():
-    cdf, cdf_length, offset, _, sym = _case(8, 100)
-    with pytest.raises(NotImplementedError):
-        td.device_rans_encode(torch.from_numpy(sym), cdf, cdf_length,
-                              offset, num_lanes=12, cyclic_channels=8)
+@pytest.mark.parametrize('aligned', [False, True],
+                         ids=['compacted', 'aligned'])
+def test_non_cyclic_lanes_take_the_general_path_equal_to_jax(aligned):
+    """12 lanes over C = 8 is not a cyclic layout: it codes through the
+    general per-index path (position p on row p mod 8, as the JAX package
+    codes it), bytes equal to JAX's XLA scan, and decodes."""
+    cdf, cdf_length, offset, idx, sym = _case(8, 100)
+    got = td.device_rans_encode(torch.from_numpy(sym), cdf, cdf_length,
+                                offset, num_lanes=12, cyclic_channels=8,
+                                aligned=aligned, want_masks=aligned)
+    want = _jax_encode(sym, idx, (cdf, cdf_length, offset), 12, 8,
+                       aligned=aligned)
+    pack, jpack = (td.pack_stream_aligned, jd.pack_stream_aligned) \
+        if aligned else (td.pack_stream, jd.pack_stream)
+    assert pack(got) == jpack(want)
+    assert int(got['nbytes']) == int(want['nbytes'])
+    dec, valid = td.device_rans_decode(
+        got['streams'], got['states'], cdf, cdf_length, offset,
+        n_symbols=100, num_lanes=12, cyclic_channels=8, aligned=aligned)
+    assert bool(valid)
+    np.testing.assert_array_equal(dec.numpy(), sym)
 
 
 def test_cpu_tensors_take_the_plain_version():
