@@ -98,9 +98,38 @@ which fails loudly with a nonzero exit:
     steps each (batch 32) and 8 test images on the device wire: stage 1
     must leave layer2-4 and the BN statistics alone, stage 2 g_a, h_a,
     h_s and the density; img/s and peak memory per stage;
-11. print the kernels line (all eight kernels; it fails if one never
-    launched on its path or differs from its plain version), the card's
-    name and power limit, and last `{"ok": true, "device": {...}}`.
+11. fine-tuning serving at full width: `entropic_classifier(resnet50,
+    split, 1000)` with seeded random weights (not scaled to fit the
+    support) at each configured split (layer1-4, avgpool), tables built,
+    8 of phase 3's float images through `stream_deploy` (the host wire;
+    JAX serves this family on no other): no kernel may launch; each
+    image's accounted size must equal its host-wire object's and be
+    within one byte of `rt.encode(x)`'s (the channel-major coder codes
+    the same symbols in another order); its logits equal
+    `rt.decode(**rt.encode(x))` (1e-5) and the 'finetune' forward (rtol
+    = atol = 2e-4); `stream_deploy_device` must raise ValueError. Per
+    split: the latent shape, symbols an image, the share out of support,
+    KB an image, host coding ms an image and img/s;
+12. the CLI on both families at the configs' batch 256 (synthetic 224 px
+    loaders of 1000 classes): the fine-tuning config
+    `resnet50-eb_after_layer1-beta1.0e-5.yaml`, two epochs of two steps
+    (`grad_accum_step: 2`, one update an epoch; the tables built after
+    epoch 1, epoch 2 in the 'finetune' mode), then 8 test images on the
+    host wire (no kernel, sizes equal a direct `stream_deploy`, BN
+    statistics unchanged under `train_bn: false`); the CR+BQ config
+    `resnet50-bq12ch_from_resnet50.yaml` (its one stage, two steps, a
+    random teacher), which must leave layer2-4, every BN statistic and
+    the teacher unchanged and move the encoder, then 8 test images
+    through the plain forward with no data size, as in JAX; then those
+    images through the config's `SplitClassifier` wrapper
+    (`SimpleQuantizer(8)`, a 12x28x28 latent): KB an image, and the
+    8-bit round trip within half a quantization step (and float32
+    rounding). img/s and peak memory per stage;
+13. print the kernels line (all eight kernels; it fails if one never
+    launched on its path or differs from its plain version; the count of
+    phases 11-12 beside, 0 each), the card's name and power limit, and
+    last `{"ok": true, "device": {...}}`. Every phase prints its
+    seconds.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 with an error before printing any result.
@@ -152,6 +181,15 @@ MSHP_BATCH1 = FP_BATCH1 + ('rans_indexed_encode', 'rans_indexed_decode')
 BIG_HW = 2584
 END_TO_END_CONFIG = ('configs/ilsvrc2012/supervised_compression/end-to-end/'
                      'splitable_resnet50-fp-beta1.024e-7.yaml')
+# phases 11-12: the fine-tuning and CR+BQ families
+FT_SPLITS = ('layer1', 'layer2', 'layer3', 'layer4', 'avgpool')
+N_FT = 8
+FT_CONFIG = ('configs/ilsvrc2012/supervised_compression/fine-tuning/'
+             'resnet50-eb_after_layer1-beta1.0e-5.yaml')
+BQ_CONFIG = ('configs/ilsvrc2012/supervised_compression/ghnd-bq/'
+             'resnet50-bq12ch_from_resnet50.yaml')
+# the configs' batch; two steps an epoch
+N_BQ_TRAIN, BQ_BATCH, N_BQ_TEST = 512, 256, 8
 # phase 7: synthetic 224x224 loaders, 1000 classes
 N_TRAIN, N_VAL, TRAIN_BATCH, N_TRAIN_TEST, N_E2E_TEST = 64, 32, 32, 16, 8
 # H100 SXM published peaks: HBM bytes/s, and
@@ -250,6 +288,21 @@ def build_model(torch, device, seed, bottleneck=24, target=256,
          'kwargs': {'num_bottleneck_channels': bottleneck,
                     'num_target_channels': target}},
         stage_sizes=stage_sizes, num_classes=classes, device=device)
+    randomize_weights(torch, model, seed, device)
+    with torch.no_grad():
+        # halve the last encoder conv: the latent (std ~0.9 on unit-normal
+        # images) then stays inside the +-10 support of fresh quantiles,
+        # as a trained model's latent does
+        bneck = model.bottleneck_layer
+        last = bneck.encoder[-1] if hasattr(bneck, 'encoder') \
+            else bneck.g_a[-1]
+        last.weight.mul_(0.5)
+    return model
+
+
+def randomize_weights(torch, model, seed, device):
+    """He-normal convolutions, BN affine and statistics near identity (bn3
+    scales not zero), from a CPU generator seeded with `seed`."""
     gen = torch.Generator(device='cpu').manual_seed(seed)
 
     def rand(shape, lo, hi):
@@ -268,13 +321,6 @@ def build_model(torch, device, seed, bottleneck=24, target=256,
                 m.bias.copy_(rand(m.bias.shape, -0.1, 0.1))
                 m.running_mean.copy_(rand(m.running_mean.shape, -0.1, 0.1))
                 m.running_var.copy_(rand(m.running_var.shape, 0.5, 1.5))
-        # halve the last encoder conv: the latent (std ~0.9 on unit-normal
-        # images) then stays inside the +-10 support of fresh quantiles,
-        # as a trained model's latent does
-        bneck = model.bottleneck_layer
-        last = bneck.encoder[-1] if hasattr(bneck, 'encoder') \
-            else bneck.g_a[-1]
-        last.weight.mul_(0.5)
     return model
 
 
@@ -1105,9 +1151,9 @@ def recording(torch, base, records):
     return Recording
 
 
-def train_cli(torch, kernels, config, over, n_test):
-    """One train-then-test CLI run on the device wire; returns its output,
-    the stage records, the launches of its test and the test images."""
+def train_cli(torch, kernels, config, over, n_test, wire='device'):
+    """One train-then-test CLI run on `wire`; returns its output, the
+    stage records, the launches of its test and the test images."""
     import sc2bench_tpu_torch.train.engine as engine_module
     from sc2bench_tpu_torch.tasks.image_classification import main as cli
     records = []
@@ -1119,7 +1165,7 @@ def train_cli(torch, kernels, config, over, n_test):
         kernels.reset_launches()
         t0 = time.perf_counter()
         out = cli(['--config', os.path.join(REPO, config), '--json',
-                   json.dumps({**over, 'deploy_wire': 'device'}),
+                   json.dumps({**over, 'deploy_wire': wire}),
                    '-student_only'])
         wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
@@ -1161,7 +1207,7 @@ def check_test_of_training(torch, kernels, run, n_test, tag,
     return escapes
 
 
-def log_stages(run, tag, phase='phase 7'):
+def log_stages(run, tag, phase='phase 7', wire='device'):
     for rec in run['records']:
         steps = rec['steps']
         for i, (loss, _, _) in ((0, steps[0]), (len(steps) - 1, steps[-1])):
@@ -1175,7 +1221,7 @@ def log_stages(run, tag, phase='phase 7'):
             f'over steps 2-{len(steps)} (first step {steps[0][1]:.3f} s); '
             f'peak memory {rec["peak"] / 2 ** 30:.3f} GiB')
     res, summary = run['result'], run['summaries'][0]
-    log(f'{phase}: {tag} test, device wire: acc1 {res["acc1"]}, acc5 '
+    log(f'{phase}: {tag} test, {wire} wire: acc1 {res["acc1"]}, acc5 '
         f'{res["acc5"]}, data size {summary}, escapes {run["escapes"]}, '
         f'launches {run["launches"]}; CLI wall {run["wall"]:.2f} s')
 
@@ -1565,6 +1611,223 @@ def mshp_train_phase(torch, kernels, model):
     return run['launches']
 
 
+def out_of_support(symbols, tables):
+    """Share of NHWC symbols outside their channel's CDF support (coded
+    through the host coder's bypass)."""
+    value = symbols.astype(np.int64) - tables.offset
+    return float(np.mean((value < 0) | (value >= tables.cdf_length - 2)))
+
+
+def finetune_serve_phase(torch, kernels, images):
+    """Phase 11: an `entropic_classifier(resnet50, split, 1000)` with
+    seeded random weights at each configured split, served on the host
+    wire (`stream_deploy`). Returns the launch counts of each split."""
+    from sc2bench_tpu_torch.analysis import get_binary_object_size
+    from sc2bench_tpu_torch.models.entropic import entropic_classifier
+    from sc2bench_tpu_torch.models.runtime import SplitClassifierRuntime
+    device = images[0].device
+    launches = {}
+    for i, split in enumerate(FT_SPLITS):
+        torch.manual_seed(100 + i)
+        model = randomize_weights(torch, entropic_classifier(
+            'resnet50', split, 1000, device=device), 100 + i, device)
+        rt = SplitClassifierRuntime(model, device=device)
+        t0 = time.perf_counter()
+        rt.update()
+        t_update = time.perf_counter() - t0
+        rt.eval()
+        rt.stream_deploy(images[:1])        # cuDNN set-up, not counted
+        rt.clear_analysis()
+        rt.activate_analysis()
+        timings = {}
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = rt.stream_deploy(images, timings=timings)
+        wall = time.perf_counter() - t0
+        launches[split] = dict(kernels.LAUNCHES)
+        check(all(v == 0 for v in launches[split].values()),
+              f'phase 11 {split}: the host wire launched {launches[split]}')
+        sizes = list(rt.analyzers[0].file_size_list)
+        summary = rt.summarize()[0]
+        check(len(logits) == len(images) == len(sizes),
+              f'phase 11 {split}: {len(logits)} results, {len(sizes)} sizes')
+        worst_dec = worst_ft = 0.0
+        oos, enc_bytes = [], []
+        for x, lg, size in zip(images, logits, sizes):
+            check(tuple(lg.shape) == (1, 1000)
+                  and bool(torch.isfinite(lg).all()),
+                  f'phase 11 {split}: bad logits {tuple(lg.shape)}')
+            sym = rt.encode_device(x)['symbols'].cpu().numpy()
+            oos.append(out_of_support(sym, rt.codec.tables))
+            wire = {'strings': [rt.codec.compress_wire(sym)],
+                    'shape': tuple(sym.shape[1:3])}
+            check(get_binary_object_size(wire) == size,
+                  f'phase 11 {split}: accounted {size} KB, the host wire '
+                  f'object is {get_binary_object_size(wire)} KB')
+            compressed = rt.encode(x)
+            # the channel-major coder codes the same symbols in another
+            # order: the final rANS state may take one byte more or less
+            enc_bytes.append(round(1024 * (get_binary_object_size(compressed)
+                                           - size)))
+            check(abs(enc_bytes[-1]) <= 1, f'phase 11 {split}: rt.encode '
+                  f'size differs from the host wire by {enc_bytes[-1]} B')
+            with torch.no_grad():
+                worst_dec = max(worst_dec, float(
+                    (lg - rt.decode(**compressed)).abs().max()))
+                ft = model(x, mode='finetune')
+            check(torch.allclose(lg, ft, rtol=2e-4, atol=2e-4),
+                  f'phase 11 {split}: logits differ from the finetune '
+                  f'forward by {float((lg - ft).abs().max()):.3e}')
+            worst_ft = max(worst_ft, float((lg - ft).abs().max()))
+        check(worst_dec <= 1e-5, f'phase 11 {split}: logits differ from '
+              f'rt.decode(**rt.encode(x)) by {worst_dec:.3e}')
+        try:
+            rt.stream_deploy_device(images[:1])
+        except ValueError as e:
+            raised = str(e)
+        else:
+            raised = None
+        check(raised is not None,
+              f'phase 11 {split}: stream_deploy_device did not raise')
+        n = len(images)
+        h, w, c = sym.shape[1:]
+        log(f'phase 11: {split}: latent {h}x{w}x{c} ({h * w * c} symbols an '
+            f'image), out of support {100 * np.mean(oos):.4f}% (max '
+            f'{100 * max(oos):.4f}%), {summary["mean"]:.6f} KB an image (std '
+            f'{summary["std"]:.6f}), host coding '
+            f'{1e3 * timings.get("host_code", 0.0) / n:.3f} ms an image '
+            f'(wait {1e3 * timings.get("d2h_sync", 0.0) / n:.3f}, decode '
+            f'dispatch {1e3 * timings.get("decode_dispatch", 0.0) / n:.3f}), '
+            f'{n / wall:.2f} img/s over {n} images; tables {c} rows built in '
+            f'{t_update:.2f} s; rt.encode sizes minus the host wire: '
+            f'{enc_bytes} B; max |logit diff| vs rt.decode {worst_dec:.3e}, '
+            f'vs the finetune forward {worst_ft:.3e}; stream_deploy_device '
+            f'raises ValueError({raised!r})')
+        del model, rt
+        torch.cuda.empty_cache()
+    return launches
+
+
+def frozen_and_buffers(engine, prefixes=('layer2', 'layer3', 'layer4')):
+    """The student's keys under `prefixes` and its buffers."""
+    student = engine.student
+    buffers = {k for k, _ in student.named_buffers()}
+    return [k for k in student.state_dict()
+            if k.split('.')[0] in prefixes or k in buffers]
+
+
+def bq_phase(torch, kernels):
+    """Phase 12: the CLI on a fine-tuning config (train then test on the
+    host wire) and on the bq12ch CR+BQ config (stage 1, then the plain
+    test), then the bq12ch student served through its `SplitClassifier`
+    wrapper. Returns the launch counts of the two tests and the
+    wrapper's run."""
+    from sc2bench_tpu_torch.config import load_config
+    from sc2bench_tpu_torch.models.wrapper import wrap_model
+    loaders = {'train_data_loader': synthetic_split(
+        N_BQ_TRAIN, BQ_BATCH, seed=1000, shuffle=True, drop_last=True),
+        'val_data_loader': synthetic_split(N_VAL, TRAIN_BATCH, seed=2000)}
+    test = {'test_data_loader': synthetic_split(N_BQ_TEST, 1, seed=0)}
+    steps = N_BQ_TRAIN // BQ_BATCH
+    # fine-tuning: epoch 1 in the 'train' mode, the tables built after
+    # it, epoch 2 in the 'finetune' mode; grad_accum_step 2
+    ft = train_cli(torch, kernels, FT_CONFIG, {
+        'train': {**loaders, 'num_epochs': 2, 'epoch_to_update': 1},
+        'test': test}, N_BQ_TEST, wire='host')
+    got = [(r['name'], len(r['steps'])) for r in ft['records']]
+    check(got == [('train', 2 * steps)], f'fine-tuning: stages {got}')
+    rt = ft['engine'].runtime
+    check(rt.bottleneck_updated, 'fine-tuning: tables not built')
+    s0, s1 = ft['records'][0]['student'], snapshot(ft['engine'].student)
+    buffers = {k for k, _ in ft['engine'].student.named_buffers()}
+    moved = changed(s0, s1, sorted(buffers))
+    check(not moved, f'fine-tuning (train_bn false) changed BN statistics: '
+          f'{moved[:3]}')
+    check(changed(s0, s1, [k for k in s0 if k.startswith('base.layer1.')]),
+          'fine-tuning left layer1 unchanged')
+    check(all(v == 0 for v in ft['launches'].values()),
+          f'fine-tuning test launched {ft["launches"]}')
+    check(ft['summaries'][0]['num_samples'] == N_BQ_TEST,
+          f'fine-tuning summary {ft["summaries"]}')
+    sizes = list(rt.analyzers[0].file_size_list)
+    rt.clear_analysis()
+    rt.stream_deploy(ft['images'])
+    check(list(rt.analyzers[0].file_size_list) == sizes,
+          'fine-tuning: CLI sizes differ from a direct stream_deploy')
+    ft['escapes'] = 'none (host wire)'
+    log_stages(ft, 'fine-tuning layer1', phase='phase 12', wire='host')
+    # CR+BQ: stage 1 (hints, layer2-4 frozen); no codec, no data size
+    bq = train_cli(torch, kernels, BQ_CONFIG, {
+        'allow_missing_teacher': True,
+        'train': {**loaders, 'stage1': {'num_epochs': 1}}, 'test': test},
+        N_BQ_TEST, wire='host')
+    got = [(r['name'], len(r['steps'])) for r in bq['records']]
+    check(got == [('stage1', steps)], f'bq12ch: stages {got}')
+    engine = bq['engine']
+    check(engine.runtime.codec is None
+          and not engine.runtime.bottleneck_updated,
+          'bq12ch: the runtime has a codec')
+    s0, s1 = bq['records'][0]['student'], snapshot(engine.student)
+    moved = changed(s0, s1, frozen_and_buffers(engine))
+    check(not moved, f'bq12ch stage 1 changed layer2-4 or BN statistics: '
+          f'{moved[:3]}')
+    check(changed(s0, s1, [k for k in s0 if '.encoder.' in k]),
+          'bq12ch stage 1 left the encoder unchanged')
+    moved = changed(bq['records'][0]['teacher'], snapshot(engine.teacher),
+                    bq['records'][0]['teacher'])
+    check(not moved, f'bq12ch: teacher changed: {moved[:3]}')
+    check(all(v == 0 for v in bq['launches'].values()),
+          f'bq12ch test launched {bq["launches"]}')
+    check(bq['summaries'][0]['num_samples'] == 0,
+          f'bq12ch: data size accounted {bq["summaries"]}')
+    bq['escapes'] = 'none (no codec)'
+    log_stages(bq, 'bq12ch', phase='phase 12',
+               wire='no (plain forward, no data size)')
+    # the SplitClassifier wrapper of the config: 8-bit quantized latent
+    cfg = load_config(os.path.join(REPO, BQ_CONFIG))
+    wrapper = wrap_model(cfg['wrapper'], engine.student,
+                         device=engine.device)
+    wrapper.eval()
+    wrapper.activate_analysis()
+    quant, worst_q, worst_logit = wrapper.compressor, 0.0, 0.0
+    seen = []
+    wrapper.compressor = lambda z: seen.append(z) or quant(z)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = [wrapper(x) for x in bq['images']]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    wrap_launches = dict(kernels.LAUNCHES)
+    check(all(v == 0 for v in wrap_launches.values()),
+          f'SplitClassifier launched {wrap_launches}')
+    for x, lg, z in zip(bq['images'], logits, seen):
+        check(z.shape == (1, 12, HW // 8, HW // 8),
+              f'bq12ch latent {z.shape}')
+        q = quant(z)
+        err = np.abs(wrapper.decompressor(q) - z).max()
+        # half a step, plus float32 rounding of z / scale and of the
+        # dequantizing product
+        check(err <= 0.5 * q['scale'] + 1e-6 * np.abs(z).max(),
+              f'8-bit round trip off by {err} (scale {q["scale"]})')
+        worst_q = max(worst_q, float(err / q['scale']))
+        with torch.no_grad():
+            plain = engine.student(x, mode='finetune')
+        check(bool(torch.isfinite(lg).all()), 'SplitClassifier: bad logits')
+        worst_logit = max(worst_logit, float((lg - plain).abs().max()))
+    summary = wrapper.summarize()[0]
+    check(summary['num_samples'] == N_BQ_TEST,
+          f'SplitClassifier summary {summary}')
+    log(f'phase 12: bq12ch SplitClassifier, SimpleQuantizer(8): latent '
+        f'{"x".join(map(str, seen[0].shape[1:]))}, {summary["mean"]:.6f} KB '
+        f'an image (std '
+        f'{summary["std"]:.6f}), {N_BQ_TEST / wall:.2f} img/s; round trip '
+        f'within {worst_q:.4f} scale; max |logit diff| vs the unquantized '
+        f'forward {worst_logit:.3e}')
+    return ft['launches'], bq['launches'], wrap_launches
+
+
 NORM = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
 
 
@@ -1636,33 +1899,53 @@ def run():
         f'{rt_m.codec.g_tables.quantized_cdf.shape}, bottleneck parameters '
         f'{sum(p.numel() for p in mshp.bottleneck_layer.parameters())}')
 
+    def timed(name, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        log(f'{name}: done in {time.perf_counter() - t0:.1f} s')
+        return out
+
     # ---- phase 2 ----
-    stats = kernel_phase(torch, td, kernels, tables, device)
-    stats.update(indexed_phase(torch, td, kernels, rt_m.codec.g_tables,
-                               device))
+    stats = timed('phase 2 (cyclic)', kernel_phase, torch, td, kernels,
+                  tables, device)
+    stats.update(timed('phase 2 (indexed)', indexed_phase, torch, td,
+                       kernels, rt_m.codec.g_tables, device))
 
     # ---- phases 3 and 4 ----
-    launches = main_path(torch, kernels, rt, rt_u8, images, images_u8)
+    launches = timed('phases 3-4', main_path, torch, kernels, rt, rt_u8,
+                     images, images_u8)
 
     # ---- phase 5 ----
-    escape_phase(torch, rt, images)
+    timed('phase 5', escape_phase, torch, rt, images)
 
     # ---- phase 6 ----
-    cli_launches = cli_phase(torch, kernels, model)
+    cli_launches = timed('phase 6', cli_phase, torch, kernels, model)
 
     # ---- phase 7 ----
-    train_launches, e2e_launches = train_phase(torch, kernels, model)
+    train_launches, e2e_launches = timed('phase 7', train_phase, torch,
+                                         kernels, model)
 
     # ---- phase 8: the batch-1 wire beyond the batch-1 kernels' limit ----
-    big_image_phase(torch, kernels, rt)
+    timed('phase 8', big_image_phase, torch, kernels, rt)
 
     # ---- phase 9: MSHP serving ----
-    mshp_b1, mshp_bk = mshp_serve_phase(torch, kernels, rt_m, images)
+    mshp_b1, mshp_bk = timed('phase 9', mshp_serve_phase, torch, kernels,
+                             rt_m, images)
 
     # ---- phase 10: MSHP test CLI and training ----
-    mshp_cli = cli_phase(torch, kernels, mshp, config=MSHP_CONFIG,
-                         per_image=MSHP_BATCH1, tag='phase 10')
-    mshp_train = mshp_train_phase(torch, kernels, mshp)
+    mshp_cli = timed('phase 10 (CLI)', cli_phase, torch, kernels, mshp,
+                     config=MSHP_CONFIG, per_image=MSHP_BATCH1,
+                     tag='phase 10')
+    mshp_train = timed('phase 10 (training)', mshp_train_phase, torch,
+                       kernels, mshp)
+
+    # ---- phase 11: fine-tuning serving at every split, host wire ----
+    ft_serve = timed('phase 11', finetune_serve_phase, torch, kernels,
+                     images[:N_FT])
+
+    # ---- phase 12: the CLI on both families, the SplitClassifier ----
+    ft_cli, bq_cli, bq_wrap = timed('phase 12', bq_phase, torch, kernels)
+    new_paths = list(ft_serve.values()) + [ft_cli, bq_cli, bq_wrap]
 
     rows = []
     for name in kernels.ALL_KERNELS:
@@ -1682,6 +1965,7 @@ def run():
                    launches_mshp_wire_batch=mshp_bk[name],
                    launches_mshp_cli=mshp_cli[name],
                    launches_mshp_train=mshp_train[name],
+                   launches_finetune_bq=sum(c[name] for c in new_paths),
                    **{key: stats[name][key]
                       for key in ('device_ms_k128', 'bound_ms_k128')
                       if key in stats[name]})

@@ -6,12 +6,18 @@ counterpart is easy to find; inside, the code is PyTorch (NCHW convs,
 and nothing of `sc2bench_tpu`: where it needs code from there it keeps its
 own copy.
 
-Ported so far (the Entropic Student device-rANS deploy path):
+Ported so far:
   device.py            default-device helper (CUDA unless asked)
-  ops/                 GDN, factorized entropy bottleneck, coding tables,
-                       the cyclic-lane rANS codec and its CUDA kernels
-  models/              ResNet tail, FP bottleneck, SplittableResNet and
-                       the deploy runtime
+  ops/                 GDN, factorized entropy bottleneck, Gaussian
+                       conditional, coding tables, the rANS codecs and
+                       their CUDA kernels, the host coder
+  models/              ResNet, the FP/SHP/MSHP and CR+BQ bottlenecks,
+                       SplittableResNet, the fine-tuning family's
+                       EntropicClassifierModule, the deploy runtime and
+                       the EntropicClassifier/SplitClassifier wrappers
+  transforms/          the CR+BQ tensor quantizers
+  train/, loss.py      the training boxes, losses and optimizers
+  tasks/               the classification CLI
   analysis.py          data-size accounting
   utils/convert.py     Flax variables -> this package's state_dict
   csrc/                hand-written CUDA sources, built at first use

@@ -1,3 +1,3 @@
-"""Importing this package fills the 'layer' and 'model' registries (the
-config's `dependencies` import it)."""
-from . import backbone, layer, registry, resnet  # noqa: F401
+"""Importing this package fills the 'layer', 'model' and 'wrapper'
+registries (the config's `dependencies` import it)."""
+from . import backbone, entropic, layer, registry, resnet, wrapper  # noqa: F401

@@ -16,6 +16,12 @@ means) h_s predicts from the quantized z. Their `encode_ops` gives y's
 symbols and table indexes and z's symbols; `decode_scales` recomputes the
 indexes (and the means) from z's symbols, as the receiver must, and
 `decode_ops` takes those means.
+
+The CR+BQ family's `SimpleBottleneck` has no entropy model: an encoder
+and a decoder (`LayerSeq` stacks read from a spec list), whose latent the
+`SplitClassifier` wrapper quantizes on the host. `EntropyBottleneckLayer`
+is a bare factorized prior over its input, the fine-tuning family's
+split-point layer.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from ..ops.entropy.factorized import EntropyBottleneck
 from ..ops.entropy.gaussian import GaussianConditional
 from ..ops.gdn import GDN1
 from ..registry import get, register_layer
+from .resnet import BatchNorm2d
 
 
 @register_layer
@@ -279,6 +286,134 @@ class MSHPBasedResNetBottleneck(SHPBasedResNetBottleneck):
     def gaussian_params(self, h_s_out: torch.Tensor):
         scales, means = torch.chunk(h_s_out, 2, dim=1)
         return scales, means
+
+
+class LayerSeq(nn.Sequential):
+    """A stack read from a spec list, one module per spec (the reference
+    torch key space `{i}.*`, the JAX package's `layer{i}`):
+      ('conv', out_ch, kernel, stride, padding)   bias-free Conv2d
+      ('deconv', out_ch, kernel, stride)          bias-free ConvTranspose2d
+      ('bn',), ('relu',), ('maxpool', k, s, p), ('avgpool', k, s)
+    BatchNorm has eps 1e-5 and Flax's running-variance rule. A 'deconv' is
+    the JAX package's `ConvTranspose(padding='SAME')`, whose output is
+    `stride` times its input; torch's with padding 0 gives that size only
+    when the kernel equals the stride, the one case the configs use."""
+
+    def __init__(self, specs, in_channels: int):
+        modules, c = [], in_channels
+        for spec in specs:
+            kind = spec[0]
+            if kind == 'conv':
+                _, out, k, stride, pad = spec
+                modules.append(nn.Conv2d(c, out, k, stride=stride,
+                                         padding=pad, bias=False))
+                c = out
+            elif kind == 'deconv':
+                _, out, k, stride = spec
+                if k != stride:
+                    raise ValueError(f'deconv with kernel {k} != stride '
+                                     f'{stride} is not supported')
+                modules.append(nn.ConvTranspose2d(c, out, k, stride=stride,
+                                                  bias=False))
+                c = out
+            elif kind == 'bn':
+                modules.append(BatchNorm2d(c, eps=1e-5))
+            elif kind == 'relu':
+                modules.append(nn.ReLU())
+            elif kind == 'maxpool':
+                _, k, stride, pad = spec
+                modules.append(nn.MaxPool2d(k, stride=stride, padding=pad))
+            elif kind == 'avgpool':
+                _, k, stride = spec
+                modules.append(nn.AvgPool2d(k, stride=stride))
+            else:
+                raise ValueError(f'unknown spec {spec}')
+        super().__init__(*modules)
+        self.out_channels = c
+
+
+@register_layer
+class SimpleBottleneck(nn.Module):
+    """Encoder -> decoder with no entropy model, the CR+BQ family's
+    bottleneck: the forward is encoder then decoder in every mode, and
+    records the latent as `io['bottleneck_out']`. The `SplitClassifier`
+    wrapper quantizes the latent between the two on the host."""
+
+    def __init__(self, encoder_specs, decoder_specs):
+        super().__init__()
+        self.encoder = LayerSeq(encoder_specs, 3)
+        self.decoder = LayerSeq(decoder_specs, self.encoder.out_channels)
+        self.out_channels = self.decoder.out_channels
+
+    def encode_latent(self, x: torch.Tensor) -> torch.Tensor:
+        return self.encoder(x)
+
+    def decode_latent(self, z: torch.Tensor) -> torch.Tensor:
+        return self.decoder(z)
+
+    def forward(self, x: torch.Tensor, mode: str = 'train',
+                generator: torch.Generator | None = None,
+                io: dict | None = None) -> torch.Tensor:
+        z = self.encoder(x)
+        if io is not None:
+            io['bottleneck_out'] = z
+        return self.decoder(z)
+
+
+def _stem_specs():
+    """conv7s2 + BN + ReLU + maxpool3s2 front of the CR+BQ encoders."""
+    return [('conv', 64, 7, 2, 3), ('bn',), ('relu',), ('maxpool', 3, 2, 1),
+            ('bn',), ('relu',)]
+
+
+@register_layer
+def larger_resnet_bottleneck(bottleneck_channel=12, bottleneck_idx=7,
+                             output_channel=256, **kwargs):
+    """GHND bottleneck for ResNet-50/101/152: the encoder is the specs
+    before `bottleneck_idx` (a stride-8 latent of `bottleneck_channel`
+    channels), the decoder upsamples it to `output_channel` channels at
+    stride 4, the input of layer2. Other kwargs (the reference's
+    `compressor`/`decompressor`) are accepted and unused: the wrapper
+    takes its transforms from its own config."""
+    specs = _stem_specs() + [
+        ('conv', bottleneck_channel, 2, 2, 0), ('bn',), ('relu',),
+        ('conv', 512, 2, 1, 1), ('bn',), ('relu',),
+        ('conv', 512, 2, 1, 0), ('bn',), ('relu',),
+        ('deconv', 256, 2, 2), ('bn',), ('relu',),
+        ('conv', output_channel, 2, 1, 1), ('bn',), ('relu',),
+        ('conv', output_channel, 2, 1, 0),
+    ]
+    return SimpleBottleneck(specs[:bottleneck_idx], specs[bottleneck_idx:])
+
+
+@register_layer
+class EntropyBottleneckLayer(nn.Module):
+    """A bare factorized prior over its NCHW input. 'train': y + noise
+    from `generator`; any other mode: round(y - median) + median, which
+    'finetune' detaches. `io['eb_out'] = (y_hat, likelihoods)`."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.entropy_bottleneck = EntropyBottleneck(channels)
+        self.out_channels = channels
+
+    def forward(self, x: torch.Tensor, mode: str = 'train',
+                generator: torch.Generator | None = None,
+                io: dict | None = None) -> torch.Tensor:
+        y_hat, likelihoods = self.entropy_bottleneck(
+            x, mode='noise' if mode == 'train' else 'dequantize',
+            generator=generator)
+        if io is not None:
+            io['eb_out'] = (y_hat, likelihoods)
+        return y_hat.detach() if mode == 'finetune' else y_hat
+
+    def encode_ops(self, x: torch.Tensor, medians: torch.Tensor) -> dict:
+        return {'symbols': torch.round(x - medians[:, None, None])
+                .to(torch.int32)}
+
+    def decode_ops(self, symbols: torch.Tensor,
+                   medians: torch.Tensor) -> torch.Tensor:
+        return symbols.to(torch.float32) + medians[:, None, None]
 
 
 def get_layer(key: str, **kwargs) -> nn.Module:

@@ -7,6 +7,8 @@ that keeps its running statistics as Flax's does (`BatchNorm2d`).
 `forward(x, io=...)` records each stage's output in the dict `io` under
 the JAX package's names (`layer1_out` ... `layer4_out`), the counterpart
 of its `sow('intermediates', ...)`, for the distillation losses.
+`forward_until`/`forward_from` split the network at a named layer, the
+head/tail boundary of the fine-tuning family (`models/entropic.py`).
 """
 from __future__ import annotations
 
@@ -106,15 +108,46 @@ class ResNet(nn.Module):
             c = filters * BottleneckBlock.expansion
         self.fc = nn.Linear(c, num_classes)
 
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        return self.maxpool(self.relu(self.bn1(self.conv1(x))))
+
     def forward(self, x: torch.Tensor, io: dict | None = None
                 ) -> torch.Tensor:
         """Logits; with `io`, each stage's output as `layer{i}_out`."""
-        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        x = self.stem(x)
         for i in range(1, 5):
             x = getattr(self, f'layer{i}')(x)
             if io is not None:
                 io[f'layer{i}_out'] = x
         return self.fc(torch.mean(x, dim=(2, 3)))
+
+    def forward_until(self, x: torch.Tensor, split_layer: str = 'layer2',
+                      include_stem: bool = True) -> torch.Tensor:
+        """Head: the stem, then layer1 up to `split_layer` inclusive
+        ('stem': the stem only)."""
+        if include_stem:
+            x = self.stem(x)
+        if split_layer == 'stem':
+            return x
+        for i in range(1, 5):
+            x = getattr(self, f'layer{i}')(x)
+            if split_layer == f'layer{i}':
+                return x
+        raise ValueError(f'unknown split layer {split_layer}')
+
+    def forward_from(self, feature: torch.Tensor,
+                     split_layer: str = 'layer2') -> torch.Tensor:
+        """Tail: the stages after `split_layer`, the average pool and fc;
+        'avgpool' means fc alone, on an already pooled (n, C) feature."""
+        x = feature
+        if split_layer != 'avgpool':
+            names = ['stem'] + [f'layer{i}' for i in range(1, 5)]
+            if split_layer not in names:
+                raise ValueError(f'unknown split layer {split_layer}')
+            for name in names[names.index(split_layer) + 1:]:
+                x = getattr(self, name)(x)
+            x = torch.mean(x, dim=(2, 3))
+        return self.fc(x)
 
 
 def resnet50(**kwargs) -> ResNet:

@@ -30,6 +30,14 @@ decoded symbols go back to the device for the decoder and tail.
 once the tables are built, the 'finetune' forward while training, and the
 'train' (noise) forward before `update()`.
 
+Two more model kinds run on the host wire only, as in the JAX runtime:
+a model with module-level deploy ops and no `bottleneck_layer` (the
+fine-tuning family's `EntropicClassifierModule`, its own
+`entropy_bottleneck` coded: `encode_ops`, then `decode_ops_to_logits`),
+whose device-wire methods raise `ValueError`; and a bottleneck without an
+entropy model (the CR+BQ family's `SimpleBottleneck`), which has no codec:
+`update()` returns False and `__call__` is the 'train' forward.
+
 The host CompressAI-format coder (`encode`/`decode`, `ops/rans/coder.py`)
 is also the escape path: an image whose latent leaves the CDF support
 (`ok=False`) or whose device decode fails (`valid=False`) is re-coded on
@@ -63,7 +71,8 @@ from ..ops.rans.coder import RansCoder
 from ..ops.rans.device import (auto_lanes, device_rans_decode,
                                device_rans_encode, pack_stream,
                                pack_stream_aligned)
-from .layer import FPBasedResNetBottleneck, SHPBasedResNetBottleneck
+from .layer import (EntropyBottleneckLayer, FPBasedResNetBottleneck,
+                    SHPBasedResNetBottleneck)
 
 logger = logging.getLogger(__name__)
 
@@ -103,16 +112,15 @@ def _channel_major(symbols: np.ndarray) -> np.ndarray:
 
 
 class FactorizedCodec:
-    """Coding tables and host coder for an `EntropyBottleneck`-only
-    bottleneck (FP)."""
+    """Coding tables and host coder of one `EntropyBottleneck` (FP, or a
+    module-level one)."""
 
     def __init__(self):
         self.tables: CodingTables | None = None
         self.coder: RansCoder | None = None
 
-    def update(self, module):
-        self.tables = build_factorized_tables(
-            module.bottleneck_layer.entropy_bottleneck)
+    def update(self, entropy_bottleneck):
+        self.tables = build_factorized_tables(entropy_bottleneck)
         self.coder = RansCoder(self.tables.quantized_cdf,
                                self.tables.cdf_length, self.tables.offset)
 
@@ -161,8 +169,8 @@ class HyperpriorCodec(FactorizedCodec):
         self.g_tables: CodingTables | None = None
         self.g_coder: RansCoder | None = None
 
-    def update(self, module, scale_table=None):
-        super().update(module)
+    def update(self, entropy_bottleneck, scale_table=None):
+        super().update(entropy_bottleneck)
         self.g_tables = build_gaussian_tables(scale_table)
         self.g_coder = RansCoder(self.g_tables.quantized_cdf,
                                  self.g_tables.cdf_length,
@@ -193,10 +201,12 @@ class HyperpriorCodec(FactorizedCodec):
 
 
 class SplitClassifierRuntime(AnalyzerHolder):
-    """Runtime for `SplittableResNet` with an FP, SHP or MSHP bottleneck:
-    `update()`, `bottleneck_updated`, the analyzable surface and the
-    device-rANS wire. Images are NCHW tensors (or arrays): float, or uint8
-    when the runtime has `input_norm=(mean, std)`."""
+    """Runtime for `SplittableResNet` with an FP, SHP, MSHP or entropy-free
+    bottleneck, or for a model with module-level deploy ops
+    (`EntropicClassifierModule`): `update()`, `bottleneck_updated`, the
+    analyzable surface, the host wire and, for the splittable FP/SHP/MSHP
+    models, the device-rANS wire. Images are NCHW tensors (or arrays):
+    float, or uint8 when the runtime has `input_norm=(mean, std)`."""
 
     def __init__(self, module, analyzer_configs=None, analysis_unit='KB',
                  input_norm=None, device=None):
@@ -221,14 +231,21 @@ class SplitClassifierRuntime(AnalyzerHolder):
                                              device=self.device)
         else:
             self._norm_mean = None
-        self._bneck = module.bottleneck_layer
+        # module-level deploy ops (EntropicClassifierModule) or a
+        # bottleneck_layer submodule (the SplittableResNet family)
+        self._module_level_ops = hasattr(module, 'encode_ops') \
+            and not hasattr(module, 'bottleneck_layer')
+        self._bneck = None if self._module_level_ops \
+            else module.bottleneck_layer
         self.hyper = isinstance(self._bneck, SHPBasedResNetBottleneck)
-        if not self.hyper and not isinstance(self._bneck,
-                                             FPBasedResNetBottleneck):
-            raise NotImplementedError(
-                f'{type(self._bneck).__name__} is not ported yet; the port '
-                'serves the FP, SHP and MSHP bottlenecks')
-        self.codec = HyperpriorCodec() if self.hyper else FactorizedCodec()
+        if self.hyper:
+            self.codec = HyperpriorCodec()
+        elif self._module_level_ops or isinstance(
+                self._bneck, (FPBasedResNetBottleneck,
+                              EntropyBottleneckLayer)):
+            self.codec = FactorizedCodec()
+        else:
+            self.codec = None
         # images re-coded on the host coder, by the check they failed
         self.escapes = {'ok': 0, 'valid': 0}
         self._medians = None
@@ -241,15 +258,20 @@ class SplitClassifierRuntime(AnalyzerHolder):
         """Build the coding tables from the learned entropy-bottleneck
         parameters (and, for a hyperprior, the Gaussian tables of
         `scale_table`, by default the 64-entry log-spaced one) and keep
-        device copies for the wire."""
+        device copies for the wire. Returns False, and builds nothing,
+        when the model has no entropy model."""
+        if self.codec is None:
+            return False
+        eb = (self.module if self._module_level_ops
+              else self._bneck).entropy_bottleneck
         if self.hyper:
-            self.codec.update(self.module, scale_table)
+            self.codec.update(eb, scale_table)
             g = self.codec.g_tables
             self._scale_table = torch.as_tensor(g.scale_table,
                                                 device=self.device)
             self._gtables_dev = self._device_tables(g)
         else:
-            self.codec.update(self.module)
+            self.codec.update(eb)
         t = self.codec.tables
         self._medians = torch.as_tensor(t.medians, device=self.device)
         self._tables_dev = self._device_tables(t)
@@ -279,8 +301,9 @@ class SplitClassifierRuntime(AnalyzerHolder):
         runtime is in eval mode; the 'finetune' forward (no bitstream) when
         they are built and it is training; before `update()` the 'train'
         forward, its noise from `generator` (by default a new one seeded
-        with 0, as the JAX runtime's default key). BatchNorm uses its
-        running statistics on every path."""
+        with 0, as the JAX runtime's default key); without a codec always
+        the 'train' forward. BatchNorm uses its running statistics on
+        every path."""
         if self.bottleneck_updated and not self.training:
             compressed = self.encode(x)
             self.analyze(compressed)
@@ -315,6 +338,7 @@ class SplitClassifierRuntime(AnalyzerHolder):
         to the host and are coded there. Returns the compressed object
         {'strings', 'shape'}: one list of strings for FP; y's then z's for
         a hyperprior, whose shape is z's."""
+        self._require_codec()
         if self.hyper:
             ops = {k: _nhwc(v).cpu().numpy()
                    for k, v in self._hyper_ops(x).items()}
@@ -333,6 +357,7 @@ class SplitClassifierRuntime(AnalyzerHolder):
         """Host decoding, then the decoded symbols go back to the device
         for the decoder and the tail (a hyperprior's y indexes are
         recomputed there from the decoded z first). Returns logits (n, K)."""
+        self._require_codec()
         if self.hyper:
             z_sym = self.codec.decompress_symbols(
                 strings[1], shape, self._bneck.num_latent_channels)
@@ -401,6 +426,7 @@ class SplitClassifierRuntime(AnalyzerHolder):
         dtype (the JAX runtime's `to_wire`; lossless while
         |round(y - median)| < 2^15). A hyperprior's y symbols, y indexes
         and z symbols, each (n, h, w, c) int16."""
+        self._require_codec()
         if self.hyper:
             return {k: _nhwc(v).to(torch.int16)
                     for k, v in self._hyper_ops(x).items()}
@@ -447,14 +473,16 @@ class SplitClassifierRuntime(AnalyzerHolder):
         decoder and tail once per k images; each image is still coded and
         accounted alone. A hyperprior codes y on the int16 indexed wire
         and z on the cyclic one, and decodes each image as it comes
-        (`decode_batch` 1 only, as in the JAX runtime)."""
+        (`decode_batch` 1 only, as in the JAX runtime, and so does a
+        model with module-level deploy ops)."""
+        self._require_codec()
         images = list(images)
         if not images:
             return []
-        if self.hyper and int(decode_batch) > 1:
+        if (self.hyper or self._module_level_ops) and int(decode_batch) > 1:
             raise ValueError('decode_batch > 1 is implemented for the '
-                             'factorized-prior bottleneck only; run a '
-                             'hyperprior with decode_batch=1')
+                             'factorized-prior bottleneck runtime only; run '
+                             'with decode_batch=1')
         channels = self.codec.tables.medians.shape[0]
         results, decoded = [], []
 
@@ -541,11 +569,24 @@ class SplitClassifierRuntime(AnalyzerHolder):
             return self._auto_hyper_lanes_from_shapes(shape)[0]
         return self._auto_wire_lanes(shape)
 
+    def _require_codec(self):
+        if self.codec is None:
+            raise ValueError(f'{type(self._bneck).__name__} has no entropy '
+                             'model: there is no bitstream to code')
+
+    def _require_splittable(self):
+        """The device wire's guard: the JAX runtime serves it for the
+        splittable FP/SHP/MSHP bottlenecks only."""
+        if self._module_level_ops:
+            raise ValueError('device-rANS wire supports the splittable '
+                             'bottleneck runtimes')
+        self._require_codec()
+
     def _symbols_nhwc(self, x):
         """Encoder + round(y - median), flattened channels-last: lane j
         then always codes channel j mod C, as in the JAX wire format."""
-        sym = self._bneck.encode_ops(self._prep_input(x),
-                                     self._medians)['symbols']
+        ops = self.module if self._module_level_ops else self._bneck
+        sym = ops.encode_ops(self._prep_input(x), self._medians)['symbols']
         n, c, h, w = sym.shape
         return sym.permute(0, 2, 3, 1).reshape(n, -1), (h, w, c)
 
@@ -561,6 +602,7 @@ class SplitClassifierRuntime(AnalyzerHolder):
         """Mobile side: encoder and rANS encode on the device, compacted
         streams (`device_rans_encode`; aligned at k = 1 when the latent is
         beyond the batch-1 kernels, and then `aligned` says so)."""
+        self._require_splittable()
         flat, shape = self._symbols_nhwc(x)
         if num_lanes is None:
             num_lanes = self._auto_wire_lanes(shape)
@@ -577,6 +619,7 @@ class SplitClassifierRuntime(AnalyzerHolder):
         shape: cuDNN may choose another algorithm for a batch of k, and its
         float sums could move a symbol across a rounding boundary, while
         each image's bitstream must equal its batch-1 one."""
+        self._require_splittable()
         rows = [self._symbols_nhwc(x) for x in xs_list]
         shape = rows[0][1]
         if any(s != shape for _, s in rows):
@@ -593,6 +636,9 @@ class SplitClassifierRuntime(AnalyzerHolder):
     def _decode_tail(self, flat, shape):
         h, w, c = shape
         sym = flat.reshape(-1, h, w, c).permute(0, 3, 1, 2)
+        if self._module_level_ops:
+            return self.module.decode_ops_to_logits(
+                sym, self._medians).to(torch.float32)
         feat = self._bneck.decode_ops(sym, self._medians)
         return self.module.forward_tail(feat).to(torch.float32)
 
@@ -602,6 +648,7 @@ class SplitClassifierRuntime(AnalyzerHolder):
         """Server side from device-resident (or uploaded) streams, compacted
         unless `aligned` (the encode result's): rANS decode + bottleneck
         decoder + tail. Returns (logits (1, K), valid)."""
+        self._require_splittable()
         if num_lanes is None:
             num_lanes = self._auto_wire_lanes(shape)
         cdf, cdf_len, off = self._tables_dev
@@ -778,8 +825,11 @@ class SplitClassifierRuntime(AnalyzerHolder):
         `escapes`. `pull_wire=True`
         packs and accounts the real wire bytes per image. `wire_batch=k`
         codes k images per launch. A hyperprior codes z and y of each image
-        and accounts both wires together; `num_lanes` is then y's."""
+        and accounts both wires together; `num_lanes` is then y's.
+        A model with module-level deploy ops, or without an entropy model,
+        raises `ValueError`, as in the JAX runtime."""
         del workers
+        self._require_splittable()
         images = list(images)
         n = len(images)
         if n == 0:

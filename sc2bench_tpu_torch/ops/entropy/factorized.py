@@ -9,6 +9,15 @@ forward takes an NCHW latent and returns (y_hat, likelihoods):
 Deploy needs the medians and the table construction (`tables.py`).
 Parameter names and shapes are CompressAI's: `_matrix{i}` (C, r, d),
 `_bias{i}` and `_factor{i}` (C, r, 1), `quantiles` (C, 1, 3).
+
+Training memory: autograd keeps every (C, r, 2M) intermediate of the
+density, 61 GB for the 256-channel layer1 feature of the fine-tuning
+family at batch 256. When the intermediates would exceed `CHUNK_ELEMS`
+and a gradient is wanted, the likelihood is evaluated in channel chunks
+under activation checkpointing: each chunk keeps only its input and is
+recomputed in the backward pass, one chunk at a time. Each channel's
+density is independent of the others: the values are the whole pass's up
+to the rounding of the batched products.
 """
 from __future__ import annotations
 
@@ -18,8 +27,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..math import lower_bound, quantize_noise, softplus_inv
+
+# elements of one (C, r, 2M) density intermediate above which the
+# likelihood's backward is checkpointed in channel chunks
+CHUNK_ELEMS = 2 ** 27
 
 
 class EntropyBottleneck(nn.Module):
@@ -33,6 +47,7 @@ class EntropyBottleneck(nn.Module):
         self.likelihood_bound = likelihood_bound
         dims = (1,) + tuple(filters) + (1,)
         self._stages = len(filters) + 1
+        self._width = max(filters)
         scale = init_scale ** (1.0 / self._stages)
         for i in range(self._stages):
             init = softplus_inv(1.0 / scale / dims[i + 1])
@@ -53,18 +68,20 @@ class EntropyBottleneck(nn.Module):
 
     # ---- density model -------------------------------------------------
     def logits_cumulative(self, inputs: torch.Tensor,
-                          stop_gradient: bool = False) -> torch.Tensor:
-        """c(x) logits of `inputs` (C, 1, M); sigmoid(c(x)) is the CDF.
-        `stop_gradient` detaches the density parameters."""
+                          stop_gradient: bool = False,
+                          rows: slice = slice(None)) -> torch.Tensor:
+        """c(x) logits of `inputs` (C, 1, M), or of the channels `rows` of
+        the density for inputs of those channels; sigmoid(c(x)) is the
+        CDF. `stop_gradient` detaches the density parameters."""
         logits = inputs
         for i in range(self._stages):
-            m = F.softplus(getattr(self, f'_matrix{i}'))
-            b = getattr(self, f'_bias{i}')
+            m = F.softplus(getattr(self, f'_matrix{i}')[rows])
+            b = getattr(self, f'_bias{i}')[rows]
             if stop_gradient:
                 m, b = m.detach(), b.detach()
             logits = torch.matmul(m, logits) + b
             if i < self._stages - 1:
-                f = torch.tanh(getattr(self, f'_factor{i}'))
+                f = torch.tanh(getattr(self, f'_factor{i}')[rows])
                 if stop_gradient:
                     f = f.detach()
                 logits = logits + f * torch.tanh(logits)
@@ -73,10 +90,22 @@ class EntropyBottleneck(nn.Module):
     def _likelihood(self, inputs: torch.Tensor) -> torch.Tensor:
         """P(y_hat) = c(y+.5) - c(y-.5) of `inputs` (C, 1, M), with the sign
         trick for the tails (the sign carries no gradient); both edges in
-        one pass of the density."""
+        one pass of the density. Checkpointed in channel chunks when the
+        intermediates are large and a gradient is wanted (module doc)."""
+        c, _, m = inputs.shape
+        rows = max(CHUNK_ELEMS // (self._width * 2 * m), 1)
+        if c <= rows or not torch.is_grad_enabled():
+            return self._likelihood_rows(inputs, slice(None))
+        return torch.cat([
+            checkpoint(self._likelihood_rows, inputs[lo:lo + rows],
+                       slice(lo, lo + rows), use_reentrant=False)
+            for lo in range(0, c, rows)])
+
+    def _likelihood_rows(self, inputs: torch.Tensor,
+                         rows: slice) -> torch.Tensor:
         m = inputs.shape[-1]
         both = self.logits_cumulative(
-            torch.cat([inputs - 0.5, inputs + 0.5], dim=-1))
+            torch.cat([inputs - 0.5, inputs + 0.5], dim=-1), rows=rows)
         lower, upper = both[..., :m], both[..., m:]
         sign = -torch.sign(lower + upper).detach()
         return torch.abs(torch.sigmoid(sign * upper)

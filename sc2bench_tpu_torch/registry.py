@@ -1,9 +1,9 @@
 """Global string -> object registries (counterpart of
 `sc2bench_tpu/registry.py`).
 
-Layers, models, analyzers, datasets and losses register under a namespace
-with the `register_*` decorators; configs name them as `{key, kwargs}` and the
-builders look them up here.
+Layers, models, wrappers, transforms, analyzers, datasets and losses
+register under a namespace with the `register_*` decorators; configs name
+them as `{key, kwargs}` and the builders look them up here.
 
 Configs list the JAX package's modules under `dependencies`
 (`sc2bench_tpu.models`, ...). `import_dependencies` imports this package's
@@ -99,3 +99,5 @@ register_model = _shorthand('model')
 register_analyzer = _shorthand('analyzer')
 register_dataset = _shorthand('dataset')
 register_loss = _shorthand('loss')
+register_transform = _shorthand('transform')
+register_wrapper = _shorthand('wrapper')

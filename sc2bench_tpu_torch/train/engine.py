@@ -18,10 +18,13 @@ on the engine's device seeded with the engine's `seed`.
 at batch 1 through the real bitstream, with the data size of every image
 accounted: on the host coder (`stream_deploy`, the default) or, with
 `deploy_wire: device` in the config, on the device-rANS kernels
-(`stream_deploy_device`).
+(`stream_deploy_device`). A student without an entropy model (the CR+BQ
+family's `SimpleBottleneck`) has no bitstream: it is scored with the
+'finetune' forward and no data size, as in the JAX engine, which also
+ignores the top-level `wrapper:` key of those configs.
 
 Loaders yield NHWC numpy batches; the engine hands the runtime and the
-models NCHW tensors on its device. The wrapper (input- and
+models NCHW tensors on its device. The `models.wrapper` (input- and
 feature-compression) configs are not ported yet.
 """
 from __future__ import annotations
@@ -165,7 +168,7 @@ class ClassificationEngine:
         if 'wrapper' in models_config:
             raise NotImplementedError(
                 'wrapper (input- and feature-compression) configs are not '
-                'ported yet (ROADMAP Queue A item 8)')
+                'ported yet (ROADMAP Queue A item 4)')
         self.teacher = None
         if 'teacher_model' in models_config:
             tm_cfg = models_config['teacher_model']
@@ -208,7 +211,7 @@ class ClassificationEngine:
 
     @staticmethod
     def _load(model, path):
-        state_dict, _, _ = load_ckpt(path)
+        state_dict, _, _ = load_ckpt(path, model)
         model.load_state_dict(state_dict)
 
     # ---- data -----------------------------------------------------------
@@ -251,9 +254,11 @@ class ClassificationEngine:
                 chunk_x.clear()
                 chunk_y.clear()
 
+            streamable = self.runtime.bottleneck_updated \
+                and self.runtime.codec is not None
             for x, y in data_loader:
                 x = self._to_device(x)
-                if x.shape[0] != 1 or not self.runtime.bottleneck_updated:
+                if x.shape[0] != 1 or not streamable:
                     # the stream is strictly batch 1 over the bitstream
                     t0 = time.time()
                     logits = self.runtime(x)
@@ -367,17 +372,21 @@ class ClassificationEngine:
                                      box.optim.state_dict(), epoch, name,
                                      best_metric)
         # the test protocol expects tables
-        if not self.runtime.bottleneck_updated:
+        if not self.runtime.bottleneck_updated and self.runtime.codec:
             self.runtime.update()
         return best_metric
 
     def test(self):
         """(metrics, data-size summaries) of the student on the test loader:
-        tables built, analysis on, every image through the bitstream."""
+        tables built, analysis on, every image through the bitstream; a
+        student without an entropy model through the 'finetune' forward,
+        with nothing accounted."""
         loader = self.build_loader(self.config.get('test', {}).get(
             'test_data_loader', DEFAULT_TEST_LOADER))
-        if not self.runtime.bottleneck_updated:
+        codec = self.runtime.codec
+        if not self.runtime.bottleneck_updated and codec:
             self.runtime.update()
         self.runtime.activate_analysis()
-        result = self.evaluate(loader, use_deploy_path=True)
+        result = self.evaluate(loader, use_deploy_path=bool(
+            codec and self.runtime.bottleneck_updated))
         return result, self.runtime.summarize()

@@ -68,7 +68,7 @@ def label_params(model: torch.nn.Module, frozen_prefixes: Sequence[str] = (),
     on each parameter's Flax path."""
     labels = {}
     for name, _ in model.named_parameters():
-        path = flax_param_path(name)
+        path = flax_param_path(name, model)
         if path.endswith('quantiles'):
             labels[name] = 'aux'
         elif any(_matches(path, p) for p in frozen_prefixes):

@@ -1,0 +1,3 @@
+"""Importing this package fills the 'transform' registry (the config's
+`dependencies` import it as the counterpart of `sc2bench_tpu.transforms`)."""
+from . import misc  # noqa: F401

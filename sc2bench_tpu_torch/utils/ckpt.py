@@ -56,10 +56,11 @@ def _msgpack_ext(code, data):
         shape)
 
 
-def load_flax_ckpt(path) -> dict:
+def load_flax_ckpt(path, model=None) -> dict:
     """State dict of a checkpoint written by the JAX package's `save_ckpt`
     (`flax.serialization.to_bytes` of `{'params', 'batch_stats'}`: msgpack
-    maps, arrays as ext type 1 holding (shape, dtype name, bytes))."""
+    maps, arrays as ext type 1 holding (shape, dtype name, bytes)); `model`
+    as `state_dict_from_flax` takes it."""
     try:
         import msgpack
     except ImportError as e:
@@ -68,24 +69,26 @@ def load_flax_ckpt(path) -> dict:
             '`msgpack` package, which is not installed') from e
     variables = msgpack.unpackb(Path(path).read_bytes(),
                                 ext_hook=_msgpack_ext, raw=False)
-    return state_dict_from_flax(variables)
+    return state_dict_from_flax(variables, model)
 
 
 def _is_msgpack_map(head: bytes) -> bool:
     return bool(head) and (0x80 <= head[0] <= 0x8f or head[0] in (0xde, 0xdf))
 
 
-def load_ckpt(path):
+def load_ckpt(path, model=None):
     """(state_dict, tables state or None, meta or None) of a checkpoint in
     the port's format or the JAX package's, chosen by the file's first
-    bytes. A missing file raises `FileNotFoundError`."""
+    bytes; `model`, the module the state is for, is needed to convert a
+    JAX one with a `SimpleBottleneck`. A missing file raises
+    `FileNotFoundError`."""
     path = Path(path)
     with open(path, 'rb') as f:
         head = f.read(4)
     if head == _ZIP_MAGIC:
         state_dict = torch.load(path, map_location='cpu', weights_only=True)
     elif _is_msgpack_map(head):
-        state_dict = load_flax_ckpt(path)
+        state_dict = load_flax_ckpt(path, model)
     else:
         raise ValueError(f'{path} is neither a torch.save checkpoint nor a '
                          'Flax msgpack one')

@@ -2,8 +2,9 @@
 
 Carries the JAX package's weights across: `state_dict_from_flax` takes
 `{'params': ..., 'batch_stats': ...}` as nested dicts of numpy arrays (no
-JAX needed) and returns the torch key space of `SplittableResNet` and
-`ResNet` (torchvision ResNet names, CompressAI bottleneck names):
+JAX needed) and returns the torch key space of `SplittableResNet`,
+`ResNet` and `EntropicClassifierModule` (torchvision ResNet names,
+CompressAI bottleneck names):
 
   Conv kernel (kH, kW, I, O)       -> Conv2d.weight (O, I, kH, kW)
   Dense kernel (I, O)              -> Linear.weight (O, I)
@@ -19,13 +20,21 @@ JAX needed) and returns the torch key space of `SplittableResNet` and
                                       kernel as it is, torch the gradient of
                                       a convolution (an implicit flip)
 
-The bottleneck's scopes are the FP bottleneck's (`enc_conv0` ...) or the
-SHP/MSHP bottleneck's (`g_a_conv0`, `h_a_conv0`, `h_s_deconv0` ...).
+The bottleneck's scopes are the FP bottleneck's (`enc_conv0` ...), the
+SHP/MSHP bottleneck's (`g_a_conv0`, `h_a_conv0`, `h_s_deconv0` ...) or the
+`SimpleBottleneck`'s `LayerSeq` stacks (`encoder/layer{i}` ->
+`encoder.{i}`). A `LayerSeq` scope does not say whether its kernel is a
+convolution's or a transposed one's (the CR+BQ decoder's 2x2/2
+upsampling), so converting one needs the torch `model`, whose module
+there tells. An `EntropicClassifierModule` keeps the ResNet under `base/`
+and its `entropy_bottleneck` at the top.
 
 `flax_param_path` is the inverse on names: a torch parameter name ->
 its Flax path, dotted (`bottleneck_layer.encoder.0.weight` ->
 `bottleneck_layer.enc_conv0.kernel`), the space in which configs name
-frozen and module-wise parameter groups.
+frozen and module-wise parameter groups. A `SimpleBottleneck` shares the
+FP bottleneck's torch names (`encoder.{i}`), so its paths need the
+`model` too.
 """
 from __future__ import annotations
 
@@ -58,13 +67,19 @@ _DECONV_SCOPES = {f'bottleneck_layer/{k}' for k in _SHP_SCOPES
                   if '_deconv' in k}
 _BOTTLENECK_SCOPES = {**_FP_SCOPES, **_SHP_SCOPES}
 
+# the SimpleBottleneck's LayerSeq stacks
+_LAYER_SEQ = r'^bottleneck_layer/(encoder|decoder)/layer(\d+)$'
 _RULES = [(rf'^bottleneck_layer/{k}$', f'bottleneck_layer.{v}')
           for k, v in _BOTTLENECK_SCOPES.items()] + [
-    (r'^stem/(conv1|bn1)$', r'\1'),
-    (r'^layer(\d)/block(\d+)/(conv\d|bn\d)$', r'layer\1.\2.\3'),
-    (r'^layer(\d)/block(\d+)/downsample_conv$', r'layer\1.\2.downsample.0'),
-    (r'^layer(\d)/block(\d+)/downsample_bn$', r'layer\1.\2.downsample.1'),
-    (r'^fc$', 'fc'),
+    (_LAYER_SEQ, r'bottleneck_layer.\1.\2'),
+    (r'^entropy_bottleneck$', 'entropy_bottleneck'),
+    (r'^(base/)?stem/(conv1|bn1)$', r'\1\2'),
+    (r'^(base/)?layer(\d)/block(\d+)/(conv\d|bn\d)$', r'\1layer\2.\3.\4'),
+    (r'^(base/)?layer(\d)/block(\d+)/downsample_conv$',
+     r'\1layer\2.\3.downsample.0'),
+    (r'^(base/)?layer(\d)/block(\d+)/downsample_bn$',
+     r'\1layer\2.\3.downsample.1'),
+    (r'^(base/)?fc$', r'\1fc'),
 ]
 
 
@@ -72,8 +87,22 @@ def _torch_scope(scope: str) -> str:
     for pattern, repl in _RULES:
         m = re.fullmatch(pattern, scope)
         if m:
-            return m.expand(repl)
+            return m.expand(repl).replace('base/', 'base.')
     raise KeyError(f'no torch counterpart for flax scope {scope!r}')
+
+
+def _is_deconv(scope: str, model) -> bool:
+    """Whether the kernel at flax `scope` is a ConvTranspose's."""
+    if scope in _DECONV_SCOPES:
+        return True
+    if not re.fullmatch(_LAYER_SEQ, scope):
+        return False
+    if model is None:
+        raise ValueError(f'{scope} is a LayerSeq kernel: converting it needs '
+                         'the torch model (state_dict_from_flax(variables, '
+                         'model))')
+    return isinstance(model.get_submodule(_torch_scope(scope)),
+                      torch.nn.ConvTranspose2d)
 
 
 def _leaves(tree, prefix=()):
@@ -101,15 +130,18 @@ def _param_leaf(leaf: str, value: np.ndarray, deconv: bool = False):
     return leaf, value                            # bias, beta, gamma, quantiles
 
 
-def state_dict_from_flax(variables: dict) -> dict:
+def state_dict_from_flax(variables: dict, model=None) -> dict:
     """Flax `{'params', 'batch_stats'}` of the JAX `SplittableResNet` (FP,
-    SHP or MSHP bottleneck) or `ResNet` -> a state_dict that
-    `load_state_dict` takes strictly."""
+    SHP, MSHP or `SimpleBottleneck`), `ResNet` or
+    `EntropicClassifierModule` -> a state_dict that `load_state_dict`
+    takes strictly. `model`, the port's counterpart, is needed for a
+    `SimpleBottleneck` (see the module doc)."""
     out = {}
     for scope, leaf, value in _leaves(variables['params']):
-        name, arr = _param_leaf(leaf, value,
-                                deconv='/'.join(scope) in _DECONV_SCOPES)
-        out[f"{_torch_scope('/'.join(scope))}.{name}"] = arr
+        path = '/'.join(scope)
+        name, arr = _param_leaf(leaf, value, deconv=leaf == 'kernel'
+                                and _is_deconv(path, model))
+        out[f'{_torch_scope(path)}.{name}'] = arr
     for scope, leaf, value in _leaves(variables.get('batch_stats', {})):
         path = _torch_scope('/'.join(scope))
         out[f'{path}.running_{leaf}'] = value
@@ -121,18 +153,43 @@ def state_dict_from_flax(variables: dict) -> dict:
 _INVERSE_RULES = [(rf'^bottleneck_layer\.{re.escape(v)}$',
                    f'bottleneck_layer.{k}')
                   for k, v in _BOTTLENECK_SCOPES.items()] + [
-    (r'^(conv1|bn1)$', r'stem.\1'),
-    (r'^layer(\d)\.(\d+)\.(conv\d|bn\d)$', r'layer\1.block\2.\3'),
-    (r'^layer(\d)\.(\d+)\.downsample\.0$', r'layer\1.block\2.downsample_conv'),
-    (r'^layer(\d)\.(\d+)\.downsample\.1$', r'layer\1.block\2.downsample_bn'),
-    (r'^fc$', 'fc'),
+    (r'^entropy_bottleneck$', 'entropy_bottleneck'),
+    (r'^(base\.)?(conv1|bn1)$', r'\1stem.\2'),
+    (r'^(base\.)?layer(\d)\.(\d+)\.(conv\d|bn\d)$', r'\1layer\2.block\3.\4'),
+    (r'^(base\.)?layer(\d)\.(\d+)\.downsample\.0$',
+     r'\1layer\2.block\3.downsample_conv'),
+    (r'^(base\.)?layer(\d)\.(\d+)\.downsample\.1$',
+     r'\1layer\2.block\3.downsample_bn'),
+    (r'^(base\.)?fc$', r'\1fc'),
 ]
 
 
-def flax_param_path(name: str) -> str:
+def _layer_seq_entry(model, module: str):
+    """The module at `module` when its parent is a `LayerSeq`, else None."""
+    from ..models.layer import LayerSeq
+    parent, _, index = module.rpartition('.')
+    if model is None or not index.isdigit():
+        return None
+    try:
+        seq = model.get_submodule(parent)
+    except AttributeError:
+        return None
+    return seq[int(index)] if isinstance(seq, LayerSeq) else None
+
+
+def flax_param_path(name: str, model=None) -> str:
     """Dotted Flax path of the parameter `name` of the port's
-    `SplittableResNet` (FP, SHP or MSHP bottleneck) or `ResNet`."""
+    `SplittableResNet`, `ResNet` or `EntropicClassifierModule`; a
+    `SimpleBottleneck`'s (`LayerSeq` entry `{i}` -> `layer{i}`) only when
+    `model` is given."""
     module, leaf = name.rsplit('.', 1)
+    entry = _layer_seq_entry(model, module)
+    if entry is not None:
+        prefix, _, index = module.rpartition('.')
+        if leaf == 'weight':
+            leaf = 'scale' if isinstance(entry, torch.nn.BatchNorm2d) \
+                else 'kernel'
+        return f'{prefix}.layer{index}.{leaf}'
     for pattern, repl in _INVERSE_RULES:
         m = re.fullmatch(pattern, module)
         if m:

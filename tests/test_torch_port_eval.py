@@ -84,15 +84,19 @@ def test_load_config_json_override_equals_jax():
 def test_registry_maps_the_jax_package_and_names_what_it_knows(caplog):
     with caplog.at_level(logging.WARNING):
         import_dependencies(['sc2bench_tpu.models',
-                             'sc2bench_tpu.transforms', {'name': 'json'}])
-    assert 'sc2bench_tpu.transforms has no counterpart' in caplog.text
+                             'sc2bench_tpu.transforms',
+                             'sc2bench_tpu.models.segmentation',
+                             {'name': 'json'}])
+    assert 'sc2bench_tpu.models.segmentation has no counterpart' \
+        in caplog.text
+    assert 'sc2bench_tpu.transforms has no counterpart' not in caplog.text
     assert port_module_name('sc2bench_tpu.models.layer') \
         == 'sc2bench_tpu_torch.models.layer'
     assert port_module_name('sc2bench_tpu_x') == 'sc2bench_tpu_x'
     assert get('model', 'splittable_resnet') is splittable_resnet
     assert get('model', 'resnet') is resnet_builder
     with pytest.raises(KeyError, match='MSHPBasedResNetBottleneck'):
-        get_layer('larger_resnet_bottleneck')
+        get_layer('inception_v3_bottleneck')
     assert type(get_layer('SHPBasedResNetBottleneck')).__name__ \
         == 'SHPBasedResNetBottleneck'
     with pytest.raises(KeyError, match='splittable_resnet'):
@@ -360,5 +364,5 @@ def test_cli_needs_test_only_and_a_card(monkeypatch):
     for extra in ([], ['-test_only']):
         with pytest.raises(RuntimeError, match='no CUDA device'):
             main(['--config', TINY, *extra])
-    with pytest.raises(NotImplementedError, match='item 8'):
+    with pytest.raises(NotImplementedError, match='item 4'):
         ClassificationEngine({'models': {'wrapper': {}}}, device='cpu')

@@ -252,8 +252,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     """Every module of sc2bench_tpu_torch imports with jax, flax and
     sc2bench_tpu blocked, and the classification CLI tests, and trains
     then tests, a config that lists the JAX package's modules as
-    dependencies; with an MSHP student it tests on the device wire. One
-    thread: the suite runs this beside other workers."""
+    dependencies; with an MSHP student it tests on the device wire; a
+    fine-tuning config (EntropicClassifier on a small ResNet) tests on the
+    host wire and a CR+BQ config (larger_resnet_bottleneck, which lists
+    `sc2bench_tpu.transforms`) trains one step then tests. One thread:
+    the suite runs this beside other workers."""
     code = r'''
 import importlib, json, pkgutil, sys
 class Block:
@@ -286,6 +289,30 @@ out = main(['--config', 'configs/sample/tiny_entropic_student.yaml',
             '-student_only', '-test_only', '--device', 'cpu'])
 assert out['engine'].runtime.hyper, out
 assert out['summaries'][0]['num_samples'] == 4, out
+from sc2bench_tpu_torch.models import resnet
+resnet.RESNET_BUILDERS['resnet_small'] = (
+    lambda **kw: resnet.ResNet((1, 1, 1, 1), **kw))
+family = 'configs/ilsvrc2012/supervised_compression/'
+synthetic = {'dataset': {'key': 'SyntheticClassificationDataset',
+                         'kwargs': {'num_samples': 2, 'image_size': [64, 64],
+                                    'num_classes': 10}}, 'batch_size': 1}
+ft = {'models': {'model': {'kwargs': {'base_name': 'resnet_small',
+                                      'num_classes': 10}}},
+      'test': {'test_data_loader': synthetic}}
+out = main(['--config', family + 'fine-tuning/'
+            'resnet50-eb_after_avgpool-beta1.0e-4.yaml', '--json',
+            json.dumps(ft), '-test_only', '--device', 'cpu'])
+assert out['summaries'][0]['num_samples'] == 2, out
+small = {**small, 'num_classes': 10}
+bq = {'models': {'teacher_model': {'key': 'resnet', 'kwargs': small},
+                 'student_model': {'kwargs': small}},
+      'train': {'train_data_loader': {**synthetic, 'batch_size': 2},
+                'val_data_loader': synthetic, 'stage1': {'num_epochs': 1}},
+      'test': {'test_data_loader': synthetic}}
+out = main(['--config', family + 'ghnd-bq/resnet50-bq1ch_from_resnet50.yaml',
+            '--json', json.dumps(bq), '-student_only', '--device', 'cpu'])
+assert out['engine'].runtime.codec is None, out
+assert out['summaries'][0]['num_samples'] == 0, out
 bad = [m for m in sys.modules
        if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sc2bench_tpu')]
 assert not bad, bad
@@ -295,4 +322,4 @@ print(len(names))
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, 'OMP_NUM_THREADS': '1'})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 29
+    assert int(out.stdout.strip().splitlines()[-1]) >= 33

@@ -904,5 +904,5 @@ def test_nan_loss_aborts_training():
 
 
 def test_wrapper_configs_still_raise():
-    with pytest.raises(NotImplementedError, match='item 8'):
+    with pytest.raises(NotImplementedError, match='item 4'):
         ClassificationEngine({'models': {'wrapper': {}}}, device='cpu')
