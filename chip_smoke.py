@@ -125,17 +125,38 @@ which fails loudly with a nonzero exit:
     (`SimpleQuantizer(8)`, a 12x28x28 latent): KB an image, and the
     8-bit round trip within half a quantization step (and float32
     rounding). img/s and peak memory per stage;
-13. print the kernels line (all eight kernels; it fails if one never
-    launched on its path or differs from its plain version; the count of
-    phases 11-12 beside, 0 each), the card's name and power limit, and
-    last `{"ok": true, "device": {...}}`. Every phase prints its
-    seconds.
+13. the input- and feature-compression wrappers through the test CLI at
+    full width (ResNet-50, random weights, synthetic 224 px images of
+    1000 classes): JPEG (16 images) and WebP (4) on the input, JPEG on
+    the layer2 feature (16); the neural codecs at the configs' quality 1
+    with seeded weights (`codec_weights`: He-normal, the last g_a
+    convolution halved, the hyperpriors' scales spread) saved as the
+    codec ckpt: `factorized_prior-resnet50.yaml` and
+    `mean_scale_hyperprior-resnet50.yaml` at 16 images padded to 256 px
+    by the configs' AdaptivePad, `scale_hyperprior-resnet50.yaml` at 4.
+    Each prints acc1, acc5, KB an image, img/s and the host coder's ms an
+    image; no kernel may launch (host coders); each neural codec's
+    encoder on the card agrees with the CPU's on one image (99.9% of the
+    symbols and indexes at least) and its host round trip gives the
+    decoder on the encoder's own symbols. Then the joint autoregressive
+    codec q1 (192, 192) on 4 images of 256 px, on the host wire and the
+    device wire: every symbol in support, the device decode valid with a
+    y_hat equal to the encoder's and to the host path's bit for bit;
+    `rans_masked_encode_aligned` launched once an image, `rans_masked_
+    decode_front` once a front (61 an image), the aligned cyclic pair
+    once each for z; at the path's shapes all four equal their plain
+    versions; the masked kernels' ms, device ms, plain ms and bound;
+14. print the kernels line (all ten kernels; it fails if one never
+    launched on its path or differs from its plain version; the counts of
+    phases 11-13 beside), the card's name and power limit, and last
+    `{"ok": true, "device": {...}}`. Every phase prints its seconds.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 with an error before printing any result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -151,6 +172,7 @@ SOURCES = {'cyclic': 'sc2bench_tpu_torch/csrc/rans_cyclic.cu',
            'indexed': 'sc2bench_tpu_torch/csrc/rans_indexed.cu'}
 PALLAS = 'sc2bench_tpu/ops/rans/pallas_kernel.py'
 SCAN = 'sc2bench_tpu/ops/rans/device.py'
+JAHP_DEVICE = 'sc2bench_tpu/models/zoo_jahp_device.py'
 REPLACES = {
     'rans_cyclic_encode': f'{PALLAS}:397 _encode_kernel',
     'rans_cyclic_decode': f'{PALLAS}:54 _decode_kernel',
@@ -164,6 +186,12 @@ REPLACES = {
                                    '(:578-587; XLA scan, no Pallas kernel)',
     'rans_indexed_decode_aligned': f'{SCAN}:688-702 step_a (XLA scan, no '
                                    'Pallas kernel)',
+    'rans_masked_encode_aligned': f'{JAHP_DEVICE}:122 _rans_encode_step, '
+                                  'scanned at :258 (XLA scan, no Pallas '
+                                  'kernel)',
+    'rans_masked_decode_front': f'{JAHP_DEVICE}:142 _rans_decode_step, one '
+                                'a front in the :331 scan (XLA scan, no '
+                                'Pallas kernel)',
 }
 N_FLOAT, N_UINT8, WIRE_BATCH, HW = 16, 4, 8, 224
 LOGIT_TOL = 1e-3
@@ -192,6 +220,11 @@ BQ_CONFIG = ('configs/ilsvrc2012/supervised_compression/ghnd-bq/'
 N_BQ_TRAIN, BQ_BATCH, N_BQ_TEST = 512, 256, 8
 # phase 7: synthetic 224x224 loaders, 1000 classes
 N_TRAIN, N_VAL, TRAIN_BATCH, N_TRAIN_TEST, N_E2E_TEST = 64, 32, 32, 16, 8
+# phase 13: the wrapper configs at full width; the JAHP at 256 px
+INPUT_CFG = 'configs/ilsvrc2012/input_compression/'
+FEATURE_CFG = 'configs/ilsvrc2012/feature_compression/'
+N_CODEC, N_CODEC_SMALL, N_JAHP, CODEC_HW = 16, 4, 4, 256
+JAHP_KEY = 'joint_autoregressive_hierarchical_prior'
 # H100 SXM published peaks: HBM bytes/s, and
 # the non-tensor-core rate used for the kernels' integer operations
 HBM_BYTES_PER_S = 3.35e12
@@ -1831,6 +1864,374 @@ def bq_phase(torch, kernels):
 NORM = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
 
 
+# ---- phase 13: the input- and feature-compression wrappers -----------------
+
+def codec_weights(torch, module, seed, image, median=4.0):
+    """Seeded weights for an image codec of the zoo, as a trained one's
+    latents behave: He-normal convolutions (`randomize_weights`), the last
+    g_a convolution halved (y, std about 1, and z inside the +-10 support
+    of fresh quantiles), and for a hyperprior the layer that gives the
+    Gaussian scales made positive (|w|, bias 0) and scaled so that their
+    median on `image` is `median`, its mean half damped (x 0.1): every
+    symbol then lies inside its row's support."""
+    randomize_weights(torch, module, seed, image.device)
+    with torch.no_grad():
+        module.g_a[-1].weight.mul_(0.5)
+        if not hasattr(module, 'h_s'):
+            return module
+        m = module.m
+        y = module.g_a(image)
+        if hasattr(module, 'context_prediction'):           # JAHP
+            conv = module.entropy_parameters[-1]
+            conv.weight[:m] = conv.weight[:m].abs()
+            conv.weight[m:] *= 0.1
+            conv.bias.zero_()
+
+            def scales():
+                z = module.h_a(y)
+                feat = torch.cat([module.h_s(torch.round(z)),
+                                  module.context_prediction(torch.round(y))],
+                                 dim=1)
+                return module.entropy_parameters(feat)[:, :m]
+        else:
+            conv = module.h_s[-2] if not module.mean_scale else module.h_s[-1]
+            conv.weight[:m] = conv.weight[:m].abs()
+            if module.mean_scale:
+                conv.weight[m:] *= 0.1
+            conv.bias.zero_()
+
+            def scales():
+                z = module.h_a(module.hyper_input(y))
+                return module.gaussian_params(
+                    module.h_s(torch.round(z)))[0]
+        conv.weight[:m] *= median / float(scales().median())
+    return module
+
+
+def codec_cli(torch, kernels, config, n, tmp, device, codec=None):
+    """The test CLI on a wrapper config at full width (ResNet-50 with
+    random weights), `n` synthetic 224 px images of 1000 classes; a neural
+    codec's weights from `codec` (saved as the config's codec ckpt).
+    Checks: every image accounted, no kernel launched (host coders), the
+    top-1/top-5 in [0, 1]. Returns the CLI's output with its wall
+    seconds."""
+    from sc2bench_tpu_torch.tasks.image_classification import main as cli
+    from sc2bench_tpu_torch.utils.ckpt import save_ckpt
+    over = {'test': {'test_data_loader': synthetic_split(n, 1, seed=0)}}
+    if codec is not None:
+        ckpt = os.path.join(tmp, os.path.basename(config) + '.ckpt')
+        save_ckpt(ckpt, codec.state_dict())
+        over['models'] = {'wrapper': {'compression_model': {'ckpt': ckpt}}}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = cli(['--config', os.path.join(REPO, config), '--json',
+               json.dumps(over), '-test_only', '--device', str(device)])
+    wall = time.perf_counter() - t0
+    tag = os.path.basename(config)
+    check(all(v == 0 for v in kernels.LAUNCHES.values()),
+          f'{tag}: the host coders launched {dict(kernels.LAUNCHES)}')
+    summary = out['summaries'][0]
+    check(summary['num_samples'] == n and summary['mean'] > 0,
+          f'{tag}: data size {summary}')
+    res = out['result']
+    check(all(0.0 <= res[k] <= 1.0 for k in ('acc1', 'acc5')),
+          f'{tag}: result {res}')
+    rt = getattr(out['engine'].wrapper, 'compression_model', None)
+    host = '' if rt is None else ', host coding ' + ', '.join(
+        f'{k} {1e3 * v / n:.3f}' for k, v in sorted(rt.timings.items())) \
+        + ' ms an image'
+    log(f'phase 13: {config}: {n} images, acc1 {res["acc1"]}, acc5 '
+        f'{res["acc5"]}, {summary["mean"]:.6f} KB an image (std '
+        f'{summary["std"]:.6f}), {1 / res["model_time"]:.2f} img/s '
+        f'(model_time {res["model_time"]:.6f} s){host}; CLI wall {wall:.2f} s')
+    return dict(out, wall=wall)
+
+
+# The share of a codec's symbols and indexes on which the card's encoder
+# may differ from the CPU's (PERF.md section 4): cuDNN's and the CPU's
+# convolutions round differently in the last bits, so a latent on a rounding
+# boundary (or a scale on a table boundary) may land one step away on either.
+# Each device's own round trip stays exact.
+CARD_CPU_MISMATCH_SHARE = 1e-3
+
+
+def codec_reference(torch, rt, module, x):
+    """The card's codec against the CPU on one image: the symbols (and
+    indexes) of `encode_ops` equal but for at most
+    `CARD_CPU_MISMATCH_SHARE` of them, and the card's round trip exact:
+    `decompress(compress(x))` equals the decoder on the encoder's own
+    symbols."""
+    import copy
+    from sc2bench_tpu_torch.models.runtime import _exact_cudnn
+    cpu = copy.deepcopy(module).cpu()
+    ops = {}
+    for dev, mod in (('card', module), ('cpu', cpu)):
+        med = rt._medians.to(next(mod.parameters()).device)
+        xx = x.to(med.device)
+        with torch.no_grad():
+            ops[dev] = mod.encode_ops(xx, med, rt._scale_table.to(
+                med.device)) if rt.hyper else mod.encode_ops(xx, med)
+    total = equal = 0
+    for k, v in ops['card'].items():
+        total += v.numel()
+        equal += int((v.cpu() == ops['cpu'][k]).sum())
+    check(total - equal <= CARD_CPU_MISMATCH_SHARE * total,
+          f'card and CPU symbols agree on only {equal} of {total}')
+    comp = rt.compress(x)
+    img = rt.decompress(**comp)
+    with torch.no_grad():
+        if rt.hyper:
+            card = ops['card']
+            with _exact_cudnn():
+                _, means = module.decode_scales(
+                    card['z_symbols'], rt._medians, rt._scale_table)
+            want = module.decode_ops(card['y_symbols'], means)
+        else:
+            want = module.decode_ops(ops['card']['symbols'], rt._medians)
+    check(tuple(img.shape) == tuple(x.shape) and bool(torch.isfinite(img)
+                                                      .all()),
+          f'reconstruction {tuple(img.shape)}')
+    worst = float((img - want).abs().max())
+    check(worst <= 1e-4 * float(want.abs().max()),
+          f'the host round trip is off the encoder\'s symbols by {worst}')
+    return equal, total
+
+
+def masked_costs(vc, idx, act, m, tables, decode, lengths=None):
+    """(bound ms, bound_by) of one masked launch: the encode over all T
+    fronts, or one decode front (`vc`, `idx` of that front). Each input
+    read once, each output written once: the activity bytes, the table
+    entries the data codes (cdf[row, v] and cdf[row, v + 1]); for the
+    encode the int32 values and rows of the active lanes, the (N, T)
+    int32 streams, the int32 lengths and the int64 final states (written);
+    for a decode step the int32 row of each active lane, the int64 states
+    (read and written), the chunks the step reads (`lengths`: lanes that
+    renormalise), the rows' lengths and offsets and the int32 symbols out
+    (the values are what it computes, not what it reads). Integer
+    operations as for the indexed kernels, the bisection by the probes
+    each active symbol's row needs."""
+    cols = tables.quantized_cdf.shape[1]
+    m_act = np.repeat(act.cpu().numpy().astype(bool), m, axis=-1)
+    v = vc.cpu().numpy().astype(np.int64)[m_act]
+    rows = idx.cpu().numpy().astype(np.int64)[m_act]
+    pos = rows * cols + v
+    entries = np.unique(np.concatenate([pos, pos + 1])).size
+    lanes = vc.shape[-1]
+    nbytes = 4 * entries + act.numel()
+    if decode:
+        probes = np.ceil(np.log2(np.maximum(
+            tables.cdf_length[rows] - 1, 2))).sum()
+        nbytes += 4 * rows.size + 16 * lanes + 4 * lanes \
+            + 4 * int(lengths) + 8 * np.unique(rows).size
+        ops = 4 * probes + DECODE_OPS_PER_SYMBOL * v.size
+    else:
+        nbytes += 8 * v.size + 4 * vc.numel() + 4 * lanes + 8 * lanes
+        ops = ENCODE_OPS_PER_SYMBOL * v.size
+    return bound(nbytes, ops)
+
+
+def jahp_phase(torch, kernels, td, images):
+    """Phase 13 (JAHP): the joint autoregressive codec q1 (192, 192) at
+    256 px on the host wire and on the device wire. Checks: every image in
+    support (`ok`), the device decode `valid` and its y_hat equal to the
+    encoder's and to the host path's (bit for bit), the host round trip
+    exact; the masked kernels launch once (encode) and once a front
+    (decode) an image, the aligned cyclic pair once each for z; on the
+    last image every kernel of the path equals its plain version.
+    Returns (launches, kernel stats of the two masked kernels)."""
+    import pickle
+    from sc2bench_tpu_torch.models import zoo
+    from sc2bench_tpu_torch.models.zoo_jahp import JointAutoregressiveRuntime
+    device = images[0].device
+    torch.manual_seed(3)
+    module = zoo.registry_get('model', JAHP_KEY)(quality=1, device=device)
+    codec_weights(torch, module, 3, images[0])
+    rt = JointAutoregressiveRuntime(module, device=device)
+    rt.update()
+    n = len(images)
+    # warm-up (cuBLAS/cuDNN handles, the schedule), then the timed runs
+    rt.decode_device_latent(rt.encode_device_wire(images[0]))
+    rt.decompress_latent(**rt.compress(images[0]))
+    rt.timings.clear()
+    # the earlier phases' garbage collected before the host coder is timed
+    gc.collect()
+    # host wire
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host, sizes = [], []
+    for x in images:
+        comp, y_hat = rt.compress_latent(x)
+        check(torch.equal(rt.decompress_latent(**comp), y_hat),
+              'JAHP host wire: the round trip changed y_hat')
+        sizes.append(len(pickle.dumps(comp)))
+        host.append(y_hat)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    # device wire
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    dev_sizes, enc_s = [], 0.0
+    for x, y_host in zip(images, host):
+        t1 = time.perf_counter()
+        ops = rt.encode_device_wire(x)
+        check(bool(ops['ok']), 'JAHP device wire: a symbol out of support')
+        torch.cuda.synchronize()
+        enc_s += time.perf_counter() - t1
+        y_hat, valid = rt.decode_device_latent(ops)
+        check(bool(valid), 'JAHP device wire: valid=False')
+        check(torch.equal(y_hat, ops['y_hat']),
+              'JAHP device wire: decoded y_hat differs from the encoder\'s')
+        check(torch.equal(y_hat, y_host),
+              'JAHP device wire: y_hat differs from the host path\'s')
+        dev_sizes.append(int(ops['nbytes']))
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    sch = rt.schedule(*ops['shape'])
+    want = {'rans_masked_encode_aligned': n,
+            'rans_masked_decode_front': n * sch.steps,
+            'rans_cyclic_encode_aligned': n, 'rans_cyclic_decode_aligned': n}
+    check(launches == {k: want.get(k, 0) for k in kernels.ALL_KERNELS},
+          f'JAHP device wire launched {launches}, expected {want}')
+    with torch.no_grad():
+        img = module.decode_image(y_hat)
+    check(tuple(img.shape) == (1, 3, CODEC_HW, CODEC_HW)
+          and bool(torch.isfinite(img).all()), 'JAHP: bad reconstruction')
+    # every kernel of the path against its plain version, last image
+    y, z_symbols, hyper = rt._encode_ops(images[-1])
+    syms, idxs, _ = rt.forward_scan(y, hyper)
+    vc, idx, _ = rt.masked_values(syms, idxs, sch)
+    cdf, cdf_len, off = rt._g_tables_dev
+    m = module.m
+    got = kernels.masked_encode_aligned(cdf, vc, idx, sch.active, m)
+    ref = td.masked_encode_plain(cdf, vc, idx, sch.active, m)
+    errs = {'rans_masked_encode_aligned': max(
+        int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+        for a, b in zip(got, ref))}
+    streams, lengths, states = got
+    x_k = x_p = states
+    err, mid = 0, sch.steps // 2
+    for t in range(sch.steps):
+        if t == mid:
+            front = (t, x_k, idx[t])
+        s_k, x_k = kernels.masked_decode_front(
+            streams, t, x_k, cdf, cdf_len, off, idx[t], sch.active[t], m)
+        s_p, x_p = td.masked_decode_front_plain(
+            streams, t, x_p, cdf, cdf_len, off, idx[t], sch.active[t], m)
+        err = max(err, int((s_k - s_p).abs().max()),
+                  int((x_k - x_p).abs().max()))
+    errs['rans_masked_decode_front'] = err
+    check(bool((x_k == td.RANS_L).all()), 'masked decode: valid=False')
+    zflat = z_symbols.permute(0, 2, 3, 1).reshape(-1)
+    zkw = dict(num_lanes=rt._z_lanes(*z_symbols.shape[2:]),
+               cyclic_channels=module.n, aligned=True)
+    z_tables = (rt.codec.tables.quantized_cdf, rt.codec.tables.cdf_length,
+                rt.codec.tables.offset)
+    zk = td.device_rans_encode(zflat, *z_tables, **zkw)
+    zp = td.device_rans_encode(zflat.cpu(), *z_tables, **zkw)
+    errs['rans_cyclic_encode_aligned'] = max(
+        int((zk[name].cpu() - zp[name]).abs().max())
+        for name in ('streams', 'lengths', 'states'))
+    dk = td.device_rans_decode(zk['streams'], zk['states'], *z_tables,
+                               n_symbols=zflat.numel(), **zkw)
+    dp = td.device_rans_decode(zp['streams'], zp['states'], *z_tables,
+                               n_symbols=zflat.numel(), **zkw)
+    check(bool(dk[1]) and bool(dp[1]), 'z decode: valid=False')
+    errs['rans_cyclic_decode_aligned'] = int(
+        (dk[0].cpu() - dp[0]).abs().max())
+    check(torch.equal(dk[0].cpu(), zflat.cpu()), 'z decode lost symbols')
+    for name, e in errs.items():
+        check(e == 0, f'{name} differs from its plain version on the JAHP '
+              f'path by {e}')
+    # timings of the two masked kernels at the path's shapes
+    t, x_t, idx_t = front
+    g = rt.g_tables
+    renorm = int(((td.masked_decode_front_plain(
+        streams, t, x_t, cdf, cdf_len, off, idx_t, sch.active[t], m)[1]
+        != x_t)).sum())
+    specs = {
+        'rans_masked_encode_aligned': (
+            lambda: kernels.masked_encode_aligned(cdf, vc, idx, sch.active,
+                                                  m),
+            lambda: td.masked_encode_plain(cdf, vc, idx, sch.active, m),
+            masked_costs(vc, idx, sch.active, m, g, False)),
+        'rans_masked_decode_front': (
+            lambda: kernels.masked_decode_front(
+                streams, t, x_t, cdf, cdf_len, off, idx_t, sch.active[t], m),
+            lambda: td.masked_decode_front_plain(
+                streams, t, x_t, cdf, cdf_len, off, idx_t, sch.active[t], m),
+            masked_costs(vc[t], idx_t, sch.active[t], m, g, True,
+                         lengths=renorm)),
+    }
+    stats = {}
+    for name, (kern, plain, (bound_ms, bound_by)) in specs.items():
+        stats[name] = dict(
+            ms=per_call_ms(torch, kern, reps=30),
+            device_ms=device_ms(torch, kern, reps=100),
+            plain_ms=per_call_ms(torch, plain, reps=3), bound_ms=bound_ms,
+            bound_by=bound_by, max_abs_err=errs[name])
+        log(f'phase 13: {name}: kernel {stats[name]["ms"]:.4f} ms per call '
+            f'({stats[name]["device_ms"]:.4f} ms on the card), plain '
+            f'{stats[name]["plain_ms"]:.3f} ms, bound {bound_ms:.6f} ms '
+            f'({bound_by})')
+    active = int(sch.active.sum()) * m
+    log(f'phase 13: JAHP q1 (192, 192), {n} images of {CODEC_HW}x{CODEC_HW}: '
+        f'y 16x16x192 on {sch.slots * m} masked lanes x {sch.steps} fronts '
+        f'({active} symbols), z {"x".join(map(str, z_symbols.shape[2:]))}'
+        f'x{module.n} on {zkw["num_lanes"]} cyclic lanes; host wire '
+        f'{n / host_s:.2f} img/s (round trip), '
+        f'{statistics.mean(sizes) / 1024:.6f} KB an image (pickled), host '
+        f'coding ' + ', '.join(f'{k} {1e3 * v / n:.3f}'
+                               for k, v in sorted(rt.timings.items()))
+        + f' ms an image; device wire {n / dev_s:.2f} img/s (encode '
+        f'{1e3 * enc_s / n:.2f} ms an image), '
+        f'{statistics.mean(dev_sizes) / 1024:.6f} KB an image; valid, y_hat '
+        f'equal to the host path\'s; launches {launches}')
+    return launches, stats
+
+
+def wrapper_phase(torch, kernels, td, device):
+    """Phase 13: the input- and feature-compression wrappers at full
+    width through the test CLI (PIL is on the machine: JPEG and WebP on
+    the input, JPEG on the layer2 feature), the neural codecs q1 (FP and
+    MSHP at 16 images, SHP at 4, each checked against the CPU on one
+    image), then the JAHP's two wires. Returns the JAHP path's launches,
+    the masked kernels' stats and the CLI runs' launches."""
+    import tempfile
+    from sc2bench_tpu_torch.models import zoo
+    rng = np.random.default_rng(13)
+    x256 = [torch.from_numpy(rng.normal(0, 1, (1, 3, CODEC_HW, CODEC_HW))
+                             .astype(np.float32)).to(device)
+            for _ in range(N_JAHP)]
+    cli_launches, references = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for cfg, n in ((INPUT_CFG + 'jpeg-resnet50.yaml', N_CODEC),
+                       (INPUT_CFG + 'webp-resnet50.yaml', N_CODEC_SMALL),
+                       (FEATURE_CFG + 'jpeg-resnet50.yaml', N_CODEC)):
+            codec_cli(torch, kernels, cfg, n, tmp, device)
+            cli_launches.append(dict(kernels.LAUNCHES))
+        for key, n in (('factorized_prior', N_CODEC),
+                       ('mean_scale_hyperprior', N_CODEC),
+                       ('scale_hyperprior', N_CODEC_SMALL)):
+            torch.manual_seed(5)
+            module = zoo.registry_get('model', key)(quality=1, device=device)
+            codec_weights(torch, module, 5, x256[0])
+            out = codec_cli(torch, kernels, f'{INPUT_CFG}{key}-resnet50.yaml',
+                            n, tmp, device, codec=module)
+            cli_launches.append(dict(kernels.LAUNCHES))
+            references.append((key, out['engine'].wrapper.compression_model))
+    launches, stats = jahp_phase(torch, kernels, td, x256)
+    # the CPU references last: their thread pool would slow the timed
+    # host coders above
+    for key, rt in references:
+        equal, total = codec_reference(torch, rt, rt.module, x256[0])
+        log(f'phase 13: {key}: card vs CPU encoder on one 256 px image: '
+            f'{equal} of {total} symbols and indexes equal (at most '
+            f'{int(CARD_CPU_MISMATCH_SHARE * total)} may differ); the host '
+            'round trip gives the decoder on the encoder\'s symbols')
+    return launches, stats, cli_launches
+
+
 def smi_query(fields):
     out = subprocess.run(
         ['nvidia-smi', '--id=0', f'--query-gpu={fields}',
@@ -1947,14 +2348,21 @@ def run():
     ft_cli, bq_cli, bq_wrap = timed('phase 12', bq_phase, torch, kernels)
     new_paths = list(ft_serve.values()) + [ft_cli, bq_cli, bq_wrap]
 
+    # ---- phase 13: the input- and feature-compression wrappers ----
+    jahp, masked_stats, codec_clis = timed('phase 13', wrapper_phase, torch,
+                                           kernels, td, device)
+    stats.update(masked_stats)
+
     rows = []
     for name in kernels.ALL_KERNELS:
         indexed = name in kernels.INDEXED_KERNELS
+        masked = name in kernels.MASKED_KERNELS
         aligned = name.endswith('_aligned')
-        main = (mshp_bk if aligned else mshp_b1) if indexed \
-            else launches
+        main = jahp if masked else (mshp_bk if aligned else mshp_b1) \
+            if indexed else launches
         row = dict(name=name, route='cuda',
-                   source=SOURCES['indexed' if indexed else 'cyclic'],
+                   source=SOURCES['cyclic' if name in kernels.KERNELS
+                                  else 'indexed'],
                    replaces=REPLACES[name], launches=main[name],
                    max_abs_err=stats[name]['max_abs_err'],
                    ms=stats[name]['ms'], device_ms=stats[name]['device_ms'],
@@ -1966,10 +2374,12 @@ def run():
                    launches_mshp_cli=mshp_cli[name],
                    launches_mshp_train=mshp_train[name],
                    launches_finetune_bq=sum(c[name] for c in new_paths),
+                   launches_jahp=jahp[name],
+                   launches_codec_clis=sum(c[name] for c in codec_clis),
                    **{key: stats[name][key]
                       for key in ('device_ms_k128', 'bound_ms_k128')
                       if key in stats[name]})
-        if not indexed:
+        if name in kernels.KERNELS:
             row.update(launches_cli=cli_launches[name],
                        launches_train=train_launches[name],
                        launches_train_e2e=e2e_launches[name])

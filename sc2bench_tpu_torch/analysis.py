@@ -53,6 +53,15 @@ class FileSizeAnalyzer:
         self.file_size_list.clear()
 
 
+@register_analyzer
+class FileSizeAccumulator(FileSizeAnalyzer):
+    """Accumulates sizes already counted in bytes (a codec transform's
+    file size) instead of pickling an object."""
+
+    def analyze(self, file_size):
+        self.file_size_list.append(file_size / self.unit_size)
+
+
 def get_analyzer(cls_name, **kwargs):
     cls = lookup('analyzer', cls_name)
     return None if cls is None else cls(**kwargs)

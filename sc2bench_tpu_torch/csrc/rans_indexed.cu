@@ -1,8 +1,9 @@
 // General per-index rANS encode/decode kernels for Hopper (sm_90a).
 //
-// Four kernels. The JAX package runs this codec as XLA scans, with no
-// Pallas kernel; these replace the scans of
-// sc2bench_tpu/ops/rans/device.py:
+// Six kernels. The JAX package runs these codecs as XLA scans, with no
+// Pallas kernel; four replace the scans of sc2bench_tpu/ops/rans/device.py,
+// two those of the joint autoregressive codec's device wire
+// (sc2bench_tpu/models/zoo_jahp_device.py, after the first four's notes):
 //
 //   rans_indexed_encode          <- device_rans_encode's `step` scan + its
 //                                   `_finish_encode` compaction (batch 1,
@@ -59,9 +60,36 @@
 //   out      (k, T, N)  decoded symbols, row offset added
 //   masks    (k, N, T)  uint8 (torch.bool), aligned encode only, optional
 //
+// The masked pair (zoo_jahp_device.py's device wire, format
+// "jahp-lane-v1"):
+//
+//   rans_masked_encode_aligned  <- the scan of `_rans_encode_step` (:122,
+//                                  driven at :258): the T fronts in reverse,
+//                                  aligned (N, T) chunks, lengths, states
+//   rans_masked_decode_front    <- `_rans_decode_step` (:142), one launch a
+//                                  front from the decode loop (:331)
+//
+// Lane (slot, channel) = slot * m + channel of N = F * m lanes codes at most
+// one symbol a front, against row idx of the Gaussian tables, and only where
+// that front's activity bit act[t, slot] is set; elsewhere the lane is inert
+// (no table read, no renormalisation, no state change, chunk 0), so encoder
+// and decoder renormalise at the same steps and the decoder reads column t.
+// One thread a lane, the table read from device memory (in L2) as above;
+// the decoder's bisection is the indexed decoder's `cdf_bisect`. The
+// indexed aligned encoder cannot stand in for the masked one with an
+// "identity" row: a row of frequency 2^16 would leave the state as it is,
+// but 2^16 << 16 wraps to 0 in 32 bits, so every such step would
+// renormalise. The context model between decode fronts stays torch ops.
+//
+// Layouts: vc, idx (T, N) int32 forward order; act (T, F) uint8; streams
+// (N, T) int32; lengths (N,) int32; states (N,) int64. The decoder takes
+// front t's idx (N,) and act (F,), states in, and writes the symbols (N,)
+// (row offset added, 0 on inactive lanes) and the states out.
+//
 // Each C entry point launches on the given stream and returns
 // cudaGetLastError(), or cudaErrorInvalidValue (without launching) when
-// aligned streams are not T columns wide.
+// aligned streams are not T columns wide, or the masked lanes are not F * m
+// (a front index outside [0, T)).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -74,6 +102,19 @@ constexpr int kThreads = 32;      // (image, lane) pairs per block
 inline unsigned blocks_for(int num_images, int lanes) {
   const int64_t total = static_cast<int64_t>(num_images) * lanes;
   return static_cast<unsigned>((total + kThreads - 1) / kThreads);
+}
+
+// Largest v < len - 1 with row[v] <= slot, by bisection over [0, len - 1):
+// row[0] = 0 <= slot < 2^16 = row[len - 1] holds for any state.
+__device__ __forceinline__ int cdf_bisect(const int32_t* __restrict__ row,
+                                          int len, uint32_t slot) {
+  int lo = 0, hi = len - 1;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (static_cast<uint32_t>(row[mid]) <= slot) lo = mid;
+    else hi = mid;
+  }
+  return lo;
 }
 
 template <bool kAligned>
@@ -150,14 +191,7 @@ rans_indexed_decode_kernel(const int32_t* __restrict__ streams, int width,
     const int32_t r = idx[p];
     const int32_t* crow = cdf + static_cast<int64_t>(r) * cols;
     const uint32_t slot = x & 0xFFFFu;
-    // largest v < len - 1 with cdf[v] <= slot: cdf[0] = 0 <= slot <
-    // 2^16 = cdf[len - 1] holds for any state
-    int lo = 0, hi = min(cdf_len[r], cols) - 1;
-    while (hi - lo > 1) {
-      const int mid = (lo + hi) >> 1;
-      if (static_cast<uint32_t>(crow[mid]) <= slot) lo = mid;
-      else hi = mid;
-    }
+    const int lo = cdf_bisect(crow, min(cdf_len[r], cols), slot);
     const uint32_t st = static_cast<uint32_t>(crow[lo]);
     const uint32_t fr = static_cast<uint32_t>(crow[lo + 1]) - st;
     x = fr * (x >> 16) + slot - st;
@@ -174,6 +208,82 @@ rans_indexed_decode_kernel(const int32_t* __restrict__ streams, int width,
     out[p] = lo + off[r];
   }
   xend[gid] = static_cast<int64_t>(x);
+}
+
+// Masked lanes of the joint autoregressive codec's device wire: lane
+// (slot, channel) = slot * m + channel, N = F * m lanes, T fronts; the lane
+// codes at most one symbol a front, and only where act[t, slot] is set.
+// An inactive lane is inert at that step: no table read, no
+// renormalisation, no state change, chunk 0.
+
+__global__ void __launch_bounds__(kThreads)
+rans_masked_encode_aligned_kernel(const int32_t* __restrict__ cdf, int cols,
+                                  const int32_t* __restrict__ vc,
+                                  const int32_t* __restrict__ idx,
+                                  const uint8_t* __restrict__ act, int steps,
+                                  int lanes, int slots, int m,
+                                  int32_t* __restrict__ streams,
+                                  int32_t* __restrict__ lengths,
+                                  int64_t* __restrict__ states) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= lanes) return;
+  const int slot = lane / m;
+  int32_t* row = streams + static_cast<int64_t>(lane) * steps;
+  uint32_t x = kRansL;
+  int count = 0;
+  for (int t = steps - 1; t >= 0; --t) {
+    if (act[static_cast<int64_t>(t) * slots + slot] == 0) {
+      row[t] = 0;
+      continue;
+    }
+    const int64_t p = static_cast<int64_t>(t) * lanes + lane;
+    const int32_t* e = cdf + static_cast<int64_t>(idx[p]) * cols + vc[p];
+    const uint32_t st = static_cast<uint32_t>(e[0]);
+    const uint32_t fr = max(static_cast<uint32_t>(e[1]) - st, 1u);
+    // uint32 arithmetic throughout, wrapping exactly as the plain version
+    const bool renorm = x >= (fr << 16);
+    row[t] = renorm ? static_cast<int32_t>(x & 0xFFFFu) : 0;
+    if (renorm) {
+      ++count;
+      x >>= 16;
+    }
+    x = ((x / fr) << 16) + (x % fr) + st;
+  }
+  lengths[lane] = count;
+  states[lane] = static_cast<int64_t>(x);
+}
+
+__global__ void __launch_bounds__(kThreads)
+rans_masked_decode_front_kernel(const int32_t* __restrict__ streams,
+                                int steps, int t,
+                                const int64_t* __restrict__ x_in,
+                                const int32_t* __restrict__ cdf, int cols,
+                                const int32_t* __restrict__ cdf_len,
+                                const int32_t* __restrict__ off,
+                                const int32_t* __restrict__ idx,
+                                const uint8_t* __restrict__ act, int lanes,
+                                int m, int32_t* __restrict__ out,
+                                int64_t* __restrict__ x_out) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= lanes) return;
+  uint32_t x = static_cast<uint32_t>(x_in[lane]);
+  if (act[lane / m] == 0) {
+    out[lane] = 0;
+    x_out[lane] = static_cast<int64_t>(x);
+    return;
+  }
+  const int32_t r = idx[lane];
+  const int32_t* crow = cdf + static_cast<int64_t>(r) * cols;
+  const uint32_t slot = x & 0xFFFFu;
+  const int v = cdf_bisect(crow, min(cdf_len[r], cols), slot);
+  const uint32_t st = static_cast<uint32_t>(crow[v]);
+  const uint32_t fr = max(static_cast<uint32_t>(crow[v + 1]) - st, 1u);
+  x = fr * (x >> 16) + slot - st;
+  if (x < kRansL)
+    x = (x << 16) | static_cast<uint32_t>(
+        streams[static_cast<int64_t>(lane) * steps + t]);
+  out[lane] = v + off[r];
+  x_out[lane] = static_cast<int64_t>(x);
 }
 
 }  // namespace
@@ -229,6 +339,37 @@ int rans_indexed_decode_aligned(const int32_t* streams, int width,
       <<<blocks_for(num_images, lanes), kThreads, 0, stream>>>(
           streams, width, states, cdf, cols, cdf_len, off, idx, num_images,
           steps, lanes, out, xend);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rans_masked_encode_aligned(const int32_t* cdf, int cols,
+                               const int32_t* vc, const int32_t* idx,
+                               const uint8_t* act, int steps, int lanes,
+                               int slots, int m, int32_t* streams,
+                               int32_t* lengths, int64_t* states,
+                               cudaStream_t stream) {
+  if (m <= 0 || lanes != slots * m)
+    return static_cast<int>(cudaErrorInvalidValue);
+  rans_masked_encode_aligned_kernel
+      <<<blocks_for(1, lanes), kThreads, 0, stream>>>(
+          cdf, cols, vc, idx, act, steps, lanes, slots, m, streams, lengths,
+          states);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rans_masked_decode_front(const int32_t* streams, int steps, int t,
+                             const int64_t* x_in, const int32_t* cdf,
+                             int cols, const int32_t* cdf_len,
+                             const int32_t* off, const int32_t* idx,
+                             const uint8_t* act, int lanes, int m,
+                             int32_t* out, int64_t* x_out,
+                             cudaStream_t stream) {
+  if (m <= 0 || lanes % m != 0 || t < 0 || t >= steps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  rans_masked_decode_front_kernel
+      <<<blocks_for(1, lanes), kThreads, 0, stream>>>(
+          streams, steps, t, x_in, cdf, cols, cdf_len, off, idx, act, lanes,
+          m, out, x_out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,11 +1,39 @@
 """Model name -> module resolution (counterpart of
 `sc2bench_tpu/models/registry.py`): the builtin ResNet classifiers first,
-then the 'model' registry."""
+then the 'model' registry; and the neural image codecs of the
+input-compression family (`get_compression_model`, the zoo of
+`zoo.py`/`zoo_jahp.py`)."""
 from __future__ import annotations
 
 from ..device import resolve_device
 from ..registry import lookup, names
 from .resnet import RESNET_BUILDERS
+
+# the codec names a `compression_model` block may give (CompressAI's zoo
+# names beside the reference's); the JAX package's tuple leaves out the
+# joint autoregressive names, which its zoo registers all the same
+COMPRESSION_MODEL_FAMILIES = (
+    'factorized_prior', 'bmshj2018_factorized',
+    'scale_hyperprior', 'bmshj2018_hyperprior',
+    'mean_scale_hyperprior', 'mbt2018_mean',
+    'joint_autoregressive_hierarchical_prior', 'mbt2018',
+)
+
+
+def get_compression_model(compression_model_config, device=None):
+    """The runtime of the neural image codec of a `compression_model`
+    block (`key` one of `COMPRESSION_MODEL_FAMILIES`, `kwargs` such as
+    quality, `ckpt`), tables built, on `device` (CUDA unless asked
+    otherwise)."""
+    from .zoo import build_image_codec
+    key = compression_model_config['key']
+    if key not in COMPRESSION_MODEL_FAMILIES:
+        raise KeyError(f'compression model `{key}` is not a neural image '
+                       f'codec: {COMPRESSION_MODEL_FAMILIES}')
+    return build_image_codec(key,
+                             ckpt=compression_model_config.get('ckpt'),
+                             device=device,
+                             **compression_model_config.get('kwargs', {}))
 
 
 def load_classification_model(model_config, num_classes=1000, device=None):

@@ -1,7 +1,15 @@
-"""Wrapper runtimes selected by a config's `key` (counterpart of the
-`EntropicClassifier`, `SplitClassifier` and `wrap_model` of
+"""Wrapper runtimes selected by a config's `key` (counterpart of
 `sc2bench_tpu/models/wrapper.py`), registered under 'wrapper'.
 
+  CodecInputCompressionClassifier   each image through a host codec
+                                    transform (JPEG/WebP, BPG, VTM) and its
+                                    post-transforms, then the classifier
+  NeuralInputCompressionClassifier  each image through a neural codec's
+                                    `compress`/`decompress` (`zoo.py`,
+                                    `zoo_jahp.py`), then the classifier
+  CodecFeatureCompressionClassifier the classifier up to `split_layer`,
+                                    the feature through a codec transform
+                                    on the host, then the rest
   EntropicClassifier  the runtime of an `EntropicClassifierModule` (the
                       fine-tuning family): the host wire over its
                       module-level deploy ops
@@ -10,7 +18,12 @@
                       transform such as `SimpleQuantizer`) -> data size
                       -> decompressor -> decoder -> tail
 
-The codec wrappers (input and feature compression) are not ported yet.
+The codec wrappers take a batch as a list of HWC images (numpy, or PIL
+for the host codecs), as the JAX package's do, code each image on its
+own, and run the classifier NCHW on the device, the batch transposed
+once. Their analyzers account each image's size: the codec transform's
+byte count (`FileSizeAccumulator`) or the pickled compressed object
+(`FileSizeAnalyzer`).
 """
 from __future__ import annotations
 
@@ -18,9 +31,30 @@ import numpy as np
 import torch
 
 from .. import transforms  # noqa: F401  (fills the transform registry)
+from ..analysis import AnalyzerHolder
+from ..device import resolve_device
 from ..registry import get as registry_get
 from ..registry import register_wrapper
+from .registry import get_compression_model, load_classification_model
 from .runtime import SplitClassifierRuntime
+
+
+def to_pil(img):
+    """An HWC array as a PIL image for the host codecs: uint8 as it is,
+    floats in [0, 1] times 255 and rounded, other floats min/max-scaled to
+    8 bits; a PIL image passes through."""
+    from PIL import Image
+    if isinstance(img, Image.Image):
+        return img
+    arr = np.asarray(img)
+    if arr.dtype != np.uint8:
+        lo, hi = float(arr.min()), float(arr.max())
+        if lo >= 0.0 and hi <= 1.0:
+            arr = (arr * 255.0).round()
+        else:
+            arr = (arr - lo) / max(hi - lo, 1e-12) * 255.0
+        arr = arr.astype(np.uint8)
+    return Image.fromarray(arr)
 
 
 def _build_transform(cfg):
@@ -37,6 +71,120 @@ def _build_transform(cfg):
             return x
         return chain
     return registry_get('transform', cfg['key'])(**cfg.get('kwargs', {}))
+
+
+def _nchw_batch(images, device) -> torch.Tensor:
+    """A list of HWC images (or an NHWC array) as one float32 NCHW tensor
+    on `device`."""
+    batch = np.stack([np.asarray(img, np.float32) for img in images])
+    return torch.from_numpy(np.ascontiguousarray(
+        batch.transpose(0, 3, 1, 2))).to(device)
+
+
+@register_wrapper
+class CodecInputCompressionClassifier(AnalyzerHolder):
+    """Each image through `codec_encoder_decoder` (a transform returning
+    the reconstruction, or (reconstruction, file size) whose size is
+    analyzed) and `post_transform`, then the classifier."""
+
+    def __init__(self, classifier, codec_encoder_decoder=None,
+                 post_transform=None, analysis_config=None, device=None,
+                 **kwargs):
+        super().__init__((analysis_config or {}).get('analyzer_configs', []))
+        self.device = resolve_device(device)
+        self.codec = _build_transform(codec_encoder_decoder)
+        self.post_transform = _build_transform(post_transform)
+        self.classifier = classifier.to(self.device).eval()
+
+    @torch.no_grad()
+    def __call__(self, images) -> torch.Tensor:
+        batch = []
+        for img in images:
+            if self.codec is not None:
+                out = self.codec(to_pil(img))
+                if isinstance(out, tuple):
+                    img, file_size = out
+                    self.analyze(file_size)
+                else:
+                    img = out
+            if self.post_transform is not None:
+                img = self.post_transform(img)
+            batch.append(img)
+        return self.classifier(_nchw_batch(batch, self.device)).to(
+            torch.float32)
+
+
+@register_wrapper
+class NeuralInputCompressionClassifier(AnalyzerHolder):
+    """Each image through `pre_transform`, the neural codec's `compress`
+    (the compressed object analyzed when `analyzes_after_compress` or the
+    analysis is active) and `decompress` on the device, and
+    `post_transform`, then the classifier on the reconstructions."""
+
+    def __init__(self, classifier, compression_model=None,
+                 pre_transform=None, post_transform=None,
+                 analysis_config=None, device=None, **kwargs):
+        analysis_config = analysis_config or {}
+        super().__init__(analysis_config.get('analyzer_configs', []))
+        self.device = resolve_device(device)
+        self.analyzes_after_compress = analysis_config.get(
+            'analyzes_after_compress', False)
+        self.compression_model = compression_model
+        self.pre_transform = _build_transform(pre_transform)
+        self.post_transform = _build_transform(post_transform)
+        self.classifier = classifier.to(self.device).eval()
+
+    @torch.no_grad()
+    def __call__(self, images) -> torch.Tensor:
+        batch = []
+        for img in images:
+            if self.pre_transform is not None:
+                img = self.pre_transform(img)
+            x = _nchw_batch([img], self.device)
+            if self.compression_model is not None:
+                compressed = self.compression_model.compress(x)
+                if self.analyzes_after_compress or self.activated_analysis:
+                    self.analyze(compressed)
+                x = self.compression_model.decompress(**compressed)
+            if self.post_transform is not None:
+                x = _nchw_batch([self.post_transform(
+                    x[0].permute(1, 2, 0).cpu().numpy())], self.device)
+            batch.append(x.to(torch.float32))
+        return self.classifier(torch.cat(batch)).to(torch.float32)
+
+
+@register_wrapper
+class CodecFeatureCompressionClassifier(AnalyzerHolder):
+    """The classifier split at `split_layer` (its `forward_until` and
+    `forward_from`): the head on the device, each feature as HWC on the
+    host through `compression_transform` (its file size analyzed) and
+    `decompression_transform`, then the tail on the device."""
+
+    def __init__(self, classifier, split_layer='layer2',
+                 compression_transform=None, decompression_transform=None,
+                 analysis_config=None, device=None, **kwargs):
+        super().__init__((analysis_config or {}).get('analyzer_configs', []))
+        self.device = resolve_device(device)
+        self.module = classifier.to(self.device).eval()
+        self.split_layer = split_layer
+        self.compress = _build_transform(compression_transform)
+        self.decompress = _build_transform(decompression_transform)
+
+    @torch.no_grad()
+    def __call__(self, images) -> torch.Tensor:
+        x = _nchw_batch(images, self.device)
+        feature = self.module.forward_until(x, self.split_layer)
+        out = []
+        for f in feature.permute(0, 2, 3, 1).cpu().numpy():
+            if self.compress is not None:
+                comp = self.compress(f)
+                if isinstance(comp, tuple):
+                    comp, file_size = comp
+                    self.analyze(file_size)
+                f = self.decompress(comp) if self.decompress else comp
+            out.append(f)
+        return self.module.forward_from(
+            _nchw_batch(out, self.device), self.split_layer).to(torch.float32)
 
 
 @register_wrapper
@@ -82,3 +230,20 @@ def wrap_model(wrapper_model_config, model, **kwargs):
     the config's kwargs."""
     cls = registry_get('wrapper', wrapper_model_config['key'])
     return cls(model, **wrapper_model_config.get('kwargs', {}), **kwargs)
+
+
+def get_wrapped_classification_model(wrapper_model_config, device=None,
+                                     **kwargs):
+    """The wrapper of a `models.wrapper` config on `device` (CUDA unless
+    asked otherwise): its `classification_model` and, for a
+    `compression_model` block, the neural codec's runtime (unless
+    `compression_model` is given in `kwargs`)."""
+    dev = resolve_device(device)
+    model_config = wrapper_model_config.get(
+        'classification_model', wrapper_model_config.get('model'))
+    classifier = load_classification_model(model_config, device=dev)
+    cm_cfg = wrapper_model_config.get('compression_model')
+    if cm_cfg is not None and 'compression_model' not in kwargs:
+        kwargs['compression_model'] = get_compression_model(cm_cfg,
+                                                            device=dev)
+    return wrap_model(wrapper_model_config, classifier, device=dev, **kwargs)

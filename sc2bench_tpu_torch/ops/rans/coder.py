@@ -1,6 +1,6 @@
 """Host rANS coder in the CompressAI-style byte format (counterpart of
-`sc2bench_tpu/ops/rans/coder.py`: single-stream coding with indexes, and
-the cyclic int16 wire).
+`sc2bench_tpu/ops/rans/coder.py`: single-stream coding with indexes, its
+streaming decoder, and the cyclic int16 wire).
 
 Format: 32-bit state, 8-bit renormalization, 16-bit probability precision.
 A symbol outside its CDF row's support escapes to the row's last slot and
@@ -93,6 +93,12 @@ def _library():
             lib.rans_decode_with_indexes_i16_coarse.restype = i
             lib.rans_decode_with_indexes_i16_coarse.argtypes = [
                 u8p, i, i16p, i, i32p, i, i32p, i32p, i16p, i, i16p]
+            i64p = ctypes.POINTER(ctypes.c_int64)
+            lib.rans_stream_init.restype = None
+            lib.rans_stream_init.argtypes = [u8p, i, i64p]
+            lib.rans_stream_decode.restype = i
+            lib.rans_stream_decode.argtypes = [
+                u8p, i, i64p, i32p, i, i32p, i, i32p, i32p, i32p]
             _lib = lib
     return _lib
 
@@ -111,6 +117,10 @@ def _u8p(a):
 
 def _i16p(a):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int16))
+
+
+def _i64p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
 
 
 def _cyclic_indexes(n: int, num_dists: int) -> np.ndarray:
@@ -172,50 +182,64 @@ def _py_encode(symbols, indexes, cdfs, cdf_lengths, offsets) -> bytes:
     return bytes(reversed(buf))
 
 
-def _py_decode(data: bytes, indexes, cdfs, cdf_lengths, offsets) -> np.ndarray:
-    pos = 0
-    x = 0
-    for _ in range(4):
-        x = (x << 8) | (data[pos] if pos < len(data) else 0)
-        pos += 1
+class _PyStreamingState:
+    """Decoder state (x, byte position) of the pure-Python reference; it
+    persists across `decode` calls, as `StreamingDecoder` needs."""
 
-    mask = (1 << _PRECISION) - 1
+    def __init__(self, data: bytes):
+        self.data = data
+        self.pos = 0
+        self.x = 0
+        for _ in range(4):
+            self.x = (self.x << 8) | self._byte()
 
-    def advance(start, freq):
-        nonlocal x, pos
-        x = freq * (x >> _PRECISION) + (x & mask) - start
-        while x < _RANS_L:
-            x = (x << 8) | (data[pos] if pos < len(data) else 0)
-            pos += 1
+    def _byte(self) -> int:
+        b = self.data[self.pos] if self.pos < len(self.data) else 0
+        self.pos += 1
+        return b
 
-    def get_bypass():
-        val = (x & mask) >> (_PRECISION - _BYPASS_BITS)
-        advance(val << (_PRECISION - _BYPASS_BITS),
-                1 << (_PRECISION - _BYPASS_BITS))
+    def _advance(self, start, freq):
+        mask = (1 << _PRECISION) - 1
+        self.x = freq * (self.x >> _PRECISION) + (self.x & mask) - start
+        while self.x < _RANS_L:
+            self.x = (self.x << 8) | self._byte()
+
+    def _get_bypass(self):
+        mask = (1 << _PRECISION) - 1
+        val = (self.x & mask) >> (_PRECISION - _BYPASS_BITS)
+        self._advance(val << (_PRECISION - _BYPASS_BITS),
+                      1 << (_PRECISION - _BYPASS_BITS))
         return val
 
-    out = np.empty(len(indexes), np.int32)
-    for i, idx in enumerate(indexes.tolist()):
-        cdf = cdfs[idx]
-        max_value = int(cdf_lengths[idx]) - 2
-        slot = x & mask
-        s = int(np.searchsorted(cdf[:int(cdf_lengths[idx])], slot, 'right')) - 1
-        advance(int(cdf[s]), int(cdf[s + 1] - cdf[s]))
-        value = s
-        if s == max_value:
-            n_bypass = 0
-            while True:
-                val = get_bypass()
-                n_bypass += val
-                if val != _MAX_BYPASS:
-                    break
-            raw_val = 0
-            for j in range(n_bypass):
-                raw_val |= get_bypass() << (j * _BYPASS_BITS)
-            value = (-(raw_val + 1) // 2 if raw_val & 1
-                     else raw_val // 2 + max_value)
-        out[i] = value + int(offsets[idx])
-    return out
+    def decode(self, indexes, cdfs, cdf_lengths, offsets) -> np.ndarray:
+        out = np.empty(len(indexes), np.int32)
+        mask = (1 << _PRECISION) - 1
+        for i, idx in enumerate(indexes.tolist()):
+            cdf = cdfs[idx]
+            max_value = int(cdf_lengths[idx]) - 2
+            slot = self.x & mask
+            s = int(np.searchsorted(cdf[:int(cdf_lengths[idx])], slot,
+                                    'right')) - 1
+            self._advance(int(cdf[s]), int(cdf[s + 1] - cdf[s]))
+            value = s
+            if s == max_value:
+                n_bypass = 0
+                while True:
+                    val = self._get_bypass()
+                    n_bypass += val
+                    if val != _MAX_BYPASS:
+                        break
+                raw_val = 0
+                for j in range(n_bypass):
+                    raw_val |= self._get_bypass() << (j * _BYPASS_BITS)
+                value = (-(raw_val + 1) // 2 if raw_val & 1
+                         else raw_val // 2 + max_value)
+            out[i] = value + int(offsets[idx])
+        return out
+
+
+def _py_decode(data: bytes, indexes, cdfs, cdf_lengths, offsets) -> np.ndarray:
+    return _PyStreamingState(data).decode(indexes, cdfs, cdf_lengths, offsets)
 
 
 class RansCoder:
@@ -347,4 +371,36 @@ class RansCoder:
             _i32p(self.cdfs), self.cdf_stride, _i32p(self.cdf_lengths),
             _i32p(self.offsets), _i16p(self._coarse), self._coarse.shape[1],
             _i16p(out))
+        return out
+
+
+class StreamingDecoder:
+    """Incremental decoder over one stream of `encode_with_indexes`: each
+    `decode(indexes)` call decodes the next len(indexes) symbols, so a
+    consumer whose indexes depend on symbols it has decoded (the joint
+    autoregressive codec's context model) decodes one chunk a wavefront.
+    The state {x, byte position} persists across calls, in the C library
+    or, for a coder built with `use_cpp=False`, in the Python reference."""
+
+    def __init__(self, coder: RansCoder, data: bytes):
+        self.coder = coder
+        self.data = np.frombuffer(data, np.uint8)
+        self.lib = coder.lib
+        if self.lib is not None:
+            self._state = np.empty(2, np.int64)
+            self.lib.rans_stream_init(_u8p(self.data), self.data.size,
+                                      _i64p(self._state))
+        else:
+            self._py = _PyStreamingState(bytes(data))
+
+    def decode(self, indexes) -> np.ndarray:
+        indexes = _as_i32(indexes).ravel()
+        c = self.coder
+        if self.lib is None:
+            return self._py.decode(indexes, c.cdfs, c.cdf_lengths, c.offsets)
+        out = np.empty(indexes.size, np.int32)
+        self.lib.rans_stream_decode(
+            _u8p(self.data), self.data.size, _i64p(self._state),
+            _i32p(indexes), indexes.size, _i32p(c.cdfs), c.cdf_stride,
+            _i32p(c.cdf_lengths), _i32p(c.offsets), _i32p(out))
         return out

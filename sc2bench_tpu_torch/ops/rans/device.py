@@ -34,6 +34,9 @@ The per-lane loops have two implementations with one contract:
     `cyclic_decode_plain`, `indexed_encode_plain`, `indexed_decode_plain`),
     which the same wrappers run for CPU tensors and which the tests and
     `chip_smoke.py` hold the kernels against.
+The joint autoregressive codec's masked lanes (`models/zoo_jahp_device.py`)
+have their two kernels beside the indexed ones and their plain versions
+here too (`masked_encode_plain`, `masked_decode_front_plain`).
 
 Torch-side dtypes: streams int32 (values 0..65535), lengths int32, states
 int64 (values 0..2^32-1). The plain versions carry the state in int64,
@@ -441,6 +444,61 @@ def indexed_decode_plain(streams: torch.Tensor, states: torch.Tensor,
         x = torch.where(need, ((x << 16) | chunk) & _MASK32, x)
         out[:, t] = (v + off64[rows]).to(torch.int32)
     return out, x
+
+
+def masked_encode_plain(cdf: torch.Tensor, vc: torch.Tensor,
+                        idx: torch.Tensor, act: torch.Tensor, m: int):
+    """Reverse-order encode of the joint autoregressive codec's masked
+    lanes: value vc[t, j] (T, N) int32 coded against row idx[t, j] of `cdf`
+    (R, cols) int32 where its slot j // m is active in front t (`act`
+    (T, F) uint8), N = F * m; an inactive lane is inert at that step.
+    Returns (streams (N, T) int32 aligned, lengths (N,) int32, states (N,)
+    int64)."""
+    steps, lanes = vc.shape
+    lane_act = act.bool().repeat_interleave(int(m), dim=1)
+    flat = cdf.reshape(-1).to(torch.int64)
+    pos = idx.to(torch.int64) * cdf.shape[1] + vc.to(torch.int64)
+    start = flat[pos]
+    freq = torch.clamp_min(flat[pos + 1] - start, 1)
+    x = torch.full((lanes,), RANS_L, dtype=torch.int64, device=vc.device)
+    chunks = torch.zeros((steps, lanes), dtype=torch.int64, device=vc.device)
+    lengths = torch.zeros((lanes,), dtype=torch.int32, device=vc.device)
+    for t in range(steps - 1, -1, -1):
+        a, st, fr = lane_act[t], start[t], freq[t]
+        renorm = a & (x >= ((fr << 16) & _MASK32))
+        chunks[t] = torch.where(renorm, x & _MASK16, 0)
+        lengths += renorm.to(torch.int32)
+        x = torch.where(renorm, x >> 16, x)
+        x = torch.where(a, (((x // fr) << PRECISION) + x % fr + st)
+                        & _MASK32, x)
+    return chunks.t().to(torch.int32).contiguous(), lengths, x
+
+
+def masked_decode_front_plain(streams: torch.Tensor, t: int,
+                              states: torch.Tensor, cdf: torch.Tensor,
+                              cdf_len: torch.Tensor, off: torch.Tensor,
+                              idx: torch.Tensor, act: torch.Tensor, m: int):
+    """One masked decode step, front t, for every lane: the symbol by
+    `cdf_bisect` of row idx[j] (N,), the state update, and chunk column t
+    of the aligned (N, T) `streams` read where the state drops below
+    RANS_L; lanes whose slot j // m is inactive in `act` (F,) uint8 keep
+    their state and give 0. Returns (symbols (N,) int32 with the row
+    offset added, states (N,) int64)."""
+    a = act.bool().repeat_interleave(int(m))
+    x = states.to(torch.int64)
+    rows = idx.to(torch.int64)
+    cols = cdf.shape[1]
+    flat = cdf.reshape(-1).to(torch.int64)
+    slot = x & _MASK16
+    v = cdf_bisect(cdf, cdf_len, rows, slot)
+    st = flat[rows * cols + v]
+    fr = torch.clamp_min(flat[rows * cols + v + 1] - st, 1)
+    x_new = (fr * (x >> 16) + slot - st) & _MASK32
+    chunk = streams[:, t].to(torch.int64)
+    x_new = torch.where(x_new < RANS_L, ((x_new << 16) | chunk) & _MASK32,
+                        x_new)
+    sym = torch.where(a, v + off.to(torch.int64)[rows], 0)
+    return sym.to(torch.int32), torch.where(a, x_new, x)
 
 
 # ---------------------------------------------------------------------------

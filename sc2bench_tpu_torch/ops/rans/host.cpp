@@ -1,8 +1,8 @@
 // Byte-aligned rANS range coder with escape/bypass coding.
 //
 // The port's copy of the host coder of sc2bench_tpu/ops/rans/rans.cpp
-// (single-stream encode/decode with indexes, and the cyclic int16 wire with
-// its coarse-table decoder), the entropy-coding stage
+// (single-stream encode/decode with indexes, the streaming decoder, and the
+// cyclic int16 wire with its coarse-table decoder), the entropy-coding stage
 // the reference gets from CompressAI's C++ rANS. Runs on the host: the
 // bitstream is serial and CPU-bound; symbols/indexes arrive as int32 arrays
 // computed on the GPU. Built with g++ and bound with ctypes
@@ -158,6 +158,34 @@ inline int64_t read_symbol_escape(RansDecState& dec, int32_t max_value) {
                          : static_cast<int64_t>(raw_val >> 1) + max_value;
 }
 
+// n symbols from `dec`, symbol i with row indexes[i]: the largest s with
+// cdf[s] <= slot by bisection, then the escape of the last slot.
+inline int rans_decode_with_state(RansDecState& dec, const int32_t* indexes,
+                                  int n, const int32_t* cdfs, int cdf_stride,
+                                  const int32_t* cdf_lengths,
+                                  const int32_t* offsets, int32_t* out) {
+    for (int i = 0; i < n; ++i) {
+        const int32_t idx = indexes[i];
+        const int32_t* cdf = cdfs + static_cast<int64_t>(idx) * cdf_stride;
+        const int32_t cdf_len = cdf_lengths[idx];
+        const int32_t max_value = cdf_len - 2;
+        const uint32_t slot = dec.peek();
+        int lo = 0, hi = cdf_len - 1;
+        while (hi - lo > 1) {
+            int mid = (lo + hi) >> 1;
+            if (static_cast<uint32_t>(cdf[mid]) <= slot) lo = mid;
+            else hi = mid;
+        }
+        const int s = lo;
+        dec.advance(static_cast<uint32_t>(cdf[s]),
+                    static_cast<uint32_t>(cdf[s + 1] - cdf[s]));
+        const int64_t value = (s == max_value)
+            ? read_symbol_escape(dec, max_value) : s;
+        out[i] = static_cast<int32_t>(value + offsets[idx]);
+    }
+    return 0;
+}
+
 }  // namespace
 
 
@@ -202,27 +230,8 @@ int rans_decode_with_indexes(const uint8_t* bytes, int n_bytes,
                              int32_t* out) {
     RansDecState dec;
     dec.init(bytes, n_bytes);
-    for (int i = 0; i < n; ++i) {
-        const int32_t idx = indexes[i];
-        const int32_t* cdf = cdfs + static_cast<int64_t>(idx) * cdf_stride;
-        const int32_t cdf_len = cdf_lengths[idx];
-        const int32_t max_value = cdf_len - 2;
-        const uint32_t slot = dec.peek();
-        // binary search: largest s with cdf[s] <= slot
-        int lo = 0, hi = cdf_len - 1;
-        while (hi - lo > 1) {
-            int mid = (lo + hi) >> 1;
-            if (static_cast<uint32_t>(cdf[mid]) <= slot) lo = mid;
-            else hi = mid;
-        }
-        const int s = lo;
-        dec.advance(static_cast<uint32_t>(cdf[s]),
-                    static_cast<uint32_t>(cdf[s + 1] - cdf[s]));
-        const int64_t value = (s == max_value)
-            ? read_symbol_escape(dec, max_value) : s;
-        out[i] = static_cast<int32_t>(value + offsets[idx]);
-    }
-    return 0;
+    return rans_decode_with_state(dec, indexes, n, cdfs, cdf_stride,
+                                  cdf_lengths, offsets, out);
 }
 
 // Cyclic int16 wire: symbols in the device's NHWC-flat (channels-last)
@@ -348,6 +357,38 @@ int rans_decode_with_indexes_i16_coarse(const uint8_t* bytes, int n_bytes,
         bytes, n_bytes, n, cdfs, cdf_stride, cdf_lengths, offsets, coarse,
         coarse_stride, out,
         [indexes](int i) { return static_cast<int32_t>(indexes[i]); });
+}
+
+}  // extern "C"
+
+// Streaming decode: the state (x, byte position) persists across calls, so a
+// consumer whose indexes depend on symbols it has already decoded (the
+// joint autoregressive codec's context model) decodes one chunk a wavefront
+// in one call. state = int64[2] {x, pos}. Same format and symbol search as
+// rans_decode_with_indexes.
+
+extern "C" {
+
+void rans_stream_init(const uint8_t* bytes, int n_bytes, int64_t* state) {
+    RansDecState dec;
+    dec.init(bytes, n_bytes);
+    state[0] = static_cast<int64_t>(dec.x);
+    state[1] = static_cast<int64_t>(dec.ptr - bytes);
+}
+
+int rans_stream_decode(const uint8_t* bytes, int n_bytes, int64_t* state,
+                       const int32_t* indexes, int n, const int32_t* cdfs,
+                       int cdf_stride, const int32_t* cdf_lengths,
+                       const int32_t* offsets, int32_t* out) {
+    RansDecState dec;
+    dec.x = static_cast<uint32_t>(state[0]);
+    dec.ptr = bytes + state[1];
+    dec.end = bytes + n_bytes;
+    const int rc = rans_decode_with_state(dec, indexes, n, cdfs, cdf_stride,
+                                          cdf_lengths, offsets, out);
+    state[0] = static_cast<int64_t>(dec.x);
+    state[1] = static_cast<int64_t>(dec.ptr - bytes);
+    return rc;
 }
 
 }  // extern "C"

@@ -29,6 +29,9 @@ tables at a given shape.
 
 The indexed kernels read the whole CDF table (rows x cols) from device
 memory, one thread per (image, lane), and stage nothing: any T, any width.
+So do the joint autoregressive codec's two masked-lane kernels in the same
+source (`masked_encode_aligned`, `masked_decode_front`), one thread a
+lane.
 """
 from __future__ import annotations
 
@@ -43,7 +46,8 @@ from pathlib import Path
 import torch
 
 from .device import (cyclic_decode_plain, cyclic_encode_plain,
-                     indexed_decode_plain, indexed_encode_plain)
+                     indexed_decode_plain, indexed_encode_plain,
+                     masked_decode_front_plain, masked_encode_plain)
 
 _PKG = Path(__file__).resolve().parents[2]
 SOURCE = _PKG / 'csrc' / 'rans_cyclic.cu'
@@ -55,7 +59,8 @@ KERNELS = ('rans_cyclic_encode', 'rans_cyclic_decode',
 INDEXED_KERNELS = ('rans_indexed_encode', 'rans_indexed_decode',
                    'rans_indexed_encode_aligned',
                    'rans_indexed_decode_aligned')
-ALL_KERNELS = KERNELS + INDEXED_KERNELS
+MASKED_KERNELS = ('rans_masked_encode_aligned', 'rans_masked_decode_front')
+ALL_KERNELS = KERNELS + INDEXED_KERNELS + MASKED_KERNELS
 LAUNCHES = dict.fromkeys(ALL_KERNELS, 0)
 
 _lib = None
@@ -157,7 +162,11 @@ def _indexed_library():
                     ('rans_indexed_encode', enc + [p]),
                     ('rans_indexed_encode_aligned', enc + [p, p]),
                     ('rans_indexed_decode', dec + [p]),
-                    ('rans_indexed_decode_aligned', dec + [p])):
+                    ('rans_indexed_decode_aligned', dec + [p]),
+                    ('rans_masked_encode_aligned',
+                     [p, i, p, p, p, i, i, i, i, p, p, p, p]),
+                    ('rans_masked_decode_front',
+                     [p, i, i, p, p, i, p, p, p, p, i, i, p, p, p])):
                 fn = getattr(lib, name)
                 fn.argtypes = args
                 fn.restype = i
@@ -479,3 +488,72 @@ def indexed_decode_aligned(streams, states, cdf, cdf_len, off, idx,
                                       idx, steps)
     _launch_indexed('rans_indexed_decode_aligned', streams.device, *args)
     return outs
+
+
+# ---------------------------------------------------------------------------
+# Masked-lane kernels of the joint autoregressive codec (csrc/rans_indexed.cu)
+# ---------------------------------------------------------------------------
+
+def masked_encode_aligned(cdf: torch.Tensor, vc: torch.Tensor,
+                          idx: torch.Tensor, act: torch.Tensor, m: int):
+    """Masked encode: values `vc` (T, N) int32 and their rows `idx` (T, N)
+    int32 of `cdf` (R, cols), lane j active in front t where act[t, j // m]
+    ((T, F) uint8, N = F * m) -> (streams (N, T) int32 aligned, lengths
+    (N,) int32, states (N,) int64)."""
+    if vc.device.type == 'cpu':
+        return masked_encode_plain(cdf, vc, idx, act, m)
+    _require_cuda(vc)
+    dev = vc.device
+    steps, lanes = vc.shape
+    slots = act.shape[1]
+    if steps == 0 or lanes != slots * int(m):
+        raise ValueError(f'masked encode: vc {tuple(vc.shape)} is not '
+                         f'(T, F * m) for act {tuple(act.shape)}, m={m}')
+    _check(vc, 'vc', torch.int32, (steps, lanes), dev)
+    _check(idx, 'idx', torch.int32, (steps, lanes), dev)
+    _check(act, 'act', torch.uint8, (steps, slots), dev)
+    _check(cdf, 'cdf', torch.int32, tuple(cdf.shape), dev)
+    streams = torch.empty((lanes, steps), dtype=torch.int32, device=dev)
+    lengths = torch.empty((lanes,), dtype=torch.int32, device=dev)
+    states = torch.empty((lanes,), dtype=torch.int64, device=dev)
+    _launch_indexed('rans_masked_encode_aligned', dev, cdf.data_ptr(),
+                    cdf.shape[1], vc.data_ptr(), idx.data_ptr(),
+                    act.data_ptr(), steps, lanes, slots, int(m),
+                    streams.data_ptr(), lengths.data_ptr(),
+                    states.data_ptr())
+    return streams, lengths, states
+
+
+def masked_decode_front(streams: torch.Tensor, t: int, states: torch.Tensor,
+                        cdf: torch.Tensor, cdf_len: torch.Tensor,
+                        off: torch.Tensor, idx: torch.Tensor,
+                        act: torch.Tensor, m: int):
+    """One masked decode step, front t: aligned `streams` (N, T) int32,
+    `states` (N,) int64, rows `idx` (N,) int32, `act` (F,) uint8 ->
+    (symbols (N,) int32 with the row offset added, 0 on inactive lanes;
+    states (N,) int64)."""
+    if streams.device.type == 'cpu':
+        return masked_decode_front_plain(streams, t, states, cdf, cdf_len,
+                                         off, idx, act, m)
+    _require_cuda(streams)
+    dev = streams.device
+    lanes, steps = streams.shape
+    if not 0 <= int(t) < steps or lanes != act.shape[0] * int(m):
+        raise ValueError(f'masked decode: front {t} of {steps}, streams '
+                         f'{tuple(streams.shape)}, act {tuple(act.shape)}, '
+                         f'm={m}')
+    _check(streams, 'streams', torch.int32, (lanes, steps), dev)
+    _check(states, 'states', torch.int64, (lanes,), dev)
+    _check(idx, 'idx', torch.int32, (lanes,), dev)
+    _check(act, 'act', torch.uint8, (act.shape[0],), dev)
+    _check(cdf, 'cdf', torch.int32, tuple(cdf.shape), dev)
+    _check(cdf_len, 'cdf_len', torch.int32, (cdf.shape[0],), dev)
+    _check(off, 'off', torch.int32, (cdf.shape[0],), dev)
+    out = torch.empty((lanes,), dtype=torch.int32, device=dev)
+    x_out = torch.empty((lanes,), dtype=torch.int64, device=dev)
+    _launch_indexed('rans_masked_decode_front', dev, streams.data_ptr(),
+                    steps, int(t), states.data_ptr(), cdf.data_ptr(),
+                    cdf.shape[1], cdf_len.data_ptr(), off.data_ptr(),
+                    idx.data_ptr(), act.data_ptr(), lanes, int(m),
+                    out.data_ptr(), x_out.data_ptr())
+    return out, x_out

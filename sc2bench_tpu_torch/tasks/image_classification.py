@@ -12,8 +12,11 @@ checkpoint and the resume state, `-resume` continues from it) -> tables
 built -> top-1/top-5 and the data-size summary of the student at batch 1
 through the real bitstream (`deploy_wire: device` in the config selects
 the device-rANS wire, else the host coder) -> top-1/top-5 of the teacher
-unless `-student_only`. The device is the card unless `--device cpu`; it
-raises when there is none.
+unless `-student_only`. A `models.wrapper` config (the input- and
+feature-compression baselines: a classifier behind JPEG/WebP/BPG/VTM or a
+neural image codec, or a codec on a split feature) is test-only: top-1/
+top-5 and the wrapper's data-size summary. The device is the card unless
+`--device cpu`; it raises when there is none.
 """
 from __future__ import annotations
 

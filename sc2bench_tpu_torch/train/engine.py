@@ -24,8 +24,14 @@ family's `SimpleBottleneck`) has no bitstream: it is scored with the
 ignores the top-level `wrapper:` key of those configs.
 
 Loaders yield NHWC numpy batches; the engine hands the runtime and the
-models NCHW tensors on its device. The `models.wrapper` (input- and
-feature-compression) configs are not ported yet.
+models NCHW tensors on its device.
+
+A `models.wrapper` config (the input- and feature-compression families)
+builds the wrapper alone (`models/wrapper.py`: a classifier behind a host
+codec, a neural image codec, or a codec on a split feature) and is
+test-only, as in the JAX engine: `train()` raises, and `test()` hands the
+wrapper each batch as a list of HWC images, giving top-1/top-5 and the
+wrapper's data-size summaries.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from ..datasets.image import build_sharded_loader
 from ..device import resolve_device
 from ..models.registry import load_classification_model
 from ..models.runtime import SplitClassifierRuntime
+from ..models.wrapper import get_wrapped_classification_model
 from ..registry import import_dependencies
 from ..utils.ckpt import (load_ckpt, load_train_state, save_ckpt,
                           save_train_state)
@@ -165,11 +172,13 @@ class ClassificationEngine:
         self.device = resolve_device(device)
         self.seed = int(seed)
         models_config = config.get('models', {})
-        if 'wrapper' in models_config:
-            raise NotImplementedError(
-                'wrapper (input- and feature-compression) configs are not '
-                'ported yet (ROADMAP Queue A item 4)')
         self.teacher = None
+        self.wrapper = None
+        if 'wrapper' in models_config:
+            torch.manual_seed(0)
+            self.wrapper = get_wrapped_classification_model(
+                models_config['wrapper'], device=self.device)
+            return
         if 'teacher_model' in models_config:
             tm_cfg = models_config['teacher_model']
             torch.manual_seed(7)
@@ -314,6 +323,10 @@ class ClassificationEngine:
         acc1. `resume=True` restores the state saved beside `dst_ckpt`
         and, when its stage is the first stage, continues after the saved
         epoch (the JAX engine's rule)."""
+        if self.wrapper is not None:
+            raise ValueError('wrapper (input/feature compression) configs '
+                             'are test-only — run with -test_only '
+                             '(reference protocol)')
         train_config = self.config.get('train', {})
         stages = train_stage_configs(train_config)
         if self.config.get('adjust_lr'):
@@ -383,6 +396,8 @@ class ClassificationEngine:
         with nothing accounted."""
         loader = self.build_loader(self.config.get('test', {}).get(
             'test_data_loader', DEFAULT_TEST_LOADER))
+        if self.wrapper is not None:
+            return self._test_wrapper(loader)
         codec = self.runtime.codec
         if not self.runtime.bottleneck_updated and codec:
             self.runtime.update()
@@ -390,3 +405,21 @@ class ClassificationEngine:
         result = self.evaluate(loader, use_deploy_path=bool(
             codec and self.runtime.bottleneck_updated))
         return result, self.runtime.summarize()
+
+    @torch.no_grad()
+    def _test_wrapper(self, loader):
+        """(metrics, summaries) of a wrapper: analysis on, each batch to the
+        wrapper as a list of HWC images, top-1/top-5 a batch, and
+        `model_time`, the host-clock seconds of a batch."""
+        self.wrapper.activate_analysis()
+        meter = MetricLogger()
+        for x, y in loader:
+            t0 = time.time()
+            logits = self.wrapper([np.asarray(img) for img in np.asarray(x)])
+            accs = {k: float(v) for k, v in top_k_accuracy(
+                logits, torch.as_tensor(y, device=logits.device)).items()}
+            meter.update(model_time=time.time() - t0, **accs)
+        meter.synchronize_between_processes()
+        result = {k: m.global_avg for k, m in meter.meters.items()}
+        logger.info('wrapper eval: %s', result)
+        return result, self.wrapper.summarize()

@@ -1,3 +1,3 @@
 """Importing this package fills the 'transform' registry (the config's
 `dependencies` import it as the counterpart of `sc2bench_tpu.transforms`)."""
-from . import misc  # noqa: F401
+from . import codec, misc  # noqa: F401

@@ -3,8 +3,8 @@
 Carries the JAX package's weights across: `state_dict_from_flax` takes
 `{'params': ..., 'batch_stats': ...}` as nested dicts of numpy arrays (no
 JAX needed) and returns the torch key space of `SplittableResNet`,
-`ResNet` and `EntropicClassifierModule` (torchvision ResNet names,
-CompressAI bottleneck names):
+`ResNet`, `EntropicClassifierModule` and the zoo's image codecs
+(torchvision ResNet names, CompressAI bottleneck and codec names):
 
   Conv kernel (kH, kW, I, O)       -> Conv2d.weight (O, I, kH, kW)
   Dense kernel (I, O)              -> Linear.weight (O, I)
@@ -19,6 +19,14 @@ CompressAI bottleneck names):
                                       input-dilated convolution with the
                                       kernel as it is, torch the gradient of
                                       a convolution (an implicit flip)
+
+The image codecs (`models/zoo.py`, `models/zoo_jahp.py`) keep their
+Sequential children at the top of the Flax tree: `g_a{i}`/`g_a_gdn{i}` ->
+`g_a.{2i}`/`g_a.{2i+1}`, `g_s{i}`/`g_s_igdn{i}` likewise (every `g_s{i}`
+and `h_s0`/`h_s1` a ConvTranspose, flipped), `h_a{i}`/`h_s{i}` ->
+`h_a.{2i}`/`h_s.{2i}`, `ep{i}` -> `entropy_parameters.{2i}`, and
+`context_prediction`, whose kernel gets the 'A' mask applied and whose
+mask is written as the module's `mask` buffer.
 
 The bottleneck's scopes are the FP bottleneck's (`enc_conv0` ...), the
 SHP/MSHP bottleneck's (`g_a_conv0`, `h_a_conv0`, `h_s_deconv0` ...) or the
@@ -62,9 +70,20 @@ _SHP_SCOPES = {
     'h_a_conv0': 'h_a.0', 'h_a_conv1': 'h_a.2',
     'h_s_deconv0': 'h_s.0', 'h_s_deconv1': 'h_s.2', 'h_s_conv2': 'h_s.4',
 }
+# the image codecs of the zoo (CompressAI names): Sequential children at
+# the top level of the Flax tree, `g_a{i}`/`g_a_gdn{i}` -> g_a.{2i}/.{2i+1}
+_ZOO_SCOPES = {**{f'g_a{i}': f'g_a.{2 * i}' for i in range(4)},
+               **{f'g_a_gdn{i}': f'g_a.{2 * i + 1}' for i in range(3)},
+               **{f'g_s{i}': f'g_s.{2 * i}' for i in range(4)},
+               **{f'g_s_igdn{i}': f'g_s.{2 * i + 1}' for i in range(3)},
+               **{f'h_a{i}': f'h_a.{2 * i}' for i in range(3)},
+               **{f'h_s{i}': f'h_s.{2 * i}' for i in range(3)},
+               **{f'ep{i}': f'entropy_parameters.{2 * i}' for i in range(3)},
+               'context_prediction': 'context_prediction'}
 # flax scopes holding a ConvTranspose kernel
 _DECONV_SCOPES = {f'bottleneck_layer/{k}' for k in _SHP_SCOPES
-                  if '_deconv' in k}
+                  if '_deconv' in k} | {'g_s0', 'g_s1', 'g_s2', 'g_s3',
+                                        'h_s0', 'h_s1'}
 _BOTTLENECK_SCOPES = {**_FP_SCOPES, **_SHP_SCOPES}
 
 # the SimpleBottleneck's LayerSeq stacks
@@ -80,7 +99,7 @@ _RULES = [(rf'^bottleneck_layer/{k}$', f'bottleneck_layer.{v}')
     (r'^(base/)?layer(\d)/block(\d+)/downsample_bn$',
      r'\1layer\2.\3.downsample.1'),
     (r'^(base/)?fc$', r'\1fc'),
-]
+] + [(rf'^{k}$', v) for k, v in _ZOO_SCOPES.items()]
 
 
 def _torch_scope(scope: str) -> str:
@@ -141,6 +160,12 @@ def state_dict_from_flax(variables: dict, model=None) -> dict:
         path = '/'.join(scope)
         name, arr = _param_leaf(leaf, value, deconv=leaf == 'kernel'
                                 and _is_deconv(path, model))
+        if path == 'context_prediction' and name == 'weight':
+            # the 'A' mask applied, and kept as the module's buffer
+            from ..models.zoo_jahp import causal_mask
+            mask = np.broadcast_to(causal_mask(arr.shape[-1]), arr.shape)
+            arr = arr * mask
+            out['context_prediction.mask'] = mask
         out[f'{_torch_scope(path)}.{name}'] = arr
     for scope, leaf, value in _leaves(variables.get('batch_stats', {})):
         path = _torch_scope('/'.join(scope))

@@ -359,10 +359,16 @@ def test_loader_equals_jax_and_runs_in_one_process(normalized, monkeypatch):
 
 def test_cli_needs_test_only_and_a_card(monkeypatch):
     """Without a card the CLI raises, training or testing; wrapper
-    configs raise whatever the device."""
+    configs are test-only: training one raises whatever the device."""
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     for extra in ([], ['-test_only']):
         with pytest.raises(RuntimeError, match='no CUDA device'):
             main(['--config', TINY, *extra])
-    with pytest.raises(NotImplementedError, match='item 4'):
-        ClassificationEngine({'models': {'wrapper': {}}}, device='cpu')
+    wrapper = {'models': {'wrapper': {
+        'key': 'CodecInputCompressionClassifier',
+        'classification_model': {'key': 'resnet', 'kwargs': {
+            'stage_sizes': [1, 1, 1, 1], 'num_classes': 10}}}}}
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        ClassificationEngine(wrapper)
+    with pytest.raises(ValueError, match='test-only'):
+        ClassificationEngine(wrapper, device='cpu').train()

@@ -651,3 +651,106 @@ def test_batch1_serves_a_latent_beyond_the_kernel_limit_on_the_card():
     with torch.no_grad():
         direct = rt._decode_tail(flat, shape)
     assert torch.allclose(logits[0], direct, rtol=1e-5, atol=1e-5)
+
+
+# ---- the masked-lane kernels of the joint autoregressive codec ----------------
+
+def _masked_case(h, w, m, seed):
+    """The wavefront schedule of an h x w latent (T fronts of at most F
+    positions) and, per step, Gaussian rows and in-support values for all
+    F * m lanes (pad slots included, as the codec hands them over)."""
+    from sc2bench_tpu_torch.models.zoo_jahp import front_arrays, wavefronts
+    _, _, act = front_arrays(wavefronts(h, w))
+    steps, slots = act.shape
+    t, idx, sym = _gaussian_rows(steps * slots * m, seed, tails=True)
+    idx = idx.reshape(steps, slots * m)
+    vals = (sym.reshape(steps, slots * m) - t.offset[idx]).astype(np.int32)
+    return t, idx, vals, act.astype(np.uint8)
+
+
+def _masked_tensors(t, idx, vals, act, dev):
+    return ((torch.from_numpy(a).to(dev) for a in (
+        t.quantized_cdf, t.cdf_length, t.offset)),
+        torch.from_numpy(vals).to(dev), torch.from_numpy(idx).to(dev),
+        torch.from_numpy(act).to(dev))
+
+
+def test_masked_plain_versions_code_each_lane_as_one_indexed_lane():
+    """Masked encode of a 5x7 latent's schedule (25 fronts of at most 3
+    positions, m = 5): each lane's state, length and chunks at its active
+    steps are those of the indexed (aligned) encoder on that lane's active
+    symbols alone, with 0 at its inactive steps (inert), and decoding front by front gives the symbols back with
+    every state at RANS_L."""
+    m = 5
+    t, idx, vals, act = _masked_case(5, 7, m, seed=3)
+    (cdf, cdf_len, off), vc, ix, a = _masked_tensors(t, idx, vals, act,
+                                                     'cpu')
+    streams, lengths, states = kernels.masked_encode_aligned(cdf, vc, ix, a,
+                                                             m)
+    lane_act = np.repeat(act.astype(bool), m, axis=1)
+    for j in range(vc.shape[1]):
+        steps = np.nonzero(lane_act[:, j])[0]
+        s1, l1, x1, _ = td.indexed_encode_plain(
+            cdf, vc[steps, j].reshape(1, -1, 1).contiguous(),
+            ix[steps, j].reshape(1, -1, 1).contiguous(), aligned=True)
+        assert int(x1[0, 0]) == int(states[j]) and int(l1) == int(lengths[j])
+        assert torch.equal(streams[j, steps], s1[0, 0])
+        assert not streams[j][~torch.from_numpy(lane_act[:, j])].any()
+    x = states
+    for step in range(vc.shape[0]):
+        sym, x = kernels.masked_decode_front(streams, step, x, cdf, cdf_len,
+                                             off, ix[step], a[step], m)
+        on = torch.from_numpy(lane_act[step])
+        assert torch.equal(sym[on], (vc[step] + off[ix[step]])[on])
+        assert not sym[~on].any()
+    assert bool((x == td.RANS_L).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('h,w,m', [(16, 16, 192), (5, 7, 5)],
+                         ids=['jahp_q1_256px', 'odd'])
+def test_masked_kernels_equal_plain_versions_on_the_card(h, w, m):
+    """The JAHP q1 shape at 256 px (61 fronts, 6 x 192 = 1,152 lanes) and
+    a 5x7 latent at m = 5 (105 lanes, not a multiple of 32): the encode's
+    streams, lengths and states and each front's decode equal the plain
+    versions; a corrupted chunk leaves a lane off RANS_L."""
+    dev = _card()
+    t, idx, vals, act = _masked_case(h, w, m, seed=h + m)
+    (cdf, cdf_len, off), vc, ix, a = _masked_tensors(t, idx, vals, act, dev)
+    kernels.reset_launches()
+    got = kernels.masked_encode_aligned(cdf, vc, ix, a, m)
+    want = td.masked_encode_plain(cdf, vc, ix, a, m)
+    for g, p in zip(got, want):
+        assert torch.equal(g, p)
+    streams, _, states = got
+    bad = streams.clone()
+    lane = int(torch.argmax(got[1]))
+    bad[lane, int(torch.nonzero(bad[lane])[0, 0])] ^= 0x5A5A
+    for s in (streams, bad):
+        x = xp = states
+        for step in range(vc.shape[0]):
+            sym, x = kernels.masked_decode_front(s, step, x, cdf, cdf_len,
+                                                 off, ix[step], a[step], m)
+            psym, xp = td.masked_decode_front_plain(
+                s, step, xp, cdf, cdf_len, off, ix[step], a[step], m)
+            assert torch.equal(sym, psym) and torch.equal(x, xp)
+        assert bool((x == td.RANS_L).all()) == (s is streams)
+    assert kernels.LAUNCHES['rans_masked_encode_aligned'] == 1
+    assert kernels.LAUNCHES['rans_masked_decode_front'] == 2 * vc.shape[0]
+
+
+@pytest.mark.cuda
+def test_masked_wrappers_refuse_bad_arguments_on_the_card():
+    dev = _card()
+    cdf = torch.zeros((4, 9), dtype=torch.int32, device=dev)
+    vc = torch.zeros((3, 10), dtype=torch.int32, device=dev)
+    act = torch.ones((3, 2), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match='F \\* m'):
+        kernels.masked_encode_aligned(cdf, vc, vc, act, 4)
+    with pytest.raises(ValueError, match='dtype'):
+        kernels.masked_encode_aligned(cdf, vc, vc, act.bool(), 5)
+    streams = torch.zeros((10, 3), dtype=torch.int32, device=dev)
+    states = torch.zeros(10, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match='front 3'):
+        kernels.masked_decode_front(streams, 3, states, cdf, cdf[:, 0],
+                                    cdf[:, 0], vc[0], act[0], 5)

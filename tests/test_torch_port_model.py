@@ -255,8 +255,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     dependencies; with an MSHP student it tests on the device wire; a
     fine-tuning config (EntropicClassifier on a small ResNet) tests on the
     host wire and a CR+BQ config (larger_resnet_bottleneck, which lists
-    `sc2bench_tpu.transforms`) trains one step then tests. One thread:
-    the suite runs this beside other workers."""
+    `sc2bench_tpu.transforms`) trains one step then tests; two
+    input-compression configs (JPEG, and the joint autoregressive codec
+    at n = m = 8) test through their wrappers. One thread: the suite runs
+    this beside other workers."""
     code = r'''
 import importlib, json, pkgutil, sys
 class Block:
@@ -313,6 +315,19 @@ out = main(['--config', family + 'ghnd-bq/resnet50-bq1ch_from_resnet50.yaml',
             '--json', json.dumps(bq), '-student_only', '--device', 'cpu'])
 assert out['engine'].runtime.codec is None, out
 assert out['summaries'][0]['num_samples'] == 0, out
+wrapped = {'classification_model': {'key': 'resnet_small',
+                                    'kwargs': {'num_classes': 10}}}
+for cfg, codec in (('jpeg-resnet50', None),
+                   ('joint_autoregressive_hierarchical_prior-resnet50',
+                    {'kwargs': {'n': 8, 'm': 8}})):
+    if codec:
+        wrapped['compression_model'] = codec
+    out = main(['--config', 'configs/ilsvrc2012/input_compression/'
+                + cfg + '.yaml', '--json', json.dumps({
+                    'models': {'wrapper': wrapped},
+                    'test': {'test_data_loader': synthetic}}),
+                '-test_only', '--device', 'cpu'])
+    assert out['summaries'][0]['num_samples'] == 2, out
 bad = [m for m in sys.modules
        if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sc2bench_tpu')]
 assert not bad, bad

@@ -904,5 +904,13 @@ def test_nan_loss_aborts_training():
 
 
 def test_wrapper_configs_still_raise():
-    with pytest.raises(NotImplementedError, match='item 4'):
-        ClassificationEngine({'models': {'wrapper': {}}}, device='cpu')
+    """A wrapper (input-compression) config builds its wrapper and is
+    test-only: training it raises, as in the JAX engine."""
+    engine = ClassificationEngine({'models': {'wrapper': {
+        'key': 'CodecInputCompressionClassifier',
+        'classification_model': {'key': 'resnet', 'kwargs': {
+            'stage_sizes': [1, 1, 1, 1], 'num_classes': 10}}}}},
+        device='cpu')
+    assert engine.wrapper is not None and engine.teacher is None
+    with pytest.raises(ValueError, match='test-only'):
+        engine.train()
