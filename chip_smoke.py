@@ -146,9 +146,29 @@ which fails loudly with a nonzero exit:
     decode_front` once a front (61 an image), the aligned cyclic pair
     once each for z; at the path's shapes all four equal their plain
     versions; the masked kernels' ms, device ms, plain ms and bound;
-14. print the kernels line (all ten kernels; it fails if one never
-    launched on its path or differs from its plain version; the counts of
-    phases 11-13 beside), the card's name and power limit, and last
+14. the RegNetY-6.4GF and hybrid ViT-S R26+S/32 students at full width
+    with seeded weights (`build_student`: the configs' 64-channel FP and
+    MSHP bottlenecks, `build_model`'s weights and halved last encoder
+    conv, MSHP's scales spread): each FP student serves 16 images at
+    batch 1 and `wire_batch=8` (55x55x64 on 1,024 cyclic lanes), checked
+    as phases 3-4 (wires equal to the plain coder, logits equal to
+    `forward_tail` on the decoded feature); each MSHP student 8 images as
+    phase 9 (y on 1,024 general lanes, z 14x14x16 on 16 cyclic lanes;
+    the scales spread with channel 0's median at 2.0);
+    the cyclic kernels at FP-64 and MSHP z and the indexed ones at MSHP y
+    held against their plain versions and timed there; the test CLI on
+    the FP and MSHP config of each family (16 images, both wires, as
+    phase 6); two steps of each stage of the RegNet MSHP and hybrid-ViT
+    FP configs at batch 32 (what each stage may change, as phase 10),
+    then 8 test images; EfficientNet-L2 (480,309,308 parameters) at full
+    width behind `jpeg-` and `mean_scale_hyperprior-tf_efficientnet_l2_
+    ns_475.yaml` through the CLI on 4 synthetic 475 px images. Launches
+    are counted per path, each from 0;
+15. print the kernels line (all ten kernels; it fails if one never
+    launched on its path or differs from its plain version, or if a
+    cyclic or indexed kernel never launched in phase 14; the counts of
+    phases 11-14 beside, and phase 14's timings at the 64-channel shapes
+    under `*_64ch`), the card's name and power limit, and last
     `{"ok": true, "device": {...}}`. Every phase prints its seconds.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -225,6 +245,30 @@ INPUT_CFG = 'configs/ilsvrc2012/input_compression/'
 FEATURE_CFG = 'configs/ilsvrc2012/feature_compression/'
 N_CODEC, N_CODEC_SMALL, N_JAHP, CODEC_HW = 16, 4, 4, 256
 JAHP_KEY = 'joint_autoregressive_hierarchical_prior'
+# phase 14: the RegNetY-6.4GF and hybrid-ViT (R26+S/32) students of the
+# configs (64-channel latents), and EfficientNet-L2 behind two wrappers
+ES_CFG = 'configs/ilsvrc2012/supervised_compression/entropic_student/'
+VIT_CFG = ES_CFG + ('splitable_hybrid_vit_small_r26_s32_224-{}-beta0.16_from_'
+                    'hybrid_vit_small_r26_s32_224.yaml')
+BACKBONE_CONFIGS = {
+    'regnet': {kind: ES_CFG + f'splitable_regnety6.4gf-{kind}-beta0.08_from_'
+               'regnety6.4gf.yaml' for kind in ('fp', 'mshp')},
+    'hybrid_vit': {kind: VIT_CFG.format(kind) for kind in ('fp', 'mshp')},
+}
+BACKBONE_NAMES = {'regnet': 'RegNetY-6.4GF', 'hybrid_vit': 'hybrid ViT-S '
+                  'R26+S/32'}
+# stage 1's frozen tail of each family (its config's frozen_modules)
+BACKBONE_TAILS = {'regnet': ('s2', 's3', 's4'),
+                  'hybrid_vit': ('patch_embed_pruned_stages',)}
+N_BACKBONE, N_BACKBONE_MSHP, N_BACKBONE_CLI = 16, 8, 16
+# channel 0's median scale of the 64-channel MSHP students: at phase 9's
+# 0.8 a few of their 193,600 y symbols an image fall outside their rows'
+# support, and the image escapes; at 2.0 every symbol of the served and
+# tested images stays inside
+MSHP64_MEDIAN_SCALE = 2.0
+L2_CONFIGS = ('jpeg-tf_efficientnet_l2_ns_475.yaml',
+              'mean_scale_hyperprior-tf_efficientnet_l2_ns_475.yaml')
+N_L2, L2_HW, L2_PARAMS = 4, 475, 480_309_308
 # H100 SXM published peaks: HBM bytes/s, and
 # the non-tensor-core rate used for the kernels' integer operations
 HBM_BYTES_PER_S = 3.35e12
@@ -322,10 +366,14 @@ def build_model(torch, device, seed, bottleneck=24, target=256,
                     'num_target_channels': target}},
         stage_sizes=stage_sizes, num_classes=classes, device=device)
     randomize_weights(torch, model, seed, device)
+    return halve_last_encoder_conv(torch, model)
+
+
+def halve_last_encoder_conv(torch, model):
+    """Halve the bottleneck's last encoder conv: the latent (std ~0.9 on
+    unit-normal images) then stays inside the +-10 support of fresh
+    quantiles, as a trained model's latent does."""
     with torch.no_grad():
-        # halve the last encoder conv: the latent (std ~0.9 on unit-normal
-        # images) then stays inside the +-10 support of fresh quantiles,
-        # as a trained model's latent does
         bneck = model.bottleneck_layer
         last = bneck.encoder[-1] if hasattr(bneck, 'encoder') \
             else bneck.g_a[-1]
@@ -565,7 +613,33 @@ def kernel_phase(torch, td, kernels, tables, device):
         f'{kernels.max_steps(True, device)} stream columns (decode) at any '
         'CDF width')
 
+    stats = cyclic_stats(torch, td, kernels, flag, wide)
+    for name, st in stats.items():
+        st['max_abs_err'] = max(case['errs'].get(name, 0)
+                                for case in [flag, wide] + edge)
+    k8 = WIRE_BATCH
+    log('phase 2: aligned pair on the card, k=8 / k=128: '
+        + ', '.join(f'{name} {stats[name]["device_ms"]:.4f} / '
+                    f'{stats[name]["device_ms_k128"]:.4f} ms (bound '
+                    f'{stats[name]["bound_ms"]:.6f} / '
+                    f'{stats[name]["bound_ms_k128"]:.6f}; images per block '
+                    f'G={kernels.aligned_group("decode" in name, k8, lanes)}'
+                    f' / {kernels.aligned_group("decode" in name, 128, lanes)}'
+                    ')' for name in ('rans_cyclic_encode_aligned',
+                                     'rans_cyclic_decode_aligned')))
+    clocks = smi_query('clocks.sm,clocks.max.sm')
+    log(f'phase 2: SM clock now, max (MHz): {clocks}')
+    return stats
+
+
+def cyclic_stats(torch, td, kernels, flag, wide=None, tag='phase 2'):
+    """Timings of the four cyclic kernels at `flag`'s shape (a
+    `kernel_case` at k = WIRE_BATCH: the batch-1 pair on its first image,
+    the aligned pair on all k; `wide`, a k = 128 case, adds the aligned
+    pair's device ms there): ms a call, device ms, plain ms and the bound
+    of each."""
     steps, cols = flag['steps'], flag['cdf_lane'].shape[1]
+    lanes = flag['vc'].shape[-1]
     cdf_lane, len_lane, off_lane = (flag['cdf_lane'], flag['len_lane'],
                                     flag['off_lane'])
     vc1 = flag['vc'][:1].contiguous()
@@ -609,43 +683,34 @@ def kernel_phase(torch, td, kernels, tables, device):
     }
     # ms: one call on an idle card, host dispatch included; device_ms:
     # the card's time per launch, launches queued back to back
-    enca128 = wide['enca']
-    k128 = {
-        'rans_cyclic_encode_aligned': (
-            lambda: kernels.cyclic_encode_aligned(cdf_lane, wide['vc']),
-            enc_cost(128)),
-        'rans_cyclic_decode_aligned': (
-            lambda: kernels.cyclic_decode_aligned(
-                enca128[0], enca128[2], cdf_lane, len_lane, off_lane,
-                steps), dec_cost(128, steps)),
-    }
+    k128 = {}
+    if wide is not None:
+        enca128 = wide['enca']
+        k128 = {
+            'rans_cyclic_encode_aligned': (
+                lambda: kernels.cyclic_encode_aligned(cdf_lane, wide['vc']),
+                enc_cost(128)),
+            'rans_cyclic_decode_aligned': (
+                lambda: kernels.cyclic_decode_aligned(
+                    enca128[0], enca128[2], cdf_lane, len_lane, off_lane,
+                    steps), dec_cost(128, steps)),
+        }
     stats = {}
     for name, (kern, plain, (bound_ms, bound_by)) in specs.items():
         ms = per_call_ms(torch, kern, reps=50)
         dev_ms = device_ms(torch, kern, reps=200)
         plain_ms = per_call_ms(torch, plain, reps=5)
-        err = max(case['errs'].get(name, 0)
-                  for case in [flag, wide] + edge)
         stats[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=bound_by,
-                           max_abs_err=err)
-        log(f'phase 2: {name}: kernel {ms:.4f} ms per call ({dev_ms:.4f} '
-            f'ms on the card), plain {plain_ms:.3f} ms, bound '
-            f'{bound_ms:.6f} ms ({bound_by})')
+                           max_abs_err=flag['errs'].get(name, 0))
+        log(f'{tag}: {name} ({lanes} lanes x {steps} steps, {cols} columns'
+            f'): kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the card),'
+            f' plain {plain_ms:.3f} ms, bound {bound_ms:.6f} ms '
+            f'({bound_by})')
         if name in k128:
             kern, (bound128, _) = k128[name]
             stats[name].update(device_ms_k128=device_ms(torch, kern, 200),
                                bound_ms_k128=bound128)
-    log('phase 2: aligned pair on the card, k=8 / k=128: '
-        + ', '.join(f'{name} {stats[name]["device_ms"]:.4f} / '
-                    f'{stats[name]["device_ms_k128"]:.4f} ms (bound '
-                    f'{stats[name]["bound_ms"]:.6f} / '
-                    f'{stats[name]["bound_ms_k128"]:.6f}; images per block '
-                    f'G={kernels.aligned_group("decode" in name, k8, lanes)}'
-                    f' / {kernels.aligned_group("decode" in name, 128, lanes)}'
-                    ')' for name in k128))
-    clocks = smi_query('clocks.sm,clocks.max.sm')
-    log(f'phase 2: SM clock now, max (MHz): {clocks}')
     return stats
 
 
@@ -818,7 +883,19 @@ def indexed_phase(torch, td, kernels, tables, device):
         f'{tables.quantized_cdf.shape}, k=1 and {WIRE_BATCH}; edge cases: '
         '100 lanes n=2345 k=3 and 40 lanes T=4000 k=2, rows 0 and 63, '
         'frequency-1 tail symbols); packed bytes equal the numpy oracle')
+    stats = indexed_stats(torch, td, kernels, tables, flag, one)
+    for name, st in stats.items():
+        st['max_abs_err'] = max(case['errs'].get(name, 0)
+                                for case in [flag, one] + edge)
+    return stats
+
+
+def indexed_stats(torch, td, kernels, tables, flag, one, tag='phase 2'):
+    """Timings of the four indexed kernels: the batch-1 pair on `one` (an
+    `indexed_case` at k = 1), the aligned pair on `flag` (k =
+    WIRE_BATCH): ms a call, device ms, plain ms and the bound of each."""
     steps = flag['steps']
+    lanes = flag['vc'].shape[-1]
     cdf, cdf_len, off = flag['cdf'], flag['cdf_len'], flag['off']
     vc1, idx1 = one['vc'], one['idx3']
     enc1, enca = one['enc'], flag['enca']
@@ -852,13 +929,13 @@ def indexed_phase(torch, td, kernels, tables, device):
         ms = per_call_ms(torch, kern, reps=30)
         dev_ms = device_ms(torch, kern, reps=100)
         plain_ms = per_call_ms(torch, plain, reps=3)
-        err = max(case['errs'].get(name, 0) for case in [flag, one] + edge)
         stats[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=bound_by,
-                           max_abs_err=err)
-        log(f'phase 2: {name}: kernel {ms:.4f} ms per call ({dev_ms:.4f} '
-            f'ms on the card), plain {plain_ms:.3f} ms, bound '
-            f'{bound_ms:.6f} ms ({bound_by})')
+                           max_abs_err=max(c['errs'].get(name, 0)
+                                           for c in (flag, one)))
+        log(f'{tag}: {name} ({lanes} lanes x {steps} steps): kernel '
+            f'{ms:.4f} ms per call ({dev_ms:.4f} ms on the card), plain '
+            f'{plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by})')
     return stats
 
 
@@ -1028,14 +1105,15 @@ def escape_phase(torch, rt, images):
 
 
 def cli_phase(torch, kernels, model, config=FLAGSHIP_CONFIG,
-              per_image=FP_BATCH1, tag='phase 6'):
+              per_image=FP_BATCH1, tag='phase 6', n=N_CLI):
     """Phase 6: the test CLI on the flagship config (or `config`), host
-    wire then device wire. Returns the device-wire run's launch counts."""
+    wire then device wire, `n` images. Returns the device-wire run's
+    launch counts."""
     import tempfile
     from sc2bench_tpu_torch.models.runtime import SplitClassifierRuntime
     from sc2bench_tpu_torch.tasks.image_classification import main as cli
     from sc2bench_tpu_torch.utils.ckpt import save_ckpt
-    loader = synthetic_split(N_CLI, 1, seed=0)
+    loader = synthetic_split(n, 1, seed=0)
     # the served logits, caught where the engine's stream returns them
     served = []
     originals = {name: getattr(SplitClassifierRuntime, name)
@@ -1080,17 +1158,17 @@ def cli_phase(torch, kernels, model, config=FLAGSHIP_CONFIG,
     rt = dev['engine'].runtime
     check(all(v == 0 for v in host['launches'].values()),
           f'the host wire launched kernels: {host["launches"]}')
-    want = expected_launches(kernels, per_image, N_CLI)
+    want = expected_launches(kernels, per_image, n)
     check(dev['launches'] == want, f'the device wire launched '
           f'{dev["launches"]}, expected {want}')
     check(rt.escapes == {'ok': 0, 'valid': 0},
           f'device-wire images escaped: {rt.escapes}')
     for wire, run in runs.items():
         lg = run['logits']
-        check(tuple(lg.shape) == (N_CLI, 1000)
+        check(tuple(lg.shape) == (n, 1000)
               and bool(torch.isfinite(lg).all()),
               f'{wire} wire: bad logits {tuple(lg.shape)}')
-        check(run['summaries'][0]['num_samples'] == N_CLI,
+        check(run['summaries'][0]['num_samples'] == n,
               f'{wire} wire: summary {run["summaries"]}')
     check(host['result']['acc1'] == dev['result']['acc1']
           and host['result']['acc5'] == dev['result']['acc5'],
@@ -1098,7 +1176,7 @@ def cli_phase(torch, kernels, model, config=FLAGSHIP_CONFIG,
     worst = float((host['logits'] - dev['logits']).abs().max())
     check(worst <= LOGIT_TOL, f'wires\' logits differ by {worst:.3e}')
     sizes = list(rt.analyzers[0].file_size_list)
-    images = synthetic_images(torch, N_CLI, rt.device)
+    images = synthetic_images(torch, n, rt.device)
     rt.clear_analysis()
     rt.stream_deploy_device(images)
     check(list(rt.analyzers[0].file_size_list) == sizes,
@@ -1113,12 +1191,12 @@ def cli_phase(torch, kernels, model, config=FLAGSHIP_CONFIG,
     wall = time.perf_counter() - t0
     check(list(hrt.analyzers[0].file_size_list) == sizes,
           'CLI host-wire sizes differ from a direct stream_deploy')
-    log(f'{tag}: host wire, direct stream_deploy of the {N_CLI} images: '
-        f'{N_CLI / wall:.2f} img/s; per image, ms: ' + ', '.join(
-            f'{k} {1e3 * v / N_CLI:.3f}' for k, v in sorted(timings.items())))
+    log(f'{tag}: host wire, direct stream_deploy of the {n} images: '
+        f'{n / wall:.2f} img/s; per image, ms: ' + ', '.join(
+            f'{k} {1e3 * v / n:.3f}' for k, v in sorted(timings.items())))
     for wire, run in runs.items():
         res, summary = run['result'], run['summaries'][0]
-        log(f'{tag}: {wire} wire, {N_CLI} images of 224x224 through the '
+        log(f'{tag}: {wire} wire, {n} images of 224x224 through the '
             f'CLI: acc1 {res["acc1"]}, acc5 {res["acc5"]}, data size '
             f'{summary}, model_time {res["model_time"]:.6f} s per image '
             f'({1 / res["model_time"]:.2f} img/s); CLI wall {run["wall"]:.2f}'
@@ -1130,10 +1208,10 @@ def cli_phase(torch, kernels, model, config=FLAGSHIP_CONFIG,
     return dev['launches']
 
 
-def synthetic_split(n, batch, seed, **extra):
-    """A loader config of `n` synthetic HWxHW images of 1000 classes."""
+def synthetic_split(n, batch, seed, hw=HW, **extra):
+    """A loader config of `n` synthetic hw x hw images of 1000 classes."""
     return {'dataset': {'key': 'SyntheticClassificationDataset',
-                        'kwargs': {'num_samples': n, 'image_size': [HW, HW],
+                        'kwargs': {'num_samples': n, 'image_size': [hw, hw],
                                    'num_classes': 1000, 'seed': seed}},
             'batch_size': batch, **extra}
 
@@ -1499,11 +1577,12 @@ def device_symbols(rt, x):
     return y.reshape(1, hy, wy, cy).cpu().numpy(), z.cpu().numpy()
 
 
-def mshp_serve_phase(torch, kernels, rt, images):
+def mshp_serve_phase(torch, kernels, rt, images, phase='phase 9',
+                     label='MSHP-24/256/16 ResNet-50'):
     """Phase 9: the MSHP deploy loop at full width, batch 1 then
     wire_batch; returns the launch counts of both runs."""
     from sc2bench_tpu_torch.analysis import get_binary_object_size
-    classes = rt.module.fc.out_features
+    classes = 1000
     rows = set()
     for x in images:
         rows |= set(np.unique(rt._hyper_ops(x)['y_indexes'].cpu().numpy())
@@ -1581,7 +1660,7 @@ def mshp_serve_phase(torch, kernels, rt, images):
           f'MSHP escape: sizes {sizes}, rt.encode gives {want_size}')
     check(all(bool(torch.isfinite(lg).all()) for lg in logits),
           'MSHP escape: non-finite logits')
-    log(f'phase 9: MSHP-24/256/16 ResNet-50, {n} float 224x224 images: '
+    log(f'{phase}: {label}, {n} float 224x224 images: '
         f'y indexes use {len(rows)} of 64 rows; batch 1 '
         f'{n / b1["dt"]:.2f} img/s, wire_batch={WIRE_BATCH} '
         f'{n / bk["dt"]:.2f} img/s; data size {b1["summary"]} (equal at '
@@ -1908,16 +1987,18 @@ def codec_weights(torch, module, seed, image, median=4.0):
     return module
 
 
-def codec_cli(torch, kernels, config, n, tmp, device, codec=None):
-    """The test CLI on a wrapper config at full width (ResNet-50 with
-    random weights), `n` synthetic 224 px images of 1000 classes; a neural
-    codec's weights from `codec` (saved as the config's codec ckpt).
-    Checks: every image accounted, no kernel launched (host coders), the
-    top-1/top-5 in [0, 1]. Returns the CLI's output with its wall
-    seconds."""
+def codec_cli(torch, kernels, config, n, tmp, device, codec=None, hw=HW,
+              phase='phase 13'):
+    """The test CLI on a wrapper config at full width (its classifier with
+    random weights), `n` synthetic hw x hw images of 1000 classes; a
+    neural codec's weights from `codec` (saved as the config's codec
+    ckpt). Checks: every image accounted, no kernel launched (host
+    coders), the top-1/top-5 in [0, 1]. Returns the CLI's output with its
+    wall seconds."""
     from sc2bench_tpu_torch.tasks.image_classification import main as cli
     from sc2bench_tpu_torch.utils.ckpt import save_ckpt
-    over = {'test': {'test_data_loader': synthetic_split(n, 1, seed=0)}}
+    over = {'test': {'test_data_loader': synthetic_split(n, 1, seed=0,
+                                                         hw=hw)}}
     if codec is not None:
         ckpt = os.path.join(tmp, os.path.basename(config) + '.ckpt')
         save_ckpt(ckpt, codec.state_dict())
@@ -1940,7 +2021,8 @@ def codec_cli(torch, kernels, config, n, tmp, device, codec=None):
     host = '' if rt is None else ', host coding ' + ', '.join(
         f'{k} {1e3 * v / n:.3f}' for k, v in sorted(rt.timings.items())) \
         + ' ms an image'
-    log(f'phase 13: {config}: {n} images, acc1 {res["acc1"]}, acc5 '
+    log(f'{phase}: {config}: {n} images of {hw} px, acc1 {res["acc1"]}, '
+        f'acc5 '
         f'{res["acc5"]}, {summary["mean"]:.6f} KB an image (std '
         f'{summary["std"]:.6f}), {1 / res["model_time"]:.2f} img/s '
         f'(model_time {res["model_time"]:.6f} s){host}; CLI wall {wall:.2f} s')
@@ -2232,6 +2314,290 @@ def wrapper_phase(torch, kernels, td, device):
     return launches, stats, cli_launches
 
 
+# ---- phase 14: the RegNetY and hybrid-ViT students, EfficientNet-L2 -----
+
+def build_student(torch, device, config, seed):
+    """The student of `config` at full width, built by the registry on the
+    card, with `build_model`'s seeded weights (He-normal convolutions, BN
+    near identity, the last encoder conv halved); the other modules keep
+    their seeded default init."""
+    from sc2bench_tpu_torch.config import load_config
+    from sc2bench_tpu_torch.models.registry import load_classification_model
+    spec = load_config(os.path.join(REPO, config))['models']['student_model']
+    torch.manual_seed(seed)
+    model = load_classification_model(spec, device=device)
+    randomize_weights(torch, model, seed, device)
+    return halve_last_encoder_conv(torch, model)
+
+
+def fp_serve(torch, kernels, rt, images, tag, name):
+    """An FP student's deploy loop, batch 1 then `wire_batch`, launches
+    counted in each run: the batch-1 pair once an image, the aligned pair
+    once a group, no escape, equal sizes, logits within LOGIT_TOL; two
+    images' wires equal to the plain coder on the same symbols and their
+    logits equal to `forward_tail` on the decoded feature (as phase 3).
+    Returns (batch-1 launches, wire_batch launches)."""
+    from sc2bench_tpu_torch.analysis import get_binary_object_size
+    from sc2bench_tpu_torch.ops.rans.device import (device_rans_encode,
+                                                    pack_stream)
+    rt.stream_deploy_device(images[:2])
+    rt.stream_deploy_device(images[:WIRE_BATCH], wire_batch=WIRE_BATCH)
+    runs = {}
+    for wire_batch in (None, WIRE_BATCH):
+        rt.clear_analysis()
+        rt.activate_analysis()
+        rt.escapes = {'ok': 0, 'valid': 0}
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = rt.stream_deploy_device(images, wire_batch=wire_batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        runs[wire_batch] = dict(logits=logits, dt=dt,
+                                launches=dict(kernels.LAUNCHES),
+                                sizes=list(rt.analyzers[0].file_size_list),
+                                summary=rt.summarize()[0],
+                                escapes=dict(rt.escapes))
+    b1, bk = runs[None], runs[WIRE_BATCH]
+    n = len(images)
+    groups = -(-n // WIRE_BATCH)
+    want1 = expected_launches(kernels, FP_BATCH1, n)
+    wantk = expected_launches(kernels, [k + '_aligned' for k in FP_BATCH1],
+                              groups)
+    check(b1['launches'] == want1, f'{name} batch 1 launched '
+          f'{b1["launches"]}, expected {want1}')
+    check(bk['launches'] == wantk, f'{name} wire_batch launched '
+          f'{bk["launches"]}, expected {wantk}')
+    for run in (b1, bk):
+        check(run['escapes'] == {'ok': 0, 'valid': 0},
+              f'{name}: images escaped: {run["escapes"]}')
+        for lg in run['logits']:
+            check(tuple(lg.shape) == (1, 1000)
+                  and bool(torch.isfinite(lg).all()),
+                  f'{name}: bad logits {tuple(lg.shape)}')
+    check(bk['sizes'] == b1['sizes'] and bk['summary'] == b1['summary'],
+          f'{name}: wire_batch sizes differ from batch 1')
+    worst = max(float((a - b).abs().max())
+                for a, b in zip(b1['logits'], bk['logits']))
+    check(worst <= LOGIT_TOL, f'{name}: wire_batch logits differ by {worst}')
+    cdf, cdf_len, off = (rt.codec.tables.quantized_cdf,
+                         rt.codec.tables.cdf_length, rt.codec.tables.offset)
+    for i in (0, n - 1):
+        flat, shape = rt._symbols_nhwc(images[i])
+        lanes = rt._auto_wire_lanes(shape)
+        ref = device_rans_encode(flat.reshape(-1).cpu(), cdf, cdf_len, off,
+                                 num_lanes=lanes, cyclic_channels=shape[-1])
+        wire = rt._pull_device_wire(rt.encode_device_wire(images[i]))
+        check(wire == pack_stream(ref), f'{name} image {i}: wire differs '
+              'from the plain coder on the same symbols')
+        check(b1['sizes'][i] == get_binary_object_size(
+            {'strings': [[wire]], 'shape': shape[:2]}),
+              f'{name} image {i}: accounted size differs from the wire')
+        with torch.no_grad():
+            direct = rt._decode_tail(flat, shape)
+        check(torch.allclose(direct, b1['logits'][i], rtol=1e-5, atol=1e-5),
+              f'{name} image {i}: served logits differ from forward_tail '
+              'on the decoded feature')
+    steps = -(-int(np.prod(shape)) // lanes)
+    log(f'{tag}: {name} + FP-{shape[-1]}, {n} float 224x224 images: '
+        f'latent {"x".join(map(str, shape))} on {lanes} cyclic lanes x '
+        f'{steps} steps; batch 1 {n / b1["dt"]:.2f} img/s, wire_batch='
+        f'{WIRE_BATCH} {n / bk["dt"]:.2f} img/s; data size {b1["summary"]} '
+        f'(equal at both); max |logit diff| batch 1 vs wire_batch '
+        f'{worst:.3e}; wires equal the plain coder, logits equal '
+        f'forward_tail on the decoded feature; launches batch 1 '
+        f'{b1["launches"]}, wire_batch {bk["launches"]}')
+    return b1['launches'], bk['launches']
+
+
+def backbone_kernels(torch, td, kernels, fp_tables, mshp_codec, device):
+    """The rANS kernels at the 64-channel students' shapes, each against
+    its plain version on the card: the four cyclic kernels at FP-64
+    (55x55x64 on auto lanes, k = 1 and WIRE_BATCH), the four indexed ones
+    at the MSHP y (55x55x64, the default Gaussian tables) and the cyclic
+    pair on MSHP's z (14x14x16); timings at the FP-64 and MSHP-y shapes.
+    Returns {kernel: stats}."""
+    rng = np.random.default_rng(14)
+    n = 55 * 55 * 64
+    lanes = td.auto_lanes(n, cyclic_channels=64)
+    fp = kernel_case(torch, td, kernels, fp_tables, lanes, n, WIRE_BATCH,
+                     rng, device)
+    g = mshp_codec.g_tables
+    y_lanes = td.auto_lanes(n)
+    y8 = indexed_case(torch, td, kernels, g, y_lanes, n, WIRE_BATCH, rng,
+                      device)
+    y1 = indexed_case(torch, td, kernels, g, y_lanes, n, 1, rng, device)
+    zn = 14 * 14 * 16
+    z_lanes = td.auto_lanes(zn, cyclic_channels=16)
+    z = kernel_case(torch, td, kernels, mshp_codec.tables, z_lanes, zn,
+                    WIRE_BATCH, rng, device)
+    log(f'phase 14: kernels equal their plain versions at the 64-channel '
+        f'shapes: cyclic FP-64 {lanes} lanes x {fp["steps"]} steps, indexed '
+        f'MSHP y {y_lanes} lanes x {y8["steps"]} steps (k = 1 and '
+        f'{WIRE_BATCH}), cyclic MSHP z {z_lanes} lanes x {z["steps"]} steps')
+    stats = cyclic_stats(torch, td, kernels, fp, tag='phase 14')
+    for name, st in stats.items():
+        st['max_abs_err'] = max(st['max_abs_err'], z['errs'].get(name, 0))
+    stats.update(indexed_stats(torch, td, kernels, g, y8, y1,
+                               tag='phase 14'))
+    return stats
+
+
+def backbone_train(torch, kernels, model, family, kind):
+    """The train-then-test CLI on a family's config at batch 32: stage 1
+    and stage 2 two steps each (the tables built after stage 1), then 8
+    test images on the device wire. Stage 1 must leave the frozen tail and
+    every buffer as they were and move the encoder; stage 2 the encoder
+    side and the density. Returns the test's launches."""
+    import tempfile
+    from sc2bench_tpu_torch.utils.ckpt import save_ckpt
+    config = BACKBONE_CONFIGS[family][kind]
+    tag = f'{BACKBONE_NAMES[family]} {kind.upper()}'
+    loaders = {'train_data_loader': synthetic_split(
+        N_TRAIN, TRAIN_BATCH, seed=1000, shuffle=True, drop_last=True),
+        'val_data_loader': synthetic_split(N_VAL, TRAIN_BATCH, seed=2000)}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, 'student.ckpt')
+        save_ckpt(ckpt, model.state_dict())
+        run = train_cli(torch, kernels, config, {
+            'allow_missing_teacher': True,
+            'models': {'student_model': {'ckpt': ckpt}},
+            'train': {**loaders,
+                      'stage1': {'num_epochs': 1, 'epoch_to_update': 1},
+                      'stage2': {'num_epochs': 1}},
+            'test': {'test_data_loader': synthetic_split(N_E2E_TEST, 1,
+                                                         seed=0)}},
+            N_E2E_TEST)
+    steps = N_TRAIN // TRAIN_BATCH
+    got = [(r['name'], len(r['steps'])) for r in run['records']]
+    check(got == [('stage1', steps), ('stage2', steps)],
+          f'{tag}: stages and steps {got}')
+    s0, s1 = run['records'][0]['student'], run['records'][1]['student']
+    s2 = snapshot(run['engine'].student)
+    teacher_moved = changed(run['records'][0]['teacher'],
+                            snapshot(run['engine'].teacher),
+                            run['records'][0]['teacher'])
+    check(not teacher_moved, f'{tag}: teacher changed: {teacher_moved[:3]}')
+    buffers = {k for k, _ in run['engine'].student.named_buffers()}
+    frozen1 = [k for k in s0 if k.split('.')[0] in BACKBONE_TAILS[family]
+               or k in buffers]
+    moved = changed(s0, s1, frozen1)
+    check(not moved, f'{tag}: stage 1 changed its frozen tail or a buffer: '
+          f'{moved[:3]}')
+    encoder = r'bottleneck_layer\.(encoder|g_a)\.'
+    check(changed(s0, s1, [k for k in s0 if re.match(encoder, k)]),
+          f'{tag}: stage 1 left the encoder unchanged')
+    frozen2 = [k for k in s1 if re.match(
+        r'bottleneck_layer\.(encoder|g_a|h_a|h_s)\.', k) or re.search(
+        r'entropy_bottleneck\._(matrix|bias|factor)\d', k)]
+    moved = changed(s1, s2, frozen2)
+    check(not moved, f'{tag}: stage 2 changed the encoder side or the '
+          f'density: {moved[:3]}')
+    check(changed(s1, s2, [k for k in s1 if re.match(
+        r'bottleneck_layer\.(decoder|g_s)\.', k)]),
+          f'{tag}: stage 2 left the decoder unchanged')
+    per_image = MSHP_BATCH1 if kind == 'mshp' else FP_BATCH1
+    run['escapes'] = check_test_of_training(torch, kernels, run, N_E2E_TEST,
+                                            tag, per_image=per_image)
+    log_stages(run, tag, phase='phase 14')
+    log(f'phase 14: {tag}: teacher unchanged; stage 1 left '
+        f'{"/".join(BACKBONE_TAILS[family])} and every buffer as they were '
+        'and moved the encoder; stage 2 left the encoder side and the '
+        'density as they were and moved the decoder; test sizes equal a '
+        'direct stream_deploy_device')
+    return run['launches']
+
+
+def l2_phase(torch, kernels, device):
+    """EfficientNet-L2 (full width, random weights) behind JPEG and the
+    MSHP codec q1 (`codec_weights`) through the test CLI on N_L2 synthetic
+    475 px images. Returns the runs' launches."""
+    import tempfile
+    from sc2bench_tpu_torch.models import zoo
+    from sc2bench_tpu_torch.models.efficientnet import EfficientNet
+    rng = np.random.default_rng(15)
+    x256 = torch.from_numpy(rng.normal(0, 1, (1, 3, CODEC_HW, CODEC_HW))
+                            .astype(np.float32)).to(device)
+    launches = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for cfg in L2_CONFIGS:
+            module = None
+            if cfg.startswith('mean_scale_hyperprior'):
+                torch.manual_seed(5)
+                module = zoo.registry_get('model', 'mean_scale_hyperprior')(
+                    quality=1, device=device)
+                codec_weights(torch, module, 5, x256)
+            torch.cuda.reset_peak_memory_stats()
+            out = codec_cli(torch, kernels, INPUT_CFG + cfg, N_L2, tmp,
+                            device, codec=module, hw=L2_HW, phase='phase 14')
+            launches.append(dict(kernels.LAUNCHES))
+            model = out['engine'].wrapper.classifier
+            count = sum(p.numel() for p in model.parameters())
+            check(isinstance(model, EfficientNet) and count == L2_PARAMS,
+                  f'{cfg}: the classifier is not EfficientNet-L2')
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            log(f'phase 14: {cfg}: EfficientNet-L2 ({count} parameters,'
+                f' {sum(len(st) for st in model.blocks)} blocks) on the card;'
+                f' peak memory {peak:.3f} GiB')
+            del out, model
+            gc.collect()
+            torch.cuda.empty_cache()
+    return launches
+
+
+def backbone_phase(torch, td, kernels, device, images):
+    """Phase 14: the RegNetY-6.4GF and hybrid-ViT students at full width
+    (FP and MSHP with the configs' 64-channel bottlenecks, seeded
+    weights): serving on both wires, the kernels at their shapes, the
+    test CLI on each config, two steps of each stage of the RegNet MSHP
+    and hybrid-ViT FP configs; then EfficientNet-L2 behind JPEG and MSHP.
+    Returns ({path: launches}, kernel stats at the 64-channel shapes)."""
+    from sc2bench_tpu_torch.models.runtime import SplitClassifierRuntime
+    paths, stats = {}, {}
+    for family in ('regnet', 'hybrid_vit'):
+        name = BACKBONE_NAMES[family]
+        fp = build_student(torch, device, BACKBONE_CONFIGS[family]['fp'], 0)
+        rt = SplitClassifierRuntime(fp, device=device)
+        rt.update()
+        rt.eval()
+        mshp = spread_mshp_scales(torch, build_student(
+            torch, device, BACKBONE_CONFIGS[family]['mshp'], 1), images[0],
+            median=MSHP64_MEDIAN_SCALE)
+        rt_m = SplitClassifierRuntime(mshp, device=device)
+        rt_m.update()
+        rt_m.eval()
+        (hy, wy, cy), (hz, wz, cz) = rt_m._latent_shape((1, 3, HW, HW))
+        log(f'phase 14: {name}: FP-64 student '
+            f'{sum(p.numel() for p in fp.parameters())} parameters, MSHP-64 '
+            f'{sum(p.numel() for p in mshp.parameters())}; MSHP y {hy}x{wy}x'
+            f'{cy} on {rt_m._default_lanes((1, 3, HW, HW))} lanes, z {hz}x'
+            f'{wz}x{cz}')
+        paths[f'{family}_fp_batch1'], paths[f'{family}_fp_wire_batch'] = \
+            fp_serve(torch, kernels, rt, images[:N_BACKBONE], 'phase 14',
+                     name)
+        paths[f'{family}_mshp_batch1'], paths[f'{family}_mshp_wire_batch'] = \
+            mshp_serve_phase(torch, kernels, rt_m, images[:N_BACKBONE_MSHP],
+                             phase='phase 14', label=f'{name} + MSHP-64/16')
+        if family == 'regnet':
+            stats = backbone_kernels(torch, td, kernels, rt.codec.tables,
+                                     rt_m.codec, device)
+        for kind, model, per_image in (('fp', fp, FP_BATCH1),
+                                       ('mshp', mshp, MSHP_BATCH1)):
+            paths[f'{family}_{kind}_cli'] = cli_phase(
+                torch, kernels, model, config=BACKBONE_CONFIGS[family][kind],
+                per_image=per_image, tag=f'phase 14 ({name} {kind.upper()})',
+                n=N_BACKBONE_CLI)
+        kind, model = ('mshp', mshp) if family == 'regnet' else ('fp', fp)
+        paths[f'{family}_{kind}_train'] = backbone_train(
+            torch, kernels, model, family, kind)
+        del rt, rt_m, fp, mshp, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    for cfg, counts in zip(L2_CONFIGS, l2_phase(torch, kernels, device)):
+        paths[f'l2_{cfg.split("-")[0]}_cli'] = counts
+    return paths, stats
+
+
 def smi_query(fields):
     out = subprocess.run(
         ['nvidia-smi', '--id=0', f'--query-gpu={fields}',
@@ -2353,6 +2719,13 @@ def run():
                                            kernels, td, device)
     stats.update(masked_stats)
 
+    # ---- phase 14: RegNetY and hybrid-ViT students, EfficientNet-L2 ----
+    backbone_paths, backbone_stats = timed('phase 14', backbone_phase, torch,
+                                           td, kernels, device, images)
+    for name, counts in backbone_paths.items():
+        log(f'phase 14: launches on {name}: ' + ', '.join(
+            f'{k} {v}' for k, v in counts.items() if v))
+
     rows = []
     for name in kernels.ALL_KERNELS:
         indexed = name in kernels.INDEXED_KERNELS
@@ -2376,9 +2749,16 @@ def run():
                    launches_finetune_bq=sum(c[name] for c in new_paths),
                    launches_jahp=jahp[name],
                    launches_codec_clis=sum(c[name] for c in codec_clis),
+                   launches_backbones=sum(c[name]
+                                          for c in backbone_paths.values()),
                    **{key: stats[name][key]
                       for key in ('device_ms_k128', 'bound_ms_k128')
                       if key in stats[name]})
+        if name in backbone_stats:
+            b = backbone_stats[name]
+            row['max_abs_err'] = max(row['max_abs_err'], b['max_abs_err'])
+            row.update({f'{key}_64ch': b[key] for key in (
+                'ms', 'device_ms', 'plain_ms', 'bound_ms')})
         if name in kernels.KERNELS:
             row.update(launches_cli=cli_launches[name],
                        launches_train=train_launches[name],
@@ -2386,6 +2766,9 @@ def run():
         rows.append(row)
     for r in rows:
         check(r['launches'] > 0, f'{r["name"]} never launched on the path')
+        if r['name'] not in kernels.MASKED_KERNELS:
+            check(r['launches_backbones'] > 0, f'{r["name"]} never launched '
+                  'on the RegNetY and hybrid-ViT paths')
         check(r['max_abs_err'] == 0, f'{r["name"]} differs from its plain '
               f'version by {r["max_abs_err"]}')
     print(json.dumps({'kernels': rows}), flush=True)

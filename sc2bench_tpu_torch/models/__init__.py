@@ -1,4 +1,4 @@
 """Importing this package fills the 'layer', 'model' and 'wrapper'
 registries (the config's `dependencies` import it)."""
-from . import (backbone, entropic, layer, registry, resnet,  # noqa: F401
-               wrapper, zoo, zoo_jahp)
+from . import (backbone, efficientnet, entropic, hybrid_vit,  # noqa: F401
+               layer, regnet, registry, resnet, wrapper, zoo, zoo_jahp)

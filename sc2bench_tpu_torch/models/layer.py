@@ -40,16 +40,23 @@ class FPBasedResNetBottleneck(nn.Module):
     """Factorized-prior bottleneck replacing ResNet stem+layer1: 3-conv GDN
     encoder (stride 4 total), entropy bottleneck over the latent, 3-conv
     IGDN decoder. CompressAI key space (`encoder.0` ... `decoder.4`,
-    `entropy_bottleneck`)."""
+    `entropy_bottleneck`). `encoder_channel_sizes`/`decoder_channel_sizes`
+    (four widths each, input first) override the widths derived from the
+    bottleneck and target channels; the density has
+    `num_bottleneck_channels` channels either way, as in the JAX
+    package."""
 
     def __init__(self, num_input_channels: int = 3,
                  num_bottleneck_channels: int = 24,
-                 num_target_channels: int = 256):
+                 num_target_channels: int = 256,
+                 encoder_channel_sizes=None, decoder_channel_sizes=None):
         super().__init__()
-        enc = [num_input_channels, num_bottleneck_channels * 4,
-               num_bottleneck_channels * 2, num_bottleneck_channels]
-        dec = [enc[-1], num_target_channels * 2, num_target_channels,
-               num_target_channels]
+        enc = list(encoder_channel_sizes or [
+            num_input_channels, num_bottleneck_channels * 4,
+            num_bottleneck_channels * 2, num_bottleneck_channels])
+        dec = list(decoder_channel_sizes or [
+            enc[-1], num_target_channels * 2, num_target_channels,
+            num_target_channels])
         self.encoder = nn.Sequential(
             nn.Conv2d(enc[0], enc[1], 5, stride=2, padding=2, bias=False),
             GDN1(enc[1]),
@@ -62,7 +69,7 @@ class FPBasedResNetBottleneck(nn.Module):
             nn.Conv2d(dec[1], dec[2], 2, stride=1, padding=0, bias=False),
             GDN1(dec[2], inverse=True),
             nn.Conv2d(dec[2], dec[3], 2, stride=1, padding=1, bias=False))
-        self.entropy_bottleneck = EntropyBottleneck(enc[3])
+        self.entropy_bottleneck = EntropyBottleneck(num_bottleneck_channels)
         self.out_channels = dec[3]
 
     def latent_shape(self, height: int, width: int) -> tuple:
@@ -132,17 +139,24 @@ class SHPBasedResNetBottleneck(nn.Module):
     h_s upsamples with `ConvTranspose2d(5, stride 2, padding 1)`: size
     2 * in + 1 (14 -> 29 -> 59, then a valid 5x5 convolution gives 55),
     the size of the JAX package's input-dilated `ConvTranspose` with
-    padding 3, whose kernel is this one flipped (`utils/convert.py`)."""
+    padding 3, whose kernel is this one flipped (`utils/convert.py`).
+
+    `g_a_channel_sizes`/`g_s_channel_sizes` (four widths each, input
+    first) override the derived widths; y has `g_a_channel_sizes[3]`
+    channels, which h_a reads and h_s predicts."""
 
     def __init__(self, num_input_channels: int = 3,
                  num_latent_channels: int = 16,
                  num_bottleneck_channels: int = 24,
-                 num_target_channels: int = 256):
+                 num_target_channels: int = 256,
+                 g_a_channel_sizes=None, g_s_channel_sizes=None):
         super().__init__()
-        g_a = [num_input_channels, num_bottleneck_channels * 4,
-               num_bottleneck_channels * 2, num_bottleneck_channels]
-        g_s = [g_a[-1], num_target_channels * 2, num_target_channels,
-               num_target_channels]
+        g_a = list(g_a_channel_sizes or [
+            num_input_channels, num_bottleneck_channels * 4,
+            num_bottleneck_channels * 2, num_bottleneck_channels])
+        g_s = list(g_s_channel_sizes or [
+            g_a[-1], num_target_channels * 2, num_target_channels,
+            num_target_channels])
         bch, lch = g_a[3], num_latent_channels
         self.num_latent_channels = lch
         self.g_a = nn.Sequential(

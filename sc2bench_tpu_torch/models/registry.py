@@ -5,6 +5,8 @@ input-compression family (`get_compression_model`, the zoo of
 `zoo.py`/`zoo_jahp.py`)."""
 from __future__ import annotations
 
+import inspect
+
 from ..device import resolve_device
 from ..registry import lookup, names
 from .resnet import RESNET_BUILDERS
@@ -36,10 +38,13 @@ def get_compression_model(compression_model_config, device=None):
                              **compression_model_config.get('kwargs', {}))
 
 
-def load_classification_model(model_config, num_classes=1000, device=None):
+def load_classification_model(model_config, num_classes=1000, device=None,
+                              image_size=None):
     """A classifier built from its config (`key` and `kwargs`), with fresh
     weights, on `device` (CUDA unless asked otherwise); loading a
-    checkpoint is the caller's job."""
+    checkpoint is the caller's job. A builder that takes `image_size` (the
+    hybrid ViT's, whose position embedding has one token per patch) gets
+    `image_size` unless the config sets it."""
     key = model_config.get('key', model_config.get('name'))
     kwargs = dict(model_config.get('kwargs', {}))
     kwargs.setdefault('num_classes', num_classes)
@@ -49,6 +54,9 @@ def load_classification_model(model_config, num_classes=1000, device=None):
             num_classes=kwargs.get('num_classes', 1000)).to(dev)
     entry = lookup('model', key)
     if entry is not None:
+        if image_size is not None \
+                and 'image_size' in inspect.signature(entry).parameters:
+            kwargs.setdefault('image_size', tuple(image_size))
         return entry(device=device, **kwargs)
     raise KeyError(f'model `{key}` not found (builtin: '
                    f'{sorted(RESNET_BUILDERS)}; registry: '

@@ -55,7 +55,9 @@ from .box import DistillationBox, TrainingBox
 
 logger = logging.getLogger(__name__)
 
-# the teacher's layers that initialize the student's tail
+# the teacher's layers that initialize the student's tail, as the JAX
+# engine names them; a RegNet (s2-s4, head) or hybrid-ViT student has none
+# of them, so it gets nothing from its teacher, as in JAX
 TAIL_PREFIXES = ('layer2', 'layer3', 'layer4', 'fc')
 # a stream_deploy call serves at most this many images
 STREAM_CHUNK = 64
@@ -164,13 +166,16 @@ def _eval_loop_accumulated(meter, data_loader, logits_fn):
 class ClassificationEngine:
     """Builds the models and loaders from a config dict, trains and runs
     the test protocol, on `device` (CUDA unless asked otherwise). `seed`
-    seeds the training noise."""
+    seeds the training noise. The config's `image_size` (224 x 224 by
+    default) is the input a hybrid ViT is built for, as the JAX CLI
+    initializes its models on it."""
 
     def __init__(self, config, device=None, seed: int = 42):
         import_dependencies(config.get('dependencies'))
         self.config = config
         self.device = resolve_device(device)
         self.seed = int(seed)
+        self.image_size = tuple(config.get('image_size', (224, 224)))
         models_config = config.get('models', {})
         self.teacher = None
         self.wrapper = None
@@ -183,7 +188,8 @@ class ClassificationEngine:
             tm_cfg = models_config['teacher_model']
             torch.manual_seed(7)
             self.teacher = load_classification_model(
-                tm_cfg, device=self.device).eval()
+                tm_cfg, device=self.device,
+                image_size=self.image_size).eval()
             if tm_cfg.get('ckpt'):
                 try:
                     self._load(self.teacher, tm_cfg['ckpt'])
@@ -200,7 +206,8 @@ class ClassificationEngine:
                                  tm_cfg['ckpt'])
         sm_cfg = models_config.get('student_model', models_config.get('model'))
         torch.manual_seed(0)
-        self.student = load_classification_model(sm_cfg, device=self.device)
+        self.student = load_classification_model(
+            sm_cfg, device=self.device, image_size=self.image_size)
         self.student_ckpt = sm_cfg.get('ckpt')
         if self.student_ckpt:
             try:

@@ -37,12 +37,39 @@ upsampling), so converting one needs the torch `model`, whose module
 there tells. An `EntropicClassifierModule` keeps the ResNet under `base/`
 and its `entropy_bottleneck` at the top.
 
+The other backbones share Flax scope names (`stem_conv` is RegNet's,
+the hybrid ViT's and EfficientNet's), so the tree's top-level scopes pick
+the rules: `vit` a hybrid ViT (the teacher when it has `stem_conv`, else
+the splittable student), `stage0_block0` an EfficientNet, `s1`/`s2` a
+RegNet (student or teacher), anything else the ResNet family above.
+  RegNet      `s{i}/block{j}/conv1|bn1` -> `s{i}.b{j+1}.conv1.conv|bn`
+              (likewise 2, 3), `se/fc1|fc2` -> `se.fc1|fc2`,
+              `down_conv|down_bn` -> `downsample.conv|bn`; `stem_conv|bn`
+              -> `stem.conv|bn`, `head_fc` -> `head.fc`
+  hybrid ViT  `stage{i}/block{j}/...` -> the teacher's
+              `patch_embed.backbone.stages.{i}.blocks.{j}.` or the
+              student's `patch_embed_pruned_stages.{i}.blocks.{j}.`
+              (`downsample_conv|norm` -> `downsample.conv|norm`);
+              `vit/patch_proj` -> `patch_embed.proj` / `patch_embed_proj`;
+              `vit/block{i}/qkv|attn_proj|mlp_fc1|mlp_fc2|norm1|norm2` ->
+              `blocks.{i}.attn.qkv|attn.proj|mlp.fc1|mlp.fc2|norm1|norm2`;
+              `vit/norm|head` -> `norm|head`; `vit/cls_token|pos_embed`
+              -> top-level `cls_token|pos_embed` (same shapes);
+              GroupNorm and LayerNorm `scale` -> `weight`
+  EfficientNet `stage{s}_block{b}/...` -> `blocks.{s}.{b}.`: stage 0
+              `dw_conv|dw_bn|project_conv|project_bn` ->
+              `conv_dw|bn1|conv_pw|bn2`, the others `expand_conv|
+              expand_bn|dw_conv|dw_bn|project_conv|project_bn` ->
+              `conv_pw|bn1|conv_dw|bn2|conv_pwl|bn3`; `se_reduce|
+              se_expand` -> `se.conv_reduce|conv_expand`; `stem_conv|
+              stem_bn|head_conv|head_bn` -> `conv_stem|bn1|conv_head|bn2`
+
 `flax_param_path` is the inverse on names: a torch parameter name ->
 its Flax path, dotted (`bottleneck_layer.encoder.0.weight` ->
 `bottleneck_layer.enc_conv0.kernel`), the space in which configs name
 frozen and module-wise parameter groups. A `SimpleBottleneck` shares the
-FP bottleneck's torch names (`encoder.{i}`), so its paths need the
-`model` too.
+FP bottleneck's torch names (`encoder.{i}`), and an EfficientNet's `bn1`/
+`bn2` are a ResNet's names, so their paths need the `model` too.
 """
 from __future__ import annotations
 
@@ -88,9 +115,10 @@ _BOTTLENECK_SCOPES = {**_FP_SCOPES, **_SHP_SCOPES}
 
 # the SimpleBottleneck's LayerSeq stacks
 _LAYER_SEQ = r'^bottleneck_layer/(encoder|decoder)/layer(\d+)$'
-_RULES = [(rf'^bottleneck_layer/{k}$', f'bottleneck_layer.{v}')
-          for k, v in _BOTTLENECK_SCOPES.items()] + [
-    (_LAYER_SEQ, r'bottleneck_layer.\1.\2'),
+_BOTTLENECK_RULES = [(rf'^bottleneck_layer/{k}$', f'bottleneck_layer.{v}')
+                     for k, v in _BOTTLENECK_SCOPES.items()] + [
+    (_LAYER_SEQ, r'bottleneck_layer.\1.\2')]
+_RULES = _BOTTLENECK_RULES + [
     (r'^entropy_bottleneck$', 'entropy_bottleneck'),
     (r'^(base/)?stem/(conv1|bn1)$', r'\1\2'),
     (r'^(base/)?layer(\d)/block(\d+)/(conv\d|bn\d)$', r'\1layer\2.\3.\4'),
@@ -102,11 +130,89 @@ _RULES = [(rf'^bottleneck_layer/{k}$', f'bottleneck_layer.{v}')
 ] + [(rf'^{k}$', v) for k, v in _ZOO_SCOPES.items()]
 
 
-def _torch_scope(scope: str) -> str:
-    for pattern, repl in _RULES:
+def _block1(m):
+    """timm's 1-indexed block name for the Flax `block{j}` of match `m`."""
+    return f'b{int(m[2]) + 1}'
+
+
+_REGNET_RULES = _BOTTLENECK_RULES + [
+    (r'^stem_(conv|bn)$', r'stem.\1'),
+    (r'^s(\d)/block(\d+)/(conv|bn)(\d)$',
+     lambda m: f's{m[1]}.{_block1(m)}.conv{m[4]}.{m[3]}'),
+    (r'^s(\d)/block(\d+)/se/(fc\d)$',
+     lambda m: f's{m[1]}.{_block1(m)}.se.{m[3]}'),
+    (r'^s(\d)/block(\d+)/down_(conv|bn)$',
+     lambda m: f's{m[1]}.{_block1(m)}.downsample.{m[3]}'),
+    (r'^head_fc$', 'head.fc'),
+]
+_VIT_TAIL_RULES = [
+    (r'^vit/block(\d+)/(norm1|norm2)$', r'blocks.\1.\2'),
+    (r'^vit/block(\d+)/qkv$', r'blocks.\1.attn.qkv'),
+    (r'^vit/block(\d+)/attn_proj$', r'blocks.\1.attn.proj'),
+    (r'^vit/block(\d+)/mlp_(fc\d)$', r'blocks.\1.mlp.\2'),
+    (r'^vit/(norm|head)$', r'\1'),
+    (r'^vit$', ''),
+]
+_V2_BLOCK = (r'(\d)/block(\d+)/'
+             r'(conv\d|norm\d|downsample_conv|downsample_norm)$')
+
+
+def _v2_rule(prefix):
+    return (r'^stage' + _V2_BLOCK, lambda m: f'{prefix}.{m[1]}.blocks.{m[2]}.'
+            + m[3].replace('downsample_', 'downsample.'))
+
+
+_HYBRID_VIT_RULES = _BOTTLENECK_RULES + [
+    _v2_rule('patch_embed_pruned_stages'),
+    (r'^vit/patch_proj$', 'patch_embed_proj')] + _VIT_TAIL_RULES
+_HYBRID_VIT_TEACHER_RULES = [
+    (r'^stem_(conv|norm)$', r'patch_embed.backbone.stem.\1'),
+    _v2_rule('patch_embed.backbone.stages'),
+    (r'^vit/patch_proj$', 'patch_embed.proj')] + _VIT_TAIL_RULES
+_EFFICIENTNET_STAGE0 = {'dw_conv': 'conv_dw', 'dw_bn': 'bn1',
+                        'project_conv': 'conv_pw', 'project_bn': 'bn2'}
+_EFFICIENTNET_BLOCK = {'expand_conv': 'conv_pw', 'expand_bn': 'bn1',
+                       'dw_conv': 'conv_dw', 'dw_bn': 'bn2',
+                       'project_conv': 'conv_pwl', 'project_bn': 'bn3'}
+_EFFICIENTNET_TOP = {'stem_conv': 'conv_stem', 'stem_bn': 'bn1',
+                     'head_conv': 'conv_head', 'head_bn': 'bn2',
+                     'classifier': 'classifier'}
+
+
+def _efficientnet_block(m):
+    names = _EFFICIENTNET_STAGE0 if m[1] == '0' else _EFFICIENTNET_BLOCK
+    leaf = m[3].replace('se_', 'se.conv_') if m[3].startswith('se_') \
+        else names[m[3]]
+    return f'blocks.{m[1]}.{m[2]}.{leaf}'
+
+
+_EFFICIENTNET_RULES = [
+    (r'^stage(\d)_block(\d+)/(\w+)$', _efficientnet_block)] + [
+    (rf'^{k}$', v) for k, v in _EFFICIENTNET_TOP.items()]
+_FAMILY_RULES = {'resnet': _RULES, 'regnet': _REGNET_RULES,
+                 'hybrid_vit': _HYBRID_VIT_RULES,
+                 'hybrid_vit_teacher': _HYBRID_VIT_TEACHER_RULES,
+                 'efficientnet': _EFFICIENTNET_RULES}
+
+
+def _family(params: dict) -> str:
+    """Which rules convert a Flax tree, from its top-level scopes."""
+    if 'vit' in params:
+        return 'hybrid_vit_teacher' if 'stem_conv' in params \
+            else 'hybrid_vit'
+    if 'stage0_block0' in params:
+        return 'efficientnet'
+    if 's1' in params or 's2' in params:
+        return 'regnet'
+    return 'resnet'
+
+
+def _torch_scope(scope: str, family: str = 'resnet') -> str:
+    for pattern, repl in _FAMILY_RULES[family]:
         m = re.fullmatch(pattern, scope)
         if m:
-            return m.expand(repl).replace('base/', 'base.')
+            out = repl(m) if callable(repl) else m.expand(repl)
+            return out.replace('base/', 'base.')
     raise KeyError(f'no torch counterpart for flax scope {scope!r}')
 
 
@@ -151,11 +257,13 @@ def _param_leaf(leaf: str, value: np.ndarray, deconv: bool = False):
 
 def state_dict_from_flax(variables: dict, model=None) -> dict:
     """Flax `{'params', 'batch_stats'}` of the JAX `SplittableResNet` (FP,
-    SHP, MSHP or `SimpleBottleneck`), `ResNet` or
-    `EntropicClassifierModule` -> a state_dict that `load_state_dict`
-    takes strictly. `model`, the port's counterpart, is needed for a
+    SHP, MSHP or `SimpleBottleneck`), `ResNet`, `EntropicClassifierModule`,
+    an image codec of the zoo, a RegNet, a hybrid ViT (student or teacher)
+    or an EfficientNet -> a state_dict that `load_state_dict` takes
+    strictly. `model`, the port's counterpart, is needed for a
     `SimpleBottleneck` (see the module doc)."""
     out = {}
+    family = _family(variables['params'])
     for scope, leaf, value in _leaves(variables['params']):
         path = '/'.join(scope)
         name, arr = _param_leaf(leaf, value, deconv=leaf == 'kernel'
@@ -166,15 +274,44 @@ def state_dict_from_flax(variables: dict, model=None) -> dict:
             mask = np.broadcast_to(causal_mask(arr.shape[-1]), arr.shape)
             arr = arr * mask
             out['context_prediction.mask'] = mask
-        out[f'{_torch_scope(path)}.{name}'] = arr
+        module = _torch_scope(path, family)
+        out[f'{module}.{name}' if module else name] = arr
     for scope, leaf, value in _leaves(variables.get('batch_stats', {})):
-        path = _torch_scope('/'.join(scope))
+        path = _torch_scope('/'.join(scope), family)
         out[f'{path}.running_{leaf}'] = value
         out[f'{path}.num_batches_tracked'] = np.asarray(0, np.int64)
     return {k: torch.from_numpy(np.array(v, order='C', copy=True))
             for k, v in out.items()}
 
 
+def _block0(m):
+    """The Flax `block{j}` of timm's 1-indexed block of match `m`."""
+    return f'block{int(m[2]) - 1}'
+
+
+_V2_INVERSE = (r'^(?:patch_embed\.backbone\.stages|patch_embed_pruned_stages)'
+               r'\.(\d)\.blocks\.(\d+)\.(conv\d|norm\d|downsample\.conv|'
+               r'downsample\.norm)$')
+_BACKBONE_INVERSE = [
+    (r'^stem\.(conv|bn)$', r'stem_\1'),
+    (r'^s(\d)\.b(\d+)\.conv(\d)\.(conv|bn)$',
+     lambda m: f's{m[1]}.{_block0(m)}.{m[4]}{m[3]}'),
+    (r'^s(\d)\.b(\d+)\.se\.(fc\d)$',
+     lambda m: f's{m[1]}.{_block0(m)}.se.{m[3]}'),
+    (r'^s(\d)\.b(\d+)\.downsample\.(conv|bn)$',
+     lambda m: f's{m[1]}.{_block0(m)}.down_{m[3]}'),
+    (r'^head\.fc$', 'head_fc'),
+    (r'^patch_embed\.backbone\.stem\.(conv|norm)$', r'stem_\1'),
+    (_V2_INVERSE, lambda m: f'stage{m[1]}.block{m[2]}.'
+     + m[3].replace('downsample.', 'downsample_')),
+    (r'^patch_embed(\.|_)proj$', 'vit.patch_proj'),
+    (r'^blocks\.(\d+)\.(norm1|norm2)$', r'vit.block\1.\2'),
+    (r'^blocks\.(\d+)\.attn\.qkv$', r'vit.block\1.qkv'),
+    (r'^blocks\.(\d+)\.attn\.proj$', r'vit.block\1.attn_proj'),
+    (r'^blocks\.(\d+)\.mlp\.(fc\d)$', r'vit.block\1.mlp_\2'),
+    (r'^(norm|head)$', r'vit.\1'),
+    (r'^$', 'vit'),
+]
 _INVERSE_RULES = [(rf'^bottleneck_layer\.{re.escape(v)}$',
                    f'bottleneck_layer.{k}')
                   for k, v in _BOTTLENECK_SCOPES.items()] + [
@@ -186,7 +323,14 @@ _INVERSE_RULES = [(rf'^bottleneck_layer\.{re.escape(v)}$',
     (r'^(base\.)?layer(\d)\.(\d+)\.downsample\.1$',
      r'\1layer\2.block\3.downsample_bn'),
     (r'^(base\.)?fc$', r'\1fc'),
-]
+] + _BACKBONE_INVERSE
+_EFFICIENTNET_INVERSE = [
+    (r'^blocks\.(\d)\.(\d+)\.se\.conv_(reduce|expand)$',
+     r'stage\1_block\2.se_\3'),
+    (r'^blocks\.(\d)\.(\d+)\.(\w+)$', lambda m: f'stage{m[1]}_block{m[2]}.'
+     + {v: k for k, v in (_EFFICIENTNET_STAGE0 if m[1] == '0'
+                          else _EFFICIENTNET_BLOCK).items()}[m[3]]),
+] + [(rf'^{v}$', k) for k, v in _EFFICIENTNET_TOP.items()]
 
 
 def _layer_seq_entry(model, module: str):
@@ -204,10 +348,11 @@ def _layer_seq_entry(model, module: str):
 
 def flax_param_path(name: str, model=None) -> str:
     """Dotted Flax path of the parameter `name` of the port's
-    `SplittableResNet`, `ResNet` or `EntropicClassifierModule`; a
-    `SimpleBottleneck`'s (`LayerSeq` entry `{i}` -> `layer{i}`) only when
-    `model` is given."""
-    module, leaf = name.rsplit('.', 1)
+    `SplittableResNet`, `ResNet`, `EntropicClassifierModule`, RegNet or
+    hybrid ViT; a `SimpleBottleneck`'s (`LayerSeq` entry `{i}` ->
+    `layer{i}`) and an EfficientNet's only when `model` is given."""
+    from ..models.efficientnet import EfficientNet
+    module, _, leaf = name.rpartition('.')
     entry = _layer_seq_entry(model, module)
     if entry is not None:
         prefix, _, index = module.rpartition('.')
@@ -215,16 +360,20 @@ def flax_param_path(name: str, model=None) -> str:
             leaf = 'scale' if isinstance(entry, torch.nn.BatchNorm2d) \
                 else 'kernel'
         return f'{prefix}.layer{index}.{leaf}'
-    for pattern, repl in _INVERSE_RULES:
+    rules = _EFFICIENTNET_INVERSE if isinstance(model, EfficientNet) \
+        else _INVERSE_RULES
+    for pattern, repl in rules:
         m = re.fullmatch(pattern, module)
         if m:
-            scope = m.expand(repl)
+            scope = repl(m) if callable(repl) else m.expand(repl)
             break
     else:
         raise KeyError(f'no flax counterpart for torch module {module!r}')
     if leaf == 'weight':
+        # BatchNorm, GroupNorm and LayerNorm scopes: `bn1`, `down_bn`,
+        # `stem_norm`, `norm`, ...
         last = scope.rsplit('.', 1)[-1]
-        leaf = 'scale' if re.fullmatch(r'bn\d|downsample_bn', last) \
+        leaf = 'scale' if re.fullmatch(r'(\w+_)?(bn|norm)\d*', last) \
             else 'kernel'
     else:
         m = re.fullmatch(r'_(matrix|bias|factor)(\d+)', leaf)
