@@ -164,12 +164,30 @@ which fails loudly with a nonzero exit:
     width behind `jpeg-` and `mean_scale_hyperprior-tf_efficientnet_l2_
     ns_475.yaml` through the CLI on 4 synthetic 475 px images. Launches
     are counted per path, each from 0;
-15. print the kernels line (all ten kernels; it fails if one never
-    launched on its path or differs from its plain version, or if a
-    cyclic or indexed kernel never launched in phase 14; the counts of
-    phases 11-14 beside, and phase 14's timings at the 64-channel shapes
-    under `*_64ch`), the card's name and power limit, and last
-    `{"ok": true, "device": {...}}`. Every phase prints its seconds.
+15. PASCAL VOC segmentation: DeepLabv3-ResNet-50 + FP-24 (the
+    `-fp-beta0.16` student with its aux head, `build_model`'s seeded
+    weights and halved last encoder conv) serves 16 synthetic 512x512
+    images at batch 1 and `wire_batch=8` on the device wire (127x127x24
+    on 1,536 cyclic lanes x 253 steps), 8 on the host wire and 2 of
+    500x375 (93x124x24, 1,536 x 181), launches counted per run: wires
+    equal the plain coder, logits equal the direct decode -> tail ->
+    head -> upsampling, no escape, sizes equal at batch 1 and
+    `wire_batch`; the four cyclic kernels held against their plain
+    versions at both shapes and timed at 512x512; the segmentation test
+    CLI on the `-fp-beta0.16` config on both wires (16 images: mIoU, KB,
+    model_time); two steps of each stage of that config (batch 16) and of
+    the end-to-end config (batch 8) at 512 px (img/s, peak memory, what
+    each stage may change), each then tested on 4 images; the
+    `jpeg-deeplabv3_resnet101`, `mean_scale_hyperprior-deeplabv3_
+    resnet50` (with `codec_weights`) and `ghnd-bq` bq12ch configs through
+    the CLI on 4 images each;
+16. print the kernels line (all ten kernels; it fails if one never
+    launched on its path or differs from its plain version, if a cyclic
+    or indexed kernel never launched in phase 14, or a cyclic one in
+    phase 15; the counts of phases 11-15 beside, and phase 14's and 15's
+    timings at their shapes under `*_64ch` and `*_seg`), the card's name
+    and power limit, and last `{"ok": true, "device": {...}}`. Every
+    phase prints its seconds.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 with an error before printing any result.
@@ -269,6 +287,22 @@ MSHP64_MEDIAN_SCALE = 2.0
 L2_CONFIGS = ('jpeg-tf_efficientnet_l2_ns_475.yaml',
               'mean_scale_hyperprior-tf_efficientnet_l2_ns_475.yaml')
 N_L2, L2_HW, L2_PARAMS = 4, 475, 480_309_308
+# phase 15: PASCAL VOC segmentation (DeepLabv3-ResNet-50 + FP-24)
+SEG_CFG = 'configs/pascal_voc2012/'
+SEG_SC = SEG_CFG + 'supervised_compression/'
+SEG_ES_CONFIG = SEG_SC + ('entropic_student/deeplabv3_splittable_resnet50-fp-'
+                          'beta0.16_from_deeplabv3_resnet50.yaml')
+SEG_E2E_CONFIG = SEG_SC + ('end-to-end/deeplabv3_splittable_resnet50-fp-'
+                           'beta1.024e-7.yaml')
+SEG_SMALL_CONFIGS = (
+    SEG_CFG + 'input_compression/jpeg-deeplabv3_resnet101.yaml',
+    SEG_CFG + 'input_compression/'
+    'mean_scale_hyperprior-deeplabv3_resnet50.yaml',
+    SEG_SC + 'ghnd-bq/deeplabv3_resnet50-bq12ch_from_deeplabv3_resnet50.yaml')
+# 512x512 and VOC's typical 500x375 (375 high); the configs' batches
+SEG_HW, SEG_VOC_HW, SEG_CLASSES = (512, 512), (375, 500), 21
+N_SEG, N_SEG_HOST, N_SEG_VOC, N_SEG_CLI, N_SEG_SMALL = 16, 8, 2, 16, 4
+SEG_ES_BATCH, SEG_E2E_BATCH = 16, 8
 # H100 SXM published peaks: HBM bytes/s, and
 # the non-tensor-core rate used for the kernels' integer operations
 HBM_BYTES_PER_S = 3.35e12
@@ -1262,11 +1296,19 @@ def recording(torch, base, records):
     return Recording
 
 
-def train_cli(torch, kernels, config, over, n_test, wire='device'):
-    """One train-then-test CLI run on `wire`; returns its output, the
-    stage records, the launches of its test and the test images."""
-    import sc2bench_tpu_torch.train.engine as engine_module
-    from sc2bench_tpu_torch.tasks.image_classification import main as cli
+def train_cli(torch, kernels, config, over, n_test, wire='device',
+              segmentation=False):
+    """One train-then-test CLI run on `wire` (the segmentation CLI with
+    `segmentation`); returns its output, the stage records, the launches
+    of its test and the test images."""
+    if segmentation:
+        import sc2bench_tpu_torch.train.seg_engine as engine_module
+        from sc2bench_tpu_torch.tasks.semantic_segmentation import \
+            main as cli
+    else:
+        import sc2bench_tpu_torch.train.engine as engine_module
+        from sc2bench_tpu_torch.tasks.image_classification import \
+            main as cli
     records = []
     boxes = {name: getattr(engine_module, name)
              for name in ('DistillationBox', 'TrainingBox')}
@@ -1283,7 +1325,8 @@ def train_cli(torch, kernels, config, over, n_test, wire='device'):
     finally:
         for name, cls in boxes.items():
             setattr(engine_module, name, cls)
-    images = synthetic_images(torch, n_test, out['engine'].runtime.device)
+    images = (seg_images if segmentation else synthetic_images)(
+        torch, n_test, out['engine'].runtime.device)
     return dict(out, wall=wall, launches=launches, records=records,
                 images=images)
 
@@ -2598,6 +2641,413 @@ def backbone_phase(torch, td, kernels, device, images):
     return paths, stats
 
 
+# ---- phase 15: PASCAL VOC segmentation (DeepLabv3-ResNet-50 + FP-24) -------
+
+def seg_split(n, batch, seed, hw=SEG_HW, **extra):
+    """A loader config of `n` synthetic hw images and masks of 21
+    classes."""
+    return {'dataset': {'key': 'SyntheticSegmentationDataset',
+                        'kwargs': {'num_samples': n, 'image_size': list(hw),
+                                   'num_classes': SEG_CLASSES, 'seed': seed}},
+            'batch_size': batch, **extra}
+
+
+def seg_images(torch, n, device, hw=SEG_HW, seed=0):
+    """The images of `seg_split(n, 1, seed, hw)`, NCHW on `device`."""
+    from sc2bench_tpu_torch.datasets.voc import SyntheticSegmentationDataset
+    data = SyntheticSegmentationDataset(num_samples=n, image_size=hw,
+                                        num_classes=SEG_CLASSES, seed=seed)
+    return [torch.from_numpy(np.ascontiguousarray(
+        data[i][0].transpose(2, 0, 1)[None])).to(device) for i in range(n)]
+
+
+def build_seg_student(torch, device, seed=0):
+    """The `-fp-beta0.16` config's student (DeepLabv3-ResNet-50 + FP-24
+    with the aux head) at full width on the card, with `build_model`'s
+    seeded weights and halved last encoder conv."""
+    from sc2bench_tpu_torch.config import load_config
+    from sc2bench_tpu_torch.models.segmentation.registry import \
+        load_segmentation_model
+    spec = load_config(os.path.join(REPO, SEG_ES_CONFIG))['models'][
+        'student_model']
+    torch.manual_seed(seed)
+    model = load_segmentation_model({**spec, 'ckpt': None}, device=device)
+    randomize_weights(torch, model, seed, device)
+    halve_last_encoder_conv(torch, model.backbone)
+    return model
+
+
+def seg_serve(torch, kernels, rt, images, voc):
+    """The segmentation deploy loop: `images` (512x512) on the device wire
+    at batch 1 and `wire_batch`, the first N_SEG_HOST on the host wire,
+    and `voc` (500x375) at batch 1; each run's launches counted from 0.
+    Checks: the batch-1 pair once an image, the aligned pair once a group,
+    nothing on the host wire, no escape, equal sizes at batch 1 and
+    `wire_batch`, logits of every run within LOGIT_TOL of batch 1; for
+    three images the wire equals the plain coder on the same symbols and
+    the logits equal the direct decode -> tail -> head -> upsampling.
+    Returns {run: launches}."""
+    from sc2bench_tpu_torch.analysis import get_binary_object_size
+    from sc2bench_tpu_torch.ops.rans.device import (device_rans_encode,
+                                                    pack_stream)
+    rt.stream_deploy_device(images[:1])
+    rt.stream_deploy_device(images[:WIRE_BATCH], wire_batch=WIRE_BATCH)
+    rt.stream_deploy(images[:1])
+    rt.stream_deploy_device(voc[:1])
+    runs = {}
+    for name, fn, xs, kw in (
+            ('batch1', rt.stream_deploy_device, images, {}),
+            ('wire_batch', rt.stream_deploy_device, images,
+             {'wire_batch': WIRE_BATCH}),
+            ('host', rt.stream_deploy, images[:N_SEG_HOST], {}),
+            ('voc', rt.stream_deploy_device, voc, {})):
+        rt.clear_analysis()
+        rt.activate_analysis()
+        rt.escapes = {'ok': 0, 'valid': 0}
+        timings = {}
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(xs, timings=timings, **kw)
+        torch.cuda.synchronize()
+        runs[name] = dict(out=out, dt=time.perf_counter() - t0,
+                          launches=dict(kernels.LAUNCHES), timings=timings,
+                          sizes=list(rt.analyzers[0].file_size_list),
+                          summary=rt.summarize()[0],
+                          escapes=dict(rt.escapes), n=len(xs))
+    n, groups = len(images), -(-len(images) // WIRE_BATCH)
+    aligned = [k + '_aligned' for k in FP_BATCH1]
+    for name, want in (
+            ('batch1', expected_launches(kernels, FP_BATCH1, n)),
+            ('wire_batch', expected_launches(kernels, aligned, groups)),
+            ('host', expected_launches(kernels, (), 0)),
+            ('voc', expected_launches(kernels, FP_BATCH1, len(voc)))):
+        run = runs[name]
+        check(run['launches'] == want, f'segmentation {name} launched '
+              f'{run["launches"]}, expected {want}')
+        check(run['escapes'] == {'ok': 0, 'valid': 0},
+              f'segmentation {name}: images escaped: {run["escapes"]}')
+        hw = (voc if name == 'voc' else images)[0].shape[-2:]
+        for lg in run['out']:
+            check(tuple(lg.shape) == (1, SEG_CLASSES, *hw)
+                  and bool(torch.isfinite(lg).all()),
+                  f'segmentation {name}: bad logits {tuple(lg.shape)}')
+    b1, bk = runs['batch1'], runs['wire_batch']
+    check(bk['sizes'] == b1['sizes'] and bk['summary'] == b1['summary'],
+          'segmentation wire_batch sizes differ from batch 1')
+    worst = {name: max(float((a - b).abs().max()) for a, b in zip(
+        b1['out'], runs[name]['out'])) for name in ('wire_batch', 'host')}
+    for name, w in worst.items():
+        check(w <= LOGIT_TOL, f'segmentation {name} logits differ from '
+              f'batch 1 by {w}')
+    t = rt.codec.tables
+    shapes = {}
+    for x, run, i in ((images[0], b1, 0), (images[-1], b1, n - 1),
+                      (voc[0], runs['voc'], 0)):
+        flat, shape = rt._symbols_nhwc(x)
+        lanes = rt._auto_wire_lanes(shape)
+        shapes[tuple(x.shape[-2:])] = (shape, lanes)
+        ref = device_rans_encode(flat.reshape(-1).cpu(), t.quantized_cdf,
+                                 t.cdf_length, t.offset, num_lanes=lanes,
+                                 cyclic_channels=shape[-1])
+        wire = rt._pull_device_wire(rt.encode_device_wire(x))
+        check(wire == pack_stream(ref), f'segmentation {tuple(x.shape)}: '
+              'wire differs from the plain coder on the same symbols')
+        check(run['sizes'][i] == get_binary_object_size(
+            {'strings': [[wire]], 'shape': shape[:2]}),
+              'segmentation: accounted size differs from the packed wire')
+        with torch.no_grad():
+            direct = rt._decode_tail(flat, shape, tuple(x.shape[-2:]))
+        check(torch.allclose(direct, run['out'][i], rtol=1e-5, atol=1e-5),
+              'segmentation: served logits differ from the decode -> tail '
+              '-> head -> upsampling on the encoder\'s symbols')
+    for hw, (shape, lanes) in shapes.items():
+        log(f'phase 15: {hw[0]}x{hw[1]} image: latent '
+            f'{"x".join(map(str, shape))} = {int(np.prod(shape))} symbols on '
+            f'{lanes} cyclic lanes x {-(-int(np.prod(shape)) // lanes)} '
+            'steps')
+    for name, run in runs.items():
+        log(f'phase 15: DeepLabv3-ResNet-50 + FP-24, {name}, {run["n"]} '
+            f'images: {run["n"] / run["dt"]:.2f} img/s; data size '
+            f'{run["summary"]}; launches {run["launches"]}; host ms an '
+            'image: ' + ', '.join(f'{k} {1e3 * v / run["n"]:.3f}'
+                                  for k, v in sorted(run['timings'].items())))
+    log(f'phase 15: wires equal the plain coder; logits equal the direct '
+        f'decode -> tail -> head -> upsampling; max |logit diff| vs batch 1: '
+        f'wire_batch {worst["wire_batch"]:.3e}, host {worst["host"]:.3e}')
+    return {f'seg_{name}': run['launches'] for name, run in runs.items()}
+
+
+def seg_kernels(torch, td, kernels, rt, device):
+    """The four cyclic kernels at the segmentation shapes, against their
+    plain versions on the card: 127x127x24 (512x512) on its auto lanes at
+    k = 1 and WIRE_BATCH, 93x124x24 (500x375) at k = 2; timings at the
+    512x512 shape. Returns {kernel: stats}."""
+    rng = np.random.default_rng(15)
+    cases = []
+    for (h, w), k in ((SEG_HW, WIRE_BATCH), (SEG_VOC_HW, 2)):
+        shape = rt._latent_shape((1, 3, h, w))
+        n = int(np.prod(shape))
+        lanes = rt._auto_wire_lanes(shape)
+        cases.append(kernel_case(torch, td, kernels, rt.codec.tables, lanes,
+                                 n, k, rng, device))
+        log(f'phase 15: kernels equal their plain versions at the '
+            f'{h}x{w} latent ({n} symbols, {lanes} lanes x '
+            f'{cases[-1]["steps"]} steps, k=1 and {k})')
+    stats = cyclic_stats(torch, td, kernels, cases[0], tag='phase 15')
+    for name, st in stats.items():
+        st['max_abs_err'] = max(c['errs'].get(name, 0) for c in cases)
+    return stats
+
+
+def seg_cli_phase(torch, kernels, model):
+    """The segmentation test CLI on the `-fp-beta0.16` config, N_SEG_CLI
+    images of 512x512, the host wire then the device wire: every image
+    accounted, the device wire's launches once an image, no escape, its
+    sizes equal a direct `stream_deploy_device`, the two wires' mIoU within
+    1e-3. Returns the device-wire run's launches."""
+    import tempfile
+    from sc2bench_tpu_torch.tasks.semantic_segmentation import main as cli
+    from sc2bench_tpu_torch.utils.ckpt import save_ckpt
+    n = N_SEG_CLI
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, 'student.ckpt')
+        save_ckpt(ckpt, model.state_dict())
+        over = {'models': {'student_model': {'ckpt': ckpt}},
+                'test': {'test_data_loader': seg_split(n, 1, seed=0)}}
+        for wire in ('host', 'device'):
+            args = ['--config', os.path.join(REPO, SEG_ES_CONFIG), '--json',
+                    json.dumps({**over, 'deploy_wire': wire}), '-test_only']
+            if wire == 'device':
+                args.append('-student_only')
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            out = cli(args)
+            runs[wire] = dict(out, wall=time.perf_counter() - t0,
+                              launches=dict(kernels.LAUNCHES))
+    host, dev = runs['host'], runs['device']
+    rt = dev['engine'].runtime
+    check(all(v == 0 for v in host['launches'].values()),
+          f'segmentation CLI host wire launched {host["launches"]}')
+    want = expected_launches(kernels, FP_BATCH1, n)
+    check(dev['launches'] == want, f'segmentation CLI device wire launched '
+          f'{dev["launches"]}, expected {want}')
+    check(rt.escapes == {'ok': 0, 'valid': 0},
+          f'segmentation CLI images escaped: {rt.escapes}')
+    for wire, run in runs.items():
+        check(run['summaries'][0]['num_samples'] == n
+              and 0.0 <= run['result']['miou'] <= 1.0,
+              f'segmentation CLI {wire} wire: {run["result"]}, '
+              f'{run["summaries"]}')
+    gap = abs(host['result']['miou'] - dev['result']['miou'])
+    check(gap <= 1e-3, f'segmentation CLI wires\' mIoU differ by {gap}')
+    sizes = list(rt.analyzers[0].file_size_list)
+    rt.clear_analysis()
+    rt.stream_deploy_device(seg_images(torch, n, rt.device))
+    check(list(rt.analyzers[0].file_size_list) == sizes,
+          'segmentation CLI sizes differ from a direct stream_deploy_device')
+    for wire, run in runs.items():
+        res = run['result']
+        log(f'phase 15: CLI {os.path.basename(SEG_ES_CONFIG)}, {wire} wire,'
+            f' {n} images of 512x512: mIoU {res["miou"]:.6f}, global acc '
+            f'{res["acc_global"]:.6f}, data size {run["summaries"][0]}, '
+            f'model_time {res["model_time"]:.6f} s '
+            f'({1 / res["model_time"]:.2f} img/s); CLI wall '
+            f'{run["wall"]:.2f} s')
+    log(f'phase 15: CLI teacher (random weights) mIoU '
+        f'{host["teacher"]["miou"]:.6f}; device wire launches '
+        f'{dev["launches"]}, escapes {rt.escapes}, sizes equal a direct '
+        'stream_deploy_device')
+    return dev['launches']
+
+
+def log_seg_stages(run, tag):
+    for rec in run['records']:
+        steps = rec['steps']
+        for i, (loss, _, _) in enumerate(steps):
+            check(all(np.isfinite(v) for v in loss.values()),
+                  f'{tag} {rec["name"]} step {i}: loss {loss}')
+        later = steps[1:]
+        rate = sum(n for _, _, n in later) / sum(t for _, t, _ in later)
+        log(f'phase 15: {tag} {rec["name"]}: {len(steps)} steps of '
+            f'{steps[0][2]} images of 512x512; loss detail, first step '
+            f'{steps[0][0]}, last {steps[-1][0]}; {rate:.2f} img/s over '
+            f'steps 2-{len(steps)} (first step {steps[0][1]:.3f} s); peak '
+            f'memory {rec["peak"] / 2 ** 30:.3f} GiB')
+    res = run['result']
+    log(f'phase 15: {tag} test, device wire: mIoU {res["miou"]:.6f}, data '
+        f'size {run["summaries"][0]}, launches {run["launches"]}; CLI wall '
+        f'{run["wall"]:.2f} s')
+
+
+def seg_train_phase(torch, kernels, model):
+    """Two steps of each stage of the `-fp-beta0.16` config (batch 16) and
+    of the end-to-end config (batch 8), 512x512, through the CLI, then 4
+    test images on the device wire. Stage 1 must leave the encoder, the
+    density, layer3, layer4 and every buffer as they were and move the
+    decoder; stage 2 the encoder and the density, and move the decoder
+    and the aux head; the teacher never changes. Returns the launches of
+    the two tests."""
+    import tempfile
+    from sc2bench_tpu_torch.utils.ckpt import save_ckpt
+    val = seg_split(2, 1, seed=2000)
+    test = {'test_data_loader': seg_split(N_SEG_SMALL, 1, seed=0)}
+    with tempfile.TemporaryDirectory() as tmp:
+        state = model.state_dict()
+        ckpts = {}
+        for name, keep in (('es', state), ('e2e', {
+                k: v for k, v in state.items()
+                if not k.startswith('aux_classifier.')})):
+            ckpts[name] = os.path.join(tmp, f'{name}.ckpt')
+            save_ckpt(ckpts[name], keep)
+        es = train_cli(torch, kernels, SEG_ES_CONFIG, {
+            'models': {'student_model': {'ckpt': ckpts['es']}},
+            'train': {'train_data_loader': seg_split(
+                2 * SEG_ES_BATCH, SEG_ES_BATCH, seed=1000, shuffle=True,
+                drop_last=True), 'val_data_loader': val,
+                'stage1': {'num_epochs': 1}, 'stage2': {'num_epochs': 1}},
+            'test': test}, N_SEG_SMALL, segmentation=True)
+        e2e = train_cli(torch, kernels, SEG_E2E_CONFIG, {
+            'models': {'model': {'ckpt': ckpts['e2e']}},
+            'train': {'train_data_loader': seg_split(
+                2 * SEG_E2E_BATCH, SEG_E2E_BATCH, seed=1000, shuffle=True,
+                drop_last=True), 'val_data_loader': val, 'num_epochs': 1},
+            'test': test}, N_SEG_SMALL, segmentation=True)
+    for tag, run, want in (('entropic student', es,
+                            [('stage1', 2), ('stage2', 2)]),
+                           ('end-to-end', e2e, [('train', 2)])):
+        got = [(r['name'], len(r['steps'])) for r in run['records']]
+        check(got == want, f'segmentation {tag}: stages and steps {got}')
+    s0, s1 = es['records'][0]['student'], es['records'][1]['student']
+    s2 = snapshot(es['engine'].student)
+    moved = changed(es['records'][0]['teacher'],
+                    snapshot(es['engine'].teacher),
+                    es['records'][0]['teacher'])
+    check(not moved, f'segmentation teacher changed: {moved[:3]}')
+    buffers = {k for k, _ in es['engine'].student.named_buffers()}
+    encoder = r'backbone\.bottleneck_layer\.encoder\.'
+    density = r'backbone\.bottleneck_layer\.entropy_bottleneck\._(matrix|' \
+        r'bias|factor)\d'
+    frozen1 = [k for k in s0 if re.match(
+        encoder + '|' + density + r'|backbone\.layer[34]\.', k)
+        or k in buffers]
+    moved = changed(s0, s1, frozen1)
+    check(not moved, f'segmentation stage 1 changed a frozen tensor or a '
+          f'buffer: {moved[:3]}')
+    decoder = [k for k in s0 if '.decoder.' in k and k not in buffers]
+    check(changed(s0, s1, decoder), 'segmentation stage 1 left the decoder '
+          'unchanged')
+    moved = changed(s1, s2, [k for k in s1
+                             if re.match(encoder + '|' + density, k)])
+    check(not moved, f'segmentation stage 2 changed the encoder or the '
+          f'density: {moved[:3]}')
+    check(changed(s1, s2, decoder) and changed(s1, s2, [
+        k for k in s1 if k.startswith('aux_classifier.')]),
+          'segmentation stage 2 left the decoder or the aux head unchanged')
+    for tag, run in (('entropic student', es), ('end-to-end', e2e)):
+        rt = run['engine'].runtime
+        check(rt.bottleneck_updated, f'segmentation {tag}: no tables')
+        want = expected_launches(kernels, FP_BATCH1, N_SEG_SMALL)
+        check(run['launches'] == want, f'segmentation {tag} test launched '
+              f'{run["launches"]}, expected {want}')
+        check(rt.escapes['valid'] == 0, f'segmentation {tag}: valid=False')
+        sizes = list(rt.analyzers[0].file_size_list)
+        rt.clear_analysis()
+        rt.stream_deploy_device(run['images'])
+        check(list(rt.analyzers[0].file_size_list) == sizes,
+              f'segmentation {tag}: CLI sizes differ from a direct '
+              'stream_deploy_device')
+        log_seg_stages(run, tag)
+    log('phase 15: teacher unchanged; stage 1 left the encoder, the '
+        'density, layer3-4 and every buffer as they were and moved the '
+        'decoder; stage 2 left the encoder and the density and moved the '
+        'decoder and the aux head; test sizes equal a direct '
+        'stream_deploy_device')
+    return [es['launches'], e2e['launches']]
+
+
+def seg_cli_small(torch, kernels, config, tmp, device, codec=None):
+    """The segmentation test CLI on a wrapper or CR+BQ config at full
+    width (random weights; a neural codec's from `codec`, saved as the
+    config's codec ckpt), N_SEG_SMALL images of 512x512: no kernel
+    launched, every image accounted (none for CR+BQ, which has no
+    bitstream), mIoU in [0, 1]. Returns the launches."""
+    from sc2bench_tpu_torch.tasks.semantic_segmentation import main as cli
+    from sc2bench_tpu_torch.utils.ckpt import save_ckpt
+    n = N_SEG_SMALL
+    over = {'test': {'test_data_loader': seg_split(n, 1, seed=0)}}
+    if codec is not None:
+        ckpt = os.path.join(tmp, os.path.basename(config) + '.ckpt')
+        save_ckpt(ckpt, codec.state_dict())
+        over['models'] = {'wrapper': {'compression_model': {'ckpt': ckpt}}}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = cli(['--config', os.path.join(REPO, config), '--json',
+               json.dumps(over), '-test_only', '-student_only'])
+    wall = time.perf_counter() - t0
+    tag = os.path.basename(config)
+    check(all(v == 0 for v in kernels.LAUNCHES.values()),
+          f'{tag}: launched {dict(kernels.LAUNCHES)}')
+    summary, res = out['summaries'][0], out['result']
+    bq = out['engine'].wrapper is None
+    check(summary['num_samples'] == (0 if bq else n),
+          f'{tag}: data size {summary}')
+    check(0.0 <= res['miou'] <= 1.0, f'{tag}: result {res}')
+    rt = getattr(out['engine'].wrapper, 'compression_model', None)
+    host = '' if rt is None else ', host coding ' + ', '.join(
+        f'{k} {1e3 * v / n:.3f}' for k, v in sorted(rt.timings.items())) \
+        + ' ms an image'
+    log(f'phase 15: CLI {tag}: {n} images of 512x512, mIoU '
+        f'{res["miou"]:.6f}, global acc {res["acc_global"]:.6f}, data size '
+        f'{summary}, {1 / res["model_time"]:.2f} img/s (model_time '
+        f'{res["model_time"]:.6f} s){host}; CLI wall {wall:.2f} s')
+    return dict(kernels.LAUNCHES)
+
+
+def seg_phase(torch, td, kernels, device):
+    """Phase 15: DeepLabv3-ResNet-50 + FP-24 at full width: serving on
+    both wires at 512x512 and 500x375, the cyclic kernels at those shapes,
+    the test CLI on both wires, two training steps a stage of the Entropic
+    Student and end-to-end configs, then the JPEG/ResNet-101, MSHP-codec
+    and CR+BQ configs through the CLI. Returns ({path: launches}, kernel
+    stats at the 512x512 shape)."""
+    import tempfile
+    from sc2bench_tpu_torch.models import zoo
+    from sc2bench_tpu_torch.models.segmentation.wrapper import \
+        SplitSegmentationRuntime
+    model = build_seg_student(torch, device)
+    rt = SplitSegmentationRuntime(model, device=device)
+    rt.update()
+    rt.eval()
+    log(f'phase 15: DeepLabv3-ResNet-50 + FP-24 (aux head), '
+        f'{sum(p.numel() for p in model.parameters())} parameters')
+    images = seg_images(torch, N_SEG, device)
+    voc = seg_images(torch, N_SEG_VOC, device, hw=SEG_VOC_HW, seed=100)
+    paths = seg_serve(torch, kernels, rt, images, voc)
+    stats = seg_kernels(torch, td, kernels, rt, device)
+    paths['seg_cli'] = seg_cli_phase(torch, kernels, model)
+    train = seg_train_phase(torch, kernels, model)
+    paths['seg_train_es'], paths['seg_train_e2e'] = train
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        for cfg in SEG_SMALL_CONFIGS:
+            codec = None
+            if cfg.split('/')[-1].startswith('mean_scale_hyperprior'):
+                torch.manual_seed(5)
+                codec = zoo.registry_get('model', 'mean_scale_hyperprior')(
+                    quality=1, device=device)
+                codec_weights(torch, codec, 5, images[0])
+            paths[f'seg_{os.path.basename(cfg)}'] = seg_cli_small(
+                torch, kernels, cfg, tmp, device, codec=codec)
+    for name, counts in paths.items():
+        log(f'phase 15: launches on {name}: ' + ', '.join(
+            f'{k} {v}' for k, v in counts.items() if v))
+    return paths, stats
+
+
 def smi_query(fields):
     out = subprocess.run(
         ['nvidia-smi', '--id=0', f'--query-gpu={fields}',
@@ -2726,6 +3176,10 @@ def run():
         log(f'phase 14: launches on {name}: ' + ', '.join(
             f'{k} {v}' for k, v in counts.items() if v))
 
+    # ---- phase 15: PASCAL VOC segmentation ----
+    seg_paths, seg_stats = timed('phase 15', seg_phase, torch, td, kernels,
+                                 device)
+
     rows = []
     for name in kernels.ALL_KERNELS:
         indexed = name in kernels.INDEXED_KERNELS
@@ -2751,6 +3205,7 @@ def run():
                    launches_codec_clis=sum(c[name] for c in codec_clis),
                    launches_backbones=sum(c[name]
                                           for c in backbone_paths.values()),
+                   launches_seg=sum(c[name] for c in seg_paths.values()),
                    **{key: stats[name][key]
                       for key in ('device_ms_k128', 'bound_ms_k128')
                       if key in stats[name]})
@@ -2758,6 +3213,11 @@ def run():
             b = backbone_stats[name]
             row['max_abs_err'] = max(row['max_abs_err'], b['max_abs_err'])
             row.update({f'{key}_64ch': b[key] for key in (
+                'ms', 'device_ms', 'plain_ms', 'bound_ms')})
+        if name in seg_stats:
+            g = seg_stats[name]
+            row['max_abs_err'] = max(row['max_abs_err'], g['max_abs_err'])
+            row.update({f'{key}_seg': g[key] for key in (
                 'ms', 'device_ms', 'plain_ms', 'bound_ms')})
         if name in kernels.KERNELS:
             row.update(launches_cli=cli_launches[name],
@@ -2769,6 +3229,9 @@ def run():
         if r['name'] not in kernels.MASKED_KERNELS:
             check(r['launches_backbones'] > 0, f'{r["name"]} never launched '
                   'on the RegNetY and hybrid-ViT paths')
+        if r['name'] in kernels.KERNELS:
+            check(r['launches_seg'] > 0, f'{r["name"]} never launched on '
+                  'the segmentation path')
         check(r['max_abs_err'] == 0, f'{r["name"]} differs from its plain '
               f'version by {r["max_abs_err"]}')
     print(json.dumps({'kernels': rows}), flush=True)

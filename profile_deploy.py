@@ -3,14 +3,16 @@
 
 Builds the flagship model as `chip_smoke.py` does (ResNet-50 + FP-24, or
 with `--model mshp` ResNet-50 + MSHP-24/256/16 with its scales spread as in
-`chip_smoke.py` phase 9; seeded random weights), warms up, then traces
+`chip_smoke.py` phase 9, or with `--model seg` the VOC DeepLabv3-ResNet-50
++ FP-24 student of phase 15 on 512x512 images; seeded random weights),
+warms up, then traces
 `stream_deploy_device` with `torch.profiler` over N images at batch 1 and
 at `wire_batch=8`. For each mode it prints one JSON line: wall seconds,
 images/s, device busy time (sum of kernel times on the card), the idle
 share of the wall window, the rANS kernels' share of device time (cyclic
 and indexed), and the top kernels by device time.
 
-    python3 profile_deploy.py [--model fp|mshp] [--out profile.json]
+    python3 profile_deploy.py [--model fp|mshp|seg] [--out profile.json]
 
 Needs a CUDA device; it exits with an error without one.
 """
@@ -63,8 +65,9 @@ def profile_mode(torch, rt, images, wire_batch):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    ap.add_argument('--model', choices=('fp', 'mshp'), default='fp',
-                    help='the bottleneck of the ResNet-50 model')
+    ap.add_argument('--model', choices=('fp', 'mshp', 'seg'), default='fp',
+                    help='the bottleneck of the ResNet-50 classifier, or '
+                    'the DeepLabv3 segmentation student')
     ap.add_argument('--out', help='also write the results to this JSON '
                     'file')
     args = ap.parse_args()
@@ -73,20 +76,28 @@ def main():
         print('profile_deploy: no CUDA device is available', file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from chip_smoke import HW, build_model, smi_query, spread_mshp_scales
+    from chip_smoke import (HW, N_SEG, SEG_HW, build_model, build_seg_student,
+                            smi_query, spread_mshp_scales)
     from sc2bench_tpu_torch.models.runtime import SplitClassifierRuntime
+    from sc2bench_tpu_torch.models.segmentation.wrapper import \
+        SplitSegmentationRuntime
     device = torch.device('cuda', 0)
     rng = np.random.default_rng(2024)
-    images = [torch.from_numpy(rng.normal(0, 1, (1, 3, HW, HW))
+    hw, n = (SEG_HW, N_SEG) if args.model == 'seg' else ((HW, HW), N_IMAGES)
+    images = [torch.from_numpy(rng.normal(0, 1, (1, 3, *hw))
                                .astype(np.float32)).to(device)
-              for _ in range(N_IMAGES)]
-    if args.model == 'mshp':
+              for _ in range(n)]
+    runtime = SplitClassifierRuntime
+    if args.model == 'seg':
+        model = build_seg_student(torch, device)
+        runtime = SplitSegmentationRuntime
+    elif args.model == 'mshp':
         model = spread_mshp_scales(torch, build_model(
             torch, device, seed=1, key='MSHPBasedResNetBottleneck'),
             images[0])
     else:
         model = build_model(torch, device, seed=0)
-    rt = SplitClassifierRuntime(model, device=device)
+    rt = runtime(model, device=device)
     rt.update()
     rt.eval()
     card = smi_query('name,power.limit')

@@ -11,15 +11,20 @@ Ported so far:
   ops/                 GDN, factorized entropy bottleneck, Gaussian
                        conditional, coding tables, the rANS codecs and
                        their CUDA kernels, the host coder
-  models/              ResNet, the FP/SHP/MSHP and CR+BQ bottlenecks,
-                       SplittableResNet, the fine-tuning family's
-                       EntropicClassifierModule, the deploy runtime and
-                       the EntropicClassifier/SplitClassifier wrappers
-  transforms/          the CR+BQ tensor quantizers
-  train/, loss.py      the training boxes, losses and optimizers
-  tasks/               the classification CLI
+  models/              ResNet (dilated stages too), the FP/SHP/MSHP and
+                       CR+BQ bottlenecks, SplittableResNet, RegNetY, the
+                       hybrid ViT, EfficientNet, the fine-tuning family's
+                       EntropicClassifierModule, the image-codec zoo, the
+                       deploy runtime and the wrappers; segmentation/:
+                       DeepLabv3, its split runtime and the VOC wrappers
+  datasets/            image folders, VOC and the synthetic stand-ins
+  transforms/          the codec transforms, quantizers and collators
+  train/, loss.py      the training boxes, losses, optimizers and the
+                       classification and segmentation engines
+  tasks/               the classification and segmentation CLIs
   analysis.py          data-size accounting
-  utils/convert.py     Flax variables -> this package's state_dict
+  utils/               Flax variables -> this package's state_dict,
+                       checkpoints, metrics, the segmentation evaluator
   csrc/                hand-written CUDA sources, built at first use
 """
 

@@ -77,11 +77,13 @@ class DataLoader:
     background thread that prepares the next batches while the caller
     works."""
 
-    def __init__(self, dataset, batch_size=1, shuffle=False, drop_last=False):
+    def __init__(self, dataset, batch_size=1, shuffle=False, drop_last=False,
+                 collate_fn=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
+        self.collate_fn = collate_fn or self._collate
         self.epoch = 0
 
     @staticmethod
@@ -108,7 +110,7 @@ class DataLoader:
         bs = self.batch_size
         end = len(idx) - (len(idx) % bs) if self.drop_last else len(idx)
         for start in range(0, end, bs):
-            yield self._collate(
+            yield self.collate_fn(
                 [self.dataset[int(i)] for i in idx[start:start + bs]])
         self.epoch += 1
 
@@ -144,9 +146,10 @@ def build_dataset(dataset_config):
     return get('dataset', key)(**dataset_config.get('kwargs', {}))
 
 
-def build_sharded_loader(split_config):
-    """DataLoader from a split config. The port runs in one process: in a
-    `torch.distributed` group of more than one process it raises, since
+def build_sharded_loader(split_config, collate_fn=None):
+    """DataLoader from a split config (`collate_fn`, by default stacking
+    same-size images, makes the batches). The port runs in one process: in
+    a `torch.distributed` group of more than one process it raises, since
     each would score the whole dataset."""
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized() \
@@ -157,4 +160,5 @@ def build_sharded_loader(split_config):
     return DataLoader(build_dataset(split_config['dataset']),
                       batch_size=split_config.get('batch_size', 1),
                       shuffle=split_config.get('shuffle', False),
-                      drop_last=split_config.get('drop_last', False))
+                      drop_last=split_config.get('drop_last', False),
+                      collate_fn=collate_fn)

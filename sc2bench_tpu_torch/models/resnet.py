@@ -23,11 +23,15 @@ class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm whose train-mode update of `running_var` uses the biased
     batch variance, as Flax's `nn.BatchNorm` does (torch's uses the
     unbiased one); momentum 0.1 on the batch value equals Flax's 0.9 on
-    the old one. Normalization is torch's own in both modes."""
+    the old one. Normalization is torch's own in both modes, except over
+    one value a channel (ASPP's pooled branch at batch 1), where torch's
+    raises and Flax's gives a zero variance: then the Flax arithmetic."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
+        if x.numel() == x.shape[1]:
+            return self._forward_one_value(x)
         # torch's op updates copies of the statistics (the autograd graph
         # keeps them); its running var is (1-m)*old + m*var*n/(n-1), so
         # ((n-1)*that + (1-m)*old)/n = (1-m)*old + m*var, Flax's
@@ -42,21 +46,39 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.num_batches_tracked.add_(1)
         return y
 
+    def _forward_one_value(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over one value a channel: mean x, variance 0, so the
+        output is the bias and the statistics move toward (x, 0)."""
+        shape = (1, -1, 1, 1)
+        mean = x.mean(dim=(0, 2, 3))
+        var = ((x - mean.view(shape)) ** 2).mean(dim=(0, 2, 3))
+        y = (x - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.eps)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return y * self.weight.view(shape) + self.bias.view(shape)
+
 
 class BottleneckBlock(nn.Module):
-    """1x1 -> 3x3(stride) -> 1x1(x4) + shortcut. The shortcut is projected
-    when the block changes the channel count or the stride. bn3 starts with
-    zero scales (zero-init residual), as in the JAX package."""
+    """1x1 -> 3x3(stride, dilation) -> 1x1(x4) + shortcut. The shortcut is
+    projected when the block changes the channel count or the stride. bn3
+    starts with zero scales (zero-init residual), as in the JAX package.
+    `dilation` dilates (and pads by) the 3x3 conv, DeepLabv3's
+    stride-replaced stages."""
 
     expansion = 4
 
-    def __init__(self, in_channels: int, filters: int, strides: int = 1):
+    def __init__(self, in_channels: int, filters: int, strides: int = 1,
+                 dilation: int = 1):
         super().__init__()
         out = filters * self.expansion
         self.conv1 = nn.Conv2d(in_channels, filters, 1, bias=False)
         self.bn1 = BatchNorm2d(filters, eps=1e-5)
         self.conv2 = nn.Conv2d(filters, filters, 3, stride=strides,
-                               padding=1, bias=False)
+                               padding=dilation, dilation=dilation,
+                               bias=False)
         self.bn2 = BatchNorm2d(filters, eps=1e-5)
         self.conv3 = nn.Conv2d(filters, out, 1, bias=False)
         self.bn3 = BatchNorm2d(out, eps=1e-5)
@@ -77,14 +99,22 @@ class BottleneckBlock(nn.Module):
 
 
 class ResNetStage(nn.Sequential):
-    """One layerN stage: `blocks` bottleneck blocks, stride on the first."""
+    """One layerN stage: `blocks` bottleneck blocks, stride on the first.
+    With `dilate` the stride is replaced by dilation (torchvision's
+    `replace_stride_with_dilation`): the stride becomes 1, the first block
+    keeps the incoming `dilation` and the later ones take `dilation *
+    strides`."""
 
     def __init__(self, in_channels: int, filters: int, blocks: int,
-                 strides: int = 1):
+                 strides: int = 1, dilation: int = 1, dilate: bool = False):
+        first_stride = 1 if dilate else strides
+        later_dilation = dilation * strides if dilate else dilation
         layers = []
         for i in range(blocks):
             layers.append(BottleneckBlock(
-                in_channels, filters, strides=strides if i == 0 else 1))
+                in_channels, filters,
+                strides=first_stride if i == 0 else 1,
+                dilation=dilation if i == 0 else later_dilation))
             in_channels = filters * BottleneckBlock.expansion
         super().__init__(*layers)
 

@@ -47,6 +47,12 @@ check that failed. `ok=False` is a property of the data; the device coder
 is exact, so `valid=False` means a faulty kernel or stream, and each one is
 also logged as a warning.
 
+The segmentation runtime (`models/segmentation/wrapper.py`) reuses both
+wires through three hooks: `_split_bottleneck` (where the bottleneck
+sits), `_decode_tail` (given each image's input (h, w), which travels
+with its ops as `input_hw`) and `_recode_on_host` (the escape path).
+Lanes follow each image's latent shape unless the caller fixes them.
+
 Numerics: symbols are bit-identical to the float32 reference only if the
 encoder runs in true float32. cuDNN runs float32 convolutions in TF32 by
 default, which moves symbols across rounding boundaries, so a runtime on a
@@ -233,10 +239,9 @@ class SplitClassifierRuntime(AnalyzerHolder):
             self._norm_mean = None
         # module-level deploy ops (EntropicClassifierModule) or a
         # bottleneck_layer submodule (the SplittableResNet family)
-        self._module_level_ops = hasattr(module, 'encode_ops') \
-            and not hasattr(module, 'bottleneck_layer')
-        self._bneck = None if self._module_level_ops \
-            else module.bottleneck_layer
+        self._bneck = self._split_bottleneck(module)
+        self._module_level_ops = self._bneck is None \
+            and hasattr(module, 'encode_ops')
         self.hyper = isinstance(self._bneck, SHPBasedResNetBottleneck)
         if self.hyper:
             self.codec = HyperpriorCodec()
@@ -252,6 +257,12 @@ class SplitClassifierRuntime(AnalyzerHolder):
         self._tables_dev = None
         self._gtables_dev = None
         self._scale_table = None
+
+    @staticmethod
+    def _split_bottleneck(module):
+        """The model's bottleneck layer; None for module-level deploy
+        ops."""
+        return getattr(module, 'bottleneck_layer', None)
 
     # ---- reference API surface -----------------------------------------
     def update(self, scale_table=None):
@@ -414,6 +425,11 @@ class SplitClassifierRuntime(AnalyzerHolder):
             logger.warning('image %d: device rANS decode did not return to '
                            'its initial state (valid=False); re-coded on the '
                            'host coder', index)
+        return self._recode_on_host(x)
+
+    def _recode_on_host(self, x):
+        """The escape path: `encode` on the host coder, accounted, then
+        `decode`."""
         compressed = self.encode(x)
         self.analyze(compressed)
         return self.decode(**compressed)
@@ -485,17 +501,19 @@ class SplitClassifierRuntime(AnalyzerHolder):
                              'with decode_batch=1')
         channels = self.codec.tables.medians.shape[0]
         results, decoded = [], []
+        decoded_hw = None   # the input (h, w) of the pending decodes
 
         def flush():
             t0 = time.perf_counter()
             sym = torch.from_numpy(np.concatenate(decoded)).to(self.device)
             logits = self._decode_tail(sym.reshape(len(sym), -1),
-                                       tuple(sym.shape[1:]))
+                                       tuple(sym.shape[1:]), decoded_hw)
             results.extend(torch.split(logits, [len(d) for d in decoded]))
             decoded.clear()
             add_timing(timings, 'decode_dispatch', time.perf_counter() - t0)
 
-        def host_stage(host, ready):
+        def host_stage(host, ready, input_hw):
+            nonlocal decoded_hw
             t0 = time.perf_counter()
             if ready is not None:
                 ready.synchronize()
@@ -522,8 +540,11 @@ class SplitClassifierRuntime(AnalyzerHolder):
                 add_timing(timings, 'decode_dispatch',
                            time.perf_counter() - t2)
                 return
+            if decoded and input_hw != decoded_hw:
+                flush()     # a decode batch holds images of one shape
             decoded.append(self.codec.decompress_wire(
                 compressed['strings'][0], compressed['shape'], channels))
+            decoded_hw = input_hw
             add_timing(timings, 'host_code', time.perf_counter() - t2)
             if len(decoded) == max(int(decode_batch), 1):
                 flush()
@@ -532,7 +553,8 @@ class SplitClassifierRuntime(AnalyzerHolder):
         for x in images:
             if len(in_flight) >= max(int(depth), 1):
                 host_stage(*in_flight.popleft())
-            in_flight.append(self._encode_to_host(x))
+            in_flight.append((*self._encode_to_host(x),
+                              tuple(x.shape[-2:])))
         while in_flight:
             host_stage(*in_flight.popleft())
         if decoded:
@@ -590,11 +612,12 @@ class SplitClassifierRuntime(AnalyzerHolder):
         n, c, h, w = sym.shape
         return sym.permute(0, 2, 3, 1).reshape(n, -1), (h, w, c)
 
-    def _with_meta(self, out, shape):
+    def _with_meta(self, out, shape, input_hw):
         # ok + exact wire size in one small tensor, read once at harvest
         out['meta'] = torch.stack([out['ok'].to(torch.int32), out['nbytes']],
                                   dim=-1)
         out['shape'] = shape
+        out['input_hw'] = input_hw
         return out
 
     @torch.no_grad()
@@ -610,7 +633,7 @@ class SplitClassifierRuntime(AnalyzerHolder):
         out = device_rans_encode(flat.reshape(-1), cdf, cdf_len, off,
                                  num_lanes=num_lanes,
                                  cyclic_channels=shape[-1])
-        return self._with_meta(out, shape)
+        return self._with_meta(out, shape, tuple(x.shape[-2:]))
 
     @torch.no_grad()
     def encode_device_wire_batch(self, xs_list, num_lanes=None):
@@ -631,9 +654,12 @@ class SplitClassifierRuntime(AnalyzerHolder):
         out = device_rans_encode(torch.cat([f for f, _ in rows]), cdf,
                                  cdf_len, off, num_lanes=num_lanes,
                                  cyclic_channels=shape[-1], aligned=True)
-        return self._with_meta(out, shape)
+        return self._with_meta(out, shape, tuple(xs_list[0].shape[-2:]))
 
-    def _decode_tail(self, flat, shape):
+    def _decode_tail(self, flat, shape, input_hw=None):
+        """The model's output from flat NHWC symbols (n, h*w*c) of latent
+        `shape`; `input_hw`, the encoded images' (h, w), is unused by a
+        classifier."""
         h, w, c = shape
         sym = flat.reshape(-1, h, w, c).permute(0, 3, 1, 2)
         if self._module_level_ops:
@@ -644,7 +670,7 @@ class SplitClassifierRuntime(AnalyzerHolder):
 
     @torch.no_grad()
     def decode_device_streams(self, streams, states, shape, num_lanes=None,
-                              aligned: bool = False):
+                              aligned: bool = False, input_hw=None):
         """Server side from device-resident (or uploaded) streams, compacted
         unless `aligned` (the encode result's): rANS decode + bottleneck
         decoder + tail. Returns (logits (1, K), valid)."""
@@ -656,15 +682,16 @@ class SplitClassifierRuntime(AnalyzerHolder):
             streams, states, cdf, cdf_len, off,
             n_symbols=int(np.prod(shape)), num_lanes=num_lanes,
             cyclic_channels=shape[-1], aligned=aligned, device=self.device)
-        return self._decode_tail(flat, shape), valid
+        return self._decode_tail(flat, shape, input_hw), valid
 
     @torch.no_grad()
     def decode_device_streams_batch(self, streams, states, shape,
-                                    num_lanes=None):
+                                    num_lanes=None, input_hw=None):
         """k images' time-aligned streams (k, N, T) -> (logits (k, K),
         valid (k,)), one decode launch and one batched tail."""
         return self.decode_device_streams(streams, states, shape,
-                                          num_lanes=num_lanes, aligned=True)
+                                          num_lanes=num_lanes, aligned=True,
+                                          input_hw=input_hw)
 
     # ---- hyperprior device wire -------------------------------------------
     def _hyper_encode(self, xs_list, num_lanes, aligned):
@@ -756,7 +783,7 @@ class SplitClassifierRuntime(AnalyzerHolder):
             return self.decode_device_streams_hyper(ops)
         return self.decode_device_streams(
             ops['streams'], ops['states'], ops['shape'], num_lanes=num_lanes,
-            aligned=ops['aligned'])
+            aligned=ops['aligned'], input_hw=ops['input_hw'])
 
     def _wire_encode_batch(self, xs_list, num_lanes):
         if self.hyper:
@@ -768,7 +795,8 @@ class SplitClassifierRuntime(AnalyzerHolder):
         if self.hyper:
             return self.decode_device_streams_hyper_batch(ops)
         return self.decode_device_streams_batch(
-            ops['streams'], ops['states'], ops['shape'], num_lanes=num_lanes)
+            ops['streams'], ops['states'], ops['shape'], num_lanes=num_lanes,
+            input_hw=ops['input_hw'])
 
     def _shape_hw(self, ops):
         """The spatial shape accounted with an image: z's for a
@@ -824,8 +852,10 @@ class SplitClassifierRuntime(AnalyzerHolder):
         those bytes, served from that path's logits, and counted in
         `escapes`. `pull_wire=True`
         packs and accounts the real wire bytes per image. `wire_batch=k`
-        codes k images per launch. A hyperprior codes z and y of each image
-        and accounts both wires together; `num_lanes` is then y's.
+        codes k images per launch. `num_lanes` None picks each image's
+        lanes from its latent's shape (`_default_lanes`). A hyperprior
+        codes z and y of each image and accounts both wires together;
+        `num_lanes` is then y's.
         A model with module-level deploy ops, or without an entropy model,
         raises `ValueError`, as in the JAX runtime."""
         del workers
@@ -834,8 +864,6 @@ class SplitClassifierRuntime(AnalyzerHolder):
         n = len(images)
         if n == 0:
             return []
-        if num_lanes is None:
-            num_lanes = self._default_lanes(images[0].shape)
         if wire_batch is not None and wire_batch > 1:
             if pull_wire:
                 raise ValueError('wire_batch grouping does not support '

@@ -1,8 +1,8 @@
 """Global string -> object registries (counterpart of
 `sc2bench_tpu/registry.py`).
 
-Layers, models, wrappers, transforms, analyzers, datasets and losses
-register under a namespace with the `register_*` decorators; configs name
+Layers, models, wrappers, transforms, analyzers, datasets, collate
+functions and losses register under a namespace with the `register_*` decorators; configs name
 them as `{key, kwargs}` and the builders look them up here.
 
 Configs list the JAX package's modules under `dependencies`
@@ -101,3 +101,4 @@ register_dataset = _shorthand('dataset')
 register_loss = _shorthand('loss')
 register_transform = _shorthand('transform')
 register_wrapper = _shorthand('wrapper')
+register_collate = _shorthand('collate')

@@ -16,7 +16,10 @@ One step, as the JAX step computes it:
      bottleneck;
   4. backward;
   5. the optimizers step (`optim.StageOptimizer`);
-  6. metrics {'loss': detail, 'aux_loss', 'acc1'}, tensors on the device.
+  6. metrics {'loss': detail, 'aux_loss', 'acc1'}, tensors on the device
+     (`acc1` for a classifier's 2-D logits only).
+A dict output (segmentation's {'out', 'aux'}) is recorded as 'output' (the
+main head) and 'output.<k>' (`record_output`).
 A new box, and so new optimizer state, comes with each stage. The
 teacher's parameters never change.
 """
@@ -31,6 +34,18 @@ from .optim import StageOptimizer
 DEFAULT_CRITERION = {'key': 'CrossEntropyLoss',
                      'kwargs': {'module_path': 'output'}}
 DEFAULT_OPTIMIZER = {'key': 'SGD', 'kwargs': {'lr': 0.01}}
+
+
+def record_output(io: dict, out) -> None:
+    """The model's output into `io`: 'output' itself, or for a dict output
+    (segmentation's {'out', 'aux'}) 'output' = the main head ('out', else
+    the first) and 'output.<k>' each head, as the JAX box records it."""
+    if isinstance(out, dict):
+        for k, v in out.items():
+            io[f'output.{k}'] = v
+        io['output'] = out.get('out', next(iter(out.values())))
+    else:
+        io['output'] = out
 
 
 def factorized_aux_loss(model: torch.nn.Module) -> torch.Tensor:
@@ -79,7 +94,7 @@ class DistillationBox:
             return {}
         io = {}
         with torch.no_grad():
-            io['output'] = self.teacher(x, io=io)
+            record_output(io, self.teacher(x, io=io))
         return io
 
     def train_step(self, x: torch.Tensor, y: torch.Tensor) -> dict:
@@ -91,7 +106,7 @@ class DistillationBox:
             io = {}
             out = self.student(x, mode=self.student_mode,
                                generator=self.generator, io=io)
-            io['output'] = out
+            record_output(io, out)
             main_loss, detail = self.criterion(io, teacher_io, y)
             aux = factorized_aux_loss(self.student)
             self.optim.zero_grad()
@@ -101,7 +116,7 @@ class DistillationBox:
             self.student.eval()
         metrics = {'loss': {k: v.detach() for k, v in detail.items()},
                    'aux_loss': aux.detach()}
-        if y is not None and out.ndim == 2:
+        if y is not None and torch.is_tensor(out) and out.ndim == 2:
             metrics['acc1'] = (out.detach().argmax(-1) == y).to(
                 torch.float32).mean()
         return metrics

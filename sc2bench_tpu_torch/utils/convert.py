@@ -64,6 +64,18 @@ RegNet (student or teacher), anything else the ResNet family above.
               se_expand` -> `se.conv_reduce|conv_expand`; `stem_conv|
               stem_bn|head_conv|head_bn` -> `conv_stem|bn1|conv_head|bn2`
 
+A DeepLabv3 (a tree with top-level `backbone` and `classifier`) maps
+`backbone/...` by the ResNet rules above under `backbone.` (the teacher's
+`backbone/stem/conv1|bn1` -> `backbone.conv1|bn1`, `backbone/layer1` ...;
+the student's `backbone/bottleneck_layer/...`), and its heads to
+torchvision's Sequentials: `classifier/aspp/b0_conv|b0_bn` ->
+`classifier.0.convs.0.0|1`, `classifier/aspp/b{i}/conv|bn` ->
+`classifier.0.convs.{i}.0|1`, `classifier/aspp/pool/conv|bn` ->
+`classifier.0.convs.4.1|2`, `classifier/aspp/proj_conv|proj_bn` ->
+`classifier.0.project.0|1`, `classifier/conv|bn|classifier` ->
+`classifier.1|2|4`, `aux_classifier/conv|bn|classifier` ->
+`aux_classifier.0|1|4`.
+
 `flax_param_path` is the inverse on names: a torch parameter name ->
 its Flax path, dotted (`bottleneck_layer.encoder.0.weight` ->
 `bottleneck_layer.enc_conv0.kernel`), the space in which configs name
@@ -189,14 +201,36 @@ def _efficientnet_block(m):
 _EFFICIENTNET_RULES = [
     (r'^stage(\d)_block(\d+)/(\w+)$', _efficientnet_block)] + [
     (rf'^{k}$', v) for k, v in _EFFICIENTNET_TOP.items()]
+# DeepLabv3: torchvision's DeepLabHead and FCNHead Sequentials
+_SEG_HEADS = {
+    'classifier/aspp/b0_conv': 'classifier.0.convs.0.0',
+    'classifier/aspp/b0_bn': 'classifier.0.convs.0.1',
+    **{f'classifier/aspp/b{i}/{leaf}': f'classifier.0.convs.{i}.{j}'
+       for i in (1, 2, 3) for j, leaf in enumerate(('conv', 'bn'))},
+    'classifier/aspp/pool/conv': 'classifier.0.convs.4.1',
+    'classifier/aspp/pool/bn': 'classifier.0.convs.4.2',
+    'classifier/aspp/proj_conv': 'classifier.0.project.0',
+    'classifier/aspp/proj_bn': 'classifier.0.project.1',
+    'classifier/conv': 'classifier.1', 'classifier/bn': 'classifier.2',
+    'classifier/classifier': 'classifier.4',
+    'aux_classifier/conv': 'aux_classifier.0',
+    'aux_classifier/bn': 'aux_classifier.1',
+    'aux_classifier/classifier': 'aux_classifier.4',
+}
+_SEGMENTATION_RULES = [
+    (r'^backbone/(.+)$', lambda m: 'backbone.' + _torch_scope(m[1]))] + [
+    (rf'^{k}$', v) for k, v in _SEG_HEADS.items()]
 _FAMILY_RULES = {'resnet': _RULES, 'regnet': _REGNET_RULES,
                  'hybrid_vit': _HYBRID_VIT_RULES,
                  'hybrid_vit_teacher': _HYBRID_VIT_TEACHER_RULES,
-                 'efficientnet': _EFFICIENTNET_RULES}
+                 'efficientnet': _EFFICIENTNET_RULES,
+                 'segmentation': _SEGMENTATION_RULES}
 
 
 def _family(params: dict) -> str:
     """Which rules convert a Flax tree, from its top-level scopes."""
+    if 'backbone' in params and 'classifier' in params:
+        return 'segmentation'
     if 'vit' in params:
         return 'hybrid_vit_teacher' if 'stem_conv' in params \
             else 'hybrid_vit'
@@ -218,6 +252,9 @@ def _torch_scope(scope: str, family: str = 'resnet') -> str:
 
 def _is_deconv(scope: str, model) -> bool:
     """Whether the kernel at flax `scope` is a ConvTranspose's."""
+    if scope.startswith('backbone/'):       # a segmentation model's body
+        return _is_deconv(scope[len('backbone/'):],
+                          None if model is None else model.backbone)
     if scope in _DECONV_SCOPES:
         return True
     if not re.fullmatch(_LAYER_SEQ, scope):
@@ -258,8 +295,8 @@ def _param_leaf(leaf: str, value: np.ndarray, deconv: bool = False):
 def state_dict_from_flax(variables: dict, model=None) -> dict:
     """Flax `{'params', 'batch_stats'}` of the JAX `SplittableResNet` (FP,
     SHP, MSHP or `SimpleBottleneck`), `ResNet`, `EntropicClassifierModule`,
-    an image codec of the zoo, a RegNet, a hybrid ViT (student or teacher)
-    or an EfficientNet -> a state_dict that `load_state_dict` takes
+    an image codec of the zoo, a RegNet, a hybrid ViT (student or teacher),
+    an EfficientNet or a DeepLabv3 (student or teacher) -> a state_dict that `load_state_dict` takes
     strictly. `model`, the port's counterpart, is needed for a
     `SimpleBottleneck` (see the module doc)."""
     out = {}
@@ -323,7 +360,9 @@ _INVERSE_RULES = [(rf'^bottleneck_layer\.{re.escape(v)}$',
     (r'^(base\.)?layer(\d)\.(\d+)\.downsample\.1$',
      r'\1layer\2.block\3.downsample_bn'),
     (r'^(base\.)?fc$', r'\1fc'),
-] + _BACKBONE_INVERSE
+    (r'^backbone\.(.+)$', lambda m: 'backbone.' + _flax_scope(m[1])),
+] + [(rf'^{re.escape(v)}$', k.replace('/', '.'))
+     for k, v in _SEG_HEADS.items()] + _BACKBONE_INVERSE
 _EFFICIENTNET_INVERSE = [
     (r'^blocks\.(\d)\.(\d+)\.se\.conv_(reduce|expand)$',
      r'stage\1_block\2.se_\3'),
@@ -346,10 +385,18 @@ def _layer_seq_entry(model, module: str):
     return seq[int(index)] if isinstance(seq, LayerSeq) else None
 
 
+def _flax_scope(module: str, rules=_INVERSE_RULES) -> str:
+    for pattern, repl in rules:
+        m = re.fullmatch(pattern, module)
+        if m:
+            return repl(m) if callable(repl) else m.expand(repl)
+    raise KeyError(f'no flax counterpart for torch module {module!r}')
+
+
 def flax_param_path(name: str, model=None) -> str:
     """Dotted Flax path of the parameter `name` of the port's
-    `SplittableResNet`, `ResNet`, `EntropicClassifierModule`, RegNet or
-    hybrid ViT; a `SimpleBottleneck`'s (`LayerSeq` entry `{i}` ->
+    `SplittableResNet`, `ResNet`, `EntropicClassifierModule`, RegNet,
+    hybrid ViT or DeepLabv3; a `SimpleBottleneck`'s (`LayerSeq` entry `{i}` ->
     `layer{i}`) and an EfficientNet's only when `model` is given."""
     from ..models.efficientnet import EfficientNet
     module, _, leaf = name.rpartition('.')
@@ -360,15 +407,9 @@ def flax_param_path(name: str, model=None) -> str:
             leaf = 'scale' if isinstance(entry, torch.nn.BatchNorm2d) \
                 else 'kernel'
         return f'{prefix}.layer{index}.{leaf}'
-    rules = _EFFICIENTNET_INVERSE if isinstance(model, EfficientNet) \
-        else _INVERSE_RULES
-    for pattern, repl in rules:
-        m = re.fullmatch(pattern, module)
-        if m:
-            scope = repl(m) if callable(repl) else m.expand(repl)
-            break
-    else:
-        raise KeyError(f'no flax counterpart for torch module {module!r}')
+    scope = _flax_scope(module, _EFFICIENTNET_INVERSE
+                        if isinstance(model, EfficientNet)
+                        else _INVERSE_RULES)
     if leaf == 'weight':
         # BatchNorm, GroupNorm and LayerNorm scopes: `bn1`, `down_bn`,
         # `stem_norm`, `norm`, ...

@@ -86,10 +86,12 @@ def test_registry_maps_the_jax_package_and_names_what_it_knows(caplog):
         import_dependencies(['sc2bench_tpu.models',
                              'sc2bench_tpu.transforms',
                              'sc2bench_tpu.models.segmentation',
+                             'sc2bench_tpu.models.detection',
                              {'name': 'json'}])
-    assert 'sc2bench_tpu.models.segmentation has no counterpart' \
+    assert 'sc2bench_tpu.models.detection has no counterpart' \
         in caplog.text
-    assert 'sc2bench_tpu.transforms has no counterpart' not in caplog.text
+    for ported in ('transforms', 'models.segmentation'):
+        assert f'sc2bench_tpu.{ported} has no counterpart' not in caplog.text
     assert port_module_name('sc2bench_tpu.models.layer') \
         == 'sc2bench_tpu_torch.models.layer'
     assert port_module_name('sc2bench_tpu_x') == 'sc2bench_tpu_x'

@@ -259,8 +259,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     input-compression configs (JPEG, and the joint autoregressive codec
     at n = m = 8) test through their wrappers; a RegNet FP config (a small
     RegNet registered in the port) tests, and a small hybrid ViT (student
-    and teacher) and EfficientNet run. One thread: the suite runs this
-    beside other workers."""
+    and teacher) and EfficientNet run; the segmentation CLI trains then
+    tests `tiny_segmentation.yaml`, and tests it on the device wire. One
+    thread: the suite runs this beside other workers."""
     code = r'''
 import importlib, json, pkgutil, sys
 class Block:
@@ -364,6 +365,13 @@ with torch.no_grad():
     for m in (hybrid_vit.HybridViT(64, 1, 2, 10, image_size=64),
               efficientnet.EfficientNet(0.25, 0.1, 10)):
         assert m.eval()(x).shape == (1, 10)
+from sc2bench_tpu_torch.tasks.semantic_segmentation import main as seg_main
+tiny_seg = 'configs/sample/tiny_segmentation.yaml'
+out = seg_main(['--config', tiny_seg, '--device', 'cpu'])
+assert out['best'] is not None and out['summaries'][0]['num_samples'] == 2
+out = seg_main(['--config', tiny_seg, '--json', '{"deploy_wire": "device"}',
+                '-test_only', '--device', 'cpu'])
+assert out['summaries'][0]['num_samples'] == 2, out
 bad = [m for m in sys.modules
        if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sc2bench_tpu')]
 assert not bad, bad
