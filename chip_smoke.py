@@ -181,13 +181,29 @@ which fails loudly with a nonzero exit:
     `jpeg-deeplabv3_resnet101`, `mean_scale_hyperprior-deeplabv3_
     resnet50` (with `codec_weights`) and `ghnd-bq` bq12ch configs through
     the CLI on 4 images each;
-16. print the kernels line (all ten kernels; it fails if one never
+16. COCO detection: Faster R-CNN R50-FPN + FP-24 (the `-fp-beta0.08`
+    student, 91 classes, `build_model`'s seeded weights and halved last
+    encoder conv, torchvision's initialization of the RPN and box
+    predictors) serves 8 synthetic 480x640 images and 2 of 640x480 (the
+    800x1344 and 1344x800 canvases: 199x335x24 on 3,072 cyclic lanes x
+    521 steps) at batch 1 and `wire_batch=4` on the device wire, and 4 on
+    the host wire, launches counted per run: wires equal the plain coder,
+    detections equal the direct decode -> tail -> postprocess, no escape,
+    sizes equal at batch 1 and `wire_batch`; the four cyclic kernels held
+    against their plain versions at 3,072 x 521 and at the square
+    canvas's 3,072 x 877, and timed at 3,072 x 521; the detection test
+    CLI on that config on both wires (8 images: mAP, KB, model_time); two
+    steps of each stage of that config and of the end-to-end config at
+    batch 4 on the 1344x1344 canvas (img/s, peak memory, what each stage
+    may change), each then tested on 2 images; the `ghnd-bq` bq12ch config
+    through the CLI on 4 images;
+17. print the kernels line (all ten kernels; it fails if one never
     launched on its path or differs from its plain version, if a cyclic
     or indexed kernel never launched in phase 14, or a cyclic one in
-    phase 15; the counts of phases 11-15 beside, and phase 14's and 15's
-    timings at their shapes under `*_64ch` and `*_seg`), the card's name
-    and power limit, and last `{"ok": true, "device": {...}}`. Every
-    phase prints its seconds.
+    phase 15 or 16; the counts of phases 11-16 beside, and phase 14's,
+    15's and 16's timings at their shapes under `*_64ch`, `*_seg` and
+    `*_det`), the card's name and power limit, and last `{"ok": true,
+    "device": {...}}`. Every phase prints its seconds.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 with an error before printing any result.
@@ -303,6 +319,21 @@ SEG_SMALL_CONFIGS = (
 SEG_HW, SEG_VOC_HW, SEG_CLASSES = (512, 512), (375, 500), 21
 N_SEG, N_SEG_HOST, N_SEG_VOC, N_SEG_CLI, N_SEG_SMALL = 16, 8, 2, 16, 4
 SEG_ES_BATCH, SEG_E2E_BATCH = 16, 8
+# phase 16: COCO detection (Faster R-CNN R50-FPN + FP-24)
+DET_SC = 'configs/coco2017/supervised_compression/'
+DET_ES_CONFIG = DET_SC + ('entropic_student/faster_rcnn_splittable_resnet50-'
+                          'fp-beta0.08_fpn_from_faster_rcnn_resnet50_fpn.yaml')
+DET_E2E_CONFIG = DET_SC + ('end-to-end/faster_rcnn_splittable_resnet50-fp-'
+                           'beta1.28e-8_fpn.yaml')
+DET_BQ_CONFIG = DET_SC + ('ghnd-bq/faster_rcnn_resnet50-bq12ch_fpn_from_'
+                          'faster_rcnn_resnet50_fpn.yaml')
+# COCO's typical 480x640 (landscape) and 640x480: the 800x1344 and
+# 1344x800 canvases of the configs' `canvas_size: 1344`
+DET_LAND, DET_PORT, DET_CLASSES = (480, 640), (640, 480), 91
+N_DET_LAND, N_DET_PORT, N_DET_HOST, N_DET_CLI, N_DET_SMALL = 8, 2, 4, 8, 2
+N_DET_BQ, DET_WIRE_BATCH, DET_BATCH = 4, 4, 4
+# the training runs' canvas: every batch padded to the square bucket
+DET_SQUARE = [[1344, 1344]]
 # H100 SXM published peaks: HBM bytes/s, and
 # the non-tensor-core rate used for the kernels' integer operations
 HBM_BYTES_PER_S = 3.35e12
@@ -3048,6 +3079,446 @@ def seg_phase(torch, td, kernels, device):
     return paths, stats
 
 
+# ---- phase 16: COCO detection (Faster R-CNN R50-FPN + FP-24) ---------------
+
+def det_split(n, batch, seed, hw=DET_LAND, **extra):
+    """A loader config of `n` synthetic images of `hw` with 1-5 boxes of
+    the 91 COCO labels."""
+    return {'dataset': {'key': 'SyntheticDetectionDataset',
+                        'kwargs': {'num_samples': n, 'image_size': list(hw),
+                                   'num_classes': DET_CLASSES,
+                                   'seed': seed}},
+            'batch_size': batch, **extra}
+
+
+def det_canvases(torch, n, device, hw=DET_LAND, seed=0):
+    """The images of `det_split(n, 1, seed, hw)` resized and padded as the
+    engine does (the configs' 800/1344 canvas buckets), NCHW on
+    `device`."""
+    from sc2bench_tpu_torch.datasets.coco import SyntheticDetectionDataset
+    from sc2bench_tpu_torch.models.detection.transform import RCNNTransform
+    data = SyntheticDetectionDataset(num_samples=n, image_size=hw,
+                                     num_classes=DET_CLASSES, seed=seed)
+    transform = RCNNTransform(min_size=800, max_size=DET_SQUARE[0][0],
+                              canvas_buckets=True)
+    return [torch.from_numpy(np.ascontiguousarray(
+        transform([data[i][0]])[0].transpose(0, 3, 1, 2))).to(device)
+        for i in range(n)]
+
+
+def build_det_student(torch, device, seed=0):
+    """The `-fp-beta0.08` config's student (Faster R-CNN R50-FPN + FP-24,
+    91 classes) at full width on the card: `build_model`'s seeded weights
+    and halved last encoder conv, and the RPN and box predictors
+    initialized as torchvision initializes them (normal with std 0.01,
+    0.01 and 0.001, zero biases)."""
+    from sc2bench_tpu_torch.config import load_config
+    from sc2bench_tpu_torch.models.detection.registry import \
+        load_detection_model
+    spec = load_config(os.path.join(REPO, DET_ES_CONFIG))['models'][
+        'student_model']
+    torch.manual_seed(seed)
+    model = load_detection_model({**spec, 'ckpt': None}, device=device)
+    randomize_weights(torch, model, seed, device)
+    halve_last_encoder_conv(torch, model.backbone.body)
+    gen = torch.Generator(device='cpu').manual_seed(seed + 1)
+    heads = ((model.rpn.head.cls_logits, 0.01),
+             (model.rpn.head.bbox_pred, 0.01),
+             (model.roi_heads.box_predictor.cls_score, 0.01),
+             (model.roi_heads.box_predictor.bbox_pred, 0.001))
+    with torch.no_grad():
+        for layer, std in heads:
+            layer.weight.copy_(torch.randn(layer.weight.shape,
+                                           generator=gen).to(device) * std)
+            layer.bias.zero_()
+    return model
+
+
+def det_mismatch(a, b):
+    """(share of the slots whose label or validity differ, largest
+    |score| and |box| difference over the other slots) of two images'
+    detections."""
+    same = (a['labels'] == b['labels']) & (a['valid'] == b['valid'])
+    share = 1.0 - float(same.float().mean())
+    if not bool(same.any()):
+        return share, 0.0
+    return share, max(float((a['scores'] - b['scores'])[same].abs().max()),
+                      float((a['boxes'] - b['boxes'])[same].abs().max()))
+
+
+def det_serve(torch, kernels, rt, images):
+    """The detection deploy loop: `images` on the device wire at batch 1
+    and `wire_batch=DET_WIRE_BATCH` (groups of one canvas), the first
+    N_DET_HOST on the host wire; each run's launches counted from 0.
+    Checks: the batch-1 pair once an image (the latent fits the batch-1
+    kernels), the aligned pair once a group, nothing on the host wire, no
+    escape, equal sizes at batch 1 and `wire_batch`, detections of the
+    fixed shape and finite; for three images the wire equals the plain
+    coder on the same symbols and the detections equal the direct decode
+    -> tail -> postprocess; the other runs' detections agree with batch
+    1's (float sums differ at a batch of 4). Returns {run: launches}."""
+    from sc2bench_tpu_torch.analysis import get_binary_object_size
+    from sc2bench_tpu_torch.ops.rans.device import (device_rans_encode,
+                                                    pack_stream)
+    rt.stream_detect_device(images[:1])
+    rt.stream_detect_device(images[-1:])
+    rt.stream_detect_device(images[:DET_WIRE_BATCH],
+                            wire_batch=DET_WIRE_BATCH)
+    rt.stream_detect(images[:1])
+    runs = {}
+    for name, fn, xs, kw in (
+            ('batch1', rt.stream_detect_device, images, {}),
+            ('wire_batch', rt.stream_detect_device, images,
+             {'wire_batch': DET_WIRE_BATCH}),
+            ('host', rt.stream_detect, images[:N_DET_HOST], {})):
+        rt.clear_analysis()
+        rt.activate_analysis()
+        rt.escapes = {'ok': 0, 'valid': 0}
+        timings = {}
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(xs, timings=timings, **kw)
+        torch.cuda.synchronize()
+        runs[name] = dict(out=out, dt=time.perf_counter() - t0,
+                          launches=dict(kernels.LAUNCHES), timings=timings,
+                          sizes=list(rt.analyzers[0].file_size_list),
+                          summary=rt.summarize()[0],
+                          escapes=dict(rt.escapes), n=len(xs))
+    shapes = {}
+    for x in images:
+        shape = rt._latent_shape(x.shape)
+        lanes = rt._auto_wire_lanes(shape)
+        steps = -(-int(np.prod(shape)) // lanes)
+        check(kernels.batch1_fits(steps, x.device),
+              f'detection latent {shape}: {steps} steps beyond the batch-1 '
+              'kernels')
+        shapes[tuple(x.shape[-2:])] = (shape, lanes, steps)
+    groups = -(-N_DET_LAND // DET_WIRE_BATCH) \
+        + -(-N_DET_PORT // DET_WIRE_BATCH)
+    aligned = [k + '_aligned' for k in FP_BATCH1]
+    for name, want in (
+            ('batch1', expected_launches(kernels, FP_BATCH1, len(images))),
+            ('wire_batch', expected_launches(kernels, aligned, groups)),
+            ('host', expected_launches(kernels, (), 0))):
+        run = runs[name]
+        check(run['launches'] == want, f'detection {name} launched '
+              f'{run["launches"]}, expected {want}')
+        check(run['escapes'] == {'ok': 0, 'valid': 0},
+              f'detection {name}: images escaped: {run["escapes"]}')
+        for det in run['out']:
+            check(tuple(det['boxes'].shape) == (1, 100, 4)
+                  and bool(torch.isfinite(det['boxes']).all())
+                  and bool(torch.isfinite(det['scores']).all()),
+                  f'detection {name}: bad detections '
+                  f'{tuple(det["boxes"].shape)}')
+    b1, bk = runs['batch1'], runs['wire_batch']
+    check(bk['sizes'] == b1['sizes'] and bk['summary'] == b1['summary'],
+          'detection wire_batch sizes differ from batch 1')
+    worst = {}
+    for name in ('wire_batch', 'host'):
+        diffs = [det_mismatch(a, b) for a, b in zip(b1['out'],
+                                                    runs[name]['out'])]
+        worst[name] = (max(d[0] for d in diffs), max(d[1] for d in diffs))
+        check(worst[name][0] <= 0.05 and worst[name][1] <= 1e-2,
+              f'detection {name} differs from batch 1: {worst[name]}')
+    t = rt.codec.tables
+    n = len(images)
+    for i in (0, N_DET_LAND - 1, n - 1):
+        x = images[i]
+        flat, shape = rt._symbols_nhwc(x)
+        lanes = rt._auto_wire_lanes(shape)
+        ref = device_rans_encode(flat.reshape(-1).cpu(), t.quantized_cdf,
+                                 t.cdf_length, t.offset, num_lanes=lanes,
+                                 cyclic_channels=shape[-1])
+        wire = rt._pull_device_wire(rt.encode_device_wire(x))
+        check(wire == pack_stream(ref), f'detection {tuple(x.shape)}: wire '
+              'differs from the plain coder on the same symbols')
+        check(b1['sizes'][i] == get_binary_object_size(
+            {'strings': [[wire]], 'shape': shape[:2]}),
+              'detection: accounted size differs from the packed wire')
+        with torch.no_grad():
+            direct = rt._decode_tail(flat, shape, tuple(x.shape[-2:]))
+        share, diff = det_mismatch(direct, b1['out'][i])
+        check(share == 0.0 and diff <= 1e-4, 'detection: served detections '
+              'differ from the decode -> tail -> postprocess on the '
+              f"encoder's symbols ({share}, {diff})")
+    for hw, (shape, lanes, steps) in shapes.items():
+        log(f'phase 16: {hw[0]}x{hw[1]} canvas: latent '
+            f'{"x".join(map(str, shape))} = {int(np.prod(shape))} symbols on '
+            f'{lanes} cyclic lanes x {steps} steps')
+    for name, run in runs.items():
+        valid = sum(int(d['valid'].sum()) for d in run['out'])
+        log(f'phase 16: Faster R-CNN R50-FPN + FP-24, {name}, {run["n"]} '
+            f'images: {run["n"] / run["dt"]:.2f} img/s; data size '
+            f'{run["summary"]}; valid detections {valid}; launches '
+            f'{run["launches"]}; host ms an image: ' + ', '.join(
+                f'{k} {1e3 * v / run["n"]:.3f}'
+                for k, v in sorted(run['timings'].items())))
+    log('phase 16: wires equal the plain coder; detections equal the direct '
+        'decode -> tail -> postprocess; vs batch 1 (share of slots '
+        'differing, largest score/box difference elsewhere): ' + ', '.join(
+            f'{k} {v[0]:.4f} / {v[1]:.3e}' for k, v in worst.items()))
+    return {f'det_{name}': run['launches'] for name, run in runs.items()}
+
+
+def det_kernels(torch, td, kernels, rt, land_hw, device):
+    """The four cyclic kernels at the detection shapes, against their
+    plain versions on the card: the landscape canvas's latent (800x1344:
+    199x335x24 on 3,072 lanes x 521 steps) at k = 1 and DET_WIRE_BATCH,
+    the square canvas's (1344x1344: 335x335x24, 3,072 x 877) at k = 1
+    and 2; timings at the landscape shape. Returns {kernel: stats}."""
+    rng = np.random.default_rng(16)
+    side = max(land_hw)
+    cases = []
+    for hw, k in ((land_hw, DET_WIRE_BATCH), ((side, side), 2)):
+        shape = rt._latent_shape((1, 3, *hw))
+        n = int(np.prod(shape))
+        lanes = rt._auto_wire_lanes(shape)
+        cases.append(kernel_case(torch, td, kernels, rt.codec.tables, lanes,
+                                 n, k, rng, device))
+        log(f'phase 16: kernels equal their plain versions at the '
+            f'{"x".join(map(str, shape))} latent ({n} symbols, {lanes} '
+            f'lanes x {cases[-1]["steps"]} steps, k=1 and {k})')
+    stats = cyclic_stats(torch, td, kernels, cases[0], tag='phase 16')
+    for name, st in stats.items():
+        st['max_abs_err'] = max(c['errs'].get(name, 0) for c in cases)
+    return stats
+
+
+def det_cli_phase(torch, kernels, model):
+    """The detection test CLI on the `-fp-beta0.08` config, N_DET_CLI
+    images of 480x640, the host wire (with the teacher's metrics) then the
+    device wire: every image accounted, the device wire's launches once an
+    image, no escape, its sizes equal a direct `stream_detect_device`, the
+    two wires' mAP within 1e-3. Returns the device-wire run's launches."""
+    import tempfile
+    from sc2bench_tpu_torch.tasks.object_detection import main as cli
+    from sc2bench_tpu_torch.utils.ckpt import save_ckpt
+    n = N_DET_CLI
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, 'student.ckpt')
+        save_ckpt(ckpt, model.state_dict())
+        over = {'models': {'student_model': {'ckpt': ckpt}},
+                'test': {'test_data_loader': det_split(n, 1, seed=0)}}
+        for wire in ('host', 'device'):
+            args = ['--config', os.path.join(REPO, DET_ES_CONFIG), '--json',
+                    json.dumps({**over, 'deploy_wire': wire}), '-test_only']
+            if wire == 'device':
+                args.append('-student_only')
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            out = cli(args)
+            runs[wire] = dict(out, wall=time.perf_counter() - t0,
+                              launches=dict(kernels.LAUNCHES))
+    host, dev = runs['host'], runs['device']
+    rt = dev['engine'].runtime
+    check(all(v == 0 for v in host['launches'].values()),
+          f'detection CLI host wire launched {host["launches"]}')
+    want = expected_launches(kernels, FP_BATCH1, n)
+    check(dev['launches'] == want, f'detection CLI device wire launched '
+          f'{dev["launches"]}, expected {want}')
+    check(rt.escapes == {'ok': 0, 'valid': 0},
+          f'detection CLI images escaped: {rt.escapes}')
+    for wire, run in runs.items():
+        check(run['summaries'][0]['num_samples'] == n
+              and -1.0 <= run['result']['AP'] <= 1.0,
+              f'detection CLI {wire} wire: {run["result"]}, '
+              f'{run["summaries"]}')
+    gap = abs(host['result']['AP'] - dev['result']['AP'])
+    check(gap <= 1e-3, f'detection CLI wires\' mAP differ by {gap}')
+    sizes = list(rt.analyzers[0].file_size_list)
+    rt.clear_analysis()
+    rt.stream_detect_device(det_canvases(torch, n, rt.device))
+    check(list(rt.analyzers[0].file_size_list) == sizes,
+          'detection CLI sizes differ from a direct stream_detect_device')
+    for wire, run in runs.items():
+        res = run['result']
+        log(f'phase 16: CLI {os.path.basename(DET_ES_CONFIG)}, {wire} wire, '
+            f'{n} images of 480x640: mAP {res["AP"]:.6f}, AP50 '
+            f'{res["AP50"]:.6f}, data size {run["summaries"][0]}, '
+            f'model_time {res["model_time"]:.6f} s '
+            f'({1 / res["model_time"]:.2f} img/s); CLI wall '
+            f'{run["wall"]:.2f} s')
+    log(f'phase 16: CLI teacher (random weights) mAP '
+        f'{host["teacher"]["AP"]:.6f}; device wire launches '
+        f'{dev["launches"]}, escapes {rt.escapes}, sizes equal a direct '
+        'stream_detect_device')
+    return dev['launches']
+
+
+def det_train_cli(torch, kernels, config, over, n_test):
+    """One train-then-test run of the detection CLI on the device wire;
+    returns its output, the stage records, the launches of its test and
+    the test canvases."""
+    import sc2bench_tpu_torch.train.det_engine as engine_module
+    from sc2bench_tpu_torch.tasks.object_detection import main as cli
+    records = []
+    base = engine_module.DetectionBox
+    try:
+        engine_module.DetectionBox = recording(torch, base, records)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = cli(['--config', os.path.join(REPO, config), '--json',
+                   json.dumps({**over, 'deploy_wire': 'device'}),
+                   '-student_only'])
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        engine_module.DetectionBox = base
+    return dict(out, wall=wall, launches=launches, records=records)
+
+
+def det_train_phase(torch, kernels, model):
+    """Two steps of each stage of the `-fp-beta0.08` config and of the
+    end-to-end config at batch DET_BATCH on the 1344x1344 canvas, through
+    the CLI, then N_DET_SMALL test images on the device wire. Stage 1
+    (hints only) must leave the encoder, the density, the FPN, the heads
+    and every buffer as they were and move the decoder and layer2-4;
+    stage 2 the encoder and the density, and move the decoder and the
+    heads; the teacher never changes. Returns the launches of the two
+    tests."""
+    import tempfile
+    from sc2bench_tpu_torch.utils.ckpt import save_ckpt
+    val = det_split(2, 1, seed=2000)
+    test = {'test_data_loader': det_split(N_DET_SMALL, 1, seed=0)}
+    train = det_split(2 * DET_BATCH, DET_BATCH, seed=1000, shuffle=True,
+                      drop_last=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, 'student.ckpt')
+        save_ckpt(ckpt, model.state_dict())
+        common = {'canvas_buckets': DET_SQUARE, 'test': test}
+        es = det_train_cli(torch, kernels, DET_ES_CONFIG, {
+            **common, 'models': {'student_model': {'ckpt': ckpt}},
+            'train': {'train_data_loader': train, 'val_data_loader': val,
+                      'stage1': {'num_epochs': 1},
+                      'stage2': {'num_epochs': 1}}}, N_DET_SMALL)
+        e2e = det_train_cli(torch, kernels, DET_E2E_CONFIG, {
+            **common, 'models': {'model': {'ckpt': ckpt}},
+            'train': {'train_data_loader': train, 'val_data_loader': val,
+                      'num_epochs': 1}}, N_DET_SMALL)
+    for tag, run, want in (('entropic student', es,
+                            [('stage1', 2), ('stage2', 2)]),
+                           ('end-to-end', e2e, [('train', 2)])):
+        got = [(r['name'], len(r['steps'])) for r in run['records']]
+        check(got == want, f'detection {tag}: stages and steps {got}')
+    s0, s1 = es['records'][0]['student'], es['records'][1]['student']
+    s2 = snapshot(es['engine'].student)
+    moved = changed(es['records'][0]['teacher'],
+                    snapshot(es['engine'].teacher),
+                    es['records'][0]['teacher'])
+    check(not moved, f'detection teacher changed: {moved[:3]}')
+    buffers = {k for k, _ in es['engine'].student.named_buffers()}
+    bneck = r'backbone\.body\.bottleneck_layer\.'
+    encoder = bneck + r'encoder\.'
+    density = bneck + r'entropy_bottleneck\._(matrix|bias|factor)\d'
+    heads = r'backbone\.fpn\.|rpn\.|roi_heads\.'
+    frozen1 = [k for k in s0 if re.match(
+        '|'.join((encoder, density, heads)), k) or k in buffers]
+    moved = changed(s0, s1, frozen1)
+    check(not moved, f'detection stage 1 changed a frozen tensor, a head or '
+          f'a buffer: {moved[:3]}')
+    decoder = [k for k in s0 if '.decoder.' in k and k not in buffers]
+    tail = [k for k in s0 if re.match(r'backbone\.body\.layer[234]\.', k)
+            and k not in buffers]
+    check(changed(s0, s1, decoder) and changed(s0, s1, tail),
+          'detection stage 1 left the decoder or layer2-4 unchanged')
+    moved = changed(s1, s2, [k for k in s1
+                             if re.match(encoder + '|' + density, k)])
+    check(not moved, f'detection stage 2 changed the encoder or the '
+          f'density: {moved[:3]}')
+    check(changed(s1, s2, decoder) and changed(s1, s2, [
+        k for k in s1 if re.match(heads, k)]),
+          'detection stage 2 left the decoder or the heads unchanged')
+    for tag, run in (('entropic student', es), ('end-to-end', e2e)):
+        rt = run['engine'].runtime
+        want = expected_launches(kernels, FP_BATCH1, N_DET_SMALL)
+        check(run['launches'] == want, f'detection {tag} test launched '
+              f'{run["launches"]}, expected {want}')
+        check(rt.escapes['valid'] == 0, f'detection {tag}: valid=False')
+        check(run['summaries'][0]['num_samples'] == N_DET_SMALL,
+              f'detection {tag}: summary {run["summaries"]}')
+        for rec in run['records']:
+            steps = rec['steps']
+            for i, (loss, _, _) in enumerate(steps):
+                check(all(np.isfinite(v) for v in loss.values()),
+                      f'detection {tag} {rec["name"]} step {i}: {loss}')
+            log(f'phase 16: {tag} {rec["name"]}: {len(steps)} steps of '
+                f'{steps[0][2]} images on the 1344x1344 canvas; loss '
+                f'detail, first step {steps[0][0]}, last {steps[-1][0]}; '
+                f'{steps[-1][2] / steps[-1][1]:.2f} img/s at step '
+                f'{len(steps)} (first step {steps[0][1]:.3f} s); peak '
+                f'memory {rec["peak"] / 2 ** 30:.3f} GiB')
+        res = run['result']
+        log(f'phase 16: {tag} test, device wire: mAP {res["AP"]:.6f}, data '
+            f'size {run["summaries"][0]}, launches {run["launches"]}; CLI '
+            f'wall {run["wall"]:.2f} s')
+    log('phase 16: teacher unchanged; stage 1 left the encoder, the '
+        'density, the FPN, the heads and every buffer as they were and '
+        'moved the decoder and layer2-4; stage 2 left the encoder and the '
+        'density and moved the decoder and the heads')
+    return [es['launches'], e2e['launches']]
+
+
+def det_bq_cli(torch, kernels):
+    """The detection test CLI on the `ghnd-bq` bq12ch config at full width
+    (random weights), N_DET_BQ images of 480x640: no kernel launched,
+    nothing accounted (no bitstream), mAP in range. Returns the
+    launches."""
+    from sc2bench_tpu_torch.tasks.object_detection import main as cli
+    over = {'test': {'test_data_loader': det_split(N_DET_BQ, 1, seed=0)}}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = cli(['--config', os.path.join(REPO, DET_BQ_CONFIG), '--json',
+               json.dumps(over), '-test_only', '-student_only'])
+    wall = time.perf_counter() - t0
+    tag = os.path.basename(DET_BQ_CONFIG)
+    check(all(v == 0 for v in kernels.LAUNCHES.values()),
+          f'{tag}: launched {dict(kernels.LAUNCHES)}')
+    summary, res = out['summaries'][0], out['result']
+    check(summary['num_samples'] == 0, f'{tag}: data size {summary}')
+    check(-1.0 <= res['AP'] <= 1.0, f'{tag}: result {res}')
+    log(f'phase 16: CLI {tag}: {N_DET_BQ} images of 480x640, mAP '
+        f'{res["AP"]:.6f}, data size {summary}, '
+        f'{1 / res["model_time"]:.2f} img/s (model_time '
+        f'{res["model_time"]:.6f} s); CLI wall {wall:.2f} s')
+    return dict(kernels.LAUNCHES)
+
+
+def det_phase(torch, td, kernels, device):
+    """Phase 16: Faster R-CNN R50-FPN + FP-24 at full width: serving on
+    both wires at the 800x1344 and 1344x800 canvases, the cyclic kernels
+    at the detection shapes, the test CLI on both wires, two training
+    steps a stage of the Entropic Student and end-to-end configs, then the
+    CR+BQ config through the CLI. Returns ({path: launches}, kernel stats
+    at 3,072 x 521)."""
+    from sc2bench_tpu_torch.models.detection.wrapper import \
+        SplitDetectionRuntime
+    model = build_det_student(torch, device)
+    rt = SplitDetectionRuntime(model, device=device)
+    rt.update()
+    rt.eval()
+    log(f'phase 16: Faster R-CNN R50-FPN + FP-24 (91 classes), '
+        f'{sum(p.numel() for p in model.parameters())} parameters')
+    images = det_canvases(torch, N_DET_LAND, device) + det_canvases(
+        torch, N_DET_PORT, device, hw=DET_PORT, seed=100)
+    paths = det_serve(torch, kernels, rt, images)
+    stats = det_kernels(torch, td, kernels, rt, tuple(images[0].shape[-2:]),
+                        device)
+    paths['det_cli'] = det_cli_phase(torch, kernels, model)
+    paths['det_train_es'], paths['det_train_e2e'] = det_train_phase(
+        torch, kernels, model)
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths['det_bq_cli'] = det_bq_cli(torch, kernels)
+    for name, counts in paths.items():
+        log(f'phase 16: launches on {name}: ' + ', '.join(
+            f'{k} {v}' for k, v in counts.items() if v))
+    return paths, stats
+
+
 def smi_query(fields):
     out = subprocess.run(
         ['nvidia-smi', '--id=0', f'--query-gpu={fields}',
@@ -3180,6 +3651,10 @@ def run():
     seg_paths, seg_stats = timed('phase 15', seg_phase, torch, td, kernels,
                                  device)
 
+    # ---- phase 16: COCO detection ----
+    det_paths, det_stats = timed('phase 16', det_phase, torch, td, kernels,
+                                 device)
+
     rows = []
     for name in kernels.ALL_KERNELS:
         indexed = name in kernels.INDEXED_KERNELS
@@ -3206,6 +3681,7 @@ def run():
                    launches_backbones=sum(c[name]
                                           for c in backbone_paths.values()),
                    launches_seg=sum(c[name] for c in seg_paths.values()),
+                   launches_det=sum(c[name] for c in det_paths.values()),
                    **{key: stats[name][key]
                       for key in ('device_ms_k128', 'bound_ms_k128')
                       if key in stats[name]})
@@ -3218,6 +3694,11 @@ def run():
             g = seg_stats[name]
             row['max_abs_err'] = max(row['max_abs_err'], g['max_abs_err'])
             row.update({f'{key}_seg': g[key] for key in (
+                'ms', 'device_ms', 'plain_ms', 'bound_ms')})
+        if name in det_stats:
+            g = det_stats[name]
+            row['max_abs_err'] = max(row['max_abs_err'], g['max_abs_err'])
+            row.update({f'{key}_det': g[key] for key in (
                 'ms', 'device_ms', 'plain_ms', 'bound_ms')})
         if name in kernels.KERNELS:
             row.update(launches_cli=cli_launches[name],
@@ -3232,6 +3713,8 @@ def run():
         if r['name'] in kernels.KERNELS:
             check(r['launches_seg'] > 0, f'{r["name"]} never launched on '
                   'the segmentation path')
+            check(r['launches_det'] > 0, f'{r["name"]} never launched on '
+                  'the detection path')
         check(r['max_abs_err'] == 0, f'{r["name"]} differs from its plain '
               f'version by {r["max_abs_err"]}')
     print(json.dumps({'kernels': rows}), flush=True)

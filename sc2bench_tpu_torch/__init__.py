@@ -16,15 +16,18 @@ Ported so far:
                        hybrid ViT, EfficientNet, the fine-tuning family's
                        EntropicClassifierModule, the image-codec zoo, the
                        deploy runtime and the wrappers; segmentation/:
-                       DeepLabv3, its split runtime and the VOC wrappers
-  datasets/            image folders, VOC and the synthetic stand-ins
+                       DeepLabv3, its split runtime and the VOC wrappers;
+                       detection/: Faster R-CNN + FPN and its split
+                       runtime (box ops, NMS and RoIAlign in ops/)
+  datasets/            image folders, VOC, COCO and the synthetic stand-ins
   transforms/          the codec transforms, quantizers and collators
   train/, loss.py      the training boxes, losses, optimizers and the
-                       classification and segmentation engines
-  tasks/               the classification and segmentation CLIs
+                       classification, segmentation and detection engines
+  tasks/               the classification, segmentation and detection CLIs
   analysis.py          data-size accounting
   utils/               Flax variables -> this package's state_dict,
-                       checkpoints, metrics, the segmentation evaluator
+                       checkpoints, metrics, the segmentation and COCO
+                       bbox evaluators
   csrc/                hand-written CUDA sources, built at first use
 """
 

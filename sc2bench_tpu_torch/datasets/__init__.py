@@ -1,2 +1,2 @@
 """Importing this package fills the 'dataset' registry."""
-from . import image, voc  # noqa: F401
+from . import coco, image, voc  # noqa: F401

@@ -156,7 +156,7 @@ def build_sharded_loader(split_config, collate_fn=None):
             and dist.get_world_size() > 1:
         raise NotImplementedError(
             'sharding a loader over processes is not ported yet '
-            '(ROADMAP Queue A item 12)')
+            '(ROADMAP Queue A item 4)')
     return DataLoader(build_dataset(split_config['dataset']),
                       batch_size=split_config.get('batch_size', 1),
                       shuffle=split_config.get('shuffle', False),

@@ -47,11 +47,13 @@ check that failed. `ok=False` is a property of the data; the device coder
 is exact, so `valid=False` means a faulty kernel or stream, and each one is
 also logged as a warning.
 
-The segmentation runtime (`models/segmentation/wrapper.py`) reuses both
-wires through three hooks: `_split_bottleneck` (where the bottleneck
-sits), `_decode_tail` (given each image's input (h, w), which travels
-with its ops as `input_hw`) and `_recode_on_host` (the escape path).
-Lanes follow each image's latent shape unless the caller fixes them.
+The segmentation and detection runtimes (`models/segmentation/wrapper.py`,
+`models/detection/wrapper.py`) reuse both wires through three hooks:
+`_split_bottleneck` (where the bottleneck sits), `_decode_tail` (given
+each image's input (h, w), which travels with its ops as `input_hw`) and
+`_recode_on_host` (the escape path). A decode tail may return a dict of
+tensors (detection's), split by image as a tensor is. Lanes follow each
+image's latent shape unless the caller fixes them.
 
 Numerics: symbols are bit-identical to the float32 reference only if the
 encoder runs in true float32. cuDNN runs float32 convolutions in TF32 by
@@ -110,6 +112,18 @@ def _nhwc(t: torch.Tensor) -> torch.Tensor:
 def _nchw(t: torch.Tensor) -> torch.Tensor:
     """NHWC -> contiguous NCHW (the layout the encoder's convolutions saw)."""
     return t.permute(0, 3, 1, 2).contiguous()
+
+
+def _rows(out, i: int, j: int):
+    """Images i..j-1 of a decode tail's output: a tensor, or a dict of
+    tensors (detection's)."""
+    if isinstance(out, dict):
+        return {k: v[i:j] for k, v in out.items()}
+    return out[i:j]
+
+
+def _num_rows(out) -> int:
+    return len(next(iter(out.values())) if isinstance(out, dict) else out)
 
 
 def _channel_major(symbols: np.ndarray) -> np.ndarray:
@@ -434,6 +448,23 @@ class SplitClassifierRuntime(AnalyzerHolder):
         self.analyze(compressed)
         return self.decode(**compressed)
 
+    @torch.no_grad()
+    def _recode_on_host_wire(self, x):
+        """The escape path of the segmentation and detection runtimes (the
+        JAX package's `FactorizedDeviceWire`): the batch through the host
+        wire as one compressed object, the encoder's int16 symbols coded
+        and decoded on the cyclic host coder (accounted), then the decode
+        tail on the device for the input's (h, w)."""
+        sym = self.encode_device(x)['symbols'].cpu().numpy()
+        compressed = {'strings': [self.codec.compress_wire(sym)],
+                      'shape': tuple(sym.shape[1:3])}
+        self.analyze(compressed)
+        decoded = self.codec.decompress_wire(
+            compressed['strings'][0], compressed['shape'], sym.shape[-1])
+        flat = torch.from_numpy(decoded.reshape(len(decoded), -1))
+        return self._decode_tail(flat.to(self.device), decoded.shape[1:],
+                                 tuple(x.shape[-2:]))
+
     # ---- host wire (stream_deploy) -----------------------------------------
     @torch.no_grad()
     def encode_device(self, x):
@@ -508,7 +539,9 @@ class SplitClassifierRuntime(AnalyzerHolder):
             sym = torch.from_numpy(np.concatenate(decoded)).to(self.device)
             logits = self._decode_tail(sym.reshape(len(sym), -1),
                                        tuple(sym.shape[1:]), decoded_hw)
-            results.extend(torch.split(logits, [len(d) for d in decoded]))
+            starts = np.cumsum([0] + [len(d) for d in decoded])
+            results.extend(_rows(logits, int(i), int(j))
+                           for i, j in zip(starts[:-1], starts[1:]))
             decoded.clear()
             add_timing(timings, 'decode_dispatch', time.perf_counter() - t0)
 
@@ -950,14 +983,14 @@ class SplitClassifierRuntime(AnalyzerHolder):
         valids = torch.cat([s[3] for s in staged]).cpu().numpy()
         results, i = [], 0
         for _, shape_hw, logits, _ in staged:
-            for j in range(logits.shape[0]):
+            for j in range(_num_rows(logits)):
                 if not metas[i, 0] or not valids[i]:
                     results.append(self._escape(images[i], metas[i, 0], i))
                     i += 1
                     continue
                 self.analyze({'strings': [[bytes(int(metas[i, 1]))]],
                               'shape': shape_hw})
-                results.append(logits[j:j + 1])
+                results.append(_rows(logits, j, j + 1))
                 i += 1
         add_timing(timings, 'account_d2h', time.perf_counter() - t_acct)
         if self.device.type == 'cuda':

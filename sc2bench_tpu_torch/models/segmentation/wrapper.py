@@ -193,16 +193,4 @@ class SplitSegmentationRuntime(SplitClassifierRuntime):
                           generator=generator)
         return {k: v.to(torch.float32) for k, v in out.items()}
 
-    def _recode_on_host(self, x):
-        """The batch through the host wire as one compressed object: the
-        encoder's int16 symbols coded and decoded on the cyclic host coder
-        (accounted), then the decode tail on the device."""
-        sym = self.encode_device(x)['symbols'].cpu().numpy()
-        compressed = {'strings': [self.codec.compress_wire(sym)],
-                      'shape': tuple(sym.shape[1:3])}
-        self.analyze(compressed)
-        decoded = self.codec.decompress_wire(
-            compressed['strings'][0], compressed['shape'], sym.shape[-1])
-        flat = torch.from_numpy(decoded.reshape(len(decoded), -1))
-        return self._decode_tail(flat.to(self.device), decoded.shape[1:],
-                                 tuple(x.shape[-2:]))
+    _recode_on_host = SplitClassifierRuntime._recode_on_host_wire

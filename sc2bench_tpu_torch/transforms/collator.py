@@ -1,6 +1,7 @@
-"""Batch collation for segmentation (counterpart of
-`sc2bench_tpu/transforms/collator.py`): images and masks of different
-sizes padded to the batch's largest (or to a multiple of `pad_to`)."""
+"""Batch collation (counterpart of `sc2bench_tpu/transforms/collator.py`):
+for segmentation, images and masks of different sizes padded to the
+batch's largest (or to a multiple of `pad_to`); for detection, the
+samples as they are."""
 from __future__ import annotations
 
 import numpy as np
@@ -38,3 +39,10 @@ def pascal_seg_eval_collate_fn(batch):
     """The samples unpadded: (list of images, list of targets)."""
     images, targets = zip(*batch)
     return list(images), list(targets)
+
+
+@register_collate
+def coco_collate_fn(batch):
+    """(images, targets) as tuples, unpadded: the detection engine resizes
+    and pads each batch to its canvas."""
+    return tuple(zip(*batch))

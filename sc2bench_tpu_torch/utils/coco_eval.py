@@ -1,0 +1,225 @@
+"""COCO bbox mAP in numpy (counterpart of the bbox half of
+`sc2bench_tpu/utils/coco_eval.py`), in place of pycocotools' `COCOeval`.
+
+The COCO protocol: per (category, IoU threshold) greedy matching of the
+detections in score order, crowd regions as ignore (IoU over the
+detection's area), area-range filtering, the maxDets cut, and 101-point
+interpolated precision averaged over IoU 0.50:0.95. `summarize` gives the
+12 standard metrics; an area range with no ground truth gives -1, as in
+pycocotools. The segm and keypoint halves are not ported.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+IOU_THRS = np.linspace(0.5, 0.95, 10)
+RECALL_THRS = np.linspace(0.0, 1.0, 101)
+AREA_RANGES = {
+    'all': (0.0, 1e10),
+    'small': (0.0, 32 ** 2),
+    'medium': (32 ** 2, 96 ** 2),
+    'large': (96 ** 2, 1e10),
+}
+MAX_DETS = (1, 10, 100)
+
+
+def _bbox_iou_xywh(dets, gts, iscrowd):
+    """IoU with crowd semantics: for a crowd gt, intersection / det
+    area."""
+    if len(dets) == 0 or len(gts) == 0:
+        return np.zeros((len(dets), len(gts)))
+    dx1, dy1 = dets[:, 0], dets[:, 1]
+    dx2, dy2 = dets[:, 0] + dets[:, 2], dets[:, 1] + dets[:, 3]
+    gx1, gy1 = gts[:, 0], gts[:, 1]
+    gx2, gy2 = gts[:, 0] + gts[:, 2], gts[:, 1] + gts[:, 3]
+    ix = np.maximum(0, np.minimum(dx2[:, None], gx2[None, :])
+                    - np.maximum(dx1[:, None], gx1[None, :]))
+    iy = np.maximum(0, np.minimum(dy2[:, None], gy2[None, :])
+                    - np.maximum(dy1[:, None], gy1[None, :]))
+    inter = ix * iy
+    d_area = (dets[:, 2] * dets[:, 3])[:, None]
+    g_area = (gts[:, 2] * gts[:, 3])[None, :]
+    union = np.where(iscrowd[None, :].astype(bool), d_area,
+                     d_area + g_area - inter)
+    return inter / np.maximum(union, 1e-10)
+
+
+def _xyxy_to_xywh(boxes):
+    boxes = np.asarray(boxes, np.float64).reshape(-1, 4)
+    out = boxes.copy()
+    out[:, 2] = boxes[:, 2] - boxes[:, 0]
+    out[:, 3] = boxes[:, 3] - boxes[:, 1]
+    return out
+
+
+class CocoEvaluator:
+    """`add_gt` each image's target (boxes xyxy, labels, iscrowd, area,
+    image_id), `update` with predictions, then `accumulate` and
+    `summarize` -> the 12 COCO metrics."""
+
+    def __init__(self, iou_type='bbox'):
+        if iou_type != 'bbox':
+            raise NotImplementedError(
+                f"the '{iou_type}' evaluation is not ported yet (ROADMAP "
+                'Queue A item 5)')
+        self.iou_type = iou_type
+        self.gts = {}          # image_id -> target dict
+        self.preds = {}        # image_id -> {'boxes', 'scores', 'labels'}
+
+    def add_gt(self, target):
+        self.gts[target['image_id']] = target
+
+    def update(self, res: dict):
+        """res: {image_id: {'boxes' (xyxy), 'scores', 'labels'}}."""
+        for img_id, pred in res.items():
+            self.preds[img_id] = {
+                'boxes': np.asarray(pred['boxes'], np.float64).reshape(-1, 4),
+                'scores': np.asarray(pred['scores'], np.float64).ravel(),
+                'labels': np.asarray(pred['labels'], np.int64).ravel(),
+            }
+
+    def synchronize_between_processes(self):
+        """One process holds every image: nothing to gather (scale-out is
+        ROADMAP Queue A item 4)."""
+
+    # ---- the COCO protocol ---------------------------------------------
+    def _evaluate_img(self, dt, gt, iou_thrs, area_rng, max_det):
+        """Greedy matching for one (image, category): the detections'
+        scores, matches and ignore flags per IoU threshold, and the gts'
+        ignore flags."""
+        g_ignore = gt['ignore'] | (gt['area'] < area_rng[0]) \
+            | (gt['area'] > area_rng[1])
+        order_g = np.argsort(g_ignore, kind='stable')
+        g_boxes = gt['boxes_xywh'][order_g]
+        g_iscrowd = gt['iscrowd'][order_g]
+        g_ign = g_ignore[order_g]
+        d_order = np.argsort(-dt['scores'], kind='stable')[:max_det]
+        d_boxes = dt['boxes_xywh'][d_order]
+        d_scores = dt['scores'][d_order]
+        d_area = d_boxes[:, 2] * d_boxes[:, 3]
+        ious = _bbox_iou_xywh(d_boxes, g_boxes, g_iscrowd)
+        n_thr, n_d, n_g = len(iou_thrs), len(d_boxes), len(g_boxes)
+        dt_m = np.zeros((n_thr, n_d), np.int64) - 1
+        gt_m = np.zeros((n_thr, n_g), np.int64) - 1
+        dt_ig = np.zeros((n_thr, n_d), bool)
+        for t, thr in enumerate(iou_thrs):
+            for d in range(n_d):
+                best_iou = min(thr, 1 - 1e-10)
+                best_g = -1
+                for g in range(n_g):
+                    if gt_m[t, g] >= 0 and not g_iscrowd[g]:
+                        continue
+                    if best_g >= 0 and not g_ign[best_g] and g_ign[g]:
+                        break  # sorted: once into ignored gts, stop
+                    if ious[d, g] < best_iou:
+                        continue
+                    best_iou = ious[d, g]
+                    best_g = g
+                if best_g >= 0:
+                    dt_m[t, d] = best_g
+                    gt_m[t, best_g] = d
+                    dt_ig[t, d] = g_ign[best_g]
+        # unmatched detections outside the area range are ignored
+        out_of_rng = (d_area < area_rng[0]) | (d_area > area_rng[1])
+        dt_ig |= (dt_m == -1) & out_of_rng[None, :]
+        return d_scores, dt_m, dt_ig, g_ign
+
+    def _accumulate(self, cat_ids, area_name, max_det):
+        area_rng = AREA_RANGES[area_name]
+        ap_per_cat, ar_per_cat = [], []
+        for cat in cat_ids:
+            scores_all, matched_all, ignored_all = [], [], []
+            n_gt = 0
+            for img_id, gt in self.gts.items():
+                sel_g = gt['labels'] == cat
+                g = {
+                    'boxes_xywh': _xyxy_to_xywh(
+                        np.asarray(gt['boxes'], np.float64)[sel_g]),
+                    'iscrowd': np.asarray(gt['iscrowd'])[sel_g],
+                    'area': np.asarray(gt['area'], np.float64)[sel_g],
+                }
+                g['ignore'] = g['iscrowd'].astype(bool)
+                pred = self.preds.get(img_id)
+                if pred is None:
+                    d = {'boxes_xywh': np.zeros((0, 4)),
+                         'scores': np.zeros(0)}
+                else:
+                    sel_d = pred['labels'] == cat
+                    d = {'boxes_xywh': _xyxy_to_xywh(pred['boxes'][sel_d]),
+                         'scores': pred['scores'][sel_d]}
+                if len(g['boxes_xywh']) == 0 and len(d['boxes_xywh']) == 0:
+                    continue
+                s, dt_m, dt_ig, g_ign = self._evaluate_img(
+                    d, g, IOU_THRS, area_rng, max_det)
+                scores_all.append(s)
+                matched_all.append(dt_m >= 0)
+                ignored_all.append(dt_ig)
+                n_gt += int((~g_ign).sum())
+            if n_gt == 0:
+                continue
+            if scores_all:
+                order = np.argsort(-np.concatenate(scores_all), kind='stable')
+                matched = np.concatenate(matched_all, axis=1)[:, order]
+                ignored = np.concatenate(ignored_all, axis=1)[:, order]
+            else:
+                matched = np.zeros((len(IOU_THRS), 0), bool)
+                ignored = np.zeros((len(IOU_THRS), 0), bool)
+            aps, ars = [], []
+            for t in range(len(IOU_THRS)):
+                keep = ~ignored[t]
+                tp = np.cumsum(matched[t][keep])
+                fp = np.cumsum(~matched[t][keep])
+                recall = tp / n_gt
+                precision = tp / np.maximum(tp + fp, 1e-10)
+                if len(precision) == 0:  # no detections of this category
+                    aps.append(0.0)
+                    ars.append(0.0)
+                    continue
+                # precision envelope + 101-point interpolation
+                for i in range(len(precision) - 1, 0, -1):
+                    precision[i - 1] = max(precision[i - 1], precision[i])
+                idx = np.searchsorted(recall, RECALL_THRS, side='left')
+                q = np.where(idx < len(precision),
+                             precision[np.minimum(idx, len(precision) - 1)],
+                             0.0)
+                aps.append(np.mean(q))
+                ars.append(recall[-1])
+            ap_per_cat.append(aps)
+            ar_per_cat.append(ars)
+        if not ap_per_cat:
+            return np.full(len(IOU_THRS), np.nan), \
+                np.full(len(IOU_THRS), np.nan)
+        return (np.mean(np.asarray(ap_per_cat), axis=0),
+                np.mean(np.asarray(ar_per_cat), axis=0))
+
+    def accumulate(self):
+        cat_ids = sorted({int(c) for gt in self.gts.values()
+                          for c in np.asarray(gt['labels']).tolist()})
+        self._ap_all, self._ar_all = {}, {}
+        for area in AREA_RANGES:
+            self._ap_all[area], self._ar_all[area] = self._accumulate(
+                cat_ids, area, 100)
+        self._ar_maxdets = {
+            md: self._accumulate(cat_ids, 'all', md)[1] for md in MAX_DETS}
+
+    def summarize(self) -> dict:
+        def nm(a):
+            a = np.asarray(a, np.float64)
+            valid = a[~np.isnan(a)]
+            return float(valid.mean()) if valid.size else -1.0
+
+        ap = self._ap_all
+        return {
+            'AP': nm(ap['all']),
+            'AP50': nm(ap['all'][0]),
+            'AP75': nm(ap['all'][5]),
+            'AP_small': nm(ap['small']),
+            'AP_medium': nm(ap['medium']),
+            'AP_large': nm(ap['large']),
+            'AR_1': nm(self._ar_maxdets[1]),
+            'AR_10': nm(self._ar_maxdets[10]),
+            'AR_100': nm(self._ar_maxdets[100]),
+            'AR_small': nm(self._ar_all['small']),
+            'AR_medium': nm(self._ar_all['medium']),
+            'AR_large': nm(self._ar_all['large']),
+        }

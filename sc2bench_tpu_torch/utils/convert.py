@@ -76,6 +76,17 @@ torchvision's Sequentials: `classifier/aspp/b0_conv|b0_bn` ->
 `classifier.1|2|4`, `aux_classifier/conv|bn|classifier` ->
 `aux_classifier.0|1|4`.
 
+A Faster R-CNN (top-level `backbone` and `rpn_head`) maps `backbone/...`
+by the ResNet rules under `backbone.body.` (the teacher's stem and layer1
+too, which the JAX package's `DETECTION_RULES` leave out), `fpn/inner_{i}|
+layer_{i}` -> `backbone.fpn.inner_blocks|layer_blocks.{i}.0`,
+`rpn_head/conv` -> `rpn.head.conv.0.0`, `rpn_head/cls_logits|bbox_pred`
+-> `rpn.head.*`, `box_head/fc6|fc7` -> `roi_heads.box_head.*` and
+`box_predictor/*` -> `roi_heads.box_predictor.*`. Flax flattens a pooled
+RoI as (h, w, c) and torchvision's `fc6` reads (c, h, w), so fc6's input
+axis is permuted back (the inverse of the JAX package's
+`convert_box_head_fc6`).
+
 `flax_param_path` is the inverse on names: a torch parameter name ->
 its Flax path, dotted (`bottleneck_layer.encoder.0.weight` ->
 `bottleneck_layer.enc_conv0.kernel`), the space in which configs name
@@ -220,17 +231,38 @@ _SEG_HEADS = {
 _SEGMENTATION_RULES = [
     (r'^backbone/(.+)$', lambda m: 'backbone.' + _torch_scope(m[1]))] + [
     (rf'^{k}$', v) for k, v in _SEG_HEADS.items()]
+# Faster R-CNN: torchvision's key space (the JAX package's
+# `DETECTION_RULES`, inverted), the body under `backbone.body`
+_DET_HEADS = {
+    **{f'fpn/inner_{i}': f'backbone.fpn.inner_blocks.{i}.0'
+       for i in range(4)},
+    **{f'fpn/layer_{i}': f'backbone.fpn.layer_blocks.{i}.0'
+       for i in range(4)},
+    'rpn_head/conv': 'rpn.head.conv.0.0',
+    'rpn_head/cls_logits': 'rpn.head.cls_logits',
+    'rpn_head/bbox_pred': 'rpn.head.bbox_pred',
+    'box_head/fc6': 'roi_heads.box_head.fc6',
+    'box_head/fc7': 'roi_heads.box_head.fc7',
+    'box_predictor/cls_score': 'roi_heads.box_predictor.cls_score',
+    'box_predictor/bbox_pred': 'roi_heads.box_predictor.bbox_pred',
+}
+_DETECTION_RULES = [
+    (r'^backbone/(.+)$', lambda m: 'backbone.body.' + _torch_scope(m[1]))
+] + [(rf'^{k}$', v) for k, v in _DET_HEADS.items()]
 _FAMILY_RULES = {'resnet': _RULES, 'regnet': _REGNET_RULES,
                  'hybrid_vit': _HYBRID_VIT_RULES,
                  'hybrid_vit_teacher': _HYBRID_VIT_TEACHER_RULES,
                  'efficientnet': _EFFICIENTNET_RULES,
-                 'segmentation': _SEGMENTATION_RULES}
+                 'segmentation': _SEGMENTATION_RULES,
+                 'detection': _DETECTION_RULES}
 
 
 def _family(params: dict) -> str:
     """Which rules convert a Flax tree, from its top-level scopes."""
     if 'backbone' in params and 'classifier' in params:
         return 'segmentation'
+    if 'backbone' in params and 'rpn_head' in params:
+        return 'detection'
     if 'vit' in params:
         return 'hybrid_vit_teacher' if 'stem_conv' in params \
             else 'hybrid_vit'
@@ -252,9 +284,10 @@ def _torch_scope(scope: str, family: str = 'resnet') -> str:
 
 def _is_deconv(scope: str, model) -> bool:
     """Whether the kernel at flax `scope` is a ConvTranspose's."""
-    if scope.startswith('backbone/'):       # a segmentation model's body
+    if scope.startswith('backbone/'):   # a segmentation/detection body
+        body = None if model is None else model.backbone
         return _is_deconv(scope[len('backbone/'):],
-                          None if model is None else model.backbone)
+                          getattr(body, 'body', body))
     if scope in _DECONV_SCOPES:
         return True
     if not re.fullmatch(_LAYER_SEQ, scope):
@@ -273,6 +306,16 @@ def _leaves(tree, prefix=()):
             yield from _leaves(v, prefix + (k,))
         else:
             yield prefix, k, np.asarray(v)
+
+
+def _box_head_fc6(value: np.ndarray, pooled: int = 7) -> np.ndarray:
+    """Flax `box_head/fc6` kernel (h*w*c, out), its input a pooled RoI
+    flattened as (h, w, c), -> torchvision's weight (out, c*h*w), which
+    reads the RoI as (c, h, w)."""
+    out = value.shape[1]
+    c = value.shape[0] // (pooled * pooled)
+    return np.transpose(value.reshape(pooled, pooled, c, out),
+                        (3, 2, 0, 1)).reshape(out, -1)
 
 
 def _param_leaf(leaf: str, value: np.ndarray, deconv: bool = False):
@@ -296,7 +339,8 @@ def state_dict_from_flax(variables: dict, model=None) -> dict:
     """Flax `{'params', 'batch_stats'}` of the JAX `SplittableResNet` (FP,
     SHP, MSHP or `SimpleBottleneck`), `ResNet`, `EntropicClassifierModule`,
     an image codec of the zoo, a RegNet, a hybrid ViT (student or teacher),
-    an EfficientNet or a DeepLabv3 (student or teacher) -> a state_dict that `load_state_dict` takes
+    an EfficientNet, a DeepLabv3 or a Faster R-CNN (student or teacher)
+    -> a state_dict that `load_state_dict` takes
     strictly. `model`, the port's counterpart, is needed for a
     `SimpleBottleneck` (see the module doc)."""
     out = {}
@@ -305,6 +349,8 @@ def state_dict_from_flax(variables: dict, model=None) -> dict:
         path = '/'.join(scope)
         name, arr = _param_leaf(leaf, value, deconv=leaf == 'kernel'
                                 and _is_deconv(path, model))
+        if path == 'box_head/fc6' and name == 'weight':
+            arr = _box_head_fc6(value)
         if path == 'context_prediction' and name == 'weight':
             # the 'A' mask applied, and kept as the module's buffer
             from ..models.zoo_jahp import causal_mask
@@ -360,6 +406,9 @@ _INVERSE_RULES = [(rf'^bottleneck_layer\.{re.escape(v)}$',
     (r'^(base\.)?layer(\d)\.(\d+)\.downsample\.1$',
      r'\1layer\2.block\3.downsample_bn'),
     (r'^(base\.)?fc$', r'\1fc'),
+    (r'^backbone\.body\.(.+)$', lambda m: 'backbone.' + _flax_scope(m[1])),
+] + [(rf'^{re.escape(v)}$', k.replace('/', '.'))
+     for k, v in _DET_HEADS.items()] + [
     (r'^backbone\.(.+)$', lambda m: 'backbone.' + _flax_scope(m[1])),
 ] + [(rf'^{re.escape(v)}$', k.replace('/', '.'))
      for k, v in _SEG_HEADS.items()] + _BACKBONE_INVERSE
@@ -396,13 +445,15 @@ def _flax_scope(module: str, rules=_INVERSE_RULES) -> str:
 def flax_param_path(name: str, model=None) -> str:
     """Dotted Flax path of the parameter `name` of the port's
     `SplittableResNet`, `ResNet`, `EntropicClassifierModule`, RegNet,
-    hybrid ViT or DeepLabv3; a `SimpleBottleneck`'s (`LayerSeq` entry `{i}` ->
-    `layer{i}`) and an EfficientNet's only when `model` is given."""
+    hybrid ViT, DeepLabv3 or Faster R-CNN; a `SimpleBottleneck`'s
+    (`LayerSeq` entry `{i}` -> `layer{i}`) and an EfficientNet's only when
+    `model` is given."""
     from ..models.efficientnet import EfficientNet
     module, _, leaf = name.rpartition('.')
     entry = _layer_seq_entry(model, module)
     if entry is not None:
         prefix, _, index = module.rpartition('.')
+        prefix = re.sub(r'^backbone\.body\.', 'backbone.', prefix)
         if leaf == 'weight':
             leaf = 'scale' if isinstance(entry, torch.nn.BatchNorm2d) \
                 else 'kernel'

@@ -87,10 +87,11 @@ def test_registry_maps_the_jax_package_and_names_what_it_knows(caplog):
                              'sc2bench_tpu.transforms',
                              'sc2bench_tpu.models.segmentation',
                              'sc2bench_tpu.models.detection',
+                             'sc2bench_tpu.models.resnest',
                              {'name': 'json'}])
-    assert 'sc2bench_tpu.models.detection has no counterpart' \
+    assert 'sc2bench_tpu.models.resnest has no counterpart' \
         in caplog.text
-    for ported in ('transforms', 'models.segmentation'):
+    for ported in ('transforms', 'models.segmentation', 'models.detection'):
         assert f'sc2bench_tpu.{ported} has no counterpart' not in caplog.text
     assert port_module_name('sc2bench_tpu.models.layer') \
         == 'sc2bench_tpu_torch.models.layer'
@@ -355,7 +356,7 @@ def test_loader_equals_jax_and_runs_in_one_process(normalized, monkeypatch):
         np.testing.assert_array_equal(y, yj)
     monkeypatch.setattr(torch.distributed, 'is_initialized', lambda: True)
     monkeypatch.setattr(torch.distributed, 'get_world_size', lambda: 2)
-    with pytest.raises(NotImplementedError, match='item 12'):
+    with pytest.raises(NotImplementedError, match='item 4'):
         build_sharded_loader(split)
 
 

@@ -260,7 +260,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     at n = m = 8) test through their wrappers; a RegNet FP config (a small
     RegNet registered in the port) tests, and a small hybrid ViT (student
     and teacher) and EfficientNet run; the segmentation CLI trains then
-    tests `tiny_segmentation.yaml`, and tests it on the device wire. One
+    tests `tiny_segmentation.yaml`, and tests it on the device wire; the
+    detection CLI tests `tiny_detection.yaml` on the device wire. One
     thread: the suite runs this beside other workers."""
     code = r'''
 import importlib, json, pkgutil, sys
@@ -372,6 +373,11 @@ assert out['best'] is not None and out['summaries'][0]['num_samples'] == 2
 out = seg_main(['--config', tiny_seg, '--json', '{"deploy_wire": "device"}',
                 '-test_only', '--device', 'cpu'])
 assert out['summaries'][0]['num_samples'] == 2, out
+from sc2bench_tpu_torch.tasks.object_detection import main as det_main
+out = det_main(['--config', 'configs/sample/tiny_detection.yaml', '--json',
+                '{"deploy_wire": "device"}', '-test_only', '--device', 'cpu'])
+assert out['summaries'][0]['num_samples'] == 2, out
+assert 0.0 <= out['result']['AP'] <= 1.0, out
 bad = [m for m in sys.modules
        if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sc2bench_tpu')]
 assert not bad, bad
