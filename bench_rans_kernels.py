@@ -35,9 +35,15 @@ table plans, with the bytes of the device table buffer each launch read
 per-index kernels at the MSHP y shape (55x55x24 on 512 lanes x 142 steps,
 the default Gaussian tables, rows and symbols from
 `chip_smoke.indexed_inputs`, numpy seed 4321): per_call_ms and device_ms
-of the batch-1 pair at k = 1, and device_ms of the aligned pair at k = 1,
-8 and 128. Prints one JSON line with the card's name and power limit.
-Needs a CUDA device.
+of the batch-1 pair at k = 1 (and `device_ms_64ch` at the 64-channel
+students' y, 55x55x64 on 1,024 lanes x 190 steps), device_ms of the
+aligned pair at k = 1, 8 and 128, and `steps_sweep`: the batch-1 pair's
+device_ms on 512 lanes at T = 32, 142 and 600 (as the cyclic sweep).
+Where the checkout has them
+(`ops/rans/indexed_tables.py`), the batch-1 pair reads the tables'
+prepared form, built once outside the timing, and `prepare_ms` is what
+building it took. Prints one JSON line with the card's name and power
+limit. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 
@@ -129,16 +136,47 @@ def indexed_calls(torch, td, kernels, device, indexed_inputs, per_call_ms,
     cdf, cdf_len, off, steps = (inp['cdf'], inp['cdf_len'], inp['off'],
                                 inp['steps'])
     out = {}
+    batch1 = {}
+    try:
+        from sc2bench_tpu_torch.ops.rans.indexed_tables import \
+            prepare_indexed_tables
+    except ImportError:                 # a checkout before prepared tables
+        prepare_indexed_tables = None
+    if prepare_indexed_tables is not None:
+        prepare_indexed_tables(cdf, cdf_len, off)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prep = prepare_indexed_tables(cdf, cdf_len, off)
+        torch.cuda.synchronize()
+        out['prepare_ms'] = (time.perf_counter() - t0) * 1e3
+        batch1 = {'prepared': prep}
+
+    def batch1_calls(vc, idx, steps):
+        streams, _, states = kernels.indexed_encode(cdf, vc, idx, **batch1)
+        return (('rans_indexed_encode',
+                 lambda: kernels.indexed_encode(cdf, vc, idx, **batch1)),
+                ('rans_indexed_decode',
+                 lambda: kernels.indexed_decode(streams, states, cdf,
+                                                cdf_len, off, idx, steps,
+                                                **batch1)))
+
     vc1, idx1 = inp['vc'][:1].contiguous(), inp['idx3'][:1].contiguous()
-    streams, _, states = kernels.indexed_encode(cdf, vc1, idx1)
-    for name, fn in (
-            ('rans_indexed_encode',
-             lambda: kernels.indexed_encode(cdf, vc1, idx1)),
-            ('rans_indexed_decode',
-             lambda: kernels.indexed_decode(streams, states, cdf, cdf_len,
-                                            off, idx1, steps))):
+    for name, fn in batch1_calls(vc1, idx1, steps):
         out[name] = {'per_call_ms': per_call_ms(torch, fn, REPS),
                      'device_ms': device_ms(torch, fn, REPS)}
+    # the 64-channel students' y: 55x55x64 on 1,024 lanes x 190 steps
+    n64 = 55 * 55 * 64
+    y64 = indexed_inputs(torch, td, tables, td.auto_lanes(n64), n64, 1,
+                         np.random.default_rng(64), device)
+    for name, fn in batch1_calls(y64['vc'], y64['idx3'], y64['steps']):
+        out[name]['device_ms_64ch'] = device_ms(torch, fn, REPS)
+    sweep = {}
+    for t in (32, 142, 600):
+        sw = indexed_inputs(torch, td, tables, lanes, lanes * t, 1,
+                            np.random.default_rng(t), device)
+        for name, fn in batch1_calls(sw['vc'], sw['idx3'], sw['steps']):
+            sweep.setdefault(name, {})[t] = device_ms(torch, fn, REPS)
+    out['steps_sweep'] = sweep
     for k in (1, 8, 128):
         vc, idx = inp['vc'][:k].contiguous(), inp['idx3'][:k].contiguous()
         astreams, _, astates, _ = kernels.indexed_encode_aligned(cdf, vc,

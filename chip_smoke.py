@@ -24,7 +24,12 @@ which fails loudly with a nonzero exit:
     the four general per-index kernels at the MSHP y shape (55x55x24 on
     512 lanes x 142 steps, the default Gaussian tables) at k = 1 and 8,
     and at 100 lanes (n = 2,345, k = 3) and at T = 4,000 (40 lanes), with
-    rows 0 and 63 and frequency-1 tail symbols. Print each kernel's ms
+    rows 0 and 63 and frequency-1 tail symbols, and on Gaussian tables of
+    a custom scale table (0.11..1,024) too large for shared memory; the
+    batch-1 indexed pair reads the tables' prepared form, whose one-time
+    cost is printed, and the plan each case took (shared or device-memory
+    encoder rows and decoder tables) is printed, both plans required.
+    Print each kernel's ms
     (CUDA events around one call on an idle card, host dispatch
     included), device ms (launches queued behind a sleep kernel), plain
     ms and bound ms, the aligned cyclic pair's device ms at k = 8 and
@@ -210,6 +215,7 @@ with an error before printing any result.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import os
@@ -821,17 +827,21 @@ def indexed_inputs(torch, td, tables, lanes, n, k, rng, device,
 
 
 def indexed_case(torch, td, kernels, tables, lanes, n, k, rng, device,
-                 tails=False):
+                 prepared, tails=False):
     """Phase 2 checks of the four indexed kernels for one (lanes, n, k)
     case: bit-equal to the plain versions (a corrupted state included),
     packed bytes equal to the numpy oracle with per-index rows and equal
     between the layouts, the symbols back with valid=True, valid=False on
-    the corrupted stream."""
+    the corrupted stream. The batch-1 pair reads `prepared`, the tables'
+    `prepare_indexed_tables`; `plans` records the plan each took."""
     inp = indexed_inputs(torch, td, tables, lanes, n, k, rng, device, tails)
     vc, idx3, steps = inp['vc'], inp['idx3'], inp['steps']
     cdf, cdf_len, off = inp['cdf'], inp['cdf_len'], inp['off']
     tag = f'indexed lanes={lanes} n={n} k={k} T={steps}'
     errs = {}
+    plans = {name: kernels.indexed_plan(name, steps, prepared.dec.numel(),
+                                        device)
+             for name in ('rans_indexed_encode', 'rans_indexed_decode')}
 
     def compare(name, got, ref):
         for a, b in zip(got, ref):
@@ -843,7 +853,7 @@ def indexed_case(torch, td, kernels, tables, lanes, n, k, rng, device,
             check(err == 0 and a.shape == b.shape and a.dtype == b.dtype,
                   f'{name} differs from its plain version ({tag})')
 
-    enc = kernels.indexed_encode(cdf, vc, idx3)
+    enc = kernels.indexed_encode(cdf, vc, idx3, prepared=prepared)
     compare('rans_indexed_encode', enc, td.indexed_encode_plain(cdf, vc,
                                                                 idx3))
     enca = kernels.indexed_encode_aligned(cdf, vc, idx3, want_masks=True)
@@ -863,7 +873,7 @@ def indexed_case(torch, td, kernels, tables, lanes, n, k, rng, device,
             ('rans_indexed_decode', enc, False),
             ('rans_indexed_decode_aligned', enca, True)):
         fn = kernels.indexed_decode_aligned if aligned \
-            else kernels.indexed_decode
+            else functools.partial(kernels.indexed_decode, prepared=prepared)
         bad = states.clone()
         bad[k - 1, lanes // 3] ^= 0x5A5A
         outs = []
@@ -881,7 +891,8 @@ def indexed_case(torch, td, kernels, tables, lanes, n, k, rng, device,
         check(not bool((xbad[k - 1] == td.RANS_L).all()),
               f'{name}: valid=True on a corrupted stream ({tag})')
     torch.cuda.synchronize()
-    return dict(inp, enc=enc, enca=enca, errs=errs)
+    return dict(inp, enc=enc, enca=enca, errs=errs, plans=plans,
+                prepared=prepared, tag=tag)
 
 
 def indexed_oracle_wire(td, sym, idx, tables, lanes):
@@ -927,31 +938,79 @@ def indexed_costs(inp, tables, k, lengths, decode):
     return bound(nbytes, ops)
 
 
+def prepare_tables(torch, tables, device, reps=5):
+    """(prepared tables of the batch-1 indexed pair for `tables`, on the
+    card; the median ms of building them, their one-time cost)."""
+    from sc2bench_tpu_torch.ops.rans.indexed_tables import \
+        prepare_indexed_tables
+    cdf, cdf_len, off = (torch.from_numpy(a).to(device) for a in (
+        tables.quantized_cdf, tables.cdf_length, tables.offset))
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prepared = prepare_indexed_tables(cdf, cdf_len, off)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return prepared, statistics.median(times[1:] or times)
+
+
+def log_plans(cases, tag='phase 2'):
+    log(f'{tag}: batch-1 indexed plans (encoder rows / decoder tables): '
+        + '; '.join(f'{c["tag"]}: encode {c["plans"]["rans_indexed_encode"]}'
+                    f', decode {c["plans"]["rans_indexed_decode"]}'
+                    for c in cases))
+
+
 def indexed_phase(torch, td, kernels, tables, device):
     """Phase 2 (general path): the four indexed kernels against their
     plain versions at the MSHP y shape (55x55x24 on 512 lanes x 142 steps,
-    the default Gaussian tables) at k = 1 and 8, and on edge cases;
-    timings at the main path's shapes (batch 1 compacted, WIRE_BATCH
-    aligned)."""
+    the default Gaussian tables) at k = 1 and 8, and on edge cases (the
+    long latent's encoder on its device-row plan; a custom scale table
+    too large for shared memory, the decoder on its global-table plan);
+    the one-time cost of preparing the tables; timings at the main path's
+    shapes (batch 1 compacted, WIRE_BATCH aligned)."""
+    from sc2bench_tpu_torch.ops.entropy.gaussian import get_scale_table
+    from sc2bench_tpu_torch.ops.entropy.tables import build_gaussian_tables
     rng = np.random.default_rng(4321)
     n = 55 * 55 * 24
     lanes = td.auto_lanes(n)
+    prepared, prep_ms = prepare_tables(torch, tables, device)
+    wide = build_gaussian_tables(get_scale_table(0.11, 1024.0, 64))
+    wide_prepared, wide_ms = prepare_tables(torch, wide, device)
     flag = indexed_case(torch, td, kernels, tables, lanes, n, WIRE_BATCH,
-                        rng, device)
-    one = indexed_case(torch, td, kernels, tables, lanes, n, 1, rng, device)
+                        rng, device, prepared)
+    one = indexed_case(torch, td, kernels, tables, lanes, n, 1, rng, device,
+                       prepared)
     edge = [indexed_case(torch, td, kernels, tables, 100, 2345, 3, rng,
-                         device, tails=True),
+                         device, prepared, tails=True),
             indexed_case(torch, td, kernels, tables, 40, 40 * 4000 - 7, 2,
-                         rng, device, tails=True)]
+                         rng, device, prepared, tails=True),
+            indexed_case(torch, td, kernels, wide, lanes, n, 1, rng,
+                         device, wide_prepared, tails=True)]
     log(f'phase 2: indexed kernels equal their plain versions (lanes='
         f'{lanes}, steps={flag["steps"]}, Gaussian tables '
         f'{tables.quantized_cdf.shape}, k=1 and {WIRE_BATCH}; edge cases: '
         '100 lanes n=2345 k=3 and 40 lanes T=4000 k=2, rows 0 and 63, '
-        'frequency-1 tail symbols); packed bytes equal the numpy oracle')
+        'frequency-1 tail symbols; scale table 0.11..1024, Gaussian tables '
+        f'{wide.quantized_cdf.shape}); packed bytes equal the numpy oracle')
+    cases = [flag, one] + edge
+    log_plans(cases)
+    got = {c['plans'][name] for c in cases
+           for name in ('rans_indexed_encode', 'rans_indexed_decode')}
+    check(got == {'shared', 'global'}, f'phase 2: batch-1 indexed plans '
+          f'exercised: {sorted(got)}, expected shared and global')
+    log(f'phase 2: preparing the batch-1 indexed tables (one time, on the '
+        f'card): {prep_ms:.3f} ms for {tables.quantized_cdf.shape} '
+        f'(decoder pack {4 * prepared.dec.numel()} bytes, encoder entries '
+        f'{4 * prepared.enc.numel()} bytes), {wide_ms:.3f} ms for '
+        f'{wide.quantized_cdf.shape} ({4 * wide_prepared.dec.numel()} / '
+        f'{4 * wide_prepared.enc.numel()} bytes)')
     stats = indexed_stats(torch, td, kernels, tables, flag, one)
     for name, st in stats.items():
-        st['max_abs_err'] = max(case['errs'].get(name, 0)
-                                for case in [flag, one] + edge)
+        st['max_abs_err'] = max(case['errs'].get(name, 0) for case in cases)
+    for name in ('rans_indexed_encode', 'rans_indexed_decode'):
+        stats[name]['prepare_ms'] = prep_ms
     return stats
 
 
@@ -962,16 +1021,16 @@ def indexed_stats(torch, td, kernels, tables, flag, one, tag='phase 2'):
     steps = flag['steps']
     lanes = flag['vc'].shape[-1]
     cdf, cdf_len, off = flag['cdf'], flag['cdf_len'], flag['off']
-    vc1, idx1 = one['vc'], one['idx3']
+    vc1, idx1, prep = one['vc'], one['idx3'], one['prepared']
     enc1, enca = one['enc'], flag['enca']
     specs = {
         'rans_indexed_encode': (
-            lambda: kernels.indexed_encode(cdf, vc1, idx1),
+            lambda: kernels.indexed_encode(cdf, vc1, idx1, prepared=prep),
             lambda: td.indexed_encode_plain(cdf, vc1, idx1),
             indexed_costs(one, tables, 1, enc1[1], False)),
         'rans_indexed_decode': (
             lambda: kernels.indexed_decode(enc1[0], enc1[2], cdf, cdf_len,
-                                           off, idx1, steps),
+                                           off, idx1, steps, prepared=prep),
             lambda: td.indexed_decode_plain(enc1[0], enc1[2], cdf, cdf_len,
                                             off, idx1, steps),
             indexed_costs(one, tables, 1, enc1[1], True)),
@@ -2498,9 +2557,12 @@ def backbone_kernels(torch, td, kernels, fp_tables, mshp_codec, device):
                      rng, device)
     g = mshp_codec.g_tables
     y_lanes = td.auto_lanes(n)
+    prepared, _ = prepare_tables(torch, g, device, reps=0)
     y8 = indexed_case(torch, td, kernels, g, y_lanes, n, WIRE_BATCH, rng,
-                      device)
-    y1 = indexed_case(torch, td, kernels, g, y_lanes, n, 1, rng, device)
+                      device, prepared)
+    y1 = indexed_case(torch, td, kernels, g, y_lanes, n, 1, rng, device,
+                      prepared)
+    log_plans([y8, y1], tag='phase 14')
     zn = 14 * 14 * 16
     z_lanes = td.auto_lanes(zn, cyclic_channels=16)
     z = kernel_case(torch, td, kernels, mshp_codec.tables, z_lanes, zn,

@@ -11,7 +11,8 @@ traces `stream_deploy_device` with `torch.profiler` over N images at
 batch 1 and at `wire_batch=8` (4 for `det`). For each mode it prints one
 JSON line: wall seconds, images/s, device busy time (sum of kernel times
 on the card), the idle share of the wall window, the rANS kernels' share
-of device time (cyclic and indexed), and the top kernels by device time;
+of device time (cyclic and indexed, and the indexed kernels' device ms and
+share alone), and the top kernels by device time;
 for `det` also the device ms and shares of NMS (`batched_nms_mask`),
 RoIAlign (`multiscale_roi_align`) and the convolutions (the kernels under
 `aten::convolution`), each traced as a named range.
@@ -79,6 +80,7 @@ def profile_mode(torch, rt, images, wire_batch):
             by_name[evt.key] = by_name.get(evt.key, 0.0) + dev_us
     busy_us = sum(by_name.values())
     rans_us = sum(v for k, v in by_name.items() if any(r in k for r in RANS))
+    indexed_us = sum(v for k, v in by_name.items() if 'rans_indexed' in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     shares = {f'{k.split("::")[-1]}_device_ms': v / 1e3
               for k, v in ranges.items()}
@@ -92,6 +94,9 @@ def profile_mode(torch, rt, images, wire_batch):
         'device_busy_ms': busy_us / 1e3,
         'device_idle_share': max(0.0, 1.0 - busy_us / 1e6 / wall),
         'rans_share_of_device': rans_us / busy_us if busy_us else None,
+        'rans_indexed_device_ms': indexed_us / 1e3,
+        'rans_indexed_share_of_device':
+            indexed_us / busy_us if busy_us else None,
         'top_kernels_ms': [[k[:90], v / 1e3] for k, v in top],
     }
 

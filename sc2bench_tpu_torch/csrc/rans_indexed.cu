@@ -22,31 +22,79 @@
 // y-stream the row of its Gaussian scale, one of 64 rows of up to 3,133
 // entries (802 KB as int32).
 //
-// Design (simple and right): one thread per (image, lane), 32 threads a
-// block so that a batch-1 image's 512 lanes spread over 16 SMs; symbols
-// and indexes are read lane-major, so a warp's loads of one step are one
-// coalesced line; the table is read from device memory, where all of it
-// stays in L2 (and hot rows in L1). The encoder reads the two entries
-// cdf[idx, v] and cdf[idx, v+1], which do not depend on the state, and
-// divides exactly with the hardware 32-bit divide; its compacted form
-// writes emission e at column T-1-e of the lane's row and, when the lane is
-// done, moves the row's tail to its front (decode order) and zeroes the
-// rest. The decoder finds v by bisection of row idx over [0, len-1): about
-// 12 dependent probes at 3,133 entries. Nothing is staged in shared memory,
-// so the kernels take any step count T and any row width.
-//
 // What bounds them on this card: as for the cyclic pair, each lane is a
 // serial chain of T dependent steps and a batch-1 image has only 512
-// lanes, so the time is the chain's latency; the decoder's step is the
-// longer one, its bisection a chain of dependent L1/L2 loads.
+// lanes, so the time is the chain's latency, plus the launch.
 //
-// The next design, not built here: the table packed ragged (27,256
-// entries, 109 KB) fits a block's shared memory, and a coarse bucket per
-// row (slot >> 8 -> lowest candidate symbol, as the cyclic decoders keep)
-// would replace most of the bisection's probes with one shared load and a
-// short forward scan.
+// The batch-1 pair (rans_indexed_encode, rans_indexed_decode) is built for
+// that latency, as the cyclic batch-1 pair is. One warp a block, 32 lanes
+// of one image, so a batch-1 image's 512 lanes spread over 16 SMs. Both
+// read prepared tables that depend on the coding tables alone and are
+// built once by the caller (ops/rans/indexed_tables.py), not per launch:
+//   - the decoder's table is the used part of every row packed ragged
+//     (27,256 int32 entries, 109 KB, for the default Gaussian tables), a
+//     coarse table of 257 bounds a row (slot >> 8 -> the range of
+//     candidate entries, absolute indexes into the ragged table, 66 KB)
+//     and a per-row symbol base. In the shared-table plan the block copies
+//     all three into shared memory with 16-byte cp.async copies (191 KB
+//     with the staging); a step is then one coarse load (two words), a
+//     bisection bounded by the bucket's width (none where a bucket holds
+//     one symbol, at most 9 probes where 256 frequency-1 symbols share
+//     one), and one pair of entry loads, all from shared memory, in place
+//     of ~12 dependent L1/L2 probes over the whole row. Its result equals
+//     `cdf_bisect`'s for every slot of a non-decreasing row;
+//   - the decoder stages each 32-step tile of the block's row indexes with
+//     cp.async, and each lane's stream row through a ring of 64 chunks in
+//     shared memory, refilled at every tile for the next 64 columns past
+//     the lane's read pointer (a lane reads at most one chunk a step), so
+//     the chunk read leaves the chain and any T and width are taken;
+//   - the encoder reads a prepared (start, freq, m_lo, m_hi) entry per CDF
+//     entry (16 bytes, 3.2 MB for the default tables, in L2): its symbols
+//     and row indexes are staged a tile ahead, each step's entry is
+//     gathered into shared memory two tiles ahead with 16-byte cp.async
+//     copies, so the loads leave the chain; it divides by the reciprocal
+//     m = ceil(2^48 / freq) (exact, see rans_cyclic.cu's reciprocal48) as
+//     umulhi(x, m_lo) + x * m_hi, in place of the hardware divide, and
+//     folds the quotient into one multiply-add, x = q * (2^16 - freq) +
+//     x + start;
+//   - the encoder's chunks go to a u16 row per lane (emission e at column
+//     T-1-e); after the chain the warp writes the block's compacted rows
+//     (chunks at the front in decode order, zeros after) with coalesced
+//     stores, in place of a store a step and a serial compaction pass.
 //
-// The kernels hold the plain versions' contract bit for bit on valid
+// Two plans each, chosen by the wrapper from their shared-memory sizes:
+// the decoder keeps its tables in shared memory, or (a custom table too
+// large for a block) reads them in place from device memory (template
+// parameter kGlobalTables); the encoder keeps its u16 rows in shared
+// memory, or beyond about 2,600 steps in a device buffer the wrapper
+// passes (kGlobalRows). The code of a step is the same in both.
+//
+// Measured on an H100 (bench_rans_kernels.py, PERF.md), at 512 lanes x 142
+// steps: decode 0.048 ms, encode 0.020 ms, against 0.225 and 0.034 for the
+// first design (one thread per lane, the table read from L2, the hardware
+// divide) in the same run. From the steps sweep (T = 32 to 600) a decode
+// step costs about 600 SM cycles (the first design 2,490) and an encode
+// step about 195 (450), plus about 4.5-5 us a launch. The decoder's step
+// is the bucket load, the bisection and the entry loads in a row; the
+// warp runs the bisection as long as its slowest lane, and a lane whose
+// slot falls in a bucket of the frequency-1 tails (the first and last
+// slots of a wide row) needs up to 9 probes. Tried and measured slower:
+// gathering a tile's encoder entries in one burst at the tile's start
+// rather than one a step, and a warp-uniform probe count (the warp's
+// largest, with no divergent loop). Finer buckets at the two ends of the
+// slot range measured faster but need 31 KB more shared memory, which
+// would leave custom tables little room before the global plan.
+//
+// The aligned pair and the masked pair keep the first design: one thread
+// per (image, lane) or lane, 32 threads a block, CDF rows read from
+// device memory (L2), the hardware divide, `cdf_bisect`'s bisection over
+// the whole row. Their launches times their distance from the bound came
+// to a twentieth or less of the batch-1 pair's on the main paths (the
+// aligned pair launches once a wire_batch, the masked decoder once a JAHP
+// front at the launch floor), so the batch-1 pair was redesigned first;
+// ROADMAP Queue B lists them in order.
+//
+// All kernels hold the plain versions' contract bit for bit on valid
 // tables: CDF rows non-decreasing from 0 to 2^16 within cdf_length, every
 // coded symbol of frequency >= 1, indexes in [0, rows), stream values in
 // 0..65535. A read past a lane's stream row yields 0, and the final states
@@ -54,6 +102,7 @@
 //
 // Layouts (all row-major, int32 unless stated):
 //   cdf      (R, cols); cdf_len, off (R,)
+//   enc      (R, cols, 4) prepared encoder entries; dec the decoder's pack
 //   vc, idx  (k, T, N)  in-support symbol values and their rows, forward
 //   streams  (k, N, W)  per-lane u16 chunks held in int32
 //   states   (k, N)     int64 holding the u32 state
@@ -75,11 +124,11 @@
 // (no table read, no renormalisation, no state change, chunk 0), so encoder
 // and decoder renormalise at the same steps and the decoder reads column t.
 // One thread a lane, the table read from device memory (in L2) as above;
-// the decoder's bisection is the indexed decoder's `cdf_bisect`. The
-// indexed aligned encoder cannot stand in for the masked one with an
-// "identity" row: a row of frequency 2^16 would leave the state as it is,
-// but 2^16 << 16 wraps to 0 in 32 bits, so every such step would
-// renormalise. The context model between decode fronts stays torch ops.
+// the decoder's bisection is `cdf_bisect`. The indexed aligned encoder
+// cannot stand in for the masked one with an "identity" row: a row of
+// frequency 2^16 would leave the state as it is, but 2^16 << 16 wraps to 0
+// in 32 bits, so every such step would renormalise. The context model
+// between decode fronts stays torch ops.
 //
 // Layouts: vc, idx (T, N) int32 forward order; act (T, F) uint8; streams
 // (N, T) int32; lengths (N,) int32; states (N,) int64. The decoder takes
@@ -88,8 +137,9 @@
 //
 // Each C entry point launches on the given stream and returns
 // cudaGetLastError(), or cudaErrorInvalidValue (without launching) when
-// aligned streams are not T columns wide, or the masked lanes are not F * m
-// (a front index outside [0, T)).
+// aligned streams are not T columns wide, the masked lanes are not F * m
+// (a front index outside [0, T)), or a batch-1 plan needs more shared
+// memory than a block can have.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -98,10 +148,20 @@ namespace {
 
 constexpr uint32_t kRansL = 1u << 16;
 constexpr int kThreads = 32;      // (image, lane) pairs per block
+constexpr int kTile = 32;         // batch-1 pair: steps per staged tile
+constexpr int kRing = 64;         // batch-1 decoder: stream chunks per lane
+constexpr int kBucketShift = 8;   // batch-1 decoder: bucket = slot >> 8
+constexpr int kBucketStride = (1 << (16 - kBucketShift)) + 1;  // bounds a row
 
 inline unsigned blocks_for(int num_images, int lanes) {
   const int64_t total = static_cast<int64_t>(num_images) * lanes;
   return static_cast<unsigned>((total + kThreads - 1) / kThreads);
+}
+
+// one block per (image, 32-lane chunk)
+inline unsigned warp_blocks(int num_images, int lanes) {
+  return static_cast<unsigned>(num_images)
+         * static_cast<unsigned>((lanes + kThreads - 1) / kThreads);
 }
 
 // Largest v < len - 1 with row[v] <= slot, by bisection over [0, len - 1):
@@ -117,16 +177,326 @@ __device__ __forceinline__ int cdf_bisect(const int32_t* __restrict__ row,
   return lo;
 }
 
-template <bool kAligned>
+// ---- asynchronous global -> shared copies (batch-1 pair) -------------------
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(dst), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n"
+               :: "r"(dst), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most one group (the newest) of this thread is in flight
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// ---- shared-memory plans (bytes) -------------------------------------------
+
+// encoder: entry tiles [3][kTile][32] (16 bytes), symbol and row tiles
+// [2][kTile][32] each, the lanes' counts, then (shared-row plan) the u16
+// output rows of pitch T+1
+inline size_t encode_smem(int steps, bool global_rows) {
+  return sizeof(uint4) * 3 * kTile * kThreads
+         + sizeof(int32_t) * 2 * 2 * kTile * kThreads
+         + sizeof(int32_t) * kThreads
+         + (global_rows ? 0
+                        : sizeof(uint16_t) * kThreads
+                              * (static_cast<size_t>(steps) + 1));
+}
+
+// decoder: (shared-table plan) the table pack, then row-index tiles
+// [2][kTile][32] and the stream ring [kRing][32]
+inline size_t decode_smem(int pack_words, bool global_tables) {
+  return (global_tables ? 0 : sizeof(int32_t) * pack_words)
+         + sizeof(int32_t) * (2 * kTile + kRing) * kThreads;
+}
+
+inline int smem_optin() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  return bytes;
+}
+
+// raise a kernel's dynamic shared-memory cap when `bytes` needs it;
+// false when no block can have that much
+template <typename Kernel>
+bool fit_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return true;
+  if (bytes > static_cast<size_t>(smem_optin())) return false;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes)) == cudaSuccess;
+}
+
+// ---- batch-1 encode --------------------------------------------------------
+//
+// Tiles of kTile steps are coded in reverse. Three kinds of cp.async group,
+// committed in this order by each thread for its own lane (so no lane reads
+// another's copies): A(s), tile s's symbols and row indexes; B(s), tile s's
+// entries, gathered from `enc` at the staged (row, value). Iteration s
+// stages A(s-3) first, then codes tile s while it gathers B(s-2), one
+// entry a step; at its start only B(s-1) may still be in flight, so B(s)
+// and A(s-2) have landed. Buffers: A in s & 1, B in s % 3.
+
+template <bool kGlobalRows>
 __global__ void __launch_bounds__(kThreads)
-rans_indexed_encode_kernel(const int32_t* __restrict__ cdf, int cols,
-                           const int32_t* __restrict__ vc,
-                           const int32_t* __restrict__ idx, int num_images,
-                           int steps, int lanes,
-                           int32_t* __restrict__ streams,
-                           int32_t* __restrict__ lengths,
-                           int64_t* __restrict__ states,
-                           uint8_t* __restrict__ masks) {
+rans_indexed_encode_warp_kernel(const uint4* __restrict__ enc, int cols,
+                                const int32_t* __restrict__ vc,
+                                const int32_t* __restrict__ idx, int steps,
+                                int lanes, int32_t* __restrict__ streams,
+                                int32_t* __restrict__ lengths,
+                                int64_t* __restrict__ states,
+                                uint16_t* __restrict__ grows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int chunks = (lanes + kThreads - 1) / kThreads;
+  const int img = blockIdx.x / chunks;
+  const int lane0 = (blockIdx.x % chunks) * kThreads;
+  const int l = threadIdx.x;
+  const int lane = lane0 + l;
+  const bool active = lane < lanes;
+  const int nrow = min(kThreads, lanes - lane0);
+  const int pitch = steps + 1;
+  uint4* ent = reinterpret_cast<uint4*>(smem);          // [3][kTile][32]
+  int32_t* vt = reinterpret_cast<int32_t*>(ent + 3 * kTile * kThreads);
+  int32_t* rt = vt + 2 * kTile * kThreads;              // [2][kTile][32]
+  int32_t* counts = rt + 2 * kTile * kThreads;          // [32]
+  uint16_t* obuf = kGlobalRows
+      ? grows + static_cast<int64_t>(blockIdx.x) * kThreads * pitch
+      : reinterpret_cast<uint16_t*>(counts + kThreads);  // [32][pitch]
+  const int64_t base = static_cast<int64_t>(img) * steps * lanes + lane;
+  const int ntiles = (steps + kTile - 1) / kTile;
+
+  // A(s): tile s's symbols and rows for this lane (coalesced across the
+  // warp); an empty group for s < 0 keeps the wait count uniform
+  auto stage = [&](int s) {
+    if (s >= 0 && active) {
+      const int t0 = s * kTile, t1 = min(t0 + kTile, steps);
+      const int o = (s & 1) * kTile * kThreads + l;
+      for (int t = t0; t < t1; ++t) {
+        const int64_t p = base + static_cast<int64_t>(t) * lanes;
+        cp_async4(vt + o + (t - t0) * kThreads, vc + p);
+        cp_async4(rt + o + (t - t0) * kThreads, idx + p);
+      }
+    }
+    cp_async_commit();
+  };
+  // step s*kTile + j's entry into B(s)'s buffer (A(s) has landed)
+  auto gather = [&](int s, int j) {
+    if (s >= 0 && active && s * kTile + j < steps) {
+      const int o = (s & 1) * kTile * kThreads + j * kThreads + l;
+      const int64_t e = static_cast<int64_t>(rt[o]) * cols + vt[o];
+      cp_async16(ent + ((s % 3) * kTile + j) * kThreads + l, enc + e);
+    }
+  };
+
+  stage(ntiles - 1);
+  stage(ntiles - 2);
+  cp_async_wait_one();                          // A(S-1)
+  for (int j = 0; j < kTile; ++j) gather(ntiles - 1, j);
+  cp_async_commit();                            // B(S-1)
+  stage(ntiles - 3);
+  cp_async_wait_one();                          // A(S-2)
+  for (int j = 0; j < kTile; ++j) gather(ntiles - 2, j);
+  cp_async_commit();                            // B(S-2)
+
+  uint32_t x = kRansL;
+  int count = 0;
+  uint16_t* orow = obuf + l * pitch;
+  for (int s = ntiles - 1; s >= 0; --s) {
+    cp_async_wait_one();                        // B(s), A(s-2)
+    stage(s - 3);
+    const int t0 = s * kTile, n = min(kTile, steps - t0);
+    if (active) {
+      const uint4* et = ent + (s % 3) * kTile * kThreads + l;
+      // the entries do not depend on the state: step t-1's is read while
+      // step t runs
+      uint4 next = et[(n - 1) * kThreads];
+      for (int j = n - 1; j >= 0; --j) {
+        const uint4 e = next;
+        if (j > 0) next = et[(j - 1) * kThreads];
+        gather(s - 2, j);
+        // uint32 arithmetic throughout, wrapping exactly as the plain
+        // version's
+        const uint32_t st = e.x, fr = e.y;
+        if (x >= (fr << 16)) {
+          // the count-th emission goes to column steps-1-count
+          orow[steps - 1 - count] = static_cast<uint16_t>(x);
+          ++count;
+          x >>= 16;
+        }
+        // q = floor(x / fr) = (x * m) >> 48; (q << 16) + x - q * fr + st
+        const uint32_t q = (__umulhi(x, e.z) + x * e.w) >> 16;
+        x = q * (kRansL - fr) + x + st;
+      }
+      for (int j = n; j < kTile; ++j) gather(s - 2, j);
+    }
+    cp_async_commit();                          // B(s-2)
+  }
+  const int64_t gid = static_cast<int64_t>(img) * lanes + lane;
+  if (active) {
+    counts[l] = count;
+    lengths[gid] = count;
+    states[gid] = static_cast<int64_t>(x);
+  }
+  __syncwarp();
+
+  // coalesced write-out of the block's rows: chunks at the front in decode
+  // order, zeros after; eight rows at a time so their loads overlap
+  int32_t* out =
+      streams + (static_cast<int64_t>(img) * lanes + lane0) * steps;
+  for (int r0 = 0; r0 < nrow; r0 += 8) {
+    int cnt[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) cnt[i] = r0 + i < nrow ? counts[r0 + i] : 0;
+    for (int c = l; c < steps; c += kThreads) {
+      int32_t val[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        val[i] = c < cnt[i]
+                     ? obuf[(r0 + i) * pitch + (steps - cnt[i]) + c]
+                     : 0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (r0 + i < nrow)
+          out[static_cast<int64_t>(r0 + i) * steps + c] = val[i];
+    }
+  }
+}
+
+// ---- batch-1 decode --------------------------------------------------------
+//
+// Per tile s, each thread commits one group G(s): row-index tile s+1 and
+// its lane's stream columns up to ptr + kRing, then waits for G(s-1). A
+// lane reads at most kTile chunks a tile, so the columns it reads in tile
+// s, [ptr, ptr + kTile), were staged in G(s-1) or before, and a refilled
+// ring slot held a column below ptr, already read.
+
+template <bool kGlobalTables>
+__global__ void __launch_bounds__(kThreads)
+rans_indexed_decode_warp_kernel(const int32_t* __restrict__ streams,
+                                int width,
+                                const int64_t* __restrict__ states,
+                                const int32_t* __restrict__ pack,
+                                int pack_words, int bucket_at, int base_at,
+                                const int32_t* __restrict__ idx, int steps,
+                                int lanes, int32_t* __restrict__ out,
+                                int64_t* __restrict__ xend) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int chunks = (lanes + kThreads - 1) / kThreads;
+  const int img = blockIdx.x / chunks;
+  const int lane0 = (blockIdx.x % chunks) * kThreads;
+  const int l = threadIdx.x;
+  const int lane = lane0 + l;
+  const bool active = lane < lanes;
+  int32_t* stab = reinterpret_cast<int32_t*>(smem);
+  int32_t* itile = stab + (kGlobalTables ? 0 : pack_words);  // [2][kTile][32]
+  int32_t* ring = itile + 2 * kTile * kThreads;               // [kRing][32]
+  const int32_t* tab = kGlobalTables ? pack : stab;  // ragged entries first
+  const int32_t* bkt = tab + bucket_at;
+  const int32_t* rbase = tab + base_at;
+  const int64_t gid = static_cast<int64_t>(img) * lanes + lane;
+  const int64_t base = static_cast<int64_t>(img) * steps * lanes + lane;
+  const int32_t* srow = streams + gid * width;
+  const int ntiles = (steps + kTile - 1) / kTile;
+
+  // stream columns [issued, upto) of the lane's row into the ring; a
+  // column past the row is 0
+  int issued = 0;
+  auto refill = [&](int upto) {
+    for (; issued < upto; ++issued) {
+      int32_t* dst = ring + (issued & (kRing - 1)) * kThreads + l;
+      if (issued < width) cp_async4(dst, srow + issued);
+      else *dst = 0;
+    }
+  };
+  // row-index tile s for this lane (coalesced across the warp)
+  auto stage_rows = [&](int s) {
+    if (s < ntiles && active) {
+      const int t0 = s * kTile, t1 = min(t0 + kTile, steps);
+      int32_t* dst = itile + (s & 1) * kTile * kThreads + l;
+      for (int t = t0; t < t1; ++t)
+        cp_async4(dst + (t - t0) * kThreads,
+                  idx + base + static_cast<int64_t>(t) * lanes);
+    }
+  };
+
+  // G(-1): the tables (16-byte copies; pack_words is a multiple of 4),
+  // row-index tile 0, the first kRing stream columns
+  if (!kGlobalTables)
+    for (int i = 4 * l; i < pack_words; i += 4 * kThreads)
+      cp_async16(stab + i, pack + i);
+  stage_rows(0);
+  if (active) refill(kRing);
+  cp_async_commit();
+  uint32_t x = active ? static_cast<uint32_t>(states[gid]) : 0u;
+  int ptr = 0;
+  int32_t* o = out + base;
+  for (int s = 0; s < ntiles; ++s) {
+    stage_rows(s + 1);
+    if (active) refill(ptr + kRing);
+    cp_async_commit();                          // G(s)
+    cp_async_wait_one();                        // G(s-1) has landed
+    if (s == 0) __syncthreads();                // every thread's table copies
+    if (!active) continue;
+    const int t0 = s * kTile, t1 = min(t0 + kTile, steps);
+    const int32_t* it = itile + (s & 1) * kTile * kThreads + l;
+    int r = it[0];
+    for (int t = t0; t < t1; ++t, o += lanes) {
+      // the row's coarse bounds and base, and the next row index, do not
+      // depend on the state
+      const int32_t* brow = bkt + r * kBucketStride;
+      const int rb = rbase[r];
+      const int rn = t + 1 < t1 ? it[(t + 1 - t0) * kThreads] : 0;
+      const uint32_t slot = x & 0xFFFFu;
+      // the bucket's candidate entries [lo, hi), then a bisection inside
+      int lo = brow[slot >> kBucketShift];
+      int hi = brow[(slot >> kBucketShift) + 1] + 1;
+      while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (static_cast<uint32_t>(tab[mid]) <= slot) lo = mid;
+        else hi = mid;
+      }
+      const uint32_t st = static_cast<uint32_t>(tab[lo]);
+      const uint32_t fr = static_cast<uint32_t>(tab[lo + 1]) - st;
+      const uint32_t chunk =
+          static_cast<uint32_t>(ring[(ptr & (kRing - 1)) * kThreads + l]);
+      x = fr * (x >> 16) + slot - st;
+      if (x < kRansL) {
+        x = (x << 16) | chunk;
+        ++ptr;
+      }
+      *o = lo + rb;
+      r = rn;
+    }
+  }
+  if (active) xend[gid] = static_cast<int64_t>(x);
+}
+
+// ---- the aligned (wire_batch) pair: the first design -----------------------
+
+__global__ void __launch_bounds__(kThreads)
+rans_indexed_encode_aligned_kernel(const int32_t* __restrict__ cdf, int cols,
+                                   const int32_t* __restrict__ vc,
+                                   const int32_t* __restrict__ idx,
+                                   int num_images, int steps, int lanes,
+                                   int32_t* __restrict__ streams,
+                                   int32_t* __restrict__ lengths,
+                                   int64_t* __restrict__ states,
+                                   uint8_t* __restrict__ masks) {
   const int64_t gid =
       static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (gid >= static_cast<int64_t>(num_images) * lanes) return;
@@ -144,39 +514,29 @@ rans_indexed_encode_kernel(const int32_t* __restrict__ cdf, int cols,
     const uint32_t fr = static_cast<uint32_t>(e[1]) - st;
     // uint32 arithmetic throughout, wrapping exactly as the plain version
     const bool renorm = x >= (fr << 16);
-    if (kAligned) {
-      row[t] = renorm ? static_cast<int32_t>(x & 0xFFFFu) : 0;
-      if (mrow != nullptr) mrow[t] = renorm ? 1 : 0;
-    } else if (renorm) {
-      row[steps - 1 - count] = static_cast<int32_t>(x & 0xFFFFu);
-    }
+    row[t] = renorm ? static_cast<int32_t>(x & 0xFFFFu) : 0;
+    if (mrow != nullptr) mrow[t] = renorm ? 1 : 0;
     if (renorm) {
       ++count;
       x >>= 16;
     }
     x = ((x / fr) << 16) + (x % fr) + st;
   }
-  if (!kAligned) {
-    // the chunks sit at [T - count, T) in decode order: move them to the
-    // front (each source lies at or after its destination) and zero the rest
-    const int shift = steps - count;
-    for (int c = 0; c < count; ++c) row[c] = row[shift + c];
-    for (int c = count; c < steps; ++c) row[c] = 0;
-  }
   lengths[gid] = count;
   states[gid] = static_cast<int64_t>(x);
 }
 
-template <bool kAligned>
 __global__ void __launch_bounds__(kThreads)
-rans_indexed_decode_kernel(const int32_t* __restrict__ streams, int width,
-                           const int64_t* __restrict__ states,
-                           const int32_t* __restrict__ cdf, int cols,
-                           const int32_t* __restrict__ cdf_len,
-                           const int32_t* __restrict__ off,
-                           const int32_t* __restrict__ idx, int num_images,
-                           int steps, int lanes, int32_t* __restrict__ out,
-                           int64_t* __restrict__ xend) {
+rans_indexed_decode_aligned_kernel(const int32_t* __restrict__ streams,
+                                   int width,
+                                   const int64_t* __restrict__ states,
+                                   const int32_t* __restrict__ cdf, int cols,
+                                   const int32_t* __restrict__ cdf_len,
+                                   const int32_t* __restrict__ off,
+                                   const int32_t* __restrict__ idx,
+                                   int num_images, int steps, int lanes,
+                                   int32_t* __restrict__ out,
+                                   int64_t* __restrict__ xend) {
   const int64_t gid =
       static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (gid >= static_cast<int64_t>(num_images) * lanes) return;
@@ -185,7 +545,6 @@ rans_indexed_decode_kernel(const int32_t* __restrict__ streams, int width,
   const int64_t base = img * steps * lanes + lane;
   const int32_t* srow = streams + gid * width;
   uint32_t x = static_cast<uint32_t>(states[gid]);
-  int ptr = 0;
   for (int t = 0; t < steps; ++t) {
     const int64_t p = base + static_cast<int64_t>(t) * lanes;
     const int32_t r = idx[p];
@@ -195,16 +554,7 @@ rans_indexed_decode_kernel(const int32_t* __restrict__ streams, int width,
     const uint32_t st = static_cast<uint32_t>(crow[lo]);
     const uint32_t fr = static_cast<uint32_t>(crow[lo + 1]) - st;
     x = fr * (x >> 16) + slot - st;
-    if (x < kRansL) {
-      uint32_t chunk;
-      if (kAligned) {
-        chunk = static_cast<uint32_t>(srow[t]);
-      } else {
-        chunk = ptr < width ? static_cast<uint32_t>(srow[ptr]) : 0u;
-        ++ptr;
-      }
-      x = (x << 16) | chunk;
-    }
+    if (x < kRansL) x = (x << 16) | static_cast<uint32_t>(srow[t]);
     out[p] = lo + off[r];
   }
   xend[gid] = static_cast<int64_t>(x);
@@ -290,14 +640,44 @@ rans_masked_decode_front_kernel(const int32_t* __restrict__ streams,
 
 extern "C" {
 
-int rans_indexed_encode(const int32_t* cdf, int cols, const int32_t* vc,
+// Shared memory (bytes) of a batch-1 launch's plan: the encoder at T steps
+// with its u16 rows in shared memory (global_rows = 0) or in a device
+// buffer; the decoder with a table pack of pack_words int32 in shared
+// memory (global_tables = 0) or read in place. And the most a block may
+// have on the current device.
+int64_t rans_indexed_encode_smem(int steps, int global_rows) {
+  return static_cast<int64_t>(encode_smem(steps, global_rows != 0));
+}
+
+int64_t rans_indexed_decode_smem(int pack_words, int global_tables) {
+  return static_cast<int64_t>(decode_smem(pack_words, global_tables != 0));
+}
+
+int rans_indexed_smem_optin() { return smem_optin(); }
+
+// `enc` (R, cols, 4) prepared entries; `rows` null for the shared-row plan,
+// else a u16 buffer of k * ceil(N / 32) * 32 * (T + 1) entries
+int rans_indexed_encode(const int32_t* enc, int cols, const int32_t* vc,
                         const int32_t* idx, int num_images, int steps,
                         int lanes, int32_t* streams, int32_t* lengths,
-                        int64_t* states, cudaStream_t stream) {
-  rans_indexed_encode_kernel<false>
-      <<<blocks_for(num_images, lanes), kThreads, 0, stream>>>(
-          cdf, cols, vc, idx, num_images, steps, lanes, streams, lengths,
-          states, nullptr);
+                        int64_t* states, uint16_t* rows,
+                        cudaStream_t stream) {
+  const uint4* entries = reinterpret_cast<const uint4*>(enc);
+  const dim3 grid(warp_blocks(num_images, lanes));
+  const size_t smem = encode_smem(steps, rows != nullptr);
+  if (rows == nullptr) {
+    if (!fit_smem(rans_indexed_encode_warp_kernel<false>, smem))
+      return static_cast<int>(cudaErrorInvalidValue);
+    rans_indexed_encode_warp_kernel<false><<<grid, kThreads, smem, stream>>>(
+        entries, cols, vc, idx, steps, lanes, streams, lengths, states,
+        nullptr);
+  } else {
+    if (!fit_smem(rans_indexed_encode_warp_kernel<true>, smem))
+      return static_cast<int>(cudaErrorInvalidValue);
+    rans_indexed_encode_warp_kernel<true><<<grid, kThreads, smem, stream>>>(
+        entries, cols, vc, idx, steps, lanes, streams, lengths, states,
+        rows);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -307,23 +687,38 @@ int rans_indexed_encode_aligned(const int32_t* cdf, int cols,
                                 int32_t* streams, int32_t* lengths,
                                 int64_t* states, uint8_t* masks,
                                 cudaStream_t stream) {
-  rans_indexed_encode_kernel<true>
+  rans_indexed_encode_aligned_kernel
       <<<blocks_for(num_images, lanes), kThreads, 0, stream>>>(
           cdf, cols, vc, idx, num_images, steps, lanes, streams, lengths,
           states, masks);
   return static_cast<int>(cudaGetLastError());
 }
 
+// `pack` the prepared decoder tables (pack_words int32, a multiple of 4,
+// 16-byte aligned): ragged entries at 0, coarse bounds at bucket_at, row
+// bases at base_at
 int rans_indexed_decode(const int32_t* streams, int width,
-                        const int64_t* states, const int32_t* cdf, int cols,
-                        const int32_t* cdf_len, const int32_t* off,
-                        const int32_t* idx, int num_images, int steps,
-                        int lanes, int32_t* out, int64_t* xend,
-                        cudaStream_t stream) {
-  rans_indexed_decode_kernel<false>
-      <<<blocks_for(num_images, lanes), kThreads, 0, stream>>>(
-          streams, width, states, cdf, cols, cdf_len, off, idx, num_images,
-          steps, lanes, out, xend);
+                        const int64_t* states, const int32_t* pack,
+                        int pack_words, int bucket_at, int base_at,
+                        int global_tables, const int32_t* idx,
+                        int num_images, int steps, int lanes, int32_t* out,
+                        int64_t* xend, cudaStream_t stream) {
+  if (pack_words % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(warp_blocks(num_images, lanes));
+  const size_t smem = decode_smem(pack_words, global_tables != 0);
+  if (global_tables == 0) {
+    if (!fit_smem(rans_indexed_decode_warp_kernel<false>, smem))
+      return static_cast<int>(cudaErrorInvalidValue);
+    rans_indexed_decode_warp_kernel<false><<<grid, kThreads, smem, stream>>>(
+        streams, width, states, pack, pack_words, bucket_at, base_at, idx,
+        steps, lanes, out, xend);
+  } else {
+    if (!fit_smem(rans_indexed_decode_warp_kernel<true>, smem))
+      return static_cast<int>(cudaErrorInvalidValue);
+    rans_indexed_decode_warp_kernel<true><<<grid, kThreads, smem, stream>>>(
+        streams, width, states, pack, pack_words, bucket_at, base_at, idx,
+        steps, lanes, out, xend);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -335,7 +730,7 @@ int rans_indexed_decode_aligned(const int32_t* streams, int width,
                                 int32_t* out, int64_t* xend,
                                 cudaStream_t stream) {
   if (width != steps) return static_cast<int>(cudaErrorInvalidValue);
-  rans_indexed_decode_kernel<true>
+  rans_indexed_decode_aligned_kernel
       <<<blocks_for(num_images, lanes), kThreads, 0, stream>>>(
           streams, width, states, cdf, cols, cdf_len, off, idx, num_images,
           steps, lanes, out, xend);

@@ -79,6 +79,7 @@ from ..ops.rans.coder import RansCoder
 from ..ops.rans.device import (auto_lanes, device_rans_decode,
                                device_rans_encode, pack_stream,
                                pack_stream_aligned)
+from ..ops.rans.indexed_tables import prepare_indexed_tables
 from .layer import (EntropyBottleneckLayer, FPBasedResNetBottleneck,
                     SHPBasedResNetBottleneck)
 
@@ -270,6 +271,7 @@ class SplitClassifierRuntime(AnalyzerHolder):
         self._medians = None
         self._tables_dev = None
         self._gtables_dev = None
+        self._gprepared = None
         self._scale_table = None
 
     @staticmethod
@@ -283,8 +285,9 @@ class SplitClassifierRuntime(AnalyzerHolder):
         """Build the coding tables from the learned entropy-bottleneck
         parameters (and, for a hyperprior, the Gaussian tables of
         `scale_table`, by default the 64-entry log-spaced one) and keep
-        device copies for the wire. Returns False, and builds nothing,
-        when the model has no entropy model."""
+        device copies for the wire (and the Gaussian tables' prepared form
+        for the batch-1 general-path kernels). Returns False, and builds
+        nothing, when the model has no entropy model."""
         if self.codec is None:
             return False
         eb = (self.module if self._module_level_ops
@@ -295,6 +298,7 @@ class SplitClassifierRuntime(AnalyzerHolder):
             self._scale_table = torch.as_tensor(g.scale_table,
                                                 device=self.device)
             self._gtables_dev = self._device_tables(g)
+            self._gprepared = prepare_indexed_tables(*self._gtables_dev)
         else:
             self.codec.update(eb)
         t = self.codec.tables
@@ -752,7 +756,8 @@ class SplitClassifierRuntime(AnalyzerHolder):
         g_cdf, g_len, g_off = self._gtables_dev
         y_out = device_rans_encode(flat('y_symbols'), g_cdf, g_len, g_off,
                                    num_lanes=num_lanes, aligned=aligned,
-                                   indexes=flat('y_indexes'))
+                                   indexes=flat('y_indexes'),
+                                   prepared=self._gprepared)
         meta = torch.stack([(z_out['ok'] & y_out['ok']).to(torch.int32),
                             z_out['nbytes'] + y_out['nbytes']], dim=-1)
         return {'z': z_out, 'y': y_out, 'meta': meta, 'shapes': shapes,
@@ -798,7 +803,8 @@ class SplitClassifierRuntime(AnalyzerHolder):
             y['streams'], y['states'], g_cdf, g_len, g_off,
             n_symbols=hy * wy * cy, num_lanes=y_lanes, aligned=y['aligned'],
             device=self.device,
-            indexes=y_idx if z_flat.dim() == 2 else y_idx[0])
+            indexes=y_idx if z_flat.dim() == 2 else y_idx[0],
+            prepared=self._gprepared)
         logits = self._decode_tail_hyper(y_flat.reshape(-1, hy, wy, cy),
                                          means)
         return logits, z_valid & y_valid

@@ -44,6 +44,8 @@ masked to 32 bits after every operation that can wrap in uint32.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -153,7 +155,7 @@ def _tables_on(quantized_cdf, cdf_length, offset, device):
 def device_rans_encode(symbols, quantized_cdf, cdf_length, offset,
                        num_lanes: int, cyclic_channels: int | None = None,
                        aligned: bool = False, want_masks: bool = False,
-                       device=None, indexes=None):
+                       device=None, indexes=None, prepared=None):
     """Encode flat int `symbols` (n,) -- or a batch (k, n), each row coded
     independently. In the cyclic layout position p codes channel p mod C;
     in the general one (`cyclic_channels` None or not dividing the lanes)
@@ -172,7 +174,9 @@ def device_rans_encode(symbols, quantized_cdf, cdf_length, offset,
 
     A tensor `symbols` is coded where it lies (CUDA: the hand-written
     kernels; CPU: their plain versions); other array types go to `device`
-    (default CUDA)."""
+    (default CUDA). `prepared`: the tables' `prepare_indexed_tables`, built
+    once by a caller that codes more than once, for the general path's
+    batch-1 kernel (else it prepares them for this call)."""
     from . import kernels
     if not isinstance(symbols, torch.Tensor):
         symbols = torch.as_tensor(symbols, dtype=torch.int32,
@@ -200,8 +204,9 @@ def device_rans_encode(symbols, quantized_cdf, cdf_length, offset,
         sym3, idx3 = _index_blocks(sym, idx, lanes, off[0])
         v = sym3 - off[idx3]
         maxv = cdf_len[idx3] - 2                 # escape slot excluded
-        encode, encode_aligned = kernels.indexed_encode, \
-            kernels.indexed_encode_aligned
+        encode = functools.partial(kernels.indexed_encode,
+                                   prepared=prepared)
+        encode_aligned = kernels.indexed_encode_aligned
         table, rows = cdf, (idx3.contiguous(),)
     ok = ((v >= 0) & (v < maxv)).flatten(1).all(dim=1)
     args = (table, torch.minimum(torch.clamp_min(v, 0), maxv - 1)
@@ -226,14 +231,15 @@ def device_rans_encode(symbols, quantized_cdf, cdf_length, offset,
 def device_rans_decode(streams, states, quantized_cdf, cdf_length, offset,
                        n_symbols: int, num_lanes: int,
                        cyclic_channels: int | None = None,
-                       aligned: bool = False, device=None, indexes=None):
+                       aligned: bool = False, device=None, indexes=None,
+                       prepared=None):
     """Decode (N, L) `streams` + (N,) `states` -- or a batch (k, N, L) +
     (k, N) -- back into flat int32 symbols (n_symbols,) / (k, n_symbols).
     Returns (symbols, valid): `valid` is true where every lane ended at
     RANS_L, which a corrupt stream cannot pass. `aligned=True` consumes the
     time-aligned layout (pass the encode result's `aligned`). The layout
     and `indexes` are chosen as in `device_rans_encode`; device placement
-    too."""
+    and `prepared` too."""
     from . import kernels
     if not isinstance(streams, torch.Tensor):
         streams = torch.as_tensor(np.asarray(streams).astype(np.int32),
@@ -268,7 +274,7 @@ def device_rans_decode(streams, states, quantized_cdf, cdf_length, offset,
                            dev)
         _, idx3 = _index_blocks(None, idx, lanes, None)
         decode = kernels.indexed_decode_aligned if aligned \
-            else kernels.indexed_decode
+            else functools.partial(kernels.indexed_decode, prepared=prepared)
         out, xend = decode(streams, states, cdf, cdf_len, off,
                            idx3.contiguous(), steps)
     valid = (xend == RANS_L).all(dim=1)

@@ -27,11 +27,18 @@ a latent to the aligned pair, `batch1_fits`). The aligned (`wire_batch`)
 kernels take any T. `aligned_group` says how many images share a block's
 tables at a given shape.
 
-The indexed kernels read the whole CDF table (rows x cols) from device
-memory, one thread per (image, lane), and stage nothing: any T, any width.
-So do the joint autoregressive codec's two masked-lane kernels in the same
-source (`masked_encode_aligned`, `masked_decode_front`), one thread a
-lane.
+The batch-1 indexed kernels (`indexed_encode`, `indexed_decode`) read
+prepared tables (`indexed_tables.prepare_indexed_tables`), which a caller
+that codes more than once builds once and passes as `prepared`; without
+them a wrapper prepares them for its one call. Each has two plans,
+chosen here by size (`indexed_plan`): the decoder's tables in shared
+memory or read from device memory, the encoder's output rows in shared
+memory or (long latents) in a device buffer. Both take any T and width.
+The aligned indexed kernels read the whole CDF table (rows x cols) from
+device memory, one thread per (image, lane), and stage nothing: any T,
+any width. So do the joint autoregressive codec's two masked-lane kernels
+in the same source (`masked_encode_aligned`, `masked_decode_front`), one
+thread a lane.
 """
 from __future__ import annotations
 
@@ -48,6 +55,8 @@ import torch
 from .device import (cyclic_decode_plain, cyclic_encode_plain,
                      indexed_decode_plain, indexed_encode_plain,
                      masked_decode_front_plain, masked_encode_plain)
+from .indexed_tables import (IndexedTables, encode_entries,
+                             prepare_indexed_tables)
 
 _PKG = Path(__file__).resolve().parents[2]
 SOURCE = _PKG / 'csrc' / 'rans_cyclic.cu'
@@ -156,20 +165,24 @@ def _indexed_library():
         if _indexed_lib is None:
             lib = ctypes.CDLL(str(build_libraries((INDEXED_SOURCE,))[0]))
             p, i = ctypes.c_void_p, ctypes.c_int
-            enc = [p, i, p, p, i, i, i, p, p, p]      # + masks?, stream
+            enc = [p, i, p, p, i, i, i, p, p, p, p]   # + rows/masks, stream
             dec = [p, i, p, p, i, p, p, p, i, i, i, p, p]   # + stream
-            for name, args in (
-                    ('rans_indexed_encode', enc + [p]),
-                    ('rans_indexed_encode_aligned', enc + [p, p]),
-                    ('rans_indexed_decode', dec + [p]),
-                    ('rans_indexed_decode_aligned', dec + [p]),
+            for name, args, res in (
+                    ('rans_indexed_encode', enc + [p], i),
+                    ('rans_indexed_encode_aligned', enc + [p], i),
+                    ('rans_indexed_decode',
+                     [p, i, p, p, i, i, i, i, p, i, i, i, p, p, p], i),
+                    ('rans_indexed_decode_aligned', dec + [p], i),
+                    ('rans_indexed_encode_smem', [i, i], ctypes.c_int64),
+                    ('rans_indexed_decode_smem', [i, i], ctypes.c_int64),
+                    ('rans_indexed_smem_optin', [], i),
                     ('rans_masked_encode_aligned',
-                     [p, i, p, p, p, i, i, i, i, p, p, p, p]),
+                     [p, i, p, p, p, i, i, i, i, p, p, p, p], i),
                     ('rans_masked_decode_front',
-                     [p, i, i, p, p, i, p, p, p, p, i, i, p, p, p])):
+                     [p, i, i, p, p, i, p, p, p, p, i, i, p, p, p], i)):
                 fn = getattr(lib, name)
                 fn.argtypes = args
-                fn.restype = i
+                fn.restype = res
             _indexed_lib = lib
     return _indexed_lib
 
@@ -391,6 +404,33 @@ def _launch_indexed(name: str, device: torch.device, *args) -> None:
     LAUNCHES[name] += 1
 
 
+_smem_optin: dict = {}
+
+
+def indexed_plan(name: str, steps: int, pack_words: int, device) -> str:
+    """'shared' or 'global': the plan of a launch of the batch-1 kernel
+    `name` on `device` at T = `steps` -- the encoder's u16 output rows in
+    shared memory (up to about 2,600 steps) or in a device buffer; the
+    decoder's prepared tables (`pack_words`, the size of their `dec`) in
+    shared memory or read from device memory."""
+    device = torch.device(device)
+    lib = _indexed_library()
+    if device not in _smem_optin:
+        with torch.cuda.device(device):
+            _smem_optin[device] = int(lib.rans_indexed_smem_optin())
+    need = lib.rans_indexed_encode_smem(int(steps), 0) \
+        if name == 'rans_indexed_encode' \
+        else lib.rans_indexed_decode_smem(int(pack_words), 0)
+    return 'shared' if need <= _smem_optin[device] else 'global'
+
+
+def _check_prepared(prepared: IndexedTables, cdf: torch.Tensor) -> None:
+    if prepared.cdf.shape != cdf.shape or prepared.dec.device != cdf.device:
+        raise ValueError(f'prepared tables of a {tuple(prepared.cdf.shape)} '
+                         f'table on {prepared.dec.device}, not of `cdf` '
+                         f'{tuple(cdf.shape)} on {cdf.device}')
+
+
 def _indexed_encode_args(cdf: torch.Tensor, vc: torch.Tensor,
                          idx: torch.Tensor):
     _require_cuda(vc)
@@ -404,21 +444,31 @@ def _indexed_encode_args(cdf: torch.Tensor, vc: torch.Tensor,
     streams = torch.empty((k, lanes, steps), dtype=torch.int32, device=dev)
     lengths = torch.empty((k, lanes), dtype=torch.int32, device=dev)
     states = torch.empty((k, lanes), dtype=torch.int64, device=dev)
-    args = (cdf.data_ptr(), cdf.shape[1], vc.data_ptr(), idx.data_ptr(), k,
-            steps, lanes, streams.data_ptr(), lengths.data_ptr(),
-            states.data_ptr())
+    args = (cdf.shape[1], vc.data_ptr(), idx.data_ptr(), k, steps, lanes,
+            streams.data_ptr(), lengths.data_ptr(), states.data_ptr())
     return args, (streams, lengths, states)
 
 
-def indexed_encode(cdf: torch.Tensor, vc: torch.Tensor, idx: torch.Tensor):
+def indexed_encode(cdf: torch.Tensor, vc: torch.Tensor, idx: torch.Tensor,
+                   prepared: IndexedTables | None = None):
     """Indexed kernel 1, compacted encode: `vc` (k, T, N) int32 in-support
     values, `idx` (k, T, N) int32 their rows of `cdf` (R, cols) int32 ->
     (streams (k, N, T) int32 compacted in decode order, lengths (k, N)
-    int32, states (k, N) int64)."""
+    int32, states (k, N) int64). `prepared`: `cdf`'s prepared tables
+    (else their encoder entries are built for this call)."""
     if vc.device.type == 'cpu':
         return indexed_encode_plain(cdf, vc, idx)
     args, outs = _indexed_encode_args(cdf, vc, idx)
-    _launch_indexed('rans_indexed_encode', vc.device, *args)
+    if prepared is not None:
+        _check_prepared(prepared, cdf)
+    enc = prepared.enc if prepared is not None else encode_entries(cdf)
+    k, steps, lanes = vc.shape
+    rows = None
+    if indexed_plan('rans_indexed_encode', steps, 0, vc.device) == 'global':
+        rows = torch.empty(k * -(-lanes // 32) * 32 * (steps + 1),
+                           dtype=torch.int16, device=vc.device)
+    _launch_indexed('rans_indexed_encode', vc.device, enc.data_ptr(), *args,
+                    rows.data_ptr() if rows is not None else None)
     return outs
 
 
@@ -433,12 +483,12 @@ def indexed_encode_aligned(cdf: torch.Tensor, vc: torch.Tensor,
     args, (streams, lengths, states) = _indexed_encode_args(cdf, vc, idx)
     masks = torch.empty(streams.shape, dtype=torch.bool,
                         device=vc.device) if want_masks else None
-    _launch_indexed('rans_indexed_encode_aligned', vc.device, *args,
-                    masks.data_ptr() if masks is not None else None)
+    _launch_indexed('rans_indexed_encode_aligned', vc.device, cdf.data_ptr(),
+                    *args, masks.data_ptr() if masks is not None else None)
     return streams, lengths, states, masks
 
 
-def _indexed_decode_args(streams, states, cdf, cdf_len, off, idx, steps):
+def _indexed_decode_outputs(streams, states, cdf, cdf_len, off, idx, steps):
     _require_cuda(streams)
     k, lanes, width = streams.shape
     if k * lanes == 0 or steps <= 0:
@@ -454,24 +504,34 @@ def _indexed_decode_args(streams, states, cdf, cdf_len, off, idx, steps):
     _check(idx, 'idx', torch.int32, (k, int(steps), lanes), dev)
     out = torch.empty((k, steps, lanes), dtype=torch.int32, device=dev)
     xend = torch.empty((k, lanes), dtype=torch.int64, device=dev)
-    args = (streams.data_ptr(), width, states.data_ptr(), cdf.data_ptr(),
-            cdf.shape[1], cdf_len.data_ptr(), off.data_ptr(), idx.data_ptr(),
-            k, int(steps), lanes, out.data_ptr(), xend.data_ptr())
-    return args, (out, xend)
+    return out, xend
 
 
-def indexed_decode(streams, states, cdf, cdf_len, off, idx, steps: int):
+def indexed_decode(streams, states, cdf, cdf_len, off, idx, steps: int,
+                   prepared: IndexedTables | None = None):
     """Indexed kernel 2, compacted decode: streams (k, N, W) int32, states
     (k, N) int64, `idx` (k, T, N) int32 rows of `cdf` -> (symbols (k, T, N)
     int32 with the row offsets added, final states (k, N) int64). A read
-    past a lane's row yields 0."""
+    past a lane's row yields 0. `prepared`: the prepared tables of (cdf,
+    cdf_len, off) (else they are built for this call)."""
     if streams.device.type == 'cpu':
         return indexed_decode_plain(streams, states, cdf, cdf_len, off, idx,
                                     steps)
-    args, outs = _indexed_decode_args(streams, states, cdf, cdf_len, off,
-                                      idx, steps)
-    _launch_indexed('rans_indexed_decode', streams.device, *args)
-    return outs
+    out, xend = _indexed_decode_outputs(streams, states, cdf, cdf_len, off,
+                                        idx, steps)
+    if prepared is not None:
+        _check_prepared(prepared, cdf)
+    else:
+        prepared = prepare_indexed_tables(cdf, cdf_len, off)
+    k, lanes, width = streams.shape
+    words = prepared.dec.numel()
+    plan = indexed_plan('rans_indexed_decode', steps, words, streams.device)
+    _launch_indexed('rans_indexed_decode', streams.device,
+                    streams.data_ptr(), width, states.data_ptr(),
+                    prepared.dec.data_ptr(), words, prepared.bucket_at,
+                    prepared.base_at, int(plan == 'global'), idx.data_ptr(),
+                    k, int(steps), lanes, out.data_ptr(), xend.data_ptr())
+    return out, xend
 
 
 def indexed_decode_aligned(streams, states, cdf, cdf_len, off, idx,
@@ -484,10 +544,15 @@ def indexed_decode_aligned(streams, states, cdf, cdf_len, off, idx,
     if streams.shape[-1] != steps:
         raise ValueError(f'aligned streams must be {steps} wide, got '
                          f'{streams.shape[-1]}')
-    args, outs = _indexed_decode_args(streams, states, cdf, cdf_len, off,
-                                      idx, steps)
-    _launch_indexed('rans_indexed_decode_aligned', streams.device, *args)
-    return outs
+    out, xend = _indexed_decode_outputs(streams, states, cdf, cdf_len, off,
+                                        idx, steps)
+    k, lanes, width = streams.shape
+    _launch_indexed('rans_indexed_decode_aligned', streams.device,
+                    streams.data_ptr(), width, states.data_ptr(),
+                    cdf.data_ptr(), cdf.shape[1], cdf_len.data_ptr(),
+                    off.data_ptr(), idx.data_ptr(), k, int(steps), lanes,
+                    out.data_ptr(), xend.data_ptr())
+    return out, xend
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,239 @@
+"""The prepared tables of the batch-1 per-index rANS kernels, on the CPU.
+
+`rans_indexed_decode` finds a slot's symbol from a coarse bucket table and
+a bounded bisection over ragged rows, and `rans_indexed_encode` divides by
+a prepared reciprocal; both read tables that `prepare_indexed_tables`
+builds once. These tests hold that lookup and that division (modelled in
+torch as the kernels run them, `bucket_lookup`, `reciprocal_quotient`)
+against `cdf_bisect` and the exact quotient, and the two kernels' steps
+built from them against the plain versions. The kernels themselves are
+held against the plain versions on the card
+(`tests/test_torch_port_kernels.py`). This file imports neither JAX nor
+`sc2bench_tpu`."""
+import numpy as np
+import pytest
+import torch
+
+from sc2bench_tpu_torch.ops.entropy.tables import build_gaussian_tables
+from sc2bench_tpu_torch.ops.rans import device as td
+from sc2bench_tpu_torch.ops.rans.indexed_tables import (
+    BUCKET_STRIDE, bucket_lookup, prepare_indexed_tables,
+    reciprocal_quotient)
+
+_MASK32 = (1 << 32) - 1
+
+
+@pytest.fixture(scope='module')
+def gaussian():
+    g = build_gaussian_tables()
+    return g, prepare_indexed_tables(g.quantized_cdf, g.cdf_length,
+                                     g.offset)
+
+
+def _zero_frequency_tables():
+    """Rows with zero-frequency entries (repeated CDF values) at the
+    front, in the middle and before the end, a row of frequency-1
+    symbols wider than one bucket, a row as wide as the table, and
+    padding past each cdf_length."""
+    cols = 700
+    cdf = np.zeros((4, cols), np.int32)
+    cdf[0, :8] = [0, 0, 0, 300, 300, 65000, 65536, 65536]
+    cdf[1, :7] = [0, 5, 5, 5, 40000, 40000, 65536]
+    cdf[2, :602] = np.concatenate([np.arange(600), [65535, 65536]])
+    w = np.random.default_rng(3).uniform(0.0, 1.0, cols - 1) ** 8
+    freqs = (w / w.sum() * 65000).astype(np.int64)         # some are 0
+    freqs[np.argmax(freqs)] += 65536 - freqs.sum()
+    cdf[3, 1:] = np.cumsum(freqs)
+    return cdf, np.asarray([7, 7, 602, cols], np.int32), \
+        np.asarray([0, -3, -300, 11], np.int32)
+
+
+def _all_slots(t):
+    rows = torch.arange(t.rows).repeat_interleave(1 << 16)
+    return rows, torch.arange(1 << 16).repeat(t.rows)
+
+
+@pytest.mark.parametrize('which', ['default', 'narrow', 'zero_frequency'])
+def test_bucket_lookup_equals_cdf_bisect_on_every_slot(which, gaussian):
+    """Every row, every slot 0..65535: the bucket's range and the bounded
+    bisection inside it give `cdf_bisect`'s index, for the default
+    Gaussian tables (rows 0 to 63, up to 3,133 entries), a narrow custom
+    `scale_table` and rows with zero-frequency entries."""
+    if which == 'default':
+        t = gaussian[1]
+    elif which == 'narrow':
+        g = build_gaussian_tables(np.asarray([0.11, 0.4, 1.5, 6.0]))
+        t = prepare_indexed_tables(g.quantized_cdf, g.cdf_length, g.offset)
+    else:
+        t = prepare_indexed_tables(*_zero_frequency_tables())
+    rows, slot = _all_slots(t)
+    v, probes = bucket_lookup(t, rows, slot)
+    assert torch.equal(v, td.cdf_bisect(t.cdf, t.cdf_len, rows, slot))
+    # bounded: the widest bucket range of these tables is 257 entries
+    assert int(probes.max()) <= 9
+
+
+def test_prepared_layout(gaussian):
+    """The ragged rows, bucket bounds and row bases sit where the kernel
+    reads them, each section 16-byte aligned; the encoder's entries hold
+    (start, freq) of every CDF entry and the reciprocal of freq."""
+    g, t = gaussian
+    lens = np.minimum(g.cdf_length, g.quantized_cdf.shape[1])
+    assert int(lens.sum()) == 27256
+    dec = t.dec.numpy()
+    assert dec.size % 4 == 0 and t.bucket_at % 4 == 0 and t.base_at % 4 == 0
+    starts = t.row_start.numpy()
+    for r in (0, 31, 63):
+        np.testing.assert_array_equal(
+            dec[starts[r]:starts[r] + lens[r]], g.quantized_cdf[r][:lens[r]])
+        bounds = dec[t.bucket_at + r * BUCKET_STRIDE:][:BUCKET_STRIDE]
+        assert bounds[0] == starts[r] and bounds[-1] == starts[r] + lens[r] - 2
+        assert np.all(np.diff(bounds) >= 0)
+    np.testing.assert_array_equal(dec[t.base_at:t.base_at + 64] + starts,
+                                  g.offset)
+    enc = t.enc.numpy().astype(np.int64) & _MASK32
+    cdf = g.quantized_cdf.astype(np.int64)
+    np.testing.assert_array_equal(enc[..., 0], cdf)
+    np.testing.assert_array_equal(enc[:, :-1, 1], (cdf[:, 1:] - cdf[:, :-1])
+                                  & _MASK32)
+    m = enc[..., 2] + (enc[..., 3] << 32)
+    fr = enc[..., 1]
+    live = (fr > 0) & (fr <= 1 << 16)
+    assert np.all(m[live] == -(-(1 << 48) // fr[live]))
+
+
+def test_reciprocal_division_is_exact_for_every_default_frequency(gaussian):
+    """Every frequency of the default Gaussian tables, at the states where
+    a floor goes wrong first (either side of the multiples of fr near 0
+    and near the top of the divided range x < fr * 2^16): the encoder's
+    quotient (umulhi(x, m_lo) + x * m_hi) >> 16 is x // fr, and its folded
+    update q * (2^16 - fr) + x + start equals the plain version's."""
+    t = gaussian[1]
+    enc = t.enc.reshape(-1, 4)
+    fr = enc[:, 1].to(torch.int64)
+    _, first = np.unique(fr.numpy(), return_index=True)
+    pick = torch.from_numpy(first)[fr[first] >= 1]
+    entries, fr = enc[pick], fr[pick]
+    assert int(fr.min()) == 1 and int(fr.max()) > 60000
+    top = fr << 16
+    x = torch.stack([torch.zeros_like(fr), torch.ones_like(fr), fr - 1, fr,
+                     fr + 1, 2 * fr - 1, top - fr - 1, top - fr, top - 2,
+                     top - 1], dim=1)
+    x = torch.where((x >= 0) & (x < top[:, None]), x, 0)
+    q = reciprocal_quotient(x, entries[:, None, :])
+    assert torch.equal(q, x // fr[:, None])
+    st = entries[:, None, 0].to(torch.int64)
+    folded = (q * ((1 << 16) - fr[:, None]) + x + st) & _MASK32
+    assert torch.equal(folded, (((x // fr[:, None]) << 16) + x % fr[:, None]
+                                + st) & _MASK32)
+
+
+def _blocks(g, lanes, n, seed, tails):
+    """(vc, idx) blocks (1, T, lanes) of symbols drawn from the rows of
+    `g`, rows 0 and the last among them; with `tails` every fifth symbol
+    uniform over its row's support (frequency-1 tail symbols)."""
+    rng = np.random.default_rng(seed)
+    rows = g.quantized_cdf.shape[0]
+    idx = rng.integers(0, rows, n).astype(np.int32)
+    idx[:2] = (0, rows - 1)
+    u = rng.integers(0, 1 << 16, n)
+    vals = np.empty(n, np.int64)
+    for r in np.unique(idx):
+        m = idx == r
+        vals[m] = np.clip(np.searchsorted(
+            g.quantized_cdf[r][:g.cdf_length[r]], u[m], side='right') - 1,
+            0, g.cdf_length[r] - 3)
+    if tails:
+        pick = np.arange(n) % 5 == 0
+        vals[pick] = rng.integers(0, g.cdf_length[idx[pick]] - 2)
+    off = torch.from_numpy(g.offset)
+    sym3, idx3 = td._index_blocks(
+        torch.from_numpy((vals + g.offset[idx]).astype(np.int32))[None],
+        torch.from_numpy(idx)[None], lanes, off[0])
+    return (sym3 - off[idx3]).contiguous(), idx3.contiguous()
+
+
+def _encode_model(t, vc, idx):
+    """The batch-1 encoder's arithmetic on its prepared entries: renorm
+    test on the entry's freq, the reciprocal quotient, the folded update;
+    returns the final states and each lane's chunks in emission order."""
+    k, steps, lanes = vc.shape
+    e = t.enc.reshape(-1, 4)[(idx.to(torch.int64) * t.cols + vc).reshape(-1)]
+    e = e.reshape(k, steps, lanes, 4)
+    x = torch.full((k, lanes), 1 << 16, dtype=torch.int64)
+    chunks = []
+    for s in range(steps - 1, -1, -1):
+        st = e[:, s, :, 0].to(torch.int64)
+        fr = e[:, s, :, 1].to(torch.int64) & _MASK32
+        renorm = x >= ((fr << 16) & _MASK32)
+        chunks.append(torch.where(renorm, x & 0xFFFF, -1))
+        x = torch.where(renorm, x >> 16, x)
+        q = reciprocal_quotient(x, e[:, s])
+        x = (q * ((1 << 16) - fr) + x + st) & _MASK32
+    return x, torch.stack(chunks, dim=1)
+
+
+def _decode_model(t, streams, states, idx, steps):
+    """The batch-1 decoder's arithmetic on its prepared tables: the
+    bucket lookup, then the plain state update and read pointer."""
+    k, lanes, width = streams.shape
+    dec = t.dec.to(torch.int64)
+    s = torch.cat([streams.to(torch.int64),
+                   torch.zeros((k, lanes, 1), dtype=torch.int64)], dim=2)
+    x = states.clone()
+    ptr = torch.zeros((k, lanes), dtype=torch.int64)
+    out = torch.empty((k, steps, lanes), dtype=torch.int32)
+    for step in range(steps):
+        rows = idx[:, step].to(torch.int64)
+        slot = x & 0xFFFF
+        v, _ = bucket_lookup(t, rows, slot)
+        e = t.row_start.to(torch.int64)[rows] + v
+        st, fr = dec[e], dec[e + 1] - dec[e]
+        x = (fr * (x >> 16) + slot - st) & _MASK32
+        need = x < (1 << 16)
+        chunk = torch.gather(s, 2, ptr.clamp_max(width)[..., None])[..., 0]
+        ptr = ptr + need.to(torch.int64)
+        x = torch.where(need, ((x << 16) | chunk) & _MASK32, x)
+        out[:, step] = (e + dec[t.base_at + rows]).to(torch.int32)
+    return out, x
+
+
+@pytest.mark.parametrize('lanes,n,tails', [(512, 55 * 55 * 24, False),
+                                           (100, 2345, True),
+                                           (40, 40 * 150 - 7, True)])
+def test_kernel_steps_on_prepared_tables_equal_plain_versions(
+        lanes, n, tails, gaussian):
+    """Both batch-1 kernels' steps, run on the prepared tables, give the
+    plain versions' states, chunks and symbols: the MSHP y shape (512
+    lanes x 142 steps), lanes not a multiple of 32, a long latent with
+    frequency-1 tails, and a corrupted state that ends invalid."""
+    g, t = gaussian
+    vc, idx = _blocks(g, lanes, n, seed=lanes, tails=tails)
+    cdf = torch.from_numpy(g.quantized_cdf)
+    streams, lengths, states = td.indexed_encode_plain(cdf, vc, idx)
+    x, emitted = _encode_model(t, vc, idx)
+    assert torch.equal(x, states)
+    for j in (0, lanes // 2, lanes - 1):
+        chunks = emitted[0, :, j]
+        chunks = chunks[chunks >= 0].flip(0)        # decode order
+        assert torch.equal(chunks.to(torch.int32),
+                           streams[0, j, :int(lengths[0, j])])
+    bad = states.clone()
+    bad[0, lanes // 3] ^= 0x5A5A
+    for st in (states, bad):
+        want = td.indexed_decode_plain(
+            streams, st, cdf, torch.from_numpy(g.cdf_length),
+            torch.from_numpy(g.offset), idx, vc.shape[1])
+        got = _decode_model(t, streams, st, idx, vc.shape[1])
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool((want[1] != td.RANS_L).any())
+
+
+def test_prepare_keeps_the_coding_tables_and_their_device(gaussian):
+    g, t = gaussian
+    for a, b in ((t.cdf, g.quantized_cdf), (t.cdf_len, g.cdf_length),
+                 (t.off, g.offset)):
+        assert a.dtype == torch.int32 and np.array_equal(a.numpy(), b)
+    assert t.rows == 64 and t.cols == 3133
+    assert t.enc.shape == (64, 3133, 4) and t.enc.is_contiguous()
+    assert {a.device.type for a in (t.enc, t.dec, t.row_start)} == {'cpu'}

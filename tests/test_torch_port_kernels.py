@@ -492,16 +492,18 @@ def test_batch1_latent_beyond_the_limit_is_coded_aligned(monkeypatch):
 
 # ---- the general per-index kernels ----------------------------------------
 
-def _gaussian_rows(n, seed, tails=False):
-    """Default Gaussian tables, rows spread over all 64 (row 0 of 5
-    entries and row 63 of 3,133 among them), symbols from each row's
-    distribution; with `tails`, every fifth symbol uniform over the row's
-    support, which codes many frequency-1 tail symbols."""
+def _gaussian_rows(n, seed, tails=False, t=None):
+    """Gaussian tables `t` (by default the default ones), rows spread over
+    all of them (for the default tables row 0 of 5 entries and row 63 of
+    3,133 among them), symbols from each row's distribution; with
+    `tails`, every fifth symbol uniform over the row's support, which
+    codes many frequency-1 tail symbols."""
     from sc2bench_tpu_torch.ops.entropy.tables import build_gaussian_tables
-    t = build_gaussian_tables()
+    t = build_gaussian_tables() if t is None else t
     rng = np.random.default_rng(seed)
-    idx = rng.integers(0, 64, n).astype(np.int32)
-    idx[:2] = (0, 63)
+    rows = t.quantized_cdf.shape[0]
+    idx = rng.integers(0, rows, n).astype(np.int32)
+    idx[:2] = (0, rows - 1)
     u = rng.integers(0, 1 << 16, n)
     vals = np.empty(n, np.int64)
     for r in np.unique(idx):
@@ -597,6 +599,101 @@ def test_indexed_wrappers_launch_or_raise_on_the_card():
             torch.zeros((1, 8), dtype=torch.int64, device=dev), cdf,
             torch.zeros(4, dtype=torch.int32, device=dev),
             torch.zeros(4, dtype=torch.int32, device=dev), vc, 4)
+
+
+# ---- the redesigned batch-1 indexed pair (prepared tables) ----------------
+
+def _prepared_blocks(t, lanes, n, k, seed, dev, tails):
+    """k images of `_gaussian_rows` of the tables `t` on `lanes` lanes:
+    the tables, their prepared form and the (k, T, lanes) blocks on
+    `dev`."""
+    from sc2bench_tpu_torch.ops.rans.indexed_tables import \
+        prepare_indexed_tables
+    draws = [_gaussian_rows(n, seed + i, tails, t)[1:] for i in range(k)]
+    cdf, cdf_len, off = (torch.from_numpy(a).to(dev) for a in (
+        t.quantized_cdf, t.cdf_length, t.offset))
+    sym3, idx3 = td._index_blocks(
+        torch.from_numpy(np.stack([d[1] for d in draws])).to(dev),
+        torch.from_numpy(np.stack([d[0] for d in draws])).to(dev), lanes,
+        off[0])
+    vc = (sym3 - off[idx3]).contiguous()
+    return (cdf, cdf_len, off), prepare_indexed_tables(cdf, cdf_len, off), \
+        vc, idx3.contiguous()
+
+
+def _check_batch1_pair(tables, prepared, vc, idx3, plans):
+    """The batch-1 indexed pair on `prepared` tables: the plans each takes,
+    bit-equal to the plain versions (and to the pair without `prepared`),
+    a corrupted state decoded as the plain version does and invalid."""
+    cdf, cdf_len, off = tables
+    k, steps, lanes = vc.shape
+    dev = vc.device
+    words = prepared.dec.numel()
+    assert (kernels.indexed_plan('rans_indexed_encode', steps, words, dev),
+            kernels.indexed_plan('rans_indexed_decode', steps, words,
+                                 dev)) == plans
+    got = kernels.indexed_encode(cdf, vc, idx3, prepared=prepared)
+    for a, b, c in zip(got, td.indexed_encode_plain(cdf, vc, idx3),
+                       kernels.indexed_encode(cdf, vc, idx3)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    streams, states = got[0], got[2]
+    bad = states.clone()
+    bad[k - 1, lanes // 3] ^= 0x5A5A
+    for st in (states, bad):
+        out, xend = kernels.indexed_decode(streams, st, cdf, cdf_len, off,
+                                           idx3, steps, prepared=prepared)
+        pout, pxend = td.indexed_decode_plain(streams, st, cdf, cdf_len,
+                                              off, idx3, steps)
+        torch.cuda.synchronize()
+        assert torch.equal(out, pout) and torch.equal(xend, pxend)
+    assert bool((pxend[k - 1] != td.RANS_L).any())
+    out, xend = kernels.indexed_decode(streams, states, cdf, cdf_len, off,
+                                       idx3, steps, prepared=prepared)
+    assert torch.equal(out, (vc + off[idx3]).to(torch.int32))
+    assert bool((xend == td.RANS_L).all())
+
+
+INDEXED_KERNELS_BATCH1 = ('rans_indexed_encode', 'rans_indexed_decode')
+# (k, lanes, n, tails): the MSHP y (512 lanes x 142 steps) and the MSHP-64
+# students' y (1,024 lanes x 190 steps), lanes not a multiple of 32 with
+# frequency-1 tails, and T = 4,000 (the encoder's device-row plan)
+BATCH1_INDEXED_CASES = [(1, 512, 55 * 55 * 24, False),
+                        (1, 1024, 55 * 55 * 64, False),
+                        (3, 100, 2345, True),
+                        (2, 40, 40 * 4000 - 7, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('k,lanes,n,tails', BATCH1_INDEXED_CASES)
+def test_batch1_indexed_pair_on_prepared_tables_on_the_card(k, lanes, n,
+                                                            tails):
+    dev = _card()
+    from sc2bench_tpu_torch.ops.entropy.tables import build_gaussian_tables
+    tables, prepared, vc, idx3 = _prepared_blocks(
+        build_gaussian_tables(), lanes, n, k, seed=lanes, dev=dev,
+        tails=tails)
+    encode_plan = 'global' if vc.shape[1] > 3000 else 'shared'
+    kernels.reset_launches()
+    _check_batch1_pair(tables, prepared, vc, idx3, (encode_plan, 'shared'))
+    assert [kernels.LAUNCHES[name] for name in INDEXED_KERNELS_BATCH1] \
+        == [2, 3]
+
+
+
+@pytest.mark.cuda
+def test_batch1_indexed_decoder_reads_large_tables_from_device_memory():
+    """Gaussian tables of a custom scale table up to 1,024 (rows of up to
+    ~12,500 entries, a prepared decoder pack beyond a block's shared
+    memory): the decoder's global-table plan, bit-equal to the plain
+    versions at the MSHP y shape with frequency-1 tails."""
+    dev = _card()
+    from sc2bench_tpu_torch.ops.entropy.gaussian import get_scale_table
+    from sc2bench_tpu_torch.ops.entropy.tables import build_gaussian_tables
+    t = build_gaussian_tables(get_scale_table(0.11, 1024.0, 64))
+    tables, prepared, vc, idx3 = _prepared_blocks(
+        t, 512, 55 * 55 * 24, 1, seed=7, dev=dev, tails=True)
+    assert 4 * prepared.dec.numel() > 232448
+    _check_batch1_pair(tables, prepared, vc, idx3, ('shared', 'global'))
 
 
 @pytest.mark.cuda
