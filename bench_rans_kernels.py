@@ -42,13 +42,33 @@ device_ms on 512 lanes at T = 32, 142 and 600 (as the cyclic sweep).
 Where the checkout has them
 (`ops/rans/indexed_tables.py`), the batch-1 pair reads the tables'
 prepared form, built once outside the timing, and `prepare_ms` is what
-building it took. Prints one JSON line with the card's name and power
-limit. Needs a CUDA device.
+building it took; so do the aligned decoder and the masked front decoder
+where their wrappers take `prepared`. `aligned_decode`: the aligned
+decoder's device_ms at k = 1, 8 and 128 on the MSHP y (512 x 142) and the
+64-channel students' y (1,024 x 190), with the images a block (G) each
+launch used where the checkout reports it; `group_sweep`: the same at G
+= 1, 2, 4, 8 and 16 images a block (capped by shared memory and k), each
+from a copy of `csrc/rans_indexed.cu` whose G rule (`aligned_group_rule`)
+returns that G, built beside the checkout's library, its output checked
+against the checkout's kernel; `masked_front`: per_call_ms and device_ms
+of `rans_masked_decode_front` at the JAHP q1 shape (a 16x16x192 latent
+at 256 px: 1,152 lanes, front 30 of 61, rows and values drawn from the
+default Gaussian tables, numpy seed 61) and `launch_floor_ms`, the
+device_ms of an empty kernel on its grid (where the checkout has one);
+`jahp_fronts`: the same kernel's device_ms on the JAHP path's own fronts
+(`chip_smoke.py` phase 13's q1 module, seeded weights and first image):
+every front of one image's decode, on the streams the masked encoder
+wrote for it, `image_ms` their sum and `fronts_ms` each.
+Prints one JSON line with the card's name and power limit. Needs a CUDA
+device.
 """
 from __future__ import annotations
 
+import functools
+import inspect
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -57,6 +77,11 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPS = 200
+# the aligned indexed decoder: (lanes, n) of the MSHP y and of the
+# 64-channel students' y; the images a launch; the groups of the sweep
+ALIGNED_SHAPES = ((512, 55 * 55 * 24), (1024, 55 * 55 * 64))
+ALIGNED_KS = (1, 8, 128)
+SWEEP_GROUPS = (1, 2, 4, 8, 16)
 
 
 def flagship_inputs(torch, td, device, images, n=55 * 55 * 24,
@@ -177,6 +202,8 @@ def indexed_calls(torch, td, kernels, device, indexed_inputs, per_call_ms,
         for name, fn in batch1_calls(sw['vc'], sw['idx3'], sw['steps']):
             sweep.setdefault(name, {})[t] = device_ms(torch, fn, REPS)
     out['steps_sweep'] = sweep
+    aligned = batch1 if _takes_prepared(kernels.indexed_decode_aligned) \
+        else {}
     for k in (1, 8, 128):
         vc, idx = inp['vc'][:k].contiguous(), inp['idx3'][:k].contiguous()
         astreams, _, astates, _ = kernels.indexed_encode_aligned(cdf, vc,
@@ -186,9 +213,184 @@ def indexed_calls(torch, td, kernels, device, indexed_inputs, per_call_ms,
                  lambda: kernels.indexed_encode_aligned(cdf, vc, idx)),
                 ('rans_indexed_decode_aligned',
                  lambda: kernels.indexed_decode_aligned(
-                     astreams, astates, cdf, cdf_len, off, idx, steps))):
+                     astreams, astates, cdf, cdf_len, off, idx, steps,
+                     **aligned))):
             out.setdefault(name, {})[k] = device_ms(torch, fn, 50)
     return out
+
+
+def _takes_prepared(fn) -> bool:
+    return 'prepared' in inspect.signature(fn).parameters
+
+
+def aligned_decode_cases(torch, td, kernels, device, indexed_inputs):
+    """{shape: {k: zero-argument call}} of the aligned indexed decoder at
+    ALIGNED_SHAPES x ALIGNED_KS on the plain-equal kernel encoder's
+    streams, and {shape: {k: G}} where the checkout reports G."""
+    from sc2bench_tpu_torch.ops.entropy.tables import build_gaussian_tables
+    tables = build_gaussian_tables()
+    calls, groups, prepared = {}, {}, None
+    for lanes, n in ALIGNED_SHAPES:
+        inp = indexed_inputs(torch, td, tables, lanes, n, max(ALIGNED_KS),
+                             np.random.default_rng(lanes), device)
+        cdf, cdf_len, off, steps = (inp['cdf'], inp['cdf_len'], inp['off'],
+                                    inp['steps'])
+        extra = {}
+        if _takes_prepared(kernels.indexed_decode_aligned):
+            from sc2bench_tpu_torch.ops.rans.indexed_tables import \
+                prepare_indexed_tables
+            prepared = prepare_indexed_tables(cdf, cdf_len, off)
+            extra = {'prepared': prepared}
+        shape = f'{lanes}x{steps}'
+        for k in ALIGNED_KS:
+            vc = inp['vc'][:k].contiguous()
+            idx = inp['idx3'][:k].contiguous()
+            streams, _, states, _ = kernels.indexed_encode_aligned(cdf, vc,
+                                                                   idx)
+            calls.setdefault(shape, {})[k] = functools.partial(
+                kernels.indexed_decode_aligned, streams, states, cdf,
+                cdf_len, off, idx, steps, **extra)
+            if hasattr(kernels, 'indexed_aligned_group'):
+                groups.setdefault(shape, {})[k] = \
+                    kernels.indexed_aligned_group(
+                        k, lanes, prepared.dec.numel(), device)
+    return calls, groups
+
+
+def group_variants(kernels):
+    """{G: path} of copies of `csrc/rans_indexed.cu` whose G rule
+    (`aligned_group_rule`) returns G (capped by shared memory and k),
+    built (nvcc at once) beside the checkout's library; {} for a checkout
+    without the rule."""
+    source = kernels.INDEXED_SOURCE.read_text()
+    rule = re.compile(r'(inline int aligned_group_rule\([^)]*\) \{)')
+    if not rule.search(source):
+        return {}
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    variants = {}
+    for g in SWEEP_GROUPS:
+        path = kernels.BUILD_DIR / f'rans_indexed_group{g}.cu'
+        path.write_text(rule.sub(
+            lambda m: f'{m.group(1)}\n  return gmax < {g} ? gmax : {g};',
+            source, count=1))
+        variants[g] = path
+    kernels.build_libraries(tuple(variants.values()))
+    return variants
+
+
+def on_variants(torch, kernels, variants, calls, device_ms):
+    """{value: {case: device_ms}} of each zero-argument call in `calls`
+    ({case: fn}) on each variant library; each variant's outputs equal
+    the checkout's kernel's."""
+    want = {case: fn() for case, fn in calls.items()}
+    checkout = (kernels.INDEXED_SOURCE, kernels._indexed_lib)
+    out = {}
+    try:
+        for value, path in variants.items():
+            kernels.INDEXED_SOURCE, kernels._indexed_lib = path, None
+            for case, fn in calls.items():
+                if not all(torch.equal(a, b)
+                           for a, b in zip(fn(), want[case])):
+                    raise SystemExit(f'bench_rans_kernels: {path.name} '
+                                     f'differs at {case}')
+                out.setdefault(value, {})[case] = device_ms(torch, fn, 50)
+    finally:
+        kernels.INDEXED_SOURCE, kernels._indexed_lib = checkout
+    return out
+
+
+def group_sweep(torch, kernels, calls, device_ms):
+    """{G: {shape: {k: device_ms}}} of the aligned indexed decoder built
+    with its G rule returning G (`group_variants`)."""
+    flat = {(shape, k): fn for shape, ks in calls.items()
+            for k, fn in ks.items()}
+    sweep = {}
+    for g, times in on_variants(torch, kernels, group_variants(kernels),
+                                flat, device_ms).items():
+        for (shape, k), ms in times.items():
+            sweep.setdefault(g, {}).setdefault(shape, {})[k] = ms
+    return sweep
+
+
+def masked_front(torch, td, kernels, device, gaussian_symbols, per_call_ms,
+                 device_ms):
+    """Times of one masked front decode at the JAHP q1 shape (see the
+    module doc), and the launch floor of its grid."""
+    from sc2bench_tpu_torch.models.zoo_jahp import front_arrays, wavefronts
+    from sc2bench_tpu_torch.ops.entropy.tables import build_gaussian_tables
+    tables = build_gaussian_tables()
+    m = 192
+    _, _, act = front_arrays(wavefronts(16, 16))
+    steps, slots = act.shape
+    idx, rows = gaussian_symbols(tables, steps * slots * m,
+                                 np.random.default_rng(61))
+    cdf, cdf_len, off = (torch.from_numpy(a).to(device) for a in (
+        tables.quantized_cdf, tables.cdf_length, tables.offset))
+    idx = torch.from_numpy(idx.reshape(steps, slots * m)).to(device)
+    vc = (torch.from_numpy(rows.reshape(steps, slots * m)).to(device)
+          - off[idx.long()]).contiguous()
+    act = torch.from_numpy(act.astype(np.uint8)).to(device)
+    streams, _, x = kernels.masked_encode_aligned(cdf, vc, idx, act, m)
+    extra = {}
+    if _takes_prepared(kernels.masked_decode_front):
+        from sc2bench_tpu_torch.ops.rans.indexed_tables import \
+            prepare_indexed_tables
+        extra = {'prepared': prepare_indexed_tables(cdf, cdf_len, off)}
+    front = steps // 2
+    for t in range(front):
+        _, x = kernels.masked_decode_front(streams, t, x, cdf, cdf_len, off,
+                                           idx[t], act[t], m, **extra)
+
+    def fn():
+        return kernels.masked_decode_front(streams, front, x, cdf, cdf_len,
+                                           off, idx[front], act[front], m,
+                                           **extra)
+    out = {'lanes': slots * m, 'front': front,
+           'per_call_ms': per_call_ms(torch, fn, REPS),
+           'device_ms': device_ms(torch, fn, REPS)}
+    if hasattr(kernels, 'launch_floor'):
+        out['launch_floor_ms'] = device_ms(
+            torch, lambda: kernels.launch_floor(slots * m, device), REPS)
+    return out
+
+
+def jahp_fronts(torch, kernels, device, device_ms):
+    """device_ms of the masked front decoder on every front of one JAHP
+    image's decode (see the module doc)."""
+    from chip_smoke import CODEC_HW, JAHP_KEY, codec_weights
+    from sc2bench_tpu_torch.models import zoo
+    from sc2bench_tpu_torch.models.zoo_jahp import JointAutoregressiveRuntime
+    from sc2bench_tpu_torch.ops.rans.device import RANS_L
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.normal(0, 1, (1, 3, CODEC_HW, CODEC_HW))
+                         .astype(np.float32)).to(device)
+    torch.manual_seed(3)
+    module = zoo.registry_get('model', JAHP_KEY)(quality=1, device=device)
+    codec_weights(torch, module, 3, x)
+    rt = JointAutoregressiveRuntime(module, device=device)
+    rt.update()
+    sch = rt.schedule(*rt.encode_device_wire(x)['shape'])
+    y, _, hyper = rt._encode_ops(x)
+    syms, idxs, _ = rt.forward_scan(y, hyper)
+    vc, idx, _ = rt.masked_values(syms, idxs, sch)
+    cdf, cdf_len, off = rt._g_tables_dev
+    m = module.m
+    streams, _, x_t = kernels.masked_encode_aligned(cdf, vc, idx, sch.active,
+                                                    m)
+    extra = {'prepared': rt._g_prepared} \
+        if _takes_prepared(kernels.masked_decode_front) else {}
+    fronts = []
+    for t in range(sch.steps):
+        def fn(t=t, x_t=x_t):
+            return kernels.masked_decode_front(streams, t, x_t, cdf, cdf_len,
+                                               off, idx[t], sch.active[t], m,
+                                               **extra)
+        fronts.append(device_ms(torch, fn, 50))
+        _, x_t = fn()
+    if not bool((x_t == RANS_L).all()):
+        raise SystemExit('bench_rans_kernels: the JAHP decode is not valid')
+    return {'lanes': sch.slots * m, 'image_ms': sum(fronts),
+            'fronts_ms': fronts}
 
 
 def main():
@@ -196,8 +398,8 @@ def main():
     if not torch.cuda.is_available():
         sys.exit('bench_rans_kernels: no CUDA device is available')
     sys.path.insert(0, HERE)
-    from chip_smoke import (device_ms, indexed_inputs, per_call_ms,
-                            synthetic_tables)
+    from chip_smoke import (device_ms, gaussian_symbols, indexed_inputs,
+                            per_call_ms, synthetic_tables)
     from sc2bench_tpu_torch.ops.rans import device as td
     from sc2bench_tpu_torch.ops.rans import kernels
     device = torch.device('cuda', 0)
@@ -233,6 +435,14 @@ def main():
                         name, cols, 190, 190, k, 384, device)}
     indexed = indexed_calls(torch, td, kernels, device, indexed_inputs,
                             per_call_ms, device_ms)
+    calls, groups = aligned_decode_cases(torch, td, kernels, device,
+                                         indexed_inputs)
+    aligned = {shape: {k: device_ms(torch, fn, 50) for k, fn in ks.items()}
+               for shape, ks in calls.items()}
+    gsweep = group_sweep(torch, kernels, calls, device_ms)
+    masked = masked_front(torch, td, kernels, device, gaussian_symbols,
+                          per_call_ms, device_ms)
+    fronts = jahp_fronts(torch, kernels, device, device_ms)
     smi = subprocess.run(
         ['nvidia-smi', '--id=0', '--query-gpu=name,power.limit,clocks.sm',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -240,7 +450,9 @@ def main():
     print(json.dumps({'repo': HERE, 'card': smi,
                       'kernels': out, 'steps_sweep': sweep,
                       'wire_batch_sweep': wire_sweep, 'wide_rows': wide,
-                      'indexed': indexed}),
+                      'indexed': indexed, 'aligned_decode': aligned,
+                      'aligned_groups': groups, 'group_sweep': gsweep,
+                      'masked_front': masked, 'jahp_fronts': fronts}),
           flush=True)
 
 

@@ -26,9 +26,12 @@ which fails loudly with a nonzero exit:
     and at 100 lanes (n = 2,345, k = 3) and at T = 4,000 (40 lanes), with
     rows 0 and 63 and frequency-1 tail symbols, and on Gaussian tables of
     a custom scale table (0.11..1,024) too large for shared memory; the
-    batch-1 indexed pair reads the tables' prepared form, whose one-time
-    cost is printed, and the plan each case took (shared or device-memory
-    encoder rows and decoder tables) is printed, both plans required.
+    batch-1 indexed pair and the aligned indexed decoder read the tables'
+    prepared form, whose one-time cost is printed, and the plan each case
+    took (shared or device-memory encoder rows and decoder tables) is
+    printed, both plans required of the batch-1 pair and of the aligned
+    decoder, with the aligned decoder's images a block at k = 1, 8 and
+    128 (a corrupted state decoded as the plain version in each case).
     Print each kernel's ms
     (CUDA events around one call on an idle card, host dispatch
     included), device ms (launches queued behind a sleep kernel), plain
@@ -148,9 +151,12 @@ which fails loudly with a nonzero exit:
     device wire: every symbol in support, the device decode valid with a
     y_hat equal to the encoder's and to the host path's bit for bit;
     `rans_masked_encode_aligned` launched once an image, `rans_masked_
-    decode_front` once a front (61 an image), the aligned cyclic pair
-    once each for z; at the path's shapes all four equal their plain
-    versions; the masked kernels' ms, device ms, plain ms and bound;
+    decode_front` once a front (61 an image) on the Gaussian tables'
+    prepared form that `update()` built, the aligned cyclic pair once
+    each for z; at the path's shapes all four equal their plain versions,
+    the front decoder on every front; the masked kernels' ms, device ms,
+    plain ms and bound, and the front's launch floor (an empty kernel on
+    its grid);
 14. the RegNetY-6.4GF and hybrid ViT-S R26+S/32 students at full width
     with seeded weights (`build_student`: the configs' 64-channel FP and
     MSHP bottlenecks, `build_model`'s weights and halved last encoder
@@ -832,16 +838,16 @@ def indexed_case(torch, td, kernels, tables, lanes, n, k, rng, device,
     case: bit-equal to the plain versions (a corrupted state included),
     packed bytes equal to the numpy oracle with per-index rows and equal
     between the layouts, the symbols back with valid=True, valid=False on
-    the corrupted stream. The batch-1 pair reads `prepared`, the tables'
-    `prepare_indexed_tables`; `plans` records the plan each took."""
+    the corrupted stream. The decoders and the batch-1 encoder read
+    `prepared`, the tables' `prepare_indexed_tables`; `plans` records the
+    plan each took."""
     inp = indexed_inputs(torch, td, tables, lanes, n, k, rng, device, tails)
     vc, idx3, steps = inp['vc'], inp['idx3'], inp['steps']
     cdf, cdf_len, off = inp['cdf'], inp['cdf_len'], inp['off']
     tag = f'indexed lanes={lanes} n={n} k={k} T={steps}'
     errs = {}
     plans = {name: kernels.indexed_plan(name, steps, prepared.dec.numel(),
-                                        device)
-             for name in ('rans_indexed_encode', 'rans_indexed_decode')}
+                                        device) for name in PLANNED}
 
     def compare(name, got, ref):
         for a, b in zip(got, ref):
@@ -872,8 +878,9 @@ def indexed_case(torch, td, kernels, tables, lanes, n, k, rng, device,
     for name, (streams, _, states, *_), aligned in (
             ('rans_indexed_decode', enc, False),
             ('rans_indexed_decode_aligned', enca, True)):
-        fn = kernels.indexed_decode_aligned if aligned \
-            else functools.partial(kernels.indexed_decode, prepared=prepared)
+        fn = functools.partial(kernels.indexed_decode_aligned if aligned
+                               else kernels.indexed_decode,
+                               prepared=prepared)
         bad = states.clone()
         bad[k - 1, lanes // 3] ^= 0x5A5A
         outs = []
@@ -955,10 +962,18 @@ def prepare_tables(torch, tables, device, reps=5):
     return prepared, statistics.median(times[1:] or times)
 
 
+# the indexed kernels with two plans, and the images a block of the aligned
+# decoder at the MSHP y's wire_batch sizes
+PLANNED = ('rans_indexed_encode', 'rans_indexed_decode',
+           'rans_indexed_decode_aligned')
+ALIGNED_KS = (1, WIRE_BATCH, 128)
+
+
 def log_plans(cases, tag='phase 2'):
-    log(f'{tag}: batch-1 indexed plans (encoder rows / decoder tables): '
-        + '; '.join(f'{c["tag"]}: encode {c["plans"]["rans_indexed_encode"]}'
-                    f', decode {c["plans"]["rans_indexed_decode"]}'
+    log(f'{tag}: indexed plans (batch-1 encoder rows / batch-1 decoder '
+        'tables / aligned decoder tables): '
+        + '; '.join(f'{c["tag"]}: ' + ' / '.join(c['plans'][name]
+                                                 for name in PLANNED)
                     for c in cases))
 
 
@@ -996,10 +1011,18 @@ def indexed_phase(torch, td, kernels, tables, device):
         f'{wide.quantized_cdf.shape}); packed bytes equal the numpy oracle')
     cases = [flag, one] + edge
     log_plans(cases)
-    got = {c['plans'][name] for c in cases
-           for name in ('rans_indexed_encode', 'rans_indexed_decode')}
-    check(got == {'shared', 'global'}, f'phase 2: batch-1 indexed plans '
-          f'exercised: {sorted(got)}, expected shared and global')
+    for names in (PLANNED[:2], PLANNED[2:]):
+        got = {c['plans'][name] for c in cases for name in names}
+        check(got == {'shared', 'global'}, f'phase 2: {" and ".join(names)} '
+              f'plans exercised: {sorted(got)}, expected shared and global')
+    groups = {k: kernels.indexed_aligned_group(k, lanes, prepared.dec.numel(),
+                                               device) for k in ALIGNED_KS}
+    log(f'phase 2: rans_indexed_decode_aligned at {lanes} lanes x '
+        f'{flag["steps"]} steps, plan {flag["plans"][PLANNED[2]]}: images a '
+        'block ' + ', '.join(f'k={k}: {g}' for k, g in groups.items())
+        + f'; custom scale table: plan {edge[2]["plans"][PLANNED[2]]}, k=8: '
+        + str(kernels.indexed_aligned_group(
+            WIRE_BATCH, lanes, wide_prepared.dec.numel(), device)))
     log(f'phase 2: preparing the batch-1 indexed tables (one time, on the '
         f'card): {prep_ms:.3f} ms for {tables.quantized_cdf.shape} '
         f'(decoder pack {4 * prepared.dec.numel()} bytes, encoder entries '
@@ -1042,7 +1065,8 @@ def indexed_stats(torch, td, kernels, tables, flag, one, tag='phase 2'):
             indexed_costs(flag, tables, WIRE_BATCH, enca[1], False)),
         'rans_indexed_decode_aligned': (
             lambda: kernels.indexed_decode_aligned(
-                enca[0], enca[2], cdf, cdf_len, off, flag['idx3'], steps),
+                enca[0], enca[2], cdf, cdf_len, off, flag['idx3'], steps,
+                prepared=flag['prepared']),
             lambda: td.indexed_decode_plain(
                 enca[0], enca[2], cdf, cdf_len, off, flag['idx3'], steps,
                 aligned=True),
@@ -1060,6 +1084,10 @@ def indexed_stats(torch, td, kernels, tables, flag, one, tag='phase 2'):
         log(f'{tag}: {name} ({lanes} lanes x {steps} steps): kernel '
             f'{ms:.4f} ms per call ({dev_ms:.4f} ms on the card), plain '
             f'{plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by})')
+    stats['rans_indexed_decode_aligned']['images_per_block'] = \
+        kernels.indexed_aligned_group(WIRE_BATCH, lanes,
+                                      flag['prepared'].dec.numel(),
+                                      cdf.device)
     return stats
 
 
@@ -2252,8 +2280,11 @@ def jahp_phase(torch, kernels, td, images):
     encoder's and to the host path's (bit for bit), the host round trip
     exact; the masked kernels launch once (encode) and once a front
     (decode) an image, the aligned cyclic pair once each for z; on the
-    last image every kernel of the path equals its plain version.
-    Returns (launches, kernel stats of the two masked kernels)."""
+    last image every kernel of the path equals its plain version, the
+    front decoder on every front, on the tables `update()` prepared. The
+    front decoder's timing comes with its launch floor: an empty kernel on
+    its grid, timed the same way. Returns (launches, kernel stats of the
+    two masked kernels)."""
     import pickle
     from sc2bench_tpu_torch.models import zoo
     from sc2bench_tpu_torch.models.zoo_jahp import JointAutoregressiveRuntime
@@ -2263,6 +2294,9 @@ def jahp_phase(torch, kernels, td, images):
     codec_weights(torch, module, 3, images[0])
     rt = JointAutoregressiveRuntime(module, device=device)
     rt.update()
+    prepared = rt._g_prepared
+    check(prepared.cdf is rt._g_tables_dev[0],
+          'JAHP: update() did not prepare its Gaussian tables')
     n = len(images)
     # warm-up (cuBLAS/cuDNN handles, the schedule), then the timed runs
     rt.decode_device_latent(rt.encode_device_wire(images[0]))
@@ -2330,7 +2364,8 @@ def jahp_phase(torch, kernels, td, images):
         if t == mid:
             front = (t, x_k, idx[t])
         s_k, x_k = kernels.masked_decode_front(
-            streams, t, x_k, cdf, cdf_len, off, idx[t], sch.active[t], m)
+            streams, t, x_k, cdf, cdf_len, off, idx[t], sch.active[t], m,
+            prepared=prepared)
         s_p, x_p = td.masked_decode_front_plain(
             streams, t, x_p, cdf, cdf_len, off, idx[t], sch.active[t], m)
         err = max(err, int((s_k - s_p).abs().max()),
@@ -2372,7 +2407,8 @@ def jahp_phase(torch, kernels, td, images):
             masked_costs(vc, idx, sch.active, m, g, False)),
         'rans_masked_decode_front': (
             lambda: kernels.masked_decode_front(
-                streams, t, x_t, cdf, cdf_len, off, idx_t, sch.active[t], m),
+                streams, t, x_t, cdf, cdf_len, off, idx_t, sch.active[t], m,
+                prepared=prepared),
             lambda: td.masked_decode_front_plain(
                 streams, t, x_t, cdf, cdf_len, off, idx_t, sch.active[t], m),
             masked_costs(vc[t], idx_t, sch.active[t], m, g, True,
@@ -2389,6 +2425,12 @@ def jahp_phase(torch, kernels, td, images):
             f'({stats[name]["device_ms"]:.4f} ms on the card), plain '
             f'{stats[name]["plain_ms"]:.3f} ms, bound {bound_ms:.6f} ms '
             f'({bound_by})')
+    lanes = streams.shape[0]
+    floor = device_ms(torch, lambda: kernels.launch_floor(lanes, device),
+                      reps=100)
+    stats['rans_masked_decode_front']['launch_floor_ms'] = floor
+    log(f'phase 13: launch floor of a masked front ({lanes} lanes, an '
+        f'empty kernel on its grid): {floor:.4f} ms on the card')
     active = int(sch.active.sum()) * m
     log(f'phase 13: JAHP q1 (192, 192), {n} images of {CODEC_HW}x{CODEC_HW}: '
         f'y 16x16x192 on {sch.slots * m} masked lanes x {sch.steps} fronts '
@@ -3745,7 +3787,9 @@ def run():
                    launches_seg=sum(c[name] for c in seg_paths.values()),
                    launches_det=sum(c[name] for c in det_paths.values()),
                    **{key: stats[name][key]
-                      for key in ('device_ms_k128', 'bound_ms_k128')
+                      for key in ('device_ms_k128', 'bound_ms_k128',
+                                  'launch_floor_ms', 'images_per_block',
+                                  'prepare_ms')
                       if key in stats[name]})
         if name in backbone_stats:
             b = backbone_stats[name]

@@ -85,14 +85,41 @@
 // slot range measured faster but need 31 KB more shared memory, which
 // would leave custom tables little room before the global plan.
 //
-// The aligned pair and the masked pair keep the first design: one thread
-// per (image, lane) or lane, 32 threads a block, CDF rows read from
-// device memory (L2), the hardware divide, `cdf_bisect`'s bisection over
-// the whole row. Their launches times their distance from the bound came
-// to a twentieth or less of the batch-1 pair's on the main paths (the
-// aligned pair launches once a wire_batch, the masked decoder once a JAHP
-// front at the launch floor), so the batch-1 pair was redesigned first;
-// ROADMAP Queue B lists them in order.
+// All three decoders (rans_indexed_decode, rans_indexed_decode_aligned,
+// rans_masked_decode_front) find a slot's entry with one device function,
+// `bucket_lookup`, on the same prepared pack, wherever it lies (shared or
+// device memory):
+//   - the aligned decoder applies the batch-1 decoder's design with one
+//     image a warp: a block holds the same 32 lanes of G images, whose
+//     warps share one copy of the pack in shared memory (or read it in
+//     place, kGlobalTables, when it does not fit beside one warp's
+//     staging). The chunk of step t sits at column t, so there is no read
+//     pointer and no ring: the warp stages its 32 lanes' next kATile
+//     columns as one cp.async tile a tile ahead (coalesced row segments,
+//     row pitch kATile + 1 so the column reads never share a bank), and
+//     each lane prefetches its next tile's row indexes (coalesced across
+//     the warp) into registers, which leaves shared memory for more warps
+//     a block. G follows a rule measured on an H100 (aligned_group_rule);
+//   - the masked front decoder runs one step a lane a launch, so copying
+//     the pack costs more than it saves: it reads the pack in place (L2
+//     resident across a JAHP image's fronts). Its loads that do not depend
+//     on the table walk (state, row, activity, the chunk at column t) are
+//     issued first; the walk is then the bucket's two bounds (two
+//     independent loads), the bounded bisection and the entry pair, so
+//     about 5 dependent loads in place of ~16. A search probing 7
+//     candidates a round was tried and dropped: faster on the bench's
+//     evenly drawn rows, not on the JAHP path's own fronts (PERF.md).
+//
+// Measured on an H100 (bench_rans_kernels.py, PERF.md): the aligned
+// decoder at k = 8 on 512 lanes x 142 steps 0.0506 ms (G = 4) against
+// 0.229 for the first design (one thread per (image, lane), the whole row
+// bisected in L2) in the same run, 0.085 ms at k = 128 (G = 16) against
+// 0.275; the masked front decoder about 0.003 ms a launch at 1,152 lanes
+// on the JAHP path, over an empty kernel's 0.0019 on the same grid.
+//
+// The aligned encoder and the masked encoder keep the first design: one
+// thread per (image, lane) or lane, 32 threads a block, CDF rows read from
+// device memory (L2), the hardware divide. ROADMAP Queue B lists them.
 //
 // All kernels hold the plain versions' contract bit for bit on valid
 // tables: CDF rows non-decreasing from 0 to 2^16 within cdf_length, every
@@ -123,8 +150,9 @@
 // that front's activity bit act[t, slot] is set; elsewhere the lane is inert
 // (no table read, no renormalisation, no state change, chunk 0), so encoder
 // and decoder renormalise at the same steps and the decoder reads column t.
-// One thread a lane, the table read from device memory (in L2) as above;
-// the decoder's bisection is `cdf_bisect`. The indexed aligned encoder
+// One thread a lane, the tables read from device memory (in L2) as above:
+// the encoder's CDF rows, the decoder's prepared pack. The indexed aligned
+// encoder
 // cannot stand in for the masked one with an "identity" row: a row of
 // frequency 2^16 would leave the state as it is, but 2^16 << 16 wraps to 0
 // in 32 bits, so every such step would renormalise. The context model
@@ -132,15 +160,17 @@
 //
 // Layouts: vc, idx (T, N) int32 forward order; act (T, F) uint8; streams
 // (N, T) int32; lengths (N,) int32; states (N,) int64. The decoder takes
-// front t's idx (N,) and act (F,), states in, and writes the symbols (N,)
-// (row offset added, 0 on inactive lanes) and the states out.
+// front t's idx (N,) and act (F,), states in, and the prepared pack, and
+// writes the symbols (N,) (row offset added, 0 on inactive lanes) and the
+// states out.
 //
 // Each C entry point launches on the given stream and returns
 // cudaGetLastError(), or cudaErrorInvalidValue (without launching) when
 // aligned streams are not T columns wide, the masked lanes are not F * m
-// (a front index outside [0, T)), or a batch-1 plan needs more shared
-// memory than a block can have.
+// (a front index outside [0, T)), or a plan needs more shared memory than
+// a block can have.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -152,6 +182,11 @@ constexpr int kTile = 32;         // batch-1 pair: steps per staged tile
 constexpr int kRing = 64;         // batch-1 decoder: stream chunks per lane
 constexpr int kBucketShift = 8;   // batch-1 decoder: bucket = slot >> 8
 constexpr int kBucketStride = (1 << (16 - kBucketShift)) + 1;  // bounds a row
+constexpr int kATile = 8;         // aligned decoder: steps per staged tile
+constexpr int kAPitch = kATile + 1;                  // words a lane's row
+constexpr int kAWarpWords = 2 * kThreads * kAPitch;  // a warp's two tiles
+constexpr int kMaxAlignedGroup = 16;                 // images (warps) a block
+constexpr int kMinAlignedGroup = 4;                  // ... where k allows
 
 inline unsigned blocks_for(int num_images, int lanes) {
   const int64_t total = static_cast<int64_t>(num_images) * lanes;
@@ -164,20 +199,30 @@ inline unsigned warp_blocks(int num_images, int lanes) {
          * static_cast<unsigned>((lanes + kThreads - 1) / kThreads);
 }
 
-// Largest v < len - 1 with row[v] <= slot, by bisection over [0, len - 1):
-// row[0] = 0 <= slot < 2^16 = row[len - 1] holds for any state.
-__device__ __forceinline__ int cdf_bisect(const int32_t* __restrict__ row,
-                                          int len, uint32_t slot) {
-  int lo = 0, hi = len - 1;
+// The prepared pack's search (ops/rans/indexed_tables.py bucket_lookup):
+// for `slot` in the row whose coarse bounds start at `brow`, the ragged
+// index e (the row's start plus cdf_bisect's v) of the entry with tab[e] <=
+// slot < tab[e + 1], and that entry's start and frequency. The bucket gives
+// the candidate entries [lo, hi) with tab[lo] <= slot; a bisection inside
+// finishes. `tab` (the ragged entries) and `brow` lie in shared or device
+// memory.
+__device__ __forceinline__ int bucket_lookup(const int32_t* __restrict__ tab,
+                                             const int32_t* __restrict__ brow,
+                                             uint32_t slot, uint32_t& st,
+                                             uint32_t& fr) {
+  int lo = brow[slot >> kBucketShift];
+  int hi = brow[(slot >> kBucketShift) + 1] + 1;
   while (hi - lo > 1) {
     const int mid = (lo + hi) >> 1;
-    if (static_cast<uint32_t>(row[mid]) <= slot) lo = mid;
+    if (static_cast<uint32_t>(tab[mid]) <= slot) lo = mid;
     else hi = mid;
   }
+  st = static_cast<uint32_t>(tab[lo]);
+  fr = static_cast<uint32_t>(tab[lo + 1]) - st;
   return lo;
 }
 
-// ---- asynchronous global -> shared copies (batch-1 pair) -------------------
+// ---- asynchronous global -> shared copies ----------------------------------
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned dst =
@@ -200,6 +245,10 @@ __device__ __forceinline__ void cp_async_commit() {
 // wait until at most one group (the newest) of this thread is in flight
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // ---- shared-memory plans (bytes) -------------------------------------------
@@ -240,6 +289,51 @@ bool fit_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes)) == cudaSuccess;
+}
+
+// aligned decoder: (shared-table plan) the table pack, then each of the
+// block's `group` warps' two stream tiles
+inline size_t decode_aligned_smem(int pack_words, bool global_tables,
+                                  int group) {
+  return (global_tables ? 0 : sizeof(int32_t) * pack_words)
+         + sizeof(int32_t) * group * kAWarpWords;
+}
+
+// The images a block of an aligned decode (G), from `lane_groups` blocks of
+// 32 lanes an image, k images, at most `gmax` warps a block (the shared
+// memory beside the pack, kMaxAlignedGroup, k) and `sms` SMs, one block an
+// SM in the shared-table plan. The rule, from device times on an H100 at
+// the MSHP y shapes, k = 1, 8 and 128 (PERF.md): the fewest waves of
+// blocks there can be, then the smallest G of at least kMinAlignedGroup
+// (where k allows) that keeps them. Four warps an SM decode as fast a
+// step as one, and share one copy of the pack: at k = 8, G = 4 measured
+// 8% faster than G = 1 (a quarter of the pack copies) and 4% faster than
+// G = 8 (more warps contending for an SM); at k = 128 the waves decide
+// (G = 16, one wave on 512 lanes, 10x faster than G = 1).
+inline int aligned_group_rule(int64_t lane_groups, int num_images, int gmax,
+                              int sms) {
+  const int64_t fewest =
+      (lane_groups * ((num_images + gmax - 1) / gmax) + sms - 1) / sms;
+  for (int g = std::min(kMinAlignedGroup, gmax); g < gmax; ++g)
+    if (lane_groups * ((num_images + g - 1) / g) <= fewest * sms) return g;
+  return gmax;
+}
+
+inline int aligned_decode_group(int num_images, int lanes, int pack_words,
+                                bool global_tables) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int gmax = kMaxAlignedGroup;
+  if (!global_tables) {
+    const int64_t room = static_cast<int64_t>(smem_optin())
+                         - static_cast<int64_t>(sizeof(int32_t)) * pack_words;
+    gmax = static_cast<int>(std::min<int64_t>(
+        gmax, room / static_cast<int64_t>(sizeof(int32_t) * kAWarpWords)));
+  }
+  gmax = std::max(1, std::min(gmax, num_images));
+  return aligned_group_rule((lanes + kThreads - 1) / kThreads, num_images,
+                            gmax, std::max(sms, 1));
 }
 
 // ---- batch-1 encode --------------------------------------------------------
@@ -462,16 +556,8 @@ rans_indexed_decode_warp_kernel(const int32_t* __restrict__ streams,
       const int rb = rbase[r];
       const int rn = t + 1 < t1 ? it[(t + 1 - t0) * kThreads] : 0;
       const uint32_t slot = x & 0xFFFFu;
-      // the bucket's candidate entries [lo, hi), then a bisection inside
-      int lo = brow[slot >> kBucketShift];
-      int hi = brow[(slot >> kBucketShift) + 1] + 1;
-      while (hi - lo > 1) {
-        const int mid = (lo + hi) >> 1;
-        if (static_cast<uint32_t>(tab[mid]) <= slot) lo = mid;
-        else hi = mid;
-      }
-      const uint32_t st = static_cast<uint32_t>(tab[lo]);
-      const uint32_t fr = static_cast<uint32_t>(tab[lo + 1]) - st;
+      uint32_t st, fr;
+      const int lo = bucket_lookup(tab, brow, slot, st, fr);
       const uint32_t chunk =
           static_cast<uint32_t>(ring[(ptr & (kRing - 1)) * kThreads + l]);
       x = fr * (x >> 16) + slot - st;
@@ -526,38 +612,123 @@ rans_indexed_encode_aligned_kernel(const int32_t* __restrict__ cdf, int cols,
   states[gid] = static_cast<int64_t>(x);
 }
 
-__global__ void __launch_bounds__(kThreads)
-rans_indexed_decode_aligned_kernel(const int32_t* __restrict__ streams,
-                                   int width,
-                                   const int64_t* __restrict__ states,
-                                   const int32_t* __restrict__ cdf, int cols,
-                                   const int32_t* __restrict__ cdf_len,
-                                   const int32_t* __restrict__ off,
-                                   const int32_t* __restrict__ idx,
-                                   int num_images, int steps, int lanes,
-                                   int32_t* __restrict__ out,
-                                   int64_t* __restrict__ xend) {
-  const int64_t gid =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (gid >= static_cast<int64_t>(num_images) * lanes) return;
-  const int64_t img = gid / lanes;
-  const int lane = static_cast<int>(gid % lanes);
-  const int64_t base = img * steps * lanes + lane;
-  const int32_t* srow = streams + gid * width;
-  uint32_t x = static_cast<uint32_t>(states[gid]);
-  for (int t = 0; t < steps; ++t) {
-    const int64_t p = base + static_cast<int64_t>(t) * lanes;
-    const int32_t r = idx[p];
-    const int32_t* crow = cdf + static_cast<int64_t>(r) * cols;
-    const uint32_t slot = x & 0xFFFFu;
-    const int lo = cdf_bisect(crow, min(cdf_len[r], cols), slot);
-    const uint32_t st = static_cast<uint32_t>(crow[lo]);
-    const uint32_t fr = static_cast<uint32_t>(crow[lo + 1]) - st;
-    x = fr * (x >> 16) + slot - st;
-    if (x < kRansL) x = (x << 16) | static_cast<uint32_t>(srow[t]);
-    out[p] = lo + off[r];
+// ---- the aligned (wire_batch) decoder --------------------------------------
+//
+// Grid (lane groups, image groups); block: G warps, warp w decoding image
+// blockIdx.y * G + w on lanes blockIdx.x * 32 + [0, 32). Per tile s of
+// kATile steps each warp commits one group G(s), its 32 lanes' stream
+// columns of tile s+1, into buffer (s+1) & 1, then waits for G(s-1); G(-1)
+// also holds the block's copy of the pack. The copies are coalesced (a
+// warp instruction copies 4 rows x kATile columns), so a lane reads what
+// other lanes copied: a __syncwarp after the wait makes them visible, and
+// one before the next tile's copies keeps a buffer until every lane has
+// read it. The row indexes of tile s+1 are loaded into registers at tile
+// s's start.
+
+template <bool kGlobalTables>
+__global__ void __launch_bounds__(kMaxAlignedGroup * kThreads)
+rans_indexed_decode_aligned_warp_kernel(const int32_t* __restrict__ streams,
+                                        const int64_t* __restrict__ states,
+                                        const int32_t* __restrict__ pack,
+                                        int pack_words, int bucket_at,
+                                        int base_at,
+                                        const int32_t* __restrict__ idx,
+                                        int num_images, int steps, int lanes,
+                                        int32_t* __restrict__ out,
+                                        int64_t* __restrict__ xend) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int group = blockDim.x / kThreads;
+  const int w = threadIdx.x / kThreads;
+  const int l = threadIdx.x % kThreads;
+  const int lane0 = blockIdx.x * kThreads;
+  const int img = blockIdx.y * group + w;
+  const int lane = lane0 + l;
+  const bool live = img < num_images;          // the warp has an image
+  const bool active = live && lane < lanes;
+  const int nrow = min(kThreads, lanes - lane0);
+  int32_t* stab = reinterpret_cast<int32_t*>(smem);
+  int32_t* tiles = stab + (kGlobalTables ? 0 : pack_words)
+                   + w * kAWarpWords;        // [2][32 lanes][kAPitch]
+  const int32_t* tab = kGlobalTables ? pack : stab;  // ragged entries first
+  const int32_t* bkt = tab + bucket_at;
+  const int32_t* rbase = tab + base_at;
+  const int64_t gid = static_cast<int64_t>(img) * lanes + lane;
+  const int64_t base = static_cast<int64_t>(img) * steps * lanes + lane;
+  const int ntiles = (steps + kATile - 1) / kATile;
+  // this thread's share of a tile: rows rr, rr + 4, ..., column cc
+  const int rr = l / kATile, cc = l % kATile;
+  const int32_t* srows = streams
+      + (static_cast<int64_t>(img) * lanes + lane0) * steps;
+
+  // tile s's stream columns of the warp's rows into buffer s & 1
+  auto stage = [&](int s) {
+    const int c = s * kATile + cc;
+    if (s >= ntiles || c >= steps) return;
+    int32_t* dst = tiles + (s & 1) * kThreads * kAPitch + cc;
+    for (int r = rr; r < nrow; r += kThreads / kATile)
+      cp_async4(dst + r * kAPitch, srows + static_cast<int64_t>(r) * steps
+                                       + c);
+  };
+  // tile s's row indexes of this lane (coalesced across the warp)
+  auto load_rows = [&](int s, int (&rows)[kATile]) {
+#pragma unroll
+    for (int j = 0; j < kATile; ++j) {
+      const int t = s * kATile + j;
+      rows[j] = active && t < steps
+                    ? idx[base + static_cast<int64_t>(t) * lanes] : 0;
+    }
+  };
+
+  // G(-1): the pack (16-byte copies; pack_words is a multiple of 4) and
+  // stream tile 0
+  if (!kGlobalTables)
+    for (int i = 4 * static_cast<int>(threadIdx.x); i < pack_words;
+         i += 4 * static_cast<int>(blockDim.x))
+      cp_async16(stab + i, pack + i);
+  if (live) stage(0);
+  cp_async_commit();
+  if (!live) {                   // past the last image: helped with the pack
+    if (!kGlobalTables) {
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    return;
   }
-  xend[gid] = static_cast<int64_t>(x);
+  int next[kATile];
+  load_rows(0, next);
+  uint32_t x = active ? static_cast<uint32_t>(states[gid]) : 0u;
+  int32_t* o = out + base;
+  for (int s = 0; s < ntiles; ++s) {
+    int rows[kATile];
+#pragma unroll
+    for (int j = 0; j < kATile; ++j) rows[j] = next[j];
+    __syncwarp();                               // buffer (s+1) & 1 is free
+    stage(s + 1);
+    cp_async_commit();                          // G(s)
+    load_rows(s + 1, next);
+    cp_async_wait_one();                        // G(s-1): tile s has landed
+    if (!kGlobalTables && s == 0) __syncthreads();   // and the pack
+    else __syncwarp();
+    if (!active) continue;
+    const int32_t* tile = tiles + (s & 1) * kThreads * kAPitch + l * kAPitch;
+    const int n = min(kATile, steps - s * kATile);
+#pragma unroll
+    for (int j = 0; j < kATile; ++j) {
+      if (j >= n) break;
+      const int r = rows[j];
+      const int rb = rbase[r];
+      const uint32_t chunk = static_cast<uint32_t>(tile[j]);
+      const uint32_t slot = x & 0xFFFFu;
+      uint32_t st, fr;
+      const int e = bucket_lookup(tab, bkt + r * kBucketStride, slot, st,
+                                  fr);
+      x = fr * (x >> 16) + slot - st;
+      if (x < kRansL) x = (x << 16) | chunk;
+      *o = e + rb;
+      o += lanes;
+    }
+  }
+  if (active) xend[gid] = static_cast<int64_t>(x);
 }
 
 // Masked lanes of the joint autoregressive codec's device wire: lane
@@ -603,38 +774,46 @@ rans_masked_encode_aligned_kernel(const int32_t* __restrict__ cdf, int cols,
   states[lane] = static_cast<int64_t>(x);
 }
 
+// One step of every lane, front t, on the prepared pack read in place.
 __global__ void __launch_bounds__(kThreads)
 rans_masked_decode_front_kernel(const int32_t* __restrict__ streams,
                                 int steps, int t,
                                 const int64_t* __restrict__ x_in,
-                                const int32_t* __restrict__ cdf, int cols,
-                                const int32_t* __restrict__ cdf_len,
-                                const int32_t* __restrict__ off,
+                                const int32_t* __restrict__ pack,
+                                int bucket_at, int base_at,
                                 const int32_t* __restrict__ idx,
                                 const uint8_t* __restrict__ act, int lanes,
                                 int m, int32_t* __restrict__ out,
                                 int64_t* __restrict__ x_out) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= lanes) return;
-  uint32_t x = static_cast<uint32_t>(x_in[lane]);
-  if (act[lane / m] == 0) {
+  // the loads that do not depend on the table walk, issued together
+  const uint32_t x = static_cast<uint32_t>(x_in[lane]);
+  const int32_t r = idx[lane];
+  const bool on = act[lane / m] != 0;
+  const uint32_t chunk = static_cast<uint32_t>(
+      streams[static_cast<int64_t>(lane) * steps + t]);
+  if (!on) {
     out[lane] = 0;
     x_out[lane] = static_cast<int64_t>(x);
     return;
   }
-  const int32_t r = idx[lane];
-  const int32_t* crow = cdf + static_cast<int64_t>(r) * cols;
+  const int rb = pack[base_at + r];
   const uint32_t slot = x & 0xFFFFu;
-  const int v = cdf_bisect(crow, min(cdf_len[r], cols), slot);
-  const uint32_t st = static_cast<uint32_t>(crow[v]);
-  const uint32_t fr = max(static_cast<uint32_t>(crow[v + 1]) - st, 1u);
-  x = fr * (x >> 16) + slot - st;
-  if (x < kRansL)
-    x = (x << 16) | static_cast<uint32_t>(
-        streams[static_cast<int64_t>(lane) * steps + t]);
-  out[lane] = v + off[r];
-  x_out[lane] = static_cast<int64_t>(x);
+  uint32_t st, fr;
+  const int e = bucket_lookup(
+      pack, pack + bucket_at + r * kBucketStride, slot, st, fr);
+  fr = max(fr, 1u);            // as the JAX step (zoo_jahp_device.py:147)
+  uint32_t xn = fr * (x >> 16) + slot - st;
+  if (xn < kRansL) xn = (xn << 16) | chunk;
+  out[lane] = e + rb;
+  x_out[lane] = static_cast<int64_t>(xn);
 }
+
+// A measurement aid, not a coder: an empty kernel, launched on the masked
+// front decoder's grid, whose device time is the floor no kernel body on
+// that grid can go below.
+__global__ void __launch_bounds__(kThreads) rans_empty_kernel() {}
 
 }  // namespace
 
@@ -722,18 +901,51 @@ int rans_indexed_decode(const int32_t* streams, int width,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The aligned decoder's shared memory at `group` images a block, and the
+// group a launch of k images on `lanes` lanes takes.
+int64_t rans_indexed_decode_aligned_smem(int pack_words, int global_tables,
+                                         int group) {
+  return static_cast<int64_t>(
+      decode_aligned_smem(pack_words, global_tables != 0, group));
+}
+
+int rans_indexed_aligned_group(int num_images, int lanes, int pack_words,
+                               int global_tables) {
+  return aligned_decode_group(num_images, lanes, pack_words,
+                              global_tables != 0);
+}
+
+// `pack` as for rans_indexed_decode; `streams` (k, N, T)
 int rans_indexed_decode_aligned(const int32_t* streams, int width,
-                                const int64_t* states, const int32_t* cdf,
-                                int cols, const int32_t* cdf_len,
-                                const int32_t* off, const int32_t* idx,
+                                const int64_t* states, const int32_t* pack,
+                                int pack_words, int bucket_at, int base_at,
+                                int global_tables, const int32_t* idx,
                                 int num_images, int steps, int lanes,
                                 int32_t* out, int64_t* xend,
                                 cudaStream_t stream) {
-  if (width != steps) return static_cast<int>(cudaErrorInvalidValue);
-  rans_indexed_decode_aligned_kernel
-      <<<blocks_for(num_images, lanes), kThreads, 0, stream>>>(
-          streams, width, states, cdf, cols, cdf_len, off, idx, num_images,
-          steps, lanes, out, xend);
+  if (width != steps || pack_words % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int group = aligned_decode_group(num_images, lanes, pack_words,
+                                         global_tables != 0);
+  const dim3 grid(static_cast<unsigned>((lanes + kThreads - 1) / kThreads),
+                  static_cast<unsigned>((num_images + group - 1) / group));
+  const size_t smem =
+      decode_aligned_smem(pack_words, global_tables != 0, group);
+  if (global_tables == 0) {
+    if (!fit_smem(rans_indexed_decode_aligned_warp_kernel<false>, smem))
+      return static_cast<int>(cudaErrorInvalidValue);
+    rans_indexed_decode_aligned_warp_kernel<false>
+        <<<grid, group * kThreads, smem, stream>>>(
+            streams, states, pack, pack_words, bucket_at, base_at, idx,
+            num_images, steps, lanes, out, xend);
+  } else {
+    if (!fit_smem(rans_indexed_decode_aligned_warp_kernel<true>, smem))
+      return static_cast<int>(cudaErrorInvalidValue);
+    rans_indexed_decode_aligned_warp_kernel<true>
+        <<<grid, group * kThreads, smem, stream>>>(
+            streams, states, pack, pack_words, bucket_at, base_at, idx,
+            num_images, steps, lanes, out, xend);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -752,10 +964,10 @@ int rans_masked_encode_aligned(const int32_t* cdf, int cols,
   return static_cast<int>(cudaGetLastError());
 }
 
+// `pack` as for rans_indexed_decode, read in place
 int rans_masked_decode_front(const int32_t* streams, int steps, int t,
-                             const int64_t* x_in, const int32_t* cdf,
-                             int cols, const int32_t* cdf_len,
-                             const int32_t* off, const int32_t* idx,
+                             const int64_t* x_in, const int32_t* pack,
+                             int bucket_at, int base_at, const int32_t* idx,
                              const uint8_t* act, int lanes, int m,
                              int32_t* out, int64_t* x_out,
                              cudaStream_t stream) {
@@ -763,8 +975,14 @@ int rans_masked_decode_front(const int32_t* streams, int steps, int t,
     return static_cast<int>(cudaErrorInvalidValue);
   rans_masked_decode_front_kernel
       <<<blocks_for(1, lanes), kThreads, 0, stream>>>(
-          streams, steps, t, x_in, cdf, cols, cdf_len, off, idx, act, lanes,
-          m, out, x_out);
+          streams, steps, t, x_in, pack, bucket_at, base_at, idx, act,
+          lanes, m, out, x_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The empty kernel on the grid of a masked front of `lanes` lanes.
+int rans_launch_floor(int lanes, cudaStream_t stream) {
+  rans_empty_kernel<<<blocks_for(1, lanes), kThreads, 0, stream>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -44,6 +44,7 @@ from ..ops.entropy.gaussian import GaussianConditional, get_scale_table
 from ..ops.entropy.tables import build_gaussian_tables
 from ..ops.math import quantize_noise
 from ..ops.rans.coder import RansCoder, StreamingDecoder
+from ..ops.rans.indexed_tables import prepare_indexed_tables
 from ..registry import register_model
 from .runtime import FactorizedCodec, _exact_cudnn, add_timing
 from .zoo import (_conv, _deconv, _on, analysis_transform, nchw,
@@ -288,8 +289,9 @@ class JointAutoregressiveRuntime(JointAutoregressiveDeviceMixin):
         self._schedules = {}
 
     def update(self):
-        """Build z's tables, the Gaussian tables of y and their device
-        copies, and the context model from the current weights."""
+        """Build z's tables, the Gaussian tables of y, their device copies
+        and their prepared form (for the masked front decoder), and the
+        context model from the current weights."""
         self.codec.update(self.module.entropy_bottleneck)
         if self.g_tables is None:
             self.g_tables = build_gaussian_tables(self.scale_table)
@@ -310,6 +312,7 @@ class JointAutoregressiveRuntime(JointAutoregressiveDeviceMixin):
             torch.as_tensor(a, dtype=torch.int32, device=dev)
             for a in (self.g_tables.quantized_cdf, self.g_tables.cdf_length,
                       self.g_tables.offset))
+        self._g_prepared = prepare_indexed_tables(*self._g_tables_dev)
         self.context = ContextModel(self.module)
         return True
 

@@ -16,7 +16,8 @@ chunk of front t, and the decoder reads it there directly.
           (`rans_cyclic_encode_aligned`);
   decode  z (`rans_cyclic_decode_aligned`), h_s, then per front the
           context model (torch ops on the device) and one masked decode
-          step for every lane (`rans_masked_decode_front`).
+          step for every lane (`rans_masked_decode_front`, on the Gaussian
+          tables' prepared form that `update()` builds once).
 
 Wire bytes: 4 + 6N + 2 * sum(lengths) for y (header, lengths and states
 as the lane wire packs them, then the chunks) plus z's lane wire. A symbol
@@ -103,7 +104,8 @@ class JointAutoregressiveDeviceMixin:
                 y_hat, hyper, sch.ii[t], sch.jj[t])
             idx = self._indexes(scales).reshape(-1)
             sym, x = kernels.masked_decode_front(
-                streams, t, x, cdf, cdf_len, off, idx, sch.active[t], m)
+                streams, t, x, cdf, cdf_len, off, idx, sch.active[t], m,
+                prepared=self._g_prepared)
             sch.write(y_hat, t, sym.reshape(-1, m).to(torch.float32) + means)
         valid = z_valid & (x == RANS_L).all()
         return self.latent(y_hat), valid

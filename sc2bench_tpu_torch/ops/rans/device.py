@@ -176,7 +176,7 @@ def device_rans_encode(symbols, quantized_cdf, cdf_length, offset,
     kernels; CPU: their plain versions); other array types go to `device`
     (default CUDA). `prepared`: the tables' `prepare_indexed_tables`, built
     once by a caller that codes more than once, for the general path's
-    batch-1 kernel (else it prepares them for this call)."""
+    batch-1 encoder (else it prepares them for this call)."""
     from . import kernels
     if not isinstance(symbols, torch.Tensor):
         symbols = torch.as_tensor(symbols, dtype=torch.int32,
@@ -239,7 +239,8 @@ def device_rans_decode(streams, states, quantized_cdf, cdf_length, offset,
     RANS_L, which a corrupt stream cannot pass. `aligned=True` consumes the
     time-aligned layout (pass the encode result's `aligned`). The layout
     and `indexes` are chosen as in `device_rans_encode`; device placement
-    and `prepared` too."""
+    too. `prepared`: the tables' `prepare_indexed_tables`, for the general
+    path's decoders (batch 1 and aligned)."""
     from . import kernels
     if not isinstance(streams, torch.Tensor):
         streams = torch.as_tensor(np.asarray(streams).astype(np.int32),
@@ -274,9 +275,9 @@ def device_rans_decode(streams, states, quantized_cdf, cdf_length, offset,
                            dev)
         _, idx3 = _index_blocks(None, idx, lanes, None)
         decode = kernels.indexed_decode_aligned if aligned \
-            else functools.partial(kernels.indexed_decode, prepared=prepared)
+            else kernels.indexed_decode
         out, xend = decode(streams, states, cdf, cdf_len, off,
-                           idx3.contiguous(), steps)
+                           idx3.contiguous(), steps, prepared=prepared)
     valid = (xend == RANS_L).all(dim=1)
     flat = out.reshape(out.shape[0], -1)[:, :n]
     if single:

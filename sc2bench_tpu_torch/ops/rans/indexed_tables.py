@@ -21,15 +21,18 @@ tables, `update()`) and passes them to every launch:
           base     (R,) at `base_at`: off[r] - row_start[r], so entry e of
                    row r decodes to symbol e + base[r].
 
-The decoder finds a slot's entry with `bucket_lookup`: the bucket's range,
-then a bisection inside it, which gives `cdf_bisect`'s index for every slot
-of a row that is non-decreasing over [0, len - 1). The bisection is
-bounded by the bucket's width: at most 8 probes where 256 frequency-1
-symbols share one bucket, none where a bucket holds one symbol.
+The decoders (`rans_indexed_decode`, `rans_indexed_decode_aligned`,
+`rans_masked_decode_front`) find a slot's entry with `bucket_lookup`: the
+bucket's range, then a search inside it, which gives `cdf_bisect`'s index
+for every slot of a row that is non-decreasing over [0, len - 1). The
+search is a bisection bounded by the bucket's width: at most 9 probes
+where 256 frequency-1 symbols share one bucket, none where a bucket holds
+one symbol.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import weakref
+from dataclasses import dataclass, field
 
 import torch
 
@@ -49,6 +52,31 @@ class IndexedTables:
     row_start: torch.Tensor
     bucket_at: int
     base_at: int
+
+    # per coding table ('cdf', 'cdf_len', 'off'): (weak reference, version)
+    # of the other tensors found to hold its values
+    _equal: dict = field(default_factory=dict, repr=False, compare=False)
+
+    def holds(self, name: str, given: torch.Tensor) -> bool:
+        """Whether `given` holds the values of the coding table `name`
+        ('cdf', 'cdf_len' or 'off') these tables were prepared from: it is
+        that tensor, or a tensor found equal before and not changed since
+        (the same object at the same version), or it is equal now. Only
+        the last compares values (a device sync on a card), once a
+        tensor."""
+        mine = getattr(self, name)
+        if given is mine:
+            return True
+        seen = self._equal.setdefault(name, [])
+        if any(ref() is given and version == given._version
+               for ref, version in seen):
+            return True
+        if given.shape != mine.shape or given.device != mine.device \
+                or not torch.equal(mine, given.to(mine.dtype)):
+            return False
+        seen[:] = [e for e in seen if e[0]() is not None]
+        seen.append((weakref.ref(given), given._version))
+        return True
 
     @property
     def rows(self) -> int:
@@ -113,7 +141,7 @@ def prepare_indexed_tables(cdf, cdf_len, off) -> IndexedTables:
 
 
 def bucket_lookup(t: IndexedTables, rows: torch.Tensor, slot: torch.Tensor):
-    """The decoder's search, as the kernel runs it, for rows `rows` and
+    """The decoders' search, as the kernels run it, for rows `rows` and
     slots `slot` (any matching shapes): (v with cdf[row, v] <= slot <
     cdf[row, v + 1], int64; the probes each took)."""
     dec = t.dec.to(torch.int64)

@@ -27,18 +27,20 @@ a latent to the aligned pair, `batch1_fits`). The aligned (`wire_batch`)
 kernels take any T. `aligned_group` says how many images share a block's
 tables at a given shape.
 
-The batch-1 indexed kernels (`indexed_encode`, `indexed_decode`) read
+The batch-1 indexed kernels (`indexed_encode`, `indexed_decode`), the
+aligned indexed decoder (`indexed_decode_aligned`) and the joint
+autoregressive codec's masked front decoder (`masked_decode_front`) read
 prepared tables (`indexed_tables.prepare_indexed_tables`), which a caller
 that codes more than once builds once and passes as `prepared`; without
-them a wrapper prepares them for its one call. Each has two plans,
-chosen here by size (`indexed_plan`): the decoder's tables in shared
-memory or read from device memory, the encoder's output rows in shared
-memory or (long latents) in a device buffer. Both take any T and width.
-The aligned indexed kernels read the whole CDF table (rows x cols) from
-device memory, one thread per (image, lane), and stage nothing: any T,
-any width. So do the joint autoregressive codec's two masked-lane kernels
-in the same source (`masked_encode_aligned`, `masked_decode_front`), one
-thread a lane.
+them a wrapper prepares them for its one call. The batch-1 pair and the
+aligned decoder have two plans each, chosen here by size
+(`indexed_plan`): the decoder's tables in shared memory or read from
+device memory, the encoder's output rows in shared memory or (long
+latents) in a device buffer; the aligned decoder's images a block follow
+a measured rule (`indexed_aligned_group`). The masked front decoder reads
+the tables in place. All take any T and width. The aligned indexed
+encoder and the masked encoder read the whole CDF table (rows x cols)
+from device memory, one thread per (image, lane) or lane.
 """
 from __future__ import annotations
 
@@ -166,20 +168,23 @@ def _indexed_library():
             lib = ctypes.CDLL(str(build_libraries((INDEXED_SOURCE,))[0]))
             p, i = ctypes.c_void_p, ctypes.c_int
             enc = [p, i, p, p, i, i, i, p, p, p, p]   # + rows/masks, stream
-            dec = [p, i, p, p, i, p, p, p, i, i, i, p, p]   # + stream
+            dec = [p, i, p, p, i, i, i, i, p, i, i, i, p, p, p]
             for name, args, res in (
                     ('rans_indexed_encode', enc + [p], i),
                     ('rans_indexed_encode_aligned', enc + [p], i),
-                    ('rans_indexed_decode',
-                     [p, i, p, p, i, i, i, i, p, i, i, i, p, p, p], i),
-                    ('rans_indexed_decode_aligned', dec + [p], i),
+                    ('rans_indexed_decode', dec, i),
+                    ('rans_indexed_decode_aligned', dec, i),
+                    ('rans_indexed_decode_aligned_smem', [i, i, i],
+                     ctypes.c_int64),
+                    ('rans_indexed_aligned_group', [i, i, i, i], i),
+                    ('rans_launch_floor', [i, p], i),
                     ('rans_indexed_encode_smem', [i, i], ctypes.c_int64),
                     ('rans_indexed_decode_smem', [i, i], ctypes.c_int64),
                     ('rans_indexed_smem_optin', [], i),
                     ('rans_masked_encode_aligned',
                      [p, i, p, p, p, i, i, i, i, p, p, p, p], i),
                     ('rans_masked_decode_front',
-                     [p, i, i, p, p, i, p, p, p, p, i, i, p, p, p], i)):
+                     [p, i, i, p, p, i, i, p, p, i, i, p, p, p], i)):
                 fn = getattr(lib, name)
                 fn.argtypes = args
                 fn.restype = res
@@ -407,28 +412,63 @@ def _launch_indexed(name: str, device: torch.device, *args) -> None:
 _smem_optin: dict = {}
 
 
-def indexed_plan(name: str, steps: int, pack_words: int, device) -> str:
-    """'shared' or 'global': the plan of a launch of the batch-1 kernel
-    `name` on `device` at T = `steps` -- the encoder's u16 output rows in
-    shared memory (up to about 2,600 steps) or in a device buffer; the
-    decoder's prepared tables (`pack_words`, the size of their `dec`) in
-    shared memory or read from device memory."""
-    device = torch.device(device)
-    lib = _indexed_library()
+def _optin(device: torch.device) -> int:
     if device not in _smem_optin:
         with torch.cuda.device(device):
-            _smem_optin[device] = int(lib.rans_indexed_smem_optin())
-    need = lib.rans_indexed_encode_smem(int(steps), 0) \
-        if name == 'rans_indexed_encode' \
-        else lib.rans_indexed_decode_smem(int(pack_words), 0)
-    return 'shared' if need <= _smem_optin[device] else 'global'
+            _smem_optin[device] = int(
+                _indexed_library().rans_indexed_smem_optin())
+    return _smem_optin[device]
 
 
-def _check_prepared(prepared: IndexedTables, cdf: torch.Tensor) -> None:
-    if prepared.cdf.shape != cdf.shape or prepared.dec.device != cdf.device:
-        raise ValueError(f'prepared tables of a {tuple(prepared.cdf.shape)} '
-                         f'table on {prepared.dec.device}, not of `cdf` '
-                         f'{tuple(cdf.shape)} on {cdf.device}')
+def indexed_plan(name: str, steps: int, pack_words: int, device) -> str:
+    """'shared' or 'global': the plan of a launch of the indexed kernel
+    `name` on `device` at T = `steps` -- the batch-1 encoder's u16 output
+    rows in shared memory (up to about 2,600 steps) or in a device buffer;
+    a decoder's prepared tables (`pack_words`, the size of their `dec`) in
+    shared memory (the aligned decoder's beside one image's staging) or
+    read from device memory."""
+    device = torch.device(device)
+    lib = _indexed_library()
+    if name == 'rans_indexed_encode':
+        need = lib.rans_indexed_encode_smem(int(steps), 0)
+    elif name == 'rans_indexed_decode_aligned':
+        need = lib.rans_indexed_decode_aligned_smem(int(pack_words), 0, 1)
+    else:
+        need = lib.rans_indexed_decode_smem(int(pack_words), 0)
+    return 'shared' if need <= _optin(device) else 'global'
+
+
+def indexed_aligned_group(num_images: int, lanes: int, pack_words: int,
+                          device) -> int:
+    """Images per block that an aligned indexed decode of `num_images`
+    images on `lanes` lanes, with prepared tables of `pack_words` words,
+    uses on `device` (the rule in `csrc/rans_indexed.cu`,
+    `aligned_group_rule`)."""
+    plan = indexed_plan('rans_indexed_decode_aligned', 0, pack_words, device)
+    with torch.cuda.device(device):
+        return int(_indexed_library().rans_indexed_aligned_group(
+            int(num_images), int(lanes), int(pack_words),
+            int(plan == 'global')))
+
+
+def _check_prepared(prepared: IndexedTables | None, cdf: torch.Tensor,
+                    cdf_len: torch.Tensor | None = None,
+                    off: torch.Tensor | None = None) -> None:
+    """Raise unless `prepared` is None or the prepared tables of `cdf` (and
+    of `cdf_len` and `off`, where given) on their device (every wrapper
+    checks, on any device; `IndexedTables.holds`)."""
+    if prepared is None:
+        return
+    for name, given in (('cdf', cdf), ('cdf_len', cdf_len), ('off', off)):
+        if given is None:
+            continue
+        given = torch.as_tensor(given)
+        if not prepared.holds(name, given):
+            mine = getattr(prepared, name)
+            raise ValueError(
+                f'prepared tables of another `{name}` ({tuple(mine.shape)} '
+                f'on {mine.device}) than the one given '
+                f'({tuple(given.shape)} on {given.device})')
 
 
 def _indexed_encode_args(cdf: torch.Tensor, vc: torch.Tensor,
@@ -456,11 +496,10 @@ def indexed_encode(cdf: torch.Tensor, vc: torch.Tensor, idx: torch.Tensor,
     (streams (k, N, T) int32 compacted in decode order, lengths (k, N)
     int32, states (k, N) int64). `prepared`: `cdf`'s prepared tables
     (else their encoder entries are built for this call)."""
+    _check_prepared(prepared, cdf)
     if vc.device.type == 'cpu':
         return indexed_encode_plain(cdf, vc, idx)
     args, outs = _indexed_encode_args(cdf, vc, idx)
-    if prepared is not None:
-        _check_prepared(prepared, cdf)
     enc = prepared.enc if prepared is not None else encode_entries(cdf)
     k, steps, lanes = vc.shape
     rows = None
@@ -507,6 +546,24 @@ def _indexed_decode_outputs(streams, states, cdf, cdf_len, off, idx, steps):
     return out, xend
 
 
+def _prepared_for(prepared: IndexedTables | None, cdf, cdf_len, off):
+    """`prepared` (checked by the wrapper on entry), or the tables prepared
+    for one call."""
+    return prepared if prepared is not None \
+        else prepare_indexed_tables(cdf, cdf_len, off)
+
+
+def _launch_decoder(name, streams, states, prepared, idx, steps, out, xend):
+    k, lanes, width = streams.shape
+    words = prepared.dec.numel()
+    plan = indexed_plan(name, steps, words, streams.device)
+    _launch_indexed(name, streams.device, streams.data_ptr(), width,
+                    states.data_ptr(), prepared.dec.data_ptr(), words,
+                    prepared.bucket_at, prepared.base_at,
+                    int(plan == 'global'), idx.data_ptr(), k, int(steps),
+                    lanes, out.data_ptr(), xend.data_ptr())
+
+
 def indexed_decode(streams, states, cdf, cdf_len, off, idx, steps: int,
                    prepared: IndexedTables | None = None):
     """Indexed kernel 2, compacted decode: streams (k, N, W) int32, states
@@ -514,30 +571,23 @@ def indexed_decode(streams, states, cdf, cdf_len, off, idx, steps: int,
     int32 with the row offsets added, final states (k, N) int64). A read
     past a lane's row yields 0. `prepared`: the prepared tables of (cdf,
     cdf_len, off) (else they are built for this call)."""
+    _check_prepared(prepared, cdf, cdf_len, off)
     if streams.device.type == 'cpu':
         return indexed_decode_plain(streams, states, cdf, cdf_len, off, idx,
                                     steps)
     out, xend = _indexed_decode_outputs(streams, states, cdf, cdf_len, off,
                                         idx, steps)
-    if prepared is not None:
-        _check_prepared(prepared, cdf)
-    else:
-        prepared = prepare_indexed_tables(cdf, cdf_len, off)
-    k, lanes, width = streams.shape
-    words = prepared.dec.numel()
-    plan = indexed_plan('rans_indexed_decode', steps, words, streams.device)
-    _launch_indexed('rans_indexed_decode', streams.device,
-                    streams.data_ptr(), width, states.data_ptr(),
-                    prepared.dec.data_ptr(), words, prepared.bucket_at,
-                    prepared.base_at, int(plan == 'global'), idx.data_ptr(),
-                    k, int(steps), lanes, out.data_ptr(), xend.data_ptr())
+    _launch_decoder('rans_indexed_decode', streams, states,
+                    _prepared_for(prepared, cdf, cdf_len, off), idx, steps,
+                    out, xend)
     return out, xend
 
 
 def indexed_decode_aligned(streams, states, cdf, cdf_len, off, idx,
-                           steps: int):
+                           steps: int, prepared: IndexedTables | None = None):
     """Indexed kernel 4, aligned decode: streams (k, N, T) int32 with step
-    t's chunk at column t; outputs as `indexed_decode`."""
+    t's chunk at column t; outputs and `prepared` as `indexed_decode`."""
+    _check_prepared(prepared, cdf, cdf_len, off)
     if streams.device.type == 'cpu':
         return indexed_decode_plain(streams, states, cdf, cdf_len, off, idx,
                                     steps, aligned=True)
@@ -546,12 +596,9 @@ def indexed_decode_aligned(streams, states, cdf, cdf_len, off, idx,
                          f'{streams.shape[-1]}')
     out, xend = _indexed_decode_outputs(streams, states, cdf, cdf_len, off,
                                         idx, steps)
-    k, lanes, width = streams.shape
-    _launch_indexed('rans_indexed_decode_aligned', streams.device,
-                    streams.data_ptr(), width, states.data_ptr(),
-                    cdf.data_ptr(), cdf.shape[1], cdf_len.data_ptr(),
-                    off.data_ptr(), idx.data_ptr(), k, int(steps), lanes,
-                    out.data_ptr(), xend.data_ptr())
+    _launch_decoder('rans_indexed_decode_aligned', streams, states,
+                    _prepared_for(prepared, cdf, cdf_len, off), idx, steps,
+                    out, xend)
     return out, xend
 
 
@@ -592,11 +639,15 @@ def masked_encode_aligned(cdf: torch.Tensor, vc: torch.Tensor,
 def masked_decode_front(streams: torch.Tensor, t: int, states: torch.Tensor,
                         cdf: torch.Tensor, cdf_len: torch.Tensor,
                         off: torch.Tensor, idx: torch.Tensor,
-                        act: torch.Tensor, m: int):
+                        act: torch.Tensor, m: int,
+                        prepared: IndexedTables | None = None):
     """One masked decode step, front t: aligned `streams` (N, T) int32,
     `states` (N,) int64, rows `idx` (N,) int32, `act` (F,) uint8 ->
     (symbols (N,) int32 with the row offset added, 0 on inactive lanes;
-    states (N,) int64)."""
+    states (N,) int64). `prepared`: the prepared tables of (cdf, cdf_len,
+    off), built once for all fronts (else they are built for this
+    call)."""
+    _check_prepared(prepared, cdf, cdf_len, off)
     if streams.device.type == 'cpu':
         return masked_decode_front_plain(streams, t, states, cdf, cdf_len,
                                          off, idx, act, m)
@@ -614,11 +665,26 @@ def masked_decode_front(streams: torch.Tensor, t: int, states: torch.Tensor,
     _check(cdf, 'cdf', torch.int32, tuple(cdf.shape), dev)
     _check(cdf_len, 'cdf_len', torch.int32, (cdf.shape[0],), dev)
     _check(off, 'off', torch.int32, (cdf.shape[0],), dev)
+    prepared = _prepared_for(prepared, cdf, cdf_len, off)
     out = torch.empty((lanes,), dtype=torch.int32, device=dev)
     x_out = torch.empty((lanes,), dtype=torch.int64, device=dev)
     _launch_indexed('rans_masked_decode_front', dev, streams.data_ptr(),
-                    steps, int(t), states.data_ptr(), cdf.data_ptr(),
-                    cdf.shape[1], cdf_len.data_ptr(), off.data_ptr(),
-                    idx.data_ptr(), act.data_ptr(), lanes, int(m),
-                    out.data_ptr(), x_out.data_ptr())
+                    steps, int(t), states.data_ptr(),
+                    prepared.dec.data_ptr(), prepared.bucket_at,
+                    prepared.base_at, idx.data_ptr(), act.data_ptr(), lanes,
+                    int(m), out.data_ptr(), x_out.data_ptr())
     return out, x_out
+
+
+def launch_floor(lanes: int, device) -> None:
+    """Launch an empty kernel on the grid of a masked front of `lanes`
+    lanes: a measurement aid for the floor of that launch's device time
+    (not a coder, not counted in `LAUNCHES`)."""
+    device = torch.device(device)
+    lib = _indexed_library()
+    with torch.cuda.device(device):
+        rc = lib.rans_launch_floor(
+            int(lanes), torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f'rans_launch_floor launch failed: CUDA error '
+                           f'{rc}')

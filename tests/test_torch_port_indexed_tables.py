@@ -1,15 +1,16 @@
-"""The prepared tables of the batch-1 per-index rANS kernels, on the CPU.
+"""The prepared tables of the per-index rANS kernels, on the CPU.
 
-`rans_indexed_decode` finds a slot's symbol from a coarse bucket table and
-a bounded bisection over ragged rows, and `rans_indexed_encode` divides by
-a prepared reciprocal; both read tables that `prepare_indexed_tables`
-builds once. These tests hold that lookup and that division (modelled in
-torch as the kernels run them, `bucket_lookup`, `reciprocal_quotient`)
-against `cdf_bisect` and the exact quotient, and the two kernels' steps
-built from them against the plain versions. The kernels themselves are
-held against the plain versions on the card
-(`tests/test_torch_port_kernels.py`). This file imports neither JAX nor
-`sc2bench_tpu`."""
+The three decoders (`rans_indexed_decode`, `rans_indexed_decode_aligned`,
+`rans_masked_decode_front`) find a slot's symbol from a coarse bucket
+table and a bounded bisection over ragged rows, and `rans_indexed_encode`
+divides by a prepared reciprocal; all read tables that
+`prepare_indexed_tables` builds once. These tests hold that lookup and
+that division (modelled in torch as the kernels run them,
+`bucket_lookup`, `reciprocal_quotient`) against `cdf_bisect` and the exact
+quotient, and the kernels' steps built from them against the plain
+versions. The kernels themselves are held against the plain versions on
+the card (`tests/test_torch_port_kernels.py`). This file imports neither
+JAX nor `sc2bench_tpu`."""
 import numpy as np
 import pytest
 import torch
@@ -173,9 +174,10 @@ def _encode_model(t, vc, idx):
     return x, torch.stack(chunks, dim=1)
 
 
-def _decode_model(t, streams, states, idx, steps):
-    """The batch-1 decoder's arithmetic on its prepared tables: the
-    bucket lookup, then the plain state update and read pointer."""
+def _decode_model(t, streams, states, idx, steps, aligned=False):
+    """The indexed decoders' arithmetic on their prepared tables: the
+    bucket lookup, then the plain state update, and the chunk at the
+    lane's read pointer (batch 1) or at column `step` (`aligned`)."""
     k, lanes, width = streams.shape
     dec = t.dec.to(torch.int64)
     s = torch.cat([streams.to(torch.int64),
@@ -191,23 +193,58 @@ def _decode_model(t, streams, states, idx, steps):
         st, fr = dec[e], dec[e + 1] - dec[e]
         x = (fr * (x >> 16) + slot - st) & _MASK32
         need = x < (1 << 16)
-        chunk = torch.gather(s, 2, ptr.clamp_max(width)[..., None])[..., 0]
-        ptr = ptr + need.to(torch.int64)
+        if aligned:
+            chunk = s[:, :, step]
+        else:
+            chunk = torch.gather(s, 2, ptr.clamp_max(width)[..., None])[..., 0]
+            ptr = ptr + need.to(torch.int64)
         x = torch.where(need, ((x << 16) | chunk) & _MASK32, x)
         out[:, step] = (e + dec[t.base_at + rows]).to(torch.int32)
     return out, x
 
 
-@pytest.mark.parametrize('lanes,n,tails', [(512, 55 * 55 * 24, False),
-                                           (100, 2345, True),
-                                           (40, 40 * 150 - 7, True)])
-def test_kernel_steps_on_prepared_tables_equal_plain_versions(
-        lanes, n, tails, gaussian):
-    """Both batch-1 kernels' steps, run on the prepared tables, give the
-    plain versions' states, chunks and symbols: the MSHP y shape (512
-    lanes x 142 steps), lanes not a multiple of 32, a long latent with
-    frequency-1 tails, and a corrupted state that ends invalid."""
-    g, t = gaussian
+def _masked_front_model(t, streams, front, states, idx, act, m):
+    """The masked front decoder's step on the prepared tables: active
+    lanes look up their slot, take max(freq, 1) and
+    read the chunk at column `front`; inactive lanes keep their state and
+    give 0."""
+    dec = t.dec.to(torch.int64)
+    rows = idx.to(torch.int64)
+    x = states.to(torch.int64)
+    slot = x & 0xFFFF
+    v, _ = bucket_lookup(t, rows, slot)
+    e = t.row_start.to(torch.int64)[rows] + v
+    st = dec[e]
+    fr = torch.clamp_min(dec[e + 1] - st, 1)
+    xn = (fr * (x >> 16) + slot - st) & _MASK32
+    xn = torch.where(xn < (1 << 16),
+                     ((xn << 16) | streams[:, front].to(torch.int64))
+                     & _MASK32, xn)
+    on = act.bool().repeat_interleave(int(m))
+    sym = torch.where(on, e + dec[t.base_at + rows], 0)
+    return sym.to(torch.int32), torch.where(on, xn, x)
+
+
+def _masked_inputs(g, h, w, m, seed):
+    """A JAHP schedule of an h x w latent (activity (T, F) uint8) and, per
+    front, rows of the tables `g` and in-support values for all F * m
+    lanes (frequency-1 tails among them), as torch tensors."""
+    from sc2bench_tpu_torch.models.zoo_jahp import front_arrays, wavefronts
+    _, _, act = front_arrays(wavefronts(h, w))
+    steps, slots = act.shape
+    vc, idx = _blocks(g, 1, steps * slots * m, seed, tails=True)
+    return (vc.reshape(steps, slots * m).contiguous(),
+            idx.reshape(steps, slots * m).contiguous(),
+            torch.from_numpy(act.astype(np.uint8)))
+
+
+def _decoding_tables(cdf, cdf_len, off):
+    cdf, cdf_len, off = (torch.as_tensor(a, dtype=torch.int32)
+                         for a in (cdf, cdf_len, off))
+    return (cdf, cdf_len, off), prepare_indexed_tables(cdf, cdf_len, off)
+
+
+def _check_batch1(g, t, lanes, n, tails):
     vc, idx = _blocks(g, lanes, n, seed=lanes, tails=tails)
     cdf = torch.from_numpy(g.quantized_cdf)
     streams, lengths, states = td.indexed_encode_plain(cdf, vc, idx)
@@ -218,15 +255,111 @@ def test_kernel_steps_on_prepared_tables_equal_plain_versions(
         chunks = chunks[chunks >= 0].flip(0)        # decode order
         assert torch.equal(chunks.to(torch.int32),
                            streams[0, j, :int(lengths[0, j])])
+    _check_decoder(t, streams, states, idx, vc.shape[1], aligned=False)
+
+
+def _check_decoder(t, streams, states, idx, steps, aligned):
+    """The decoder's step model equals the plain version on good states
+    and on a corrupted one, which ends invalid."""
     bad = states.clone()
-    bad[0, lanes // 3] ^= 0x5A5A
+    bad[-1, streams.shape[1] // 3] ^= 0x5A5A
     for st in (states, bad):
-        want = td.indexed_decode_plain(
-            streams, st, cdf, torch.from_numpy(g.cdf_length),
-            torch.from_numpy(g.offset), idx, vc.shape[1])
-        got = _decode_model(t, streams, st, idx, vc.shape[1])
+        want = td.indexed_decode_plain(streams, st, t.cdf, t.cdf_len, t.off,
+                                       idx, steps, aligned=aligned)
+        got = _decode_model(t, streams, st, idx, steps, aligned=aligned)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert bool((want[1] != td.RANS_L).any())
+
+
+def _check_aligned(g, t, lanes, n, k):
+    """k images of MSHP rows with frequency-1 tails, aligned layout."""
+    blocks = [_blocks(g, lanes, n, seed=lanes + i, tails=True)
+              for i in range(k)]
+    vc = torch.cat([b[0] for b in blocks]).contiguous()
+    idx = torch.cat([b[1] for b in blocks]).contiguous()
+    streams, _, states, _ = td.indexed_encode_plain(t.cdf, vc, idx,
+                                                    aligned=True)
+    out, xend = _decode_model(t, streams, states, idx, vc.shape[1],
+                              aligned=True)
+    assert torch.equal(out, (vc + t.off[idx]).to(torch.int32))
+    assert bool((xend == td.RANS_L).all())
+    _check_decoder(t, streams, states, idx, vc.shape[1], aligned=True)
+
+
+def _zero_frequency_decoding_tables():
+    """`_zero_frequency_tables` and a row whose last searched entry ends
+    below 2^16, so slots above it find a zero-frequency entry: max(freq,
+    1) decides the step there."""
+    cdf, cdf_len, off = _zero_frequency_tables()
+    row = np.zeros((1, cdf.shape[1]), np.int32)
+    row[0, :4] = [0, 100, 60000, 60000]
+    return _decoding_tables(np.concatenate([cdf, row]),
+                            np.append(cdf_len, 4), np.append(off, 2))
+
+
+def _check_masked(g, t, m, hw):
+    """Every front of an hw x hw JAHP schedule (inactive pad slots among
+    them), streams of the masked encoder; then random states and rows on
+    tables with zero-frequency entries."""
+    vc, idx, act = _masked_inputs(g, hw, hw, m, seed=hw + m)
+    streams, _, states = td.masked_encode_plain(t.cdf, vc, idx, act, m)
+    assert not bool(act.all())
+    x = xp = states
+    for front in range(vc.shape[0]):
+        sym, x = _masked_front_model(t, streams, front, x, idx[front],
+                                     act[front], m)
+        psym, xp = td.masked_decode_front_plain(
+            streams, front, xp, t.cdf, t.cdf_len, t.off, idx[front],
+            act[front], m)
+        assert torch.equal(sym, psym) and torch.equal(x, xp)
+    assert bool((x == td.RANS_L).all())
+    (cdf, cdf_len, off), zt = _zero_frequency_decoding_tables()
+    rng = np.random.default_rng(5)
+    lanes = act.shape[1] * m
+    fronts = 8
+    rand_streams = torch.from_numpy(
+        rng.integers(0, 1 << 16, (lanes, fronts)).astype(np.int32))
+    x = xp = torch.from_numpy(rng.integers(1 << 16, 1 << 32, lanes))
+    clamped = 0
+    for front in range(fronts):
+        rows = torch.from_numpy(
+            rng.integers(0, cdf.shape[0], lanes).astype(np.int32))
+        a = act[front % act.shape[0]]
+        # active lanes of the last row whose slot finds its zero-frequency
+        # entry (cdf 60000, 60000)
+        clamped += int((a.bool().repeat_interleave(m)
+                        & (rows == cdf.shape[0] - 1)
+                        & ((x & 0xFFFF) >= 60000)).sum())
+        sym, x = _masked_front_model(zt, rand_streams, front, x, rows, a, m)
+        psym, xp = td.masked_decode_front_plain(
+            rand_streams, front, xp, cdf, cdf_len, off, rows, a, m)
+        assert torch.equal(sym, psym) and torch.equal(x, xp)
+    assert clamped > 0
+
+
+@pytest.mark.parametrize('kind,lanes,n,tails', [
+    pytest.param('batch1', 512, 55 * 55 * 24, False, id='512-72600-False'),
+    pytest.param('batch1', 100, 2345, True, id='100-2345-True'),
+    pytest.param('batch1', 40, 40 * 150 - 7, True, id='40-5993-True'),
+    pytest.param('aligned', 512, 55 * 55 * 24, True, id='aligned-k3'),
+    pytest.param('masked', 192, 16, True, id='masked-jahp-16x16x192')])
+def test_kernel_steps_on_prepared_tables_equal_plain_versions(
+        kind, lanes, n, tails, gaussian):
+    """The kernels' steps, run on the prepared tables, give the plain
+    versions' states, chunks and symbols. The batch-1 pair: the MSHP y
+    shape (512 lanes x 142 steps), lanes not a multiple of 32, a long
+    latent with frequency-1 tails, and a corrupted state that ends invalid.
+    The aligned decoder: k = 3 images of MSHP rows with frequency-1 tails
+    at 512 lanes, a corrupted state included. The masked front decoder
+    (m = 192 lanes a slot): every front of a 16 x 16 JAHP schedule, and
+    tables with zero-frequency entries where max(freq, 1) decides."""
+    g, t = gaussian
+    if kind == 'batch1':
+        _check_batch1(g, t, lanes, n, tails)
+    elif kind == 'aligned':
+        _check_aligned(g, t, lanes, n, k=3)
+    else:
+        _check_masked(g, t, m=lanes, hw=n)
 
 
 def test_prepare_keeps_the_coding_tables_and_their_device(gaussian):

@@ -750,6 +750,172 @@ def test_batch1_serves_a_latent_beyond_the_kernel_limit_on_the_card():
     assert torch.allclose(logits[0], direct, rtol=1e-5, atol=1e-5)
 
 
+# ---- the redesigned aligned indexed decoder (prepared tables) ---------------
+
+def _check_aligned_decoder(tables, prepared, vc, idx3, plan):
+    """The aligned indexed decoder on `prepared` tables: the plan it takes,
+    bit-equal to the plain version on the plain encoder's streams, on a
+    corrupted state too (decoded as the plain version does, invalid), the
+    symbols back. Returns the images a block it used."""
+    cdf, cdf_len, off = tables
+    k, steps, lanes = vc.shape
+    dev = vc.device
+    words = prepared.dec.numel()
+    assert kernels.indexed_plan('rans_indexed_decode_aligned', steps, words,
+                                dev) == plan
+    group = kernels.indexed_aligned_group(k, lanes, words, dev)
+    assert 1 <= group <= min(k, 16)
+    streams, _, states, _ = td.indexed_encode_plain(cdf, vc, idx3,
+                                                    aligned=True)
+    bad = states.clone()
+    bad[k - 1, lanes // 3] ^= 0x5A5A
+    for st in (states, bad):
+        out, xend = kernels.indexed_decode_aligned(
+            streams, st, cdf, cdf_len, off, idx3, steps, prepared=prepared)
+        pout, pxend = td.indexed_decode_plain(streams, st, cdf, cdf_len, off,
+                                              idx3, steps, aligned=True)
+        torch.cuda.synchronize()
+        assert torch.equal(out, pout) and torch.equal(xend, pxend)
+    assert bool((pxend[k - 1] != td.RANS_L).any())
+    out, xend = kernels.indexed_decode_aligned(
+        streams, states, cdf, cdf_len, off, idx3, steps, prepared=prepared)
+    assert torch.equal(out, (vc + off[idx3]).to(torch.int32))
+    assert bool((xend == td.RANS_L).all())
+    return group
+
+
+# (k, lanes, n): k = 1, 3, 8 and 128 at the MSHP y (512 lanes x 142 steps)
+# and at the MSHP-64 students' y (1,024 lanes x 190 steps), and T = 4,000
+ALIGNED_DECODE_CASES = [(k, lanes, n)
+                        for lanes, n in ((512, 55 * 55 * 24),
+                                         (1024, 55 * 55 * 64))
+                        for k in (1, 3, 8, 128)] + [(2, 40, 40 * 4000 - 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('k,lanes,n', ALIGNED_DECODE_CASES)
+def test_aligned_indexed_decoder_on_prepared_tables_on_the_card(k, lanes, n):
+    dev = _card()
+    from sc2bench_tpu_torch.ops.entropy.tables import build_gaussian_tables
+    tables, prepared, vc, idx3 = _prepared_blocks(
+        build_gaussian_tables(), lanes, n, k, seed=k + lanes, dev=dev,
+        tails=True)
+    kernels.reset_launches()
+    _check_aligned_decoder(tables, prepared, vc, idx3, 'shared')
+    assert kernels.LAUNCHES['rans_indexed_decode_aligned'] == 3
+
+
+@pytest.mark.cuda
+def test_aligned_indexed_decoder_reads_large_tables_from_device_memory():
+    """Gaussian tables of a 0.11..1,024 scale table (a prepared pack beyond
+    a block's shared memory): the aligned decoder's global-table plan,
+    bit-equal to the plain version at the MSHP y shape, k = 3."""
+    dev = _card()
+    from sc2bench_tpu_torch.ops.entropy.gaussian import get_scale_table
+    from sc2bench_tpu_torch.ops.entropy.tables import build_gaussian_tables
+    t = build_gaussian_tables(get_scale_table(0.11, 1024.0, 64))
+    tables, prepared, vc, idx3 = _prepared_blocks(
+        t, 512, 55 * 55 * 24, 3, seed=9, dev=dev, tails=True)
+    assert 4 * prepared.dec.numel() > 232448
+    _check_aligned_decoder(tables, prepared, vc, idx3, 'global')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('h,w,m', [(16, 16, 192), (5, 5, 192)],
+                         ids=['jahp_q1_256px', 'jahp_q1_72px'])
+def test_masked_front_on_prepared_tables_on_the_card(h, w, m):
+    """Every front of the JAHP q1 schedule at 256 px (61 fronts, 1,152
+    lanes) and at 72 px (a 5x5 latent, not a multiple of 16) on tables
+    prepared once: each front equals the plain version, a corrupted chunk
+    leaves a lane off RANS_L; then random states and rows on tables with
+    zero-frequency entries, where max(freq, 1) decides."""
+    dev = _card()
+    from sc2bench_tpu_torch.ops.rans.indexed_tables import \
+        prepare_indexed_tables
+    from test_torch_port_indexed_tables import \
+        _zero_frequency_decoding_tables
+    t, idx, vals, act = _masked_case(h, w, m, seed=h + w + m)
+    (cdf, cdf_len, off), vc, ix, a = _masked_tensors(t, idx, vals, act, dev)
+    prepared = prepare_indexed_tables(cdf, cdf_len, off)
+    streams, lengths, states = kernels.masked_encode_aligned(cdf, vc, ix, a,
+                                                             m)
+    bad = streams.clone()
+    lane = int(torch.argmax(lengths))
+    bad[lane, int(torch.nonzero(bad[lane])[0, 0])] ^= 0x5A5A
+    kernels.reset_launches()
+    for s in (streams, bad):
+        x = xp = states
+        for step in range(vc.shape[0]):
+            sym, x = kernels.masked_decode_front(
+                s, step, x, cdf, cdf_len, off, ix[step], a[step], m,
+                prepared=prepared)
+            psym, xp = td.masked_decode_front_plain(
+                s, step, xp, cdf, cdf_len, off, ix[step], a[step], m)
+            assert torch.equal(sym, psym) and torch.equal(x, xp)
+        assert bool((x == td.RANS_L).all()) == (s is streams)
+    assert kernels.LAUNCHES['rans_masked_decode_front'] == 2 * vc.shape[0]
+    (zcdf, zlen, zoff), _ = _zero_frequency_decoding_tables()
+    zcdf, zlen, zoff = (a_.to(dev) for a_ in (zcdf, zlen, zoff))
+    zprep = prepare_indexed_tables(zcdf, zlen, zoff)
+    rng = np.random.default_rng(h)
+    lanes = streams.shape[0]
+    rand = torch.from_numpy(rng.integers(0, 1 << 16, (lanes, 4))
+                            .astype(np.int32)).to(dev)
+    x = xp = torch.from_numpy(rng.integers(1 << 16, 1 << 32, lanes)).to(dev)
+    for step in range(4):
+        rows = torch.from_numpy(rng.integers(0, zcdf.shape[0], lanes)
+                                .astype(np.int32)).to(dev)
+        sym, x = kernels.masked_decode_front(rand, step, x, zcdf, zlen, zoff,
+                                             rows, a[step], m, prepared=zprep)
+        psym, xp = td.masked_decode_front_plain(rand, step, xp, zcdf, zlen,
+                                                zoff, rows, a[step], m)
+        assert torch.equal(sym, psym) and torch.equal(x, xp)
+
+
+@pytest.mark.cuda
+def test_prepared_decoders_refuse_bad_arguments_on_the_card():
+    """The aligned indexed decoder and the masked front decoder raise on a
+    `prepared` of another table (of another shape, or of the same shape
+    with its rows in another order), a stream width other than T, a front
+    outside [0, T) and a wrong dtype, before any launch."""
+    dev = _card()
+    from sc2bench_tpu_torch.ops.rans.indexed_tables import \
+        prepare_indexed_tables
+    t, idx, vals, act = _masked_case(5, 5, 8, seed=1)
+    (cdf, cdf_len, off), vc, ix, a = _masked_tensors(t, idx, vals, act, dev)
+    other = prepare_indexed_tables(cdf[:, :-1].contiguous(), cdf_len, off)
+    same_shape = prepare_indexed_tables(cdf.flip(0).contiguous(),
+                                        cdf_len.flip(0).contiguous(), off)
+    streams, _, states = kernels.masked_encode_aligned(cdf, vc, ix, a, 8)
+    kernels.reset_launches()
+    for wrong in (other, same_shape):
+        with pytest.raises(ValueError, match='prepared tables'):
+            kernels.masked_decode_front(streams, 0, states, cdf, cdf_len,
+                                        off, ix[0], a[0], 8, prepared=wrong)
+    with pytest.raises(ValueError, match='front 99'):
+        kernels.masked_decode_front(streams, 99, states, cdf, cdf_len, off,
+                                    ix[0], a[0], 8)
+    with pytest.raises(ValueError, match='dtype'):
+        kernels.masked_decode_front(streams, 0, states.to(torch.int32), cdf,
+                                    cdf_len, off, ix[0], a[0], 8)
+    k, steps, lanes = 2, 6, 40
+    s3 = torch.zeros((k, lanes, steps), dtype=torch.int32, device=dev)
+    x3 = torch.full((k, lanes), td.RANS_L, dtype=torch.int64, device=dev)
+    i3 = torch.zeros((k, steps, lanes), dtype=torch.int32, device=dev)
+    for wrong in (other, same_shape):
+        with pytest.raises(ValueError, match='prepared tables'):
+            kernels.indexed_decode_aligned(s3, x3, cdf, cdf_len, off, i3,
+                                           steps, prepared=wrong)
+    with pytest.raises(ValueError, match='wide'):
+        kernels.indexed_decode_aligned(s3, x3, cdf, cdf_len, off,
+                                       i3[:, :5].contiguous(), 5)
+    with pytest.raises(ValueError, match='dtype'):
+        kernels.indexed_decode_aligned(s3, x3.to(torch.int32), cdf, cdf_len,
+                                       off, i3, steps)
+    assert kernels.LAUNCHES['rans_masked_decode_front'] == 0
+    assert kernels.LAUNCHES['rans_indexed_decode_aligned'] == 0
+
+
 # ---- the masked-lane kernels of the joint autoregressive codec ----------------
 
 def _masked_case(h, w, m, seed):
