@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times the port's eight rANS kernels at the flagship shapes on one GPU.
+"""Times the port's ten rANS kernels at the flagship shapes on one GPU.
 
     python3 bench_rans_kernels.py
 
@@ -58,7 +58,19 @@ device_ms of an empty kernel on its grid (where the checkout has one);
 `jahp_fronts`: the same kernel's device_ms on the JAHP path's own fronts
 (`chip_smoke.py` phase 13's q1 module, seeded weights and first image):
 every front of one image's decode, on the streams the masked encoder
-wrote for it, `image_ms` their sum and `fronts_ms` each.
+wrote for it, `image_ms` their sum and `fronts_ms` each; and the
+masked encoder's per_call_ms and device_ms on that image's own rows and
+activity (`encode_*`, on the tables `update()` prepared where its wrapper
+takes them) beside `launch_floor_ms`, an empty kernel on its grid.
+`aligned_encode`: the aligned indexed encoder's device_ms at k = 1, 8 and
+128 on the MSHP y (512 x 142) and the 64-channel students' y (1,024 x
+190), masks off and on, on prepared entries where its wrapper takes them,
+with the plan (steps a tile, images a block) each launch used where the
+checkout reports it; `encode_sweep`: the same, and the masked encoder on
+the JAHP image, on copies of `csrc/rans_indexed.cu` whose plan rule
+(`encode_plan_rule`) returns tiles of 8 or 16 steps and G = 1, 2, 4 or 8
+(capped by shared memory and k), each checked against the checkout's
+kernel, with the plan each aligned indexed launch took.
 Prints one JSON line with the card's name and power limit. Needs a CUDA
 device.
 """
@@ -82,6 +94,9 @@ REPS = 200
 ALIGNED_SHAPES = ((512, 55 * 55 * 24), (1024, 55 * 55 * 64))
 ALIGNED_KS = (1, 8, 128)
 SWEEP_GROUPS = (1, 2, 4, 8, 16)
+# the aligned indexed encoder's sweep: steps a staged tile, images a block
+ENCODE_TILES = (8, 16)
+ENCODE_GROUPS = (1, 2, 4, 8)
 
 
 def flagship_inputs(torch, td, device, images, n=55 * 55 * 24,
@@ -204,13 +219,16 @@ def indexed_calls(torch, td, kernels, device, indexed_inputs, per_call_ms,
     out['steps_sweep'] = sweep
     aligned = batch1 if _takes_prepared(kernels.indexed_decode_aligned) \
         else {}
+    encoder = batch1 if _takes_prepared(kernels.indexed_encode_aligned) \
+        else {}
     for k in (1, 8, 128):
         vc, idx = inp['vc'][:k].contiguous(), inp['idx3'][:k].contiguous()
         astreams, _, astates, _ = kernels.indexed_encode_aligned(cdf, vc,
                                                                  idx)
         for name, fn in (
                 ('rans_indexed_encode_aligned',
-                 lambda: kernels.indexed_encode_aligned(cdf, vc, idx)),
+                 lambda: kernels.indexed_encode_aligned(cdf, vc, idx,
+                                                        **encoder)),
                 ('rans_indexed_decode_aligned',
                  lambda: kernels.indexed_decode_aligned(
                      astreams, astates, cdf, cdf_len, off, idx, steps,
@@ -257,6 +275,84 @@ def aligned_decode_cases(torch, td, kernels, device, indexed_inputs):
     return calls, groups
 
 
+def aligned_encode_cases(torch, td, kernels, device, indexed_inputs):
+    """{shape: {case: zero-argument call}} of the aligned indexed encoder
+    at ALIGNED_SHAPES x ALIGNED_KS, masks off ('k=8') and on ('k=8
+    masks'), on the tables' prepared entries where the wrapper takes
+    them, and {shape: {k: (tile, G)}} where the checkout reports them."""
+    from sc2bench_tpu_torch.ops.entropy.tables import build_gaussian_tables
+    tables = build_gaussian_tables()
+    calls, groups, extra = {}, {}, {}
+    for lanes, n in ALIGNED_SHAPES:
+        inp = indexed_inputs(torch, td, tables, lanes, n, max(ALIGNED_KS),
+                             np.random.default_rng(lanes + 1), device)
+        cdf = inp['cdf']
+        if _takes_prepared(kernels.indexed_encode_aligned):
+            from sc2bench_tpu_torch.ops.rans.indexed_tables import \
+                prepare_indexed_tables
+            extra = {'prepared': prepare_indexed_tables(
+                cdf, inp['cdf_len'], inp['off'])}
+        shape = f'{lanes}x{inp["steps"]}'
+        for k in ALIGNED_KS:
+            vc = inp['vc'][:k].contiguous()
+            idx = inp['idx3'][:k].contiguous()
+            for masks in (False, True):
+                case = f'k={k}' + (' masks' if masks else '')
+                calls.setdefault(shape, {})[case] = functools.partial(
+                    kernels.indexed_encode_aligned, cdf, vc, idx, masks,
+                    **extra)
+            if hasattr(kernels, 'indexed_encode_aligned_plan'):
+                groups.setdefault(shape, {})[k] = \
+                    kernels.indexed_encode_aligned_plan(k, lanes, device)
+    return calls, groups
+
+
+def encode_variants(kernels):
+    """{'tile=T G=G': path} of copies of `csrc/rans_indexed.cu` whose
+    aligned encoders' plan rule (`encode_plan_rule`) returns tiles of T
+    steps and G images a block (capped by shared memory and k), built
+    beside the checkout's library; {} for a checkout without the rule."""
+    source = kernels.INDEXED_SOURCE.read_text()
+    rule = re.compile(r'(inline EncodePlan encode_plan_rule\([^)]*\) \{)')
+    if not rule.search(source):
+        return {}
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    variants = {}
+    for t in ENCODE_TILES:
+        for g in ENCODE_GROUPS:
+            path = kernels.BUILD_DIR / f'rans_indexed_etile{t}_g{g}.cu'
+            path.write_text(rule.sub(
+                lambda m: f'{m.group(1)}\n  return {{{t}, std::min({g}, '
+                          f'encode_gmax({t}, num_images, act_bytes))}};',
+                source, count=1))
+            variants[f'tile={t} G={g}'] = path
+    kernels.build_libraries(tuple(variants.values()))
+    return variants
+
+
+def encode_sweep(torch, kernels, calls, device, device_ms):
+    """{variant: {shape: {case: device_ms}}} of the aligned encoders built
+    with each tile and G (`encode_variants`), and the plan (tile, G) each
+    aligned indexed launch took ({variant: {shape: {k: plan}}})."""
+    flat = {(shape, case): fn for shape, cases in calls.items()
+            for case, fn in cases.items()}
+
+    def plans():
+        return {(shape, case): kernels.indexed_encode_aligned_plan(
+            int(case.split()[0][2:]), int(shape.split('x')[0]), device)
+            for shape, case in flat if case.startswith('k=')}
+    sweep, used = {}, {}
+    for variant, (times, plan) in on_variants(
+            torch, kernels, encode_variants(kernels), flat, device_ms,
+            probe=plans).items():
+        for (shape, case), ms in times.items():
+            sweep.setdefault(variant, {}).setdefault(shape, {})[case] = ms
+            if (shape, case) in plan:
+                used.setdefault(variant, {}).setdefault(shape, {})[
+                    case.split()[0]] = plan[shape, case]
+    return sweep, used
+
+
 def group_variants(kernels):
     """{G: path} of copies of `csrc/rans_indexed.cu` whose G rule
     (`aligned_group_rule`) returns G (capped by shared memory and k),
@@ -278,10 +374,11 @@ def group_variants(kernels):
     return variants
 
 
-def on_variants(torch, kernels, variants, calls, device_ms):
+def on_variants(torch, kernels, variants, calls, device_ms, probe=None):
     """{value: {case: device_ms}} of each zero-argument call in `calls`
     ({case: fn}) on each variant library; each variant's outputs equal
-    the checkout's kernel's."""
+    the checkout's kernel's. With `probe`, {value: (times, probe())},
+    `probe` called with the variant's library loaded."""
     want = {case: fn() for case, fn in calls.items()}
     checkout = (kernels.INDEXED_SOURCE, kernels._indexed_lib)
     out = {}
@@ -289,11 +386,13 @@ def on_variants(torch, kernels, variants, calls, device_ms):
         for value, path in variants.items():
             kernels.INDEXED_SOURCE, kernels._indexed_lib = path, None
             for case, fn in calls.items():
-                if not all(torch.equal(a, b)
+                if not all(a is b or torch.equal(a, b)
                            for a, b in zip(fn(), want[case])):
                     raise SystemExit(f'bench_rans_kernels: {path.name} '
                                      f'differs at {case}')
                 out.setdefault(value, {})[case] = device_ms(torch, fn, 50)
+            if probe is not None:
+                out[value] = (out[value], probe())
     finally:
         kernels.INDEXED_SOURCE, kernels._indexed_lib = checkout
     return out
@@ -354,9 +453,10 @@ def masked_front(torch, td, kernels, device, gaussian_symbols, per_call_ms,
     return out
 
 
-def jahp_fronts(torch, kernels, device, device_ms):
+def jahp_fronts(torch, kernels, device, per_call_ms, device_ms):
     """device_ms of the masked front decoder on every front of one JAHP
-    image's decode (see the module doc)."""
+    image's decode, and the masked encoder's times on that image (see the
+    module doc); and a zero-argument call of that encode."""
     from chip_smoke import CODEC_HW, JAHP_KEY, codec_weights
     from sc2bench_tpu_torch.models import zoo
     from sc2bench_tpu_torch.models.zoo_jahp import JointAutoregressiveRuntime
@@ -389,8 +489,20 @@ def jahp_fronts(torch, kernels, device, device_ms):
         _, x_t = fn()
     if not bool((x_t == RANS_L).all()):
         raise SystemExit('bench_rans_kernels: the JAHP decode is not valid')
-    return {'lanes': sch.slots * m, 'image_ms': sum(fronts),
-            'fronts_ms': fronts}
+    encoder = {'prepared': rt._g_prepared} \
+        if _takes_prepared(kernels.masked_encode_aligned) else {}
+
+    def encode():
+        return kernels.masked_encode_aligned(cdf, vc, idx, sch.active, m,
+                                             **encoder)
+    lanes = sch.slots * m
+    out = {'lanes': lanes, 'image_ms': sum(fronts), 'fronts_ms': fronts,
+           'encode_per_call_ms': per_call_ms(torch, encode, REPS),
+           'encode_device_ms': device_ms(torch, encode, REPS)}
+    if hasattr(kernels, 'launch_floor'):
+        out['launch_floor_ms'] = device_ms(
+            torch, lambda: kernels.launch_floor(lanes, device), REPS)
+    return out, encode
 
 
 def main():
@@ -442,7 +554,16 @@ def main():
     gsweep = group_sweep(torch, kernels, calls, device_ms)
     masked = masked_front(torch, td, kernels, device, gaussian_symbols,
                           per_call_ms, device_ms)
-    fronts = jahp_fronts(torch, kernels, device, device_ms)
+    fronts, jahp_encode = jahp_fronts(torch, kernels, device, per_call_ms,
+                                      device_ms)
+    ecalls, egroups = aligned_encode_cases(torch, td, kernels, device,
+                                           indexed_inputs)
+    aligned_enc = {shape: {case: device_ms(torch, fn, 50)
+                           for case, fn in cases.items()}
+                   for shape, cases in ecalls.items()}
+    ecalls[f'jahp {fronts["lanes"]} lanes'] = {'masked': jahp_encode}
+    esweep, esweep_groups = encode_sweep(torch, kernels, ecalls, device,
+                                         device_ms)
     smi = subprocess.run(
         ['nvidia-smi', '--id=0', '--query-gpu=name,power.limit,clocks.sm',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -452,7 +573,11 @@ def main():
                       'wire_batch_sweep': wire_sweep, 'wide_rows': wide,
                       'indexed': indexed, 'aligned_decode': aligned,
                       'aligned_groups': groups, 'group_sweep': gsweep,
-                      'masked_front': masked, 'jahp_fronts': fronts}),
+                      'masked_front': masked, 'jahp_fronts': fronts,
+                      'aligned_encode': aligned_enc,
+                      'aligned_encode_groups': egroups,
+                      'encode_sweep': esweep,
+                      'encode_sweep_groups': esweep_groups}),
           flush=True)
 
 

@@ -26,12 +26,14 @@ which fails loudly with a nonzero exit:
     and at 100 lanes (n = 2,345, k = 3) and at T = 4,000 (40 lanes), with
     rows 0 and 63 and frequency-1 tail symbols, and on Gaussian tables of
     a custom scale table (0.11..1,024) too large for shared memory; the
-    batch-1 indexed pair and the aligned indexed decoder read the tables'
-    prepared form, whose one-time cost is printed, and the plan each case
-    took (shared or device-memory encoder rows and decoder tables) is
-    printed, both plans required of the batch-1 pair and of the aligned
-    decoder, with the aligned decoder's images a block at k = 1, 8 and
-    128 (a corrupted state decoded as the plain version in each case).
+    four indexed kernels read the tables' prepared form, whose one-time
+    cost is printed, and the plan each case took (shared or device-memory
+    encoder rows and decoder tables) is printed, both plans required of
+    the batch-1 pair and of the aligned decoder, with the aligned
+    decoder's images a block at k = 1, 8 and 128 (a corrupted state
+    decoded as the plain version in each case); the aligned encoder with
+    masks on and off; the aligned indexed pair also at k = 128 (timed,
+    with its bound and the images a block each took).
     Print each kernel's ms
     (CUDA events around one call on an idle card, host dispatch
     included), device ms (launches queued behind a sleep kernel), plain
@@ -97,7 +99,9 @@ which fails loudly with a nonzero exit:
     (`spread_mshp_scales`), phase 3's 16 float images: the y indexes must
     use at least 8 of the 64 rows; at batch 1 the cyclic pair (z) and the
     indexed pair (y) launch once per image, at `wire_batch=8` the four
-    aligned kernels once per group; no escape, equal sizes, logits within
+    aligned kernels once per group, y's encoder handed the Gaussian
+    tables' prepared form that `update()` built on each of its calls (at
+    both batch sizes, recorded); no escape, equal sizes, logits within
     1e-3; two images decode to the host path's y and z symbols with
     logits within 1e-3 of `rt.decode(**rt.encode(x))`; a scaled image
     takes the ok=False escape with `rt.encode`'s size; img/s both ways;
@@ -151,12 +155,13 @@ which fails loudly with a nonzero exit:
     device wire: every symbol in support, the device decode valid with a
     y_hat equal to the encoder's and to the host path's bit for bit;
     `rans_masked_encode_aligned` launched once an image, `rans_masked_
-    decode_front` once a front (61 an image) on the Gaussian tables'
-    prepared form that `update()` built, the aligned cyclic pair once
-    each for z; at the path's shapes all four equal their plain versions,
-    the front decoder on every front; the masked kernels' ms, device ms,
-    plain ms and bound, and the front's launch floor (an empty kernel on
-    its grid);
+    decode_front` once a front (61 an image), both on the Gaussian
+    tables' prepared form that `update()` built (recorded at each call),
+    the aligned cyclic pair once each for z; at the path's shapes all four
+    equal their plain versions, the front decoder on every front, the
+    masked encoder also on tables with zero-frequency entries coded on
+    active lanes; the masked kernels' ms, device ms, plain ms and bound,
+    and their launch floor (an empty kernel on their grid);
 14. the RegNetY-6.4GF and hybrid ViT-S R26+S/32 students at full width
     with seeded weights (`build_student`: the configs' 64-channel FP and
     MSHP bottlenecks, `build_model`'s weights and halved last encoder
@@ -838,9 +843,9 @@ def indexed_case(torch, td, kernels, tables, lanes, n, k, rng, device,
     case: bit-equal to the plain versions (a corrupted state included),
     packed bytes equal to the numpy oracle with per-index rows and equal
     between the layouts, the symbols back with valid=True, valid=False on
-    the corrupted stream. The decoders and the batch-1 encoder read
-    `prepared`, the tables' `prepare_indexed_tables`; `plans` records the
-    plan each took."""
+    the corrupted stream, the aligned encoder with masks on and off. All
+    four read `prepared`, the tables' `prepare_indexed_tables`; `plans`
+    records the plan each took."""
     inp = indexed_inputs(torch, td, tables, lanes, n, k, rng, device, tails)
     vc, idx3, steps = inp['vc'], inp['idx3'], inp['steps']
     cdf, cdf_len, off = inp['cdf'], inp['cdf_len'], inp['off']
@@ -862,9 +867,12 @@ def indexed_case(torch, td, kernels, tables, lanes, n, k, rng, device,
     enc = kernels.indexed_encode(cdf, vc, idx3, prepared=prepared)
     compare('rans_indexed_encode', enc, td.indexed_encode_plain(cdf, vc,
                                                                 idx3))
-    enca = kernels.indexed_encode_aligned(cdf, vc, idx3, want_masks=True)
+    enca = kernels.indexed_encode_aligned(cdf, vc, idx3, want_masks=True,
+                                          prepared=prepared)
     compare('rans_indexed_encode_aligned', enca, td.indexed_encode_plain(
         cdf, vc, idx3, aligned=True, want_masks=True))
+    compare('rans_indexed_encode_aligned', kernels.indexed_encode_aligned(
+        cdf, vc, idx3, prepared=prepared), enca[:3] + (None,))
     for r in range(k):
         wire = td.pack_stream({'streams': enc[0][r], 'lengths': enc[1][r],
                                'states': enc[2][r]})
@@ -900,6 +908,61 @@ def indexed_case(torch, td, kernels, tables, lanes, n, k, rng, device,
     torch.cuda.synchronize()
     return dict(inp, enc=enc, enca=enca, errs=errs, plans=plans,
                 prepared=prepared, tag=tag)
+
+
+def aligned_k128(torch, td, kernels, tables, lanes, n, rng, device,
+                 prepared):
+    """Phase 2: the aligned indexed pair at k = 128 (the throughput mode's
+    wire_batch) on `prepared`: the encoder with masks on and off and the
+    decoder on its streams, each bit-equal to its plain version, the
+    symbols back valid; returns {name: (max error, device ms (the encoder
+    with masks off, as the MSHP path), bound ms)}
+    and the encoder's (tile, images a block) and the decoder's images a
+    block."""
+    k = 128
+    inp = indexed_inputs(torch, td, tables, lanes, n, k, rng, device,
+                         tails=True)
+    vc, idx3, steps = inp['vc'], inp['idx3'], inp['steps']
+    cdf, cdf_len, off = inp['cdf'], inp['cdf_len'], inp['off']
+
+    def encode(masks=True):
+        return kernels.indexed_encode_aligned(cdf, vc, idx3, masks,
+                                              prepared=prepared)
+
+    def decode():
+        return kernels.indexed_decode_aligned(
+            enca[0], enca[2], cdf, cdf_len, off, idx3, steps,
+            prepared=prepared)
+
+    enca = encode()
+    want = td.indexed_encode_plain(cdf, vc, idx3, aligned=True,
+                                   want_masks=True)
+    errs = {'rans_indexed_encode_aligned': max(
+        [int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+         for a, b in zip(enca, want)]
+        + [int((a - b).abs().max()) for a, b in zip(encode(False)[:3],
+                                                     want[:3])])}
+    out, xend = decode()
+    pout, pxend = td.indexed_decode_plain(enca[0], enca[2], cdf, cdf_len,
+                                          off, idx3, steps, aligned=True)
+    errs['rans_indexed_decode_aligned'] = max(
+        int((out - pout).abs().max()), int((xend - pxend).abs().max()))
+    check(bool((xend == td.RANS_L).all()) and np.array_equal(
+        out.reshape(k, -1)[:, :n].cpu().numpy(), inp['rows']),
+        f'aligned indexed pair at k={k}: symbols lost or invalid')
+    for name, e in errs.items():
+        check(e == 0, f'{name} differs from its plain version at k={k} by '
+              f'{e}')
+    out = {}
+    for name, fn, dec in (('rans_indexed_encode_aligned',
+                           lambda: encode(False), False),
+                          ('rans_indexed_decode_aligned', decode, True)):
+        out[name] = (errs[name], device_ms(torch, fn, reps=50),
+                     indexed_costs(inp, tables, k, enca[1], dec)[0])
+    plans = (kernels.indexed_encode_aligned_plan(k, lanes, device),
+             kernels.indexed_aligned_group(k, lanes, prepared.dec.numel(),
+                                           device))
+    return out, plans
 
 
 def indexed_oracle_wire(td, sym, idx, tables, lanes):
@@ -1029,9 +1092,21 @@ def indexed_phase(torch, td, kernels, tables, device):
         f'{4 * prepared.enc.numel()} bytes), {wide_ms:.3f} ms for '
         f'{wide.quantized_cdf.shape} ({4 * wide_prepared.dec.numel()} / '
         f'{4 * wide_prepared.enc.numel()} bytes)')
+    k128, (genc, gdec) = aligned_k128(torch, td, kernels, tables, lanes, n,
+                                      rng, device, prepared)
     stats = indexed_stats(torch, td, kernels, tables, flag, one)
     for name, st in stats.items():
         st['max_abs_err'] = max(case['errs'].get(name, 0) for case in cases)
+    for name, (err, dev_ms, bound_ms) in k128.items():
+        stats[name].update(max_abs_err=max(stats[name]['max_abs_err'], err),
+                           device_ms_k128=dev_ms, bound_ms_k128=bound_ms)
+    log(f'phase 2: aligned indexed pair at k=128 on {lanes} lanes x '
+        f'{flag["steps"]} steps (masks on and off, frequency-1 tails) equal '
+        'their plain versions: ' + ', '.join(
+            f'{name} {dev_ms:.4f} ms on the card (bound {bound_ms:.6f})'
+            for name, (_, dev_ms, bound_ms) in k128.items())
+        + f'; encoder tile {genc[0]} steps, images a block {genc[1]} / '
+        f'{gdec}')
     for name in ('rans_indexed_encode', 'rans_indexed_decode'):
         stats[name]['prepare_ms'] = prep_ms
     return stats
@@ -1059,7 +1134,8 @@ def indexed_stats(torch, td, kernels, tables, flag, one, tag='phase 2'):
             indexed_costs(one, tables, 1, enc1[1], True)),
         'rans_indexed_encode_aligned': (
             lambda: kernels.indexed_encode_aligned(cdf, flag['vc'],
-                                                   flag['idx3']),
+                                                   flag['idx3'],
+                                                   prepared=prep),
             lambda: td.indexed_encode_plain(cdf, flag['vc'], flag['idx3'],
                                             aligned=True),
             indexed_costs(flag, tables, WIRE_BATCH, enca[1], False)),
@@ -1088,6 +1164,10 @@ def indexed_stats(torch, td, kernels, tables, flag, one, tag='phase 2'):
         kernels.indexed_aligned_group(WIRE_BATCH, lanes,
                                       flag['prepared'].dec.numel(),
                                       cdf.device)
+    tile, group = kernels.indexed_encode_aligned_plan(WIRE_BATCH, lanes,
+                                                      cdf.device)
+    stats['rans_indexed_encode_aligned'].update(images_per_block=group,
+                                                tile_steps=tile)
     return stats
 
 
@@ -1738,6 +1818,20 @@ def device_symbols(rt, x):
     return y.reshape(1, hy, wy, cy).cpu().numpy(), z.cpu().numpy()
 
 
+def prepared_calls(kernels, name):
+    """Replace the wrapper `kernels.<name>` by one that records the
+    `prepared` each call hands it; returns (that list, a function that
+    puts the wrapper back)."""
+    calls, real = [], getattr(kernels, name)
+
+    def record(*args, **kwargs):
+        calls.append(kwargs.get('prepared'))
+        return real(*args, **kwargs)
+
+    setattr(kernels, name, record)
+    return calls, lambda: setattr(kernels, name, real)
+
+
 def mshp_serve_phase(torch, kernels, rt, images, phase='phase 9',
                      label='MSHP-24/256/16 ResNet-50'):
     """Phase 9: the MSHP deploy loop at full width, batch 1 then
@@ -1752,22 +1846,32 @@ def mshp_serve_phase(torch, kernels, rt, images, phase='phase 9',
     rt.stream_deploy_device(images[:2])
     rt.stream_deploy_device(images[:WIRE_BATCH], wire_batch=WIRE_BATCH)
     runs = {}
-    for wire_batch in (None, WIRE_BATCH):
+    for wire_batch, encoder in ((None, 'indexed_encode'),
+                                (WIRE_BATCH, 'indexed_encode_aligned')):
         rt.clear_analysis()
         rt.activate_analysis()
         rt.escapes = {'ok': 0, 'valid': 0}
         kernels.reset_launches()
-        t0 = time.perf_counter()
-        logits = rt.stream_deploy_device(images, wire_batch=wire_batch)
-        dt = time.perf_counter() - t0
+        handed, restore = prepared_calls(kernels, encoder)
+        try:
+            t0 = time.perf_counter()
+            logits = rt.stream_deploy_device(images, wire_batch=wire_batch)
+            dt = time.perf_counter() - t0
+        finally:
+            restore()
         runs[wire_batch] = dict(logits=logits, dt=dt,
                                 launches=dict(kernels.LAUNCHES),
                                 sizes=list(rt.analyzers[0].file_size_list),
                                 summary=rt.summarize()[0],
-                                escapes=dict(rt.escapes))
+                                escapes=dict(rt.escapes), handed=handed)
     b1, bk = runs[None], runs[WIRE_BATCH]
     n = len(images)
     groups = -(-n // WIRE_BATCH)
+    for run, want in ((b1, n), (bk, groups)):
+        check(len(run['handed']) == want
+              and all(p is rt._gprepared for p in run['handed']),
+              f'MSHP: the y encoder was not handed the tables update() '
+              f'prepared on each of its {want} calls')
     want1 = expected_launches(kernels, MSHP_BATCH1, n)
     wantk = expected_launches(kernels, [k + '_aligned' for k in MSHP_BATCH1],
                               groups)
@@ -2273,18 +2377,68 @@ def masked_costs(vc, idx, act, m, tables, decode, lengths=None):
     return bound(nbytes, ops)
 
 
+def zero_frequency_tables():
+    """(cdf, cdf_length, offset) of four 700-column CDF rows with
+    zero-frequency entries (repeated values) at the front, in the middle
+    and before the end, a row of frequency-1 symbols and a row as wide as
+    the table, padded with zeros past each cdf_length."""
+    cols = 700
+    cdf = np.zeros((4, cols), np.int32)
+    cdf[0, :8] = [0, 0, 0, 300, 300, 65000, 65536, 65536]
+    cdf[1, :7] = [0, 5, 5, 5, 40000, 40000, 65536]
+    cdf[2, :602] = np.concatenate([np.arange(600), [65535, 65536]])
+    w = np.random.default_rng(3).uniform(0.0, 1.0, cols - 1) ** 8
+    freqs = (w / w.sum() * 65000).astype(np.int64)         # some are 0
+    freqs[np.argmax(freqs)] += 65536 - freqs.sum()
+    cdf[3, 1:] = np.cumsum(freqs)
+    return cdf, np.asarray([7, 7, 602, cols], np.int32), \
+        np.asarray([0, -3, -300, 11], np.int32)
+
+
+def masked_zero_frequency(torch, td, kernels, sch, m, device):
+    """The masked encoder on the JAHP schedule `sch` with `m` lanes a slot,
+    on `zero_frequency_tables`, each value drawn evenly over its row's
+    coded support, so active lanes code zero-frequency entries (where
+    max(freq, 1) decides), with the tables' prepared form and without:
+    (its largest difference from the plain version, the active lanes on a
+    zero-frequency entry)."""
+    from sc2bench_tpu_torch.ops.rans.indexed_tables import \
+        prepare_indexed_tables
+    cdf, cdf_len, off = zero_frequency_tables()
+    rng = np.random.default_rng(15)
+    steps, slots = sch.active.shape
+    ix = rng.integers(0, cdf.shape[0], (steps, slots * m)).astype(np.int32)
+    vals = rng.integers(0, cdf_len[ix] - 2).astype(np.int32)
+    lane_act = np.repeat(sch.active.cpu().numpy().astype(bool), m, axis=1)
+    zero = int(((cdf[ix, vals + 1] == cdf[ix, vals]) & lane_act).sum())
+    check(zero > 0, 'masked zero-frequency case: no active lane codes a '
+          'zero-frequency entry')
+    cdf, cdf_len, off, vc, ix = (torch.from_numpy(a).to(device) for a in (
+        cdf, cdf_len, off, vals, ix))
+    want = td.masked_encode_plain(cdf, vc, ix, sch.active, m)
+    err = 0
+    for extra in ({'prepared': prepare_indexed_tables(cdf, cdf_len, off)},
+                  {}):
+        got = kernels.masked_encode_aligned(cdf, vc, ix, sch.active, m,
+                                            **extra)
+        err = max([err] + [int((a - b).abs().max())
+                           for a, b in zip(got, want)])
+    return err, zero
+
+
 def jahp_phase(torch, kernels, td, images):
     """Phase 13 (JAHP): the joint autoregressive codec q1 (192, 192) at
     256 px on the host wire and on the device wire. Checks: every image in
     support (`ok`), the device decode `valid` and its y_hat equal to the
     encoder's and to the host path's (bit for bit), the host round trip
     exact; the masked kernels launch once (encode) and once a front
-    (decode) an image, the aligned cyclic pair once each for z; on the
-    last image every kernel of the path equals its plain version, the
-    front decoder on every front, on the tables `update()` prepared. The
-    front decoder's timing comes with its launch floor: an empty kernel on
-    its grid, timed the same way. Returns (launches, kernel stats of the
-    two masked kernels)."""
+    (decode) an image, both handed the tables `update()` prepared, the
+    aligned cyclic pair once each for z; on the last image every kernel of
+    the path equals its plain version, the front decoder on every front,
+    and the masked encoder also on tables with zero-frequency entries
+    (`masked_zero_frequency`). The masked kernels' timings come with their
+    launch floor: an empty kernel on their grid, timed the same way.
+    Returns (launches, kernel stats of the two masked kernels)."""
     import pickle
     from sc2bench_tpu_torch.models import zoo
     from sc2bench_tpu_torch.models.zoo_jahp import JointAutoregressiveRuntime
@@ -2318,6 +2472,7 @@ def jahp_phase(torch, kernels, td, images):
     host_s = time.perf_counter() - t0
     # device wire
     kernels.reset_launches()
+    handed, restore = prepared_calls(kernels, 'masked_encode_aligned')
     t0 = time.perf_counter()
     dev_sizes, enc_s = [], 0.0
     for x, y_host in zip(images, host):
@@ -2335,7 +2490,11 @@ def jahp_phase(torch, kernels, td, images):
         dev_sizes.append(int(ops['nbytes']))
     torch.cuda.synchronize()
     dev_s = time.perf_counter() - t0
+    restore()
     launches = dict(kernels.LAUNCHES)
+    check(len(handed) == n and all(p is prepared for p in handed),
+          'JAHP: the masked encoder was not handed the tables update() '
+          'prepared on each image')
     sch = rt.schedule(*ops['shape'])
     want = {'rans_masked_encode_aligned': n,
             'rans_masked_decode_front': n * sch.steps,
@@ -2352,11 +2511,15 @@ def jahp_phase(torch, kernels, td, images):
     vc, idx, _ = rt.masked_values(syms, idxs, sch)
     cdf, cdf_len, off = rt._g_tables_dev
     m = module.m
-    got = kernels.masked_encode_aligned(cdf, vc, idx, sch.active, m)
+    got = kernels.masked_encode_aligned(cdf, vc, idx, sch.active, m,
+                                        prepared=prepared)
     ref = td.masked_encode_plain(cdf, vc, idx, sch.active, m)
     errs = {'rans_masked_encode_aligned': max(
         int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
         for a, b in zip(got, ref))}
+    zero_freq = masked_zero_frequency(torch, td, kernels, sch, m, device)
+    errs['rans_masked_encode_aligned'] = max(
+        errs['rans_masked_encode_aligned'], zero_freq[0])
     streams, lengths, states = got
     x_k = x_p = states
     err, mid = 0, sch.steps // 2
@@ -2402,7 +2565,7 @@ def jahp_phase(torch, kernels, td, images):
     specs = {
         'rans_masked_encode_aligned': (
             lambda: kernels.masked_encode_aligned(cdf, vc, idx, sch.active,
-                                                  m),
+                                                  m, prepared=prepared),
             lambda: td.masked_encode_plain(cdf, vc, idx, sch.active, m),
             masked_costs(vc, idx, sch.active, m, g, False)),
         'rans_masked_decode_front': (
@@ -2428,9 +2591,12 @@ def jahp_phase(torch, kernels, td, images):
     lanes = streams.shape[0]
     floor = device_ms(torch, lambda: kernels.launch_floor(lanes, device),
                       reps=100)
-    stats['rans_masked_decode_front']['launch_floor_ms'] = floor
-    log(f'phase 13: launch floor of a masked front ({lanes} lanes, an '
-        f'empty kernel on its grid): {floor:.4f} ms on the card')
+    for name in kernels.MASKED_KERNELS:
+        stats[name]['launch_floor_ms'] = floor
+    log(f'phase 13: launch floor of the masked kernels ({lanes} lanes, an '
+        f'empty kernel on their grid): {floor:.4f} ms on the card; the '
+        f'masked encoder equals its plain version on tables with '
+        f'zero-frequency entries ({zero_freq[1]} active lanes coding one)')
     active = int(sch.active.sum()) * m
     log(f'phase 13: JAHP q1 (192, 192), {n} images of {CODEC_HW}x{CODEC_HW}: '
         f'y 16x16x192 on {sch.slots * m} masked lanes x {sch.steps} fronts '
@@ -3789,7 +3955,7 @@ def run():
                    **{key: stats[name][key]
                       for key in ('device_ms_k128', 'bound_ms_k128',
                                   'launch_floor_ms', 'images_per_block',
-                                  'prepare_ms')
+                                  'tile_steps', 'prepare_ms')
                       if key in stats[name]})
         if name in backbone_stats:
             b = backbone_stats[name]

@@ -117,9 +117,38 @@
 // 0.275; the masked front decoder about 0.003 ms a launch at 1,152 lanes
 // on the JAHP path, over an empty kernel's 0.0019 on the same grid.
 //
-// The aligned encoder and the masked encoder keep the first design: one
-// thread per (image, lane) or lane, 32 threads a block, CDF rows read from
-// device memory (L2), the hardware divide. ROADMAP Queue B lists them.
+// Both aligned encoders (rans_indexed_encode_aligned and the masked
+// rans_masked_encode_aligned, one kernel template) apply the batch-1
+// encoder's design with one image a warp, on the same prepared entries
+// (`encode_step`): a block holds the same 32 lanes of G images (the masked
+// encoder's one image: G = 1), whose symbol and row tiles are staged a
+// tile ahead and whose entries are gathered two tiles ahead (16-byte
+// cp.async from L2), so no load stays on the state's chain. The chunk of
+// step t sits at column t, so the warp keeps its lanes' last 64 columns in
+// a u16 ring in shared memory and the renormalisation bits of a 32-column
+// window in a word, and after each window writes the streams (and, where
+// asked, the masks) with coalesced stores that start at a 32-byte sector
+// boundary of each row (as rans_cyclic.cu's aligned encoder does), in
+// place of a 4-byte store a step whose warp touched 32 sectors. Shared
+// memory does not grow with T, so any T is taken. The plan follows a rule
+// measured on an H100 (encode_plan_rule): 16-step tiles while the warps
+// take at most two an SM, else 8-step tiles (20,864 bytes a warp against
+// 37,248, so 8 warps fit a block), and the largest G whose blocks still
+// cover every SM. The masked encoder first stages the activity map whole
+// in shared memory; an inactive lane gathers nothing and stays inert, and
+// an entry of frequency 0 codes with frequency 1 (max(freq, 1), as the JAX
+// step). Its one image has 36 warps at the JAHP's 1,152 lanes, so its
+// bound is the chain's latency over 61 fronts plus the launch.
+//
+// Measured on an H100 (bench_rans_kernels.py, PERF.md), in one call with
+// the first design (one thread per (image, lane), the CDF rows read from
+// L2, the hardware divide, a 4-byte store a step): the aligned encoder at
+// 512 lanes x 142 steps 0.0229 ms at k = 8 (16-step tiles, G = 1)
+// against 0.0280, 0.0665 at k = 128 (8-step tiles, G = 8) against 0.228
+// (the bytes' bound about 0.034); the masked encoder 0.0167 ms an image on
+// the JAHP path against 0.0255, over an empty kernel's 0.0019 on its grid.
+// At k = 128, G = 1 measured 1.5x slower than G = 8 at the same tile: ten
+// one-warp blocks an SM code slower than one block of eight warps.
 //
 // All kernels hold the plain versions' contract bit for bit on valid
 // tables: CDF rows non-decreasing from 0 to 2^16 within cdf_length, every
@@ -150,13 +179,12 @@
 // that front's activity bit act[t, slot] is set; elsewhere the lane is inert
 // (no table read, no renormalisation, no state change, chunk 0), so encoder
 // and decoder renormalise at the same steps and the decoder reads column t.
-// One thread a lane, the tables read from device memory (in L2) as above:
-// the encoder's CDF rows, the decoder's prepared pack. The indexed aligned
-// encoder
-// cannot stand in for the masked one with an "identity" row: a row of
-// frequency 2^16 would leave the state as it is, but 2^16 << 16 wraps to 0
-// in 32 bits, so every such step would renormalise. The context model
-// between decode fronts stays torch ops.
+// Both read the prepared tables (above): the encoder the entries, the
+// decoder the pack in place. The masked encoder is the aligned encoder's
+// kernel with the activity test (kMasked): an "identity" row could not
+// stand in for it, since a row of frequency 2^16 would leave the state as
+// it is, but 2^16 << 16 wraps to 0 in 32 bits, so every such step would
+// renormalise. The context model between decode fronts stays torch ops.
 //
 // Layouts: vc, idx (T, N) int32 forward order; act (T, F) uint8; streams
 // (N, T) int32; lengths (N,) int32; states (N,) int64. The decoder takes
@@ -168,7 +196,8 @@
 // cudaGetLastError(), or cudaErrorInvalidValue (without launching) when
 // aligned streams are not T columns wide, the masked lanes are not F * m
 // (a front index outside [0, T)), or a plan needs more shared memory than
-// a block can have.
+// a block can have (the masked encoder's activity map of T x F bytes
+// beside one warp's staging).
 
 #include <algorithm>
 #include <cstdint>
@@ -187,6 +216,25 @@ constexpr int kAPitch = kATile + 1;                  // words a lane's row
 constexpr int kAWarpWords = 2 * kThreads * kAPitch;  // a warp's two tiles
 constexpr int kMaxAlignedGroup = 16;                 // images (warps) a block
 constexpr int kMinAlignedGroup = 4;                  // ... where k allows
+// the aligned encoders: the columns a write-out covers, the u16 output
+// ring and its row pitch (33 words, so the lanes' ring stores never share
+// a bank), the most warps a block
+constexpr int kEWindow = 32;
+constexpr int kERing = 2 * kEWindow;
+constexpr int kERingPitch = kERing + 2;
+constexpr int kMaxEncodeGroup = 8;
+
+// an aligned encoder warp's shared bytes at tiles of `tile` steps: entry
+// tiles [3][tile][32] of 16 bytes, symbol and row tiles [2][tile][32]
+// each, the renormalisation bits [32][2], the ring [32][kERingPitch]
+__host__ __device__ constexpr size_t encode_warp_bytes(int tile) {
+  return sizeof(uint4) * 3 * tile * kThreads
+         + sizeof(int32_t) * 2 * 2 * tile * kThreads
+         + sizeof(uint32_t) * 2 * kThreads
+         + sizeof(uint16_t) * kThreads * kERingPitch;
+}
+static_assert(encode_warp_bytes(8) % 16 == 0
+              && encode_warp_bytes(16) % 16 == 0, "aligned encoder tiles");
 
 inline unsigned blocks_for(int num_images, int lanes) {
   const int64_t total = static_cast<int64_t>(num_images) * lanes;
@@ -220,6 +268,23 @@ __device__ __forceinline__ int bucket_lookup(const int32_t* __restrict__ tab,
   st = static_cast<uint32_t>(tab[lo]);
   fr = static_cast<uint32_t>(tab[lo + 1]) - st;
   return lo;
+}
+
+// The encoders' step on a prepared (start, freq, m_lo, m_hi) entry:
+// renormalise (the caller keeps x's low 16 bits, the chunk emitted when
+// this returns true), then x = floor(x / fr) * 2^16 + x mod fr + st, the
+// quotient by the reciprocal m = ceil(2^48 / fr) = m_hi * 2^32 + m_lo
+// (exact, see rans_cyclic.cu's reciprocal48) as umulhi(x, m_lo) + x * m_hi,
+// folded into one multiply-add. uint32 arithmetic throughout, wrapping
+// exactly as the plain versions'.
+__device__ __forceinline__ bool encode_step(uint32_t& x, uint32_t st,
+                                            uint32_t fr, uint32_t m_lo,
+                                            uint32_t m_hi) {
+  const bool renorm = x >= (fr << 16);
+  if (renorm) x >>= 16;
+  const uint32_t q = (__umulhi(x, m_lo) + x * m_hi) >> 16;
+  x = q * (kRansL - fr) + x + st;
+  return renorm;
 }
 
 // ---- asynchronous global -> shared copies ----------------------------------
@@ -336,6 +401,59 @@ inline int aligned_decode_group(int num_images, int lanes, int pack_words,
                             gmax, std::max(sms, 1));
 }
 
+// aligned encoders: (masked) the activity map (T, F) bytes, padded to 16,
+// then each of the block's `group` warps' tiles, bits and ring
+__host__ __device__ inline size_t act_smem(int steps, int slots) {
+  return (static_cast<size_t>(steps) * slots + 15) / 16 * 16;
+}
+
+// An aligned encode's plan: steps a staged tile (8 or 16) and images
+// (warps) a block.
+struct EncodePlan {
+  int tile;
+  int group;
+};
+
+// the most warps a block of `tile`-step tiles holds beside `act_bytes`,
+// capped by kMaxEncodeGroup and k
+inline int encode_gmax(int tile, int num_images, size_t act_bytes) {
+  const int64_t room = static_cast<int64_t>(smem_optin())
+                       - static_cast<int64_t>(act_bytes);
+  const int64_t fit = room / static_cast<int64_t>(encode_warp_bytes(tile));
+  return std::max(1, static_cast<int>(std::min<int64_t>(
+      fit, std::min(kMaxEncodeGroup, num_images))));
+}
+
+// The plan of an aligned encode of k images of `lane_groups` blocks of 32
+// lanes on `sms` SMs (the masked encoder: k = 1, the activity map's
+// `act_bytes` beside the warps). The rule, from device times on an H100
+// at the MSHP y shapes, k = 1, 8 and 128 (PERF.md): 16-step tiles while
+// the warps take at most two an SM (7% faster than 8 at k = 1 and 8: half
+// the tiles' waits and staging), else 8-step tiles (20,864 bytes a warp
+// against 37,248, so more warps fit an SM); then the largest G whose
+// blocks still cover every SM. At k = 128, G = 8 measured 1.5-1.75x
+// faster than G = 1, whose one-warp blocks sat 10 to an SM; at k = 8,
+// G = 1 keeps the 128 warps on 128 SMs (G = 8: 16 SMs, 1.4x slower).
+inline EncodePlan encode_plan_rule(int64_t lane_groups, int num_images,
+                                   int sms, size_t act_bytes) {
+  const int tile = lane_groups * num_images <= 2 * sms ? 16 : 8;
+  int g = encode_gmax(tile, num_images, act_bytes);
+  while (g > 1 && lane_groups * ((num_images + g - 1) / g) < sms) --g;
+  return {tile, g};
+}
+
+inline EncodePlan encode_plan(int num_images, int lanes, size_t act_bytes) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return encode_plan_rule((lanes + kThreads - 1) / kThreads, num_images,
+                          std::max(sms, 1), act_bytes);
+}
+
+inline size_t encode_aligned_smem(const EncodePlan& plan, size_t act_bytes) {
+  return act_bytes + encode_warp_bytes(plan.tile) * plan.group;
+}
+
 // ---- batch-1 encode --------------------------------------------------------
 //
 // Tiles of kTile steps are coded in reverse. Three kinds of cp.async group,
@@ -423,18 +541,10 @@ rans_indexed_encode_warp_kernel(const uint4* __restrict__ enc, int cols,
         const uint4 e = next;
         if (j > 0) next = et[(j - 1) * kThreads];
         gather(s - 2, j);
-        // uint32 arithmetic throughout, wrapping exactly as the plain
-        // version's
-        const uint32_t st = e.x, fr = e.y;
-        if (x >= (fr << 16)) {
-          // the count-th emission goes to column steps-1-count
-          orow[steps - 1 - count] = static_cast<uint16_t>(x);
-          ++count;
-          x >>= 16;
-        }
-        // q = floor(x / fr) = (x * m) >> 48; (q << 16) + x - q * fr + st
-        const uint32_t q = (__umulhi(x, e.z) + x * e.w) >> 16;
-        x = q * (kRansL - fr) + x + st;
+        const uint16_t low = static_cast<uint16_t>(x);
+        // the count-th emission goes to column steps-1-count
+        if (encode_step(x, e.x, e.y, e.z, e.w))
+          orow[steps - 1 - count++] = low;
       }
       for (int j = n; j < kTile; ++j) gather(s - 2, j);
     }
@@ -572,44 +682,215 @@ rans_indexed_decode_warp_kernel(const int32_t* __restrict__ streams,
   if (active) xend[gid] = static_cast<int64_t>(x);
 }
 
-// ---- the aligned (wire_batch) pair: the first design -----------------------
+// ---- the aligned encoders (wire_batch, and the masked lanes) --------------
+//
+// Grid (lane groups, image groups); block: G warps, warp w coding image
+// blockIdx.y * G + w on lanes blockIdx.x * 32 + [0, 32) (the masked encoder:
+// one image, G = 1). The batch-1 encoder's pipeline on tiles of kETile
+// steps, coded in reverse: A(s), tile s's symbols and rows, staged three
+// tiles ahead (coalesced across the warp); B(s), tile s's prepared
+// entries, gathered at the staged (row, value) two tiles ahead, one a step;
+// A in buffer s & 1, B in s % 3, each lane copying and reading only its
+// own. The chunk of step t goes to column t & (kERing - 1) of the lane's
+// u16 ring (0 where none), its renormalisation to bit t & 31 of a word a
+// kEWindow-column window. After the tile that completes a window [t0, t0 +
+// 32) the warp stores each of its rows' 32 columns from the row's first
+// 32-byte sector boundary at or after t0 (the columns above were stored
+// after the window before), so no store but a row's head writes part of a
+// sector; eight rows' shared loads go before their stores. The masked
+// encoder first stages the activity map (T, F) in shared memory; a lane
+// inactive at a step gathers nothing, keeps its state and writes chunk 0,
+// and an entry of frequency 0 codes with frequency 1 (max(freq, 1), as the
+// plain version and the JAX step).
 
-__global__ void __launch_bounds__(kThreads)
-rans_indexed_encode_aligned_kernel(const int32_t* __restrict__ cdf, int cols,
-                                   const int32_t* __restrict__ vc,
-                                   const int32_t* __restrict__ idx,
-                                   int num_images, int steps, int lanes,
-                                   int32_t* __restrict__ streams,
-                                   int32_t* __restrict__ lengths,
-                                   int64_t* __restrict__ states,
-                                   uint8_t* __restrict__ masks) {
-  const int64_t gid =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (gid >= static_cast<int64_t>(num_images) * lanes) return;
-  const int64_t img = gid / lanes;
-  const int lane = static_cast<int>(gid % lanes);
-  const int64_t base = img * steps * lanes + lane;   // (img, t=0, lane)
-  int32_t* row = streams + gid * steps;
-  uint8_t* mrow = masks != nullptr ? masks + gid * steps : nullptr;
-  uint32_t x = kRansL;
-  int count = 0;
-  for (int t = steps - 1; t >= 0; --t) {
-    const int64_t p = base + static_cast<int64_t>(t) * lanes;
-    const int32_t* e = cdf + static_cast<int64_t>(idx[p]) * cols + vc[p];
-    const uint32_t st = static_cast<uint32_t>(e[0]);
-    const uint32_t fr = static_cast<uint32_t>(e[1]) - st;
-    // uint32 arithmetic throughout, wrapping exactly as the plain version
-    const bool renorm = x >= (fr << 16);
-    row[t] = renorm ? static_cast<int32_t>(x & 0xFFFFu) : 0;
-    if (mrow != nullptr) mrow[t] = renorm ? 1 : 0;
-    if (renorm) {
-      ++count;
-      x >>= 16;
+template <bool kMasked, int kETile>
+__global__ void __launch_bounds__(kMaxEncodeGroup * kThreads)
+rans_indexed_encode_aligned_warp_kernel(const uint4* __restrict__ enc,
+                                        int cols,
+                                        const int32_t* __restrict__ vc,
+                                        const int32_t* __restrict__ idx,
+                                        const uint8_t* __restrict__ act,
+                                        int slots, int m, int num_images,
+                                        int steps, int lanes,
+                                        int32_t* __restrict__ streams,
+                                        int32_t* __restrict__ lengths,
+                                        int64_t* __restrict__ states,
+                                        uint8_t* __restrict__ masks) {
+  static_assert(kEWindow % kETile == 0, "a tile divides the window");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int group = blockDim.x / kThreads;
+  const int w = threadIdx.x / kThreads;
+  const int l = threadIdx.x % kThreads;
+  const int lane0 = blockIdx.x * kThreads;
+  const int lane = lane0 + l;
+  const int img = blockIdx.y * group + w;
+  const bool active = img < num_images && lane < lanes;
+  const int nrow = min(kThreads, lanes - lane0);
+  const uint8_t* sact = smem;                         // masked: [T][F]
+  uint4* ent = reinterpret_cast<uint4*>(
+      smem + (kMasked ? act_smem(steps, slots) : 0)
+      + w * encode_warp_bytes(kETile));
+  int32_t* vt = reinterpret_cast<int32_t*>(ent + 3 * kETile * kThreads);
+  int32_t* rt = vt + 2 * kETile * kThreads;           // [2][kETile][32]
+  uint32_t* rbits = reinterpret_cast<uint32_t*>(rt + 2 * kETile * kThreads);
+  uint16_t* ring = reinterpret_cast<uint16_t*>(rbits + 2 * kThreads);
+  if (kMasked) {
+    // sixteen loads a thread in flight before their stores
+    const int bytes = steps * slots;
+    for (int i0 = threadIdx.x; i0 < bytes; i0 += 16 * blockDim.x) {
+      uint8_t a[16];
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        const int i = i0 + u * blockDim.x;
+        a[u] = i < bytes ? act[i] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < 16; ++u)
+        if (i0 + u * blockDim.x < bytes) smem[i0 + u * blockDim.x] = a[u];
     }
-    x = ((x / fr) << 16) + (x % fr) + st;
+    __syncthreads();
   }
-  lengths[gid] = count;
-  states[gid] = static_cast<int64_t>(x);
+  if (img >= num_images) return;
+  const int slot = kMasked && active ? lane / m : 0;
+  auto on = [&](int t) { return !kMasked || sact[t * slots + slot] != 0; };
+  const int64_t row0 = static_cast<int64_t>(img) * lanes + lane0;
+  const int64_t base = static_cast<int64_t>(img) * steps * lanes + lane;
+  const int ntiles = (steps + kETile - 1) / kETile;
+
+  // A(s): tile s's symbols and rows for this lane; an empty group for s < 0
+  // keeps the wait count uniform
+  auto stage = [&](int s) {
+    if (s >= 0 && active) {
+      const int t0 = s * kETile, t1 = min(t0 + kETile, steps);
+      const int o = (s & 1) * kETile * kThreads + l;
+      for (int t = t0; t < t1; ++t) {
+        const int64_t p = base + static_cast<int64_t>(t) * lanes;
+        cp_async4(vt + o + (t - t0) * kThreads, vc + p);
+        cp_async4(rt + o + (t - t0) * kThreads, idx + p);
+      }
+    }
+    cp_async_commit();
+  };
+  // step s*kETile + j's entry into B(s)'s buffer (A(s) has landed)
+  auto gather = [&](int s, int j) {
+    const int t = s * kETile + j;
+    if (s >= 0 && active && t < steps && on(t)) {
+      const int o = (s & 1) * kETile * kThreads + j * kThreads + l;
+      const int64_t e = static_cast<int64_t>(rt[o]) * cols + vt[o];
+      cp_async16(ent + ((s % 3) * kETile + j) * kThreads + l, enc + e);
+    }
+  };
+
+  // the warp's output rows; row r's column 0 lies ph0 + r * phs int32
+  // (mod 8) past a 32-byte sector boundary, so its first boundary at or
+  // after a column t0 = 32w is column t0 + dcol[r & 7]
+  int32_t* out_w = streams + row0 * steps;
+  uint8_t* mask_w = masks != nullptr ? masks + row0 * steps : nullptr;
+  const int ph0 = static_cast<int>((row0 * steps) & 7);
+  const int phs = steps & 7;
+  int dcol[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) dcol[i] = (-(ph0 + i * phs)) & 7;
+
+  stage(ntiles - 1);
+  stage(ntiles - 2);
+  cp_async_wait_one();                          // A(S-1)
+  for (int j = 0; j < kETile; ++j) gather(ntiles - 1, j);
+  cp_async_commit();                            // B(S-1)
+  stage(ntiles - 3);
+  cp_async_wait_one();                          // A(S-2)
+  for (int j = 0; j < kETile; ++j) gather(ntiles - 2, j);
+  cp_async_commit();                            // B(S-2)
+
+  uint32_t x = kRansL, bits = 0;
+  int count = 0;
+  uint16_t* orow = ring + l * kERingPitch;
+  for (int s = ntiles - 1; s >= 0; --s) {
+    cp_async_wait_one();                        // B(s), A(s-2)
+    stage(s - 3);
+    const int t0 = s * kETile, n = min(kETile, steps - t0);
+    if (active) {
+      const uint4* et = ent + (s % 3) * kETile * kThreads + l;
+      // the entries do not depend on the state: step t-1's is read while
+      // step t runs
+      uint4 next = et[(n - 1) * kThreads];
+      for (int j = n - 1; j >= 0; --j) {
+        const uint4 e = next;
+        if (j > 0) next = et[(j - 1) * kThreads];
+        gather(s - 2, j);
+        const int t = t0 + j;
+        uint32_t chunk = 0;
+        if (on(t)) {
+          uint32_t fr = e.y, m_hi = e.w;
+          if (kMasked && static_cast<int32_t>(fr) <= 0) {
+            fr = 1;                             // m = 2^48: m_lo is 0
+            m_hi = 1u << 16;
+          }
+          const uint32_t low = x & 0xFFFFu;
+          const bool renorm = encode_step(x, e.x, fr, e.z, m_hi);
+          chunk = renorm ? low : 0u;
+          bits |= static_cast<uint32_t>(renorm) << (t & (kEWindow - 1));
+          count += renorm;
+        }
+        orow[t & (kERing - 1)] = static_cast<uint16_t>(chunk);
+      }
+      for (int j = n; j < kETile; ++j) gather(s - 2, j);
+    }
+    cp_async_commit();                          // B(s-2)
+    if (t0 % kEWindow != 0) continue;
+    // the window [t0, t0 + 32) is coded: columns >= t0 are final
+    if (active) rbits[l * 2 + ((t0 / kEWindow) & 1)] = bits;
+    bits = 0;
+    __syncwarp();                               // the ring and bits written
+    for (int r0 = 0; r0 < nrow; r0 += 8) {
+      uint32_t val[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)               // row r0 + i < 32: in the ring
+        val[i] = r0 + i < nrow
+                     ? ring[(r0 + i) * kERingPitch
+                            + ((t0 + dcol[i] + l) & (kERing - 1))]
+                     : 0u;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = t0 + dcol[i] + l;
+        if (r0 + i < nrow && col < steps)
+          out_w[(r0 + i) * steps + col] = static_cast<int32_t>(val[i]);
+      }
+    }
+    if (mask_w != nullptr) {
+      for (int r0 = 0; r0 < nrow; r0 += 8) {
+        uint32_t bit[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          bit[i] = r0 + i < nrow
+                       ? rbits[(r0 + i) * 2
+                               + (((t0 + dcol[i] + l) / kEWindow) & 1)]
+                       : 0u;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int col = t0 + dcol[i] + l;
+          if (r0 + i < nrow && col < steps)
+            mask_w[(r0 + i) * steps + col] =
+                (bit[i] >> (col & (kEWindow - 1))) & 1u;
+        }
+      }
+    }
+    if (t0 == 0) {
+      // the rows' heads: the columns before their first sector boundary
+      for (int r = 0; r < nrow; ++r) {
+        if (l < ((-(ph0 + r * phs)) & 7) && l < steps) {
+          out_w[r * steps + l] = ring[r * kERingPitch + l];
+          if (mask_w != nullptr)
+            mask_w[r * steps + l] = (rbits[r * 2] >> l) & 1u;
+        }
+      }
+    }
+    __syncwarp();                               // the ring is free again
+  }
+  if (active) {
+    lengths[row0 + l] = count;
+    states[row0 + l] = static_cast<int64_t>(x);
+  }
 }
 
 // ---- the aligned (wire_batch) decoder --------------------------------------
@@ -731,49 +1012,6 @@ rans_indexed_decode_aligned_warp_kernel(const int32_t* __restrict__ streams,
   if (active) xend[gid] = static_cast<int64_t>(x);
 }
 
-// Masked lanes of the joint autoregressive codec's device wire: lane
-// (slot, channel) = slot * m + channel, N = F * m lanes, T fronts; the lane
-// codes at most one symbol a front, and only where act[t, slot] is set.
-// An inactive lane is inert at that step: no table read, no
-// renormalisation, no state change, chunk 0.
-
-__global__ void __launch_bounds__(kThreads)
-rans_masked_encode_aligned_kernel(const int32_t* __restrict__ cdf, int cols,
-                                  const int32_t* __restrict__ vc,
-                                  const int32_t* __restrict__ idx,
-                                  const uint8_t* __restrict__ act, int steps,
-                                  int lanes, int slots, int m,
-                                  int32_t* __restrict__ streams,
-                                  int32_t* __restrict__ lengths,
-                                  int64_t* __restrict__ states) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
-  const int slot = lane / m;
-  int32_t* row = streams + static_cast<int64_t>(lane) * steps;
-  uint32_t x = kRansL;
-  int count = 0;
-  for (int t = steps - 1; t >= 0; --t) {
-    if (act[static_cast<int64_t>(t) * slots + slot] == 0) {
-      row[t] = 0;
-      continue;
-    }
-    const int64_t p = static_cast<int64_t>(t) * lanes + lane;
-    const int32_t* e = cdf + static_cast<int64_t>(idx[p]) * cols + vc[p];
-    const uint32_t st = static_cast<uint32_t>(e[0]);
-    const uint32_t fr = max(static_cast<uint32_t>(e[1]) - st, 1u);
-    // uint32 arithmetic throughout, wrapping exactly as the plain version
-    const bool renorm = x >= (fr << 16);
-    row[t] = renorm ? static_cast<int32_t>(x & 0xFFFFu) : 0;
-    if (renorm) {
-      ++count;
-      x >>= 16;
-    }
-    x = ((x / fr) << 16) + (x % fr) + st;
-  }
-  lengths[lane] = count;
-  states[lane] = static_cast<int64_t>(x);
-}
-
 // One step of every lane, front t, on the prepared pack read in place.
 __global__ void __launch_bounds__(kThreads)
 rans_masked_decode_front_kernel(const int32_t* __restrict__ streams,
@@ -814,6 +1052,44 @@ rans_masked_decode_front_kernel(const int32_t* __restrict__ streams,
 // front decoder's grid, whose device time is the floor no kernel body on
 // that grid can go below.
 __global__ void __launch_bounds__(kThreads) rans_empty_kernel() {}
+
+// The launch of an aligned encoder on `plan` (the masked one's activity
+// map of act_bytes beside its warps); cudaErrorInvalidValue, without
+// launching, when the plan needs more shared memory than a block can have.
+template <bool kMasked, int kETile>
+int encode_aligned_launch(const EncodePlan& plan, size_t act_bytes,
+                          const int32_t* enc, int cols, const int32_t* vc,
+                          const int32_t* idx, const uint8_t* act, int slots,
+                          int m, int num_images, int steps, int lanes,
+                          int32_t* streams, int32_t* lengths,
+                          int64_t* states, uint8_t* masks,
+                          cudaStream_t stream) {
+  auto kernel = rans_indexed_encode_aligned_warp_kernel<kMasked, kETile>;
+  const size_t smem = encode_aligned_smem(plan, act_bytes);
+  if (!fit_smem(kernel, smem)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((lanes + kThreads - 1) / kThreads),
+                  static_cast<unsigned>((num_images + plan.group - 1)
+                                        / plan.group));
+  kernel<<<grid, plan.group * kThreads, smem, stream>>>(
+      reinterpret_cast<const uint4*>(enc), cols, vc, idx, act, slots, m,
+      num_images, steps, lanes, streams, lengths, states, masks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kMasked>
+int encode_aligned(int steps, int slots, int m, int num_images, int lanes,
+                   const int32_t* enc, int cols, const int32_t* vc,
+                   const int32_t* idx, const uint8_t* act,
+                   int32_t* streams, int32_t* lengths, int64_t* states,
+                   uint8_t* masks, cudaStream_t stream) {
+  const size_t act_bytes = kMasked ? act_smem(steps, slots) : 0;
+  const EncodePlan plan = encode_plan(num_images, lanes, act_bytes);
+  auto launch = plan.tile == 16 ? encode_aligned_launch<kMasked, 16>
+                                : encode_aligned_launch<kMasked, 8>;
+  return launch(plan, act_bytes, enc, cols, vc, idx, act, slots, m,
+                num_images, steps, lanes, streams, lengths, states, masks,
+                stream);
+}
 
 }  // namespace
 
@@ -860,17 +1136,31 @@ int rans_indexed_encode(const int32_t* enc, int cols, const int32_t* vc,
   return static_cast<int>(cudaGetLastError());
 }
 
-int rans_indexed_encode_aligned(const int32_t* cdf, int cols,
+// The plan an aligned indexed encode of k images on `lanes` lanes takes:
+// its steps a tile, images a block and shared memory (bytes).
+int rans_indexed_encode_aligned_tile(int num_images, int lanes) {
+  return encode_plan(num_images, lanes, 0).tile;
+}
+
+int rans_indexed_encode_aligned_group(int num_images, int lanes) {
+  return encode_plan(num_images, lanes, 0).group;
+}
+
+int64_t rans_indexed_encode_aligned_smem(int num_images, int lanes) {
+  return static_cast<int64_t>(
+      encode_aligned_smem(encode_plan(num_images, lanes, 0), 0));
+}
+
+// `enc` as for rans_indexed_encode; `masks` null, or (k, N, T) bytes
+int rans_indexed_encode_aligned(const int32_t* enc, int cols,
                                 const int32_t* vc, const int32_t* idx,
                                 int num_images, int steps, int lanes,
                                 int32_t* streams, int32_t* lengths,
                                 int64_t* states, uint8_t* masks,
                                 cudaStream_t stream) {
-  rans_indexed_encode_aligned_kernel
-      <<<blocks_for(num_images, lanes), kThreads, 0, stream>>>(
-          cdf, cols, vc, idx, num_images, steps, lanes, streams, lengths,
-          states, masks);
-  return static_cast<int>(cudaGetLastError());
+  return encode_aligned<false>(steps, 0, 1, num_images, lanes, enc, cols,
+                               vc, idx, nullptr, streams, lengths, states,
+                               masks, stream);
 }
 
 // `pack` the prepared decoder tables (pack_words int32, a multiple of 4,
@@ -949,7 +1239,16 @@ int rans_indexed_decode_aligned(const int32_t* streams, int width,
   return static_cast<int>(cudaGetLastError());
 }
 
-int rans_masked_encode_aligned(const int32_t* cdf, int cols,
+// The masked encoder's shared memory for T fronts of F slots on `lanes`
+// lanes (its plan: one image, one warp a block).
+int64_t rans_masked_encode_aligned_smem(int steps, int slots, int lanes) {
+  const size_t act_bytes = act_smem(steps, slots);
+  return static_cast<int64_t>(encode_aligned_smem(
+      encode_plan(1, lanes, act_bytes), act_bytes));
+}
+
+// `enc` as for rans_indexed_encode
+int rans_masked_encode_aligned(const int32_t* enc, int cols,
                                const int32_t* vc, const int32_t* idx,
                                const uint8_t* act, int steps, int lanes,
                                int slots, int m, int32_t* streams,
@@ -957,11 +1256,9 @@ int rans_masked_encode_aligned(const int32_t* cdf, int cols,
                                cudaStream_t stream) {
   if (m <= 0 || lanes != slots * m)
     return static_cast<int>(cudaErrorInvalidValue);
-  rans_masked_encode_aligned_kernel
-      <<<blocks_for(1, lanes), kThreads, 0, stream>>>(
-          cdf, cols, vc, idx, act, steps, lanes, slots, m, streams, lengths,
-          states);
-  return static_cast<int>(cudaGetLastError());
+  return encode_aligned<true>(steps, slots, m, 1, lanes, enc, cols, vc, idx,
+                              act, streams, lengths, states, nullptr,
+                              stream);
 }
 
 // `pack` as for rans_indexed_decode, read in place

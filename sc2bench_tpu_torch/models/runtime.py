@@ -286,7 +286,7 @@ class SplitClassifierRuntime(AnalyzerHolder):
         parameters (and, for a hyperprior, the Gaussian tables of
         `scale_table`, by default the 64-entry log-spaced one) and keep
         device copies for the wire (and the Gaussian tables' prepared form
-        for the batch-1 general-path kernels). Returns False, and builds
+        for the general-path kernels). Returns False, and builds
         nothing, when the model has no entropy model."""
         if self.codec is None:
             return False

@@ -290,8 +290,8 @@ class JointAutoregressiveRuntime(JointAutoregressiveDeviceMixin):
 
     def update(self):
         """Build z's tables, the Gaussian tables of y, their device copies
-        and their prepared form (for the masked front decoder), and the
-        context model from the current weights."""
+        and their prepared form (for the masked encoder and front
+        decoder), and the context model from the current weights."""
         self.codec.update(self.module.entropy_bottleneck)
         if self.g_tables is None:
             self.g_tables = build_gaussian_tables(self.scale_table)

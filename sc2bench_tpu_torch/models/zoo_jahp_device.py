@@ -11,8 +11,9 @@ no emission), so encoder and decoder renormalise at the same steps and
 the time-aligned layout applies: column t of the (N, T) streams holds the
 chunk of front t, and the decoder reads it there directly.
 
-  encode  `rans_masked_encode_aligned`, one launch an image: the T fronts
-          in reverse, then z on the cyclic aligned lanes
+  encode  `rans_masked_encode_aligned`, one launch an image on the
+          Gaussian tables' prepared form that `update()` builds once: the
+          T fronts in reverse, then z on the cyclic aligned lanes
           (`rans_cyclic_encode_aligned`);
   decode  z (`rans_cyclic_decode_aligned`), h_s, then per front the
           context model (torch ops on the device) and one masked decode
@@ -70,7 +71,8 @@ class JointAutoregressiveDeviceMixin:
         syms, idxs, y_hat = self.forward_scan(y, hyper)
         vc, idx, ok = self.masked_values(syms, idxs, sch)
         streams, lengths, states = kernels.masked_encode_aligned(
-            self._g_tables_dev[0], vc, idx, sch.active, m)
+            self._g_tables_dev[0], vc, idx, sch.active, m,
+            prepared=self._g_prepared)
         N = idx.shape[1]
         n = self.module.n
         zh, zw = z_symbols.shape[2:]

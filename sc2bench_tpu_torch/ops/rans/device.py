@@ -176,7 +176,8 @@ def device_rans_encode(symbols, quantized_cdf, cdf_length, offset,
     kernels; CPU: their plain versions); other array types go to `device`
     (default CUDA). `prepared`: the tables' `prepare_indexed_tables`, built
     once by a caller that codes more than once, for the general path's
-    batch-1 encoder (else it prepares them for this call)."""
+    encoders, batch 1 and aligned (else they prepare them for this
+    call)."""
     from . import kernels
     if not isinstance(symbols, torch.Tensor):
         symbols = torch.as_tensor(symbols, dtype=torch.int32,
@@ -206,7 +207,8 @@ def device_rans_encode(symbols, quantized_cdf, cdf_length, offset,
         maxv = cdf_len[idx3] - 2                 # escape slot excluded
         encode = functools.partial(kernels.indexed_encode,
                                    prepared=prepared)
-        encode_aligned = kernels.indexed_encode_aligned
+        encode_aligned = functools.partial(kernels.indexed_encode_aligned,
+                                           prepared=prepared)
         table, rows = cdf, (idx3.contiguous(),)
     ok = ((v >= 0) & (v < maxv)).flatten(1).all(dim=1)
     args = (table, torch.minimum(torch.clamp_min(v, 0), maxv - 1)

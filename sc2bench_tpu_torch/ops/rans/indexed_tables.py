@@ -1,14 +1,16 @@
-"""Prepared tables of the batch-1 per-index rANS kernels
-(`rans_indexed_encode`, `rans_indexed_decode` in `csrc/rans_indexed.cu`).
+"""Prepared tables of the per-index rANS kernels (`csrc/rans_indexed.cu`).
 
-Both depend on the coding tables alone, so a caller builds them once with
-`prepare_indexed_tables` (the runtime does when it uploads its Gaussian
+They depend on the coding tables alone, so a caller builds them once with
+`prepare_indexed_tables` (the runtimes do when they upload their Gaussian
 tables, `update()`) and passes them to every launch:
 
-  enc   (R, cols, 4) int32: per CDF entry (start, freq, m_lo, m_hi), the
+  enc   (R, cols, 4) int32: per CDF entry (start, freq, m_lo, m_hi), an
         encoder's step in one 16-byte load. freq = cdf[v+1] - cdf[v] (0 in
         the last column), m = ceil(2^48 / freq) split in two u32 halves (0
-        where freq <= 0): the reciprocal the encoder divides by.
+        where freq <= 0): the reciprocal the encoder divides by. All three
+        encoders read it (`rans_indexed_encode`, and since their redesign
+        `rans_indexed_encode_aligned` and `rans_masked_encode_aligned`,
+        which codes an entry of freq <= 0 with freq 1, m = 2^48).
   dec   int32, three sections, each padded to a multiple of 4 words so the
         kernel can stage it with 16-byte copies:
           ragged   row r's entries [0, min(cdf_len[r], cols)) from

@@ -32,15 +32,18 @@ aligned indexed decoder (`indexed_decode_aligned`) and the joint
 autoregressive codec's masked front decoder (`masked_decode_front`) read
 prepared tables (`indexed_tables.prepare_indexed_tables`), which a caller
 that codes more than once builds once and passes as `prepared`; without
-them a wrapper prepares them for its one call. The batch-1 pair and the
-aligned decoder have two plans each, chosen here by size
-(`indexed_plan`): the decoder's tables in shared memory or read from
-device memory, the encoder's output rows in shared memory or (long
-latents) in a device buffer; the aligned decoder's images a block follow
-a measured rule (`indexed_aligned_group`). The masked front decoder reads
-the tables in place. All take any T and width. The aligned indexed
-encoder and the masked encoder read the whole CDF table (rows x cols)
-from device memory, one thread per (image, lane) or lane.
+them a wrapper prepares them for its one call. So do the aligned indexed
+encoder (`indexed_encode_aligned`) and the masked encoder
+(`masked_encode_aligned`), which read the encoder entries (`enc`) as the
+batch-1 encoder does. The batch-1 pair and the aligned decoder have two
+plans each, chosen here by size (`indexed_plan`): the decoder's tables in
+shared memory or read from device memory, the encoder's output rows in
+shared memory or (long latents) in a device buffer; the aligned pair's
+images a block follow rules measured on the card
+(`indexed_aligned_group`, `indexed_encode_aligned_plan`). The masked
+front decoder reads the tables in place. All take any T and width; the
+masked encoder stages its activity map in shared memory and raises for a
+map beyond a block's.
 """
 from __future__ import annotations
 
@@ -179,6 +182,12 @@ def _indexed_library():
                     ('rans_indexed_aligned_group', [i, i, i, i], i),
                     ('rans_launch_floor', [i, p], i),
                     ('rans_indexed_encode_smem', [i, i], ctypes.c_int64),
+                    ('rans_indexed_encode_aligned_tile', [i, i], i),
+                    ('rans_indexed_encode_aligned_group', [i, i], i),
+                    ('rans_indexed_encode_aligned_smem', [i, i],
+                     ctypes.c_int64),
+                    ('rans_masked_encode_aligned_smem', [i, i, i],
+                     ctypes.c_int64),
                     ('rans_indexed_decode_smem', [i, i], ctypes.c_int64),
                     ('rans_indexed_smem_optin', [], i),
                     ('rans_masked_encode_aligned',
@@ -512,19 +521,36 @@ def indexed_encode(cdf: torch.Tensor, vc: torch.Tensor, idx: torch.Tensor,
 
 
 def indexed_encode_aligned(cdf: torch.Tensor, vc: torch.Tensor,
-                           idx: torch.Tensor, want_masks: bool = False):
+                           idx: torch.Tensor, want_masks: bool = False,
+                           prepared: IndexedTables | None = None):
     """Indexed kernel 3, aligned encode: as `indexed_encode`, but column t
     of streams holds step t's chunk (0 where none). Returns
-    (streams, lengths, states, masks (k, N, T) bool or None)."""
+    (streams, lengths, states, masks (k, N, T) bool or None). `prepared`
+    as for `indexed_encode`."""
+    _check_prepared(prepared, cdf)
     if vc.device.type == 'cpu':
         return indexed_encode_plain(cdf, vc, idx, aligned=True,
                                     want_masks=want_masks)
     args, (streams, lengths, states) = _indexed_encode_args(cdf, vc, idx)
     masks = torch.empty(streams.shape, dtype=torch.bool,
                         device=vc.device) if want_masks else None
-    _launch_indexed('rans_indexed_encode_aligned', vc.device, cdf.data_ptr(),
+    enc = prepared.enc if prepared is not None else encode_entries(cdf)
+    _launch_indexed('rans_indexed_encode_aligned', vc.device, enc.data_ptr(),
                     *args, masks.data_ptr() if masks is not None else None)
     return streams, lengths, states, masks
+
+
+def indexed_encode_aligned_plan(num_images: int, lanes: int,
+                                device) -> tuple:
+    """(steps a staged tile, images a block) that an aligned indexed
+    encode of `num_images` images on `lanes` lanes uses on `device` (the
+    rule in `csrc/rans_indexed.cu`, `encode_plan_rule`)."""
+    lib = _indexed_library()
+    with torch.cuda.device(device):
+        return (int(lib.rans_indexed_encode_aligned_tile(int(num_images),
+                                                         int(lanes))),
+                int(lib.rans_indexed_encode_aligned_group(int(num_images),
+                                                          int(lanes))))
 
 
 def _indexed_decode_outputs(streams, states, cdf, cdf_len, off, idx, steps):
@@ -607,11 +633,15 @@ def indexed_decode_aligned(streams, states, cdf, cdf_len, off, idx,
 # ---------------------------------------------------------------------------
 
 def masked_encode_aligned(cdf: torch.Tensor, vc: torch.Tensor,
-                          idx: torch.Tensor, act: torch.Tensor, m: int):
+                          idx: torch.Tensor, act: torch.Tensor, m: int,
+                          prepared: IndexedTables | None = None):
     """Masked encode: values `vc` (T, N) int32 and their rows `idx` (T, N)
     int32 of `cdf` (R, cols), lane j active in front t where act[t, j // m]
     ((T, F) uint8, N = F * m) -> (streams (N, T) int32 aligned, lengths
-    (N,) int32, states (N,) int64)."""
+    (N,) int32, states (N,) int64). `prepared`: `cdf`'s prepared tables
+    (else their encoder entries are built for this call). The kernel
+    stages `act` whole in shared memory: a map beyond a block's raises."""
+    _check_prepared(prepared, cdf)
     if vc.device.type == 'cpu':
         return masked_encode_plain(cdf, vc, idx, act, m)
     _require_cuda(vc)
@@ -625,10 +655,18 @@ def masked_encode_aligned(cdf: torch.Tensor, vc: torch.Tensor,
     _check(idx, 'idx', torch.int32, (steps, lanes), dev)
     _check(act, 'act', torch.uint8, (steps, slots), dev)
     _check(cdf, 'cdf', torch.int32, tuple(cdf.shape), dev)
+    with torch.cuda.device(dev):
+        need = _indexed_library().rans_masked_encode_aligned_smem(
+            steps, slots, lanes)
+    if need > _optin(dev):
+        raise ValueError(f'masked encode: an activity map of {steps} x '
+                         f'{slots} needs {need} bytes of shared memory, a '
+                         f'block has {_optin(dev)}')
+    enc = prepared.enc if prepared is not None else encode_entries(cdf)
     streams = torch.empty((lanes, steps), dtype=torch.int32, device=dev)
     lengths = torch.empty((lanes,), dtype=torch.int32, device=dev)
     states = torch.empty((lanes,), dtype=torch.int64, device=dev)
-    _launch_indexed('rans_masked_encode_aligned', dev, cdf.data_ptr(),
+    _launch_indexed('rans_masked_encode_aligned', dev, enc.data_ptr(),
                     cdf.shape[1], vc.data_ptr(), idx.data_ptr(),
                     act.data_ptr(), steps, lanes, slots, int(m),
                     streams.data_ptr(), lengths.data_ptr(),

@@ -3,7 +3,8 @@
 The three decoders (`rans_indexed_decode`, `rans_indexed_decode_aligned`,
 `rans_masked_decode_front`) find a slot's symbol from a coarse bucket
 table and a bounded bisection over ragged rows, and `rans_indexed_encode`
-divides by a prepared reciprocal; all read tables that
+divides by a prepared reciprocal, as (since their redesign) the aligned
+indexed encoder and the masked encoder do; all read tables that
 `prepare_indexed_tables` builds once. These tests hold that lookup and
 that division (modelled in torch as the kernels run them,
 `bucket_lookup`, `reciprocal_quotient`) against `cdf_bisect` and the exact
@@ -154,24 +155,47 @@ def _blocks(g, lanes, n, seed, tails):
     return (sym3 - off[idx3]).contiguous(), idx3.contiguous()
 
 
-def _encode_model(t, vc, idx):
-    """The batch-1 encoder's arithmetic on its prepared entries: renorm
-    test on the entry's freq, the reciprocal quotient, the folded update;
-    returns the final states and each lane's chunks in emission order."""
+def _encode_model(t, vc, idx, act=None, m=None):
+    """The encoders' arithmetic on their prepared entries: renorm test on
+    the entry's freq, the reciprocal quotient, the folded update; returns
+    the final states and each lane's chunks in emission order (step T-1
+    first, -1 where a step emits none). With `act` ((T, F) uint8; `vc` and
+    `idx` (T, N), N = F * m) the masked encoder's: a lane whose slot is
+    inactive at a step keeps its state and emits nothing, and an entry of
+    frequency <= 0 codes with frequency 1 (m = 2^48: m_hi = 2^16)."""
+    masked = act is not None
+    if masked:
+        vc, idx = vc[None], idx[None]
     k, steps, lanes = vc.shape
     e = t.enc.reshape(-1, 4)[(idx.to(torch.int64) * t.cols + vc).reshape(-1)]
     e = e.reshape(k, steps, lanes, 4)
+    on = torch.ones((k, steps, lanes), dtype=torch.bool)
+    if masked:
+        on = act.bool().repeat_interleave(int(m), dim=1)[None]
+        low = (e[..., 1] <= 0)[..., None] & torch.tensor([False, True, False,
+                                                           True])
+        e = torch.where(low, torch.tensor([0, 1, 0, 1 << 16],
+                                          dtype=torch.int32), e)
     x = torch.full((k, lanes), 1 << 16, dtype=torch.int64)
     chunks = []
     for s in range(steps - 1, -1, -1):
+        a = on[:, s]
         st = e[:, s, :, 0].to(torch.int64)
         fr = e[:, s, :, 1].to(torch.int64) & _MASK32
-        renorm = x >= ((fr << 16) & _MASK32)
+        renorm = a & (x >= ((fr << 16) & _MASK32))
         chunks.append(torch.where(renorm, x & 0xFFFF, -1))
-        x = torch.where(renorm, x >> 16, x)
-        q = reciprocal_quotient(x, e[:, s])
-        x = (q * ((1 << 16) - fr) + x + st) & _MASK32
-    return x, torch.stack(chunks, dim=1)
+        xr = torch.where(renorm, x >> 16, x)
+        q = reciprocal_quotient(xr, e[:, s])
+        x = torch.where(a, (q * ((1 << 16) - fr) + xr + st) & _MASK32, x)
+    chunks = torch.stack(chunks, dim=1)
+    return (x[0], chunks[0]) if masked else (x, chunks)
+
+
+def _aligned_layout(chunks):
+    """(streams (..., N, T) int32 with step t's chunk at column t, 0 where
+    none; masks (..., N, T) bool) of `_encode_model`'s chunks."""
+    c = chunks.flip(-2).transpose(-1, -2)
+    return torch.where(c >= 0, c, 0).to(torch.int32), c >= 0
 
 
 def _decode_model(t, streams, states, idx, steps, aligned=False):
@@ -286,6 +310,54 @@ def _check_aligned(g, t, lanes, n, k):
     _check_decoder(t, streams, states, idx, vc.shape[1], aligned=True)
 
 
+def _check_aligned_encode(g, t, lanes, n, k):
+    """k images of MSHP rows with frequency-1 tails: the aligned encoder's
+    step model gives the plain version's streams, masks, lengths and
+    states."""
+    blocks = [_blocks(g, lanes, n, seed=2 * lanes + i, tails=True)
+              for i in range(k)]
+    vc = torch.cat([b[0] for b in blocks]).contiguous()
+    idx = torch.cat([b[1] for b in blocks]).contiguous()
+    streams, lengths, states, masks = td.indexed_encode_plain(
+        t.cdf, vc, idx, aligned=True, want_masks=True)
+    x, chunks = _encode_model(t, vc, idx)
+    got_streams, got_masks = _aligned_layout(chunks)
+    assert torch.equal(x, states) and torch.equal(got_streams, streams)
+    assert torch.equal(got_masks, masks)
+    assert torch.equal(got_masks.sum(-1).to(torch.int32), lengths)
+
+
+def _zero_frequency_values(tab, steps, lanes, seed):
+    """(values, rows) (steps, lanes) int32 on the tables `tab`: rows at
+    random, each value drawn evenly over its row's coded support [0, len
+    - 2), so zero-frequency entries are coded."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, tab.rows, (steps, lanes))
+    vals = rng.integers(0, tab.cdf_len.numpy()[rows] - 2)
+    return (torch.from_numpy(vals.astype(np.int32)),
+            torch.from_numpy(rows.astype(np.int32)))
+
+
+def _check_masked_encode(g, t, m, hw):
+    """Every front of an hw x hw JAHP schedule: the masked encoder's step
+    model gives the plain version's streams, lengths and states; then on
+    tables with zero-frequency entries coded on active lanes."""
+    vc, idx, act = _masked_inputs(g, hw, hw, m, seed=hw + 2 * m)
+    (zcdf, _, _), zt = _zero_frequency_decoding_tables()
+    zvc, zidx = _zero_frequency_values(zt, *vc.shape, seed=hw)
+    lane_act = act.bool().repeat_interleave(m, dim=1)
+    zero = zt.enc[zidx.long(), zvc.long(), 1] == 0
+    assert int((zero & lane_act).sum()) > 100
+    for tab, cdf, v, ix in ((t, t.cdf, vc, idx), (zt, zcdf, zvc, zidx)):
+        streams, lengths, states = td.masked_encode_plain(cdf, v, ix, act,
+                                                          m)
+        x, chunks = _encode_model(tab, v, ix, act, m)
+        got_streams, got_masks = _aligned_layout(chunks)
+        assert torch.equal(x, states) and torch.equal(got_streams, streams)
+        assert torch.equal(got_masks.sum(-1).to(torch.int32), lengths)
+        assert not got_masks[~lane_act.t()].any()
+
+
 def _zero_frequency_decoding_tables():
     """`_zero_frequency_tables` and a row whose last searched entry ends
     below 2^16, so slots above it find a zero-frequency entry: max(freq,
@@ -342,7 +414,13 @@ def _check_masked(g, t, m, hw):
     pytest.param('batch1', 100, 2345, True, id='100-2345-True'),
     pytest.param('batch1', 40, 40 * 150 - 7, True, id='40-5993-True'),
     pytest.param('aligned', 512, 55 * 55 * 24, True, id='aligned-k3'),
-    pytest.param('masked', 192, 16, True, id='masked-jahp-16x16x192')])
+    pytest.param('masked', 192, 16, True, id='masked-jahp-16x16x192'),
+    pytest.param('aligned_encode', 512, 55 * 55 * 24, True,
+                 id='aligned-encode-k3'),
+    pytest.param('aligned_encode', 100, 2345, True,
+                 id='aligned-encode-100-2345'),
+    pytest.param('masked_encode', 192, 16, True,
+                 id='masked-encode-jahp-16x16x192')])
 def test_kernel_steps_on_prepared_tables_equal_plain_versions(
         kind, lanes, n, tails, gaussian):
     """The kernels' steps, run on the prepared tables, give the plain
@@ -352,12 +430,21 @@ def test_kernel_steps_on_prepared_tables_equal_plain_versions(
     The aligned decoder: k = 3 images of MSHP rows with frequency-1 tails
     at 512 lanes, a corrupted state included. The masked front decoder
     (m = 192 lanes a slot): every front of a 16 x 16 JAHP schedule, and
-    tables with zero-frequency entries where max(freq, 1) decides."""
+    tables with zero-frequency entries where max(freq, 1) decides. The
+    aligned encoder (its chunks at column t, its masks): k = 3 images of
+    MSHP rows with frequency-1 tails at 512 lanes, and at 100 lanes with n
+    not a multiple of them. The masked encoder: every front of the 16 x
+    16 JAHP schedule at m = 192, and zero-frequency entries coded on
+    active lanes."""
     g, t = gaussian
     if kind == 'batch1':
         _check_batch1(g, t, lanes, n, tails)
     elif kind == 'aligned':
         _check_aligned(g, t, lanes, n, k=3)
+    elif kind == 'aligned_encode':
+        _check_aligned_encode(g, t, lanes, n, k=3)
+    elif kind == 'masked_encode':
+        _check_masked_encode(g, t, m=lanes, hw=n)
     else:
         _check_masked(g, t, m=lanes, hw=n)
 

@@ -362,7 +362,9 @@ def test_all_kernels_take_wide_rows_on_the_card(support, k):
     beyond the shared-memory plans (all four at 1,200; at 600 the aligned
     decoder's four-image blocks still hold them): those launches read
     their lane tables from a device buffer, and all four kernels stay
-    bit-equal to their plain versions, batch 1 and aligned."""
+    bit-equal to their plain versions, batch 1 and aligned. The aligned
+    indexed encoder on the same rows, a row drawn for each symbol, masks
+    off and on, equals its plain version too."""
     dev = _card()
     tables = _tables(24, support, seed=support + k)
     cols = tables[0].shape[1]
@@ -397,6 +399,33 @@ def test_all_kernels_take_wide_rows_on_the_card(support, k):
     np.testing.assert_array_equal(out.reshape(k, -1)[:, :n].cpu().numpy(),
                                   rows)
     assert {kernels.LAUNCHES[name] for name in kernels.KERNELS} == {1, 2}
+    # the aligned indexed encoder on the same rows as general tables, each
+    # symbol's row drawn at random (its entries gathered from L2)
+    from sc2bench_tpu_torch.ops.rans.indexed_tables import \
+        prepare_indexed_tables
+    rng = np.random.default_rng(support + k)
+    ridx = rng.integers(0, 24, vc.shape).astype(np.int32)
+    u = rng.integers(0, 1 << 16, vc.shape)
+    v = np.empty(vc.shape, np.int64)
+    for r in range(24):
+        m = ridx == r
+        v[m] = np.clip(np.searchsorted(cdf[r][:cdf_length[r]], u[m],
+                                       side='right') - 1, 0,
+                       cdf_length[r] - 3)
+    cdf_t = torch.from_numpy(cdf).to(dev)
+    prepared = prepare_indexed_tables(cdf_t, torch.from_numpy(cdf_length),
+                                      torch.from_numpy(offset))
+    ridx = torch.from_numpy(ridx).to(dev)
+    v = torch.from_numpy(v.astype(np.int32)).to(dev)
+    for want_masks in (False, True):
+        got = kernels.indexed_encode_aligned(cdf_t, v, ridx, want_masks,
+                                             prepared=prepared)
+        plain = td.indexed_encode_plain(cdf_t, v, ridx, aligned=True,
+                                        want_masks=want_masks)
+        torch.cuda.synchronize()
+        for a, b in zip(got, plain):
+            assert (a is None and b is None) or torch.equal(a, b)
+    assert kernels.LAUNCHES['rans_indexed_encode_aligned'] == 2
 
 
 @pytest.mark.cuda
@@ -805,6 +834,41 @@ def test_aligned_indexed_decoder_on_prepared_tables_on_the_card(k, lanes, n):
     assert kernels.LAUNCHES['rans_indexed_decode_aligned'] == 3
 
 
+# (k, lanes, n): k = 1, 8 and 128 at the MSHP y (512 lanes x 142 steps,
+# T not a multiple of the 8-step tile or the 32-column window), 100 lanes
+# with n not a multiple of them, and 40 lanes x 4,000 steps
+ALIGNED_ENCODE_CASES = [(1, 512, 55 * 55 * 24), (8, 512, 55 * 55 * 24),
+                        (128, 512, 55 * 55 * 24), (3, 100, 2345),
+                        (2, 40, 40 * 4000 - 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('k,lanes,n', ALIGNED_ENCODE_CASES)
+def test_aligned_indexed_encoder_on_prepared_tables_on_the_card(k, lanes, n):
+    """The aligned indexed encoder on the prepared entries, masks off and
+    on, with `prepared` and without: bit-equal to the plain version, its
+    plan 8- or 16-step tiles and 1 to min(k, 8) images a block, one launch
+    a call."""
+    dev = _card()
+    from sc2bench_tpu_torch.ops.entropy.tables import build_gaussian_tables
+    (cdf, _, _), prepared, vc, idx3 = _prepared_blocks(
+        build_gaussian_tables(), lanes, n, k, seed=3 * k + lanes, dev=dev,
+        tails=True)
+    tile, group = kernels.indexed_encode_aligned_plan(k, lanes, dev)
+    assert tile in (8, 16) and 1 <= group <= min(k, 8)
+    kernels.reset_launches()
+    for want_masks in (False, True):
+        plain = td.indexed_encode_plain(cdf, vc, idx3, aligned=True,
+                                        want_masks=want_masks)
+        for extra in ({'prepared': prepared}, {}):
+            got = kernels.indexed_encode_aligned(cdf, vc, idx3, want_masks,
+                                                 **extra)
+            torch.cuda.synchronize()
+            for a, b in zip(got, plain):
+                assert (a is None and b is None) or torch.equal(a, b)
+    assert kernels.LAUNCHES['rans_indexed_encode_aligned'] == 4
+
+
 @pytest.mark.cuda
 def test_aligned_indexed_decoder_reads_large_tables_from_device_memory():
     """Gaussian tables of a 0.11..1,024 scale table (a prepared pack beyond
@@ -1000,6 +1064,71 @@ def test_masked_kernels_equal_plain_versions_on_the_card(h, w, m):
         assert bool((x == td.RANS_L).all()) == (s is streams)
     assert kernels.LAUNCHES['rans_masked_encode_aligned'] == 1
     assert kernels.LAUNCHES['rans_masked_decode_front'] == 2 * vc.shape[0]
+
+
+@pytest.mark.cuda
+def test_masked_encoder_on_zero_frequency_entries_on_the_card():
+    """The JAHP q1 schedule at 256 px (61 fronts, 1,152 lanes) on tables
+    with zero-frequency entries, each symbol drawn evenly over its row's
+    coded support, so active lanes code zero-frequency entries, where
+    max(freq, 1) decides: bit-equal to the plain version, with `prepared`
+    and without."""
+    dev = _card()
+    from sc2bench_tpu_torch.models.zoo_jahp import front_arrays, wavefronts
+    from sc2bench_tpu_torch.ops.rans.indexed_tables import (
+        encode_entries, prepare_indexed_tables)
+    from test_torch_port_indexed_tables import \
+        _zero_frequency_decoding_tables
+    (zcdf, zlen, zoff), _ = _zero_frequency_decoding_tables()
+    _, _, act = front_arrays(wavefronts(16, 16))
+    steps, slots = act.shape
+    m = 192
+    rng = np.random.default_rng(7)
+    ix = rng.integers(0, zcdf.shape[0], (steps, slots * m)).astype(np.int32)
+    vals = rng.integers(0, zlen.numpy()[ix] - 2).astype(np.int32)
+    lane_act = np.repeat(act, m, axis=1)
+    enc = encode_entries(zcdf).numpy()
+    assert (enc[ix, vals, 1][lane_act] == 0).sum() > 100
+    vc, ix, a = (torch.from_numpy(x_).to(dev) for x_ in (
+        vals, ix, act.astype(np.uint8)))
+    zcdf = zcdf.to(dev)
+    zprep = prepare_indexed_tables(zcdf, zlen, zoff)
+    want = td.masked_encode_plain(zcdf, vc, ix, a, m)
+    kernels.reset_launches()
+    for extra in ({'prepared': zprep}, {}):
+        got = kernels.masked_encode_aligned(zcdf, vc, ix, a, m, **extra)
+        torch.cuda.synchronize()
+        for g, p in zip(got, want):
+            assert torch.equal(g, p)
+    assert kernels.LAUNCHES['rans_masked_encode_aligned'] == 2
+
+
+@pytest.mark.cuda
+def test_prepared_encoders_refuse_bad_arguments_on_the_card():
+    """The aligned indexed encoder and the masked encoder raise on a
+    `prepared` of another table, and the masked encoder on an activity map
+    beyond a block's shared memory (2,000 fronts x 120 slots), before any
+    launch."""
+    dev = _card()
+    from sc2bench_tpu_torch.ops.rans.indexed_tables import \
+        prepare_indexed_tables
+    t, idx, vals, act = _masked_case(5, 5, 8, seed=1)
+    (cdf, cdf_len, off), vc, ix, a = _masked_tensors(t, idx, vals, act, dev)
+    other = prepare_indexed_tables(cdf.flip(0).contiguous(),
+                                   cdf_len.flip(0).contiguous(), off)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match='prepared tables'):
+        kernels.masked_encode_aligned(cdf, vc, ix, a, 8, prepared=other)
+    with pytest.raises(ValueError, match='prepared tables'):
+        kernels.indexed_encode_aligned(cdf, vc[None], ix[None],
+                                       prepared=other)
+    steps, slots = 2000, 120
+    big = torch.ones((steps, slots), dtype=torch.uint8, device=dev)
+    zeros = torch.zeros((steps, slots), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match='shared memory'):
+        kernels.masked_encode_aligned(cdf, zeros, zeros, big, 1)
+    assert kernels.LAUNCHES['rans_masked_encode_aligned'] == 0
+    assert kernels.LAUNCHES['rans_indexed_encode_aligned'] == 0
 
 
 @pytest.mark.cuda
