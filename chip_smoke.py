@@ -213,11 +213,32 @@ which fails loudly with a nonzero exit:
     batch 4 on the 1344x1344 canvas (img/s, peak memory, what each stage
     may change), each then tested on 2 images; the `ghnd-bq` bq12ch config
     through the CLI on 4 images;
-17. print the kernels line (all ten kernels; it fails if one never
+17. COCO input compression before Faster R-CNN: the 6 runnable
+    `configs/coco2017/input_compression/` configs (JPEG, WebP, and the
+    FP, SHP, MSHP and JAHP codecs q1 with `codec_weights` saved as their
+    ckpt) through the detection CLI at full width, 2 synthetic 480x640
+    images each (resized to 800x1067, compressed, on the 1344x1344
+    canvas): mAP, KB an image, model_time; no kernel launch (host
+    coders);
+18. the bfloat16 options: on the FP and MSHP models of phases 3 and 9,
+    8 images, `deploy_bf16_decode` at batch 1 and `wire_batch=8` and
+    `deploy_bf16_tail` on the host wire, their sizes equal to the float32
+    runtime's image by image (no escape), top-1 agreeing on at least 7 of
+    8, img/s beside the float32 runtime's; `deploy_bf16_encode` streams
+    decoding exactly (no escape), at most 1% of the symbols one step from
+    the float32 encoder's, the wire within 1e-3 of its size;
+    DeepLabv3-ResNet-50 + FP-24 at 512x512 and Faster R-CNN R50-FPN +
+    FP-24 on the 800x1344 canvas at `dtype='bfloat16'` beside float32 on
+    the same weights, one image each (float32 outputs, finite, the share
+    of agreeing pixels or detections, img/s); and `python -m
+    sc2bench_tpu_torch.bench` with short loops, its JSON line printed
+    (the MFU fields present and below 1), its launches counted;
+19. print the kernels line (all ten kernels; it fails if one never
     launched on its path or differs from its plain version, if a cyclic
     or indexed kernel never launched in phase 14, or a cyclic one in
-    phase 15 or 16; the counts of phases 11-16 beside, and phase 14's,
-    15's and 16's timings at their shapes under `*_64ch`, `*_seg` and
+    phase 15 or 16, or a cyclic one on phase 18's bfloat16 device wire
+    or bench; the counts of phases 11-18 beside, and phase 14's, 15's
+    and 16's timings at their shapes under `*_64ch`, `*_seg` and
     `*_det`), the card's name and power limit, and last `{"ok": true,
     "device": {...}}`. Every phase prints its seconds.
 
@@ -351,6 +372,17 @@ N_DET_LAND, N_DET_PORT, N_DET_HOST, N_DET_CLI, N_DET_SMALL = 8, 2, 4, 8, 2
 N_DET_BQ, DET_WIRE_BATCH, DET_BATCH = 4, 4, 4
 # the training runs' canvas: every batch padded to the square bucket
 DET_SQUARE = [[1344, 1344]]
+# phase 17: COCO input compression before Faster R-CNN (the 6 runnable
+# configs; BPG needs its binary)
+DET_IC = 'configs/coco2017/input_compression/'
+DET_IC_CODECS = ('jpeg', 'webp', 'factorized_prior', 'scale_hyperprior',
+                 'mean_scale_hyperprior', JAHP_KEY)
+N_DET_IC = 2
+# phase 18: the bfloat16 options, 8 images; the bench with short loops
+N_BF16, BF16_TOP1 = 8, 7
+BENCH_ARGS = ['--n_iter', '32', '--n_trials', '2', '--loop_n', '10',
+              '--fresh_n_iter', '16', '--throughput_n_iter', '256',
+              '--train_steps', '2']
 # H100 SXM published peaks: HBM bytes/s, and
 # the non-tensor-core rate used for the kernels' integer operations
 HBM_BYTES_PER_S = 3.35e12
@@ -3789,6 +3821,272 @@ def det_phase(torch, td, kernels, device):
     return paths, stats
 
 
+# ---- phase 17: COCO input compression before Faster R-CNN -----------------
+
+def det_ic_phase(torch, kernels, device):
+    """Phase 17: each runnable COCO input-compression config through the
+    detection CLI at full width on `N_DET_IC` synthetic 480x640 images
+    (the detector with its fresh weights, as in JAX; a neural codec's
+    `codec_weights` saved as its ckpt). Checks: every image accounted with
+    a positive size, the 12 metrics in range, no kernel launched (host
+    coders). Returns each config's {'AP', 'KB', 'model_time', 'wall'}."""
+    import tempfile
+    from sc2bench_tpu_torch.models import zoo
+    from sc2bench_tpu_torch.tasks.object_detection import main as cli
+    from sc2bench_tpu_torch.utils.ckpt import save_ckpt
+    calib = torch.rand((1, 3, CODEC_HW, CODEC_HW),
+                       generator=torch.Generator().manual_seed(17)).to(device)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for key in DET_IC_CODECS:
+            config = f'{DET_IC}{key}-faster_rcnn_resnet50_fpn.yaml'
+            over = {'test': {'test_data_loader': det_split(N_DET_IC, 1,
+                                                          seed=17)}}
+            if key not in ('jpeg', 'webp'):
+                torch.manual_seed(17)
+                module = zoo.registry_get('model', key)(quality=1,
+                                                        device=device)
+                codec_weights(torch, module, 17, calib)
+                ckpt = os.path.join(tmp, key + '.ckpt')
+                save_ckpt(ckpt, module.state_dict())
+                over['models'] = {'wrapper': {'compression_model': {
+                    'ckpt': ckpt}}}
+                del module
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            run = cli(['--config', os.path.join(REPO, config), '--json',
+                       json.dumps(over), '-test_only'])
+            wall = time.perf_counter() - t0
+            check(all(v == 0 for v in kernels.LAUNCHES.values()),
+                  f'{config}: launched {dict(kernels.LAUNCHES)}')
+            summary, res = run['summaries'][0], run['result']
+            check(summary['num_samples'] == N_DET_IC and summary['mean'] > 0,
+                  f'{config}: data size {summary}')
+            check(all(-1.0 <= res[k] <= 1.0 for k in ('AP', 'AP50', 'AR_100')),
+                  f'{config}: result {res}')
+            rt = getattr(run['engine'].wrapper.transform, 'compression_model',
+                         None)
+            host = '' if rt is None else ', host coding ' + ', '.join(
+                f'{k} {1e3 * v / N_DET_IC:.3f}'
+                for k, v in sorted(rt.timings.items())) + ' ms an image'
+            log(f'phase 17: {config}: {N_DET_IC} images of 480x640 on the '
+                f'1344x1344 canvas, mAP {res["AP"]:.6f} (AP50 '
+                f'{res["AP50"]:.6f}), {summary["mean"]:.6f} KB an image '
+                f'(std {summary["std"]:.6f}), {1 / res["model_time"]:.2f} '
+                f'img/s (model_time {res["model_time"]:.6f} s){host}; CLI '
+                f'wall {wall:.2f} s')
+            out[key] = {'AP': res['AP'], 'KB': summary['mean'],
+                        'model_time': res['model_time'], 'wall': wall}
+            del run
+            gc.collect()
+    return out
+
+
+# ---- phase 18: the bfloat16 options, dtype and the bench ---------------------
+
+def _top1(outputs):
+    return [int(o.argmax()) for o in outputs]
+
+
+def _serve_rate(torch, fn, n):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, n / (time.perf_counter() - t0)
+
+
+def _encoder_symbols(torch, rt, x, module):
+    """Flat symbols of every latent `module`'s encoder sends for `x`."""
+    if rt.hyper:
+        ops = rt._hyper_ops(x, rt._split_bottleneck(module))
+        return torch.cat([ops[k].reshape(-1)
+                          for k in ('y_symbols', 'z_symbols')])
+    return rt._symbols_nhwc(x, module)[0].reshape(-1)
+
+
+def bf16_runtime_phase(torch, kernels, model, tag, images):
+    """Phase 18 on one model: the float32 runtime against
+    `deploy_bf16_decode` (batch 1 and `wire_batch`), `deploy_bf16_tail`
+    (host wire) and `deploy_bf16_encode` (with the bf16 decode), each on
+    `images`, every run from 0 launches. Returns the launches of the
+    bfloat16 device-wire runs."""
+    from sc2bench_tpu_torch.models.runtime import SplitClassifierRuntime
+    n = len(images)
+
+    def runtime(**options):
+        rt = SplitClassifierRuntime(model, device=images[0].device,
+                                    **options)
+        rt.update()
+        rt.eval()
+        rt.activate_analysis()
+        return rt
+
+    rt32, rt16 = runtime(), runtime(deploy_bf16_decode=True)
+    rtt = runtime(deploy_bf16_tail=True)
+    rte = runtime(deploy_bf16_decode=True, deploy_bf16_encode=True)
+    launches = dict.fromkeys(kernels.ALL_KERNELS, 0)
+    for wire_batch in (None, WIRE_BATCH):
+        runs = {}
+        for name, rt in (('f32', rt32), ('bf16_decode', rt16),
+                         ('bf16_encode', rte)):
+            rt.stream_deploy_device(images[:WIRE_BATCH],
+                                    wire_batch=wire_batch)      # warm
+            rt.clear_analysis()
+            rt.escapes = {'ok': 0, 'valid': 0}
+            kernels.reset_launches()
+            out, ips = _serve_rate(torch, lambda: rt.stream_deploy_device(
+                images, wire_batch=wire_batch), n)
+            if name != 'f32':
+                for k, v in kernels.LAUNCHES.items():
+                    launches[k] += v
+            check(rt.escapes == {'ok': 0, 'valid': 0},
+                  f'{tag} {name} wire_batch={wire_batch}: escapes '
+                  f'{rt.escapes}')
+            runs[name] = (out, list(rt.analyzers[0].file_size_list), ips)
+        (o32, s32, ips32), (o16, s16, ips16), (oe, se, ipse) = (
+            runs['f32'], runs['bf16_decode'], runs['bf16_encode'])
+        check(s16 == s32, f'{tag} bf16_decode wire_batch={wire_batch}: '
+              f'sizes {s16} differ from float32 {s32}')
+        agree = sum(a == b for a, b in zip(_top1(o32), _top1(o16)))
+        check(agree >= BF16_TOP1, f'{tag} bf16_decode: top-1 agrees on '
+              f'{agree} of {n}')
+        check(all(o.dtype == torch.float32 for o in o16),
+              f'{tag} bf16_decode: logits not float32')
+        drift = abs(sum(se) - sum(s32)) / sum(s32)
+        check(drift <= 1e-3, f'{tag} bf16_encode: wire size {sum(se)} KB '
+              f'against {sum(s32)} KB (drift {drift:.2e})')
+        agree_e = sum(a == b for a, b in zip(_top1(o32), _top1(oe)))
+        log(f'phase 18: {tag} device wire, wire_batch={wire_batch}, {n} '
+            f'images: img/s float32 {ips32:.2f}, bf16_decode {ips16:.2f}, '
+            f'bf16_encode {ipse:.2f}; bf16_decode sizes equal, top-1 '
+            f'{agree}/{n}; bf16_encode wire drift {drift:.3e}, top-1 '
+            f'{agree_e}/{n}')
+    moved = total = 0
+    for x in images:
+        a = _encoder_symbols(torch, rte, x, rte._encode_module())
+        b = _encoder_symbols(torch, rt32, x, rt32.module)
+        d = (a - b).abs()
+        check(int(d.max()) <= 1, f'{tag} bf16_encode: a symbol moved by '
+              f'{int(d.max())}')
+        moved += int((d > 0).sum())
+        total += d.numel()
+    check(moved <= 0.01 * total, f'{tag} bf16_encode: {moved} of {total} '
+          'symbols moved')
+    for name, rt in (('f32', rt32), ('bf16_tail', rtt)):
+        rt.stream_deploy(images[:2])
+        rt.clear_analysis()
+    o32, ips32 = _serve_rate(torch, lambda: rt32.stream_deploy(images), n)
+    ot, ipst = _serve_rate(torch, lambda: rtt.stream_deploy(images), n)
+    s32 = list(rt32.analyzers[0].file_size_list)
+    st = list(rtt.analyzers[0].file_size_list)
+    check(st == s32, f'{tag} bf16_tail: sizes {st} differ from {s32}')
+    agree = sum(a == b for a, b in zip(_top1(o32), _top1(ot)))
+    check(agree >= BF16_TOP1, f'{tag} bf16_tail: top-1 agrees on {agree} '
+          f'of {n}')
+    log(f'phase 18: {tag} bf16_encode: {moved} of {total} symbols '
+        f'({moved / total:.4%}) one step from the float32 encoder\'s, each '
+        f'stream decoded exactly (valid, no escape); host wire img/s float32 '
+        f'{ips32:.2f}, bf16_tail {ipst:.2f}, sizes equal, top-1 '
+        f'{agree}/{n}')
+    return launches
+
+
+def bf16_dense_phase(torch, device):
+    """DeepLabv3-ResNet-50 + FP-24 (512x512) and Faster R-CNN R50-FPN +
+    FP-24 (the 800x1344 canvas) at `dtype='bfloat16'` beside float32 on
+    the same seeded weights, one image each: float32 finite outputs, the
+    agreement, img/s of 8 forwards."""
+    from sc2bench_tpu_torch.config import load_config
+    from sc2bench_tpu_torch.models.detection.rcnn import \
+        postprocess_detections
+    from sc2bench_tpu_torch.models.detection.registry import \
+        load_detection_model
+    from sc2bench_tpu_torch.models.segmentation.registry import \
+        load_segmentation_model
+    seg_spec = load_config(os.path.join(REPO, SEG_ES_CONFIG))['models'][
+        'student_model']
+    det_spec = load_config(os.path.join(REPO, DET_ES_CONFIG))['models'][
+        'student_model']
+    x_seg = torch.from_numpy(np.random.default_rng(18).normal(
+        0, 1, (1, 3, *SEG_HW)).astype(np.float32)).to(device)
+    x_det = det_canvases(torch, 1, device, seed=18)[0]
+    for name, spec, load, x in (
+            ('DeepLabv3', seg_spec, load_segmentation_model, x_seg),
+            ('Faster R-CNN', det_spec, load_detection_model, x_det)):
+        models = {}
+        for dtype in ('float32', 'bfloat16'):
+            torch.manual_seed(18)
+            m = load({**spec, 'ckpt': None, 'kwargs': {
+                **spec.get('kwargs', {}), 'dtype': dtype}}, device=device)
+            randomize_weights(torch, m, 18, device)
+            models[dtype] = m.eval()
+        outs, rates = {}, {}
+        for dtype, m in models.items():
+            with torch.no_grad():
+                fwd = (lambda m=m: m(x, mode='finetune')) \
+                    if name == 'DeepLabv3' else \
+                    (lambda m=m: postprocess_detections(m(x, mode='finetune')))
+                fwd()
+                outs[dtype], rates[dtype] = _serve_rate(
+                    torch, lambda: [fwd() for _ in range(8)][-1], 8)
+        if name == 'DeepLabv3':
+            a, b = outs['float32']['out'], outs['bfloat16']['out']
+            check(b.dtype == torch.float32 and bool(torch.isfinite(b).all()),
+                  'DeepLabv3 bfloat16: logits not finite float32')
+            agree = float((a.argmax(1) == b.argmax(1)).float().mean())
+            what = f'{agree:.4f} of pixels agree'
+        else:
+            a, b = outs['float32'], outs['bfloat16']
+            check(b['boxes'].dtype == torch.float32
+                  and bool(torch.isfinite(b['boxes']).all()),
+                  'Faster R-CNN bfloat16: boxes not finite float32')
+            agree = float((a['labels'] == b['labels']).float().mean())
+            what = (f'{int(b["valid"].sum())} valid detections (float32 '
+                    f'{int(a["valid"].sum())}), {agree:.4f} of the label '
+                    'slots agree')
+        log(f'phase 18: {name} dtype=bfloat16 on {tuple(x.shape[-2:])}: '
+            f'{what}; img/s float32 {rates["float32"]:.2f}, bfloat16 '
+            f'{rates["bfloat16"]:.2f} (8 forwards)')
+        del models, outs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def bench_phase(torch, kernels):
+    """`sc2bench_tpu_torch.bench` in this process with short loops: its
+    JSON line (printed by it on a line of its own), the MFU fields
+    present and below 1, the launches of its run."""
+    from sc2bench_tpu_torch import bench
+    kernels.reset_launches()
+    line = bench.main(BENCH_ARGS)
+    launches = dict(kernels.LAUNCHES)
+    for k in ('deploy_device_mfu_vs_bf16_peak',
+              'throughput_device_mfu_vs_bf16_peak',
+              'throughput_bf16enc_mfu_vs_bf16_peak',
+              'train_mfu_vs_bf16_peak'):
+        check(line[k] is not None and 0 < line[k] < 1,
+              f'bench: {k} = {line[k]}')
+    check(line['device_wire_rans_backend'] == 'cuda',
+          f'bench: backend {line["device_wire_rans_backend"]}')
+    log(f'phase 18: bench (short loops) launched ' + ', '.join(
+        f'{k} {v}' for k, v in launches.items() if v))
+    return launches
+
+
+def bf16_phase(torch, kernels, model, mshp, images, device):
+    """Phase 18: the bfloat16 runtime options on FP and MSHP, the dense
+    models' `dtype`, and the bench. Returns the launches of the
+    bfloat16 device-wire runs and of the bench."""
+    fp = bf16_runtime_phase(torch, kernels, model, 'FP-24',
+                            images[:N_BF16])
+    hyper = bf16_runtime_phase(torch, kernels, mshp, 'MSHP',
+                               images[:N_BF16])
+    bf16_dense_phase(torch, device)
+    wire = {k: fp[k] + hyper[k] for k in fp}
+    return wire, bench_phase(torch, kernels)
+
+
 def smi_query(fields):
     out = subprocess.run(
         ['nvidia-smi', '--id=0', f'--query-gpu={fields}',
@@ -3925,6 +4223,15 @@ def run():
     det_paths, det_stats = timed('phase 16', det_phase, torch, td, kernels,
                                  device)
 
+    # ---- phase 17: COCO input compression before Faster R-CNN ----
+    timed('phase 17', det_ic_phase, torch, kernels, device)
+
+    # ---- phase 18: the bfloat16 options, dtype and the bench ----
+    bf16_wire, bench_launches = timed('phase 18', bf16_phase, torch, kernels,
+                                      model, mshp, images, device)
+
+    # ---- phase 19: the kernels line ----
+
     rows = []
     for name in kernels.ALL_KERNELS:
         indexed = name in kernels.INDEXED_KERNELS
@@ -3952,6 +4259,8 @@ def run():
                                           for c in backbone_paths.values()),
                    launches_seg=sum(c[name] for c in seg_paths.values()),
                    launches_det=sum(c[name] for c in det_paths.values()),
+                   launches_bf16=bf16_wire[name],
+                   launches_bench=bench_launches[name],
                    **{key: stats[name][key]
                       for key in ('device_ms_k128', 'bound_ms_k128',
                                   'launch_floor_ms', 'images_per_block',
@@ -3982,7 +4291,12 @@ def run():
         if r['name'] not in kernels.MASKED_KERNELS:
             check(r['launches_backbones'] > 0, f'{r["name"]} never launched '
                   'on the RegNetY and hybrid-ViT paths')
+        if r['name'] not in kernels.MASKED_KERNELS:
+            check(r['launches_bf16'] > 0, f'{r["name"]} never launched on '
+                  'the bfloat16 device wire')
         if r['name'] in kernels.KERNELS:
+            check(r['launches_bench'] > 0, f'{r["name"]} never launched in '
+                  'the bench')
             check(r['launches_seg'] > 0, f'{r["name"]} never launched on '
                   'the segmentation path')
             check(r['launches_det'] > 0, f'{r["name"]} never launched on '

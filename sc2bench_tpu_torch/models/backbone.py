@@ -6,6 +6,10 @@ tail. Both builders register under the 'model' namespace.
 `forward(x, mode, generator, io)` fills the dict `io` with the JAX
 package's captured intermediates: `bottleneck_layer_out`, `layer2_out` ...
 `layer4_out`, and in the 'train' mode `bottleneck_layer.eb_out`.
+
+`dtype` (float32 by default, or bfloat16) is the tail's compute dtype
+(`models/precision.py`): layer2-4 run in it, fc in float32; the
+bottleneck keeps its own.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from torch import nn
 from ..device import resolve_device
 from ..registry import register_model
 from .layer import get_layer
+from .precision import compute, linear_head, resolve_dtype
 from .resnet import BottleneckBlock, ResNet, ResNetStage
 
 STAGE_SIZES = {'resnet50': (3, 4, 6, 3), 'resnet101': (3, 4, 23, 3),
@@ -28,8 +33,9 @@ class SplittableResNet(nn.Module):
 
     def __init__(self, bottleneck_layer: nn.Module,
                  stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 num_classes: int = 1000):
+                 num_classes: int = 1000, dtype=None):
         super().__init__()
+        self.dtype = resolve_dtype(dtype)
         self.bottleneck_layer = bottleneck_layer
         c = bottleneck_layer.out_channels
         self.layer2 = ResNetStage(c, 128, stage_sizes[1], strides=2)
@@ -54,37 +60,41 @@ class SplittableResNet(nn.Module):
 
     def forward_tail(self, feature: torch.Tensor, io: dict | None = None
                      ) -> torch.Tensor:
-        """Server-side tail from a decoded bottleneck feature (NCHW)."""
+        """Server-side tail from a decoded bottleneck feature (NCHW):
+        float32 logits."""
         z = feature
-        for i in (2, 3, 4):
-            z = getattr(self, f'layer{i}')(z)
-            if io is not None:
-                io[f'layer{i}_out'] = z
-        return self.fc(torch.mean(z, dim=(2, 3)))
+        with compute(self.dtype, z):
+            for i in (2, 3, 4):
+                z = getattr(self, f'layer{i}')(z)
+                if io is not None:
+                    io[f'layer{i}_out'] = z
+            z = torch.mean(z, dim=(2, 3))
+        return linear_head(self.fc, z)
 
 
 @register_model(name='resnet')
 def resnet_builder(stage_sizes=(3, 4, 6, 3), num_classes=1000,
-                   device=None) -> ResNet:
-    """Config-resolvable plain ResNet of any stage sizes, placed on
-    `device` (CUDA unless asked otherwise)."""
+                   dtype=None, device=None) -> ResNet:
+    """Config-resolvable plain ResNet of any stage sizes and compute
+    `dtype`, placed on `device` (CUDA unless asked otherwise)."""
     dev = resolve_device(device)
-    return ResNet(stage_sizes=tuple(stage_sizes),
-                  num_classes=num_classes).to(dev)
+    return ResNet(stage_sizes=tuple(stage_sizes), num_classes=num_classes,
+                  dtype=dtype).to(dev)
 
 
 @register_model
 def splittable_resnet(bottleneck_config: dict, resnet_name: str = 'resnet50',
                       num_classes: int = 1000, stage_sizes=None,
-                      device=None) -> SplittableResNet:
+                      dtype=None, device=None) -> SplittableResNet:
     """Factory: bottleneck from the layer registry + ResNet tail selected by
-    name (`stage_sizes` overrides the depth). The model is placed on
-    `device`, CUDA unless asked otherwise."""
+    name (`stage_sizes` overrides the depth), the tail's compute `dtype`
+    (the bottleneck's is its config's). The model is placed on `device`,
+    CUDA unless asked otherwise."""
     dev = resolve_device(device)
     stage_sizes = tuple(stage_sizes) if stage_sizes \
         else STAGE_SIZES[resnet_name]
     bottleneck = get_layer(bottleneck_config['key'],
                            **bottleneck_config.get('kwargs', {}))
     model = SplittableResNet(bottleneck, stage_sizes=stage_sizes,
-                             num_classes=num_classes)
+                             num_classes=num_classes, dtype=dtype)
     return model.to(dev)

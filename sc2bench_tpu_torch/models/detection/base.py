@@ -11,7 +11,9 @@ config; `FrozenBatchNorm` is not ported).
 
 `forward(x, mode, generator, io)` fills `io` with the JAX package's names:
 `bottleneck_layer_out` (or `layer1_out`), `layer2_out` ... `layer4_out`,
-and the bottleneck's own under `bottleneck_layer.`.
+and the bottleneck's own under `bottleneck_layer.`. `dtype` is the
+stages' compute dtype (`models/precision.py`); the bottleneck keeps its
+own.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from torch import nn
 
 from ..backbone import STAGE_SIZES
 from ..layer import get_layer
+from ..precision import compute, resolve_dtype
 from ..resnet import BatchNorm2d, BottleneckBlock, ResNetStage
 
 
@@ -29,8 +32,9 @@ class SplittableDetectionBackbone(nn.Module):
     """(bottleneck | stem + layer1) + layer2-4 -> [C2, C3, C4, C5]."""
 
     def __init__(self, bottleneck_layer: nn.Module | None = None,
-                 stage_sizes: Sequence[int] = (3, 4, 6, 3)):
+                 stage_sizes: Sequence[int] = (3, 4, 6, 3), dtype=None):
         super().__init__()
+        self.dtype = resolve_dtype(dtype)
         self.bottleneck_layer = bottleneck_layer
         if bottleneck_layer is None:
             self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
@@ -50,7 +54,9 @@ class SplittableDetectionBackbone(nn.Module):
                 generator: torch.Generator | None = None,
                 io: dict | None = None) -> list:
         if self.bottleneck_layer is None:
-            c2 = self.layer1(self.maxpool(self.relu(self.bn1(self.conv1(x)))))
+            with compute(self.dtype, x):
+                c2 = self.layer1(self.maxpool(self.relu(self.bn1(
+                    self.conv1(x)))))
             name = 'layer1_out'
         else:
             sub = {} if io is not None else None
@@ -67,16 +73,19 @@ class SplittableDetectionBackbone(nn.Module):
     def forward_tail(self, c2: torch.Tensor, io: dict | None = None) -> list:
         """[C2, C3, C4, C5] from the bottleneck's (decoded) feature."""
         feats = [c2]
-        for i in (2, 3, 4):
-            feats.append(getattr(self, f'layer{i}')(feats[-1]))
-            if io is not None:
-                io[f'layer{i}_out'] = feats[-1]
+        with compute(self.dtype, c2):
+            for i in (2, 3, 4):
+                feats.append(getattr(self, f'layer{i}')(feats[-1]))
+                if io is not None:
+                    io[f'layer{i}_out'] = feats[-1]
         return feats
 
     @classmethod
-    def from_config(cls, backbone_config, frozen_bn: bool = False):
+    def from_config(cls, backbone_config, frozen_bn: bool = False,
+                    dtype=None):
         """From a config's `backbone_config`: `resnet_name` (ResNet-50 or
-        -101) and an optional `bottleneck_config` built by `get_layer`."""
+        -101) and an optional `bottleneck_config` built by `get_layer`; the
+        stages compute in `dtype`."""
         backbone_config = backbone_config or {}
         if frozen_bn or backbone_config.get('frozen_bn', False):
             raise NotImplementedError('FrozenBatchNorm is not ported yet '
@@ -86,7 +95,7 @@ class SplittableDetectionBackbone(nn.Module):
         if bcfg:
             bottleneck = get_layer(bcfg['key'], **bcfg.get('kwargs', {}))
         return cls(bottleneck, stage_sizes=STAGE_SIZES[
-            backbone_config.get('resnet_name', 'resnet50')])
+            backbone_config.get('resnet_name', 'resnet50')], dtype=dtype)
 
 
 class BackboneWithFPN(nn.Module):

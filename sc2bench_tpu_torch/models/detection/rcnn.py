@@ -23,6 +23,11 @@ stable descending sort, so that ties go to the lower index as they do in
 Random draws (the RPN and RoI samplers) come from an explicit
 `torch.Generator`, image by image in order; `uniforms` replaces them for
 tests that feed another package's draws.
+
+`dtype` (float32 by default, or bfloat16; `models/precision.py`) is the
+compute dtype of the backbone's stages, the FPN, the RPN head, RoIAlign
+and the box head; the heads' outputs are cast to float32 before any box
+decoding, and the bottleneck keeps its own dtype.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from ...ops.boxes import (batched_nms_mask, box_iou, clip_boxes,
                           remove_small_boxes_mask)
 from ...ops.roi_align import multiscale_roi_align
 from ...registry import register_model
+from ..precision import compute, resolve_dtype
 from .base import BackboneWithFPN, SplittableDetectionBackbone
 from .fpn import generate_anchors
 
@@ -151,8 +157,9 @@ class FasterRCNN(nn.Module):
                  num_classes: int = 91,
                  anchor_sizes: Sequence = ((32,), (64,), (128,), (256,),
                                            (512,)),
-                 aspect_ratios: Sequence = (0.5, 1.0, 2.0)):
+                 aspect_ratios: Sequence = (0.5, 1.0, 2.0), dtype=None):
         super().__init__()
+        self.dtype = resolve_dtype(dtype)
         self.num_classes = num_classes
         self.anchor_sizes = tuple(anchor_sizes)
         self.aspect_ratios = tuple(aspect_ratios)
@@ -169,7 +176,9 @@ class FasterRCNN(nn.Module):
         `rpn_only` skips the box head (the training step then runs it on
         the sampled proposals only)."""
         sub = {} if io is not None else None
-        features = self.backbone(x, mode=mode, generator=generator, io=sub)
+        with compute(self.dtype, x):
+            features = self.backbone(x, mode=mode, generator=generator,
+                                     io=sub)
         if io is not None:
             io.update({f'backbone.{k}': v for k, v in sub.items()})
         return self.detect(features, tuple(x.shape[-2:]), rpn_only=rpn_only)
@@ -186,7 +195,8 @@ class FasterRCNN(nn.Module):
     def forward_from_bottleneck(self, c2: torch.Tensor, image_hw) -> dict:
         """The server side from a decoded bottleneck feature: layer2-4,
         FPN, RPN, box head on the canvas `image_hw`."""
-        features = self.backbone.fpn(self.backbone.body.forward_tail(c2))
+        with compute(self.dtype, c2):
+            features = self.backbone.fpn(self.backbone.body.forward_tail(c2))
         return self.detect(features, tuple(image_hw))
 
     def decode_ops_to_detections(self, symbols: torch.Tensor,
@@ -210,7 +220,10 @@ class FasterRCNN(nn.Module):
         return self._anchors[key]
 
     def detect(self, features, image_hw, rpn_only: bool = False) -> dict:
-        objectness, deltas = self.rpn.head(features)
+        with compute(self.dtype, features[0]):
+            objectness, deltas = self.rpn.head(features)
+        objectness = [o.to(torch.float32) for o in objectness]
+        deltas = [d.to(torch.float32) for d in deltas]
         level_sizes = [int(np.prod(o.shape[1:])) for o in objectness]
         anchors = self.anchors(features, image_hw)
         n = features[0].shape[0]
@@ -240,14 +253,15 @@ class FasterRCNN(nn.Module):
         levels = features[:4]
         scales = [1.0 / (image_hw[0] / f.shape[2]) for f in levels]
         n, r = proposals.shape[:2]
-        pooled = torch.cat([
-            multiscale_roi_align([f[i] for f in levels], proposals[i],
-                                 output_size=7, scales=scales)
-            for i in range(n)])
-        logits, deltas = self.roi_heads.box_predictor(
-            self.roi_heads.box_head(pooled))
-        return (logits.reshape(n, r, -1),
-                deltas.reshape(n, r, self.num_classes, 4))
+        with compute(self.dtype, proposals):
+            pooled = torch.cat([
+                multiscale_roi_align([f[i] for f in levels], proposals[i],
+                                     output_size=7, scales=scales)
+                for i in range(n)])
+            logits, deltas = self.roi_heads.box_predictor(
+                self.roi_heads.box_head(pooled))
+        return (logits.to(torch.float32).reshape(n, r, -1),
+                deltas.to(torch.float32).reshape(n, r, self.num_classes, 4))
 
 
 def postprocess_detections(outputs: dict, score_thresh=BOX_SCORE_THRESH,
@@ -515,10 +529,11 @@ def faster_rcnn_model(backbone_config=None, num_classes=91,
                       backbone_fpn_kwargs=None, dtype=None, device=None,
                       **kwargs) -> FasterRCNN:
     """Faster R-CNN over the (splittable) ResNet of `backbone_config`,
-    placed on `device` (CUDA unless asked otherwise). `dtype` and other
-    kwargs of the JAX builder are accepted and unused (the bf16 option is
-    not ported)."""
+    placed on `device` (CUDA unless asked otherwise). `dtype`
+    ('bfloat16', or float32 by default) is the compute dtype of the
+    backbone's stages, the FPN and the heads; the bottleneck keeps its
+    own. Other kwargs of the JAX builder are accepted and unused."""
     dev = resolve_device(device)
     body = SplittableDetectionBackbone.from_config(
-        backbone_config, **(backbone_fpn_kwargs or {}))
-    return FasterRCNN(body, num_classes=num_classes).to(dev)
+        backbone_config, dtype=dtype, **(backbone_fpn_kwargs or {}))
+    return FasterRCNN(body, num_classes=num_classes, dtype=dtype).to(dev)

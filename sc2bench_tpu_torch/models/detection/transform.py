@@ -8,11 +8,21 @@ bottom and right to a canvas: the smallest (by area) of the canvas
 buckets that fits every image of the batch, or the square
 `max_size` rounded up to `size_divisible`. Anchors, clipping and the
 bottleneck's latent all live on the canvas, so the canvas decides the
-bytes on the wire. `RCNNTransformWithCompression` is not ported.
+bytes on the wire.
+
+`RCNNTransformWithCompression` adds the input-compression stage between
+the resize and the normalization: each resized image goes through a host
+codec transform (JPEG/WebP: clipped to [0, 1], taken to uint8, its file
+size given to the analyzer) or a neural codec's `compress`/`decompress`
+(padded to a multiple of 64 first, the compressed object given to the
+analyzer, the reconstruction cropped back), and onto the square canvas.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ...transforms.misc import AdaptivePad
 
 IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
@@ -85,4 +95,67 @@ class RCNNTransform:
         for i, resized in enumerate(resized_all):
             out[i, :resized.shape[0], :resized.shape[1]] = \
                 (resized - self.image_mean) / self.image_std
+        return out, np.asarray(scales, np.float32), orig
+
+
+class RCNNTransformWithCompression(RCNNTransform):
+    """`RCNNTransform` with a compression stage after the resize:
+    `compressor` (a transform returning (PIL image, file size), or the
+    image alone) or `compression_model` (a neural codec runtime:
+    `compress(NCHW)` / `decompress(**compressed)`); `analyzer` receives
+    the file size or the compressed object. Every image goes onto the
+    square canvas of `max_size`."""
+
+    def __init__(self, compressor=None, compression_model=None,
+                 analyzer=None, adaptive_pad_factor=64, **kwargs):
+        super().__init__(**kwargs)
+        self.compressor = compressor
+        self.compression_model = compression_model
+        self.analyzer = analyzer
+        self.adaptive_pad = AdaptivePad(factor=adaptive_pad_factor,
+                                        returns_org_patch_size=True)
+
+    @torch.no_grad()
+    def compress_image(self, resized: np.ndarray) -> np.ndarray:
+        """The reconstruction (HWC float32 in [0, 1]) of one resized
+        image after the compression stage."""
+        from PIL import Image
+        h, w = resized.shape[:2]
+        if self.compressor is not None:
+            pil = Image.fromarray(
+                (np.clip(resized, 0, 1) * 255).astype(np.uint8))
+            out = self.compressor(pil)
+            if isinstance(out, tuple):
+                pil, file_size = out
+                if self.analyzer is not None:
+                    self.analyzer.analyze(file_size)
+            else:
+                pil = out
+            rec = np.asarray(pil, np.float32) / 255.0
+        elif self.compression_model is not None:
+            padded, (oh, ow) = self.adaptive_pad(resized)
+            compressed = self.compression_model.compress(torch.from_numpy(
+                np.ascontiguousarray(padded.transpose(2, 0, 1)[None])))
+            if self.analyzer is not None:
+                self.analyzer.analyze(compressed)
+            rec = self.compression_model.decompress(**compressed)[0]
+            rec = rec.permute(1, 2, 0)[:oh, :ow].cpu().numpy()
+        else:
+            return resized
+        assert rec.shape[:2] == (h, w), \
+            f'compression changed the shape {rec.shape[:2]} != {(h, w)}'
+        return rec
+
+    def __call__(self, images):
+        ch, cw = self.canvas_hw()
+        out = np.zeros((len(images), ch, cw, 3), np.float32)
+        scales, orig = [], []
+        for i, img in enumerate(images):
+            img = np.asarray(img)
+            orig.append(img.shape[:2])
+            resized, scale = self.resize(img)
+            resized = self.compress_image(resized)
+            out[i, :resized.shape[0], :resized.shape[1]] = \
+                (resized - self.image_mean) / self.image_std
+            scales.append(scale)
         return out, np.asarray(scales, np.float32), orig

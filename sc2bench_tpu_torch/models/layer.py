@@ -22,6 +22,13 @@ and a decoder (`LayerSeq` stacks read from a spec list), whose latent the
 `SplitClassifier` wrapper quantizes on the host. `EntropyBottleneckLayer`
 is a bare factorized prior over its input, the fine-tuning family's
 split-point layer.
+
+The FP and SHP/MSHP bottlenecks take a compute `dtype` (float32 by
+default, or bfloat16; `models/precision.py`) for their encoder and
+decoder convolutions and GDNs (g_a and g_s): the latent goes to the
+entropy model, and to the symbols' rounding, in float32, and a
+hyperprior's h_a and h_s always run in float32, so that the decoder's
+Gaussian indexes equal the encoder's.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from ..ops.entropy.factorized import EntropyBottleneck
 from ..ops.entropy.gaussian import GaussianConditional
 from ..ops.gdn import GDN1
 from ..registry import get, register_layer
+from .precision import compute, resolve_dtype
 from .resnet import BatchNorm2d
 
 
@@ -49,8 +57,10 @@ class FPBasedResNetBottleneck(nn.Module):
     def __init__(self, num_input_channels: int = 3,
                  num_bottleneck_channels: int = 24,
                  num_target_channels: int = 256,
-                 encoder_channel_sizes=None, decoder_channel_sizes=None):
+                 encoder_channel_sizes=None, decoder_channel_sizes=None,
+                 dtype=None):
         super().__init__()
+        self.dtype = resolve_dtype(dtype)
         enc = list(encoder_channel_sizes or [
             num_input_channels, num_bottleneck_channels * 4,
             num_bottleneck_channels * 2, num_bottleneck_channels])
@@ -89,7 +99,7 @@ class FPBasedResNetBottleneck(nn.Module):
         (y_hat, likelihoods)` for the rate loss when `io` is given.
         'finetune' (after it): the latent dequantized with the medians,
         round(y - median) + median, carrying no gradient."""
-        y = self.encoder(x)
+        y = self._encode(x)
         if mode == 'train':
             y_hat, likelihoods = self.entropy_bottleneck(
                 y, mode='noise', generator=generator)
@@ -101,18 +111,27 @@ class FPBasedResNetBottleneck(nn.Module):
             y_hat = y_hat.detach()
         else:
             raise ValueError(f'unknown mode {mode} (deploy uses encode_ops)')
-        return self.decoder(y_hat)
+        return self._decode(y_hat)
+
+    def _encode(self, x: torch.Tensor) -> torch.Tensor:
+        """The encoder in the compute dtype; the latent in float32."""
+        with compute(self.dtype, x):
+            return self.encoder(x).to(torch.float32)
+
+    def _decode(self, y_hat: torch.Tensor) -> torch.Tensor:
+        with compute(self.dtype, y_hat):
+            return self.decoder(y_hat)
 
     def encode_ops(self, x: torch.Tensor, medians: torch.Tensor) -> dict:
         """Latent integer symbols round(y - median), NCHW int32."""
-        y = self.encoder(x)
+        y = self._encode(x)
         symbols = torch.round(y - medians[:, None, None]).to(torch.int32)
         return {'symbols': symbols}
 
     def decode_ops(self, symbols: torch.Tensor,
                    medians: torch.Tensor) -> torch.Tensor:
         y_hat = symbols.to(torch.float32) + medians[:, None, None]
-        return self.decoder(y_hat)
+        return self._decode(y_hat)
 
 
 def _conv_out(size: int, stack) -> int:
@@ -149,8 +168,10 @@ class SHPBasedResNetBottleneck(nn.Module):
                  num_latent_channels: int = 16,
                  num_bottleneck_channels: int = 24,
                  num_target_channels: int = 256,
-                 g_a_channel_sizes=None, g_s_channel_sizes=None):
+                 g_a_channel_sizes=None, g_s_channel_sizes=None,
+                 dtype=None):
         super().__init__()
+        self.dtype = resolve_dtype(dtype)
         g_a = list(g_a_channel_sizes or [
             num_input_channels, num_bottleneck_channels * 4,
             num_bottleneck_channels * 2, num_bottleneck_channels])
@@ -217,12 +238,12 @@ class SHPBasedResNetBottleneck(nn.Module):
         y_likelihoods)` when `io` is given. 'finetune' (after it): z
         dequantized with its medians, y with the predicted means, y_hat
         carrying no gradient."""
-        y = self.g_a(x)
-        z = self.h_a(self.hyper_input(y))
+        y = self._g_a(x)
+        z = self._h_a(y)
         if mode == 'train':
             z_hat, z_lik = self.entropy_bottleneck(z, mode='noise',
                                                    generator=generator)
-            scales, means = self.gaussian_params(self.h_s(z_hat))
+            scales, means = self.gaussian_params(self._h_s(z_hat))
             y_hat, y_lik = self.gaussian_conditional(
                 y, scales, means, mode='noise', generator=generator)
             if io is not None:
@@ -230,12 +251,29 @@ class SHPBasedResNetBottleneck(nn.Module):
                 io['gc_out'] = (y_hat, y_lik)
         elif mode == 'finetune':
             z_hat = self.entropy_bottleneck.quantize(z, 'dequantize')
-            _, means = self.gaussian_params(self.h_s(z_hat))
+            _, means = self.gaussian_params(self._h_s(z_hat))
             y_hat = (torch.round(y) if means is None
                      else torch.round(y - means) + means).detach()
         else:
             raise ValueError(f'unknown mode {mode} (deploy uses encode_ops)')
-        return self.g_s(y_hat)
+        return self._g_s(y_hat)
+
+    def _g_a(self, x: torch.Tensor) -> torch.Tensor:
+        """g_a in the compute dtype; y in float32."""
+        with compute(self.dtype, x):
+            return self.g_a(x).to(torch.float32)
+
+    def _g_s(self, y_hat: torch.Tensor) -> torch.Tensor:
+        with compute(self.dtype, y_hat):
+            return self.g_s(y_hat)
+
+    def _h_a(self, y: torch.Tensor) -> torch.Tensor:
+        with compute(torch.float32, y):
+            return self.h_a(self.hyper_input(y))
+
+    def _h_s(self, z_hat: torch.Tensor) -> torch.Tensor:
+        with compute(torch.float32, z_hat):
+            return self.h_s(z_hat)
 
     # ---- deploy path -------------------------------------------------------
     def encode_ops(self, x: torch.Tensor, z_medians: torch.Tensor,
@@ -243,8 +281,8 @@ class SHPBasedResNetBottleneck(nn.Module):
         """NCHW int32 `y_symbols` (round(y - means)), `y_indexes` (the
         Gaussian table rows) and `z_symbols` (round(z - medians)). The
         indexes come from z's symbols, as the decoder will compute them."""
-        y = self.g_a(x)
-        z = self.h_a(self.hyper_input(y))
+        y = self._g_a(x)
+        z = self._h_a(y)
         z_symbols = torch.round(z - z_medians[:, None, None]).to(torch.int32)
         indexes, means = self.decode_scales(z_symbols, z_medians,
                                             scale_table)
@@ -256,7 +294,7 @@ class SHPBasedResNetBottleneck(nn.Module):
                       scale_table: torch.Tensor):
         """(y indexes NCHW int32, means or None) from z's symbols."""
         z_hat = z_symbols.to(torch.float32) + z_medians[:, None, None]
-        scales, means = self.gaussian_params(self.h_s(z_hat))
+        scales, means = self.gaussian_params(self._h_s(z_hat))
         return self.gaussian_conditional.build_indexes(
             scales, scale_table), means
 
@@ -267,7 +305,7 @@ class SHPBasedResNetBottleneck(nn.Module):
         y_hat = y_symbols.to(torch.float32)
         if means is not None:
             y_hat = y_hat + means
-        return self.g_s(y_hat)
+        return self._g_s(y_hat)
 
 
 @register_layer

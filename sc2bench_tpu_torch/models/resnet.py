@@ -9,6 +9,10 @@ the JAX package's names (`layer1_out` ... `layer4_out`), the counterpart
 of its `sow('intermediates', ...)`, for the distillation losses.
 `forward_until`/`forward_from` split the network at a named layer, the
 head/tail boundary of the fine-tuning family (`models/entropic.py`).
+
+`ResNet(dtype=torch.bfloat16)` runs its convolutions in bfloat16 (its
+stages and blocks in its dtype, `models/precision.py`), BatchNorm's
+statistics in float32, and fc in float32 on the pooled feature.
 """
 from __future__ import annotations
 
@@ -17,6 +21,8 @@ from typing import Callable, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .precision import compute, linear_head, resolve_dtype
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -122,10 +128,13 @@ class ResNetStage(nn.Sequential):
 class ResNet(nn.Module):
     """Stem (7x7/2 conv, BN, ReLU, 3x3/2 max pool), layer1-4, global
     average pool and fc. `stage_sizes`: (3, 4, 6, 3) is ResNet-50,
-    (3, 4, 23, 3) ResNet-101, (3, 8, 36, 3) ResNet-152."""
+    (3, 4, 23, 3) ResNet-101, (3, 8, 36, 3) ResNet-152. `dtype` is the
+    compute dtype (float32 by default, or bfloat16)."""
 
-    def __init__(self, stage_sizes: Sequence[int], num_classes: int = 1000):
+    def __init__(self, stage_sizes: Sequence[int], num_classes: int = 1000,
+                 dtype=None):
         super().__init__()
+        self.dtype = resolve_dtype(dtype)
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm2d(64, eps=1e-5)
         self.relu = nn.ReLU()
@@ -139,30 +148,35 @@ class ResNet(nn.Module):
         self.fc = nn.Linear(c, num_classes)
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
-        return self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        with compute(self.dtype, x):
+            return self.maxpool(self.relu(self.bn1(self.conv1(x))))
 
     def forward(self, x: torch.Tensor, io: dict | None = None
                 ) -> torch.Tensor:
-        """Logits; with `io`, each stage's output as `layer{i}_out`."""
-        x = self.stem(x)
-        for i in range(1, 5):
-            x = getattr(self, f'layer{i}')(x)
-            if io is not None:
-                io[f'layer{i}_out'] = x
-        return self.fc(torch.mean(x, dim=(2, 3)))
+        """Logits (float32); with `io`, each stage's output as
+        `layer{i}_out`."""
+        with compute(self.dtype, x):
+            x = self.stem(x)
+            for i in range(1, 5):
+                x = getattr(self, f'layer{i}')(x)
+                if io is not None:
+                    io[f'layer{i}_out'] = x
+            x = torch.mean(x, dim=(2, 3))
+        return linear_head(self.fc, x)
 
     def forward_until(self, x: torch.Tensor, split_layer: str = 'layer2',
                       include_stem: bool = True) -> torch.Tensor:
         """Head: the stem, then layer1 up to `split_layer` inclusive
         ('stem': the stem only)."""
-        if include_stem:
-            x = self.stem(x)
-        if split_layer == 'stem':
-            return x
-        for i in range(1, 5):
-            x = getattr(self, f'layer{i}')(x)
-            if split_layer == f'layer{i}':
+        with compute(self.dtype, x):
+            if include_stem:
+                x = self.stem(x)
+            if split_layer == 'stem':
                 return x
+            for i in range(1, 5):
+                x = getattr(self, f'layer{i}')(x)
+                if split_layer == f'layer{i}':
+                    return x
         raise ValueError(f'unknown split layer {split_layer}')
 
     def forward_from(self, feature: torch.Tensor,
@@ -174,10 +188,11 @@ class ResNet(nn.Module):
             names = ['stem'] + [f'layer{i}' for i in range(1, 5)]
             if split_layer not in names:
                 raise ValueError(f'unknown split layer {split_layer}')
-            for name in names[names.index(split_layer) + 1:]:
-                x = getattr(self, name)(x)
-            x = torch.mean(x, dim=(2, 3))
-        return self.fc(x)
+            with compute(self.dtype, x):
+                for name in names[names.index(split_layer) + 1:]:
+                    x = getattr(self, name)(x)
+                x = torch.mean(x, dim=(2, 3))
+        return linear_head(self.fc, x)
 
 
 def resnet50(**kwargs) -> ResNet:

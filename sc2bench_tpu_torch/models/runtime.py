@@ -60,10 +60,32 @@ encoder runs in true float32. cuDNN runs float32 convolutions in TF32 by
 default, which moves symbols across rounding boundaries, so a runtime on a
 CUDA device sets `torch.backends.cudnn.allow_tf32 = False` and
 `torch.backends.cuda.matmul.allow_tf32 = False` (process-wide flags).
+
+Three opt-in bfloat16 options, as in the JAX runtime (none of them turns
+TF32 on):
+
+    deploy_bf16_tail    the host wire's decode: the bottleneck's decoder
+                        in float32, layer2-4 and fc on a bfloat16 copy of
+                        their weights, made again whenever a weight of the
+                        model changes (or the model is replaced)
+    deploy_bf16_decode  the device wire's decode: the decoder and the tail
+                        of a clone of the model whose compute dtype is
+                        bfloat16 (`models/precision.py`), over the same
+                        weights. The encoder is untouched, so the wire
+                        bytes equal the float32 runtime's; a hyperprior's
+                        h_s stays float32, so the decoder's Gaussian
+                        indexes equal the encoder's
+    deploy_bf16_encode  the device wire's encoder convolutions on that
+                        clone; the symbols' rounding and the entropy model
+                        stay float32. The bytes change by design (a latent
+                        near a rounding boundary moves by one) and the
+                        streams still decode to the symbols sent
 """
 from __future__ import annotations
 
 import contextlib
+import copy
+import itertools
 import logging
 import time
 from collections import deque
@@ -82,6 +104,7 @@ from ..ops.rans.device import (auto_lanes, device_rans_decode,
 from ..ops.rans.indexed_tables import prepare_indexed_tables
 from .layer import (EntropyBottleneckLayer, FPBasedResNetBottleneck,
                     SHPBasedResNetBottleneck)
+from .precision import with_compute_dtype
 
 logger = logging.getLogger(__name__)
 
@@ -227,10 +250,13 @@ class SplitClassifierRuntime(AnalyzerHolder):
     (`EntropicClassifierModule`): `update()`, `bottleneck_updated`, the
     analyzable surface, the host wire and, for the splittable FP/SHP/MSHP
     models, the device-rANS wire. Images are NCHW tensors (or arrays):
-    float, or uint8 when the runtime has `input_norm=(mean, std)`."""
+    float, or uint8 when the runtime has `input_norm=(mean, std)`.
+    `deploy_bf16_tail`, `deploy_bf16_decode` and `deploy_bf16_encode` are
+    the opt-in bfloat16 options of the module doc."""
 
     def __init__(self, module, analyzer_configs=None, analysis_unit='KB',
-                 input_norm=None, device=None):
+                 input_norm=None, device=None, deploy_bf16_tail=False,
+                 deploy_bf16_decode=False, deploy_bf16_encode=False):
         if analyzer_configs is None:
             analyzer_configs = [{'key': 'FileSizeAnalyzer',
                                  'kwargs': {'unit': analysis_unit}}]
@@ -240,6 +266,9 @@ class SplitClassifierRuntime(AnalyzerHolder):
             # true float32 encoder: byte-identical bitstreams (module doc)
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
+        self.deploy_bf16_tail = bool(deploy_bf16_tail)
+        self.deploy_bf16_decode = bool(deploy_bf16_decode)
+        self.deploy_bf16_encode = bool(deploy_bf16_encode)
         self.module = module.to(self.device).eval()
         self.bottleneck_updated = False
         self.training = False
@@ -254,7 +283,6 @@ class SplitClassifierRuntime(AnalyzerHolder):
             self._norm_mean = None
         # module-level deploy ops (EntropicClassifierModule) or a
         # bottleneck_layer submodule (the SplittableResNet family)
-        self._bneck = self._split_bottleneck(module)
         self._module_level_ops = self._bneck is None \
             and hasattr(module, 'encode_ops')
         self.hyper = isinstance(self._bneck, SHPBasedResNetBottleneck)
@@ -274,11 +302,58 @@ class SplitClassifierRuntime(AnalyzerHolder):
         self._gprepared = None
         self._scale_table = None
 
+    @property
+    def module(self):
+        return self._module
+
+    @module.setter
+    def module(self, value):
+        # another model (of the same kind): its bottleneck, and no bfloat16
+        # clone or tail copy of the old one
+        self._module = value
+        self._bneck = self._split_bottleneck(value)
+        self._bf16_module = None
+        self._bf16_tail = None
+
     @staticmethod
     def _split_bottleneck(module):
         """The model's bottleneck layer; None for module-level deploy
         ops."""
         return getattr(module, 'bottleneck_layer', None)
+
+    # ---- the bfloat16 options ----------------------------------------------
+    def _bf16_clone(self):
+        """The model with a bfloat16 compute dtype over its own weights,
+        built once."""
+        if self._bf16_module is None:
+            self._bf16_module = with_compute_dtype(self.module,
+                                                   torch.bfloat16)
+        return self._bf16_module
+
+    def _decode_module(self):
+        """The model of the device wire's decode."""
+        return self._bf16_clone() if self.deploy_bf16_decode \
+            else self.module
+
+    def _encode_module(self):
+        """The model of the device wire's encoder."""
+        return self._bf16_clone() if self.deploy_bf16_encode \
+            else self.module
+
+    def _bf16_tail_module(self):
+        """A bfloat16 copy of the model without its bottleneck, made again
+        when any weight of the model has changed in place since (the
+        tensors' version counters)."""
+        if self._bf16_tail is not None:
+            weights, versions, tail = self._bf16_tail
+            if versions == [t._version for t in weights]:
+                return tail
+        weights = list(itertools.chain(self.module.parameters(),
+                                       self.module.buffers()))
+        tail = copy.deepcopy(self.module, {id(self._bneck): None}).to(
+            torch.bfloat16)
+        self._bf16_tail = (weights, [t._version for t in weights], tail)
+        return tail
 
     # ---- reference API surface -----------------------------------------
     def update(self, scale_table=None):
@@ -398,17 +473,19 @@ class SplitClassifierRuntime(AnalyzerHolder):
         channels = self.codec.tables.medians.shape[0]
         symbols = self.codec.decompress_symbols(strings[0], shape, channels)
         flat = torch.from_numpy(symbols.reshape(len(symbols), -1))
-        return self._decode_tail(flat.to(self.device),
-                                 (*shape, channels))
+        return self._host_decode_tail(flat.to(self.device),
+                                      (*shape, channels))
 
     # ---- hyperprior pieces -----------------------------------------------
-    def _hyper_ops(self, x) -> dict:
+    def _hyper_ops(self, x, bneck=None) -> dict:
         """NCHW `encode_ops` of each image at the batch-1 shape (the shape
-        the decoder's h_s sees), concatenated."""
+        the decoder's h_s sees), concatenated; `bneck` the bottleneck to
+        run (by default the model's)."""
         x = self._prep_input(x)
+        bneck = self._bneck if bneck is None else bneck
         with _exact_cudnn():
-            ops = [self._bneck.encode_ops(x[i:i + 1], self._medians,
-                                          self._scale_table)
+            ops = [bneck.encode_ops(x[i:i + 1], self._medians,
+                                    self._scale_table)
                    for i in range(x.shape[0])]
         return {k: torch.cat([o[k] for o in ops]) for k in ops[0]}
 
@@ -426,12 +503,14 @@ class SplitClassifierRuntime(AnalyzerHolder):
         return _nhwc(torch.cat([idx for idx, _ in out])), means
 
     def _decode_tail_hyper(self, y_nhwc: torch.Tensor,
-                           means: torch.Tensor | None) -> torch.Tensor:
-        """Decoder and tail from y's symbols (NHWC) and the means of
-        `_hyper_scales`."""
+                           means: torch.Tensor | None,
+                           module=None) -> torch.Tensor:
+        """Decoder and tail (of `module`, by default the model) from y's
+        symbols (NHWC) and the means of `_hyper_scales`."""
+        m = self.module if module is None else module
         with _exact_cudnn():
-            feat = self._bneck.decode_ops(_nchw(y_nhwc), means)
-        return self.module.forward_tail(feat).to(torch.float32)
+            feat = self._split_bottleneck(m).decode_ops(_nchw(y_nhwc), means)
+        return m.forward_tail(feat).to(torch.float32)
 
     def _escape(self, x, ok, index):
         """Re-code image `index` on the host coder: count the escape by
@@ -541,8 +620,8 @@ class SplitClassifierRuntime(AnalyzerHolder):
         def flush():
             t0 = time.perf_counter()
             sym = torch.from_numpy(np.concatenate(decoded)).to(self.device)
-            logits = self._decode_tail(sym.reshape(len(sym), -1),
-                                       tuple(sym.shape[1:]), decoded_hw)
+            logits = self._host_decode_tail(sym.reshape(len(sym), -1),
+                                            tuple(sym.shape[1:]), decoded_hw)
             starts = np.cumsum([0] + [len(d) for d in decoded])
             results.extend(_rows(logits, int(i), int(j))
                            for i, j in zip(starts[:-1], starts[1:]))
@@ -641,10 +720,12 @@ class SplitClassifierRuntime(AnalyzerHolder):
                              'bottleneck runtimes')
         self._require_codec()
 
-    def _symbols_nhwc(self, x):
-        """Encoder + round(y - median), flattened channels-last: lane j
-        then always codes channel j mod C, as in the JAX wire format."""
-        ops = self.module if self._module_level_ops else self._bneck
+    def _symbols_nhwc(self, x, module=None):
+        """Encoder (of `module`, by default the model) + round(y - median),
+        flattened channels-last: lane j then always codes channel j mod C,
+        as in the JAX wire format."""
+        m = self.module if module is None else module
+        ops = m if self._module_level_ops else self._split_bottleneck(m)
         sym = ops.encode_ops(self._prep_input(x), self._medians)['symbols']
         n, c, h, w = sym.shape
         return sym.permute(0, 2, 3, 1).reshape(n, -1), (h, w, c)
@@ -663,7 +744,7 @@ class SplitClassifierRuntime(AnalyzerHolder):
         streams (`device_rans_encode`; aligned at k = 1 when the latent is
         beyond the batch-1 kernels, and then `aligned` says so)."""
         self._require_splittable()
-        flat, shape = self._symbols_nhwc(x)
+        flat, shape = self._symbols_nhwc(x, self._encode_module())
         if num_lanes is None:
             num_lanes = self._auto_wire_lanes(shape)
         cdf, cdf_len, off = self._tables_dev
@@ -680,7 +761,8 @@ class SplitClassifierRuntime(AnalyzerHolder):
         float sums could move a symbol across a rounding boundary, while
         each image's bitstream must equal its batch-1 one."""
         self._require_splittable()
-        rows = [self._symbols_nhwc(x) for x in xs_list]
+        enc = self._encode_module()
+        rows = [self._symbols_nhwc(x, enc) for x in xs_list]
         shape = rows[0][1]
         if any(s != shape for _, s in rows):
             raise ValueError('encode_device_wire_batch needs images of one '
@@ -693,17 +775,30 @@ class SplitClassifierRuntime(AnalyzerHolder):
                                  cyclic_channels=shape[-1], aligned=True)
         return self._with_meta(out, shape, tuple(xs_list[0].shape[-2:]))
 
-    def _decode_tail(self, flat, shape, input_hw=None):
-        """The model's output from flat NHWC symbols (n, h*w*c) of latent
-        `shape`; `input_hw`, the encoded images' (h, w), is unused by a
-        classifier."""
+    def _decode_tail(self, flat, shape, input_hw=None, module=None):
+        """The output of `module` (by default the model) from flat NHWC
+        symbols (n, h*w*c) of latent `shape`; `input_hw`, the encoded
+        images' (h, w), is unused by a classifier."""
+        m = self.module if module is None else module
         h, w, c = shape
         sym = flat.reshape(-1, h, w, c).permute(0, 3, 1, 2)
         if self._module_level_ops:
-            return self.module.decode_ops_to_logits(
+            return m.decode_ops_to_logits(
                 sym, self._medians).to(torch.float32)
+        feat = self._split_bottleneck(m).decode_ops(sym, self._medians)
+        return m.forward_tail(feat).to(torch.float32)
+
+    def _host_decode_tail(self, flat, shape, input_hw=None):
+        """The host wire's `_decode_tail`; with `deploy_bf16_tail`, the
+        bottleneck's decoder in float32, then the tail on the bfloat16
+        copy of its weights."""
+        if not self.deploy_bf16_tail or self._bneck is None:
+            return self._decode_tail(flat, shape, input_hw)
+        h, w, c = shape
+        sym = flat.reshape(-1, h, w, c).permute(0, 3, 1, 2)
         feat = self._bneck.decode_ops(sym, self._medians)
-        return self.module.forward_tail(feat).to(torch.float32)
+        return self._bf16_tail_module().forward_tail(
+            feat.to(torch.bfloat16)).to(torch.float32)
 
     @torch.no_grad()
     def decode_device_streams(self, streams, states, shape, num_lanes=None,
@@ -719,7 +814,8 @@ class SplitClassifierRuntime(AnalyzerHolder):
             streams, states, cdf, cdf_len, off,
             n_symbols=int(np.prod(shape)), num_lanes=num_lanes,
             cyclic_channels=shape[-1], aligned=aligned, device=self.device)
-        return self._decode_tail(flat, shape, input_hw), valid
+        return self._decode_tail(flat, shape, input_hw,
+                                 module=self._decode_module()), valid
 
     @torch.no_grad()
     def decode_device_streams_batch(self, streams, states, shape,
@@ -735,7 +831,8 @@ class SplitClassifierRuntime(AnalyzerHolder):
         """Both latents of k same-shape images coded on the device: z on
         the cyclic kernels, y on the per-index ones (batched when
         `aligned`)."""
-        ops = [self._hyper_ops(x) for x in xs_list]
+        bneck = self._split_bottleneck(self._encode_module())
+        ops = [self._hyper_ops(x, bneck) for x in xs_list]
         shapes = self._latent_shape(xs_list[0].shape)
         if any(tuple(o['z_symbols'].shape[1:]) != tuple(
                 ops[0]['z_symbols'].shape[1:]) for o in ops):
@@ -806,7 +903,7 @@ class SplitClassifierRuntime(AnalyzerHolder):
             indexes=y_idx if z_flat.dim() == 2 else y_idx[0],
             prepared=self._gprepared)
         logits = self._decode_tail_hyper(y_flat.reshape(-1, hy, wy, cy),
-                                         means)
+                                         means, self._decode_module())
         return logits, z_valid & y_valid
 
     decode_device_streams_hyper_batch = decode_device_streams_hyper

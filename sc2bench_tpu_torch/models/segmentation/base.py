@@ -16,6 +16,10 @@ captured names: `backbone.bottleneck_layer_out` (or
 `backbone.layer1_out`), `backbone.layer2_out` ... `backbone.layer4_out`,
 and the bottleneck's own under `backbone.bottleneck_layer.` (its
 `eb_out` in the 'train' mode).
+
+`dtype` (float32 by default, or bfloat16; `models/precision.py`) is the
+compute dtype of the backbone's stages and of the heads, whose logits
+are cast to float32 before the upsampling; the bottleneck keeps its own.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..precision import compute, resolve_dtype
 from ..resnet import BatchNorm2d, BottleneckBlock, ResNetStage
 
 
@@ -41,8 +46,9 @@ class SegmentationBackbone(nn.Module):
 
     def __init__(self, bottleneck_layer: nn.Module | None = None,
                  stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 return_aux: bool = True):
+                 return_aux: bool = True, dtype=None):
         super().__init__()
+        self.dtype = resolve_dtype(dtype)
         self.return_aux = return_aux
         self.bottleneck_layer = bottleneck_layer
         if bottleneck_layer is None:
@@ -64,7 +70,9 @@ class SegmentationBackbone(nn.Module):
                 generator: torch.Generator | None = None,
                 io: dict | None = None) -> dict:
         if self.bottleneck_layer is None:
-            z = self.layer1(self.maxpool(self.relu(self.bn1(self.conv1(x)))))
+            with compute(self.dtype, x):
+                z = self.layer1(self.maxpool(self.relu(self.bn1(
+                    self.conv1(x)))))
             name = 'layer1_out'
         else:
             sub = {} if io is not None else None
@@ -84,12 +92,13 @@ class SegmentationBackbone(nn.Module):
         the bottleneck's (decoded) feature."""
         features = {}
         z = feature
-        for i in (2, 3, 4):
-            z = getattr(self, f'layer{i}')(z)
-            if io is not None:
-                io[f'layer{i}_out'] = z
-            if i == 3 and self.return_aux:
-                features['aux'] = z
+        with compute(self.dtype, z):
+            for i in (2, 3, 4):
+                z = getattr(self, f'layer{i}')(z)
+                if io is not None:
+                    io[f'layer{i}_out'] = z
+                if i == 3 and self.return_aux:
+                    features['aux'] = z
         features['out'] = z
         return features
 
@@ -99,8 +108,9 @@ class BaseSegmentationModel(nn.Module):
     the input's size. Returns {'out': logits (N, K, H, W)[, 'aux': ...]}."""
 
     def __init__(self, backbone: SegmentationBackbone, classifier: nn.Module,
-                 aux_classifier: nn.Module | None = None):
+                 aux_classifier: nn.Module | None = None, dtype=None):
         super().__init__()
+        self.dtype = resolve_dtype(dtype)
         self.backbone = backbone
         self.classifier = classifier
         self.aux_classifier = aux_classifier
@@ -113,11 +123,17 @@ class BaseSegmentationModel(nn.Module):
         if io is not None:
             io.update({f'backbone.{k}': v for k, v in sub.items()})
         size = x.shape[-2:]
-        result = {'out': upsample_to(self.classifier(features['out']), size)}
+        result = {'out': upsample_to(self._head(self.classifier,
+                                                features['out']), size)}
         if self.aux_classifier is not None and 'aux' in features:
             result['aux'] = upsample_to(
-                self.aux_classifier(features['aux']), size)
+                self._head(self.aux_classifier, features['aux']), size)
         return result
+
+    def _head(self, head: nn.Module, feature: torch.Tensor) -> torch.Tensor:
+        """A head's float32 logits, computed in the model's dtype."""
+        with compute(self.dtype, feature):
+            return head(feature).to(torch.float32)
 
     # ---- deploy split (the runtime's ops) ----------------------------------
     def encode_ops(self, x: torch.Tensor, medians: torch.Tensor) -> dict:
@@ -128,5 +144,6 @@ class BaseSegmentationModel(nn.Module):
         """Main-head logits (N, K, *input_hw) from the latent's symbols
         (NCHW): bottleneck decoder, dilated tail, head, upsampling."""
         feature = self.backbone.bottleneck_layer.decode_ops(symbols, medians)
-        out = self.classifier(self.backbone.forward_tail(feature)['out'])
+        out = self._head(self.classifier,
+                         self.backbone.forward_tail(feature)['out'])
         return upsample_to(out, input_hw)

@@ -79,22 +79,26 @@ class FCNHead(nn.Sequential):
 
 
 def create_deeplabv3(backbone: SegmentationBackbone, num_classes: int = 21,
-                     uses_aux: bool = False) -> BaseSegmentationModel:
+                     uses_aux: bool = False, dtype=None
+                     ) -> BaseSegmentationModel:
     """Heads over a feature backbone: DeepLabHead on layer4 (2048
-    channels), FCNHead on layer3 (1024) when `uses_aux`."""
+    channels), FCNHead on layer3 (1024) when `uses_aux`, computing in
+    `dtype`."""
     return BaseSegmentationModel(
         backbone, DeepLabHead(2048, num_classes),
-        FCNHead(1024, num_classes) if uses_aux else None)
+        FCNHead(1024, num_classes) if uses_aux else None, dtype=dtype)
 
 
 @register_model
 def deeplabv3_model(bottleneck_config=None, backbone_name='resnet50',
-                    num_classes=21, uses_aux=False, device=None, **kwargs
-                    ) -> BaseSegmentationModel:
+                    num_classes=21, uses_aux=False, dtype=None, device=None,
+                    **kwargs) -> BaseSegmentationModel:
     """DeepLabv3 over a plain or (with `bottleneck_config`, any layer that
     `get_layer` builds) splittable dilated ResNet-50/101, placed on
-    `device` (CUDA unless asked otherwise). Other kwargs of the JAX
-    builder (`num_input_channels`, `dtype`) are accepted and unused."""
+    `device` (CUDA unless asked otherwise). `dtype` ('bfloat16' or float32
+    by default) is the compute dtype of the stages, ASPP and the heads;
+    the bottleneck keeps its own. Other kwargs of the JAX builder
+    (`num_input_channels`) are accepted and unused."""
     dev = resolve_device(device)
     bottleneck = None
     if bottleneck_config:
@@ -102,5 +106,6 @@ def deeplabv3_model(bottleneck_config=None, backbone_name='resnet50',
                                **bottleneck_config.get('kwargs', {}))
     backbone = SegmentationBackbone(
         bottleneck, stage_sizes=STAGE_SIZES[backbone_name],
-        return_aux=uses_aux)
-    return create_deeplabv3(backbone, num_classes, uses_aux).to(dev)
+        return_aux=uses_aux, dtype=dtype)
+    return create_deeplabv3(backbone, num_classes, uses_aux,
+                            dtype=dtype).to(dev)

@@ -170,7 +170,7 @@ class SplitSegmentationRuntime(SplitClassifierRuntime):
     def _split_bottleneck(module):
         return module.backbone.bottleneck_layer
 
-    def _decode_tail(self, flat, shape, input_hw=None):
+    def _decode_tail(self, flat, shape, input_hw=None, module=None):
         if input_hw is None:
             raise ValueError('the segmentation decode tail needs the input '
                              "image's (h, w)")
@@ -180,7 +180,8 @@ class SplitSegmentationRuntime(SplitClassifierRuntime):
         # ASPP's dilated convolutions at batch 8 with a direct kernel
         # about 80x slower than at batch 4
         sym = _nchw(flat.reshape(-1, h, w, c))
-        return self.module.decode_ops_to_output(
+        m = self.module if module is None else module
+        return m.decode_ops_to_output(
             sym, self._medians, input_hw).to(torch.float32)
 
     @torch.no_grad()

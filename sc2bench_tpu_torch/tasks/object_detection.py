@@ -13,7 +13,9 @@ bbox metrics, `model_time` and the data-size summary of the student at
 batch 1 through the real bitstream (`deploy_wire: device` in the config
 selects the device-rANS wire, else the host coder; a CR+BQ student is
 scored on its plain forward) -> the teacher's metrics unless
-`-student_only`. The device is the card unless `--device cpu`; it raises
+`-student_only`. A `models.wrapper` config (the input-compression
+family) is test-only: its wrapper compresses each image before the
+detector and accounts its size. The device is the card unless `--device cpu`; it raises
 when there is none.
 """
 from __future__ import annotations

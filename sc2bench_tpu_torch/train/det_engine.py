@@ -26,7 +26,11 @@ device` the device-rANS wire (`stream_detect_device`): the 12 COCO bbox
 metrics, `model_time` (host seconds an image) and the data-size summary.
 A student without an entropy model (CR+BQ) is scored with the plain
 forward and nothing accounted, as in JAX. A `models.wrapper` config (the
-input-compression family) is not ported yet: the engine raises.
+input-compression family, `InputCompressionDetectionModel`) is test-only:
+the engine builds the wrapper alone, `train()` raises, and `test()` runs
+the COCO evaluator over the wrapper's detections of each loader batch
+(its own transform: every image compressed, then on the square canvas),
+the data size from its analyzer.
 
 Loaders yield (images, targets) tuples (`coco_collate_fn`); detections
 are scaled back to each image's own coordinates before scoring.
@@ -46,7 +50,8 @@ from ..device import resolve_device
 from ..models.detection.rcnn import detection_loss, postprocess_detections
 from ..models.detection.registry import load_detection_model
 from ..models.detection.transform import RCNNTransform
-from ..models.detection.wrapper import SplitDetectionRuntime
+from ..models.detection.wrapper import (SplitDetectionRuntime,
+                                        get_wrapped_detection_model)
 from ..registry import import_dependencies
 from ..transforms.collator import coco_collate_fn
 from ..utils.ckpt import save_ckpt
@@ -133,10 +138,6 @@ class DetectionEngine:
         self.device = resolve_device(device)
         self.seed = int(seed)
         models_config = config.get('models', {})
-        if 'wrapper' in models_config:
-            raise NotImplementedError(
-                'input-compression detection configs (models.wrapper) are '
-                'not ported yet (ROADMAP Queue A item 2)')
         canvas_size = int(config.get('canvas_size', 1333))
         min_size = int(config.get('min_size', 800))
         buckets = config.get('canvas_buckets')
@@ -148,6 +149,11 @@ class DetectionEngine:
                                        canvas_buckets=buckets)
         self.max_boxes = int(config.get('max_boxes', 64))
         self.teacher = None
+        self.wrapper = None
+        if 'wrapper' in models_config:
+            self.wrapper = get_wrapped_detection_model(
+                models_config['wrapper'], device=self.device)
+            return
         if 'teacher_model' in models_config:
             torch.manual_seed(7)
             self.teacher = load_detection_model(
@@ -263,6 +269,9 @@ class DetectionEngine:
     def train(self, dst_ckpt=None):
         """Run the config's training stages; returns the best validation
         mAP."""
+        if self.wrapper is not None:
+            raise ValueError('input-compression detection configs are '
+                             'test-only: run with -test_only')
         train_config = self.config.get('train', {})
         stages = train_stage_configs(train_config)
         if self.config.get('adjust_lr'):
@@ -299,10 +308,40 @@ class DetectionEngine:
                             epoch, str(meter), best)
         return best
 
+    @torch.no_grad()
+    def _test_wrapper(self, loader):
+        """The 12 COCO bbox metrics of the input-compression wrapper, one
+        call a loader batch, with `model_time` (host seconds an image) and
+        `data_size` (the wrapper's analysis summary)."""
+        self.wrapper.activate_analysis()
+        evaluator = CocoEvaluator(iou_type='bbox')
+        meter = MetricLogger()
+        for images, targets in loader:
+            t0 = time.time()
+            results = self.wrapper(list(images))
+            self._sync()
+            meter.meters['model_time'].update(
+                (time.time() - t0) / len(results), n=len(results))
+            for target, res in zip(targets, results):
+                evaluator.add_gt(target)
+                evaluator.update({target['image_id']: res})
+        evaluator.synchronize_between_processes()
+        evaluator.accumulate()
+        stats = evaluator.summarize()
+        if 'model_time' in meter.meters:
+            stats['model_time'] = meter.meters['model_time'].global_avg
+        stats['data_size'] = self.wrapper.summarize()
+        logger.info('wrapper detection eval: mAP %.4f', stats['AP'])
+        return stats
+
     def test(self):
         """(metrics, data-size summaries) of the student on the test
-        loader, through the bitstream when it has an entropy model."""
+        loader, through the bitstream when it has an entropy model; of the
+        wrapper for a `models.wrapper` config."""
         loader = self.build_loader(self.config['test']['test_data_loader'])
+        if self.wrapper is not None:
+            stats = self._test_wrapper(loader)
+            return stats, stats['data_size']
         if not self.runtime.update():
             logger.info('no entropy bottleneck: testing the plain forward')
             return self.evaluate(loader), self.runtime.summarize()

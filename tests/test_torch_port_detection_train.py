@@ -412,8 +412,9 @@ def test_cli_tiny_detection_trains_and_tests_as_jax(tmp_path, monkeypatch):
 def test_cli_bq_tests_the_plain_forward_as_jax(tmp_path, monkeypatch):
     """The CR+BQ config test-only: no tables, nothing accounted, the
     student's plain forward scored as the JAX engine scores it; the
-    teacher's metrics too unless `-student_only`. A wrapper config and a
-    world size above 1 raise."""
+    teacher's metrics too unless `-student_only`. A wrapper config
+    without `-test_only` (it is test-only, as in JAX) and a world size
+    above 1 raise."""
     with pytest.MonkeyPatch.context() as mp:
         over = _cli_case(BQ_CONFIG, tmp_path, mp, 40)
         engine = JaxDetEngine(jax_load_config(BQ_CONFIG, over), mesh=None)
@@ -431,7 +432,7 @@ def test_cli_bq_tests_the_plain_forward_as_jax(tmp_path, monkeypatch):
                                                   abs=1e-6), k
     wrapper = COCO.parent / ('input_compression/jpeg-faster_rcnn_resnet50_'
                              'fpn.yaml')
-    with pytest.raises(NotImplementedError, match='item 2'):
-        main(['--config', str(wrapper), '-test_only', '--device', 'cpu'])
+    with pytest.raises(ValueError, match='test-only'):
+        main(['--config', str(wrapper), '--device', 'cpu'])
     with pytest.raises(NotImplementedError, match='item 4'):
         main(['--config', str(TINY), '--world_size', '2', '--device', 'cpu'])
