@@ -233,17 +233,38 @@ which fails loudly with a nonzero exit:
     of agreeing pixels or detections, img/s); and `python -m
     sc2bench_tpu_torch.bench` with short loops, its JSON line printed
     (the MFU fields present and below 1), its launches counted;
-19. print the kernels line (all ten kernels; it fails if one never
+19. scale-out over torch.distributed: one NCCL rank a card when there
+    are several, and on a one-card host two gloo ranks both on cuda:0
+    (a stated second run, not a fallback), started by `torchrun` on this
+    script's worker (`--scaleout-worker`); the phase prints each job's
+    backend, world size and ranks' devices. Three flagship stage-2 steps
+    (noise, KD, SGD, BatchNorm over the group) on one batch of 64 split
+    over the ranks equal one process's at 64 (parameters and BatchNorm
+    statistics within rtol 1e-4, atol 1e-5, TF32 off; the loss's mean
+    over the ranks within 1e-4) with the ranks bitwise equal; the CLI
+    trains the flagship config two steps a stage at 32 images a rank
+    (img/s a rank) to bitwise-equal weights and tests on the device
+    wire; the time of one gradient all-reduce; one more step of one
+    process and of each rank under `torch.profiler`, with the
+    collectives' share of its wall time; `-test_only` of the
+    checkpoint rank 0 wrote, over the ranks, tests every image on every
+    rank with `rans_cyclic_encode`/`_decode` launched once an image on
+    each and the sizes and acc1 of one process, and its `--profile_dir`
+    trace names the rANS kernels; `ServingPool` over the visible cards
+    gives the runtime's logits (within 1e-3) and sizes;
+20. print the kernels line (all ten kernels; it fails if one never
     launched on its path or differs from its plain version, if a cyclic
     or indexed kernel never launched in phase 14, or a cyclic one in
     phase 15 or 16, or a cyclic one on phase 18's bfloat16 device wire
-    or bench; the counts of phases 11-18 beside, and phase 14's, 15's
-    and 16's timings at their shapes under `*_64ch`, `*_seg` and
-    `*_det`), the card's name and power limit, and last `{"ok": true,
-    "device": {...}}`. Every phase prints its seconds.
+    or bench, or the batch-1 cyclic pair on a rank of phase 19; the
+    counts of phases 11-19 beside, and phase 14's, 15's and 16's
+    timings at their shapes under `*_64ch`, `*_seg` and `*_det`), the
+    card's name and power limit, and last `{"ok": true, "device":
+    {...}}`. Every phase prints its seconds.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
-with an error before printing any result.
+with an error before printing any result. `--scaleout-only` runs phase 19
+alone over every visible card (a multi-card host).
 """
 from __future__ import annotations
 
@@ -383,6 +404,11 @@ N_BF16, BF16_TOP1 = 8, 7
 BENCH_ARGS = ['--n_iter', '32', '--n_trials', '2', '--loop_n', '10',
               '--fresh_n_iter', '16', '--throughput_n_iter', '256',
               '--train_steps', '2']
+# phase 19: scale-out. Two ranks at the configs' batch of 32 a rank, two
+# steps a stage; one two-rank step against one process at batch 64
+N_SCALE_TRAIN, N_SCALE_VAL, SCALE_BATCH, N_SCALE_TEST = 128, 64, 32, 8
+SCALE_STEP_BATCH, SCALE_STEPS, SCALE_RANKS_ONE_CARD = 64, 3, 2
+SCALE_TIMEOUT = 300
 # H100 SXM published peaks: HBM bytes/s, and
 # the non-tensor-core rate used for the kernels' integer operations
 HBM_BYTES_PER_S = 3.35e12
@@ -4087,6 +4113,422 @@ def bf16_phase(torch, kernels, model, mshp, images, device):
     return wire, bench_phase(torch, kernels)
 
 
+def state_digest(torch, module):
+    """SHA-256 of every parameter and buffer's bytes, in state-dict
+    order: equal digests are bitwise-equal states."""
+    import hashlib
+    h = hashlib.sha256()
+    for k, v in module.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().reshape(-1)
+                 .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def scaleout_models(torch, device):
+    """The flagship student (seed 0) and a seeded ResNet-50 teacher."""
+    from sc2bench_tpu_torch.config import load_config
+    from sc2bench_tpu_torch.models.registry import load_classification_model
+    cfg = load_config(os.path.join(REPO, FLAGSHIP_CONFIG))
+    torch.manual_seed(7)
+    teacher = load_classification_model(cfg['models']['teacher_model'],
+                                        device='cpu').to(device)
+    return build_model(torch, device, seed=0), teacher, cfg
+
+
+def step_profile(torch, step):
+    """`step()` once under `torch.profiler` (CPU and CUDA). Returns its
+    result and the step's wall ms; the device's busy ms (the union of
+    its kernels' intervals); the NCCL kernels' count, total and largest
+    ms (they include the wait for the slowest rank); and the count and
+    host ms of the group's profiler ranges (`dist.average_gradients`,
+    `dist.group_sum`: under gloo they block for the staging and the
+    transfer, under NCCL they only enqueue)."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, 'step.json')
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)['traceEvents']
+    kern = [e for e in events if e.get('cat') == 'kernel']
+    busy, end = 0.0, float('-inf')
+    for a, b in sorted((float(e['ts']), float(e['ts']) + float(e['dur']))
+                       for e in kern):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    nccl = [float(e['dur']) for e in kern
+            if 'nccl' in e.get('name', '').lower()]
+    ranges = {}
+    for e in events:
+        name = e.get('name', '')
+        if e.get('cat') == 'user_annotation' and name.startswith('dist.'):
+            r = ranges.setdefault(name, {'count': 0, 'host_ms': 0.0})
+            r['count'] += 1
+            r['host_ms'] += float(e['dur']) / 1e3
+    return out, {'wall_ms': 1e3 * wall, 'busy_ms': busy / 1e3,
+                 'kernels': len(kern),
+                 'nccl': {'count': len(nccl), 'ms': sum(nccl) / 1e3,
+                          'max_ms': max(nccl, default=0.0) / 1e3},
+                 'ranges': ranges}
+
+
+def scaleout_step(torch, device, rows=None):
+    """`SCALE_STEPS` timed flagship stage-2 steps (the 'train' forward's
+    noise, KD, SGD with momentum, BatchNorm training) on one global batch
+    of 64, on `rows` of it (this rank's block) or all of it; TF32 off.
+    Returns the last step's loss detail, the student, the median ms of
+    the steps after the first, and a function that takes one more step
+    under the profiler and returns its breakdown (`step_profile`; call
+    it once the student has been compared)."""
+    from sc2bench_tpu_torch.train.box import DistillationBox
+    student, teacher, cfg = scaleout_models(torch, device)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((SCALE_STEP_BATCH, 3, HW, HW), generator=gen)
+    y = torch.randint(0, 1000, (SCALE_STEP_BATCH,), generator=gen)
+    if rows is not None:
+        x, y = x[rows], y[rows]
+    box = DistillationBox(student, cfg['train']['stage2'], teacher=teacher,
+                          steps_per_epoch=1, student_mode='train',
+                          generator=torch.Generator(device=device)
+                          .manual_seed(5))
+    x, y = x.to(device), y.to(device)
+    times = []
+    for _ in range(SCALE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = box.train_step(x, y)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return ({k: float(v) for k, v in m['loss'].items()}, student,
+            1e3 * statistics.median(times[1:]),
+            lambda: step_profile(torch, lambda: box.train_step(x, y))[1])
+
+
+def scaleout_cli_over(ckpt, test_only=False):
+    loaders = {'train_data_loader': synthetic_split(
+        N_SCALE_TRAIN, SCALE_BATCH, seed=1000, shuffle=True, drop_last=True),
+        'val_data_loader': synthetic_split(N_SCALE_VAL, SCALE_BATCH,
+                                           seed=2000)}
+    over = {'allow_missing_teacher': True, 'deploy_wire': 'device',
+            'models': {'student_model': {'ckpt': ckpt}},
+            'test': {'test_data_loader': synthetic_split(N_SCALE_TEST, 1,
+                                                         seed=0)}}
+    if not test_only:
+        over['train'] = {**loaders,
+                         'stage1': {'num_epochs': 1, 'epoch_to_update': 1},
+                         'stage2': {'num_epochs': 1}}
+    return over
+
+
+def scaleout_worker(spec_path, out_dir):
+    """One rank of phase 19, under `torchrun`: the group's step against
+    the one-process step the parent saved, the CLI training two steps a
+    stage at 32 images a rank then testing on the device wire, the
+    `-test_only` of the checkpoint with a profile, and the time of a
+    gradient all-reduce. Writes `rank<r>.json` into `out_dir`."""
+    import torch
+    sys.path.insert(0, REPO)
+    import sc2bench_tpu_torch.train.engine as engine_module
+    from sc2bench_tpu_torch.ops.rans import kernels
+    from sc2bench_tpu_torch.parallel import dist
+    from sc2bench_tpu_torch.tasks.image_classification import main as cli
+    with open(spec_path) as f:
+        spec = json.load(f)
+    device = dist.init_from_env(spec['world'], 'cuda')
+    r, w = dist.rank(), dist.world_size()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {'rank': r, 'world': w, 'backend': dist.backend(),
+           'device': str(device)}
+    n = SCALE_STEP_BATCH // w
+    loss, student, step_ms, profiled = scaleout_step(
+        torch, device, slice(r * n, (r + 1) * n))
+    ref = torch.load(spec['ref'], map_location=device)
+    worst = 0.0
+    for k, v in student.state_dict().items():
+        if v.is_floating_point():
+            d = (v - ref[k]).abs() - 1e-4 * ref[k].abs()
+            worst = max(worst, float(d.max()))
+    res['step'] = {'loss': loss, 'digest': state_digest(torch, student),
+                   'excess_over_rtol': worst, 'ms': step_ms}
+    del ref
+    res['step']['profile'] = profiled()
+    del student, profiled
+    # the CLI over the group, each step timed behind a synchronize
+    steps = []
+    base = engine_module.DistillationBox
+
+    class Timed(base):
+        def train_step(self, x, y):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = base.train_step(self, x, y)
+            torch.cuda.synchronize()
+            steps.append((self.stage_config.get('name'),
+                          time.perf_counter() - t0, int(x.shape[0])))
+            return out
+
+    engine_module.DistillationBox = Timed
+    try:
+        kernels.reset_launches()
+        out = cli(['--config', os.path.join(REPO, FLAGSHIP_CONFIG),
+                   '--json', json.dumps(scaleout_cli_over(spec['init'])),
+                   '-student_only', '--dst_ckpt', spec['ckpt'],
+                   '--world_size', str(w)])
+    finally:
+        engine_module.DistillationBox = base
+    rt = out['engine'].runtime
+    res['train'] = {'steps': steps, 'launches': dict(kernels.LAUNCHES),
+                    'digest': state_digest(torch, out['engine'].student),
+                    'summary': out['summaries'][0],
+                    'escapes': dict(rt.escapes)}
+    # one gradient all-reduce of stage 2's trainable size, timed
+    params = [p for p in out['engine'].student.parameters()
+              if p.requires_grad]
+    for p in params:
+        p.grad = torch.ones_like(p)
+    for _ in range(2):
+        dist.average_gradients(params)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        dist.barrier()
+        t0 = time.perf_counter()
+        dist.average_gradients(params)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    res['all_reduce'] = {'ms': 1e3 * statistics.median(times),
+                         'elements': sum(p.numel() for p in params)}
+    del out, params
+    # -test_only of the checkpoint rank 0 wrote, with a profile
+    kernels.reset_launches()
+    out = cli(['--config', os.path.join(REPO, FLAGSHIP_CONFIG),
+               '--json', json.dumps(scaleout_cli_over(spec['ckpt'], True)),
+               '-test_only', '-student_only', '--profile_dir',
+               spec['profile'], '--world_size', str(w)])
+    rt = out['engine'].runtime
+    res['test'] = {'launches': dict(kernels.LAUNCHES),
+                   'sizes': list(rt.analyzers[0].file_size_list),
+                   'result': out['result'], 'escapes': dict(rt.escapes)}
+    with open(os.path.join(out_dir, f'rank{r}.json'), 'w') as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy()
+
+
+def scaleout_job(backend, world, spec, tmp):
+    """`torchrun` `world` ranks of this script's worker; their results."""
+    spec = dict(spec, world=world,
+                profile=os.path.join(tmp, f'profile_{backend}'))
+    path = os.path.join(tmp, f'spec_{backend}.json')
+    out_dir = os.path.join(tmp, f'out_{backend}')
+    os.makedirs(out_dir, exist_ok=True)
+    with open(path, 'w') as f:
+        json.dump(spec, f)
+    env = {**os.environ, 'OMP_NUM_THREADS': '1',
+           'PYTHONPATH': os.pathsep.join([REPO,
+                                          os.environ.get('PYTHONPATH', '')])}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+         '--nproc_per_node', str(world), os.path.abspath(__file__),
+         '--scaleout-worker', path, out_dir], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        text = proc.communicate(timeout=SCALE_TIMEOUT)[0]
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        text = proc.communicate()[0]
+        raise SmokeFailure(f'phase 19: the {backend} job timed out:\n'
+                           + text[-4000:])
+    check(proc.returncode == 0, f'phase 19: the {backend} job failed '
+          f'({proc.returncode}):\n' + text[-6000:])
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f'rank{r}.json')) as f:
+            ranks.append(json.load(f))
+    return ranks, time.perf_counter() - t0, spec['profile']
+
+
+def profile_text(p):
+    """One line of a `step_profile` breakdown, with the collectives'
+    share of the step's wall time: the NCCL kernels' device time, and
+    the group's ranges' host time."""
+    host = sum(r['host_ms'] for r in p['ranges'].values())
+    ranges = ', '.join(f'{k} x{r["count"]} {r["host_ms"]:.2f} ms'
+                       for k, r in sorted(p['ranges'].items())) or 'none'
+    nccl = p['nccl']
+    return (f'wall {p["wall_ms"]:.2f} ms, device busy {p["busy_ms"]:.2f} '
+            f'ms ({p["kernels"]} kernels), NCCL kernels x{nccl["count"]} '
+            f'{nccl["ms"]:.2f} ms (largest {nccl["max_ms"]:.2f}), group '
+            f'ranges on the host: {ranges}; share of the wall: NCCL '
+            f'{nccl["ms"] / p["wall_ms"]:.3f}, group ranges '
+            f'{host / p["wall_ms"]:.3f}')
+
+
+def trace_kernels(path):
+    """The names of the CUDA kernels in a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)['traceEvents']
+    return {e.get('name', '') for e in events if e.get('cat') == 'kernel'}
+
+
+def scaleout_phase(torch, kernels, rt, images, device):
+    """Phase 19: the flagship over torch.distributed. One NCCL rank a
+    card when there are several, and on a one-card host two gloo ranks
+    on cuda:0 (stated, not a fallback); the ranks pick the backend
+    themselves (`init_from_env`), and the phase checks their choice.
+    Each job's ranks step in lockstep and equal the one-process step at the global batch, train
+    two steps a stage through the CLI with bitwise-equal weights after,
+    and test the checkpoint on the device wire with the cyclic pair
+    launched on every rank, every test image accounted and its bytes
+    those of one process; the profile names the rANS kernels. The
+    `ServingPool` over the visible cards matches the runtime. Returns
+    each job's per-rank launches of the test."""
+    import tempfile
+    from sc2bench_tpu_torch.models.runtime import SplitClassifierRuntime
+    from sc2bench_tpu_torch.models.serving_pool import ServingPool
+    from sc2bench_tpu_torch.tasks.image_classification import main as cli
+    from sc2bench_tpu_torch.utils.ckpt import save_ckpt
+    cards = torch.cuda.device_count()
+    jobs = [('nccl', cards)] if cards > 1 else []
+    if cards == 1:
+        jobs.append(('gloo', SCALE_RANKS_ONE_CARD))
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        loss_one, student, one_ms, profiled = scaleout_step(torch, device)
+        ref = os.path.join(tmp, 'step_ref.pt')
+        torch.save(student.state_dict(), ref)
+        log('phase 19: one process at 64, profiled step: '
+            + profile_text(profiled()))
+        init = os.path.join(tmp, 'init.ckpt')
+        save_ckpt(init, build_model(torch, device, seed=0).state_dict())
+        del student, profiled
+        spec = {'ref': ref, 'init': init,
+                'ckpt': os.path.join(tmp, 'scaled.ckpt')}
+        for backend, world in jobs:
+            ranks, wall, profile = scaleout_job(backend, world, spec, tmp)
+            log(f'phase 19: {backend} job, world size {world}, ranks on '
+                + ', '.join(f'{x["rank"]}: {x["device"]}' for x in ranks)
+                + f' (backend {ranks[0]["backend"]}); wall {wall:.1f} s')
+            check(all(x['backend'] == backend for x in ranks),
+                  f'phase 19: the ranks chose {[x["backend"] for x in ranks]}'
+                  f', expected {backend}')
+            # one step of the group against one process at batch 64
+            for x in ranks:
+                check(x['step']['excess_over_rtol'] <= 1e-5,
+                      f'phase 19: rank {x["rank"]} step differs from one '
+                      f'process by {x["step"]["excess_over_rtol"]:.3e} over '
+                      'rtol 1e-4 (atol 1e-5)')
+            for k, v in loss_one.items():
+                got = np.mean([x['step']['loss'][k] for x in ranks])
+                check(abs(got - v) <= 1e-4 * abs(v) + 1e-6,
+                      f'phase 19: step loss {k} {got} vs {v}')
+            check(len({x['step']['digest'] for x in ranks}) == 1,
+                  'phase 19: the ranks differ after one step')
+            check(len({x['train']['digest'] for x in ranks}) == 1,
+                  'phase 19: the ranks differ after training')
+            # the test over the ranks against one process
+            kernels.reset_launches()
+            one = cli(['--config', os.path.join(REPO, FLAGSHIP_CONFIG),
+                       '--json', json.dumps(scaleout_cli_over(spec['ckpt'],
+                                                              True)),
+                       '-test_only', '-student_only'])
+            want = sorted(one['engine'].runtime.analyzers[0].file_size_list)
+            per = expected_launches(kernels, FP_BATCH1, N_SCALE_TEST)
+            check(dict(kernels.LAUNCHES) == per, 'phase 19: one process '
+                  f'launched {dict(kernels.LAUNCHES)}')
+            for x in ranks:
+                tag = f'phase 19: {backend} rank {x["rank"]}'
+                for part in ('train', 'test'):
+                    check(x[part]['launches'] == per, f'{tag}: the {part} '
+                          f'CLI launched {x[part]["launches"]}, expected '
+                          f'{per}')
+                    check(x[part]['escapes'] == {'ok': 0, 'valid': 0},
+                          f'{tag}: escapes {x[part]["escapes"]}')
+                check(sorted(x['test']['sizes']) == want, f'{tag}: test '
+                      'sizes differ from one process')
+                check(x['test']['result']['acc1'] == one['result']['acc1'],
+                      f'{tag}: acc1 {x["test"]["result"]} vs '
+                      f'{one["result"]}')
+                names = trace_kernels(os.path.join(
+                    profile, f'trace_rank{x["rank"]}.json'))
+                rans = sorted(k for k in names if 'rans' in k)
+                check(any('encode' in k for k in rans)
+                      and any('decode' in k for k in rans),
+                      f'{tag}: the profile names no rANS kernels '
+                      f'({len(names)} kernels)')
+            for x in ranks:
+                times = [t for _, t, _ in x['train']['steps']][1:]
+                b = x['train']['steps'][0][2]
+                log(f'phase 19: {backend} rank {x["rank"]}: '
+                    f'{len(x["train"]["steps"])} steps at {b} a rank, '
+                    f'training {b / statistics.median(times):.2f} img/s '
+                    f'(median step {1e3 * statistics.median(times):.1f} ms,'
+                    f' first step excluded); gradient all-reduce of '
+                    f'{x["all_reduce"]["elements"]} floats '
+                    f'{x["all_reduce"]["ms"]:.3f} ms; test launches '
+                    + ', '.join(f'{k} {v}' for k, v in
+                                x['test']['launches'].items() if v)
+                    + f'; profile kernels {rans[:2]}')
+            for x in ranks:
+                log(f'phase 19: {backend} rank {x["rank"]} at '
+                    f'{SCALE_STEP_BATCH // world}, profiled step: '
+                    + profile_text(x['step']['profile']))
+            mean_loss = {k: float(np.mean([x['step']['loss'][k]
+                                           for x in ranks]))
+                         for k in loss_one}
+            log(f'phase 19: {backend}: {SCALE_STEPS} steps at 64 = '
+                f'{world} x {SCALE_STEP_BATCH // world}: last loss, the '
+                f'ranks\' mean {mean_loss} vs one process {loss_one}; '
+                'step ms (median after the first) '
+                + ', '.join(f'rank {x["rank"]} {x["step"]["ms"]:.2f}'
+                            for x in ranks)
+                + f' vs one process at 64 {one_ms:.2f}; parameters and '
+                'BatchNorm statistics within rtol 1e-4 (atol 1e-5) of one '
+                'process, TF32 off; ranks bitwise equal; test: '
+                f'{N_SCALE_TEST} images on every rank, sizes equal one '
+                'process\'s')
+            launches[backend] = [x['test']['launches'] for x in ranks]
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = tf32
+    # the serving pool over the visible cards against the runtime
+    pool = ServingPool(lambda m, d: SplitClassifierRuntime(m, device=d),
+                       rt.module, wire='device')
+    pool.activate_analysis()
+    rt.clear_analysis()
+    rt.activate_analysis()
+    want = rt.stream_deploy_device(images[:N_SCALE_TEST])
+    got = pool.stream(images[:N_SCALE_TEST])
+    worst = max(float((g.to(w.device) - w).abs().max())
+                for g, w in zip(got, want))
+    check(worst <= LOGIT_TOL, f'phase 19: pool logits differ by {worst}')
+    summary = pool.summarize()
+    check(summary['num_samples'] == N_SCALE_TEST
+          and sorted(s for r in pool.replicas for a in r.analyzers
+                     for s in a.file_size_list)
+          == sorted(rt.analyzers[0].file_size_list),
+          f'phase 19: pool sizes {summary}')
+    log(f'phase 19: ServingPool over {len(pool.replicas)} card(s): '
+        f'{N_SCALE_TEST} images, logits within {worst:.3e} of the runtime, '
+        f'sizes equal, mean {summary["mean"]} KB')
+    rt.clear_analysis()
+    return launches
+
+
 def smi_query(fields):
     out = subprocess.run(
         ['nvidia-smi', '--id=0', f'--query-gpu={fields}',
@@ -4230,7 +4672,11 @@ def run():
     bf16_wire, bench_launches = timed('phase 18', bf16_phase, torch, kernels,
                                       model, mshp, images, device)
 
-    # ---- phase 19: the kernels line ----
+    # ---- phase 19: scale-out over torch.distributed ----
+    scale = timed('phase 19', scaleout_phase, torch, kernels, rt, images,
+                  device)
+
+    # ---- phase 20: the kernels line ----
 
     rows = []
     for name in kernels.ALL_KERNELS:
@@ -4261,6 +4707,8 @@ def run():
                    launches_det=sum(c[name] for c in det_paths.values()),
                    launches_bf16=bf16_wire[name],
                    launches_bench=bench_launches[name],
+                   launches_scaleout={b: [c[name] for c in per]
+                                      for b, per in scale.items()},
                    **{key: stats[name][key]
                       for key in ('device_ms_k128', 'bound_ms_k128',
                                   'launch_floor_ms', 'images_per_block',
@@ -4294,6 +4742,10 @@ def run():
         if r['name'] not in kernels.MASKED_KERNELS:
             check(r['launches_bf16'] > 0, f'{r["name"]} never launched on '
                   'the bfloat16 device wire')
+        if r['name'] in FP_BATCH1:
+            for b, per in r['launches_scaleout'].items():
+                check(all(c > 0 for c in per), f'{r["name"]} not launched '
+                      f'on every {b} rank: {per}')
         if r['name'] in kernels.KERNELS:
             check(r['launches_bench'] > 0, f'{r["name"]} never launched in '
                   'the bench')
@@ -4310,9 +4762,36 @@ def run():
         'count': torch.cuda.device_count()}}), flush=True)
 
 
-def main():
+def run_scaleout_only():
+    """Phase 19 alone, over every visible card (`python3 chip_smoke.py
+    --scaleout-only`, as on a four-card host): the kernels built, the
+    flagship runtime, the phase, the card's name and power limit. It
+    prints no `ok` line; the smoke is the script with no arguments."""
+    import torch
+    check(torch.cuda.is_available(), 'no CUDA device is available')
+    sys.path.insert(0, REPO)
+    from sc2bench_tpu_torch.models.runtime import SplitClassifierRuntime
+    from sc2bench_tpu_torch.ops.rans import kernels
+    device = torch.device('cuda', 0)
+    kernels.build_libraries()
+    rt = SplitClassifierRuntime(build_model(torch, device, seed=0),
+                                device=device)
+    rt.update()
+    rt.eval()
+    rng = np.random.default_rng(2024)
+    images = [torch.from_numpy(rng.normal(0, 1, (1, 3, HW, HW))
+                               .astype(np.float32)).to(device)
+              for _ in range(N_SCALE_TEST)]
+    t0 = time.perf_counter()
+    scaleout_phase(torch, kernels, rt, images, device)
+    log(f'phase 19: done in {time.perf_counter() - t0:.1f} s on '
+        f'{torch.cuda.device_count()} card(s)')
+    print(smi_query('name,power.limit'), flush=True)
+
+
+def main(scaleout_only=False):
     try:
-        run()
+        run_scaleout_only() if scaleout_only else run()
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr, flush=True)
         return 1
@@ -4320,4 +4799,7 @@ def main():
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    if sys.argv[1:2] == ['--scaleout-worker']:
+        scaleout_worker(*sys.argv[2:4])
+    else:
+        sys.exit(main(sys.argv[1:2] == ['--scaleout-only']))

@@ -18,16 +18,20 @@ Ported so far:
                        deploy runtime and the wrappers; segmentation/:
                        DeepLabv3, its split runtime and the VOC wrappers;
                        detection/: Faster R-CNN + FPN and its split
-                       runtime (box ops, NMS and RoIAlign in ops/)
+                       runtime (box ops, NMS and RoIAlign in ops/); the
+                       batch-1 serving pool over several cards
   datasets/            image folders, VOC, COCO and the synthetic stand-ins
   transforms/          the codec transforms, quantizers and collators
   train/, loss.py      the training boxes, losses, optimizers and the
                        classification, segmentation and detection engines
   tasks/               the classification, segmentation and detection CLIs
   analysis.py          data-size accounting
+  parallel/            data parallelism over torch.distributed (the
+                       process group, gradient all-reduce, the global
+                       batch's noise)
   utils/               Flax variables -> this package's state_dict,
                        checkpoints, metrics, the segmentation and COCO
-                       bbox evaluators
+                       bbox evaluators, the profiler trace
   csrc/                hand-written CUDA sources, built at first use
 """
 

@@ -1,5 +1,5 @@
 """Host-side image data pipelines (counterpart of
-`sc2bench_tpu/datasets/image.py`), for one process.
+`sc2bench_tpu/datasets/image.py`).
 
 Loaders yield `(x, y)` numpy batches: x is NHWC (float32, or uint8 when
 every image is uint8), y int64. The engine turns x into an NCHW tensor.
@@ -14,6 +14,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ..parallel.dist import rank, world_size
 from ..registry import get, register_dataset
 
 IMG_EXTENSIONS = {'.jpg', '.jpeg', '.png', '.ppm', '.bmp', '.webp'}
@@ -75,15 +76,26 @@ class SyntheticClassificationDataset:
 class DataLoader:
     """Batched loader with optional shuffle (seeded by the epoch) and a
     background thread that prepares the next batches while the caller
-    works."""
+    works.
+
+    Over `num_shards` processes (the reference's DistributedSampler
+    contract, as the JAX loader keeps it): every process shuffles the
+    whole index set with the same epoch's seed, pads it by wrapping to
+    a multiple of `num_shards`, and takes the `shard_index`-strided slice
+    -- disjoint shards up to the padding, all of one length."""
 
     def __init__(self, dataset, batch_size=1, shuffle=False, drop_last=False,
-                 collate_fn=None):
+                 collate_fn=None, num_shards=1, shard_index=0):
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f'shard_index {shard_index} not in '
+                             f'[0, {num_shards})')
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.collate_fn = collate_fn or self._collate
+        self.num_shards = num_shards
+        self.shard_index = shard_index
         self.epoch = 0
 
     @staticmethod
@@ -98,15 +110,28 @@ class DataLoader:
             x = np.stack([a.astype(np.float32) for a in arrs])
         return x, np.asarray(ys, np.int64)
 
+    def _shard_len(self):
+        return -(-len(self.dataset) // self.num_shards)
+
     def __len__(self):
-        n = len(self.dataset)
+        n = self._shard_len()
         return n // self.batch_size if self.drop_last \
             else -(-n // self.batch_size)
 
-    def _batches(self):
+    def _indices(self):
+        """This shard's dataset indices for the current epoch."""
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.epoch).shuffle(idx)
+        if self.num_shards > 1:
+            total = self._shard_len() * self.num_shards
+            if total > len(idx):
+                idx = np.concatenate([idx, idx[:total - len(idx)]])
+            idx = idx[self.shard_index::self.num_shards]
+        return idx
+
+    def _batches(self):
+        idx = self._indices()
         bs = self.batch_size
         end = len(idx) - (len(idx) % bs) if self.drop_last else len(idx)
         for start in range(0, end, bs):
@@ -146,19 +171,17 @@ def build_dataset(dataset_config):
     return get('dataset', key)(**dataset_config.get('kwargs', {}))
 
 
-def build_sharded_loader(split_config, collate_fn=None):
+def build_sharded_loader(split_config, collate_fn=None,
+                         shard_over_processes=False):
     """DataLoader from a split config (`collate_fn`, by default stacking
-    same-size images, makes the batches). The port runs in one process: in
-    a `torch.distributed` group of more than one process it raises, since
-    each would score the whole dataset."""
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            'sharding a loader over processes is not ported yet '
-            '(ROADMAP Queue A item 4)')
+    same-size images, makes the batches). With `shard_over_processes`,
+    each process of a data-parallel group iterates its own shard (the
+    training and validation loaders, as in JAX); otherwise every process
+    iterates the whole dataset (the test loaders)."""
+    shards = world_size() if shard_over_processes else 1
     return DataLoader(build_dataset(split_config['dataset']),
                       batch_size=split_config.get('batch_size', 1),
                       shuffle=split_config.get('shuffle', False),
                       drop_last=split_config.get('drop_last', False),
-                      collate_fn=collate_fn)
+                      collate_fn=collate_fn, num_shards=shards,
+                      shard_index=rank() if shards > 1 else 0)

@@ -7,12 +7,22 @@ tensor over io dicts of captured intermediates, keyed by the JAX
 package's dotted names (`bottleneck_layer_out`, `layer2_out`,
 `bottleneck_layer.eb_out`, `output`). Activations are NCHW here, where the
 JAX package's are NHWC. Terms register under the 'loss' namespace.
+
+In a data-parallel group of W processes each term returns W times this
+rank's share of the global-batch loss, so that the gradients' average
+over the group (the box's all-reduce) is the gradient of the global
+batch's loss, as JAX computes it on its mesh: a 'sum' reduction is
+multiplied by W, a mean over equal shards is left as it is, and a
+data-dependent denominator (the valid pixels of `SegCrossEntropyLoss`)
+is the group's count. The mean of the ranks' values is the global
+loss. One process: W = 1 and nothing changes.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from .parallel.dist import global_count, world_size
 from .registry import get, register_loss
 
 
@@ -46,7 +56,7 @@ class BppLoss:
         n, h, w = features.shape[0], features.shape[2], features.shape[3]
         nll = -torch.sum(torch.log2(likelihoods))
         if self.reduction == 'sum':
-            return nll
+            return nll * world_size()
         if self.reduction == 'batchmean':
             return nll / n
         return nll / (n * h * w)
@@ -77,7 +87,7 @@ class MSELoss:
             t = t[0]
         diff = (s - t) ** 2
         if self.reduction == 'sum':
-            return torch.sum(diff)
+            return torch.sum(diff) * world_size()
         if self.reduction == 'batchmean':
             return torch.sum(diff) / s.shape[0]
         return torch.mean(diff)
@@ -102,8 +112,9 @@ class CrossEntropyLoss:
             smooth = -torch.mean(F.log_softmax(logits, dim=-1), dim=-1)
             losses = (1 - self.label_smoothing) * losses \
                 + self.label_smoothing * smooth
-        return torch.sum(losses) if self.reduction == 'sum' \
-            else torch.mean(losses)
+        if self.reduction == 'sum':
+            return torch.sum(losses) * world_size()
+        return torch.mean(losses)
 
 
 @register_loss
@@ -154,8 +165,9 @@ class SegCrossEntropyLoss:
         safe_t = torch.where(valid, targets, torch.zeros_like(targets))
         log_probs = F.log_softmax(logits, dim=1)
         ce = -torch.gather(log_probs, 1, safe_t.long()[:, None])[:, 0]
-        return torch.sum(torch.where(valid, ce, torch.zeros_like(ce))) \
-            / torch.clamp_min(torch.sum(valid), 1)
+        total = torch.sum(torch.where(valid, ce, torch.zeros_like(ce)))
+        return total * world_size() \
+            / torch.clamp_min(global_count(torch.sum(valid)), 1)
 
     def __call__(self, student_io_dict, teacher_io_dict=None, targets=None,
                  **kwargs):

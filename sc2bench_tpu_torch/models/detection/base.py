@@ -89,7 +89,8 @@ class SplittableDetectionBackbone(nn.Module):
         backbone_config = backbone_config or {}
         if frozen_bn or backbone_config.get('frozen_bn', False):
             raise NotImplementedError('FrozenBatchNorm is not ported yet '
-                                      '(ROADMAP Queue A item 7)')
+                                      '(it comes with the hubconf '
+                                      'constructors that use it)')
         bottleneck = None
         bcfg = backbone_config.get('bottleneck_config')
         if bcfg:

@@ -22,7 +22,10 @@ stable descending sort, so that ties go to the lower index as they do in
 
 Random draws (the RPN and RoI samplers) come from an explicit
 `torch.Generator`, image by image in order; `uniforms` replaces them for
-tests that feed another package's draws.
+tests that feed another package's draws. In a data-parallel group each
+rank draws them for every image of the global batch and keeps its own
+block (`parallel.dist.global_rows`), so the ranks sample what one
+process sampling the whole batch does.
 
 `dtype` (float32 by default, or bfloat16; `models/precision.py`) is the
 compute dtype of the backbone's stages, the FPN, the RPN head, RoIAlign
@@ -43,6 +46,7 @@ from ...ops.boxes import (batched_nms_mask, box_iou, clip_boxes,
                           decode_boxes, encode_boxes,
                           remove_small_boxes_mask)
 from ...ops.roi_align import multiscale_roi_align
+from ...parallel.dist import global_rows
 from ...registry import register_model
 from ..precision import compute, resolve_dtype
 from .base import BackboneWithFPN, SplittableDetectionBackbone
@@ -350,14 +354,10 @@ def _rank(scores):
     return rank
 
 
-def _sample_mask(labels, batch_size, positive_fraction, generator=None,
-                 uniforms=None):
+def _sample_mask(labels, batch_size, positive_fraction, uniforms):
     """A random fg/bg subsample of a fixed budget: (pos_sel, neg_sel).
-    Each side ranks its candidates by a uniform draw, from `generator`
-    (fg then bg) or the pair `uniforms`."""
-    if uniforms is None:
-        uniforms = tuple(torch.rand(labels.shape, generator=generator,
-                                    device=labels.device) for _ in range(2))
+    Each side ranks its candidates by its draw of the pair `uniforms`
+    (fg, bg)."""
     num_pos_target = int(batch_size * positive_fraction)
     pos = labels == 1
     neg = labels == 0
@@ -368,8 +368,15 @@ def _sample_mask(labels, batch_size, positive_fraction, generator=None,
     return pos_sel, neg_sel
 
 
-def _image_uniforms(uniforms, i):
-    return None if uniforms is None else uniforms[i]
+def _sampler_draws(uniforms, generator, n_images, length, device):
+    """Each image's (fg, bg) draws of `length`: `uniforms` when given,
+    else from `generator`, fg then bg image by image, for the global
+    batch, of which this process keeps its block of `n_images`."""
+    if uniforms is not None:
+        return uniforms
+    return global_rows(lambda m: [
+        tuple(torch.rand(length, generator=generator, device=device)
+              for _ in range(2)) for _ in range(m)], n_images)
 
 
 def rpn_loss(outputs, targets, generator=None, uniforms=None):
@@ -377,14 +384,17 @@ def rpn_loss(outputs, targets, generator=None, uniforms=None):
     anchors, averaged over the images. targets: 'boxes' (N, G, 4),
     'boxes_valid' (N, G)."""
     anchors = outputs['anchors']
+    n = outputs['objectness'].shape[0]
+    uniforms = _sampler_draws(uniforms, generator, n, anchors.shape[0],
+                              anchors.device)
     cls, reg = [], []
-    for i in range(outputs['objectness'].shape[0]):
+    for i in range(n):
         gt_boxes, gt_valid = targets['boxes'][i], targets['boxes_valid'][i]
         matched, labels = _match_anchors(anchors, gt_boxes, gt_valid,
                                          RPN_FG_IOU, RPN_BG_IOU, True)
         pos_sel, neg_sel = _sample_mask(
-            labels, RPN_BATCH_PER_IMAGE, RPN_POSITIVE_FRACTION, generator,
-            _image_uniforms(uniforms, i))
+            labels, RPN_BATCH_PER_IMAGE, RPN_POSITIVE_FRACTION,
+            uniforms=uniforms[i])
         denom = torch.clamp((pos_sel | neg_sel).sum(), min=1)
         reg_targets = encode_boxes(gt_boxes[matched], anchors)
         reg.append(torch.sum(_smooth_l1(outputs['rpn_deltas'][i]
@@ -397,17 +407,17 @@ def rpn_loss(outputs, targets, generator=None, uniforms=None):
 
 
 def _match_and_sample_rois(props, valid, gt_boxes, gt_valid, gt_labels,
-                           batch_size, positive_fraction, generator=None,
-                           uniforms=None):
-    """One image's proposal -> gt matching at IoU 0.5 and fg/bg subsample:
-    (pos_sel, neg_sel, class targets (bg 0), regression targets)."""
+                           batch_size, positive_fraction, uniforms):
+    """One image's proposal -> gt matching at IoU 0.5 and fg/bg subsample
+    on the draws `uniforms`: (pos_sel, neg_sel, class targets (bg 0),
+    regression targets)."""
     iou = torch.where(gt_valid[None, :] & valid[:, None],
                       box_iou(props, gt_boxes), -1.0)
     best_gt, best_iou = _match(iou)
     fg = best_iou >= BOX_FG_IOU
     labels01 = torch.where(fg, 1, torch.where(valid, 0, -1))
     pos_sel, neg_sel = _sample_mask(labels01, batch_size, positive_fraction,
-                                    generator, uniforms)
+                                    uniforms=uniforms)
     cls_targets = torch.where(fg, gt_labels[best_gt].long(), 0)
     reg_targets = encode_boxes(gt_boxes[best_gt], props,
                                weights=BOX_REG_WEIGHTS)
@@ -432,13 +442,17 @@ def roi_loss(outputs, targets, generator=None, uniforms=None):
     """Fast R-CNN loss of the box head run on the full proposal set, the
     sampled rows weighted (the same estimator in expectation as sampling
     before the head, which `detection_loss(apply_roi=...)` does)."""
+    props = outputs['proposals']
+    n = outputs['class_logits'].shape[0]
+    uniforms = _sampler_draws(uniforms, generator, n, props.shape[1],
+                              props.device)
     cls, reg = [], []
-    for i in range(outputs['class_logits'].shape[0]):
+    for i in range(n):
         pos_sel, neg_sel, cls_t, reg_t = _match_and_sample_rois(
-            outputs['proposals'][i], outputs['proposal_valid'][i],
+            props[i], outputs['proposal_valid'][i],
             targets['boxes'][i], targets['boxes_valid'][i],
             targets['labels'][i], BOX_BATCH_PER_IMAGE, BOX_POSITIVE_FRACTION,
-            generator, _image_uniforms(uniforms, i))
+            uniforms[i])
         sel = pos_sel | neg_sel
         c, r = _fastrcnn_terms(outputs['class_logits'][i],
                                outputs['box_regression'][i], cls_t, reg_t,
@@ -458,16 +472,20 @@ def sample_rois(outputs, targets, generator=None, uniforms=None,
     fixed budget (25% positive) sampled before the box head. Returns the
     sampled 'proposals' with their 'cls_targets', 'reg_targets', 'weight'
     (0 past the rows selected) and 'positive', each (N, batch_size, ...)."""
+    props = outputs['proposals']
+    n = props.shape[0]
+    uniforms = _sampler_draws(uniforms, generator, n,
+                              props.shape[1] + targets['boxes'].shape[1],
+                              props.device)
     per_image = []
-    for i in range(outputs['proposals'].shape[0]):
+    for i in range(n):
         gt_boxes = targets['boxes'][i]
         gt_valid = targets['boxes_valid'][i]
-        all_props = torch.cat([outputs['proposals'][i], gt_boxes])
+        all_props = torch.cat([props[i], gt_boxes])
         all_valid = torch.cat([outputs['proposal_valid'][i], gt_valid])
         pos_sel, neg_sel, cls_t, reg_t = _match_and_sample_rois(
             all_props, all_valid, gt_boxes, gt_valid, targets['labels'][i],
-            batch_size, positive_fraction, generator,
-            _image_uniforms(uniforms, i))
+            batch_size, positive_fraction, uniforms[i])
         sel = pos_sel | neg_sel
         # stable partition: selected rows first, truncated to the budget
         order = torch.sort((~sel).to(torch.int8), stable=True).indices[

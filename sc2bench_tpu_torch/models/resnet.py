@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.dist import group_sum, is_multi
 from .precision import compute, linear_head, resolve_dtype
 
 
@@ -31,11 +32,15 @@ class BatchNorm2d(nn.BatchNorm2d):
     unbiased one); momentum 0.1 on the batch value equals Flax's 0.9 on
     the old one. Normalization is torch's own in both modes, except over
     one value a channel (ASPP's pooled branch at batch 1), where torch's
-    raises and Flax's gives a zero variance: then the Flax arithmetic."""
+    raises and Flax's gives a zero variance: then the Flax arithmetic.
+    In a data-parallel group, train mode normalizes by the group's
+    statistics (`_forward_group`)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
+        if is_multi():
+            return self._forward_group(x)
         if x.numel() == x.shape[1]:
             return self._forward_one_value(x)
         # torch's op updates copies of the statistics (the autograd graph
@@ -51,6 +56,31 @@ class BatchNorm2d(nn.BatchNorm2d):
                 var, alpha=n - 1).div_(n)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _forward_group(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode in a data-parallel group: the statistics of the
+        global batch, as Flax's BatchNorm takes them over a JAX mesh. The
+        per-channel sum, sum of squares and count are summed over the
+        group in one differentiable all-reduce (float32); the running
+        variance moves toward the biased variance, Flax's rule."""
+        shape = (1, -1, 1, 1)
+        c = x.shape[1]
+        xf = x.float()
+        local = torch.cat([
+            xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+            xf.new_full((1,), float(x.numel() // c))])
+        total = group_sum(local)
+        n = total[-1]
+        mean = total[:c] / n
+        var = torch.clamp_min(total[c:2 * c] / n - mean * mean, 0.0)
+        y = (xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.eps)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+            self.num_batches_tracked.add_(1)
+        return (y * self.weight.view(shape)
+                + self.bias.view(shape)).to(x.dtype)
 
     def _forward_one_value(self, x: torch.Tensor) -> torch.Tensor:
         """Train mode over one value a channel: mean x, variance 0, so the

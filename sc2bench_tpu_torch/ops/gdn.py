@@ -28,7 +28,7 @@ def nonneg_init(value: np.ndarray) -> np.ndarray:
 
 def nonneg_forward(stored: torch.Tensor, minimum: float) -> torch.Tensor:
     bound = (minimum + _PEDESTAL) ** 0.5
-    return lower_bound(stored, bound) ** 2 - _PEDESTAL
+    return lower_bound(stored, bound, replicated=True) ** 2 - _PEDESTAL
 
 
 class GDN1(nn.Module):

@@ -12,22 +12,31 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.dist import all_reduce_sum, global_rows, is_multi
+
 
 class _LowerBound(torch.autograd.Function):
     """max(x, bound); the gradient passes where x >= bound or where it
-    pushes x upward (a negative gradient)."""
+    pushes x upward (a negative gradient). For a `replicated` x (a
+    parameter's value, the same on every rank of a data-parallel group)
+    the sign that decides is that of the group's summed gradient, so
+    that the ranks' average is the global batch's gradient."""
 
     @staticmethod
-    def forward(ctx, x, bound):
+    def forward(ctx, x, bound, replicated=False):
         ctx.save_for_backward(x)
         ctx.bound = bound
+        ctx.replicated = replicated
         return torch.clamp_min(x, bound)
 
     @staticmethod
     def backward(ctx, g):
         x, = ctx.saved_tensors
-        return torch.where((x >= ctx.bound) | (g < 0), g,
-                           torch.zeros_like(g)), None
+        sign = g
+        if ctx.replicated and is_multi():
+            sign = all_reduce_sum(g.detach().clone())
+        return torch.where((x >= ctx.bound) | (sign < 0), g,
+                           torch.zeros_like(g)), None, None
 
 
 class _UpperBound(torch.autograd.Function):
@@ -47,10 +56,13 @@ class _UpperBound(torch.autograd.Function):
                            torch.zeros_like(g)), None
 
 
-def lower_bound(x: torch.Tensor, bound: float) -> torch.Tensor:
+def lower_bound(x: torch.Tensor, bound: float,
+                replicated: bool = False) -> torch.Tensor:
     """max(x, bound) with a gradient that still flows below the bound when
-    it pushes x upward (likelihoods clipped at the bound keep training)."""
-    return _LowerBound.apply(x, bound)
+    it pushes x upward (likelihoods clipped at the bound keep training).
+    `replicated`: x is a parameter's value, not a batch's (see
+    `_LowerBound`)."""
+    return _LowerBound.apply(x, bound, replicated)
 
 
 def upper_bound(x: torch.Tensor, bound: float) -> torch.Tensor:
@@ -66,9 +78,16 @@ def ste_round(x: torch.Tensor) -> torch.Tensor:
 def quantize_noise(x: torch.Tensor, generator: torch.Generator
                    ) -> torch.Tensor:
     """Training-time quantization: x + U(-0.5, 0.5), the noise drawn from
-    `generator` (on x's device)."""
-    noise = torch.empty_like(x).uniform_(-0.5, 0.5, generator=generator)
-    return x + noise
+    `generator` (on x's device). In a data-parallel group x is this
+    rank's block of the global batch: the noise is drawn for the global
+    batch and the block kept (`parallel.dist.global_rows`), as JAX draws
+    it for the global array."""
+    def draw(rows):
+        out = torch.empty_like(x) if rows == x.shape[0] else torch.empty(
+            (rows, *x.shape[1:]), dtype=x.dtype, device=x.device)
+        return out.uniform_(-0.5, 0.5, generator=generator)
+
+    return x + global_rows(draw, x.shape[0])
 
 
 def quantize_dequantize(x: torch.Tensor, means=None) -> torch.Tensor:

@@ -4,7 +4,10 @@
     python -m sc2bench_tpu_torch.tasks.image_classification \\
         --config configs/ilsvrc2012/supervised_compression/...yaml \\
         [--json '{...}'] [-test_only] [-student_only] [--device cpu] \\
-        [--seed 42] [--dst_ckpt path] [-resume] [-adjust_lr]
+        [--seed 42] [--dst_ckpt path] [-resume] [-adjust_lr] \\
+        [--profile_dir dir]
+    torchrun --nproc_per_node N -m sc2bench_tpu_torch.tasks.\\
+        image_classification --world_size N --config ... [--device cpu]
 
 YAML config (+ `--json` deep override) -> teacher and student -> without
 `-test_only`, the config's training stages (`--dst_ckpt` keeps the best
@@ -17,6 +20,13 @@ feature-compression baselines: a classifier behind JPEG/WebP/BPG/VTM or a
 neural image codec, or a codec on a split feature) is test-only: top-1/
 top-5 and the wrapper's data-size summary. The device is the card unless
 `--device cpu`; it raises when there is none.
+
+Over N processes (`torchrun`, `--world_size N`: NCCL on the cards, one a
+process, or gloo with `--device cpu`) each process trains on its shard
+of the training data with the gradients averaged over the group, and
+tests the whole test set; the metrics are summed over the group, rank 0
+writes the checkpoints. `--profile_dir` writes a `torch.profiler` trace
+of the test phase there, one file a process.
 """
 from __future__ import annotations
 
@@ -26,7 +36,9 @@ import sys
 from pathlib import Path
 
 from ..config import load_config
+from ..parallel.dist import destroy, init_from_env
 from ..train.engine import ClassificationEngine
+from ..utils.profiling import trace
 
 logger = logging.getLogger('sc2bench_tpu_torch')
 
@@ -50,11 +62,21 @@ def get_argparser():
                         help='resume training from the dst_ckpt train state')
     parser.add_argument('-adjust_lr', action='store_true',
                         help='multiply the learning rates by the number of '
-                        'data-parallel processes (one here)')
+                        'data-parallel processes')
+    parser.add_argument('--world_size', type=int, default=1,
+                        help='data-parallel processes; start them with '
+                        '`torchrun --nproc_per_node N`')
+    parser.add_argument('-no_dp_eval', action='store_true',
+                        help='accepted for parity with the JAX CLI: a '
+                        'process drives one device, so there is no eval '
+                        'batch to shard over its devices')
     parser.add_argument('-student_only', action='store_true',
                         help='test the student model only')
     parser.add_argument('-log_config', action='store_true',
                         help='log the resolved config')
+    parser.add_argument('--profile_dir',
+                        help='write a torch.profiler trace of the test phase '
+                        'into this directory')
     return parser
 
 
@@ -69,17 +91,22 @@ def main(argv=None):
         Path(args.run_log).parent.mkdir(parents=True, exist_ok=True)
         handlers.append(logging.FileHandler(args.run_log))
     logging.basicConfig(level=logging.INFO, handlers=handlers)
+    device = init_from_env(args.world_size, args.device)
     config = load_config(args.config, args.json)
     if args.adjust_lr:
         config['adjust_lr'] = True
     if args.log_config:
         logger.info('config: %s', config)
-    engine = ClassificationEngine(config, device=args.device, seed=args.seed)
+    engine = ClassificationEngine(config, device=device, seed=args.seed)
     best = None
     if not args.test_only:
         best = engine.train(dst_ckpt=args.dst_ckpt, resume=args.resume)
         logger.info('best validation acc1: %s', best)
-    result, summaries = engine.test()
+    if args.profile_dir:
+        with trace(args.profile_dir):
+            result, summaries = engine.test()
+    else:
+        result, summaries = engine.test()
     logger.info('test result: %s', result)
     for s in summaries:
         logger.info('analysis: %s', s)
@@ -93,3 +120,4 @@ def main(argv=None):
 
 if __name__ == '__main__':
     main(sys.argv[1:])
+    destroy()

@@ -4,7 +4,7 @@
     python -m sc2bench_tpu_torch.tasks.object_detection \\
         --config configs/coco2017/...yaml [--json '{...}'] \\
         [-test_only] [-student_only] [--device cpu] [--seed 42] \\
-        [--dst_ckpt path] [-adjust_lr]
+        [--dst_ckpt path] [-adjust_lr] [--world_size N]
 
 YAML config (+ `--json` deep override) -> Faster R-CNN teacher and
 student -> without `-test_only`, the config's training stages
@@ -15,8 +15,12 @@ selects the device-rANS wire, else the host coder; a CR+BQ student is
 scored on its plain forward) -> the teacher's metrics unless
 `-student_only`. A `models.wrapper` config (the input-compression
 family) is test-only: its wrapper compresses each image before the
-detector and accounts its size. The device is the card unless `--device cpu`; it raises
-when there is none.
+detector and accounts its size. The device is the card unless `--device
+cpu`; it raises when there is none.
+
+Over N processes (`torchrun --nproc_per_node N ... --world_size N`) each
+trains on its shard and tests the whole test set; the COCO evaluator
+gathers the processes' detections by image id (`CocoEvaluator`).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import sys
 from pathlib import Path
 
 from ..config import load_config
+from ..parallel.dist import destroy, init_from_env
 from ..train.det_engine import DetectionEngine
 
 logger = logging.getLogger('sc2bench_tpu_torch')
@@ -48,17 +53,19 @@ def get_argparser():
     parser.add_argument('--iou_types', nargs='+', default=None,
                         help="evaluation types; 'bbox' is the one ported")
     parser.add_argument('--world_size', type=int, default=1,
-                        help='data-parallel processes (one in the port)')
+                        help='data-parallel processes; start them with '
+                        '`torchrun --nproc_per_node N`')
     parser.add_argument('-test_only', action='store_true',
                         help='only test the model')
     parser.add_argument('-student_only', action='store_true',
                         help='skip the teacher-anchor eval')
     parser.add_argument('-adjust_lr', action='store_true',
                         help='multiply the learning rates by the number of '
-                        'data-parallel processes (one here)')
+                        'data-parallel processes')
     parser.add_argument('-no_dp_eval', action='store_true',
-                        help='evaluate in one process (the port always '
-                        'does)')
+                        help='accepted for parity with the JAX CLI: a '
+                        'process drives one device, so there is no eval '
+                        'batch to shard over its devices')
     parser.add_argument('-log_config', action='store_true',
                         help='log the resolved config')
     return parser
@@ -70,24 +77,22 @@ def main(argv=None):
     'teacher': teacher metrics or None, 'best': the best validation mAP of
     training or None, 'engine': the engine}."""
     args = get_argparser().parse_args(argv)
-    if args.world_size > 1:
-        raise NotImplementedError('data-parallel training is not ported yet '
-                                  '(ROADMAP Queue A item 4)')
     if args.iou_types and set(args.iou_types) != {'bbox'}:
         raise NotImplementedError('only the bbox evaluation is ported '
-                                  '(segm and keypoints: ROADMAP Queue A '
-                                  'item 5)')
+                                  '(the segm and keypoint evaluations come '
+                                  'with Mask and Keypoint R-CNN)')
     handlers = [logging.StreamHandler()]
     if args.run_log:
         Path(args.run_log).parent.mkdir(parents=True, exist_ok=True)
         handlers.append(logging.FileHandler(args.run_log))
     logging.basicConfig(level=logging.INFO, handlers=handlers)
+    device = init_from_env(args.world_size, args.device)
     config = load_config(args.config, args.json)
     if args.adjust_lr:
         config['adjust_lr'] = True
     if args.log_config:
         logger.info('config: %s', config)
-    engine = DetectionEngine(config, device=args.device, seed=args.seed)
+    engine = DetectionEngine(config, device=device, seed=args.seed)
     best = None
     if not args.test_only:
         best = engine.train(dst_ckpt=args.dst_ckpt)
@@ -106,3 +111,4 @@ def main(argv=None):
 
 if __name__ == '__main__':
     main(sys.argv[1:])
+    destroy()

@@ -22,6 +22,12 @@ A dict output (segmentation's {'out', 'aux'}) is recorded as 'output' (the
 main head) and 'output.<k>' (`record_output`).
 A new box, and so new optimizer state, comes with each stage. The
 teacher's parameters never change.
+
+In a data-parallel group (`parallel/dist.py`) each rank steps on its
+block of the global batch: the box broadcasts the student from rank 0
+when the stage starts, and the optimizers average the trainable
+gradients over the group before they step; the noise, BatchNorm's
+statistics and the losses' denominators are the global batch's.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import torch
 
 from ..loss import build_criterion
 from ..ops.entropy.factorized import EntropyBottleneck
+from ..parallel.dist import broadcast_module
 from .optim import StageOptimizer
 
 DEFAULT_CRITERION = {'key': 'CrossEntropyLoss',
@@ -88,6 +95,8 @@ class DistillationBox:
             aux_lr=float(stage_config.get('aux_lr', 1e-3)))
         if teacher is not None:
             teacher.eval().requires_grad_(False)
+        # a data-parallel group starts each stage from rank 0's student
+        broadcast_module(student)
 
     def _teacher_io(self, x) -> dict:
         if self.teacher is None:

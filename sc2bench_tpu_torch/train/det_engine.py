@@ -34,6 +34,16 @@ the data size from its analyzer.
 
 Loaders yield (images, targets) tuples (`coco_collate_fn`); detections
 are scaled back to each image's own coordinates before scoring.
+
+In a data-parallel group the training and validation loaders are sharded
+over the processes and the test loader is whole on each, as in JAX; the
+COCO evaluator gathers every process's detections and ground truths by
+image id before it scores. The Faster R-CNN losses are means over the
+images of per-image ratios (as in JAX), so the gradients' average over
+the group is the global batch's. The RPN and RoI samplers, like the
+quantizer's noise, draw for the global batch and keep each rank's block,
+so a step of the group equals one process's step on the global batch
+where the ranks' canvases agree.
 """
 from __future__ import annotations
 
@@ -52,6 +62,7 @@ from ..models.detection.registry import load_detection_model
 from ..models.detection.transform import RCNNTransform
 from ..models.detection.wrapper import (SplitDetectionRuntime,
                                         get_wrapped_detection_model)
+from ..parallel.dist import world_size
 from ..registry import import_dependencies
 from ..transforms.collator import coco_collate_fn
 from ..utils.ckpt import save_ckpt
@@ -166,8 +177,10 @@ class DetectionEngine:
         self.bottleneck_updated = False
 
     # ---- data -----------------------------------------------------------
-    def build_loader(self, split_config):
-        return build_sharded_loader(split_config, collate_fn=coco_collate_fn)
+    def build_loader(self, split_config, shard_over_processes=False):
+        return build_sharded_loader(
+            split_config, collate_fn=coco_collate_fn,
+            shard_over_processes=shard_over_processes)
 
     def _canvas(self, images):
         """(NCHW canvas batch on the device, scales) of a list of HWC
@@ -275,9 +288,11 @@ class DetectionEngine:
         train_config = self.config.get('train', {})
         stages = train_stage_configs(train_config)
         if self.config.get('adjust_lr'):
-            stages = cls_engine.scale_stage_lrs(stages)
-        train_loader = self.build_loader(train_config['train_data_loader'])
-        val_loader = self.build_loader(train_config['val_data_loader'])
+            stages = cls_engine.scale_stage_lrs(stages, world_size())
+        train_loader = self.build_loader(train_config['train_data_loader'],
+                                         shard_over_processes=True)
+        val_loader = self.build_loader(train_config['val_data_loader'],
+                                       shard_over_processes=True)
         nan_check_interval = int(train_config.get('nan_check_interval', 50))
         generator = torch.Generator(device=self.device).manual_seed(self.seed)
         best = -1.0

@@ -26,6 +26,15 @@ ignores the top-level `wrapper:` key of those configs.
 Loaders yield NHWC numpy batches; the engine hands the runtime and the
 models NCHW tensors on its device.
 
+In a data-parallel group (`parallel/dist.py`, the CLI under `torchrun`)
+the training and validation loaders are sharded over the processes and
+the test loader stays whole on every process, as in JAX; the metrics are
+summed over the group (`MetricLogger.synchronize_between_processes`), so
+the validation numbers are the global shard's and the test numbers equal
+one process's. `-adjust_lr` scales by the group's size. A process drives
+one device, so the JAX CLI's `-no_dp_eval` (not sharding an eval batch
+over a process's own devices) has nothing to switch off here.
+
 A `models.wrapper` config (the input- and feature-compression families)
 builds the wrapper alone (`models/wrapper.py`: a classifier behind a host
 codec, a neural image codec, or a codec on a split feature) and is
@@ -47,6 +56,7 @@ from ..device import resolve_device
 from ..models.registry import load_classification_model
 from ..models.runtime import SplitClassifierRuntime
 from ..models.wrapper import get_wrapped_classification_model
+from ..parallel.dist import world_size
 from ..registry import import_dependencies
 from ..utils.ckpt import (load_ckpt, load_train_state, save_ckpt,
                           save_train_state)
@@ -72,9 +82,9 @@ DEFAULT_VAL_LOADER = {'dataset': {'key': 'SyntheticClassificationDataset',
 
 def scale_stage_lrs(stages, world_size: int = 1):
     """The reference's `-adjust_lr`: every stage's optimizer learning rate
-    times the number of data-parallel processes. The port trains in one
-    process, so the stages come back unchanged; for more, copies with the
-    scaled rates (the input shares subtrees with the loaded config)."""
+    times the number of data-parallel processes, in copies (the input
+    shares subtrees with the loaded config); one process gets the stages
+    back unchanged."""
     if world_size <= 1:
         return stages
     out = []
@@ -231,8 +241,9 @@ class ClassificationEngine:
         model.load_state_dict(state_dict)
 
     # ---- data -----------------------------------------------------------
-    def build_loader(self, split_config):
-        return build_sharded_loader(split_config)
+    def build_loader(self, split_config, shard_over_processes=False):
+        return build_sharded_loader(
+            split_config, shard_over_processes=shard_over_processes)
 
     def _to_device(self, x):
         """An NHWC numpy batch as an NCHW tensor on the engine's device."""
@@ -337,11 +348,12 @@ class ClassificationEngine:
         train_config = self.config.get('train', {})
         stages = train_stage_configs(train_config)
         if self.config.get('adjust_lr'):
-            stages = scale_stage_lrs(stages)
+            stages = scale_stage_lrs(stages, world_size())
         train_loader = self.build_loader(train_config.get(
-            'train_data_loader', DEFAULT_TRAIN_LOADER))
+            'train_data_loader', DEFAULT_TRAIN_LOADER),
+            shard_over_processes=True)
         val_loader = self.build_loader(train_config.get(
-            'val_data_loader', DEFAULT_VAL_LOADER))
+            'val_data_loader', DEFAULT_VAL_LOADER), shard_over_processes=True)
         # the NaN/Inf abort reads a device-side loss sum every k steps
         nan_check_interval = int(train_config.get('nan_check_interval', 50))
         generator = torch.Generator(device=self.device).manual_seed(self.seed)
@@ -354,7 +366,7 @@ class ClassificationEngine:
             num_epochs = int(stage_cfg.get('num_epochs', 1))
             start_epoch = 0
             if resume and dst_ckpt and not resumed:
-                saved = load_train_state(dst_ckpt)
+                saved = load_train_state(dst_ckpt, map_location=self.device)
                 if saved is not None:
                     resumed = True
                     best_metric = saved['best_metric']

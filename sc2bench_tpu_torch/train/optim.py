@@ -45,6 +45,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from ..parallel.dist import average_gradients
 from ..utils.convert import flax_param_path
 
 
@@ -208,7 +209,9 @@ class StageOptimizer:
     the main optimizer (one param group for 'main' and one per
     module-wise group, each with its own schedule), the aux Adam over the
     `quantiles`, nothing for frozen parameters (their `requires_grad` is
-    turned off here). Call `zero_grad()`, backward, then `step()`."""
+    turned off here). Call `zero_grad()`, backward, then `step()`. In a
+    data-parallel group `step()` first averages the trainable gradients
+    over the group (`parallel.dist.average_gradients`)."""
 
     def __init__(self, model: torch.nn.Module, optimizer_config: dict,
                  scheduler_config: dict | None = None,
@@ -242,6 +245,10 @@ class StageOptimizer:
         self.mini_step = 0      # micro-steps accumulated toward the next
         self._acc = None
 
+    def _trainable(self):
+        return [p for opt in (self.main, self.aux) if opt is not None
+                for g in opt.param_groups for p in g['params']]
+
     def _main_params(self):
         return [p for g in self.main.param_groups for p in g['params']]
 
@@ -256,6 +263,7 @@ class StageOptimizer:
         this gradient, or on the mean of the last `grad_accum_step` ones
         when this micro-step completes them. Returns whether the main
         parameters were updated."""
+        average_gradients(self._trainable())
         if self.aux is not None:
             self.aux.step()
         if self.main is None:

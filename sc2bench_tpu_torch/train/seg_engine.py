@@ -30,6 +30,10 @@ wrapper alone and is test-only, as in JAX: `train()` raises.
 Loaders yield NHWC numpy batches (`pascal_seg_collate_fn`: images padded
 with 0, masks with 255); the engine hands the models NCHW float32
 tensors on its device and counts the confusion matrix there.
+
+In a data-parallel group the training and validation loaders are sharded
+over the processes and the test loader is whole on each, as in JAX; the
+confusion matrix is summed over the group before the mIoU is taken.
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ from ..device import resolve_device
 from ..models.segmentation.registry import load_segmentation_model
 from ..models.segmentation.wrapper import (SplitSegmentationRuntime,
                                            get_wrapped_segmentation_model)
+from ..parallel.dist import world_size
 from ..registry import import_dependencies
 from ..transforms.collator import pascal_seg_collate_fn
 from ..utils.ckpt import save_ckpt
@@ -90,9 +95,10 @@ class SegmentationEngine:
                                                 device=self.device)
 
     # ---- data -----------------------------------------------------------
-    def build_loader(self, split_config):
-        return build_sharded_loader(split_config,
-                                    collate_fn=pascal_seg_collate_fn)
+    def build_loader(self, split_config, shard_over_processes=False):
+        return build_sharded_loader(
+            split_config, collate_fn=pascal_seg_collate_fn,
+            shard_over_processes=shard_over_processes)
 
     def _to_device(self, x) -> torch.Tensor:
         """An NHWC numpy batch as an NCHW float32 tensor on the device."""
@@ -191,9 +197,11 @@ class SegmentationEngine:
         train_config = self.config.get('train', {})
         stages = train_stage_configs(train_config)
         if self.config.get('adjust_lr'):
-            stages = cls_engine.scale_stage_lrs(stages)
-        train_loader = self.build_loader(train_config['train_data_loader'])
-        val_loader = self.build_loader(train_config['val_data_loader'])
+            stages = cls_engine.scale_stage_lrs(stages, world_size())
+        train_loader = self.build_loader(train_config['train_data_loader'],
+                                         shard_over_processes=True)
+        val_loader = self.build_loader(train_config['val_data_loader'],
+                                       shard_over_processes=True)
         nan_check_interval = int(train_config.get('nan_check_interval', 50))
         generator = torch.Generator(device=self.device).manual_seed(self.seed)
         best = -1.0

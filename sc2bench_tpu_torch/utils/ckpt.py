@@ -14,16 +14,26 @@ bytes: a `torch.save` file is a zip archive, a Flax one a msgpack map.
 from, at `<path>.train_state` in the port's own format (`torch.save` of
 the student's state dict, the stage's optimizer and schedule state, the
 epoch, the stage name and the best metric).
+
+In a data-parallel group (the counterpart of the JAX package's Orbax
+backend, `save_ckpt_orbax`/`load_ckpt_orbax`) rank 0 writes and the other
+ranks wait at a barrier; the ranks hold the same state, since their
+gradients are averaged. Each file is written to a temp sibling and renamed
+over its target, and the sidecars only after the variables, so that an
+interrupted save leaves the previous checkpoint whole and never pairs new
+metadata with old variables. Every rank loads onto its own device.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import pickle
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from ..parallel.dist import barrier, rank
 from .convert import state_dict_from_flax
 
 _TABLES_SUFFIX = '.tables.pkl'
@@ -33,18 +43,33 @@ _ZIP_MAGIC = b'PK\x03\x04'
 _MSGPACK_NDARRAY = 1          # Flax's msgpack ext type of an ndarray
 
 
+def _replace(target: Path, write) -> None:
+    """`write(tmp)` into a temp sibling of `target`, then rename it over
+    `target`."""
+    tmp = target.with_name(target.name + '.tmp')
+    write(tmp)
+    os.replace(tmp, target)
+
+
 def save_ckpt(path, state_dict, tables=None, meta=None):
     """Write `state_dict` (tensors moved to the CPU) and the optional
-    sidecars; `tables` is a `CodingTables`."""
+    sidecars; `tables` is a `CodingTables`. Rank 0 of a data-parallel
+    group writes; every rank returns once the files are in place."""
     path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, path)
-    if tables is not None:
-        Path(str(path) + _TABLES_SUFFIX).write_bytes(pickle.dumps(
-            {k: v for k, v in dataclasses.asdict(tables).items()
-             if v is not None}))
-    if meta is not None:
-        Path(str(path) + _META_SUFFIX).write_bytes(pickle.dumps(meta))
+    if rank() == 0:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        cpu = {k: v.detach().cpu() for k, v in state_dict.items()}
+        _replace(path, lambda tmp: torch.save(cpu, tmp))
+        if tables is not None:
+            payload = pickle.dumps(
+                {k: v for k, v in dataclasses.asdict(tables).items()
+                 if v is not None})
+            _replace(Path(str(path) + _TABLES_SUFFIX),
+                     lambda tmp: tmp.write_bytes(payload))
+        if meta is not None:
+            _replace(Path(str(path) + _META_SUFFIX),
+                     lambda tmp: tmp.write_bytes(pickle.dumps(meta)))
+    barrier()
 
 
 def _msgpack_ext(code, data):
@@ -102,13 +127,17 @@ def load_ckpt(path, model=None):
 
 def save_train_state(path, state_dict, optimizer_state, epoch: int,
                      stage: str, best_metric: float) -> None:
-    """Write the state to resume training from beside `path`."""
+    """Write the state to resume training from beside `path` (rank 0 of
+    a group, the others wait)."""
     target = Path(str(path) + _TRAIN_SUFFIX)
-    target.parent.mkdir(parents=True, exist_ok=True)
-    torch.save({'model': {k: v.detach().cpu()
-                          for k, v in state_dict.items()},
-                'optimizer': optimizer_state, 'epoch': int(epoch),
-                'stage': stage, 'best_metric': float(best_metric)}, target)
+    if rank() == 0:
+        target.parent.mkdir(parents=True, exist_ok=True)
+        payload = {'model': {k: v.detach().cpu()
+                             for k, v in state_dict.items()},
+                   'optimizer': optimizer_state, 'epoch': int(epoch),
+                   'stage': stage, 'best_metric': float(best_metric)}
+        _replace(target, lambda tmp: torch.save(payload, tmp))
+    barrier()
 
 
 def load_train_state(path, map_location='cpu'):

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..parallel.dist import all_gather_object, is_multi
+
 IOU_THRS = np.linspace(0.5, 0.95, 10)
 RECALL_THRS = np.linspace(0.0, 1.0, 101)
 AREA_RANGES = {
@@ -60,8 +62,9 @@ class CocoEvaluator:
     def __init__(self, iou_type='bbox'):
         if iou_type != 'bbox':
             raise NotImplementedError(
-                f"the '{iou_type}' evaluation is not ported yet (ROADMAP "
-                'Queue A item 5)')
+                f"the '{iou_type}' evaluation is not ported yet: only the "
+                'bbox half of the COCO evaluator is (the segm and keypoint '
+                'halves come with Mask and Keypoint R-CNN)')
         self.iou_type = iou_type
         self.gts = {}          # image_id -> target dict
         self.preds = {}        # image_id -> {'boxes', 'scores', 'labels'}
@@ -79,8 +82,20 @@ class CocoEvaluator:
             }
 
     def synchronize_between_processes(self):
-        """One process holds every image: nothing to gather (scale-out is
-        ROADMAP Queue A item 4)."""
+        """Gather the predictions and the ground truths of every process
+        of a data-parallel group, keyed by image id, so that shards which
+        overlap (the wrap padding, or a test loader every process reads
+        whole) count each image once, as JAX does (`all_gather_object`,
+        through the CPU). Nothing to do in one process."""
+        if not is_multi():
+            return
+        preds, gts = {}, {}
+        for part_preds, part_gts in all_gather_object((self.preds,
+                                                       self.gts)):
+            preds.update(part_preds)
+            gts.update(part_gts)
+        # merged in rank order, so every rank holds the same order
+        self.preds, self.gts = preds, gts
 
     # ---- the COCO protocol ---------------------------------------------
     def _evaluate_img(self, dt, gt, iou_thrs, area_rng, max_det):

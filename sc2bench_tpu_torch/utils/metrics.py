@@ -1,11 +1,14 @@
 """Metric logging with windowed smoothing (counterpart of
-`sc2bench_tpu/utils/metrics.py`). One process: there is nothing to
-synchronize, so `synchronize_between_processes` does nothing."""
+`sc2bench_tpu/utils/metrics.py`). In a data-parallel group
+`synchronize_between_processes` sums each meter's count and total over
+the processes; in one process it does nothing."""
 from __future__ import annotations
 
 from collections import defaultdict, deque
 
 import numpy as np
+
+from ..parallel.dist import is_multi, sync_metric
 
 
 class SmoothedValue:
@@ -23,7 +26,12 @@ class SmoothedValue:
         self.total += value * n
 
     def synchronize_between_processes(self):
-        """Single process: the totals are already global."""
+        """Sum (count, total) over the group, in float64."""
+        if not is_multi():
+            return
+        count, total = sync_metric([self.count, self.total]).tolist()
+        self.count = int(count)
+        self.total = float(total)
 
     @property
     def median(self):

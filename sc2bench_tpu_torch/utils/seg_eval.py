@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.dist import all_reduce_sum
+
 
 class SegEvaluator:
     def __init__(self, num_classes: int, device='cpu'):
@@ -35,8 +37,9 @@ class SegEvaluator:
         self.mat.zero_()
 
     def reduce_from_all_processes(self):
-        """The sum over data-parallel processes; the port evaluates in one
-        process, so there is nothing to add."""
+        """The matrix summed over the data-parallel group (nothing to do
+        in one process)."""
+        all_reduce_sum(self.mat)
 
     def compute(self):
         """(global accuracy, per-class accuracy, per-class IoU), float64."""

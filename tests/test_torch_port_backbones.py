@@ -15,6 +15,7 @@ rules unchanged, and the Flax paths `flax_param_path` gives are the
 variables' own. All 41 configs of the three families build on the meta
 device, and the full-width parameter counts equal JAX's
 (`jax.eval_shape`)."""
+import torch_port_threads  # noqa: F401  (pins torch threads)
 from pathlib import Path
 
 import numpy as np

@@ -16,6 +16,7 @@ helpers it shares).
     RegNet MSHP config, two steps a stage: every step's loss within rtol
     1e-3 of JAX's, then the best validation acc1 and the test equal.
 """
+import torch_port_threads  # noqa: F401  (pins torch threads)
 import json
 from pathlib import Path
 

@@ -17,6 +17,7 @@ The small models register under one name in both packages' registries
 (`regnet_small`, `hybrid_vit_small`, their teachers, `efficientnet_small`;
 `small_models`), which `test_torch_port_backbones_train.py` shares.
 """
+import torch_port_threads  # noqa: F401  (pins torch threads)
 from pathlib import Path
 
 import numpy as np

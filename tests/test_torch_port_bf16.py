@@ -22,6 +22,7 @@ that were sent, at most 1% of them one step from the float32 encoder's,
 the wire within 1e-3 of the float32 wire's size. With `dtype` unset or
 float32 every output is the float32 model's, bit for bit.
 """
+import torch_port_threads  # noqa: F401  (pins torch threads)
 import ast
 import importlib.util
 from pathlib import Path

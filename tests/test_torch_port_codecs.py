@@ -16,6 +16,7 @@ boundary could quantize differently; the tests count such mismatches of
 the port's own forward and allow none at this size. The JAX package's
 Gaussian tables are built once for the module.
 """
+import torch_port_threads  # noqa: F401  (pins torch threads)
 import json
 from pathlib import Path
 

@@ -19,6 +19,7 @@ it is given by 1024, which a neural codec's compressed object is not: the
 port's default for a neural codec is `FileSizeAnalyzer` (KB of the pickled
 object), and the JAX side is given that analyzer explicitly here.
 """
+import torch_port_threads  # noqa: F401  (pins torch threads)
 import dataclasses
 import json
 from pathlib import Path

@@ -19,6 +19,7 @@ The small Faster R-CNN registers as `faster_rcnn_small` in both packages'
 model registries (`register_small`), which
 `test_torch_port_detection_train.py` shares.
 """
+import torch_port_threads  # noqa: F401  (pins torch threads)
 import zlib
 from pathlib import Path
 
@@ -681,7 +682,7 @@ def test_coco_evaluator_equals_jax():
         out.append(ev.summarize())
     assert out[0] == out[1]
     assert len(out[0]) == 12 and 0.0 < out[0]['AP'] < 1.0
-    with pytest.raises(NotImplementedError, match='item 5'):
+    with pytest.raises(NotImplementedError, match='not ported yet'):
         CocoEvaluator(iou_type='segm')
 
 

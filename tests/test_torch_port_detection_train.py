@@ -20,6 +20,7 @@ Faster R-CNN, `faster_rcnn_small`, and helpers it shares).
     metrics within 1e-6, the data sizes equal; the CR+BQ config tested
     through the plain forward with nothing accounted.
 """
+import torch_port_threads  # noqa: F401  (pins torch threads)
 import json
 from pathlib import Path
 
@@ -434,5 +435,5 @@ def test_cli_bq_tests_the_plain_forward_as_jax(tmp_path, monkeypatch):
                              'fpn.yaml')
     with pytest.raises(ValueError, match='test-only'):
         main(['--config', str(wrapper), '--device', 'cpu'])
-    with pytest.raises(NotImplementedError, match='item 4'):
+    with pytest.raises(ValueError, match='WORLD_SIZE'):
         main(['--config', str(TINY), '--world_size', '2', '--device', 'cpu'])

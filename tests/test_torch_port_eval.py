@@ -9,6 +9,7 @@ Flax checkpoint that both read), on the host wire and on the device wire.
 Accuracies and data-size summaries must be equal; logits agree within
 rtol=atol=1e-4 (same symbols; only float summation order differs between
 XLA:CPU and PyTorch's CPU kernels)."""
+import torch_port_threads  # noqa: F401  (pins torch threads)
 import json
 import logging
 import sys
@@ -25,6 +26,8 @@ from sc2bench_tpu.analysis import analyze_model_size as jax_model_size
 from sc2bench_tpu.config import load_config as jax_load_config
 from sc2bench_tpu.config import \
     train_stage_configs as jax_train_stage_configs
+from sc2bench_tpu.datasets.image import DataLoader as JaxDataLoader
+from sc2bench_tpu.datasets.image import build_dataset as jax_build_dataset
 from sc2bench_tpu.datasets.image import \
     build_sharded_loader as jax_build_loader
 from sc2bench_tpu.models.registry import \
@@ -340,7 +343,9 @@ def test_engine_finetune_eval_equals_jax(tiny_run):
                          ids=['float32', 'uint8'])
 def test_loader_equals_jax_and_runs_in_one_process(normalized, monkeypatch):
     """The port's loader gives the JAX loader's NHWC batches (uint8 stays
-    uint8), the last batch short; in a group of two processes it raises."""
+    uint8), the last batch short, in one process; in a group of two
+    processes a loader sharded over them gives each rank JAX's shard and
+    an unsharded one (a test loader) stays whole."""
     split = {'dataset': {'key': 'SyntheticClassificationDataset',
                          'kwargs': {'num_samples': 5, 'image_size': [8, 6],
                                     'num_classes': 7,
@@ -356,8 +361,17 @@ def test_loader_equals_jax_and_runs_in_one_process(normalized, monkeypatch):
         np.testing.assert_array_equal(y, yj)
     monkeypatch.setattr(torch.distributed, 'is_initialized', lambda: True)
     monkeypatch.setattr(torch.distributed, 'get_world_size', lambda: 2)
-    with pytest.raises(NotImplementedError, match='item 4'):
-        build_sharded_loader(split)
+    assert len(list(build_sharded_loader(split))) == 3
+    for r in range(2):
+        monkeypatch.setattr(torch.distributed, 'get_rank', lambda: r)
+        got = list(build_sharded_loader(split, shard_over_processes=True))
+        want = list(JaxDataLoader(jax_build_dataset(split['dataset']),
+                                  batch_size=2, num_shards=2, shard_index=r,
+                                  prefetch=False))
+        assert len(got) == len(want) == 2
+        for (x, y), (xj, yj) in zip(got, want):
+            np.testing.assert_array_equal(x, xj)
+            np.testing.assert_array_equal(y, yj)
 
 
 def test_cli_needs_test_only_and_a_card(monkeypatch):

@@ -14,6 +14,7 @@ step of each family as `test_torch_port_train.py` holds the others. The
 44 configs of both families build with the port's
 `load_classification_model`.
 """
+import torch_port_threads  # noqa: F401  (pins torch threads)
 import json
 import pickle
 import re

@@ -8,6 +8,7 @@ is re-coded on the host by both runtimes: per-image sizes and the summary
 must be exactly equal, and logits agree within rtol=atol=1e-4 (same
 symbols; only float summation order differs, as in
 `test_torch_port_model.py`, whose fixture this file shares)."""
+import torch_port_threads  # noqa: F401  (pins torch threads)
 import logging
 
 import numpy as np

@@ -23,6 +23,7 @@ Same inputs from numpy seeds go through both packages:
     wires, against the JAX engine.
 The Gaussian tables of the default scale table take seconds to build in
 the JAX package: that function is memoized here for the module."""
+import torch_port_threads  # noqa: F401  (pins torch threads)
 import functools
 import json
 from pathlib import Path

@@ -12,6 +12,7 @@ quotient, and the kernels' steps built from them against the plain
 versions. The kernels themselves are held against the plain versions on
 the card (`tests/test_torch_port_kernels.py`). This file imports neither
 JAX nor `sc2bench_tpu`."""
+import torch_port_threads  # noqa: F401  (pins torch threads)
 import numpy as np
 import pytest
 import torch

@@ -7,6 +7,7 @@ one; on a machine with a card run them with
 `python -m pytest tests/test_torch_port_kernels.py -m cuda --noconftest`
 (the suite's conftest configures JAX). The CPU tests pin the plain
 versions themselves against the numpy oracle on edge-case tables."""
+import torch_port_threads  # noqa: F401  (pins torch threads)
 import math
 from fractions import Fraction
 

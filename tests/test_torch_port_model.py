@@ -9,6 +9,7 @@ and data-size summaries, batch 1 and `wire_batch`. Logits agree within
 rtol=atol=1e-4: the symbols are identical, so the decoder and tail see the
 same input, and only float summation order differs between XLA:CPU and
 PyTorch's CPU convolutions."""
+import torch_port_threads  # noqa: F401  (pins torch threads)
 import os
 import subprocess
 import sys
@@ -248,28 +249,40 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
     assert SplitClassifierRuntime(model, device='cpu').device.type == 'cpu'
 
 
-def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    """Every module of sc2bench_tpu_torch imports with jax, flax and
-    sc2bench_tpu blocked, and the classification CLI tests, and trains
-    then tests, a config that lists the JAX package's modules as
-    dependencies; with an MSHP student it tests on the device wire; a
-    fine-tuning config (EntropicClassifier on a small ResNet) tests on the
-    host wire and a CR+BQ config (larger_resnet_bottleneck, which lists
-    `sc2bench_tpu.transforms`) trains one step then tests; two
-    input-compression configs (JPEG, and the joint autoregressive codec
-    at n = m = 8) test through their wrappers; a RegNet FP config (a small
-    RegNet registered in the port) tests, and a small hybrid ViT (student
-    and teacher) and EfficientNet run; the segmentation CLI trains then
-    tests `tiny_segmentation.yaml`, and tests it on the device wire; the
-    detection CLI tests `tiny_detection.yaml` on the device wire. One
-    thread: the suite runs this beside other workers."""
-    code = r'''
+_BLOCK_JAX = r'''
 import importlib, json, pkgutil, sys
 class Block:
     def find_spec(self, name, path=None, target=None):
         if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sc2bench_tpu'):
             raise ImportError('blocked: ' + name)
 sys.meta_path.insert(0, Block())
+'''
+_NO_JAX_IMPORTED = r'''
+bad = [m for m in sys.modules
+       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sc2bench_tpu')]
+assert not bad, bad
+'''
+
+
+def _run_with_jax_blocked(body: str) -> str:
+    """Run `body` in a fresh interpreter with jax, flax and sc2bench_tpu
+    blocked, then check that none of them was imported; its stdout. One
+    thread: the suite runs this beside other workers."""
+    out = subprocess.run(
+        [sys.executable, '-c', _BLOCK_JAX + body + _NO_JAX_IMPORTED],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env={**os.environ, 'OMP_NUM_THREADS': '1'})
+    assert out.returncode == 0, out.stderr
+    return out.stdout
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    """Every module of sc2bench_tpu_torch imports with jax, flax and
+    sc2bench_tpu blocked, and the classification CLI tests, and trains
+    then tests, a config that lists the JAX package's modules as
+    dependencies; with an MSHP student it tests on the device wire. The
+    other families and tasks run blocked in the two tests below."""
+    out = _run_with_jax_blocked(r'''
 import sc2bench_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     sc2bench_tpu_torch.__path__, 'sc2bench_tpu_torch.')]
@@ -295,6 +308,24 @@ out = main(['--config', 'configs/sample/tiny_entropic_student.yaml',
             '-student_only', '-test_only', '--device', 'cpu'])
 assert out['engine'].runtime.hyper, out
 assert out['summaries'][0]['num_samples'] == 4, out
+print(len(names))
+''')
+    assert int(out.strip().splitlines()[-1]) >= 36
+
+
+def test_port_families_run_with_jax_blocked():
+    """With jax, flax and sc2bench_tpu blocked: a fine-tuning config
+    (EntropicClassifier on a small ResNet) tests on the host wire and a
+    CR+BQ config (larger_resnet_bottleneck, which lists
+    `sc2bench_tpu.transforms`) trains one step then tests; two
+    input-compression configs (JPEG, and the joint autoregressive codec
+    at n = m = 8) test through their wrappers; a RegNet FP config (a small
+    RegNet registered in the port) tests, and a small hybrid ViT (student
+    and teacher) and EfficientNet run."""
+    _run_with_jax_blocked(r'''
+import json
+from sc2bench_tpu_torch.tasks.image_classification import main
+small = {'stage_sizes': [1, 1, 1, 1]}
 from sc2bench_tpu_torch.models import resnet
 resnet.RESNET_BUILDERS['resnet_small'] = (
     lambda **kw: resnet.ResNet((1, 1, 1, 1), **kw))
@@ -366,6 +397,19 @@ with torch.no_grad():
     for m in (hybrid_vit.HybridViT(64, 1, 2, 10, image_size=64),
               efficientnet.EfficientNet(0.25, 0.1, 10)):
         assert m.eval()(x).shape == (1, 10)
+''')
+
+
+def test_port_segmentation_and_detection_run_with_jax_blocked():
+    """With jax, flax and sc2bench_tpu blocked: the segmentation CLI
+    trains then tests `tiny_segmentation.yaml`, and tests it on the device
+    wire; the detection CLI tests `tiny_detection.yaml` on the device
+    wire; the scale-out modules (process group, profiler, serving pool)
+    import."""
+    _run_with_jax_blocked(r'''
+import sc2bench_tpu_torch.models.serving_pool
+import sc2bench_tpu_torch.parallel.dist
+import sc2bench_tpu_torch.utils.profiling
 from sc2bench_tpu_torch.tasks.semantic_segmentation import main as seg_main
 tiny_seg = 'configs/sample/tiny_segmentation.yaml'
 out = seg_main(['--config', tiny_seg, '--device', 'cpu'])
@@ -378,13 +422,4 @@ out = det_main(['--config', 'configs/sample/tiny_detection.yaml', '--json',
                 '{"deploy_wire": "device"}', '-test_only', '--device', 'cpu'])
 assert out['summaries'][0]['num_samples'] == 2, out
 assert 0.0 <= out['result']['AP'] <= 1.0, out
-bad = [m for m in sys.modules
-       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sc2bench_tpu')]
-assert not bad, bad
-print(len(names))
-'''
-    out = subprocess.run([sys.executable, '-c', code], cwd=REPO,
-                         capture_output=True, text=True, timeout=120,
-                         env={**os.environ, 'OMP_NUM_THREADS': '1'})
-    assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 36
+''')

@@ -12,6 +12,7 @@ package's own decoders: `device_rans_decode(aligned=True, indexes=...)`
 `_rans_decode_step` (`sc2bench_tpu/models/zoo_jahp_device.py`), on the
 same streams and tables. Recorders check that `device_rans_decode` and
 the JAHP runtime hand the tables prepared once to every launch."""
+import torch_port_threads  # noqa: F401  (pins torch threads)
 import functools
 
 import jax

@@ -13,6 +13,7 @@ device.py`) and a scan of the JAHP device wire's `_rans_encode_step`
 (`sc2bench_tpu/models/zoo_jahp_device.py`), on the same symbols and
 tables. Recorders check that `device_rans_encode` and the JAHP runtime
 hand the tables prepared once to both wrappers."""
+import torch_port_threads  # noqa: F401  (pins torch threads)
 import functools
 
 import jax

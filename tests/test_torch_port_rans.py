@@ -8,6 +8,7 @@ oracle on every case and against the Pallas kernels in interpret mode on a
 tiny case. On the CPU the port runs its kernels' plain versions; the
 kernels themselves are held against them on the card
 (`tests/test_torch_port_kernels.py`)."""
+import torch_port_threads  # noqa: F401  (pins torch threads)
 import numpy as np
 import pytest
 import torch

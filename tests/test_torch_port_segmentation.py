@@ -19,6 +19,7 @@ The small DeepLabv3 registers as `deeplabv3_small` in both packages'
 model registries (`small_deeplabv3`), which
 `test_torch_port_segmentation_train.py` shares.
 """
+import torch_port_threads  # noqa: F401  (pins torch threads)
 from pathlib import Path
 
 import numpy as np

@@ -25,6 +25,7 @@ DeepLabv3, `deeplabv3_small`, and helpers it shares).
     summary equal; the end-to-end and CR+BQ configs trained by the CLI,
     their losses within rtol 1e-3 of JAX's.
 """
+import torch_port_threads  # noqa: F401  (pins torch threads)
 import json
 from pathlib import Path
 

@@ -19,6 +19,7 @@ are the first steps of the end-to-end run's two stages. End to end, the
 port CLI's train-then-test run against the JAX engine's `train()` +
 `test()` on `configs/sample/tiny_entropic_student.yaml`, on both
 wires."""
+import torch_port_threads  # noqa: F401  (pins torch threads)
 import json
 import logging
 from pathlib import Path
