@@ -252,15 +252,34 @@ which fails loudly with a nonzero exit:
     each and the sizes and acc1 of one process, and its `--profile_dir`
     trace names the rANS kernels; `ServingPool` over the visible cards
     gives the runtime's logits (within 1e-3) and sizes;
-20. print the kernels line (all ten kernels; it fails if one never
+20. the rest of the detection family at full width on the 800x1344
+    canvas (480x640 synthetic images, seeded weights on the phase 16
+    student's ResNet-50 + FP-24 body): Mask R-CNN (91 classes, loaded
+    from a checkpoint by the engine) scored by the engine's plain
+    forward on 2 images with octagon masks (bbox and segm metrics), and
+    its `test()` on the device wire (the cyclic pair once an image, no
+    escape, bbox only, each wire equal to the plain coder on its symbols
+    and accounted at that size); Keypoint R-CNN (2 classes, 17
+    keypoints) scored on bbox and keypoints; the mask and keypoint heads
+    on 24 RoIs against the same heads on the CPU (TF32 off, within 1e-4
+    of the largest value); each model's forward + postprocess + head on
+    all 100 slots timed (ms, img/s); RetinaNet (91 classes, 201,600
+    anchors, torchvision's head initialization) through the forward and
+    the postprocess at batch 1 (timed) and 2 (the slots equal the
+    postprocess on the CPU on the same outputs), and one loss + backward
+    at batch 2 (finite, peak memory); one stage-2 step of a `frozen_bn`
+    body at batch 2 with the weight decay off leaving every
+    `FrozenBatchNorm2d`'s affine terms and statistics bit-equal; the
+    card's name and power limit;
+21. print the kernels line (all ten kernels; it fails if one never
     launched on its path or differs from its plain version, if a cyclic
     or indexed kernel never launched in phase 14, or a cyclic one in
     phase 15 or 16, or a cyclic one on phase 18's bfloat16 device wire
-    or bench, or the batch-1 cyclic pair on a rank of phase 19; the
-    counts of phases 11-19 beside, and phase 14's, 15's and 16's
-    timings at their shapes under `*_64ch`, `*_seg` and `*_det`), the
-    card's name and power limit, and last `{"ok": true, "device":
-    {...}}`. Every phase prints its seconds.
+    or bench, or the batch-1 cyclic pair on a rank of phase 19 or on
+    phase 20's Mask R-CNN test; the counts of phases 11-20 beside, and
+    phase 14's, 15's and 16's timings at their shapes under `*_64ch`,
+    `*_seg` and `*_det`), the card's name and power limit, and last
+    `{"ok": true, "device": {...}}`. Every phase prints its seconds.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 with an error before printing any result. `--scaleout-only` runs phase 19
@@ -409,6 +428,13 @@ BENCH_ARGS = ['--n_iter', '32', '--n_trials', '2', '--loop_n', '10',
 N_SCALE_TRAIN, N_SCALE_VAL, SCALE_BATCH, N_SCALE_TEST = 128, 64, 32, 8
 SCALE_STEP_BATCH, SCALE_STEPS, SCALE_RANKS_ONE_CARD = 64, 3, 2
 SCALE_TIMEOUT = 300
+# phase 20: Mask R-CNN, Keypoint R-CNN and RetinaNet on the detection
+# student's backbone (ResNet-50 + FP-24); images evaluated, RoIs of the
+# heads' card-vs-CPU check and its tolerance, RetinaNet's loss batch
+DET_BACKBONE = {'resnet_name': 'resnet50', 'bottleneck_config': {
+    'key': 'FPBasedResNetBottleneck',
+    'kwargs': {'num_bottleneck_channels': 24, 'num_target_channels': 256}}}
+N_HEADS, N_HEADS_POOLED, HEADS_TOL, RETINA_BATCH = 2, 24, 1e-4, 2
 # H100 SXM published peaks: HBM bytes/s, and
 # the non-tensor-core rate used for the kernels' integer operations
 HBM_BYTES_PER_S = 3.35e12
@@ -3434,31 +3460,44 @@ def det_canvases(torch, n, device, hw=DET_LAND, seed=0):
         for i in range(n)]
 
 
-def build_det_student(torch, device, seed=0):
+def build_det_student(torch, device, seed=0, key=None, **kwargs):
     """The `-fp-beta0.08` config's student (Faster R-CNN R50-FPN + FP-24,
     91 classes) at full width on the card: `build_model`'s seeded weights
     and halved last encoder conv, and the RPN and box predictors
     initialized as torchvision initializes them (normal with std 0.01,
-    0.01 and 0.001, zero biases)."""
+    0.01 and 0.001, zero biases). `key` and `kwargs` build another
+    detector of the registry on that backbone (phase 20): a RetinaNet's
+    head convolutions as torchvision's (std 0.01, zero biases but the
+    class logits', the focal prior's)."""
     from sc2bench_tpu_torch.config import load_config
     from sc2bench_tpu_torch.models.detection.registry import \
         load_detection_model
     spec = load_config(os.path.join(REPO, DET_ES_CONFIG))['models'][
         'student_model']
+    if key is not None or kwargs:
+        spec = {**spec, 'key': key or spec['key'],
+                'kwargs': {**spec['kwargs'], **kwargs}}
     torch.manual_seed(seed)
     model = load_detection_model({**spec, 'ckpt': None}, device=device)
     randomize_weights(torch, model, seed, device)
     halve_last_encoder_conv(torch, model.backbone.body)
     gen = torch.Generator(device='cpu').manual_seed(seed + 1)
-    heads = ((model.rpn.head.cls_logits, 0.01),
-             (model.rpn.head.bbox_pred, 0.01),
-             (model.roi_heads.box_predictor.cls_score, 0.01),
-             (model.roi_heads.box_predictor.bbox_pred, 0.001))
+    if hasattr(model, 'rpn'):
+        heads = ((model.rpn.head.cls_logits, 0.01, True),
+                 (model.rpn.head.bbox_pred, 0.01, True),
+                 (model.roi_heads.box_predictor.cls_score, 0.01, True),
+                 (model.roi_heads.box_predictor.bbox_pred, 0.001, True))
+    else:
+        towers = [m for m in model.head.modules()
+                  if isinstance(m, torch.nn.Conv2d)]
+        heads = [(m, 0.01, m is not model.head.classification_head
+                  .cls_logits) for m in towers]
     with torch.no_grad():
-        for layer, std in heads:
+        for layer, std, zero_bias in heads:
             layer.weight.copy_(torch.randn(layer.weight.shape,
                                            generator=gen).to(device) * std)
-            layer.bias.zero_()
+            if zero_bias:
+                layer.bias.zero_()
     return model
 
 
@@ -4529,6 +4568,359 @@ def scaleout_phase(torch, kernels, rt, images, device):
     return launches
 
 
+# ---- phase 20: Mask R-CNN, Keypoint R-CNN, RetinaNet, FrozenBatchNorm ------
+
+def heads_split(n, seed, **extra):
+    """`det_split(n, 1, seed)` with the synthetic dataset's options for
+    the segm and keypoint targets (`with_masks`, `num_keypoints`)."""
+    split = det_split(n, 1, seed)
+    split['dataset']['kwargs'].update(extra)
+    return split
+
+
+def det_batch(torch, n, device, seed):
+    """(NCHW canvas batch, padded targets scaled to it) of `n` synthetic
+    480x640 images on the 800x1344 canvas, as the engine's
+    `_prepare_batch` makes them."""
+    from sc2bench_tpu_torch.datasets.coco import (SyntheticDetectionDataset,
+                                                  pad_detection_targets)
+    from sc2bench_tpu_torch.models.detection.transform import RCNNTransform
+    data = SyntheticDetectionDataset(num_samples=n, image_size=DET_LAND,
+                                     num_classes=DET_CLASSES, seed=seed)
+    items = [data[i] for i in range(n)]
+    batch, scales, _ = RCNNTransform(
+        min_size=800, max_size=DET_SQUARE[0][0], canvas_buckets=True)(
+        [img for img, _ in items])
+    padded = pad_detection_targets([t for _, t in items], 64)
+    padded['boxes'] = padded['boxes'] * scales[:, None, None]
+    return (torch.from_numpy(np.ascontiguousarray(
+        batch.transpose(0, 3, 1, 2))).to(device),
+        {k: torch.from_numpy(v).to(device) for k, v in padded.items()})
+
+
+def heads_engine(torch, model, tmp, key, kwargs, device):
+    """A `DetectionEngine` on the configs' canvases whose student under
+    `key` loads `model`'s weights from a checkpoint, as a user's."""
+    from sc2bench_tpu_torch.train.det_engine import DetectionEngine
+    from sc2bench_tpu_torch.utils.ckpt import save_ckpt
+    ckpt = os.path.join(tmp, f'{key}.ckpt')
+    save_ckpt(ckpt, model.state_dict())
+    return DetectionEngine({
+        'min_size': 800, 'canvas_size': DET_SQUARE[0][0],
+        'models': {'model': {'key': key, 'kwargs': kwargs, 'ckpt': ckpt}}},
+        device=device)
+
+
+def check_stats(stats, tag):
+    """Every one of the 12 COCO metrics of each type in `stats` is a
+    number in [-1, 1] (-1: an area range without ground truth)."""
+    for name, part in [('bbox', stats)] + [
+            (k, v) for k, v in stats.items() if isinstance(v, dict)]:
+        values = [v for k, v in part.items() if k.startswith(('AP', 'AR'))]
+        check(len(values) == 12 and all(
+            np.isfinite(v) and -1.0 <= v <= 1.0 for v in values),
+              f'{tag} {name} stats: {part}')
+
+
+def head_vs_cpu(torch, fn, owner, pooled):
+    """|card - CPU| of a head `fn(owner, pooled)` over the largest CPU
+    magnitude (at least 1), TF32 off on both sides."""
+    import copy
+    cpu_owner = copy.deepcopy(owner).cpu()
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            got = fn(owner, pooled).cpu()
+            want = fn(cpu_owner, pooled.cpu())
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
+    return float((got - want).abs().max()) / max(1.0,
+                                                 float(want.abs().max()))
+
+
+def forward_with_head(torch, model, x, head):
+    """Time of one canvas through the 'finetune' forward, the
+    postprocess and the head of every detection slot (`head(model, out,
+    dets)`); returns (ms, the head's output, out, dets)."""
+    from sc2bench_tpu_torch.models.detection.rcnn import \
+        postprocess_detections
+
+    def fwd():
+        out = model(x, mode='finetune')
+        dets = postprocess_detections(out)
+        return head(model, out, dets), out, dets
+
+    with torch.no_grad():
+        ms = per_call_ms(torch, fwd, 3)
+        return (ms, *fwd())
+
+
+def mask_rcnn_part(torch, kernels, device, tmp):
+    """Mask R-CNN R50-FPN + FP-24 (91 classes): the engine's plain-forward
+    evaluate (bbox and segm) of N_HEADS images with octagon masks, one
+    canvas timed, the mask head against the CPU, and `test()` on the
+    device wire: the cyclic pair once an image, no escape, segm not
+    scored (bbox only, as in JAX), each image's wire equal to the plain
+    coder on its symbols and accounted at that size. Returns the test's
+    launches."""
+    from sc2bench_tpu_torch.analysis import get_binary_object_size
+    from sc2bench_tpu_torch.models.detection.heads import (mask_logits,
+                                                           pool_rois)
+    from sc2bench_tpu_torch.ops.rans.device import (device_rans_encode,
+                                                    pack_stream)
+    kwargs = {'num_classes': DET_CLASSES, 'backbone_config': DET_BACKBONE}
+    model = build_det_student(torch, device, seed=20, key='mask_rcnn_model',
+                              **kwargs)
+    engine = heads_engine(torch, model, tmp, 'mask_rcnn_model', kwargs,
+                          device)
+    check(engine.iou_types == ['bbox', 'segm'],
+          f'Mask R-CNN iou_types {engine.iou_types}')
+    split = heads_split(N_HEADS, 20, with_masks=True)
+    t0 = time.perf_counter()
+    stats = engine.evaluate(engine.build_loader(split))
+    wall = time.perf_counter() - t0
+    check_stats(stats, 'Mask R-CNN')
+    check('segm' in stats, f'Mask R-CNN evaluate: no segm stats: {stats}')
+    x = det_canvases(torch, 1, device, seed=20)[0]
+    ms, probs, out, dets = forward_with_head(
+        torch, engine.student, x, lambda m, o, d: m.predict_masks(
+            [f[0] for f in o['features'][:4]], d['boxes'][0],
+            d['labels'][0], o['image_hw']))
+    check(tuple(probs.shape) == (100, 28, 28)
+          and bool(((probs >= 0) & (probs <= 1)).all()),
+          f'Mask R-CNN mask probabilities {tuple(probs.shape)}')
+    with torch.no_grad():
+        pooled = pool_rois([f[0] for f in out['features'][:4]],
+                           dets['boxes'][0][:N_HEADS_POOLED], out['image_hw'])
+    err = head_vs_cpu(torch, mask_logits, engine.student.roi_heads, pooled)
+    check(err <= HEADS_TOL, f'mask head card vs CPU: {err}')
+    engine.config['deploy_wire'] = 'device'
+    engine.config['test'] = {'test_data_loader': split}
+    kernels.reset_launches()
+    res, summaries = engine.test()
+    launches = dict(kernels.LAUNCHES)
+    rt = engine.runtime
+    want = expected_launches(kernels, FP_BATCH1, N_HEADS)
+    check(launches == want, f'Mask R-CNN test() launched {launches}, '
+          f'expected {want}')
+    check(rt.escapes == {'ok': 0, 'valid': 0},
+          f'Mask R-CNN test(): images escaped: {rt.escapes}')
+    check('segm' not in res, 'Mask R-CNN test() scored segm on the deploy '
+          'path')
+    check_stats(res, 'Mask R-CNN test()')
+    sizes = list(rt.analyzers[0].file_size_list)
+    check(len(sizes) == N_HEADS, f'Mask R-CNN test() accounted {sizes}')
+    t = rt.codec.tables
+    for i, xi in enumerate(det_canvases(torch, N_HEADS, device, seed=20)):
+        flat, shape = rt._symbols_nhwc(xi)
+        ref = device_rans_encode(flat.reshape(-1).cpu(), t.quantized_cdf,
+                                 t.cdf_length, t.offset,
+                                 num_lanes=rt._auto_wire_lanes(shape),
+                                 cyclic_channels=shape[-1])
+        wire = rt._pull_device_wire(rt.encode_device_wire(xi))
+        check(wire == pack_stream(ref), f'Mask R-CNN image {i}: the wire '
+              'differs from the plain coder on the same symbols')
+        check(sizes[i] == get_binary_object_size(
+            {'strings': [[wire]], 'shape': shape[:2]}),
+              f'Mask R-CNN image {i}: accounted size differs from the wire')
+    log(f'phase 20: Mask R-CNN R50-FPN + FP-24 (91 classes, '
+        f'{sum(p.numel() for p in model.parameters())} parameters): '
+        f'evaluate on {N_HEADS} 480x640 images (800x1344 canvas) with '
+        f'masks: bbox AP {stats["AP"]:.6f}, segm AP '
+        f'{stats["segm"]["AP"]:.6f}, AR_100 {stats["segm"]["AR_100"]:.6f}'
+        f', model_time {stats["model_time"]:.6f} s, wall {wall:.2f} s; '
+        f'forward + postprocess + masks of 100 slots {ms:.2f} ms '
+        f'({1e3 / ms:.2f} img/s); mask head card vs CPU (TF32 off, '
+        f'{N_HEADS_POOLED} RoIs) {err:.3e} of the largest logit')
+    log(f'phase 20: Mask R-CNN test() on the device wire: bbox AP '
+        f'{res["AP"]:.6f}, data size {summaries[0]}, model_time '
+        f'{res["model_time"]:.6f} s; launches {launches}; wires equal the '
+        'plain coder, sizes equal the wires')
+    return launches
+
+
+def keypoint_rcnn_part(torch, device, tmp):
+    """Keypoint R-CNN R50-FPN + FP-24 (2 classes, 17 keypoints): the
+    engine's bbox and keypoint evaluation of N_HEADS images, one canvas
+    timed, the keypoint head against the CPU."""
+    from sc2bench_tpu_torch.models.detection.heads import (keypoint_logits,
+                                                           pool_rois)
+    kwargs = {'num_classes': 2, 'num_keypoints': 17,
+              'backbone_config': DET_BACKBONE}
+    model = build_det_student(torch, device, seed=21,
+                              key='keypoint_rcnn_model', **kwargs)
+    engine = heads_engine(torch, model, tmp, 'keypoint_rcnn_model', kwargs,
+                          device)
+    check(engine.iou_types == ['bbox', 'keypoints'],
+          f'Keypoint R-CNN iou_types {engine.iou_types}')
+    t0 = time.perf_counter()
+    stats = engine.evaluate(engine.build_loader(heads_split(
+        N_HEADS, 21, num_keypoints=17, num_classes=2)))
+    wall = time.perf_counter() - t0
+    check_stats(stats, 'Keypoint R-CNN')
+    check('keypoints' in stats, f'Keypoint R-CNN: no keypoint stats')
+    x = det_canvases(torch, 1, device, seed=21)[0]
+    ms, hm, out, dets = forward_with_head(
+        torch, engine.student, x, lambda m, o, d: m.predict_keypoints(
+            [f[0] for f in o['features'][:4]], d['boxes'][0], o['image_hw']))
+    check(tuple(hm.shape) == (100, 56, 56, 17)
+          and bool(torch.isfinite(hm).all()),
+          f'Keypoint R-CNN heatmaps {tuple(hm.shape)}')
+    with torch.no_grad():
+        pooled = pool_rois([f[0] for f in out['features'][:4]],
+                           dets['boxes'][0][:N_HEADS_POOLED], out['image_hw'])
+    err = head_vs_cpu(torch, keypoint_logits, engine.student.roi_heads,
+                      pooled)
+    check(err <= HEADS_TOL, f'keypoint head card vs CPU: {err}')
+    log(f'phase 20: Keypoint R-CNN R50-FPN + FP-24 (2 classes, 17 '
+        f'keypoints, {sum(p.numel() for p in model.parameters())} '
+        f'parameters): evaluate on {N_HEADS} images: bbox AP '
+        f'{stats["AP"]:.6f}, keypoints AP {stats["keypoints"]["AP"]:.6f}, '
+        f'model_time {stats["model_time"]:.6f} s, wall {wall:.2f} s; '
+        f'forward + postprocess + heatmaps of 100 slots {ms:.2f} ms '
+        f'({1e3 / ms:.2f} img/s); keypoint head card vs CPU (TF32 off, '
+        f'{N_HEADS_POOLED} RoIs) {err:.3e} of the largest heatmap value')
+
+
+def retinanet_part(torch, device):
+    """RetinaNet R50 + FP-24 (91 classes, P3-P7, 9 anchors): one canvas
+    through the forward and the postprocess timed, the postprocess of a
+    batch of 2 (its slots those of the postprocess on the CPU on the same
+    outputs), and one focal + L1 loss and its backward at batch 2 (BN
+    training); every output finite."""
+    from sc2bench_tpu_torch.models.detection.retinanet import (
+        retinanet_loss, retinanet_postprocess)
+    model = build_det_student(torch, device, seed=22, key='retinanet_model',
+                              num_classes=DET_CLASSES,
+                              backbone_config=DET_BACKBONE)
+    x, targets = det_batch(torch, RETINA_BATCH, device, seed=22)
+
+    def fwd(xs):
+        return retinanet_postprocess(model(xs, mode='finetune'))
+
+    with torch.no_grad():
+        ms = per_call_ms(torch, lambda: fwd(x[:1]), 3)
+        out = model(x, mode='finetune')
+        dets = retinanet_postprocess(out)
+    n_anchors = int(out['anchors'].shape[0])
+    check(tuple(out['cls_logits'].shape) == (RETINA_BATCH, n_anchors,
+                                             DET_CLASSES)
+          and n_anchors == sum(out['level_sizes'])
+          and tuple(dets['boxes'].shape) == (RETINA_BATCH, 100, 4)
+          and bool(torch.isfinite(dets['boxes']).all()),
+          f'RetinaNet outputs: {n_anchors} anchors, '
+          f'{tuple(dets["boxes"].shape)}')
+    on_cpu = retinanet_postprocess({k: v.cpu() if torch.is_tensor(v) else v
+                                    for k, v in out.items()})
+    share, diff = det_mismatch({k: v.cpu() for k, v in dets.items()},
+                               on_cpu)
+    check(share == 0.0 and diff <= 1e-4, 'RetinaNet postprocess on the '
+          f'card differs from the CPU on the same outputs ({share}, {diff})')
+    model.train()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = retinanet_loss(model(x, mode='finetune'), targets)
+    sum(losses.values()).backward()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    model.eval()
+    grad = model.head.classification_head.cls_logits.weight.grad
+    losses = {k: v.detach() for k, v in losses.items()}
+    check(all(bool(torch.isfinite(v)) and float(v) > 0
+              for v in losses.values())
+          and grad is not None and bool(torch.isfinite(grad).all()),
+          f'RetinaNet loss {losses}')
+    log(f'phase 20: RetinaNet R50 + FP-24 (91 classes, '
+        f'{sum(p.numel() for p in model.parameters())} parameters, '
+        f'{n_anchors} anchors = {n_anchors * DET_CLASSES} candidates on '
+        f'the 800x1344 canvas): forward + postprocess {ms:.2f} ms '
+        f'({1e3 / ms:.2f} img/s) at batch 1; valid detections at batch '
+        f'{RETINA_BATCH}: {int(dets["valid"].sum())}, every slot as the '
+        f'postprocess on the CPU (largest score/box difference '
+        f'{diff:.3e}); loss '
+        f'{ {k: round(float(v), 6) for k, v in losses.items()} }, loss + '
+        f'backward at batch {RETINA_BATCH} {step_ms:.1f} ms (host clock, '
+        f'first call), peak memory '
+        f'{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB')
+
+
+def frozen_bn_part(torch, device):
+    """A `frozen_bn` Faster R-CNN R50-FPN + FP-24 body (every BatchNorm of
+    layer2-4 a `FrozenBatchNorm2d`, their affine terms and statistics
+    randomized): one `DetectionBox` step of the Entropic Student's stage 2
+    (the task losses, BatchNorm training) at batch 2, its weight decay
+    off, leaves every frozen layer's affine terms and statistics
+    bit-equal and moves the heads."""
+    from sc2bench_tpu_torch.config import load_config
+    from sc2bench_tpu_torch.models.resnet import FrozenBatchNorm2d
+    from sc2bench_tpu_torch.train.det_engine import DetectionBox
+    model = build_det_student(torch, device, seed=23,
+                              backbone_config={**DET_BACKBONE,
+                                               'frozen_bn': True})
+    frozen = {n: m for n, m in model.named_modules()
+              if isinstance(m, FrozenBatchNorm2d)}
+    check(len(frozen) == 3 * (4 + 6 + 3) + 3 and not any(
+        isinstance(m, torch.nn.BatchNorm2d) for m in model.modules()),
+          f'frozen_bn body: {len(frozen)} FrozenBatchNorm2d')
+    gen = torch.Generator(device='cpu').manual_seed(23)
+    with torch.no_grad():
+        for m in frozen.values():
+            for t, lo, hi in ((m.weight, 0.2, 0.6), (m.bias, -0.1, 0.1),
+                              (m.running_mean, -0.1, 0.1),
+                              (m.running_var, 0.5, 1.5)):
+                t.copy_((torch.rand(t.shape, generator=gen) * (hi - lo)
+                         + lo).to(device))
+    stage = load_config(os.path.join(REPO, DET_ES_CONFIG))['train']['stage2']
+    stage['optimizer']['kwargs']['weight_decay'] = 0.0
+    box = DetectionBox(model, stage, detection_loss_weight=1.0,
+                       steps_per_epoch=1, student_mode='finetune',
+                       generator=torch.Generator(device=device).manual_seed(
+                           23))
+    before = snapshot(model)
+    x, targets = det_batch(torch, 2, device, seed=24)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = box.train_step(x, targets)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    after = snapshot(model)
+    moved = changed(before, after, list(before))
+    keys = [f'{n}.{leaf}' for n in frozen for leaf in (
+        'weight', 'bias', 'running_mean', 'running_var')]
+    check(not set(keys) & set(moved), 'frozen_bn: frozen layers changed: '
+          f'{sorted(set(keys) & set(moved))[:4]}')
+    check('roi_heads.box_predictor.cls_score.weight' in moved,
+          'frozen_bn: the step moved no head')
+    log(f'phase 20: frozen_bn Faster R-CNN body ({len(frozen)} '
+        f'FrozenBatchNorm2d): one stage-2 step at batch 2 (weight decay '
+        f'off) in {step_ms:.1f} ms (host clock, first step), loss '
+        f'{ {k: round(float(v), 6) for k, v in metrics["loss"].items()} }; '
+        f'every frozen layer\'s affine terms and statistics bit-equal, '
+        f'{len(moved)} other tensors moved')
+
+
+def heads_phase(torch, kernels, device):
+    """Phase 20: Mask R-CNN, Keypoint R-CNN and RetinaNet at full width on
+    the 800x1344 canvas, and a `frozen_bn` body's training step. Returns
+    the launches of the Mask R-CNN test on the device wire."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = mask_rcnn_part(torch, kernels, device, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        keypoint_rcnn_part(torch, device, tmp)
+    for part in (retinanet_part, frozen_bn_part):
+        gc.collect()
+        torch.cuda.empty_cache()
+        part(torch, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f'phase 20: card {smi_query("name,power.limit")}')
+    return launches
+
+
 def smi_query(fields):
     out = subprocess.run(
         ['nvidia-smi', '--id=0', f'--query-gpu={fields}',
@@ -4676,7 +5068,10 @@ def run():
     scale = timed('phase 19', scaleout_phase, torch, kernels, rt, images,
                   device)
 
-    # ---- phase 20: the kernels line ----
+    # ---- phase 20: Mask R-CNN, Keypoint R-CNN, RetinaNet, frozen_bn ----
+    heads_launches = timed('phase 20', heads_phase, torch, kernels, device)
+
+    # ---- phase 21: the kernels line ----
 
     rows = []
     for name in kernels.ALL_KERNELS:
@@ -4706,6 +5101,7 @@ def run():
                    launches_seg=sum(c[name] for c in seg_paths.values()),
                    launches_det=sum(c[name] for c in det_paths.values()),
                    launches_bf16=bf16_wire[name],
+                   launches_heads=heads_launches[name],
                    launches_bench=bench_launches[name],
                    launches_scaleout={b: [c[name] for c in per]
                                       for b, per in scale.items()},
@@ -4753,6 +5149,9 @@ def run():
                   'the segmentation path')
             check(r['launches_det'] > 0, f'{r["name"]} never launched on '
                   'the detection path')
+        if r['name'] in FP_BATCH1:
+            check(r['launches_heads'] > 0, f'{r["name"]} never launched on '
+                  "the Mask R-CNN student's device wire")
         check(r['max_abs_err'] == 0, f'{r["name"]} differs from its plain '
               f'version by {r["max_abs_err"]}')
     print(json.dumps({'kernels': rows}), flush=True)

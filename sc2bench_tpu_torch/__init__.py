@@ -17,8 +17,9 @@ Ported so far:
                        EntropicClassifierModule, the image-codec zoo, the
                        deploy runtime and the wrappers; segmentation/:
                        DeepLabv3, its split runtime and the VOC wrappers;
-                       detection/: Faster R-CNN + FPN and its split
-                       runtime (box ops, NMS and RoIAlign in ops/); the
+                       detection/: Faster, Mask and Keypoint R-CNN +
+                       FPN, RetinaNet and the split runtime (box ops,
+                       NMS and RoIAlign in ops/); the
                        batch-1 serving pool over several cards
   datasets/            image folders, VOC, COCO and the synthetic stand-ins
   transforms/          the codec transforms, quantizers and collators
@@ -31,7 +32,8 @@ Ported so far:
                        batch's noise)
   utils/               Flax variables -> this package's state_dict,
                        checkpoints, metrics, the segmentation and COCO
-                       bbox evaluators, the profiler trace
+                       bbox, segm and keypoint evaluators, the profiler
+                       trace
   csrc/                hand-written CUDA sources, built at first use
 """
 

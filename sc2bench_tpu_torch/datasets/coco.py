@@ -3,8 +3,9 @@
 pycocotools, images without annotations left out, (x, y, w, h) boxes as
 (x1, y1, x2, y2), and one target dict an image ('boxes', 'labels',
 'area', 'iscrowd', 'image_id'). `SyntheticDetectionDataset` makes the JAX
-package's numpy draws, image i from seed + i. Polygon rasterization (the
-segm targets) is not ported.
+package's numpy draws, image i from seed + i. `rasterize_polygon` turns a
+COCO polygon segmentation into a binary mask (the segm targets); like
+JAX's, no loader calls it.
 """
 from __future__ import annotations
 
@@ -86,15 +87,24 @@ class CocoDetectionDataset:
 @register_dataset
 class SyntheticDetectionDataset:
     """Random uint8 images and 1 ... max_boxes boxes of random classes in
-    1 ... num_classes - 1."""
+    1 ... num_classes - 1, the JAX package's draws. Two options of the
+    port's, off by default, give the targets of the segm and keypoint
+    evaluations: `with_masks` adds 'masks' (each box's inscribed octagon
+    through `rasterize_polygon`, image-sized bool) and sets 'area' to the
+    mask's, as COCO's annotations give it; `num_keypoints` adds
+    'keypoints' (n, K, 3), points drawn inside each box after JAX's draws,
+    all visible (2). The image, boxes and labels stay JAX's."""
 
     def __init__(self, num_samples=16, image_size=(128, 128), max_boxes=5,
-                 num_classes=91, seed=0, **kwargs):
+                 num_classes=91, seed=0, with_masks=False, num_keypoints=0,
+                 **kwargs):
         self.num_samples = num_samples
         self.image_size = tuple(image_size)
         self.max_boxes = max_boxes
         self.num_classes = num_classes
         self.seed = seed
+        self.with_masks = with_masks
+        self.num_keypoints = int(num_keypoints)
 
     def __len__(self):
         return self.num_samples
@@ -118,7 +128,58 @@ class SyntheticDetectionDataset:
             'iscrowd': np.zeros(n, np.int32),
             'image_id': idx,
         }
+        if self.with_masks:
+            target['masks'] = [rasterize_polygon([_octagon(b)], h, w)
+                               for b in boxes]
+            target['area'] = np.asarray([m.sum() for m in target['masks']],
+                                        np.float32)
+        if self.num_keypoints:
+            u = rng.uniform(0, 1, (n, self.num_keypoints, 2))
+            kps = np.full((n, self.num_keypoints, 3), 2, np.float32)
+            kps[..., 0] = boxes[:, None, 0] + u[..., 0] * (
+                boxes[:, None, 2] - boxes[:, None, 0])
+            kps[..., 1] = boxes[:, None, 1] + u[..., 1] * (
+                boxes[:, None, 3] - boxes[:, None, 1])
+            target['keypoints'] = kps
         return img, target
+
+
+def _octagon(box) -> list:
+    """The flat ring of the octagon inscribed in an (x1, y1, x2, y2) box,
+    its corners cut at a quarter of each side."""
+    x1, y1, x2, y2 = (float(v) for v in box)
+    dx, dy = (x2 - x1) / 4, (y2 - y1) / 4
+    return [x1 + dx, y1, x2 - dx, y1, x2, y1 + dy, x2, y2 - dy,
+            x2 - dx, y2, x1 + dx, y2, x1, y2 - dy, x1, y1 + dy]
+
+
+def rasterize_polygon(polygons, height: int, width: int) -> np.ndarray:
+    """COCO polygon segmentation -> (height, width) bool mask, an even-odd
+    scanline fill at pixel centres in numpy (in place of pycocotools'
+    `frPyObjects`/`decode`). `polygons`: flat [x0, y0, x1, y1, ...]
+    rings; a ring of fewer than 3 points is skipped."""
+    mask = np.zeros((height, width), bool)
+    for poly in polygons:
+        pts = np.asarray(poly, np.float64).reshape(-1, 2)
+        if len(pts) < 3:
+            continue
+        xs, ys = pts[:, 0], pts[:, 1]
+        x2s, y2s = np.roll(xs, -1), np.roll(ys, -1)
+        ring = np.zeros((height, width), bool)
+        for y_i, y in enumerate(np.arange(height) + 0.5):
+            crosses = ((ys <= y) & (y2s > y)) | ((y2s <= y) & (ys > y))
+            if not crosses.any():
+                continue
+            with np.errstate(divide='ignore', invalid='ignore'):
+                x_int = xs + (y - ys) / (y2s - ys) * (x2s - xs)
+            x_cross = np.sort(x_int[crosses])
+            for a, b in zip(x_cross[0::2], x_cross[1::2]):
+                lo = max(int(np.ceil(a - 0.5)), 0)
+                hi = min(int(np.ceil(b - 0.5)), width)
+                if hi > lo:
+                    ring[y_i, lo:hi] = True
+        mask |= ring
+    return mask
 
 
 def pad_detection_targets(targets, max_boxes: int) -> dict:

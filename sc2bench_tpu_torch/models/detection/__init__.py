@@ -1,4 +1,6 @@
 """Object detection (counterpart of `sc2bench_tpu/models/detection`):
-Faster R-CNN + FPN over the (splittable) ResNet, its input transform and
-its split runtime. Importing it fills the 'model' registry."""
-from . import base, fpn, rcnn, registry, transform, wrapper  # noqa: F401
+Faster, Mask and Keypoint R-CNN + FPN and RetinaNet over the (splittable)
+ResNet, their heads, the input transform and the split runtime.
+Importing it fills the 'model' registry."""
+from . import (base, fpn, heads, rcnn, registry, retinanet,  # noqa: F401
+               transform, wrapper)

@@ -5,9 +5,11 @@ returns [C2, C3, C4, C5] for the FPN.
 Without a `bottleneck_layer` it is the stem and layer1 of a ResNet (the
 teacher: torchvision's `conv1`, `bn1`, `layer1`); with one, the bottleneck
 in their place. layer2-4 at stride 2 each. BatchNorm keeps its statistics
-as Flax's does and trains when the module does: torchvision's detection
-backbones freeze it, the JAX package does not (`frozen_bn` False in every
-config; `FrozenBatchNorm` is not ported).
+as Flax's does and trains when the module does, unless `frozen_bn` (a
+`backbone_config` key, False in every config of the repository): then
+the bottleneck blocks of layer1-4 take `FrozenBatchNorm2d`, torchvision's
+detection-backbone default, as JAX's `FrozenBatchNorm` (the stem's
+BatchNorm stays trainable, as in JAX).
 
 `forward(x, mode, generator, io)` fills `io` with the JAX package's names:
 `bottleneck_layer_out` (or `layer1_out`), `layer2_out` ... `layer4_out`,
@@ -32,7 +34,8 @@ class SplittableDetectionBackbone(nn.Module):
     """(bottleneck | stem + layer1) + layer2-4 -> [C2, C3, C4, C5]."""
 
     def __init__(self, bottleneck_layer: nn.Module | None = None,
-                 stage_sizes: Sequence[int] = (3, 4, 6, 3), dtype=None):
+                 stage_sizes: Sequence[int] = (3, 4, 6, 3), dtype=None,
+                 frozen_bn: bool = False):
         super().__init__()
         self.dtype = resolve_dtype(dtype)
         self.bottleneck_layer = bottleneck_layer
@@ -41,13 +44,17 @@ class SplittableDetectionBackbone(nn.Module):
             self.bn1 = BatchNorm2d(64, eps=1e-5)
             self.relu = nn.ReLU()
             self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
-            self.layer1 = ResNetStage(64, 64, stage_sizes[0])
+            self.layer1 = ResNetStage(64, 64, stage_sizes[0],
+                                      frozen_bn=frozen_bn)
             c = 64 * BottleneckBlock.expansion
         else:
             c = bottleneck_layer.out_channels
-        self.layer2 = ResNetStage(c, 128, stage_sizes[1], strides=2)
-        self.layer3 = ResNetStage(512, 256, stage_sizes[2], strides=2)
-        self.layer4 = ResNetStage(1024, 512, stage_sizes[3], strides=2)
+        self.layer2 = ResNetStage(c, 128, stage_sizes[1], strides=2,
+                                  frozen_bn=frozen_bn)
+        self.layer3 = ResNetStage(512, 256, stage_sizes[2], strides=2,
+                                  frozen_bn=frozen_bn)
+        self.layer4 = ResNetStage(1024, 512, stage_sizes[3], strides=2,
+                                  frozen_bn=frozen_bn)
         self.out_channels_list = [c, 512, 1024, 2048]
 
     def forward(self, x: torch.Tensor, mode: str = 'train',
@@ -81,22 +88,22 @@ class SplittableDetectionBackbone(nn.Module):
         return feats
 
     @classmethod
-    def from_config(cls, backbone_config, frozen_bn: bool = False,
+    def from_config(cls, backbone_config, frozen_bn: bool | None = None,
                     dtype=None):
         """From a config's `backbone_config`: `resnet_name` (ResNet-50 or
-        -101) and an optional `bottleneck_config` built by `get_layer`; the
-        stages compute in `dtype`."""
+        -101), an optional `bottleneck_config` built by `get_layer` and
+        `frozen_bn` (the argument, when given, wins, as JAX's kwargs do);
+        the stages compute in `dtype`."""
         backbone_config = backbone_config or {}
-        if frozen_bn or backbone_config.get('frozen_bn', False):
-            raise NotImplementedError('FrozenBatchNorm is not ported yet '
-                                      '(it comes with the hubconf '
-                                      'constructors that use it)')
+        if frozen_bn is None:
+            frozen_bn = bool(backbone_config.get('frozen_bn', False))
         bottleneck = None
         bcfg = backbone_config.get('bottleneck_config')
         if bcfg:
             bottleneck = get_layer(bcfg['key'], **bcfg.get('kwargs', {}))
         return cls(bottleneck, stage_sizes=STAGE_SIZES[
-            backbone_config.get('resnet_name', 'resnet50')], dtype=dtype)
+            backbone_config.get('resnet_name', 'resnet50')], dtype=dtype,
+            frozen_bn=frozen_bn)
 
 
 class BackboneWithFPN(nn.Module):

@@ -75,3 +75,17 @@ def generate_anchors(feature_shapes, image_hw,
         anchors = (shifts[:, None, :] + cell[None, :, :]).reshape(-1, 4)
         all_anchors.append(anchors)
     return [np.asarray(a, np.float32) for a in all_anchors]
+
+
+def cached_anchors(cache: dict, features, image_hw, sizes,
+                   aspect_ratios) -> torch.Tensor:
+    """The concatenated anchors of the levels' maps `features` on the
+    canvas `image_hw`, on their device, built once per shape and device
+    into `cache`."""
+    shapes = tuple(tuple(f.shape[-2:]) for f in features)
+    key = (shapes, tuple(image_hw), features[0].device)
+    if key not in cache:
+        cache[key] = torch.from_numpy(np.concatenate(generate_anchors(
+            shapes, image_hw, sizes=sizes, aspect_ratios=aspect_ratios))
+        ).to(features[0].device)
+    return cache[key]

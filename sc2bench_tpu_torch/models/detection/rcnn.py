@@ -31,6 +31,12 @@ process sampling the whole batch does.
 compute dtype of the backbone's stages, the FPN, the RPN head, RoIAlign
 and the box head; the heads' outputs are cast to float32 before any box
 decoding, and the bottleneck keeps its own dtype.
+
+`MaskRCNN` and `KeypointRCNN` are this Faster R-CNN with the mask or
+keypoint head of `heads.py` under `roi_heads` (the forward is Faster
+R-CNN's); `predict_masks` and `predict_keypoints` run the head on the
+detections of one image. As in the JAX package the training losses are
+Faster R-CNN's alone (the heads get no loss).
 """
 from __future__ import annotations
 
@@ -50,7 +56,10 @@ from ...parallel.dist import global_rows
 from ...registry import register_model
 from ..precision import compute, resolve_dtype
 from .base import BackboneWithFPN, SplittableDetectionBackbone
-from .fpn import generate_anchors
+from .fpn import cached_anchors
+from .heads import (KeypointHead, MaskHead, keypoint_logits, mask_logits,
+                    pool_rois)
+from .heads import predict_masks as _predict_masks
 
 # torchvision fasterrcnn_resnet50_fpn defaults
 RPN_PRE_NMS_TOP_N = {'training': 2000, 'testing': 1000}
@@ -214,14 +223,8 @@ class FasterRCNN(nn.Module):
     def anchors(self, features, image_hw) -> torch.Tensor:
         """The concatenated anchors of the levels' maps on the canvas,
         built once per shape and device."""
-        shapes = tuple(tuple(f.shape[-2:]) for f in features)
-        key = (shapes, tuple(image_hw), features[0].device)
-        if key not in self._anchors:
-            self._anchors[key] = torch.from_numpy(np.concatenate(
-                generate_anchors(shapes, image_hw, sizes=self.anchor_sizes,
-                                 aspect_ratios=self.aspect_ratios))
-            ).to(features[0].device)
-        return self._anchors[key]
+        return cached_anchors(self._anchors, features, image_hw,
+                              self.anchor_sizes, self.aspect_ratios)
 
     def detect(self, features, image_hw, rpn_only: bool = False) -> dict:
         with compute(self.dtype, features[0]):
@@ -542,6 +545,52 @@ def detection_loss(outputs, targets, generator=None, apply_roi=None,
     return (losses, roi_out) if return_roi_outputs else losses
 
 
+class MaskRCNN(FasterRCNN):
+    """Faster R-CNN + the mask head (`roi_heads.mask_head`,
+    `roi_heads.mask_predictor`); counterpart of the JAX `MaskRCNN`."""
+
+    def __init__(self, body: SplittableDetectionBackbone,
+                 num_classes: int = 91, **kwargs):
+        super().__init__(body, num_classes=num_classes, **kwargs)
+        head = MaskHead(num_classes)
+        self.roi_heads.mask_head = head.mask_head
+        self.roi_heads.mask_predictor = head.mask_predictor
+
+    def predict_masks(self, features, boxes: torch.Tensor,
+                      labels: torch.Tensor, image_hw) -> torch.Tensor:
+        """(D, 28, 28) float32 mask probabilities of the class `labels`
+        (D,) of each of `boxes` (D, 4); `features` = P2-P5 of ONE image,
+        each (C, H, W)."""
+        with compute(self.dtype, boxes):
+            probs = _predict_masks(
+                lambda p: mask_logits(self.roi_heads, p), features[:4],
+                boxes, image_hw, labels)
+        return probs.to(torch.float32)
+
+
+class KeypointRCNN(FasterRCNN):
+    """Faster R-CNN + the keypoint head (`roi_heads.keypoint_head`,
+    `roi_heads.keypoint_predictor`); counterpart of the JAX
+    `KeypointRCNN`."""
+
+    def __init__(self, body: SplittableDetectionBackbone,
+                 num_classes: int = 2, num_keypoints: int = 17, **kwargs):
+        super().__init__(body, num_classes=num_classes, **kwargs)
+        self.num_keypoints = num_keypoints
+        head = KeypointHead(num_keypoints)
+        self.roi_heads.keypoint_head = head.keypoint_head
+        self.roi_heads.keypoint_predictor = head.keypoint_predictor
+
+    def predict_keypoints(self, features, boxes: torch.Tensor,
+                          image_hw) -> torch.Tensor:
+        """(D, 56, 56, K) float32 keypoint heatmaps of `boxes` (D, 4), the
+        JAX package's layout; `features` = P2-P5 of ONE image."""
+        with compute(self.dtype, boxes):
+            hm = keypoint_logits(self.roi_heads,
+                                 pool_rois(features[:4], boxes, image_hw))
+        return hm.to(torch.float32).permute(0, 2, 3, 1)
+
+
 @register_model
 def faster_rcnn_model(backbone_config=None, num_classes=91,
                       backbone_fpn_kwargs=None, dtype=None, device=None,
@@ -555,3 +604,26 @@ def faster_rcnn_model(backbone_config=None, num_classes=91,
     body = SplittableDetectionBackbone.from_config(
         backbone_config, dtype=dtype, **(backbone_fpn_kwargs or {}))
     return FasterRCNN(body, num_classes=num_classes, dtype=dtype).to(dev)
+
+
+@register_model
+def mask_rcnn_model(backbone_config=None, num_classes=91, device=None,
+                    **kwargs) -> MaskRCNN:
+    """Mask R-CNN over the (splittable) ResNet of `backbone_config`, on
+    `device` (CUDA unless asked otherwise). Like the JAX builder it takes
+    no `dtype`: other kwargs are accepted and unused."""
+    body = SplittableDetectionBackbone.from_config(backbone_config)
+    return MaskRCNN(body, num_classes=num_classes).to(
+        resolve_device(device))
+
+
+@register_model
+def keypoint_rcnn_model(backbone_config=None, num_classes=2,
+                        num_keypoints=17, device=None,
+                        **kwargs) -> KeypointRCNN:
+    """Keypoint R-CNN (person + background, 17 COCO keypoints by default)
+    over the (splittable) ResNet of `backbone_config`, on `device`."""
+    body = SplittableDetectionBackbone.from_config(backbone_config)
+    return KeypointRCNN(body, num_classes=num_classes,
+                        num_keypoints=num_keypoints).to(
+        resolve_device(device))

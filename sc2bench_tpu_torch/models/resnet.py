@@ -4,6 +4,10 @@ tail behind the splittable models. Torchvision key space (`conv1`, `bn1`,
 `layer1.0.conv1`, ..., `downsample.0/1`, `fc`); BatchNorm with eps 1e-5
 that keeps its running statistics as Flax's does (`BatchNorm2d`).
 
+`FrozenBatchNorm2d` (the `frozen_bn` option of the detection backbone)
+normalizes by its running statistics in every mode and passes no gradient
+to its affine terms, with BatchNorm's state-dict keys.
+
 `forward(x, io=...)` records each stage's output in the dict `io` under
 the JAX package's names (`layer1_out` ... `layer4_out`), the counterpart
 of its `sow('intermediates', ...)`, for the distillation losses.
@@ -97,34 +101,69 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y * self.weight.view(shape) + self.bias.view(shape)
 
 
+class FrozenBatchNorm2d(nn.Module):
+    """BatchNorm whose affine terms and running statistics are all frozen
+    (counterpart of the JAX package's `FrozenBatchNorm`, torchvision's
+    `FrozenBatchNorm2d` of the detection backbones): it normalizes by the
+    running statistics in train and eval mode alike, never updates them,
+    and passes no gradient to `weight` and `bias` (Flax's
+    `stop_gradient`). They stay parameters, so an optimizer gives them a
+    zero gradient and its weight decay still moves them, as optax's does.
+    The state-dict keys are `BatchNorm2d`'s. Computes in float32 and
+    returns the input's dtype."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer('running_mean', torch.zeros(num_features))
+        self.register_buffer('running_var', torch.ones(num_features))
+        self.register_buffer('num_batches_tracked',
+                             torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1, 1, 1)
+        inv = torch.rsqrt(self.running_var + self.eps) * self.weight.detach()
+        y = (x.float() - self.running_mean.view(shape)) * inv.view(shape) \
+            + self.bias.detach().view(shape)
+        return y.to(x.dtype)
+
+
+def _bn(channels: int, frozen: bool = False) -> nn.Module:
+    return FrozenBatchNorm2d(channels) if frozen \
+        else BatchNorm2d(channels, eps=1e-5)
+
+
 class BottleneckBlock(nn.Module):
     """1x1 -> 3x3(stride, dilation) -> 1x1(x4) + shortcut. The shortcut is
     projected when the block changes the channel count or the stride. bn3
     starts with zero scales (zero-init residual), as in the JAX package.
     `dilation` dilates (and pads by) the 3x3 conv, DeepLabv3's
-    stride-replaced stages."""
+    stride-replaced stages; `frozen_bn` makes every BatchNorm a
+    `FrozenBatchNorm2d`."""
 
     expansion = 4
 
     def __init__(self, in_channels: int, filters: int, strides: int = 1,
-                 dilation: int = 1):
+                 dilation: int = 1, frozen_bn: bool = False):
         super().__init__()
         out = filters * self.expansion
         self.conv1 = nn.Conv2d(in_channels, filters, 1, bias=False)
-        self.bn1 = BatchNorm2d(filters, eps=1e-5)
+        self.bn1 = _bn(filters, frozen_bn)
         self.conv2 = nn.Conv2d(filters, filters, 3, stride=strides,
                                padding=dilation, dilation=dilation,
                                bias=False)
-        self.bn2 = BatchNorm2d(filters, eps=1e-5)
+        self.bn2 = _bn(filters, frozen_bn)
         self.conv3 = nn.Conv2d(filters, out, 1, bias=False)
-        self.bn3 = BatchNorm2d(out, eps=1e-5)
+        self.bn3 = _bn(out, frozen_bn)
         nn.init.zeros_(self.bn3.weight)
         self.relu = nn.ReLU()
         self.downsample = None
         if in_channels != out or strides != 1:
             self.downsample = nn.Sequential(
                 nn.Conv2d(in_channels, out, 1, stride=strides, bias=False),
-                BatchNorm2d(out, eps=1e-5))
+                _bn(out, frozen_bn))
 
     def forward(self, x):
         y = self.relu(self.bn1(self.conv1(x)))
@@ -139,10 +178,11 @@ class ResNetStage(nn.Sequential):
     With `dilate` the stride is replaced by dilation (torchvision's
     `replace_stride_with_dilation`): the stride becomes 1, the first block
     keeps the incoming `dilation` and the later ones take `dilation *
-    strides`."""
+    strides`. `frozen_bn` freezes every block's BatchNorm."""
 
     def __init__(self, in_channels: int, filters: int, blocks: int,
-                 strides: int = 1, dilation: int = 1, dilate: bool = False):
+                 strides: int = 1, dilation: int = 1, dilate: bool = False,
+                 frozen_bn: bool = False):
         first_stride = 1 if dilate else strides
         later_dilation = dilation * strides if dilate else dilation
         layers = []
@@ -150,7 +190,8 @@ class ResNetStage(nn.Sequential):
             layers.append(BottleneckBlock(
                 in_channels, filters,
                 strides=first_stride if i == 0 else 1,
-                dilation=dilation if i == 0 else later_dilation))
+                dilation=dilation if i == 0 else later_dilation,
+                frozen_bn=frozen_bn))
             in_channels = filters * BottleneckBlock.expansion
         super().__init__(*layers)
 

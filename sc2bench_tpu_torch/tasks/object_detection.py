@@ -4,16 +4,21 @@
     python -m sc2bench_tpu_torch.tasks.object_detection \\
         --config configs/coco2017/...yaml [--json '{...}'] \\
         [-test_only] [-student_only] [--device cpu] [--seed 42] \\
-        [--dst_ckpt path] [-adjust_lr] [--world_size N]
+        [--dst_ckpt path] [-adjust_lr] [--world_size N] \
+        [--iou_types bbox segm|keypoints]
 
 YAML config (+ `--json` deep override) -> Faster R-CNN teacher and
-student -> without `-test_only`, the config's training stages
-(`--dst_ckpt` keeps the best validation mAP's weights) -> the 12 COCO
-bbox metrics, `model_time` and the data-size summary of the student at
-batch 1 through the real bitstream (`deploy_wire: device` in the config
-selects the device-rANS wire, else the host coder; a CR+BQ student is
-scored on its plain forward) -> the teacher's metrics unless
-`-student_only`. A `models.wrapper` config (the input-compression
+student (or a Mask or Keypoint R-CNN) -> without `-test_only`, the
+config's training stages (`--dst_ckpt` keeps the best validation mAP's
+weights) -> the 12 COCO bbox metrics, `model_time` and the data-size
+summary of the student at batch 1 through the real bitstream
+(`deploy_wire: device` in the config selects the device-rANS wire, else
+the host coder; a student without an entropy model is scored on its
+plain forward, on every evaluation type) -> the teacher's metrics unless
+`-student_only`. `--iou_types` sets the config's `iou_types`, the
+evaluation types of the plain forward (default: bbox, plus segm for a
+Mask R-CNN and keypoints for a Keypoint R-CNN); the deploy path scores
+bbox only, as in JAX. A `models.wrapper` config (the input-compression
 family) is test-only: its wrapper compresses each image before the
 detector and accounts its size. The device is the card unless `--device
 cpu`; it raises when there is none.
@@ -51,7 +56,9 @@ def get_argparser():
                         "samplers' draws")
     parser.add_argument('--dst_ckpt', help='checkpoint output path')
     parser.add_argument('--iou_types', nargs='+', default=None,
-                        help="evaluation types; 'bbox' is the one ported")
+                        help='bbox/segm/keypoints; default: bbox, plus '
+                        'segm for a Mask R-CNN and keypoints for a '
+                        'Keypoint R-CNN')
     parser.add_argument('--world_size', type=int, default=1,
                         help='data-parallel processes; start them with '
                         '`torchrun --nproc_per_node N`')
@@ -77,10 +84,6 @@ def main(argv=None):
     'teacher': teacher metrics or None, 'best': the best validation mAP of
     training or None, 'engine': the engine}."""
     args = get_argparser().parse_args(argv)
-    if args.iou_types and set(args.iou_types) != {'bbox'}:
-        raise NotImplementedError('only the bbox evaluation is ported '
-                                  '(the segm and keypoint evaluations come '
-                                  'with Mask and Keypoint R-CNN)')
     handlers = [logging.StreamHandler()]
     if args.run_log:
         Path(args.run_log).parent.mkdir(parents=True, exist_ok=True)
@@ -88,6 +91,8 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, handlers=handlers)
     device = init_from_env(args.world_size, args.device)
     config = load_config(args.config, args.json)
+    if args.iou_types:
+        config['iou_types'] = args.iou_types
     if args.adjust_lr:
         config['adjust_lr'] = True
     if args.log_config:

@@ -1,5 +1,6 @@
 """Detection engine (counterpart of `sc2bench_tpu/train/det_engine.py`):
-COCO Faster R-CNN, trained and tested as the JAX engine does.
+COCO Faster R-CNN (and Mask and Keypoint R-CNN), trained and tested as
+the JAX engine does.
 
 From a config it builds the teacher and the student
 (`load_detection_model`; the teacher of the COCO configs has no ckpt, so
@@ -35,6 +36,16 @@ the data size from its analyzer.
 Loaders yield (images, targets) tuples (`coco_collate_fn`); detections
 are scaled back to each image's own coordinates before scoring.
 
+The evaluation types are the config's `iou_types` (the CLI's
+`--iou_types`), else bbox, then 'segm' for a `MaskRCNN` student and
+'keypoints' for a `KeypointRCNN` (the reference's `get_iou_types`). The
+plain forward scores each with its own `CocoEvaluator`: for every one of
+the 100 detection slots of an image the mask head's probabilities (then
+the valid slots' masks pasted at the image's original size) or the
+keypoint heatmaps (decoded in original coordinates). The deploy path
+scores bbox only, as in JAX. `evaluate` returns bbox's metrics on top and
+the others under their type ('segm', 'keypoints').
+
 In a data-parallel group the training and validation loaders are sharded
 over the processes and the test loader is whole on each, as in JAX; the
 COCO evaluator gathers every process's detections and ground truths by
@@ -57,7 +68,8 @@ from ..config import train_stage_configs
 from ..datasets.coco import pad_detection_targets
 from ..datasets.image import build_sharded_loader
 from ..device import resolve_device
-from ..models.detection.rcnn import detection_loss, postprocess_detections
+from ..models.detection.rcnn import (KeypointRCNN, MaskRCNN,
+                                     detection_loss, postprocess_detections)
 from ..models.detection.registry import load_detection_model
 from ..models.detection.transform import RCNNTransform
 from ..models.detection.wrapper import (SplitDetectionRuntime,
@@ -66,7 +78,8 @@ from ..parallel.dist import world_size
 from ..registry import import_dependencies
 from ..transforms.collator import coco_collate_fn
 from ..utils.ckpt import save_ckpt
-from ..utils.coco_eval import CocoEvaluator
+from ..utils.coco_eval import (CocoEvaluator, keypoints_from_heatmaps,
+                               paste_mask)
 from ..utils.metrics import MetricLogger
 from . import engine as cls_engine
 from .box import DistillationBox, factorized_aux_loss
@@ -175,6 +188,14 @@ class DetectionEngine:
             device=self.device).eval()
         self.runtime = SplitDetectionRuntime(self.student, device=self.device)
         self.bottleneck_updated = False
+        if 'iou_types' in config:
+            self.iou_types = [str(t) for t in config['iou_types']]
+        else:
+            self.iou_types = ['bbox']
+            if isinstance(self.student, MaskRCNN):
+                self.iou_types.append('segm')
+            if isinstance(self.student, KeypointRCNN):
+                self.iou_types.append('keypoints')
 
     # ---- data -----------------------------------------------------------
     def build_loader(self, split_config, shard_over_processes=False):
@@ -183,16 +204,16 @@ class DetectionEngine:
             shard_over_processes=shard_over_processes)
 
     def _canvas(self, images):
-        """(NCHW canvas batch on the device, scales) of a list of HWC
-        images."""
-        batch, scales, _ = self.transform(list(images))
+        """(NCHW canvas batch on the device, scales, original (h, w)
+        sizes) of a list of HWC images."""
+        batch, scales, origs = self.transform(list(images))
         return torch.from_numpy(np.ascontiguousarray(
-            batch.transpose(0, 3, 1, 2))).to(self.device), scales
+            batch.transpose(0, 3, 1, 2))).to(self.device), scales, origs
 
     def _prepare_batch(self, images, targets):
         """(canvas batch, padded targets with boxes on the canvas, as
         device tensors)."""
-        x, scales = self._canvas(images)
+        x, scales, _ = self._canvas(images)
         padded = pad_detection_targets(list(targets), self.max_boxes)
         padded['boxes'] = padded['boxes'] * scales[:, None, None]
         return x, {k: torch.from_numpy(v).to(self.device)
@@ -200,15 +221,45 @@ class DetectionEngine:
 
     # ---- evaluation -----------------------------------------------------
     @staticmethod
-    def _record(evaluator, dets, targets, scales):
+    def _record(evaluators, dets, targets, scales, origs=None, extras=None):
+        """Each image's valid detections, in its own coordinates, into
+        every evaluator: with `extras`' 'mask_probs' (N, D, 28, 28) the
+        masks pasted at its original size, with 'kp_heatmaps' (N, D, 56,
+        56, K) the keypoints decoded."""
         dets = {k: v.cpu().numpy() for k, v in dets.items()}
+        extras = {k: v.cpu().numpy() for k, v in (extras or {}).items()}
         for i, target in enumerate(targets):
-            evaluator.add_gt(target)
             valid = dets['valid'][i]
-            evaluator.update({target['image_id']: {
-                'boxes': dets['boxes'][i][valid] / scales[i],
-                'scores': dets['scores'][i][valid],
-                'labels': dets['labels'][i][valid]}})
+            boxes = dets['boxes'][i][valid] / scales[i]
+            pred = {'boxes': boxes, 'scores': dets['scores'][i][valid],
+                    'labels': dets['labels'][i][valid]}
+            if 'mask_probs' in extras:
+                oh, ow = origs[i]
+                pred['masks'] = [paste_mask(p, b, oh, ow) for p, b in zip(
+                    extras['mask_probs'][i][valid], boxes)]
+            if 'kp_heatmaps' in extras:
+                pred['keypoints'] = keypoints_from_heatmaps(
+                    extras['kp_heatmaps'][i][valid], boxes)
+            for evaluator in evaluators.values():
+                evaluator.add_gt(target)
+                evaluator.update({target['image_id']: pred})
+
+    @staticmethod
+    def _head_extras(model, out, dets, iou_types) -> dict:
+        """The mask probabilities and keypoint heatmaps of every detection
+        slot of each image, for the types `model` has a head for."""
+        extras = {}
+        feats = out['features'][:4]
+        n = dets['boxes'].shape[0]
+        if 'segm' in iou_types and isinstance(model, MaskRCNN):
+            extras['mask_probs'] = torch.stack([model.predict_masks(
+                [f[i] for f in feats], dets['boxes'][i], dets['labels'][i],
+                out['image_hw']) for i in range(n)])
+        if 'keypoints' in iou_types and isinstance(model, KeypointRCNN):
+            extras['kp_heatmaps'] = torch.stack([model.predict_keypoints(
+                [f[i] for f in feats], dets['boxes'][i], out['image_hw'])
+                for i in range(n)])
+        return extras
 
     def _sync(self):
         if self.device.type == 'cuda':
@@ -218,13 +269,15 @@ class DetectionEngine:
     def evaluate(self, data_loader, use_deploy_path=False,
                  use_teacher=False):
         """The 12 COCO bbox metrics and `model_time` (host seconds an
-        image). The deploy path codes every image through the runtime's
-        bitstream (see `test`); otherwise the plain 'finetune' forward of
-        the student, or with `use_teacher` of the teacher (None without
-        one), scores the loader's batches."""
+        image), with those of the other `iou_types` under their names.
+        The deploy path codes every image through the runtime's bitstream
+        (see `test`) and scores bbox only; otherwise the plain 'finetune'
+        forward of the student, or with `use_teacher` of the teacher (None
+        without one), scores the loader's batches on every type."""
         if use_teacher and self.teacher is None:
             return None
-        evaluator = CocoEvaluator(iou_type='bbox')
+        iou_types = ['bbox'] if use_deploy_path else self.iou_types
+        evaluators = {t: CocoEvaluator(iou_type=t) for t in iou_types}
         meter = MetricLogger()
         if use_deploy_path:
             stream = self.runtime.stream_detect_device \
@@ -241,11 +294,11 @@ class DetectionEngine:
                 meter.meters['model_time'].update(
                     (time.time() - t0) / len(chunk), n=len(chunk))
                 for dets, (_, targets, scales) in zip(results, chunk):
-                    self._record(evaluator, dets, targets, scales)
+                    self._record(evaluators, dets, targets, scales)
                 chunk.clear()
 
             for images, targets in data_loader:
-                x, scales = self._canvas(images)
+                x, scales, _ = self._canvas(images)
                 chunk.append((x, targets, scales))
                 if len(chunk) == STREAM_CHUNK:
                     drain()
@@ -253,20 +306,33 @@ class DetectionEngine:
         else:
             model = self.teacher if use_teacher else self.student
             for images, targets in data_loader:
-                x, scales = self._canvas(images)
+                x, scales, origs = self._canvas(images)
                 t0 = time.time()
-                dets = postprocess_detections(model(x, mode='finetune'))
+                out = model(x, mode='finetune')
+                dets = postprocess_detections(out)
+                extras = self._head_extras(model, out, dets, iou_types)
                 self._sync()
                 meter.update(model_time=time.time() - t0)
-                self._record(evaluator, dets, targets, scales)
-        evaluator.synchronize_between_processes()
-        evaluator.accumulate()
-        stats = evaluator.summarize()
+                self._record(evaluators, dets, targets, scales, origs,
+                             extras)
+        for evaluator in evaluators.values():
+            evaluator.synchronize_between_processes()
+            evaluator.accumulate()
+        primary = 'bbox' if 'bbox' in evaluators else iou_types[0]
+        stats = evaluators[primary].summarize()
+        for t, evaluator in evaluators.items():
+            if t != primary:
+                stats[t] = evaluator.summarize()
         if 'model_time' in meter.meters:
             stats['model_time'] = meter.meters['model_time'].global_avg
         logger.info('detection eval%s: mAP %.4f AP50 %.4f',
                     ' (teacher)' if use_teacher else '', stats['AP'],
                     stats['AP50'])
+        for t in iou_types:
+            if t != primary:
+                logger.info('detection eval%s, %s: AP %.4f AP50 %.4f',
+                            ' (teacher)' if use_teacher else '', t,
+                            stats[t]['AP'], stats[t]['AP50'])
         return stats
 
     # ---- training -------------------------------------------------------

@@ -1,4 +1,4 @@
-"""COCO bbox mAP in numpy (counterpart of the bbox half of
+"""COCO bbox, segm and keypoint AP in numpy (counterpart of
 `sc2bench_tpu/utils/coco_eval.py`), in place of pycocotools' `COCOeval`.
 
 The COCO protocol: per (category, IoU threshold) greedy matching of the
@@ -6,7 +6,14 @@ detections in score order, crowd regions as ignore (IoU over the
 detection's area), area-range filtering, the maxDets cut, and 101-point
 interpolated precision averaged over IoU 0.50:0.95. `summarize` gives the
 12 standard metrics; an area range with no ground truth gives -1, as in
-pycocotools. The segm and keypoint halves are not ported.
+pycocotools. One evaluator scores one `iou_type`: 'bbox' (box IoU),
+'segm' (`_mask_iou` over full-size binary masks: predictions' and
+targets' 'masks' lists; `paste_mask` puts a 28x28 probability mask into
+the image) or 'keypoints' (`_oks_iou`, object keypoint similarity with
+`KPT_SIGMAS`: 'keypoints' (G, K, 3) of the targets, (D, K, 3) of the
+predictions, decoded from heatmaps by `keypoints_from_heatmaps`). A
+'segm' or 'keypoints' evaluator given predictions without masks or
+keypoints falls back to box IoU, as JAX's does.
 """
 from __future__ import annotations
 
@@ -23,6 +30,95 @@ AREA_RANGES = {
     'large': (96 ** 2, 1e10),
 }
 MAX_DETS = (1, 10, 100)
+
+
+def paste_mask(mask28: np.ndarray, box_xyxy, height: int, width: int,
+               thresh: float = 0.5) -> np.ndarray:
+    """A (28, 28) probability mask pasted into an image-sized binary mask
+    at `box` (bilinear resize to the box's integer extent, then the
+    threshold): torchvision's `paste_masks_in_image` step."""
+    x1, y1, x2, y2 = [float(v) for v in box_xyxy]
+    x1i, y1i = int(np.floor(x1)), int(np.floor(y1))
+    x2i, y2i = int(np.ceil(x2)), int(np.ceil(y2))
+    w = max(x2i - x1i, 1)
+    h = max(y2i - y1i, 1)
+    ys = (np.arange(h) + 0.5) / h * mask28.shape[0] - 0.5
+    xs = (np.arange(w) + 0.5) / w * mask28.shape[1] - 0.5
+    y0 = np.clip(np.floor(ys).astype(int), 0, mask28.shape[0] - 1)
+    x0 = np.clip(np.floor(xs).astype(int), 0, mask28.shape[1] - 1)
+    y1f = np.clip(y0 + 1, 0, mask28.shape[0] - 1)
+    x1f = np.clip(x0 + 1, 0, mask28.shape[1] - 1)
+    wy = np.clip(ys - y0, 0, 1)[:, None]
+    wx = np.clip(xs - x0, 0, 1)[None, :]
+    m = (mask28[np.ix_(y0, x0)] * (1 - wy) * (1 - wx)
+         + mask28[np.ix_(y0, x1f)] * (1 - wy) * wx
+         + mask28[np.ix_(y1f, x0)] * wy * (1 - wx)
+         + mask28[np.ix_(y1f, x1f)] * wy * wx)
+    out = np.zeros((height, width), bool)
+    oy1, oy2 = max(y1i, 0), min(y2i, height)
+    ox1, ox2 = max(x1i, 0), min(x2i, width)
+    if oy2 > oy1 and ox2 > ox1:
+        out[oy1:oy2, ox1:ox2] = \
+            (m[oy1 - y1i:oy2 - y1i, ox1 - x1i:ox2 - x1i] >= thresh)
+    return out
+
+
+def _mask_iou(det_masks, gt_masks, iscrowd):
+    """IoU matrix over binary masks; a crowd gt takes intersection over
+    the detection's area (pycocotools' RLE IoU)."""
+    out = np.zeros((len(det_masks), len(gt_masks)))
+    d_areas = [m.sum() for m in det_masks]
+    for j, gm in enumerate(gt_masks):
+        g_area = gm.sum()
+        for i, dm in enumerate(det_masks):
+            inter = np.logical_and(dm, gm).sum()
+            denom = d_areas[i] if iscrowd[j] else \
+                d_areas[i] + g_area - inter
+            out[i, j] = inter / max(denom, 1e-10)
+    return out
+
+
+# COCO keypoint per-joint falloff constants (sigmas), nose .. right ankle
+KPT_SIGMAS = np.asarray([
+    .026, .025, .025, .035, .035, .079, .079, .072, .072, .062, .062,
+    .107, .107, .087, .087, .089, .089])
+
+
+def _oks_iou(det_kps, gt_kps, gt_areas, iscrowd):
+    """Object keypoint similarity matrix (pycocotools' computeOks): det_kps
+    (D, K, 2|3), gt_kps (G, K, 3) with the visibility in [:, :, 2]; 0
+    against a gt without a visible keypoint."""
+    out = np.zeros((len(det_kps), len(gt_kps)))
+    vars_ = (2 * KPT_SIGMAS) ** 2
+    for j, gk in enumerate(gt_kps):
+        gk = np.asarray(gk, np.float64)
+        vis = gk[:, 2] > 0
+        s2 = max(float(gt_areas[j]), 1e-10)
+        for i, dk in enumerate(det_kps):
+            dk = np.asarray(dk, np.float64)
+            dx = dk[:, 0] - gk[:, 0]
+            dy = dk[:, 1] - gk[:, 1]
+            e = (dx ** 2 + dy ** 2) / vars_[:len(dx)] / s2 / 2
+            out[i, j] = np.mean(np.exp(-e[vis])) if vis.any() else 0.0
+    return out
+
+
+def keypoints_from_heatmaps(heatmaps: np.ndarray,
+                            boxes: np.ndarray) -> np.ndarray:
+    """(D, H, W, K) heatmaps -> (D, K, 3) image-space keypoints: each
+    joint's argmax cell centre mapped into the detection box, its score
+    the peak value."""
+    d, hh, ww, k = heatmaps.shape
+    out = np.zeros((d, k, 3), np.float32)
+    for i in range(d):
+        x1, y1, x2, y2 = boxes[i]
+        for j in range(k):
+            hm = heatmaps[i, :, :, j]
+            py, px = divmod(int(np.argmax(hm)), ww)
+            out[i, j, 0] = x1 + (px + 0.5) / ww * (x2 - x1)
+            out[i, j, 1] = y1 + (py + 0.5) / hh * (y2 - y1)
+            out[i, j, 2] = hm[py, px]
+    return out
 
 
 def _bbox_iou_xywh(dets, gts, iscrowd):
@@ -56,15 +152,16 @@ def _xyxy_to_xywh(boxes):
 
 class CocoEvaluator:
     """`add_gt` each image's target (boxes xyxy, labels, iscrowd, area,
-    image_id), `update` with predictions, then `accumulate` and
-    `summarize` -> the 12 COCO metrics."""
+    image_id; 'masks' or 'keypoints' for those types), `update` with
+    predictions, then `accumulate` and `summarize` -> the 12 COCO metrics
+    of `iou_type` ('bbox', 'segm' or 'keypoints')."""
+
+    IOU_TYPES = ('bbox', 'segm', 'keypoints')
 
     def __init__(self, iou_type='bbox'):
-        if iou_type != 'bbox':
-            raise NotImplementedError(
-                f"the '{iou_type}' evaluation is not ported yet: only the "
-                'bbox half of the COCO evaluator is (the segm and keypoint '
-                'halves come with Mask and Keypoint R-CNN)')
+        if iou_type not in self.IOU_TYPES:
+            raise ValueError(f'unknown iou_type {iou_type!r}: one of '
+                             f'{self.IOU_TYPES}')
         self.iou_type = iou_type
         self.gts = {}          # image_id -> target dict
         self.preds = {}        # image_id -> {'boxes', 'scores', 'labels'}
@@ -73,17 +170,25 @@ class CocoEvaluator:
         self.gts[target['image_id']] = target
 
     def update(self, res: dict):
-        """res: {image_id: {'boxes' (xyxy), 'scores', 'labels'}}."""
+        """res: {image_id: {'boxes' (xyxy), 'scores', 'labels'[, 'masks':
+        list of HxW bool][, 'keypoints': (D, K, 3)]}}."""
         for img_id, pred in res.items():
-            self.preds[img_id] = {
+            entry = {
                 'boxes': np.asarray(pred['boxes'], np.float64).reshape(-1, 4),
                 'scores': np.asarray(pred['scores'], np.float64).ravel(),
                 'labels': np.asarray(pred['labels'], np.int64).ravel(),
             }
+            if 'masks' in pred:
+                entry['masks'] = list(pred['masks'])
+            if 'keypoints' in pred:
+                entry['keypoints'] = np.asarray(pred['keypoints'],
+                                                np.float64)
+            self.preds[img_id] = entry
 
     def synchronize_between_processes(self):
-        """Gather the predictions and the ground truths of every process
-        of a data-parallel group, keyed by image id, so that shards which
+        """Gather the predictions and the ground truths (masks and
+        keypoints with them) of every process of a data-parallel group,
+        keyed by image id, so that shards which
         overlap (the wrap padding, or a test loader every process reads
         whole) count each image once, as JAX does (`all_gather_object`,
         through the CPU). Nothing to do in one process."""
@@ -111,8 +216,19 @@ class CocoEvaluator:
         d_order = np.argsort(-dt['scores'], kind='stable')[:max_det]
         d_boxes = dt['boxes_xywh'][d_order]
         d_scores = dt['scores'][d_order]
-        d_area = d_boxes[:, 2] * d_boxes[:, 3]
-        ious = _bbox_iou_xywh(d_boxes, g_boxes, g_iscrowd)
+        if self.iou_type == 'segm' and 'masks' in dt:
+            d_masks = [dt['masks'][k] for k in d_order]
+            d_area = np.asarray([m.sum() for m in d_masks], np.float64)
+            ious = _mask_iou(d_masks, [gt['masks'][k] for k in order_g],
+                             g_iscrowd)
+        elif self.iou_type == 'keypoints' and 'keypoints' in dt:
+            d_area = d_boxes[:, 2] * d_boxes[:, 3]
+            ious = _oks_iou([dt['keypoints'][k] for k in d_order],
+                            [gt['keypoints'][k] for k in order_g],
+                            gt['area'][order_g], g_iscrowd)
+        else:
+            d_area = d_boxes[:, 2] * d_boxes[:, 3]
+            ious = _bbox_iou_xywh(d_boxes, g_boxes, g_iscrowd)
         n_thr, n_d, n_g = len(iou_thrs), len(d_boxes), len(g_boxes)
         dt_m = np.zeros((n_thr, n_d), np.int64) - 1
         gt_m = np.zeros((n_thr, n_g), np.int64) - 1
@@ -153,6 +269,11 @@ class CocoEvaluator:
                     'iscrowd': np.asarray(gt['iscrowd'])[sel_g],
                     'area': np.asarray(gt['area'], np.float64)[sel_g],
                 }
+                extra = {'segm': 'masks', 'keypoints': 'keypoints'}.get(
+                    self.iou_type)
+                if extra in gt:
+                    g[extra] = [m for m, keep in zip(gt[extra], sel_g)
+                                if keep]
                 g['ignore'] = g['iscrowd'].astype(bool)
                 pred = self.preds.get(img_id)
                 if pred is None:
@@ -162,6 +283,9 @@ class CocoEvaluator:
                     sel_d = pred['labels'] == cat
                     d = {'boxes_xywh': _xyxy_to_xywh(pred['boxes'][sel_d]),
                          'scores': pred['scores'][sel_d]}
+                    if extra in pred:
+                        d[extra] = [m for m, keep in zip(pred[extra], sel_d)
+                                    if keep]
                 if len(g['boxes_xywh']) == 0 and len(d['boxes_xywh']) == 0:
                     continue
                 s, dt_m, dt_ig, g_ign = self._evaluate_img(

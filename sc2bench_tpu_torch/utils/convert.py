@@ -87,6 +87,19 @@ RoI as (h, w, c) and torchvision's `fc6` reads (c, h, w), so fc6's input
 axis is permuted back (the inverse of the JAX package's
 `convert_box_head_fc6`).
 
+A Mask R-CNN adds `mask_head/mask_fcn{i+1}` -> `roi_heads.mask_head.{i}.0`,
+`mask_head/mask_deconv|mask_predictor` -> `roi_heads.mask_predictor.
+conv5_mask|mask_fcn_logits`; a Keypoint R-CNN `keypoint_head/kp_fcn{i+1}`
+-> `roi_heads.keypoint_head.{2i}` and `keypoint_head/kp_deconv` ->
+`roi_heads.keypoint_predictor.kps_score_lowres`. Both deconvolutions are
+Flax `ConvTranspose`s, flipped as the hyperprior's are. A RetinaNet (top-
+level `backbone` and `head`) maps `backbone/...` as Faster R-CNN does,
+`fpn/inner_{i}|layer_{i}` -> `backbone.fpn.inner_blocks|layer_blocks.{i}.0`,
+`fpn/p6|p7` -> `backbone.fpn.extra_blocks.p6|p7`, `head/cls_conv{i}|
+box_conv{i}` -> `head.classification_head|regression_head.conv.{i}.0` and
+`head/cls_logits|bbox_reg` -> `head.classification_head.cls_logits|
+head.regression_head.bbox_reg` (torchvision's RetinaNet key space).
+
 `flax_param_path` is the inverse on names: a torch parameter name ->
 its Flax path, dotted (`bottleneck_layer.encoder.0.weight` ->
 `bottleneck_layer.enc_conv0.kernel`), the space in which configs name
@@ -133,7 +146,9 @@ _ZOO_SCOPES = {**{f'g_a{i}': f'g_a.{2 * i}' for i in range(4)},
 # flax scopes holding a ConvTranspose kernel
 _DECONV_SCOPES = {f'bottleneck_layer/{k}' for k in _SHP_SCOPES
                   if '_deconv' in k} | {'g_s0', 'g_s1', 'g_s2', 'g_s3',
-                                        'h_s0', 'h_s1'}
+                                        'h_s0', 'h_s1',
+                                        'mask_head/mask_deconv',
+                                        'keypoint_head/kp_deconv'}
 _BOTTLENECK_SCOPES = {**_FP_SCOPES, **_SHP_SCOPES}
 
 # the SimpleBottleneck's LayerSeq stacks
@@ -245,16 +260,42 @@ _DET_HEADS = {
     'box_head/fc7': 'roi_heads.box_head.fc7',
     'box_predictor/cls_score': 'roi_heads.box_predictor.cls_score',
     'box_predictor/bbox_pred': 'roi_heads.box_predictor.bbox_pred',
+    # Mask R-CNN's and Keypoint R-CNN's heads (the JAX package's
+    # `MASKRCNN_RULES` / `KEYPOINTRCNN_RULES`, inverted)
+    **{f'mask_head/mask_fcn{i + 1}': f'roi_heads.mask_head.{i}.0'
+       for i in range(4)},
+    'mask_head/mask_deconv': 'roi_heads.mask_predictor.conv5_mask',
+    'mask_head/mask_predictor': 'roi_heads.mask_predictor.mask_fcn_logits',
+    **{f'keypoint_head/kp_fcn{i + 1}': f'roi_heads.keypoint_head.{2 * i}'
+       for i in range(8)},
+    'keypoint_head/kp_deconv': 'roi_heads.keypoint_predictor.'
+                               'kps_score_lowres',
 }
 _DETECTION_RULES = [
     (r'^backbone/(.+)$', lambda m: 'backbone.body.' + _torch_scope(m[1]))
 ] + [(rf'^{k}$', v) for k, v in _DET_HEADS.items()]
+# RetinaNet: torchvision's key space, P6/P7 as `extra_blocks`
+_RETINA_HEADS = {
+    **{f'fpn/{kind}_{i}': f'backbone.fpn.{kind}_blocks.{i}.0'
+       for kind in ('inner', 'layer') for i in range(3)},
+    'fpn/p6': 'backbone.fpn.extra_blocks.p6',
+    'fpn/p7': 'backbone.fpn.extra_blocks.p7',
+    **{f'head/cls_conv{i}': f'head.classification_head.conv.{i}.0'
+       for i in range(4)},
+    **{f'head/box_conv{i}': f'head.regression_head.conv.{i}.0'
+       for i in range(4)},
+    'head/cls_logits': 'head.classification_head.cls_logits',
+    'head/bbox_reg': 'head.regression_head.bbox_reg',
+}
+_RETINANET_RULES = _DETECTION_RULES[:1] + [
+    (rf'^{k}$', v) for k, v in _RETINA_HEADS.items()]
 _FAMILY_RULES = {'resnet': _RULES, 'regnet': _REGNET_RULES,
                  'hybrid_vit': _HYBRID_VIT_RULES,
                  'hybrid_vit_teacher': _HYBRID_VIT_TEACHER_RULES,
                  'efficientnet': _EFFICIENTNET_RULES,
                  'segmentation': _SEGMENTATION_RULES,
-                 'detection': _DETECTION_RULES}
+                 'detection': _DETECTION_RULES,
+                 'retinanet': _RETINANET_RULES}
 
 
 def _family(params: dict) -> str:
@@ -263,6 +304,8 @@ def _family(params: dict) -> str:
         return 'segmentation'
     if 'backbone' in params and 'rpn_head' in params:
         return 'detection'
+    if 'backbone' in params and 'head' in params:
+        return 'retinanet'
     if 'vit' in params:
         return 'hybrid_vit_teacher' if 'stem_conv' in params \
             else 'hybrid_vit'
@@ -339,8 +382,8 @@ def state_dict_from_flax(variables: dict, model=None) -> dict:
     """Flax `{'params', 'batch_stats'}` of the JAX `SplittableResNet` (FP,
     SHP, MSHP or `SimpleBottleneck`), `ResNet`, `EntropicClassifierModule`,
     an image codec of the zoo, a RegNet, a hybrid ViT (student or teacher),
-    an EfficientNet, a DeepLabv3 or a Faster R-CNN (student or teacher)
-    -> a state_dict that `load_state_dict` takes
+    an EfficientNet, a DeepLabv3, a Faster R-CNN (student or teacher), a
+    Mask or Keypoint R-CNN or a RetinaNet -> a state_dict that `load_state_dict` takes
     strictly. `model`, the port's counterpart, is needed for a
     `SimpleBottleneck` (see the module doc)."""
     out = {}
@@ -408,7 +451,7 @@ _INVERSE_RULES = [(rf'^bottleneck_layer\.{re.escape(v)}$',
     (r'^(base\.)?fc$', r'\1fc'),
     (r'^backbone\.body\.(.+)$', lambda m: 'backbone.' + _flax_scope(m[1])),
 ] + [(rf'^{re.escape(v)}$', k.replace('/', '.'))
-     for k, v in _DET_HEADS.items()] + [
+     for k, v in {**_DET_HEADS, **_RETINA_HEADS}.items()] + [
     (r'^backbone\.(.+)$', lambda m: 'backbone.' + _flax_scope(m[1])),
 ] + [(rf'^{re.escape(v)}$', k.replace('/', '.'))
      for k, v in _SEG_HEADS.items()] + _BACKBONE_INVERSE
@@ -445,7 +488,8 @@ def _flax_scope(module: str, rules=_INVERSE_RULES) -> str:
 def flax_param_path(name: str, model=None) -> str:
     """Dotted Flax path of the parameter `name` of the port's
     `SplittableResNet`, `ResNet`, `EntropicClassifierModule`, RegNet,
-    hybrid ViT, DeepLabv3 or Faster R-CNN; a `SimpleBottleneck`'s
+    hybrid ViT, DeepLabv3, Faster, Mask or Keypoint R-CNN or RetinaNet; a
+    `SimpleBottleneck`'s
     (`LayerSeq` entry `{i}` -> `layer{i}`) and an EfficientNet's only when
     `model` is given."""
     from ..models.efficientnet import EfficientNet

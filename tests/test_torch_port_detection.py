@@ -669,7 +669,8 @@ def _eval_case():
 
 def test_coco_evaluator_equals_jax():
     """All 12 COCO metrics equal JAX's, with crowd boxes and an image
-    without detections; an area range without ground truth gives -1."""
+    without detections; an area range without ground truth gives -1; an
+    unknown evaluation type raises."""
     targets, preds = _eval_case()
     out = []
     for cls in (CocoEvaluator, JaxCocoEvaluator):
@@ -682,8 +683,8 @@ def test_coco_evaluator_equals_jax():
         out.append(ev.summarize())
     assert out[0] == out[1]
     assert len(out[0]) == 12 and 0.0 < out[0]['AP'] < 1.0
-    with pytest.raises(NotImplementedError, match='not ported yet'):
-        CocoEvaluator(iou_type='segm')
+    with pytest.raises(ValueError, match='unknown iou_type'):
+        CocoEvaluator(iou_type='mask')
 
 
 def test_transform_equals_jax():

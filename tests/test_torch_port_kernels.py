@@ -1147,3 +1147,49 @@ def test_masked_wrappers_refuse_bad_arguments_on_the_card():
     with pytest.raises(ValueError, match='front 3'):
         kernels.masked_decode_front(streams, 3, states, cdf, cdf[:, 0],
                                     cdf[:, 0], vc[0], act[0], 5)
+
+
+@pytest.mark.cuda
+def test_mask_and_keypoint_heads_on_the_card_equal_the_cpu():
+    """The detection heads (no kernel of their own: cuDNN's convolutions
+    and deconvolutions, the bilinear upsample and RoIAlign's gathers) on
+    the card with TF32 off against the same heads on the CPU: mask logits
+    and keypoint heatmaps within 1e-4 of their largest magnitude, and
+    `predict_masks` over four FPN levels within 1e-4."""
+    from sc2bench_tpu_torch.models.detection.heads import (KeypointHead,
+                                                           MaskHead,
+                                                           predict_masks)
+    dev = _card()
+    torch.manual_seed(0)
+    mask, keypoint = MaskHead(91).eval(), KeypointHead(17).eval()
+    rng = np.random.default_rng(5)
+    pooled = torch.from_numpy(rng.normal(0, 1, (24, 256, 14, 14)).astype(
+        np.float32))
+    feats = [torch.from_numpy(rng.normal(0, 1, (256, s, s + 8)).astype(
+        np.float32)) for s in (56, 28, 14, 7)]
+    x1 = rng.uniform(0, 150, 24)
+    y1 = rng.uniform(0, 150, 24)
+    boxes = torch.from_numpy(np.stack([x1, y1, x1 + rng.uniform(8, 120, 24),
+                                       y1 + rng.uniform(8, 120, 24)],
+                                      1).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(1, 91, 24))
+    allow = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = [mask(pooled), keypoint(pooled),
+                    predict_masks(mask, feats, boxes, (224, 224), labels)]
+            mask.to(dev)
+            keypoint.to(dev)
+            got = [mask(pooled.to(dev)), keypoint(pooled.to(dev)),
+                   predict_masks(mask, [f.to(dev) for f in feats],
+                                 boxes.to(dev), (224, 224), labels.to(dev))]
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = allow
+    assert got[0].is_cuda and tuple(got[1].shape) == (24, 17, 56, 56)
+    for g, w in zip(got, want):
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * scale

@@ -6,8 +6,8 @@ One two-process job (`torchrun --standalone`, a fresh port per job)
 starts when this module's first test runs and does every multi-rank
 check (`tests/torch_port_parallel_worker.py`) while the single-process
 tests run: one `DistillationBox` step of stage 1 and of stage 2 and one
-end-to-end `DetectionBox` step on each rank's half of the batch, and the
-three CLIs over the group. The tests
+end-to-end `DetectionBox` step on each rank's half of the batch, the
+segm and keypoint evaluators' sync, and the three CLIs over the group. The tests
 then hold its results against JAX's `DistillationBox` on a 2-device
 mesh at the global batch (the same variables, batch and noise) and
 against the port in one process."""
@@ -46,10 +46,11 @@ from sc2bench_tpu_torch.utils.profiling import StageTimer, trace
 from test_torch_port_detection import (CANVAS, CLASSES, COCO, FP, STAGES,
                                        det_variables, jax_small, nchw,
                                        random_boxes)
+from test_torch_port_detection_heads import _eval_targets
 from test_torch_port_model import _nchw
 from test_torch_port_train import SMALL, TINY, _flat, _jax_variables, _to_flax
-from torch_port_parallel_worker import (box_steps, cli_runs, det_step,
-                                        seg_loss)
+from torch_port_parallel_worker import (box_steps, cli_runs, coco_sync,
+                                        det_step, seg_loss)
 
 REPO = Path(__file__).resolve().parents[1]
 WORKER = REPO / 'tests' / 'torch_port_parallel_worker.py'
@@ -158,6 +159,7 @@ def setup(tmp_path_factory):
         rng.normal(0, 1, (BATCH, 5, 8, 8)).astype(np.float32)),
         'targets': torch.from_numpy(targets)}
     spec = {'world': WORLD, 'box': box, 'det': _det_spec(), 'seg_loss': seg,
+            'coco': {t: _eval_targets(t) for t in ('segm', 'keypoints')},
             'cli': _cli_spec(d)}
     torch.save(spec, d / 'spec.pt')
     return d, spec, jax_side
@@ -199,6 +201,7 @@ def one_process(setup):
     return {'box': box_steps(spec['box']),
             'det': det_step(spec['det']),
             'seg_loss': seg_loss(spec['seg_loss']),
+            'coco': coco_sync(spec['coco']),
             'cli': cli_runs({'cli': tests}, 1)}
 
 
@@ -426,6 +429,18 @@ def test_seg_loss_takes_the_global_valid_pixel_count(ranks, one_process):
             r['seg_loss']['grad'].numpy() / WORLD,
             want['grad'][r['rank'] * n:(r['rank'] + 1) * n].numpy(),
             rtol=1e-6, atol=1e-9)
+
+
+def test_segm_and_keypoint_sync_equals_one_process(ranks, one_process):
+    """The segm and keypoint evaluators, each rank holding half of the
+    images, gather the masks and keypoints of both with the boxes: every
+    rank's 12 metrics of each type equal one process's over all
+    images."""
+    want = one_process['coco']
+    assert set(want) == {'segm', 'keypoints'}
+    for r in ranks:
+        assert r['coco'] == want
+    assert all(0.0 < w['AP'] < 1.0 for w in want.values())
 
 
 def test_cli_trains_one_epoch_and_tests_on_the_device_wire(ranks):

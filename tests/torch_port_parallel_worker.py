@@ -5,8 +5,9 @@
         tests/torch_port_parallel_worker.py SPEC.pt OUT_DIR
 
 on the CPU over gloo. Each rank reads the spec the test wrote, runs the
-box steps and the detection step on its block of the batch and the three
-CLIs over the group, and writes what it saw to `OUT_DIR/rank<r>.pt`; the
+box steps and the detection step on its block of the batch, the segm and
+keypoint evaluators on its share of the images and the three CLIs over
+the group, and writes what it saw to `OUT_DIR/rank<r>.pt`; the
 test compares those with one process and with JAX. `box_steps` and
 `det_step` are also the one-process reference (`block` the identity)."""
 from __future__ import annotations
@@ -86,6 +87,27 @@ def seg_loss(spec: dict, block=lambda t: t) -> dict:
     return {'loss': float(loss.detach()), 'grad': logits.grad}
 
 
+def coco_sync(spec: dict, rank: int = 0, world: int = 1) -> dict:
+    """The segm and keypoint COCO evaluators of the spec ({iou_type:
+    (targets, predictions)}), this rank holding image i when i % world ==
+    rank, synchronized over the group: each type's 12 metrics."""
+    from sc2bench_tpu_torch.utils.coco_eval import CocoEvaluator
+    out = {}
+    for iou_type, (targets, preds) in spec.items():
+        evaluator = CocoEvaluator(iou_type=iou_type)
+        for i, target in enumerate(targets):
+            if i % world != rank:
+                continue
+            evaluator.add_gt(target)
+            if target['image_id'] in preds:
+                evaluator.update({target['image_id']:
+                                  preds[target['image_id']]})
+        evaluator.synchronize_between_processes()
+        evaluator.accumulate()
+        out[iou_type] = evaluator.summarize()
+    return out
+
+
 class _Messages(logging.Handler):
     def __init__(self):
         super().__init__(logging.INFO)
@@ -143,6 +165,7 @@ def main(spec_path: str, out_dir: str) -> None:
            'box': box_steps(spec['box'], block),
            'det': det_step(spec['det'], block),
            'seg_loss': seg_loss(spec['seg_loss'], block),
+           'coco': coco_sync(spec['coco'], r, w),
            'cli': cli_runs(spec, w)}
     torch.save(res, Path(out_dir) / f'rank{r}.pt')
     dist.barrier()
