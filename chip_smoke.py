@@ -271,12 +271,28 @@ which fails loudly with a nonzero exit:
     body at batch 2 with the weight decay off leaving every
     `FrozenBatchNorm2d`'s affine terms and statistics bit-equal; the
     card's name and power limit;
-21. print the kernels line (all ten kernels; it fails if one never
+21. the ResNeSt, DenseNet and Inception-v3 families and the hub twin:
+    the ResNeSt-50d Entropic Student (FP-24, 1000 classes, seeded
+    weights) served on phase 3's images through `stream_deploy_device`
+    at batch 1 and `wire_batch=8` (the compacted pair once an image, the
+    aligned pair once a group, no escape, wires equal to the plain coder
+    on the same symbols, sizes equal at both, logits within 1e-3), its
+    img/s beside the ResNet-50 flagship's from the same call; the
+    'finetune' forward at batch 1 and 32 (ms, img/s) and one training
+    step at batch 32 (finite loss, parameters moved, peak memory) of the
+    ResNeSt student and of the GHND DenseNet-169, DenseNet-201 (224 px)
+    and Inception-v3 (299 px) students built by the hub twin; the CR+BQ
+    `SplitClassifier` (8 bits) over a ResNeSt tail behind
+    `larger_resnet_bottleneck`; every hub twin constructor built on the
+    card (parameter counts) and one forward of
+    `custom_fasterrcnn_resnet_fpn` on a 480x640 image (C2 at stride 1,
+    256 channels; peak memory); the card's name and power limit;
+22. print the kernels line (all ten kernels; it fails if one never
     launched on its path or differs from its plain version, if a cyclic
     or indexed kernel never launched in phase 14, or a cyclic one in
-    phase 15 or 16, or a cyclic one on phase 18's bfloat16 device wire
-    or bench, or the batch-1 cyclic pair on a rank of phase 19 or on
-    phase 20's Mask R-CNN test; the counts of phases 11-20 beside, and
+    phase 15, 16 or 21, or a cyclic one on phase 18's bfloat16 device
+    wire or bench, or the batch-1 cyclic pair on a rank of phase 19 or on
+    phase 20's Mask R-CNN test; the counts of phases 11-21 beside, and
     phase 14's, 15's and 16's timings at their shapes under `*_64ch`,
     `*_seg` and `*_det`), the card's name and power limit, and last
     `{"ok": true, "device": {...}}`. Every phase prints its seconds.
@@ -435,6 +451,19 @@ DET_BACKBONE = {'resnet_name': 'resnet50', 'bottleneck_config': {
     'key': 'FPBasedResNetBottleneck',
     'kwargs': {'num_bottleneck_channels': 24, 'num_target_channels': 256}}}
 N_HEADS, N_HEADS_POOLED, HEADS_TOL, RETINA_BATCH = 2, 24, 1e-4, 2
+# phase 21: the ResNeSt-50d student behind the flagship's FP-24, the
+# students' batch, the forwards timed, the SplitClassifier's images, the
+# Inception-v3 input and the hub Faster R-CNN's image
+FAMILY_FP = {'key': 'FPBasedResNetBottleneck',
+             'kwargs': {'num_bottleneck_channels': 24,
+                        'num_target_channels': 256}}
+FAMILY_BATCH, FAMILY_REPS, FAMILY_BQ, INCEPTION_HW = 32, 5, 4, 299
+HUB_DET_HW = (480, 640)
+FAMILY_STEP = {'num_epochs': 1, 'train_bn': True,
+               'optimizer': {'key': 'SGD', 'kwargs': {
+                   'lr': 0.01, 'momentum': 0.9, 'weight_decay': 0.0005}},
+               'criterion': {'key': 'CrossEntropyLoss',
+                             'kwargs': {'module_path': 'output'}}}
 # H100 SXM published peaks: HBM bytes/s, and
 # the non-tensor-core rate used for the kernels' integer operations
 HBM_BYTES_PER_S = 3.35e12
@@ -2755,13 +2784,14 @@ def build_student(torch, device, config, seed):
     return halve_last_encoder_conv(torch, model)
 
 
-def fp_serve(torch, kernels, rt, images, tag, name):
+def fp_serve(torch, kernels, rt, images, tag, name, rates=None):
     """An FP student's deploy loop, batch 1 then `wire_batch`, launches
     counted in each run: the batch-1 pair once an image, the aligned pair
     once a group, no escape, equal sizes, logits within LOGIT_TOL; two
     images' wires equal to the plain coder on the same symbols and their
     logits equal to `forward_tail` on the decoded feature (as phase 3).
-    Returns (batch-1 launches, wire_batch launches)."""
+    Returns (batch-1 launches, wire_batch launches); `rates`, when given,
+    gets each run's img/s under its `wire_batch` (None for batch 1)."""
     from sc2bench_tpu_torch.analysis import get_binary_object_size
     from sc2bench_tpu_torch.ops.rans.device import (device_rans_encode,
                                                     pack_stream)
@@ -2785,6 +2815,8 @@ def fp_serve(torch, kernels, rt, images, tag, name):
                                 escapes=dict(rt.escapes))
     b1, bk = runs[None], runs[WIRE_BATCH]
     n = len(images)
+    if rates is not None:
+        rates.update({k: n / run['dt'] for k, run in runs.items()})
     groups = -(-n // WIRE_BATCH)
     want1 = expected_launches(kernels, FP_BATCH1, n)
     wantk = expected_launches(kernels, [k + '_aligned' for k in FP_BATCH1],
@@ -4921,6 +4953,236 @@ def heads_phase(torch, kernels, device):
     return launches
 
 
+# ---- phase 21: the ResNeSt, DenseNet and Inception-v3 families, the hub -----
+
+def build_resnest(torch, device, seed, bottleneck=None):
+    """The ResNeSt-50d student (1000 classes) behind `bottleneck` (the
+    flagship's FP-24 by default), built by the registry on the card with
+    `build_model`'s seeded weights."""
+    from sc2bench_tpu_torch.models.backbone import splittable_resnest
+    torch.manual_seed(seed)
+    model = splittable_resnest(bottleneck or FAMILY_FP, num_classes=1000,
+                               device=device)
+    return randomize_weights(torch, model, seed, device)
+
+
+def forward_ms(torch, model, x, reps=FAMILY_REPS):
+    """ms of one 'finetune' forward on `x`: CUDA events around `reps`
+    forwards after a warm-up one; the logits checked finite."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.no_grad():
+        model(x, mode='finetune')
+        start.record()
+        for _ in range(reps):
+            out = model(x, mode='finetune')
+        end.record()
+        torch.cuda.synchronize()
+    check(tuple(out.shape) == (x.shape[0], 1000)
+          and bool(torch.isfinite(out).all()),
+          f'bad logits {tuple(out.shape)}')
+    return start.elapsed_time(end) / reps
+
+
+def family_step(torch, model, hw, device, seed):
+    """One `TrainingBox` step at FAMILY_BATCH (SGD with momentum and weight
+    decay, cross-entropy, BatchNorm training, the 'train' forward): the
+    loss finite and parameters moved. Returns (loss, parameters moved,
+    parameters, peak MiB, ms of the step, cuDNN set-up included)."""
+    from sc2bench_tpu_torch.train.box import TrainingBox
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(FAMILY_BATCH, 3, hw, hw, generator=gen, device=device)
+    y = torch.randint(0, 1000, (FAMILY_BATCH,), generator=gen,
+                      device=device)
+    before = snapshot(model)
+    box = TrainingBox(model, FAMILY_STEP, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = box.train_step(x, y)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    loss = float(sum(metrics['loss'].values()))
+    check(np.isfinite(loss), f'training step loss {loss}')
+    names = [n for n, _ in model.named_parameters()]
+    moved = changed(before, snapshot(model), names)
+    check(moved, 'the training step moved no parameter')
+    return (loss, len(moved), len(names),
+            torch.cuda.max_memory_allocated() / 2 ** 20, ms)
+
+
+def family_students(torch, device, resnest):
+    """(name, builder, image size) of the phase's four students: the
+    ResNeSt-50d FP-24 one, and the GHND DenseNet-169, DenseNet-201 and
+    Inception-v3 ones from the hub twin (its Inception-v3 constructor
+    gives the bottleneck, which the registry's tail takes)."""
+    from sc2bench_tpu_torch import hubconf
+    from sc2bench_tpu_torch.models.inception import SplittableInceptionV3
+
+    def seeded(fn, seed):
+        def build():
+            torch.manual_seed(seed)
+            return fn()
+        return build
+
+    return [
+        ('ResNeSt-50d FP-24', lambda: resnest, HW),
+        ('DenseNet-169 GHND', seeded(
+            lambda: hubconf.custom_densenet169(device=device), 211), HW),
+        ('DenseNet-201 GHND', seeded(
+            lambda: hubconf.custom_densenet201(device=device), 212), HW),
+        ('Inception-v3 GHND', seeded(lambda: SplittableInceptionV3(
+            hubconf.custom_inception_v3(device=device)).to(device), 213),
+         INCEPTION_HW)]
+
+
+def family_forward_and_step(torch, device, resnest):
+    """Each student's 'finetune' forward at batch 1 and FAMILY_BATCH (ms,
+    img/s) and one training step at FAMILY_BATCH with its peak memory
+    (the served ResNeSt student's last use)."""
+    for name, build, hw in family_students(torch, device, resnest):
+        model = build().eval()
+        gen = torch.Generator(device=device).manual_seed(21)
+        x1 = torch.randn(1, 3, hw, hw, generator=gen, device=device)
+        xb = torch.randn(FAMILY_BATCH, 3, hw, hw, generator=gen,
+                         device=device)
+        ms1, msb = forward_ms(torch, model, x1), forward_ms(torch, model, xb)
+        loss, moved, total, peak, step_ms = family_step(torch, model, hw,
+                                                        device, 21)
+        log(f'phase 21: {name} ({sum(p.numel() for p in model.parameters())}'
+            f' parameters, {hw} px): finetune forward batch 1 {ms1:.3f} ms '
+            f'({1e3 / ms1:.1f} img/s), batch {FAMILY_BATCH} {msb:.3f} ms '
+            f'({FAMILY_BATCH * 1e3 / msb:.1f} img/s); one training step at '
+            f'batch {FAMILY_BATCH}: loss {loss:.4f}, {moved} of {total} '
+            f'parameters moved, {step_ms:.1f} ms (cuDNN set-up included), '
+            f'peak memory {peak:.0f} MiB')
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def family_split_classifier(torch, kernels, device, images):
+    """The CR+BQ `SplitClassifier` (8-bit SimpleQuantizer) over a ResNeSt
+    tail behind `larger_resnet_bottleneck` (12 channels): `forward_tail`
+    serves the decoded latent; no kernel launches, every image accounted,
+    logits finite."""
+    from sc2bench_tpu_torch.models.wrapper import SplitClassifier
+    model = build_resnest(torch, device, 22, bottleneck={
+        'key': 'larger_resnet_bottleneck',
+        'kwargs': {'bottleneck_channel': 12}})
+    wrapper = SplitClassifier(
+        model, device=device,
+        compressor={'key': 'SimpleQuantizer', 'kwargs': {'num_bits': 8}},
+        decompressor={'key': 'SimpleDequantizer',
+                      'kwargs': {'num_bits': 8}})
+    wrapper.eval()
+    wrapper.activate_analysis()
+    kernels.reset_launches()
+    worst = 0.0
+    for x in images:
+        lg = wrapper(x)
+        check(tuple(lg.shape) == (1, 1000) and bool(torch.isfinite(lg).all()),
+              f'SplitClassifier over ResNeSt: bad logits {tuple(lg.shape)}')
+        with torch.no_grad():
+            plain = model(x, mode='finetune')
+        worst = max(worst, float((lg - plain).abs().max()))
+    check(all(v == 0 for v in kernels.LAUNCHES.values()),
+          f'SplitClassifier launched {kernels.LAUNCHES}')
+    summary = wrapper.summarize()[0]
+    check(summary['num_samples'] == len(images),
+          f'SplitClassifier over ResNeSt: summary {summary}')
+    log(f'phase 21: SplitClassifier(8 bits) over a ResNeSt-50d tail behind '
+        f'larger_resnet_bottleneck(12): {len(images)} images, '
+        f'{summary["mean"]:.6f} KB an image; max |logit diff| vs the '
+        f'unquantized forward {worst:.3e}; forward_tail serves this '
+        'bottleneck and the FP-24 one above')
+
+
+def hub_phase(torch, device):
+    """Every constructor of the hub twin built on the card (parameter
+    counts), and one forward of `custom_fasterrcnn_resnet_fpn` on one
+    480x640 image, whose C2 comes out at stride 1 with 256 channels."""
+    from sc2bench_tpu_torch import hubconf
+    names = sorted(n for n in vars(hubconf) if n.startswith('custom_'))
+    check(len(names) == 10, f'hub twin constructors {names}')
+    for name in names:
+        torch.manual_seed(0)
+        out = getattr(hubconf, name)(device=device)
+        modules = out if isinstance(out, tuple) else (out,)
+        check(all(p.is_cuda for m in modules for p in m.parameters()),
+              f'{name}: parameters off the card')
+        count = sum(p.numel() for m in modules for p in m.parameters())
+        note = ''
+        if name == 'custom_fasterrcnn_resnet_fpn':
+            x = torch.randn(1, 3, *HUB_DET_HW, device=device)
+            io = {}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                dense = out.eval()(x, mode='finetune', io=io)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            c2 = tuple(io['backbone.bottleneck_layer_out'].shape)
+            check(c2 == (1, 256, *HUB_DET_HW), f'{name}: C2 {c2}')
+            for k, v in dense.items():
+                if torch.is_tensor(v) and v.is_floating_point():
+                    check(bool(torch.isfinite(v).all()),
+                          f'{name}: {k} not finite')
+            note = (f'; one forward on a {HUB_DET_HW[0]}x{HUB_DET_HW[1]} '
+                    f'image {ms:.1f} ms (first call), C2 {c2} at stride 1 '
+                    f'({np.prod(c2) * 4 / 2 ** 20:.0f} MiB in float32), '
+                    f'peak memory '
+                    f'{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB')
+        log(f'phase 21: hub {name}: {count} parameters{note}')
+        del out, modules
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def families_phase(torch, kernels, device, rt, images):
+    """Phase 21: the ResNeSt-50d FP-24 student served on the device wire
+    (`fp_serve`: the cyclic pairs' launches, wires equal to the plain
+    coder) beside the flagship's img/s from this call; the four students'
+    forwards and steps; the SplitClassifier over a ResNeSt tail; the hub
+    twin. Returns the serving runs' launches, summed."""
+    from sc2bench_tpu_torch.models.runtime import SplitClassifierRuntime
+    resnest = halve_last_encoder_conv(torch, build_resnest(torch, device,
+                                                           21))
+    rs = SplitClassifierRuntime(resnest, device=device)
+    rs.update()
+    rs.eval()
+    log(f'phase 21: ResNeSt-50d + FP-24, latent '
+        f'{rs._latent_shape((1, 3, HW, HW))}, '
+        f'{sum(p.numel() for p in resnest.parameters())} parameters')
+    rates = {}
+    b1, bk = fp_serve(torch, kernels, rs, images, 'phase 21', 'ResNeSt-50d',
+                      rates=rates)
+    flagship = {}
+    for wire_batch in (None, WIRE_BATCH):
+        rt.stream_deploy_device(images[:WIRE_BATCH], wire_batch=wire_batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rt.stream_deploy_device(images, wire_batch=wire_batch)
+        torch.cuda.synchronize()
+        flagship[wire_batch] = len(images) / (time.perf_counter() - t0)
+    rt.clear_analysis()
+    log(f'phase 21: img/s on the device wire, {len(images)} images, '
+        f'ResNeSt-50d vs ResNet-50 (both FP-24, this call): batch 1 '
+        f'{rates[None]:.2f} vs {flagship[None]:.2f}, wire_batch='
+        f'{WIRE_BATCH} {rates[WIRE_BATCH]:.2f} vs '
+        f'{flagship[WIRE_BATCH]:.2f}')
+    del rs
+    family_forward_and_step(torch, device, resnest)
+    del resnest
+    gc.collect()
+    torch.cuda.empty_cache()
+    family_split_classifier(torch, kernels, device, images[:FAMILY_BQ])
+    hub_phase(torch, device)
+    log(f'phase 21: card {smi_query("name,power.limit")}')
+    return {k: b1[k] + bk[k] for k in kernels.ALL_KERNELS}
+
+
 def smi_query(fields):
     out = subprocess.run(
         ['nvidia-smi', '--id=0', f'--query-gpu={fields}',
@@ -5071,7 +5333,11 @@ def run():
     # ---- phase 20: Mask R-CNN, Keypoint R-CNN, RetinaNet, frozen_bn ----
     heads_launches = timed('phase 20', heads_phase, torch, kernels, device)
 
-    # ---- phase 21: the kernels line ----
+    # ---- phase 21: ResNeSt, DenseNet, Inception-v3, the hub twin ----
+    family_launches = timed('phase 21', families_phase, torch, kernels,
+                            device, rt, images)
+
+    # ---- phase 22: the kernels line ----
 
     rows = []
     for name in kernels.ALL_KERNELS:
@@ -5102,6 +5368,7 @@ def run():
                    launches_det=sum(c[name] for c in det_paths.values()),
                    launches_bf16=bf16_wire[name],
                    launches_heads=heads_launches[name],
+                   launches_families=family_launches[name],
                    launches_bench=bench_launches[name],
                    launches_scaleout={b: [c[name] for c in per]
                                       for b, per in scale.items()},
@@ -5149,6 +5416,8 @@ def run():
                   'the segmentation path')
             check(r['launches_det'] > 0, f'{r["name"]} never launched on '
                   'the detection path')
+            check(r['launches_families'] > 0, f'{r["name"]} never launched '
+                  "on the ResNeSt student's device wire")
         if r['name'] in FP_BATCH1:
             check(r['launches_heads'] > 0, f'{r["name"]} never launched on '
                   "the Mask R-CNN student's device wire")

@@ -439,6 +439,71 @@ def larger_resnet_bottleneck(bottleneck_channel=12, bottleneck_idx=7,
 
 
 @register_layer
+def larger_densenet_bottleneck(bottleneck_channel=12, bottleneck_idx=8,
+                               **kwargs):
+    """GHND bottleneck for DenseNet-169/201: a 256-channel feature at
+    stride 16 (14x14 on 224 px), the input of denseblock3."""
+    specs = _stem_specs() + [
+        ('conv', bottleneck_channel, 2, 2, 1), ('bn',), ('relu',),
+        ('conv', 512, 2, 1, 1), ('bn',), ('relu',),
+        ('conv', 512, 2, 1, 1), ('bn',), ('relu',),
+        ('conv', 256, 2, 1, 0), ('bn',), ('relu',),
+        ('conv', 256, 2, 1, 0), ('bn',), ('relu',),
+        ('conv', 256, 2, 1, 0), ('avgpool', 2, 2),
+    ]
+    return SimpleBottleneck(specs[:bottleneck_idx], specs[bottleneck_idx:])
+
+
+@register_layer
+def inception_v3_bottleneck(bottleneck_channel=12, bottleneck_idx=7,
+                            **kwargs):
+    """GHND bottleneck for Inception-v3: an unpadded 7x7/2 stem and max
+    pool, and a 192-channel feature (35x35 on 299 px), the input of
+    Mixed_5b."""
+    specs = [
+        ('conv', 64, 7, 2, 0), ('bn',), ('relu',), ('maxpool', 3, 2, 0),
+        ('bn',), ('relu',),
+        ('conv', bottleneck_channel, 2, 2, 1), ('bn',), ('relu',),
+        ('conv', 256, 2, 1, 1), ('bn',), ('relu',),
+        ('conv', 256, 2, 1, 0), ('bn',), ('relu',),
+        ('conv', 192, 2, 1, 0), ('avgpool', 2, 1),
+    ]
+    return SimpleBottleneck(specs[:bottleneck_idx], specs[bottleneck_idx:])
+
+
+def _layer1_specs(bottleneck_channel, head_channels):
+    """The layer1-replacing bottlenecks: every conv at stride 1, so the
+    feature keeps the input's size; `head_channels` are the last four
+    convs' widths (the smaller variant's for ResNet-18/34, the larger's
+    for ResNet-50 and deeper)."""
+    c1, c2, c3, c4 = head_channels
+    return [
+        ('conv', 64, 2, 1, 1), ('bn',),
+        ('conv', 256, 2, 1, 1), ('bn',), ('relu',),
+        ('conv', 64, 2, 1, 1), ('bn',),
+        ('conv', bottleneck_channel, 2, 1, 1), ('bn',), ('relu',),
+        ('conv', c1, 2, 1, 0), ('bn',),
+        ('conv', c2, 2, 1, 0), ('bn',), ('relu',),
+        ('conv', c3, 2, 1, 0), ('bn',),
+        ('conv', c4, 2, 1, 0), ('bn',), ('relu',),
+    ]
+
+
+@register_layer
+def smaller_resnet_layer1_bottleneck(bottleneck_channel=12, bottleneck_idx=8,
+                                     **kwargs):
+    specs = _layer1_specs(bottleneck_channel, (64, 128, 64, 64))
+    return SimpleBottleneck(specs[:bottleneck_idx], specs[bottleneck_idx:])
+
+
+@register_layer
+def larger_resnet_layer1_bottleneck(bottleneck_channel=12, bottleneck_idx=8,
+                                    **kwargs):
+    specs = _layer1_specs(bottleneck_channel, (64, 128, 256, 256))
+    return SimpleBottleneck(specs[:bottleneck_idx], specs[bottleneck_idx:])
+
+
+@register_layer
 class EntropyBottleneckLayer(nn.Module):
     """A bare factorized prior over its NCHW input. 'train': y + noise
     from `generator`; any other mode: round(y - median) + median, which

@@ -9,6 +9,7 @@ import inspect
 
 from ..device import resolve_device
 from ..registry import lookup, names
+from .backbone import get_backbone  # noqa: F401  (JAX's registry has it)
 from .resnet import RESNET_BUILDERS
 
 # the codec names a `compression_model` block may give (CompressAI's zoo

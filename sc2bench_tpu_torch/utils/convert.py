@@ -38,10 +38,13 @@ there tells. An `EntropicClassifierModule` keeps the ResNet under `base/`
 and its `entropy_bottleneck` at the top.
 
 The other backbones share Flax scope names (`stem_conv` is RegNet's,
-the hybrid ViT's and EfficientNet's), so the tree's top-level scopes pick
-the rules: `vit` a hybrid ViT (the teacher when it has `stem_conv`, else
+the hybrid ViT's and EfficientNet's), so the tree's scopes pick the
+rules: `vit` a hybrid ViT (the teacher when it has `stem_conv`, else
 the splittable student), `stage0_block0` an EfficientNet, `s1`/`s2` a
-RegNet (student or teacher), anything else the ResNet family above.
+RegNet (student or teacher), `Mixed_5b` an Inception-v3 student,
+`block3_l0_bn1` a DenseNet student, a split-attention conv inside a stage
+(`layer{i}/block0/conv2/fc1`) a ResNeSt (student or teacher), anything
+else the ResNet family above.
   RegNet      `s{i}/block{j}/conv1|bn1` -> `s{i}.b{j+1}.conv1.conv|bn`
               (likewise 2, 3), `se/fc1|fc2` -> `se.fc1|fc2`,
               `down_conv|down_bn` -> `downsample.conv|bn`; `stem_conv|bn`
@@ -63,6 +66,19 @@ RegNet (student or teacher), anything else the ResNet family above.
               `conv_pw|bn1|conv_dw|bn2|conv_pwl|bn3`; `se_reduce|
               se_expand` -> `se.conv_reduce|conv_expand`; `stem_conv|
               stem_bn|head_conv|head_bn` -> `conv_stem|bn1|conv_head|bn2`
+  ResNeSt     timm's `resnest50d`: `stem_conv{0,1,2}|stem_bn{0,1}` ->
+              `conv1.{0,3,6}|conv1.{1,4}`, `stem_bn2` -> `bn1`;
+              `layer{i}/block{j}/conv2/conv|bn0|fc1|bn1|fc2` ->
+              `layer{i}.{j}.conv2.*`, `downsample_conv|downsample_bn` ->
+              `downsample.1|2` (index 0 is the pool); the rest as ResNet
+  DenseNet    `block{b}_l{l}_bn{k}|conv{k}` ->
+              `features.denseblock{b}.denselayer{l+1}.norm{k}|conv{k}`,
+              `trans{b}_bn|conv` -> `features.transition{b}.norm|conv`,
+              `final_bn` -> `features.norm5`, `classifier`
+  Inception   `Mixed_*/<branch>/conv|bn` -> `inception_modules.Mixed_*.
+              <torchvision branch>.conv|bn` (`b1` -> `branch1x1`, `bd_2` ->
+              `branch3x3dbl_2` in InceptionB and E but `branch7x7dbl_2` in
+              C: the names depend on the block's type), `fc`
 
 A DeepLabv3 (a tree with top-level `backbone` and `classifier`) maps
 `backbone/...` by the ResNet rules above under `backbone.` (the teacher's
@@ -104,8 +120,9 @@ head.regression_head.bbox_reg` (torchvision's RetinaNet key space).
 its Flax path, dotted (`bottleneck_layer.encoder.0.weight` ->
 `bottleneck_layer.enc_conv0.kernel`), the space in which configs name
 frozen and module-wise parameter groups. A `SimpleBottleneck` shares the
-FP bottleneck's torch names (`encoder.{i}`), and an EfficientNet's `bn1`/
-`bn2` are a ResNet's names, so their paths need the `model` too.
+FP bottleneck's torch names (`encoder.{i}`), an EfficientNet's `bn1`/
+`bn2` are a ResNet's names, and a ResNeSt's `downsample.1` is a conv where
+a ResNet's is a BatchNorm, so their paths need the `model` too.
 """
 from __future__ import annotations
 
@@ -289,7 +306,59 @@ _RETINA_HEADS = {
 }
 _RETINANET_RULES = _DETECTION_RULES[:1] + [
     (rf'^{k}$', v) for k, v in _RETINA_HEADS.items()]
+# ResNeSt: timm's `resnest50d` key space (the JAX package's
+# `RESNEST_RULES` / `SPLITTABLE_RESNEST_RULES`, inverted)
+_RESNEST_STEM = {'stem_conv0': 'conv1.0', 'stem_bn0': 'conv1.1',
+                 'stem_conv1': 'conv1.3', 'stem_bn1': 'conv1.4',
+                 'stem_conv2': 'conv1.6', 'stem_bn2': 'bn1'}
+_RESNEST_RULES = [(rf'^{k}$', v) for k, v in _RESNEST_STEM.items()] + [
+    (r'^layer(\d)/block(\d+)/conv2/(conv|bn0|fc1|bn1|fc2)$',
+     r'layer\1.\2.conv2.\3'),
+    (r'^layer(\d)/block(\d+)/downsample_conv$', r'layer\1.\2.downsample.1'),
+    (r'^layer(\d)/block(\d+)/downsample_bn$', r'layer\1.\2.downsample.2'),
+] + _RULES
+# DenseNet: torchvision's `features.*` names (1-indexed dense layers)
+_DENSENET_RULES = _BOTTLENECK_RULES + [
+    (r'^block(\d)_l(\d+)_(bn|conv)(\d)$',
+     lambda m: f'features.denseblock{m[1]}.denselayer{int(m[2]) + 1}.'
+               + ('norm' if m[3] == 'bn' else 'conv') + m[4]),
+    (r'^trans(\d)_bn$', r'features.transition\1.norm'),
+    (r'^trans(\d)_conv$', r'features.transition\1.conv'),
+    (r'^final_bn$', 'features.norm5'),
+    (r'^classifier$', 'classifier'),
+]
+# Inception-v3: the Flax branch names -> torchvision's, by block type
+_INCEPTION_KIND = {'Mixed_5b': 'A', 'Mixed_5c': 'A', 'Mixed_5d': 'A',
+                   'Mixed_6a': 'B', 'Mixed_6b': 'C', 'Mixed_6c': 'C',
+                   'Mixed_6d': 'C', 'Mixed_6e': 'C', 'Mixed_7a': 'D',
+                   'Mixed_7b': 'E', 'Mixed_7c': 'E'}
+_INCEPTION_BRANCH = {
+    'A': {'b1': 'branch1x1', 'b5_1': 'branch5x5_1', 'b5_2': 'branch5x5_2',
+          'b3_1': 'branch3x3dbl_1', 'b3_2': 'branch3x3dbl_2',
+          'b3_3': 'branch3x3dbl_3', 'bp': 'branch_pool'},
+    'B': {'b3': 'branch3x3', 'bd_1': 'branch3x3dbl_1',
+          'bd_2': 'branch3x3dbl_2', 'bd_3': 'branch3x3dbl_3'},
+    'C': {'b1': 'branch1x1', 'b7_1': 'branch7x7_1', 'b7_2': 'branch7x7_2',
+          'b7_3': 'branch7x7_3', 'bd_1': 'branch7x7dbl_1',
+          'bd_2': 'branch7x7dbl_2', 'bd_3': 'branch7x7dbl_3',
+          'bd_4': 'branch7x7dbl_4', 'bd_5': 'branch7x7dbl_5',
+          'bp': 'branch_pool'},
+    'D': {'b3_1': 'branch3x3_1', 'b3_2': 'branch3x3_2',
+          'b7_1': 'branch7x7x3_1', 'b7_2': 'branch7x7x3_2',
+          'b7_3': 'branch7x7x3_3', 'b7_4': 'branch7x7x3_4'},
+    'E': {'b1': 'branch1x1', 'b3_1': 'branch3x3_1', 'b3_2a': 'branch3x3_2a',
+          'b3_2b': 'branch3x3_2b', 'bd_1': 'branch3x3dbl_1',
+          'bd_2': 'branch3x3dbl_2', 'bd_3a': 'branch3x3dbl_3a',
+          'bd_3b': 'branch3x3dbl_3b', 'bp': 'branch_pool'},
+}
+_INCEPTION_RULES = _BOTTLENECK_RULES + [
+    (r'^(Mixed_\w+)/(\w+)/(conv|bn)$', lambda m: 'inception_modules.'
+     f'{m[1]}.{_INCEPTION_BRANCH[_INCEPTION_KIND[m[1]]][m[2]]}.{m[3]}'),
+    (r'^fc$', 'fc'),
+]
 _FAMILY_RULES = {'resnet': _RULES, 'regnet': _REGNET_RULES,
+                 'resnest': _RESNEST_RULES, 'densenet': _DENSENET_RULES,
+                 'inception': _INCEPTION_RULES,
                  'hybrid_vit': _HYBRID_VIT_RULES,
                  'hybrid_vit_teacher': _HYBRID_VIT_TEACHER_RULES,
                  'efficientnet': _EFFICIENTNET_RULES,
@@ -313,6 +382,14 @@ def _family(params: dict) -> str:
         return 'efficientnet'
     if 's1' in params or 's2' in params:
         return 'regnet'
+    if 'Mixed_5b' in params:
+        return 'inception'
+    if any(re.fullmatch(r'block\d_l\d+_bn1', k) for k in params):
+        return 'densenet'
+    if any('fc1' in block.get('conv2', {})
+           for k, stage in params.items() if re.fullmatch(r'layer\d', k)
+           for block in stage.values()):
+        return 'resnest'
     return 'resnet'
 
 
@@ -382,9 +459,10 @@ def state_dict_from_flax(variables: dict, model=None) -> dict:
     """Flax `{'params', 'batch_stats'}` of the JAX `SplittableResNet` (FP,
     SHP, MSHP or `SimpleBottleneck`), `ResNet`, `EntropicClassifierModule`,
     an image codec of the zoo, a RegNet, a hybrid ViT (student or teacher),
-    an EfficientNet, a DeepLabv3, a Faster R-CNN (student or teacher), a
-    Mask or Keypoint R-CNN or a RetinaNet -> a state_dict that `load_state_dict` takes
-    strictly. `model`, the port's counterpart, is needed for a
+    an EfficientNet, a ResNeSt (student or teacher), a DenseNet or
+    Inception-v3 student, a DeepLabv3, a Faster R-CNN (student or
+    teacher), a Mask or Keypoint R-CNN or a RetinaNet -> a state_dict that
+    `load_state_dict` takes strictly. `model`, the port's counterpart, is needed for a
     `SimpleBottleneck` (see the module doc)."""
     out = {}
     family = _family(variables['params'])
@@ -455,6 +533,25 @@ _INVERSE_RULES = [(rf'^bottleneck_layer\.{re.escape(v)}$',
     (r'^backbone\.(.+)$', lambda m: 'backbone.' + _flax_scope(m[1])),
 ] + [(rf'^{re.escape(v)}$', k.replace('/', '.'))
      for k, v in _SEG_HEADS.items()] + _BACKBONE_INVERSE
+_INVERSE_RULES += [
+    (r'^features\.denseblock(\d)\.denselayer(\d+)\.(norm|conv)(\d)$',
+     lambda m: f'block{m[1]}_l{int(m[2]) - 1}_'
+               + ('bn' if m[3] == 'norm' else 'conv') + m[4]),
+    (r'^features\.transition(\d)\.norm$', r'trans\1_bn'),
+    (r'^features\.transition(\d)\.conv$', r'trans\1_conv'),
+    (r'^features\.norm5$', 'final_bn'),
+    (r'^classifier$', 'classifier'),
+    (r'^inception_modules\.(Mixed_\w+)\.(\w+)\.(conv|bn)$',
+     lambda m: f'{m[1]}.' + {v: k for k, v in _INCEPTION_BRANCH[
+         _INCEPTION_KIND[m[1]]].items()}[m[2]] + f'.{m[3]}'),
+]
+_RESNEST_INVERSE = [(rf'^{re.escape(v)}$', k)
+                    for k, v in _RESNEST_STEM.items()] + [
+    (r'^layer(\d)\.(\d+)\.conv2\.(conv|bn0|fc1|bn1|fc2)$',
+     r'layer\1.block\2.conv2.\3'),
+    (r'^layer(\d)\.(\d+)\.downsample\.1$', r'layer\1.block\2.downsample_conv'),
+    (r'^layer(\d)\.(\d+)\.downsample\.2$', r'layer\1.block\2.downsample_bn'),
+] + _INVERSE_RULES
 _EFFICIENTNET_INVERSE = [
     (r'^blocks\.(\d)\.(\d+)\.se\.conv_(reduce|expand)$',
      r'stage\1_block\2.se_\3'),
@@ -488,11 +585,12 @@ def _flax_scope(module: str, rules=_INVERSE_RULES) -> str:
 def flax_param_path(name: str, model=None) -> str:
     """Dotted Flax path of the parameter `name` of the port's
     `SplittableResNet`, `ResNet`, `EntropicClassifierModule`, RegNet,
-    hybrid ViT, DeepLabv3, Faster, Mask or Keypoint R-CNN or RetinaNet; a
-    `SimpleBottleneck`'s
-    (`LayerSeq` entry `{i}` -> `layer{i}`) and an EfficientNet's only when
-    `model` is given."""
+    hybrid ViT, DenseNet or Inception-v3 student, DeepLabv3, Faster, Mask
+    or Keypoint R-CNN or RetinaNet; a `SimpleBottleneck`'s (`LayerSeq`
+    entry `{i}` -> `layer{i}`), an EfficientNet's and a ResNeSt's (student
+    or teacher) only when `model` is given."""
     from ..models.efficientnet import EfficientNet
+    from ..models.resnest import ResNeSt, SplittableResNeSt
     module, _, leaf = name.rpartition('.')
     entry = _layer_seq_entry(model, module)
     if entry is not None:
@@ -502,9 +600,12 @@ def flax_param_path(name: str, model=None) -> str:
             leaf = 'scale' if isinstance(entry, torch.nn.BatchNorm2d) \
                 else 'kernel'
         return f'{prefix}.layer{index}.{leaf}'
-    scope = _flax_scope(module, _EFFICIENTNET_INVERSE
-                        if isinstance(model, EfficientNet)
-                        else _INVERSE_RULES)
+    rules = _INVERSE_RULES
+    if isinstance(model, EfficientNet):
+        rules = _EFFICIENTNET_INVERSE
+    elif isinstance(model, (ResNeSt, SplittableResNeSt)):
+        rules = _RESNEST_INVERSE
+    scope = _flax_scope(module, rules)
     if leaf == 'weight':
         # BatchNorm, GroupNorm and LayerNorm scopes: `bn1`, `down_bn`,
         # `stem_norm`, `norm`, ...

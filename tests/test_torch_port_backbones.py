@@ -407,11 +407,37 @@ def _jax_param_count(module, hw, **init_kwargs):
                for a in jax.tree.leaves(shapes['params']))
 
 
-@pytest.mark.parametrize('family', ['regnet', 'hybrid_vit', 'efficientnet'])
+# the full-width students of the families no config names: ResNeSt-50d
+# behind the flagship's FP-24, the GHND DenseNets and Inception-v3
+BUILT_FAMILIES = {
+    'resnest': ({'key': 'splittable_resnest', 'kwargs': {
+        'bottleneck_config': {'key': 'FPBasedResNetBottleneck', 'kwargs': {
+            'num_bottleneck_channels': 24, 'num_target_channels': 256}}}},
+        224),
+    **{name: ({'key': 'splittable_densenet', 'kwargs': {
+        'densenet_name': name, 'bottleneck_config': {
+            'key': 'larger_densenet_bottleneck', 'kwargs': {}}}}, 224)
+       for name in ('densenet169', 'densenet201')},
+    'inception_v3': ({'key': 'splittable_inception_v3', 'kwargs': {
+        'bottleneck_config': {'key': 'inception_v3_bottleneck',
+                              'kwargs': {}}}}, 299),
+}
+
+
+@pytest.mark.parametrize('family', ['regnet', 'hybrid_vit', 'efficientnet',
+                                    *BUILT_FAMILIES])
 def test_full_width_parameter_count_equals_jax(family):
     """The full-width models of the configs (FP-64 students at 224 px,
-    EfficientNet-L2) built on the meta device: as many parameters as the
-    JAX package's `eval_shape` gives."""
+    EfficientNet-L2), and of the ResNeSt, DenseNet and Inception-v3
+    families at 224 and 299 px, built on the meta device: as many
+    parameters as the JAX package's `eval_shape` gives."""
+    if family in BUILT_FAMILIES:
+        spec, hw = BUILT_FAMILIES[family]
+        with torch.device('meta'):
+            pm = load_classification_model(spec, device='meta')
+        assert sum(p.numel() for p in pm.parameters()) == _jax_param_count(
+            jax_load_model(spec), hw, mode='train')
+        return
     if family == 'efficientnet':
         spec = load_config(EFFICIENTNET_CONFIGS[0])['models']['wrapper'][
             'classification_model']
@@ -520,7 +546,8 @@ def test_bottleneck_channel_options_equal_jax():
 @pytest.mark.parametrize('builder', [
     'regnety_064', 'splittable_regnet', 'hybrid_vit_small_r26_s32_224',
     'splittable_hybrid_vit', 'efficientnet', 'tf_efficientnet_l2_ns',
-    'tf_efficientnet_l2_ns_475'])
+    'tf_efficientnet_l2_ns_475', 'splittable_resnest', 'resnest50d',
+    'splittable_densenet', 'splittable_inception_v3'])
 def test_builders_need_a_card_unless_asked(builder, monkeypatch):
     """Each new builder registers under `model` and builds on the card
     unless given a device; without a card it raises before building."""

@@ -90,9 +90,9 @@ def test_registry_maps_the_jax_package_and_names_what_it_knows(caplog):
                              'sc2bench_tpu.transforms',
                              'sc2bench_tpu.models.segmentation',
                              'sc2bench_tpu.models.detection',
-                             'sc2bench_tpu.models.resnest',
+                             'sc2bench_tpu.parallel.mesh',
                              {'name': 'json'}])
-    assert 'sc2bench_tpu.models.resnest has no counterpart' \
+    assert 'sc2bench_tpu.parallel.mesh has no counterpart' \
         in caplog.text
     for ported in ('transforms', 'models.segmentation', 'models.detection'):
         assert f'sc2bench_tpu.{ported} has no counterpart' not in caplog.text
@@ -102,7 +102,7 @@ def test_registry_maps_the_jax_package_and_names_what_it_knows(caplog):
     assert get('model', 'splittable_resnet') is splittable_resnet
     assert get('model', 'resnet') is resnet_builder
     with pytest.raises(KeyError, match='MSHPBasedResNetBottleneck'):
-        get_layer('inception_v3_bottleneck')
+        get_layer('no_such_bottleneck')
     assert type(get_layer('SHPBasedResNetBottleneck')).__name__ \
         == 'SHPBasedResNetBottleneck'
     with pytest.raises(KeyError, match='splittable_resnet'):

@@ -321,7 +321,9 @@ def test_port_families_run_with_jax_blocked():
     input-compression configs (JPEG, and the joint autoregressive codec
     at n = m = 8) test through their wrappers; a RegNet FP config (a small
     RegNet registered in the port) tests, and a small hybrid ViT (student
-    and teacher) and EfficientNet run."""
+    and teacher) and EfficientNet run; a small ResNeSt (student and
+    teacher), a DenseNet-169 student, the hub twin's Inception-v3
+    bottleneck and `splittable_inception_v3` build and run."""
     _run_with_jax_blocked(r'''
 import json
 from sc2bench_tpu_torch.tasks.image_classification import main
@@ -397,6 +399,23 @@ with torch.no_grad():
     for m in (hybrid_vit.HybridViT(64, 1, 2, 10, image_size=64),
               efficientnet.EfficientNet(0.25, 0.1, 10)):
         assert m.eval()(x).shape == (1, 10)
+from sc2bench_tpu_torch import hubconf
+from sc2bench_tpu_torch.models import inception, resnest
+from sc2bench_tpu_torch.models.backbone import get_backbone
+fp['kwargs']['decoder_channel_sizes'] = [8, 32, 256, 256]
+with torch.no_grad():
+    rs = resnest.SplittableResNeSt(get_layer(fp['key'], **fp['kwargs']),
+                                   (1, 1, 1, 1), 10)
+    assert rs.eval()(x, mode='finetune').shape == (1, 10)
+    assert resnest.ResNeSt((1, 1, 1, 1), 10).eval()(x).shape == (1, 10)
+    dn = get_backbone('splittable_densenet', bottleneck_config={
+        'key': 'larger_densenet_bottleneck', 'kwargs': {}}, device='cpu')
+    assert dn.eval()(x, mode='finetune').shape == (1, 1000)
+    iv = hubconf.custom_inception_v3(device='cpu')
+    assert iv.eval()(torch.zeros(1, 3, 75, 75)).shape == (1, 192, 7, 7)
+    assert isinstance(inception.splittable_inception_v3(
+        {'key': 'inception_v3_bottleneck'}, device='cpu'),
+        inception.SplittableInceptionV3)
 ''')
 
 
