@@ -287,19 +287,37 @@ which fails loudly with a nonzero exit:
     card (parameter counts) and one forward of
     `custom_fasterrcnn_resnet_fpn` on a 480x640 image (C2 at stride 1,
     256 channels; peak memory); the card's name and power limit;
-22. print the kernels line (all ten kernels; it fails if one never
+22. the 2-D mesh and the last names: the flagship's FP-24 encoder (full
+    width, phase 3's weights) on one 4,096 px image with its rows
+    sharded over the 'model' axis of a ('data', 'model') mesh, two gloo
+    ranks on cuda:0 on a one-card host (stated, as phase 19's; one NCCL
+    rank a card on a multi-card host), started by `torchrun` on this
+    script's worker (`--sharded-worker`): the gathered latent within
+    rtol = atol = 1e-5 of the unsharded encoder on one rank (TF32 off,
+    cuDNN deterministic), the symbols that differ counted, its symbols
+    (24 x 1,023 x 1,023) through the compacted cyclic pair at batch 1 on
+    the fewest lanes the batch-1 kernels take, and 8 sharded 1,024 px
+    images through the aligned pair at wire_batch 8, each decoded equal,
+    with the bytes, each rank's ms and peak memory beside the unsharded
+    run's; the interleaved host coder on phase 3's latents and the 4,096
+    px one at 1, 8 and 32 lanes (exact round trips, MB/s beside the
+    single stream); `fast_nms_mask` on the card equal to the CPU at the
+    RPN's per-level shape (4,096 boxes, 1,000 out, IoU 0.7) and on
+    RetinaNet's 4,000 candidates (IoU 0.5), timed beside `nms_mask`;
+23. print the kernels line (all ten kernels; it fails if one never
     launched on its path or differs from its plain version, if a cyclic
     or indexed kernel never launched in phase 14, or a cyclic one in
-    phase 15, 16 or 21, or a cyclic one on phase 18's bfloat16 device
+    phase 15, 16, 21 or 22, or a cyclic one on phase 18's bfloat16 device
     wire or bench, or the batch-1 cyclic pair on a rank of phase 19 or on
-    phase 20's Mask R-CNN test; the counts of phases 11-21 beside, and
+    phase 20's Mask R-CNN test; the counts of phases 11-22 beside, and
     phase 14's, 15's and 16's timings at their shapes under `*_64ch`,
     `*_seg` and `*_det`), the card's name and power limit, and last
     `{"ok": true, "device": {...}}`. Every phase prints its seconds.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 with an error before printing any result. `--scaleout-only` runs phase 19
-alone over every visible card (a multi-card host).
+and phase 22's sharded encoder alone over every visible card (a
+multi-card host).
 """
 from __future__ import annotations
 
@@ -459,6 +477,13 @@ FAMILY_FP = {'key': 'FPBasedResNetBottleneck',
                         'num_target_channels': 256}}
 FAMILY_BATCH, FAMILY_REPS, FAMILY_BQ, INCEPTION_HW = 32, 5, 4, 299
 HUB_DET_HW = (480, 640)
+# phase 22: the sharded encoder's image and batch, its ranks on one card
+# and tolerance; the interleaved coder's lanes; Fast NMS's shapes (the RPN
+# per level, RetinaNet's candidates)
+SHARD_HW, SHARD_BATCH_HW, N_SHARD_BATCH = 4096, 1024, 8
+SHARD_RANKS_ONE_CARD, SHARD_TOL, SHARD_TIMEOUT = 2, 1e-5, 300
+INTERLEAVED_LANES = (1, 8, 32)
+NMS_CASES = (('RPN level', 4096, 1000, 0.7), ('RetinaNet', 4000, 100, 0.5))
 FAMILY_STEP = {'num_epochs': 1, 'train_bn': True,
                'optimizer': {'key': 'SGD', 'kwargs': {
                    'lr': 0.01, 'momentum': 0.9, 'weight_decay': 0.0005}},
@@ -5183,6 +5208,339 @@ def families_phase(torch, kernels, device, rt, images):
     return {k: b1[k] + bk[k] for k in kernels.ALL_KERNELS}
 
 
+# ---- phase 22: the 2-D mesh, the interleaved coder, Fast NMS ---------------
+
+def exact_convolutions(torch):
+    """TF32 off and cuDNN deterministic, without benchmarking; returns a
+    function that puts the previous flags back."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             cudnn.deterministic, cudnn.benchmark)
+    cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    cudnn.deterministic, cudnn.benchmark = True, False
+
+    def restore():
+        (cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         cudnn.deterministic, cudnn.benchmark) = saved
+    return restore
+
+
+def shard_images(torch, n, hw, seed):
+    """n seeded unit-normal NCHW images of hw x hw, made on the CPU."""
+    return torch.randn((n, 3, hw, hw),
+                       generator=torch.Generator().manual_seed(seed))
+
+
+def timed_encode(torch, fn):
+    """`fn()` once to warm up, then once timed; its result, ms, and the
+    peak bytes allocated above what was allocated before it."""
+    fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, 1e3 * (time.perf_counter() - t0),
+            torch.cuda.max_memory_allocated() - base)
+
+
+def sharded_worker(spec_path, out_dir):
+    """One rank of phase 22, under `torchrun`: the flagship's FP-24
+    encoder on a ('data', 'model') mesh over the group, on this rank's
+    rows of the 4,096 px image and of the 8 images of 1,024 px, the
+    latents gathered; writes their timings and peak memory
+    (`rank<r>.json`) and rank 0's latents (`latent.pt`)."""
+    import torch
+    sys.path.insert(0, REPO)
+    from sc2bench_tpu_torch.models.layer import FPBasedResNetBottleneck
+    from sc2bench_tpu_torch.parallel import dist
+    from sc2bench_tpu_torch.parallel.mesh import (get_mesh, replicate,
+                                                  shard_spatial,
+                                                  sharded_encode)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    device = dist.init_from_env(spec['world'], 'cuda')
+    exact_convolutions(torch)
+    mesh = get_mesh(axes=('data', 'model'))
+    bneck = FPBasedResNetBottleneck(num_bottleneck_channels=24).to(device)
+    if mesh.rank == 0:
+        bneck.load_state_dict(torch.load(spec['state'], map_location=device))
+    replicate(mesh, bneck.eval())
+    res = {'rank': dist.rank(), 'world': dist.world_size(),
+           'backend': dist.backend(), 'device': str(device),
+           'mesh': mesh.shape, 'model_line': mesh.line('model')}
+    latents = {}
+    for key, n, hw, seed in (('big', mesh.axis_size('data'), SHARD_HW, 91),
+                             ('batch', N_SHARD_BATCH, SHARD_BATCH_HW, 92)):
+        x = shard_spatial(mesh, shard_images(torch, n, hw, seed)).to(device)
+        y, ms, peak = timed_encode(
+            torch, lambda: sharded_encode(bneck, x, mesh))
+        res[key] = {'rows': x.shape[2], 'ms': ms, 'peak': peak,
+                    'shape': list(y.shape)}
+        latents[key] = y.cpu()
+        del x, y
+    if mesh.rank == 0:
+        torch.save(latents, os.path.join(out_dir, 'latent.pt'))
+    with open(os.path.join(out_dir, f'rank{mesh.rank}.json'), 'w') as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy()
+
+
+def sharded_job(torch, backend, world, state, tmp):
+    """`torchrun` `world` ranks of `sharded_worker`: their results and
+    rank 0's latents."""
+    out_dir = os.path.join(tmp, f'sharded_{backend}')
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, 'spec.json')
+    with open(path, 'w') as f:
+        json.dump({'world': world, 'state': state}, f)
+    env = {**os.environ, 'OMP_NUM_THREADS': '1',
+           'PYTHONPATH': os.pathsep.join([REPO,
+                                          os.environ.get('PYTHONPATH', '')])}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+         '--nproc_per_node', str(world), os.path.abspath(__file__),
+         '--sharded-worker', path, out_dir], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        text = proc.communicate(timeout=SHARD_TIMEOUT)[0]
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        text = proc.communicate()[0]
+        raise SmokeFailure(f'phase 22: the {backend} job timed out:\n'
+                           + text[-4000:])
+    check(proc.returncode == 0, f'phase 22: the {backend} job failed '
+          f'({proc.returncode}):\n' + text[-6000:])
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f'rank{r}.json')) as f:
+            ranks.append(json.load(f))
+    return (ranks, torch.load(os.path.join(out_dir, 'latent.pt')),
+            time.perf_counter() - t0)
+
+
+def batch1_lanes(kernels, shape, device):
+    """The fewest cyclic lanes (C x 2^k) whose steps the batch-1
+    (compacted) kernels take for a latent of `shape`."""
+    n, c = int(np.prod(shape)), int(shape[-1])
+    lanes = c
+    while not kernels.batch1_fits(-(-n // lanes), device):
+        lanes *= 2
+    return lanes
+
+
+def wire_round_trip(torch, kernels, rt, sym, shape, lanes, aligned, tag):
+    """Code flat NHWC symbols (k, n) through the device wire's coder
+    (compacted for one image, time-aligned for a batch) and decode them,
+    after one untimed encode: checks every image in support, valid, and
+    equal after; returns the launches of the timed pair, the wire bytes
+    of each image and the ms of both calls."""
+    from sc2bench_tpu_torch.ops.rans.device import (device_rans_decode,
+                                                    device_rans_encode)
+    cdf, cdf_len, off = rt._tables_dev
+    one = sym if aligned else sym[0]
+    device_rans_encode(one, cdf, cdf_len, off, num_lanes=lanes,
+                       cyclic_channels=shape[-1], aligned=aligned)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc = device_rans_encode(one, cdf, cdf_len, off, num_lanes=lanes,
+                             cyclic_channels=shape[-1], aligned=aligned)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    dec, valid = device_rans_decode(
+        enc['streams'], enc['states'], cdf, cdf_len, off,
+        n_symbols=int(np.prod(shape)), num_lanes=lanes,
+        cyclic_channels=shape[-1], aligned=enc['aligned'],
+        device=sym.device)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(kernels.LAUNCHES)
+    check(enc['aligned'] == aligned, f'{tag}: the coder took the '
+          f'{"aligned" if enc["aligned"] else "compacted"} layout')
+    check(bool(enc['ok'].all()), f'{tag}: symbols outside the support')
+    check(bool(valid.all()), f'{tag}: the decode is not valid')
+    check(torch.equal(dec.reshape(sym.shape).to(sym.dtype), sym),
+          f'{tag}: decoded symbols differ from the encoded ones')
+    return (launches, [int(b) for b in enc['nbytes'].reshape(-1).tolist()],
+            1e3 * (t1 - t0), 1e3 * (t2 - t1))
+
+
+def sharded_part(torch, kernels, rt, device, cards=None):
+    """Phase 22's sharded encoder: the flagship's FP-24 encoder at full
+    width on a 4,096 px image with its rows over a 'model' axis (two gloo
+    ranks on cuda:0 on a one-card host, stated; one NCCL rank a card on
+    a multi-card host), the gathered latent within rtol = atol = 1e-5 of
+    the unsharded encoder on one rank (TF32 off, cuDNN deterministic);
+    its symbols through the compacted cyclic pair at batch 1, and 8
+    sharded 1,024 px images through the aligned pair at wire_batch 8,
+    decoded equal. Returns the launches of the two codings."""
+    import tempfile
+    cards = torch.cuda.device_count() if cards is None else cards
+    backend, world = ('nccl', cards) if cards > 1 \
+        else ('gloo', SHARD_RANKS_ONE_CARD)
+    bneck = rt.module.bottleneck_layer
+    restore = exact_convolutions(torch)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            state = os.path.join(tmp, 'bottleneck.pt')
+            torch.save(bneck.state_dict(), state)
+            ranks, latents, wall = sharded_job(torch, backend, world, state,
+                                              tmp)
+        data = ranks[0]['mesh']['data']
+        log(f'phase 22: {backend} job, world size {world}, mesh '
+            f'{ranks[0]["mesh"]}, ranks on '
+            + ', '.join(f'{x["rank"]}: {x["device"]}' for x in ranks)
+            + f' (backend {ranks[0]["backend"]}); wall {wall:.1f} s')
+        check(all(x['backend'] == backend for x in ranks),
+              f'phase 22: the ranks chose {[x["backend"] for x in ranks]}')
+        check(ranks[0]['mesh']['model'] > 1, 'phase 22: no model axis')
+        medians = rt._medians[None, :, None, None]
+        counts, results = {}, {}
+        for key, n, hw, seed in (('big', data, SHARD_HW, 91),
+                                 ('batch', N_SHARD_BATCH, SHARD_BATCH_HW,
+                                  92)):
+            x = shard_images(torch, n, hw, seed)[:n // data].to(device)
+            with torch.no_grad():
+                want, ms, peak = timed_encode(
+                    torch, lambda: bneck._encode(x))
+            del x
+            got = latents[key].to(device)
+            check(got.shape == want.shape, f'phase 22 {key}: gathered '
+                  f'{tuple(got.shape)}, unsharded {tuple(want.shape)}')
+            err = float(((got - want).abs()
+                         - SHARD_TOL * want.abs()).max())
+            check(err <= SHARD_TOL, f'phase 22 {key}: the gathered latent '
+                  f'differs from the unsharded one by {err:.3e} over rtol '
+                  f'{SHARD_TOL}')
+            sym = torch.round(got - medians).to(torch.int32)
+            differ = int((sym != torch.round(want - medians)
+                          .to(torch.int32)).sum())
+            shape = tuple(sym.shape[2:]) + (sym.shape[1],)
+            flat = sym.permute(0, 2, 3, 1).reshape(sym.shape[0], -1)
+            results[key] = dict(shape=shape, ms=ms, peak=peak,
+                                err=float((got - want).abs().max()),
+                                differ=differ, images=flat.shape[0],
+                                n=flat.numel())
+            aligned = key == 'batch'
+            lanes = rt._auto_wire_lanes(shape) if aligned \
+                else batch1_lanes(kernels, shape, device)
+            counts[key], nbytes, enc_ms, dec_ms = wire_round_trip(
+                torch, kernels, rt, flat, shape, lanes, aligned,
+                f'phase 22 {key}')
+            want_kernels = ('rans_cyclic_encode_aligned',
+                            'rans_cyclic_decode_aligned') if aligned \
+                else FP_BATCH1
+            check(counts[key] == expected_launches(kernels, want_kernels, 1),
+                  f'phase 22 {key}: launched {counts[key]}')
+            results[key].update(lanes=lanes, nbytes=nbytes, enc_ms=enc_ms,
+                                dec_ms=dec_ms)
+            if key == 'big':
+                results[key]['symbols'] = flat[0].cpu().numpy()
+            del got, want, sym, flat
+        for key, r in results.items():
+            per_rank = ', '.join(
+                f'rank {x["rank"]} {x[key]["rows"]} rows, '
+                f'{x[key]["ms"]:.2f} ms, peak {x[key]["peak"] / 2**20:.1f} '
+                f'MiB' for x in ranks)
+            log(f'phase 22: {key}: {r["images"]} latent(s) {r["shape"]}, '
+                f'rows sharded over model {ranks[0]["mesh"]["model"]}: '
+                f'{per_rank}; unsharded on one rank {r["ms"]:.2f} ms, peak '
+                f'{r["peak"] / 2**20:.1f} MiB; max |gathered - unsharded| '
+                f'{r["err"]:.3e} (rtol = atol = {SHARD_TOL}); '
+                f'{r["differ"]} of {r["n"]} symbols differ from the '
+                f'unsharded latent\'s; coded on {r["lanes"]} lanes, '
+                f'{sum(r["nbytes"])} bytes '
+                f'({"aligned" if key == "batch" else "compacted"} pair: '
+                f'encode {r["enc_ms"]:.2f} ms, decode {r["dec_ms"]:.2f} '
+                'ms), decoded equal')
+        return counts, results
+    finally:
+        restore()
+
+
+def interleaved_part(rt, images, big):
+    """The interleaved host coder on the FP-24 latents of phase 3's
+    images and on the 4,096 px latent (NHWC order, symbol i on channel
+    i mod 24), at 1, 8 and 32 lanes: each round trip exact; MB/s of the
+    symbols (int32) beside `encode_with_indexes` and
+    `decode_with_indexes` on the same symbols."""
+    coder = rt.codec.coder
+    ours = np.concatenate([rt._symbols_nhwc(x)[0].reshape(-1).cpu().numpy()
+                           for x in images]).astype(np.int32)
+    for tag, sym in (('phase 3 x16', ours), ('4096 px', big)):
+        idx = (np.arange(sym.size) % 24).astype(np.int32)
+        mb = sym.size * 4 / 1e6
+        t0 = time.perf_counter()
+        single = coder.encode_with_indexes(sym, idx)
+        t1 = time.perf_counter()
+        back = coder.decode_with_indexes(single, idx)
+        t2 = time.perf_counter()
+        check(np.array_equal(back, sym), f'phase 22 {tag}: '
+              'decode_with_indexes differs')
+        line = [f'single stream {len(single)} B, encode '
+                f'{mb / (t1 - t0):.1f} / decode {mb / (t2 - t1):.1f} MB/s']
+        for lanes in INTERLEAVED_LANES:
+            t0 = time.perf_counter()
+            data = coder.encode_interleaved(sym, idx, num_lanes=lanes)
+            t1 = time.perf_counter()
+            back = coder.decode_interleaved(data, idx)
+            t2 = time.perf_counter()
+            check(np.array_equal(back, sym), f'phase 22 {tag}: '
+                  f'{lanes} interleaved lanes differ after the round trip')
+            line.append(f'{lanes} lanes {len(data)} B, encode '
+                        f'{mb / (t1 - t0):.1f} / decode '
+                        f'{mb / (t2 - t1):.1f} MB/s')
+        log(f'phase 22: interleaved coder, {tag} ({sym.size} symbols, '
+            f'{os.cpu_count()} CPUs), exact round trips: '
+            + '; '.join(line))
+
+
+def nms_part(torch, device):
+    """`fast_nms_mask` on the card against the CPU (indices and validity
+    equal) at the RPN's per-level shape (4,096 boxes, 1,000 out, IoU 0.7)
+    and on RetinaNet's 4,000 candidates (its 100 detections, IoU 0.5),
+    timed beside `nms_mask` on the same input."""
+    from sc2bench_tpu_torch.ops.boxes import fast_nms_mask, nms_mask
+    rng = np.random.default_rng(93)
+    for tag, n, max_out, thresh in NMS_CASES:
+        centers = rng.uniform(0, 1200, (64, 2))[rng.integers(0, 64, n)]
+        wh = rng.uniform(16, 256, (n, 2))
+        xy = centers + rng.normal(0, 24, (n, 2))
+        boxes = torch.from_numpy(np.concatenate(
+            [xy - wh / 2, xy + wh / 2], 1).astype(np.float32))
+        scores = torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32))
+        want = fast_nms_mask(boxes, scores, thresh, max_out)
+        b, s = boxes.to(device), scores.to(device)
+        got = fast_nms_mask(b, s, thresh, max_out)
+        check(torch.equal(got[0].cpu(), want[0])
+              and torch.equal(got[1].cpu(), want[1]),
+              f'phase 22: fast_nms_mask {tag} differs on the card')
+        fast = per_call_ms(torch, lambda: fast_nms_mask(b, s, thresh,
+                                                        max_out), 10)
+        greedy = per_call_ms(torch, lambda: nms_mask(b, s, thresh,
+                                                     max_out), 10)
+        log(f'phase 22: fast_nms_mask, {tag} ({n} boxes, max_out '
+            f'{max_out}, IoU {thresh}): equal to the CPU, '
+            f'{int(want[1].sum())} kept; {fast:.3f} ms on the card, '
+            f'nms_mask {greedy:.3f} ms on the same input')
+
+
+def mesh_phase(torch, kernels, rt, images, device):
+    """Phase 22: the sharded encoder, the interleaved coder, Fast NMS.
+    Returns the launches of the sharded latents' coding."""
+    torch.cuda.empty_cache()
+    counts, results = sharded_part(torch, kernels, rt, device)
+    interleaved_part(rt, images, results['big']['symbols'])
+    nms_part(torch, device)
+    total = {k: sum(c.get(k, 0) for c in counts.values())
+             for k in kernels.ALL_KERNELS}
+    return total
+
+
 def smi_query(fields):
     out = subprocess.run(
         ['nvidia-smi', '--id=0', f'--query-gpu={fields}',
@@ -5337,7 +5695,11 @@ def run():
     family_launches = timed('phase 21', families_phase, torch, kernels,
                             device, rt, images)
 
-    # ---- phase 22: the kernels line ----
+    # ---- phase 22: the 2-D mesh, the interleaved coder, Fast NMS ----
+    mesh_launches = timed('phase 22', mesh_phase, torch, kernels, rt,
+                          images, device)
+
+    # ---- phase 23: the kernels line ----
 
     rows = []
     for name in kernels.ALL_KERNELS:
@@ -5369,6 +5731,7 @@ def run():
                    launches_bf16=bf16_wire[name],
                    launches_heads=heads_launches[name],
                    launches_families=family_launches[name],
+                   launches_mesh=mesh_launches[name],
                    launches_bench=bench_launches[name],
                    launches_scaleout={b: [c[name] for c in per]
                                       for b, per in scale.items()},
@@ -5421,6 +5784,9 @@ def run():
         if r['name'] in FP_BATCH1:
             check(r['launches_heads'] > 0, f'{r["name"]} never launched on '
                   "the Mask R-CNN student's device wire")
+        if r['name'] in kernels.KERNELS:
+            check(r['launches_mesh'] > 0, f'{r["name"]} never launched on '
+                  'the sharded latents\' device wire')
         check(r['max_abs_err'] == 0, f'{r["name"]} differs from its plain '
               f'version by {r["max_abs_err"]}')
     print(json.dumps({'kernels': rows}), flush=True)
@@ -5431,10 +5797,11 @@ def run():
 
 
 def run_scaleout_only():
-    """Phase 19 alone, over every visible card (`python3 chip_smoke.py
-    --scaleout-only`, as on a four-card host): the kernels built, the
-    flagship runtime, the phase, the card's name and power limit. It
-    prints no `ok` line; the smoke is the script with no arguments."""
+    """Phase 19 and phase 22's sharded encoder alone, over every visible
+    card (`python3 chip_smoke.py --scaleout-only`, as on a four-card
+    host): the kernels built, the flagship runtime, the two parts, the
+    card's name and power limit. It prints no `ok` line; the smoke is
+    the script with no arguments."""
     import torch
     check(torch.cuda.is_available(), 'no CUDA device is available')
     sys.path.insert(0, REPO)
@@ -5454,6 +5821,10 @@ def run_scaleout_only():
     scaleout_phase(torch, kernels, rt, images, device)
     log(f'phase 19: done in {time.perf_counter() - t0:.1f} s on '
         f'{torch.cuda.device_count()} card(s)')
+    t0 = time.perf_counter()
+    sharded_part(torch, kernels, rt, device)
+    log(f'phase 22 (sharded encoder): done in {time.perf_counter() - t0:.1f}'
+        f' s on {torch.cuda.device_count()} card(s)')
     print(smi_query('name,power.limit'), flush=True)
 
 
@@ -5469,5 +5840,7 @@ def main(scaleout_only=False):
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--scaleout-worker']:
         scaleout_worker(*sys.argv[2:4])
+    elif sys.argv[1:2] == ['--sharded-worker']:
+        sharded_worker(*sys.argv[2:4])
     else:
         sys.exit(main(sys.argv[1:2] == ['--scaleout-only']))

@@ -23,8 +23,22 @@ def get_binary_object_size(obj, unit_size: int = 1024) -> float:
     return sys.getsizeof(pickle.dumps(obj)) / unit_size
 
 
+class BaseAnalyzer:
+    """The analyzers' interface: `analyze` one sample, `summarize` what was
+    seen, `clear` it."""
+
+    def analyze(self, *args, **kwargs):
+        raise NotImplementedError()
+
+    def summarize(self):
+        raise NotImplementedError()
+
+    def clear(self):
+        raise NotImplementedError()
+
+
 @register_analyzer
-class FileSizeAnalyzer:
+class FileSizeAnalyzer(BaseAnalyzer):
     """Compressed-object size per sample; summarize() reports mean/std."""
 
     UNIT_DICT = {'B': 1, 'KB': 1024, 'MB': 1024 * 1024}

@@ -74,9 +74,12 @@ class SyntheticClassificationDataset:
 
 
 class DataLoader:
-    """Batched loader with optional shuffle (seeded by the epoch) and a
-    background thread that prepares the next batches while the caller
-    works.
+    """Batched loader with optional shuffle (`default_rng(seed + epoch)`)
+    and, with `prefetch`, a background thread that prepares the next
+    batches while the caller works. With `num_workers` > 0 a pool of that
+    many threads fetches a batch's items (PIL's decode and file reads
+    release the GIL); the batches and their order are those of
+    `num_workers=0`. `close()` ends the pool.
 
     Over `num_shards` processes (the reference's DistributedSampler
     contract, as the JAX loader keeps it): every process shuffles the
@@ -85,7 +88,8 @@ class DataLoader:
     -- disjoint shards up to the padding, all of one length."""
 
     def __init__(self, dataset, batch_size=1, shuffle=False, drop_last=False,
-                 collate_fn=None, num_shards=1, shard_index=0):
+                 collate_fn=None, seed=0, prefetch=True, num_workers=0,
+                 num_shards=1, shard_index=0):
         if not 0 <= shard_index < num_shards:
             raise ValueError(f'shard_index {shard_index} not in '
                              f'[0, {num_shards})')
@@ -94,8 +98,12 @@ class DataLoader:
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.collate_fn = collate_fn or self._collate
+        self.seed = seed
+        self.prefetch = prefetch
+        self.num_workers = num_workers
         self.num_shards = num_shards
         self.shard_index = shard_index
+        self._pool = None
         self.epoch = 0
 
     @staticmethod
@@ -122,7 +130,7 @@ class DataLoader:
         """This shard's dataset indices for the current epoch."""
         idx = np.arange(len(self.dataset))
         if self.shuffle:
-            np.random.default_rng(self.epoch).shuffle(idx)
+            np.random.default_rng(self.seed + self.epoch).shuffle(idx)
         if self.num_shards > 1:
             total = self._shard_len() * self.num_shards
             if total > len(idx):
@@ -130,16 +138,40 @@ class DataLoader:
             idx = idx[self.shard_index::self.num_shards]
         return idx
 
+    def _fetch(self, chunk):
+        """The items of `chunk`, in order (on the pool with workers)."""
+        if self.num_workers > 0:
+            if self._pool is None:
+                from concurrent.futures import ThreadPoolExecutor
+                self._pool = ThreadPoolExecutor(self.num_workers)
+            return list(self._pool.map(lambda i: self.dataset[int(i)],
+                                       chunk))
+        return [self.dataset[int(i)] for i in chunk]
+
+    def close(self):
+        """End the worker pool (its threads otherwise live until exit)."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+            self._pool = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
     def _batches(self):
         idx = self._indices()
         bs = self.batch_size
         end = len(idx) - (len(idx) % bs) if self.drop_last else len(idx)
         for start in range(0, end, bs):
-            yield self.collate_fn(
-                [self.dataset[int(i)] for i in idx[start:start + bs]])
+            yield self.collate_fn(self._fetch(idx[start:start + bs]))
         self.epoch += 1
 
     def __iter__(self):
+        if not self.prefetch:
+            yield from self._batches()
+            return
         q: queue.Queue = queue.Queue(maxsize=2)
         sentinel = object()
         failure = []
@@ -174,7 +206,8 @@ def build_dataset(dataset_config):
 def build_sharded_loader(split_config, collate_fn=None,
                          shard_over_processes=False):
     """DataLoader from a split config (`collate_fn`, by default stacking
-    same-size images, makes the batches). With `shard_over_processes`,
+    same-size images, makes the batches; the config's `num_workers`
+    threads fetch the items). With `shard_over_processes`,
     each process of a data-parallel group iterates its own shard (the
     training and validation loaders, as in JAX); otherwise every process
     iterates the whole dataset (the test loaders)."""
@@ -183,5 +216,7 @@ def build_sharded_loader(split_config, collate_fn=None,
                       batch_size=split_config.get('batch_size', 1),
                       shuffle=split_config.get('shuffle', False),
                       drop_last=split_config.get('drop_last', False),
-                      collate_fn=collate_fn, num_shards=shards,
+                      collate_fn=collate_fn,
+                      num_workers=split_config.get('num_workers', 0),
+                      num_shards=shards,
                       shard_index=rank() if shards > 1 else 0)

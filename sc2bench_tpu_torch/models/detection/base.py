@@ -118,3 +118,9 @@ class BackboneWithFPN(nn.Module):
 
     def forward(self, x, mode='train', generator=None, io=None) -> list:
         return self.fpn(self.body(x, mode=mode, generator=generator, io=io))
+
+
+def check_if_updatable_detection_model(model) -> bool:
+    """Whether `model` has an `update` (a `SplitDetectionRuntime` builds
+    its coding tables with it)."""
+    return hasattr(model, 'update')

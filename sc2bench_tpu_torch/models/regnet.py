@@ -6,6 +6,9 @@ of blocks `b1`..`bN` (1-indexed), each `conv1.conv`/`conv1.bn`,
 `conv2.*`, `se.fc1`/`se.fc2`, `conv3.*` and `downsample.conv`/`.bn`;
 `head.fc`. BatchNorm with eps 1e-5 and Flax's running-variance rule.
 
+`generate_regnet_params` gives the widths and depths of the RegNet design
+space from (w0, wa, wm, depth, group width).
+
 `forward(x, io=...)` records each stage's output under the JAX package's
 names (`s1_out` ... `s4_out`; the student `bottleneck_layer_out` and
 `s2_out` ... `s4_out`).
@@ -15,6 +18,7 @@ from __future__ import annotations
 from collections import OrderedDict
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -30,6 +34,29 @@ REGNET_PRESETS = {
     'regnety_064': ((288, 576, 1296), (7, 14, 2), 72),
     'regnety_016': ((120, 336, 888), (6, 17, 2), 24),
 }
+
+
+def generate_regnet_params(w0, wa, wm, depth, group_width, q=8):
+    """Per-stage widths and depths from the RegNet design space
+    (Radosavovic et al.): block j's width w0 * wm^round(log((w0 + wa j)
+    / w0) / log wm), rounded to a multiple of `q`, then of the group width
+    (at least one group); runs of equal widths are stages. The JAX
+    package's arithmetic, step for step."""
+    ks = np.round(np.log((w0 + wa * np.arange(depth)) / w0) / np.log(wm))
+    widths = w0 * np.power(wm, ks)
+    widths = np.round(widths / q) * q
+    widths = np.minimum(widths, np.round(widths / group_width) * group_width
+                        + group_width * (widths % group_width > 0) * 0)
+    widths = [int(max(group_width, round(w / group_width) * group_width))
+              for w in widths]
+    stage_widths, stage_depths = [], []
+    for w in widths:
+        if stage_widths and stage_widths[-1] == w:
+            stage_depths[-1] += 1
+        else:
+            stage_widths.append(w)
+            stage_depths.append(1)
+    return stage_widths, stage_depths
 
 
 class ConvBn(nn.Module):

@@ -147,3 +147,9 @@ class BaseSegmentationModel(nn.Module):
         out = self._head(self.classifier,
                          self.backbone.forward_tail(feature)['out'])
         return upsample_to(out, input_hw)
+
+
+def check_if_updatable_segmentation_model(model) -> bool:
+    """Whether `model` has an `update` and a `backbone` (JAX's test for an
+    updatable segmentation model)."""
+    return hasattr(model, 'update') and hasattr(model, 'backbone')

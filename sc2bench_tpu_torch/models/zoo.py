@@ -242,6 +242,13 @@ class ImageCodecRuntime:
     def _prep(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
+    def forward(self, x, mode: str = 'train',
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """The codec module's forward on `x` (the JAX runtime's
+        `module.apply`): the reconstruction, 'train' with uniform noise
+        from `generator`, any other mode dequantized."""
+        return self.module(self._prep(x), mode=mode, generator=generator)
+
     @torch.no_grad()
     def compress(self, x) -> dict:
         """{'strings': [y's] (factorized) or [y's, z's] (hyperprior),

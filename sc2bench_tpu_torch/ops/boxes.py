@@ -175,6 +175,35 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor,
     return out_idx, out_valid
 
 
+def fast_nms_mask(boxes: torch.Tensor, scores: torch.Tensor,
+                  iou_threshold: float, max_out: int):
+    """One-shot NMS (YOLACT's Fast NMS) with JAX's contract: (indices
+    (max_out,) int32, keep (max_out,) bool). The top min(n, 4 max_out)
+    scores by a stable descending sort (ties first index first, as
+    `lax.top_k`); a box is kept when its largest IoU with a higher-scored
+    candidate is at most the threshold and its score is above -inf, so a
+    suppressed box still suppresses (more aggressive than greedy NMS, but
+    no loop). The kept boxes fill the first slots in score order; the rest
+    are index 0, keep False. The detection path uses `nms_mask`, as JAX's
+    does."""
+    n = boxes.shape[0]
+    dev = boxes.device
+    k = min(n, max(4 * max_out, max_out))
+    order = torch.sort(scores, descending=True, stable=True).indices[:k]
+    b = boxes[order]
+    iou = box_iou(b, b).triu(1)
+    max_iou = iou.max(0).values if k else iou.new_zeros(0)
+    keep = (max_iou <= iou_threshold) & (scores[order] > -math.inf)
+    # kept boxes to slots 0.. in order; slot max_out takes the rest
+    rank = torch.cumsum(keep.to(torch.int64), 0) - 1
+    slot = torch.where(keep & (rank < max_out), rank, max_out)
+    out_idx = torch.zeros(max_out + 1, dtype=torch.int32, device=dev)
+    out_valid = torch.zeros(max_out + 1, dtype=torch.bool, device=dev)
+    out_idx[slot] = torch.where(slot < max_out, order, 0).to(torch.int32)
+    out_valid[slot] = slot < max_out
+    return out_idx[:max_out], out_valid[:max_out]
+
+
 def batched_nms_mask(boxes: torch.Tensor, scores: torch.Tensor,
                      idxs: torch.Tensor, iou_threshold: float, max_out: int):
     """Category-aware NMS by the coordinate-offset trick (torchvision

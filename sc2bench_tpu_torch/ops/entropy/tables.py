@@ -31,6 +31,15 @@ class CodingTables:
     # The scale of each row (Gaussian conditional only), float32.
     scale_table: np.ndarray | None = None
 
+    def state_dict(self) -> dict:
+        """The tables as {name: array}, without the fields that are None."""
+        return {k: v for k, v in dataclasses.asdict(self).items()
+                if v is not None}
+
+    @classmethod
+    def from_state_dict(cls, d: dict) -> 'CodingTables':
+        return cls(**{k: np.asarray(v) for k, v in d.items()})
+
 
 def _pack_rows(pmfs, pmf_lengths, tail_masses, precision=16):
     """Quantize each pmf row (+ tail symbol) into a padded int32 CDF matrix

@@ -1,6 +1,7 @@
 """Host rANS coder in the CompressAI-style byte format (counterpart of
 `sc2bench_tpu/ops/rans/coder.py`: single-stream coding with indexes, its
-streaming decoder, and the cyclic int16 wire).
+streaming decoder, the cyclic int16 wire, and the interleaved multi-lane
+coder).
 
 Format: 32-bit state, 8-bit renormalization, 16-bit probability precision.
 A symbol outside its CDF row's support escapes to the row's last slot and
@@ -11,6 +12,10 @@ when its latent leaves the support (`ok=False`) or its device decode fails
 wire of `stream_deploy`: int16 symbols in NHWC-flat order, symbol i coded
 with distribution i mod C. The hyperprior's y-stream crosses as int16
 symbols with int16 per-element indexes (`encode_with_indexes_i16`).
+`encode_interleaved` codes symbol i on lane i mod L, each lane a stream
+of the single-stream format, behind a header of the lane count and the
+lanes' byte sizes (int32 each, the JAX package's layout); the lanes code
+and decode on threads, and the bytes do not depend on how many.
 
 Two implementations of one format:
   - `host.cpp`, compiled with g++ into `sc2bench_tpu_torch/build/` the
@@ -52,8 +57,8 @@ def build_library() -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f'.{os.getpid()}.tmp')
-    cmd = ['g++', '-O3', '-std=c++17', '-shared', '-fPIC', '-o', str(tmp),
-           str(SOURCE)]
+    cmd = ['g++', '-O3', '-std=c++17', '-shared', '-fPIC', '-pthread', '-o',
+           str(tmp), str(SOURCE)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
     except FileNotFoundError as e:
@@ -99,6 +104,12 @@ def _library():
             lib.rans_stream_decode.restype = i
             lib.rans_stream_decode.argtypes = [
                 u8p, i, i64p, i32p, i, i32p, i, i32p, i32p, i32p]
+            lib.rans_encode_interleaved.restype = i
+            lib.rans_encode_interleaved.argtypes = [
+                i32p, i32p, i, i, i32p, i, i32p, i32p, u8p, i, i]
+            lib.rans_decode_interleaved.restype = i
+            lib.rans_decode_interleaved.argtypes = [
+                u8p, i, i32p, i, i32p, i, i32p, i32p, i32p, i]
             _lib = lib
     return _lib
 
@@ -242,6 +253,43 @@ def _py_decode(data: bytes, indexes, cdfs, cdf_lengths, offsets) -> np.ndarray:
     return _PyStreamingState(data).decode(indexes, cdfs, cdf_lengths, offsets)
 
 
+def _py_encode_interleaved(symbols, indexes, num_lanes, cdfs, cdf_lengths,
+                           offsets) -> bytes:
+    lanes = [_py_encode(symbols[j::num_lanes], indexes[j::num_lanes], cdfs,
+                        cdf_lengths, offsets) for j in range(num_lanes)]
+    head = np.asarray([num_lanes] + [len(b) for b in lanes], '<i4')
+    return head.tobytes() + b''.join(lanes)
+
+
+def _interleaved_header(data: bytes) -> list:
+    """The lanes' (start, size) in an interleaved stream; ValueError for a
+    corrupt header (a lane count below 1, a negative size, sizes past the
+    end)."""
+    if len(data) < 4:
+        raise ValueError('corrupt interleaved rANS stream: no header')
+    num_lanes = int(np.frombuffer(data[:4], '<i4')[0])
+    if num_lanes < 1 or 4 + 4 * num_lanes > len(data):
+        raise ValueError(f'corrupt interleaved rANS stream: {num_lanes} '
+                         f'lanes in {len(data)} bytes')
+    sizes = np.frombuffer(data[4:4 + 4 * num_lanes], '<i4').astype(np.int64)
+    starts = 4 + 4 * num_lanes + np.concatenate([[0], np.cumsum(sizes)])
+    if (sizes < 0).any() or starts[-1] > len(data):
+        raise ValueError('corrupt interleaved rANS stream: lane sizes run '
+                         'past its end')
+    return [(int(a), int(n)) for a, n in zip(starts[:-1], sizes)]
+
+
+def _py_decode_interleaved(data: bytes, indexes, cdfs, cdf_lengths,
+                           offsets) -> np.ndarray:
+    lanes = _interleaved_header(data)
+    out = np.empty(indexes.size, np.int32)
+    for j, (start, size) in enumerate(lanes):
+        out[j::len(lanes)] = _py_decode(data[start:start + size],
+                                        indexes[j::len(lanes)], cdfs,
+                                        cdf_lengths, offsets)
+    return out
+
+
 class RansCoder:
     """Host range coder bound to one set of coding tables (rows of
     `quantized_cdf`, selected per symbol by its index)."""
@@ -372,6 +420,84 @@ class RansCoder:
             _i32p(self.offsets), _i16p(self._coarse), self._coarse.shape[1],
             _i16p(out))
         return out
+
+    # ---- interleaved multi-lane coding ------------------------------------
+    def encode_interleaved(self, symbols, indexes,
+                           num_lanes: int = 8) -> bytes:
+        """`encode_with_indexes` on `num_lanes` interleaved lanes (lane j
+        codes symbols j, j + L, ...; a count below 1 codes one lane), one
+        thread a lane up to the CPUs."""
+        return self._encode_interleaved(symbols, indexes, num_lanes)
+
+    def _encode_interleaved(self, symbols, indexes, num_lanes: int,
+                            threads: int | None = None) -> bytes:
+        """`encode_interleaved` on `threads` threads (None: one a lane,
+        up to the CPUs)."""
+        symbols = _as_i32(symbols).ravel()
+        indexes = _as_i32(indexes).ravel()
+        if symbols.shape != indexes.shape:
+            raise ValueError(f'{symbols.size} symbols but {indexes.size} '
+                             'indexes')
+        num_lanes = max(int(num_lanes), 1)
+        if self.lib is None:
+            return _py_encode_interleaved(symbols, indexes, num_lanes,
+                                          self.cdfs, self.cdf_lengths,
+                                          self.offsets)
+        threads = _threads(threads, num_lanes)
+        capacity = max(4096, symbols.size * 8 + 4 * num_lanes + 4)
+        while True:
+            out = np.empty(capacity, np.uint8)
+            n = self.lib.rans_encode_interleaved(
+                _i32p(symbols), _i32p(indexes), symbols.size, num_lanes,
+                _i32p(self.cdfs), self.cdf_stride, _i32p(self.cdf_lengths),
+                _i32p(self.offsets), _u8p(out), capacity, threads)
+            if n >= 0:
+                return out[:n].tobytes()
+            capacity *= 4
+
+    def decode_interleaved(self, data: bytes, indexes) -> np.ndarray:
+        """Inverse of `encode_interleaved` (the lane count is in the
+        stream). A corrupt header raises ValueError."""
+        return self._decode_interleaved(data, indexes)
+
+    def _decode_interleaved(self, data: bytes, indexes,
+                            threads: int | None = None) -> np.ndarray:
+        """`decode_interleaved` on `threads` threads (as
+        `_encode_interleaved`)."""
+        indexes = _as_i32(indexes).ravel()
+        if self.lib is None:
+            return _py_decode_interleaved(data, indexes, self.cdfs,
+                                          self.cdf_lengths, self.offsets)
+        lanes = len(_interleaved_header(data))
+        byte_arr = np.frombuffer(data, np.uint8)
+        out = np.empty(indexes.size, np.int32)
+        rc = self.lib.rans_decode_interleaved(
+            _u8p(byte_arr), byte_arr.size, _i32p(indexes), indexes.size,
+            _i32p(self.cdfs), self.cdf_stride, _i32p(self.cdf_lengths),
+            _i32p(self.offsets), _i32p(out), _threads(threads, lanes))
+        if rc != 0:
+            raise ValueError('corrupt interleaved rANS stream')
+        return out
+
+
+def _threads(threads, num_lanes: int) -> int:
+    if threads is None:
+        threads = min(num_lanes, os.cpu_count() or 1)
+    return max(1, int(threads))
+
+
+def encode_with_indexes(symbols, indexes, cdfs, cdf_lengths,
+                        offsets) -> bytes:
+    """One-shot `RansCoder(...).encode_with_indexes`."""
+    return RansCoder(cdfs, cdf_lengths, offsets).encode_with_indexes(
+        symbols, indexes)
+
+
+def decode_with_indexes(data, indexes, cdfs, cdf_lengths,
+                        offsets) -> np.ndarray:
+    """One-shot `RansCoder(...).decode_with_indexes`."""
+    return RansCoder(cdfs, cdf_lengths, offsets).decode_with_indexes(
+        data, indexes)
 
 
 class StreamingDecoder:

@@ -563,6 +563,13 @@ def wire_nbytes(data: bytes) -> int:
     return 4 + 6 * lanes + 2 * int(lengths.sum())
 
 
+def split_wire(data: bytes) -> tuple:
+    """A concatenation of two lane wires (the hyperprior's pulled wire: z
+    then y) split into its two parts, at the first one's `wire_nbytes`."""
+    k = wire_nbytes(data)
+    return data[:k], data[k:]
+
+
 def unpack_stream(data: bytes):
     """-> (streams (N, Lmax) uint16 zero-padded, states (N,) uint32)."""
     lanes = int(np.frombuffer(data[:2], np.uint16)[0])

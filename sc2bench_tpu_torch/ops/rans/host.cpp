@@ -16,6 +16,9 @@
 // base-15, then LSB-first chunks). Encoding walks the op list in reverse so
 // the decoder reads forward.
 //
+// The interleaved multi-lane coder (rans_encode_interleaved) is the
+// reference's layout, its lanes on std::thread workers.
+//
 // One change from the reference: the escape magnitude is held in 64 bits.
 // The reference counts its chunks with a u32 shift, which reaches a shift by
 // 32 (undefined; on x86 it never ends) once the magnitude needs 8 chunks,
@@ -23,8 +26,10 @@
 // every int32 symbol codes, with the bytes of the Python reference, which are
 // the reference's wherever it terminates.
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <thread>
 #include <vector>
 
 namespace {
@@ -158,32 +163,63 @@ inline int64_t read_symbol_escape(RansDecState& dec, int32_t max_value) {
                          : static_cast<int64_t>(raw_val >> 1) + max_value;
 }
 
-// n symbols from `dec`, symbol i with row indexes[i]: the largest s with
-// cdf[s] <= slot by bisection, then the escape of the last slot.
+// One symbol of row idx from `dec`: the largest s with cdf[s] <= slot by
+// bisection, then the escape of the last slot; the offset re-applied.
+inline int32_t decode_symbol(RansDecState& dec, int32_t idx,
+                             const int32_t* cdfs, int cdf_stride,
+                             const int32_t* cdf_lengths,
+                             const int32_t* offsets) {
+    const int32_t* cdf = cdfs + static_cast<int64_t>(idx) * cdf_stride;
+    const int32_t cdf_len = cdf_lengths[idx];
+    const int32_t max_value = cdf_len - 2;
+    const uint32_t slot = dec.peek();
+    int lo = 0, hi = cdf_len - 1;
+    while (hi - lo > 1) {
+        int mid = (lo + hi) >> 1;
+        if (static_cast<uint32_t>(cdf[mid]) <= slot) lo = mid;
+        else hi = mid;
+    }
+    const int s = lo;
+    dec.advance(static_cast<uint32_t>(cdf[s]),
+                static_cast<uint32_t>(cdf[s + 1] - cdf[s]));
+    const int64_t value = (s == max_value)
+        ? read_symbol_escape(dec, max_value) : s;
+    return static_cast<int32_t>(value + offsets[idx]);
+}
+
+// n symbols from `dec`, symbol i with row indexes[i].
 inline int rans_decode_with_state(RansDecState& dec, const int32_t* indexes,
                                   int n, const int32_t* cdfs, int cdf_stride,
                                   const int32_t* cdf_lengths,
                                   const int32_t* offsets, int32_t* out) {
-    for (int i = 0; i < n; ++i) {
-        const int32_t idx = indexes[i];
-        const int32_t* cdf = cdfs + static_cast<int64_t>(idx) * cdf_stride;
-        const int32_t cdf_len = cdf_lengths[idx];
-        const int32_t max_value = cdf_len - 2;
-        const uint32_t slot = dec.peek();
-        int lo = 0, hi = cdf_len - 1;
-        while (hi - lo > 1) {
-            int mid = (lo + hi) >> 1;
-            if (static_cast<uint32_t>(cdf[mid]) <= slot) lo = mid;
-            else hi = mid;
-        }
-        const int s = lo;
-        dec.advance(static_cast<uint32_t>(cdf[s]),
-                    static_cast<uint32_t>(cdf[s + 1] - cdf[s]));
-        const int64_t value = (s == max_value)
-            ? read_symbol_escape(dec, max_value) : s;
-        out[i] = static_cast<int32_t>(value + offsets[idx]);
-    }
+    for (int i = 0; i < n; ++i)
+        out[i] = decode_symbol(dec, indexes[i], cdfs, cdf_stride,
+                               cdf_lengths, offsets);
     return 0;
+}
+
+// Run fn(lane) for every lane on up to `threads` threads, each taking a
+// contiguous block of lanes; every lane's work is independent of the
+// others', so the result does not depend on the thread count.
+template <typename Fn>
+inline void for_each_lane(int num_lanes, int threads, Fn fn) {
+    threads = std::max(1, std::min(threads, num_lanes));
+    if (threads == 1) {
+        for (int lane = 0; lane < num_lanes; ++lane) fn(lane);
+        return;
+    }
+    std::vector<std::thread> pool;
+    pool.reserve(threads);
+    for (int t = 0; t < threads; ++t) {
+        const int lo = static_cast<int>(
+            static_cast<int64_t>(num_lanes) * t / threads);
+        const int hi = static_cast<int>(
+            static_cast<int64_t>(num_lanes) * (t + 1) / threads);
+        pool.emplace_back([lo, hi, &fn] {
+            for (int lane = lo; lane < hi; ++lane) fn(lane);
+        });
+    }
+    for (auto& th : pool) th.join();
 }
 
 }  // namespace
@@ -389,6 +425,93 @@ int rans_stream_decode(const uint8_t* bytes, int n_bytes, int64_t* state,
     state[0] = static_cast<int64_t>(dec.x);
     state[1] = static_cast<int64_t>(dec.ptr - bytes);
     return rc;
+}
+
+}  // extern "C"
+
+// Interleaved multi-lane coding (the layout of the reference's
+// rans_encode_interleaved): lane j codes symbols j, j+L, j+2L, ... with its
+// own state and buffer, in the single-stream format (escapes included).
+// Stream: int32 lane count L, L int32 lane byte sizes, then the lanes'
+// payloads one after another. Lanes run on up to `threads` threads; the
+// bytes do not depend on the thread count.
+
+extern "C" {
+
+// Returns the bytes written, or -1 if out_capacity is too small.
+int rans_encode_interleaved(const int32_t* symbols, const int32_t* indexes,
+                            int n, int num_lanes, const int32_t* cdfs,
+                            int cdf_stride, const int32_t* cdf_lengths,
+                            const int32_t* offsets, uint8_t* out,
+                            int out_capacity, int threads) {
+    if (num_lanes < 1) num_lanes = 1;
+    std::vector<std::vector<uint8_t>> lanes(num_lanes);
+    for_each_lane(num_lanes, threads, [&](int lane) {
+        std::vector<Op> ops;
+        ops.reserve(n / num_lanes + 8);
+        for (int i = lane; i < n; i += num_lanes) {
+            const int32_t idx = indexes[i];
+            const int32_t* cdf = cdfs + static_cast<int64_t>(idx) * cdf_stride;
+            emit_symbol_ops(ops, cdf, cdf_lengths[idx] - 2,
+                            static_cast<int64_t>(symbols[i]) - offsets[idx]);
+        }
+        RansEncState enc;
+        enc.buf.reserve(ops.size() * 2 + 8);
+        for (auto it = ops.rbegin(); it != ops.rend(); ++it)
+            enc.put(it->start, it->freq);
+        enc.flush();
+        lanes[lane].assign(enc.buf.rbegin(), enc.buf.rend());
+    });
+    int64_t total = 4 + 4 * static_cast<int64_t>(num_lanes);
+    for (const auto& lane : lanes) total += static_cast<int64_t>(lane.size());
+    if (total > out_capacity) return -1;
+    uint8_t* p = out;
+    std::memcpy(p, &num_lanes, 4);
+    p += 4;
+    for (const auto& lane : lanes) {
+        const int32_t size = static_cast<int32_t>(lane.size());
+        std::memcpy(p, &size, 4);
+        p += 4;
+    }
+    for (const auto& lane : lanes) {
+        std::memcpy(p, lane.data(), lane.size());
+        p += lane.size();
+    }
+    return static_cast<int>(total);
+}
+
+// Returns 0, or -1 for a corrupt header: fewer than 4 bytes, a lane count
+// below 1, a negative lane size, or sizes running past the end.
+int rans_decode_interleaved(const uint8_t* bytes, int n_bytes,
+                            const int32_t* indexes, int n,
+                            const int32_t* cdfs, int cdf_stride,
+                            const int32_t* cdf_lengths,
+                            const int32_t* offsets, int32_t* out,
+                            int threads) {
+    if (n_bytes < 4) return -1;
+    int32_t num_lanes = 0;
+    std::memcpy(&num_lanes, bytes, 4);
+    if (num_lanes < 1 || 4 + 4 * static_cast<int64_t>(num_lanes) > n_bytes)
+        return -1;
+    std::vector<int32_t> sizes(num_lanes);
+    std::vector<int64_t> starts(num_lanes);
+    int64_t pos = 4 + 4 * static_cast<int64_t>(num_lanes);
+    for (int lane = 0; lane < num_lanes; ++lane) {
+        std::memcpy(&sizes[lane], bytes + 4 + 4 * static_cast<int64_t>(lane),
+                    4);
+        if (sizes[lane] < 0) return -1;
+        starts[lane] = pos;
+        pos += sizes[lane];
+    }
+    if (pos > n_bytes) return -1;
+    for_each_lane(num_lanes, threads, [&](int lane) {
+        RansDecState dec;
+        dec.init(bytes + starts[lane], sizes[lane]);
+        for (int i = lane; i < n; i += num_lanes)
+            out[i] = decode_symbol(dec, indexes[i], cdfs, cdf_stride,
+                                   cdf_lengths, offsets);
+    });
+    return 0;
 }
 
 }  // extern "C"

@@ -35,7 +35,8 @@ is padded to a multiple of the per-process device count, here 1, so
 nothing is padded. One process (no group, or a group of one) runs
 exactly as before: every helper is then the identity.
 
-JAX's 2-D ('data', 'model') mesh has no counterpart.
+JAX's mesh helpers and its 2-D ('data', 'model') mesh, with the encoder
+sharded over image rows, are in `parallel/mesh.py`.
 """
 from __future__ import annotations
 
@@ -106,7 +107,20 @@ def init_from_env(world_size: int = 1, device='cuda') -> torch.device:
     return device
 
 
+_SUBGROUPS: dict = {}
+
+
+def subgroups(key, make):
+    """`make()`, the sub-groups of the group that `key` names (a mesh's
+    lines), made once and kept until `destroy` ends the group."""
+    if key not in _SUBGROUPS:
+        _SUBGROUPS[key] = make()
+    return _SUBGROUPS[key]
+
+
 def destroy() -> None:
+    """Ends the group and forgets its sub-groups."""
+    _SUBGROUPS.clear()
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
 

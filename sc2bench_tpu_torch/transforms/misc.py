@@ -8,6 +8,8 @@ pickled size the data-size protocol counts: a float16 array, or
 'zero_point': np.int32}, the JAX package's types, so the sizes are equal
 byte for byte.
 
+`ClearTargetTransform` drops a sample's target.
+
 The image transforms of the input-compression wrappers work on HWC numpy
 images, as the JAX package's do: `AdaptivePad` pads to a multiple of the
 codec's stride, `CustomToTensor` scales uint8 (or PIL) to [0, 1] float32,
@@ -22,6 +24,14 @@ import dataclasses
 import numpy as np
 
 from ..registry import register_transform
+
+
+@register_transform
+class ClearTargetTransform:
+    """Drops the target, keeping the sample: (sample, None)."""
+
+    def __call__(self, sample, *args):
+        return sample, None
 
 
 def quantize_tensor(x, num_bits: int = 8) -> dict:

@@ -4,6 +4,7 @@
 the processes; in one process it does nothing."""
 from __future__ import annotations
 
+import time
 from collections import defaultdict, deque
 
 import numpy as np
@@ -82,3 +83,20 @@ class MetricLogger:
     def __str__(self):
         return self.delimiter.join(
             f'{name}: {meter}' for name, meter in self.meters.items())
+
+    def log_every(self, iterable, print_freq, logger, header=''):
+        """Yield each item of `iterable`; after item i, with i a multiple
+        of `print_freq`, log the meters and the mean time the caller spent
+        on an item; at the end, the total seconds."""
+        i = 0
+        start = time.time()
+        iter_time = SmoothedValue(fmt='{avg:.4f}')
+        for obj in iterable:
+            t0 = time.time()
+            yield obj
+            iter_time.update(time.time() - t0)
+            if i % print_freq == 0:
+                logger.info('%s [%d]  %s  iter_time: %s', header, i,
+                            str(self), str(iter_time))
+            i += 1
+        logger.info('%s done in %.1fs', header, time.time() - start)

@@ -91,10 +91,11 @@ def test_registry_maps_the_jax_package_and_names_what_it_knows(caplog):
                              'sc2bench_tpu.models.segmentation',
                              'sc2bench_tpu.models.detection',
                              'sc2bench_tpu.parallel.mesh',
+                             'sc2bench_tpu.utils.cache',
                              {'name': 'json'}])
-    assert 'sc2bench_tpu.parallel.mesh has no counterpart' \
-        in caplog.text
-    for ported in ('transforms', 'models.segmentation', 'models.detection'):
+    assert 'sc2bench_tpu.utils.cache has no counterpart' in caplog.text
+    for ported in ('transforms', 'models.segmentation', 'models.detection',
+                   'parallel.mesh'):
         assert f'sc2bench_tpu.{ported} has no counterpart' not in caplog.text
     assert port_module_name('sc2bench_tpu.models.layer') \
         == 'sc2bench_tpu_torch.models.layer'

@@ -7,10 +7,12 @@ starts when this module's first test runs and does every multi-rank
 check (`tests/torch_port_parallel_worker.py`) while the single-process
 tests run: one `DistillationBox` step of stage 1 and of stage 2 and one
 end-to-end `DetectionBox` step on each rank's half of the batch, the
-segm and keypoint evaluators' sync, and the three CLIs over the group. The tests
-then hold its results against JAX's `DistillationBox` on a 2-device
-mesh at the global batch (the same variables, batch and noise) and
-against the port in one process."""
+segm and keypoint evaluators' sync, the FP encoder with its image rows
+sharded over a ('data', 'model') mesh of (1, 2), and the three CLIs over
+the group. The tests then hold its results against JAX's `DistillationBox`
+on a 2-device mesh at the global batch (the same variables, batch and
+noise), against JAX's unsharded encoder, and against the port in one
+process."""
 import torch_port_threads  # noqa: F401  (pins torch threads)
 import json
 import os
@@ -31,6 +33,7 @@ from sc2bench_tpu.config import load_config as jax_load_config
 from sc2bench_tpu.config import \
     train_stage_configs as jax_train_stage_configs
 from sc2bench_tpu.datasets.image import DataLoader as JaxDataLoader
+from sc2bench_tpu.models.layer import FPBasedResNetBottleneck as JaxFP
 from sc2bench_tpu.models.registry import \
     load_classification_model as jax_load_model
 from sc2bench_tpu.parallel.mesh import get_mesh
@@ -47,7 +50,7 @@ from test_torch_port_detection import (CANVAS, CLASSES, COCO, FP, STAGES,
                                        det_variables, jax_small, nchw,
                                        random_boxes)
 from test_torch_port_detection_heads import _eval_targets
-from test_torch_port_model import _nchw
+from test_torch_port_model import _nchw, _randomize
 from test_torch_port_train import SMALL, TINY, _flat, _jax_variables, _to_flax
 from torch_port_parallel_worker import (box_steps, cli_runs, coco_sync,
                                         det_step, seg_loss)
@@ -66,6 +69,7 @@ DEVICE_WIRE = json.dumps({'deploy_wire': 'device'})
 DET_E2E = COCO / ('end-to-end/faster_rcnn_splittable_resnet50-fp-beta1.28e-8_'
                   'fpn.yaml')
 DET_BATCH, DET_BOXES = 4, 8            # the detection step's global batch
+MESH_CH, MESH_PX = 8, 128              # the sharded encoder's test case
 
 
 def _cli_spec(d: Path) -> list:
@@ -142,10 +146,30 @@ def _det_spec() -> dict:
                 'boxes_valid': torch.from_numpy(valid)}}
 
 
+def _mesh_spec() -> tuple:
+    """The sharded encoder's inputs: an FP-8 bottleneck's randomized Flax
+    variables (as a port state dict) and two 128 px images, as JAX's
+    `test_spatial_sharding_of_encoder` takes; and the JAX side."""
+    bneck = JaxFP(num_bottleneck_channels=MESH_CH)
+    shapes = jax.eval_shape(lambda: bneck.init(
+        {'params': jax.random.key(0), 'noise': jax.random.key(1)},
+        jnp.zeros((2, MESH_PX, MESH_PX, 3)), mode='train'))
+    variables = _randomize({'params': {'bottleneck_layer': shapes['params']}},
+                           np.random.default_rng(25))
+    state = {k.split('.', 1)[1]: v
+             for k, v in state_dict_from_flax(variables).items()}
+    x = np.random.default_rng(26).normal(
+        0, 1, (2, MESH_PX, MESH_PX, 3)).astype(np.float32)
+    return ({'channels': MESH_CH, 'state': state, 'x': _nchw(x)},
+            {'module': bneck, 'params': variables['params'][
+                'bottleneck_layer'], 'x': x})
+
+
 @pytest.fixture(scope='module')
 def setup(tmp_path_factory):
     d = tmp_path_factory.mktemp('parallel')
     box, jax_side = _box_spec()
+    mesh, jax_side['mesh'] = _mesh_spec()
     cfg = load_config(TINY, SMALL_CLS)
     torch.manual_seed(0)
     fresh = load_classification_model(cfg['models']['student_model'],
@@ -160,7 +184,7 @@ def setup(tmp_path_factory):
         'targets': torch.from_numpy(targets)}
     spec = {'world': WORLD, 'box': box, 'det': _det_spec(), 'seg_loss': seg,
             'coco': {t: _eval_targets(t) for t in ('segm', 'keypoints')},
-            'cli': _cli_spec(d)}
+            'mesh': mesh, 'cli': _cli_spec(d)}
     torch.save(spec, d / 'spec.pt')
     return d, spec, jax_side
 
@@ -441,6 +465,41 @@ def test_segm_and_keypoint_sync_equals_one_process(ranks, one_process):
     for r in ranks:
         assert r['coco'] == want
     assert all(0.0 < w['AP'] < 1.0 for w in want.values())
+
+
+def test_sharded_encoder_equals_jax_unsharded(setup, ranks):
+    """The FP-8 encoder on two 128 px images with their rows sharded over
+    'model' = 2 (each rank 64 rows; the halo rows traded over gloo)
+    equals JAX's unsharded encoder on every rank (rtol = atol = 1e-5, the
+    tolerance of JAX's sharded test); each rank's own rows, 16 and 15
+    (the 2x2 convolution's last row has no rank below), are its block of
+    that latent at their offset."""
+    j = setup[2]['mesh']
+    want = np.asarray(jax.jit(lambda v, x: j['module'].apply(
+        v, x, method=lambda m, x: m.encoder(x)))(
+            {'params': jax.tree.map(jnp.asarray, j['params'])}, j['x']))
+    assert want.shape == (2, 31, 31, MESH_CH)
+    for r in ranks:
+        got = r['mesh']['latent'].permute(0, 2, 3, 1).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        shard, off = r['mesh']['shard'], r['mesh']['offset']
+        assert (off, shard.shape[2]) == ((0, 16), (16, 15))[r['rank']]
+        np.testing.assert_allclose(
+            shard.permute(0, 2, 3, 1).numpy(),
+            want[:, off:off + shard.shape[2]], rtol=1e-5, atol=1e-5)
+
+
+def test_two_ranks_make_a_one_by_two_mesh_and_refuse_an_odd_h(ranks):
+    """Two ranks on ('data', 'model') are JAX's (1, 2) mesh: one 'model'
+    line of both ranks, each rank its own 'data' line, every rank holding
+    64 of the 128 rows; shards of 62 rows (H = 124, not a multiple of 4 x
+    2) raise instead of running unsharded."""
+    for r in ranks:
+        m = r['mesh']
+        assert m['shape'] == {'data': 1, 'model': 2}
+        assert (m['model_line'], m['data_line'], m['rows']) \
+            == ([0, 1], [r['rank']], 64)
+        assert 'a multiple of 8' in m['refused']
 
 
 def test_cli_trains_one_epoch_and_tests_on_the_device_wire(ranks):

@@ -6,7 +6,8 @@
 
 on the CPU over gloo. Each rank reads the spec the test wrote, runs the
 box steps and the detection step on its block of the batch, the segm and
-keypoint evaluators on its share of the images and the three CLIs over
+keypoint evaluators on its share of the images, the FP encoder with the
+image rows sharded over a ('data', 'model') mesh, and the three CLIs over
 the group, and writes what it saw to `OUT_DIR/rank<r>.pt`; the
 test compares those with one process and with JAX. `box_steps` and
 `det_step` are also the one-process reference (`block` the identity)."""
@@ -108,6 +109,35 @@ def coco_sync(spec: dict, rank: int = 0, world: int = 1) -> dict:
     return out
 
 
+def mesh_encode(spec: dict) -> dict:
+    """The 2-D mesh over the group and the spec's FP bottleneck encoder on
+    this rank's rows of the spec's images (`sharded_encode`): the mesh's
+    shape and this rank's lines, the gathered latent, this rank's
+    latent rows and their offset (`_encode_rows`, before the gather),
+    and the message of an H the encoder refuses."""
+    from sc2bench_tpu_torch.models.layer import FPBasedResNetBottleneck
+    from sc2bench_tpu_torch.parallel.mesh import (_encode_rows, get_mesh,
+                                                  replicate, shard_spatial,
+                                                  sharded_encode)
+    mesh = get_mesh(axes=('data', 'model'))
+    bneck = FPBasedResNetBottleneck(
+        num_bottleneck_channels=spec['channels']).eval()
+    if mesh.rank == 0:
+        bneck.load_state_dict(spec['state'])
+    replicate(mesh, bneck)                 # rank 0's weights everywhere
+    x = shard_spatial(mesh, spec['x'])
+    shard, offset = _encode_rows(bneck, x, mesh)
+    try:
+        sharded_encode(bneck, x[:, :, :x.shape[2] - 2], mesh)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    return {'shape': mesh.shape, 'model_line': mesh.line('model'),
+            'data_line': mesh.line('data'), 'rows': x.shape[2],
+            'latent': sharded_encode(bneck, x, mesh), 'shard': shard,
+            'offset': offset, 'refused': refused}
+
+
 class _Messages(logging.Handler):
     def __init__(self):
         super().__init__(logging.INFO)
@@ -166,6 +196,7 @@ def main(spec_path: str, out_dir: str) -> None:
            'det': det_step(spec['det'], block),
            'seg_loss': seg_loss(spec['seg_loss'], block),
            'coco': coco_sync(spec['coco'], r, w),
+           'mesh': mesh_encode(spec['mesh']),
            'cli': cli_runs(spec, w)}
     torch.save(res, Path(out_dir) / f'rank{r}.pt')
     dist.barrier()
