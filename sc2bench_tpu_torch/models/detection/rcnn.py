@@ -54,6 +54,7 @@ from ...ops.boxes import (batched_nms_mask, box_iou, clip_boxes,
 from ...ops.roi_align import multiscale_roi_align
 from ...parallel.dist import global_rows
 from ...registry import register_model
+from ...utils.profiling import span
 from ..precision import compute, resolve_dtype
 from .base import BackboneWithFPN, SplittableDetectionBackbone
 from .fpn import cached_anchors
@@ -146,21 +147,24 @@ def propose(objectness, deltas, anchors, level_sizes, image_hw,
     """One image's RPN proposals (torchvision filter_proposals with the
     JAX package's static shapes): objectness (A,), deltas (A, 4), anchors
     (A, 4) -> (boxes (R, 4), valid (R,))."""
-    mode = 'training' if training else 'testing'
-    pre_k = RPN_PRE_NMS_TOP_N[mode]
-    post_k = RPN_POST_NMS_TOP_N[mode]
-    k_per_level = [min(pre_k, n) for n in level_sizes]
-    keep = _topk_per_level(objectness, level_sizes, k_per_level)
-    level_ids = torch.cat([torch.full((k,), i, dtype=torch.int64,
-                                      device=keep.device)
-                           for i, k in enumerate(k_per_level)])
-    scores = torch.sigmoid(objectness[keep])
-    boxes = clip_boxes(decode_boxes(deltas[keep], anchors[keep]), image_hw)
-    scores = torch.where(remove_small_boxes_mask(boxes, 1e-3), scores, -1.0)
-    # level-aware NMS: boxes on different levels never suppress each other
-    idx, nms_valid = batched_nms_mask(boxes, scores, level_ids,
-                                      RPN_NMS_THRESH, post_k)
-    return boxes[idx], nms_valid & (scores[idx] > 0)
+    with span('detect.rpn_propose'):
+        mode = 'training' if training else 'testing'
+        pre_k = RPN_PRE_NMS_TOP_N[mode]
+        post_k = RPN_POST_NMS_TOP_N[mode]
+        k_per_level = [min(pre_k, n) for n in level_sizes]
+        keep = _topk_per_level(objectness, level_sizes, k_per_level)
+        level_ids = torch.cat([torch.full((k,), i, dtype=torch.int64,
+                                          device=keep.device)
+                               for i, k in enumerate(k_per_level)])
+        scores = torch.sigmoid(objectness[keep])
+        boxes = clip_boxes(decode_boxes(deltas[keep], anchors[keep]), image_hw)
+        scores = torch.where(remove_small_boxes_mask(boxes, 1e-3), scores,
+                             -1.0)
+        # level-aware NMS: boxes on different levels never suppress each
+        # other
+        idx, nms_valid = batched_nms_mask(boxes, scores, level_ids,
+                                          RPN_NMS_THRESH, post_k)
+        return boxes[idx], nms_valid & (scores[idx] > 0)
 
 
 class FasterRCNN(nn.Module):
@@ -280,35 +284,37 @@ def postprocess_detections(outputs: dict, score_thresh=BOX_SCORE_THRESH,
     'labels', 'valid' (N, D)} on the canvas. At most `pre_nms_cap`
     candidates, the best scores, enter the class-aware NMS, as in JAX
     (torchvision has no cap); None lifts it."""
-    logits = outputs['class_logits']
-    deltas = outputs['box_regression']
-    image_hw = outputs['image_hw']
-    n, r, c = logits.shape
-    scores = torch.softmax(logits, dim=-1)
-    labels_all = torch.arange(1, c, device=logits.device).repeat(r)
-    dets = []
-    for i in range(n):
-        boxes = clip_boxes(decode_boxes(
-            deltas[i], outputs['proposals'][i][:, None, :],
-            weights=BOX_REG_WEIGHTS), image_hw)             # (R, K, 4)
-        fg_scores = scores[i, :, 1:].reshape(-1)
-        fg_boxes = boxes[:, 1:, :].reshape(-1, 4)
-        ok = (fg_scores > score_thresh) \
-            & remove_small_boxes_mask(fg_boxes, 1e-2) \
-            & outputs['proposal_valid'][i].repeat_interleave(c - 1)
-        sel_scores = torch.where(ok, fg_scores, -1.0)
-        cap = sel_scores.shape[0] if pre_nms_cap is None \
-            else min(sel_scores.shape[0], int(pre_nms_cap))
-        top_idx = _sort_desc(sel_scores)[:cap]
-        idx, keep = batched_nms_mask(fg_boxes[top_idx], sel_scores[top_idx],
-                                     labels_all[top_idx], nms_thresh,
-                                     detections_per_img)
-        final = top_idx[idx]
-        dets.append({'boxes': fg_boxes[final],
-                     'scores': torch.where(keep, fg_scores[final], 0.0),
-                     'labels': labels_all[final],
-                     'valid': keep & (fg_scores[final] > score_thresh)})
-    return {k: torch.stack([d[k] for d in dets]) for k in dets[0]}
+    with span('detect.postprocess'):
+        logits = outputs['class_logits']
+        deltas = outputs['box_regression']
+        image_hw = outputs['image_hw']
+        n, r, c = logits.shape
+        scores = torch.softmax(logits, dim=-1)
+        labels_all = torch.arange(1, c, device=logits.device).repeat(r)
+        dets = []
+        for i in range(n):
+            boxes = clip_boxes(decode_boxes(
+                deltas[i], outputs['proposals'][i][:, None, :],
+                weights=BOX_REG_WEIGHTS), image_hw)             # (R, K, 4)
+            fg_scores = scores[i, :, 1:].reshape(-1)
+            fg_boxes = boxes[:, 1:, :].reshape(-1, 4)
+            ok = (fg_scores > score_thresh) \
+                & remove_small_boxes_mask(fg_boxes, 1e-2) \
+                & outputs['proposal_valid'][i].repeat_interleave(c - 1)
+            sel_scores = torch.where(ok, fg_scores, -1.0)
+            cap = sel_scores.shape[0] if pre_nms_cap is None \
+                else min(sel_scores.shape[0], int(pre_nms_cap))
+            top_idx = _sort_desc(sel_scores)[:cap]
+            idx, keep = batched_nms_mask(fg_boxes[top_idx],
+                                         sel_scores[top_idx],
+                                         labels_all[top_idx], nms_thresh,
+                                         detections_per_img)
+            final = top_idx[idx]
+            dets.append({'boxes': fg_boxes[final],
+                         'scores': torch.where(keep, fg_scores[final], 0.0),
+                         'labels': labels_all[final],
+                         'valid': keep & (fg_scores[final] > score_thresh)})
+        return {k: torch.stack([d[k] for d in dets]) for k in dets[0]}
 
 
 # ---------------------------------------------------------------------------

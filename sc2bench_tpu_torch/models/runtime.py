@@ -47,6 +47,22 @@ check that failed. `ok=False` is a property of the data; the device coder
 is exact, so `valid=False` means a faulty kernel or stream, and each one is
 also logged as a warning.
 
+Spans and counters (`utils/profiling.py`, recorded while a profiler runs):
+a serving call is `deploy.request`; in it the encoder and rounding of
+the images of one coding launch is `deploy.encode` (one range for a
+group of `wire_batch` images, as a profiler range costs tens to hundreds
+of us amid the serving loop's work), the coder launches
+`deploy.rans_encode` and `deploy.rans_decode`, the decoder and tail
+`deploy.decode_tail` (inside `deploy.decode`, the server half's
+dispatch), the read of the sizes and flags `deploy.drain` and an escape
+`deploy.escape`. Where the host blocks
+on the device is a wait span: `deploy.throttle`, `deploy.drain.read`,
+`deploy.sync`, `pull_wire`'s `deploy.pull.read` and the host wire's
+`deploy.d2h_sync`. The counter `deploy.images` counts the images served.
+A caller's `timings` dict gets the host seconds of `decode_dispatch`,
+`account_d2h` (the drain), `d2h_sync` and `host_code` whether or not a
+profiler runs.
+
 The segmentation and detection runtimes (`models/segmentation/wrapper.py`,
 `models/detection/wrapper.py`) reuse both wires through three hooks:
 `_split_bottleneck` (where the bottleneck sits), `_decode_tail` (given
@@ -87,7 +103,6 @@ import contextlib
 import copy
 import itertools
 import logging
-import time
 from collections import deque
 
 import numpy as np
@@ -102,17 +117,12 @@ from ..ops.rans.device import (auto_lanes, device_rans_decode,
                                device_rans_encode, pack_stream,
                                pack_stream_aligned)
 from ..ops.rans.indexed_tables import prepare_indexed_tables
+from ..utils.profiling import count, span
 from .layer import (EntropyBottleneckLayer, FPBasedResNetBottleneck,
                     SHPBasedResNetBottleneck)
 from .precision import with_compute_dtype
 
 logger = logging.getLogger(__name__)
-
-
-def add_timing(timings, key, dt):
-    """Accumulate into a caller-owned timings dict (None: no-op)."""
-    if timings is not None:
-        timings[key] = timings.get(key, 0.0) + dt
 
 
 @contextlib.contextmanager
@@ -522,7 +532,8 @@ class SplitClassifierRuntime(AnalyzerHolder):
             logger.warning('image %d: device rANS decode did not return to '
                            'its initial state (valid=False); re-coded on the '
                            'host coder', index)
-        return self._recode_on_host(x)
+        with span('deploy.escape'):
+            return self._recode_on_host(x)
 
     def _recode_on_host(self, x):
         """The escape path: `encode` on the host coder, accounted, then
@@ -557,11 +568,12 @@ class SplitClassifierRuntime(AnalyzerHolder):
         |round(y - median)| < 2^15). A hyperprior's y symbols, y indexes
         and z symbols, each (n, h, w, c) int16."""
         self._require_codec()
-        if self.hyper:
-            return {k: _nhwc(v).to(torch.int16)
-                    for k, v in self._hyper_ops(x).items()}
-        flat, (h, w, c) = self._symbols_nhwc(x)
-        return {'symbols': flat.reshape(-1, h, w, c).to(torch.int16)}
+        with span('deploy.encode'):
+            if self.hyper:
+                return {k: _nhwc(v).to(torch.int16)
+                        for k, v in self._hyper_ops(x).items()}
+            flat, (h, w, c) = self._symbols_nhwc(x)
+            return {'symbols': flat.reshape(-1, h, w, c).to(torch.int16)}
 
     def _encode_to_host(self, x):
         """Dispatch `encode_device` and the copy of its tensors to the
@@ -618,65 +630,63 @@ class SplitClassifierRuntime(AnalyzerHolder):
         decoded_hw = None   # the input (h, w) of the pending decodes
 
         def flush():
-            t0 = time.perf_counter()
-            sym = torch.from_numpy(np.concatenate(decoded)).to(self.device)
-            logits = self._host_decode_tail(sym.reshape(len(sym), -1),
-                                            tuple(sym.shape[1:]), decoded_hw)
-            starts = np.cumsum([0] + [len(d) for d in decoded])
-            results.extend(_rows(logits, int(i), int(j))
-                           for i, j in zip(starts[:-1], starts[1:]))
-            decoded.clear()
-            add_timing(timings, 'decode_dispatch', time.perf_counter() - t0)
+            with span('deploy.decode_tail', timings, 'decode_dispatch'):
+                sym = torch.from_numpy(np.concatenate(decoded)).to(
+                    self.device)
+                logits = self._host_decode_tail(sym.reshape(len(sym), -1),
+                                                tuple(sym.shape[1:]),
+                                                decoded_hw)
+                starts = np.cumsum([0] + [len(d) for d in decoded])
+                results.extend(_rows(logits, int(i), int(j))
+                               for i, j in zip(starts[:-1], starts[1:]))
+                decoded.clear()
 
         def host_stage(host, ready, input_hw):
             nonlocal decoded_hw
-            t0 = time.perf_counter()
-            if ready is not None:
-                ready.synchronize()
-            ops = {k: v.numpy() for k, v in host.items()}
-            t1 = time.perf_counter()
+            with span('deploy.d2h_sync', timings, 'd2h_sync', wait=True):
+                if ready is not None:
+                    ready.synchronize()
+                ops = {k: v.numpy() for k, v in host.items()}
+            with span('deploy.host_encode', timings, 'host_code'):
+                if self.hyper:
+                    z_sym = ops['z_symbols']
+                    compressed = {
+                        'strings': [self.codec.compress_y_wire(
+                            ops['y_symbols'], ops['y_indexes']),
+                            self.codec.compress_wire(z_sym)],
+                        'shape': tuple(z_sym.shape[1:3])}
+                else:
+                    sym = ops['symbols']
+                    compressed = {'strings': [self.codec.compress_wire(sym)],
+                                  'shape': tuple(sym.shape[1:3])}
+                self.analyze(compressed)
             if self.hyper:
-                z_sym = ops['z_symbols']
-                compressed = {
-                    'strings': [self.codec.compress_y_wire(ops['y_symbols'],
-                                                           ops['y_indexes']),
-                                self.codec.compress_wire(z_sym)],
-                    'shape': tuple(z_sym.shape[1:3])}
-            else:
-                sym = ops['symbols']
-                compressed = {'strings': [self.codec.compress_wire(sym)],
-                              'shape': tuple(sym.shape[1:3])}
-            self.analyze(compressed)
-            t2 = time.perf_counter()
-            add_timing(timings, 'd2h_sync', t1 - t0)
-            add_timing(timings, 'host_code', t2 - t1)
-            if self.hyper:
-                results.append(self._decode_hyper_wire(
-                    compressed['strings'], compressed['shape']))
-                add_timing(timings, 'decode_dispatch',
-                           time.perf_counter() - t2)
+                with span('deploy.decode', timings, 'decode_dispatch'):
+                    results.append(self._decode_hyper_wire(
+                        compressed['strings'], compressed['shape']))
                 return
-            if decoded and input_hw != decoded_hw:
-                flush()     # a decode batch holds images of one shape
-            decoded.append(self.codec.decompress_wire(
-                compressed['strings'][0], compressed['shape'], channels))
+            with span('deploy.host_decode', timings, 'host_code'):
+                if decoded and input_hw != decoded_hw:
+                    flush()     # a decode batch holds images of one shape
+                decoded.append(self.codec.decompress_wire(
+                    compressed['strings'][0], compressed['shape'], channels))
             decoded_hw = input_hw
-            add_timing(timings, 'host_code', time.perf_counter() - t2)
             if len(decoded) == max(int(decode_batch), 1):
                 flush()
 
-        in_flight = deque()
-        for x in images:
-            if len(in_flight) >= max(int(depth), 1):
+        count('deploy.images', len(images))
+        with span('deploy.request'):
+            in_flight = deque()
+            for x in images:
+                if len(in_flight) >= max(int(depth), 1):
+                    host_stage(*in_flight.popleft())
+                in_flight.append((*self._encode_to_host(x),
+                                  tuple(x.shape[-2:])))
+            while in_flight:
                 host_stage(*in_flight.popleft())
-            in_flight.append((*self._encode_to_host(x),
-                              tuple(x.shape[-2:])))
-        while in_flight:
-            host_stage(*in_flight.popleft())
-        if decoded:
-            flush()
-        if self.device.type == 'cuda':
-            torch.cuda.synchronize(self.device)
+            if decoded:
+                flush()
+            self._sync()
         return results
 
     # ---- device-rANS wire -----------------------------------------------
@@ -744,13 +754,15 @@ class SplitClassifierRuntime(AnalyzerHolder):
         streams (`device_rans_encode`; aligned at k = 1 when the latent is
         beyond the batch-1 kernels, and then `aligned` says so)."""
         self._require_splittable()
-        flat, shape = self._symbols_nhwc(x, self._encode_module())
+        with span('deploy.encode'):
+            flat, shape = self._symbols_nhwc(x, self._encode_module())
         if num_lanes is None:
             num_lanes = self._auto_wire_lanes(shape)
         cdf, cdf_len, off = self._tables_dev
-        out = device_rans_encode(flat.reshape(-1), cdf, cdf_len, off,
-                                 num_lanes=num_lanes,
-                                 cyclic_channels=shape[-1])
+        with span('deploy.rans_encode'):
+            out = device_rans_encode(flat.reshape(-1), cdf, cdf_len, off,
+                                     num_lanes=num_lanes,
+                                     cyclic_channels=shape[-1])
         return self._with_meta(out, shape, tuple(x.shape[-2:]))
 
     @torch.no_grad()
@@ -762,7 +774,8 @@ class SplitClassifierRuntime(AnalyzerHolder):
         each image's bitstream must equal its batch-1 one."""
         self._require_splittable()
         enc = self._encode_module()
-        rows = [self._symbols_nhwc(x, enc) for x in xs_list]
+        with span('deploy.encode'):
+            rows = [self._symbols_nhwc(x, enc) for x in xs_list]
         shape = rows[0][1]
         if any(s != shape for _, s in rows):
             raise ValueError('encode_device_wire_batch needs images of one '
@@ -770,9 +783,10 @@ class SplitClassifierRuntime(AnalyzerHolder):
         if num_lanes is None:
             num_lanes = self._auto_wire_lanes(shape)
         cdf, cdf_len, off = self._tables_dev
-        out = device_rans_encode(torch.cat([f for f, _ in rows]), cdf,
-                                 cdf_len, off, num_lanes=num_lanes,
-                                 cyclic_channels=shape[-1], aligned=True)
+        with span('deploy.rans_encode'):
+            out = device_rans_encode(torch.cat([f for f, _ in rows]), cdf,
+                                     cdf_len, off, num_lanes=num_lanes,
+                                     cyclic_channels=shape[-1], aligned=True)
         return self._with_meta(out, shape, tuple(xs_list[0].shape[-2:]))
 
     def _decode_tail(self, flat, shape, input_hw=None, module=None):
@@ -810,12 +824,15 @@ class SplitClassifierRuntime(AnalyzerHolder):
         if num_lanes is None:
             num_lanes = self._auto_wire_lanes(shape)
         cdf, cdf_len, off = self._tables_dev
-        flat, valid = device_rans_decode(
-            streams, states, cdf, cdf_len, off,
-            n_symbols=int(np.prod(shape)), num_lanes=num_lanes,
-            cyclic_channels=shape[-1], aligned=aligned, device=self.device)
-        return self._decode_tail(flat, shape, input_hw,
-                                 module=self._decode_module()), valid
+        with span('deploy.rans_decode'):
+            flat, valid = device_rans_decode(
+                streams, states, cdf, cdf_len, off,
+                n_symbols=int(np.prod(shape)), num_lanes=num_lanes,
+                cyclic_channels=shape[-1], aligned=aligned,
+                device=self.device)
+        with span('deploy.decode_tail'):
+            return self._decode_tail(flat, shape, input_hw,
+                                     module=self._decode_module()), valid
 
     @torch.no_grad()
     def decode_device_streams_batch(self, streams, states, shape,
@@ -832,7 +849,8 @@ class SplitClassifierRuntime(AnalyzerHolder):
         the cyclic kernels, y on the per-index ones (batched when
         `aligned`)."""
         bneck = self._split_bottleneck(self._encode_module())
-        ops = [self._hyper_ops(x, bneck) for x in xs_list]
+        with span('deploy.encode'):
+            ops = [self._hyper_ops(x, bneck) for x in xs_list]
         shapes = self._latent_shape(xs_list[0].shape)
         if any(tuple(o['z_symbols'].shape[1:]) != tuple(
                 ops[0]['z_symbols'].shape[1:]) for o in ops):
@@ -846,15 +864,17 @@ class SplitClassifierRuntime(AnalyzerHolder):
             return t if aligned else t[0]
 
         cdf, cdf_len, off = self._tables_dev
-        z_out = device_rans_encode(flat('z_symbols'), cdf, cdf_len, off,
-                                   num_lanes=z_lanes,
-                                   cyclic_channels=shapes[1][-1],
-                                   aligned=aligned)
         g_cdf, g_len, g_off = self._gtables_dev
-        y_out = device_rans_encode(flat('y_symbols'), g_cdf, g_len, g_off,
-                                   num_lanes=num_lanes, aligned=aligned,
-                                   indexes=flat('y_indexes'),
-                                   prepared=self._gprepared)
+        with span('deploy.rans_encode'):
+            z_out = device_rans_encode(flat('z_symbols'), cdf, cdf_len, off,
+                                       num_lanes=z_lanes,
+                                       cyclic_channels=shapes[1][-1],
+                                       aligned=aligned)
+            y_out = device_rans_encode(flat('y_symbols'), g_cdf, g_len,
+                                       g_off, num_lanes=num_lanes,
+                                       aligned=aligned,
+                                       indexes=flat('y_indexes'),
+                                       prepared=self._gprepared)
         meta = torch.stack([(z_out['ok'] & y_out['ok']).to(torch.int32),
                             z_out['nbytes'] + y_out['nbytes']], dim=-1)
         return {'z': z_out, 'y': y_out, 'meta': meta, 'shapes': shapes,
@@ -888,22 +908,25 @@ class SplitClassifierRuntime(AnalyzerHolder):
         y_lanes, z_lanes = ops['lanes']
         z, y = ops['z'], ops['y']
         cdf, cdf_len, off = self._tables_dev
-        z_flat, z_valid = device_rans_decode(
-            z['streams'], z['states'], cdf, cdf_len, off,
-            n_symbols=hz * wz * cz, num_lanes=z_lanes, cyclic_channels=cz,
-            aligned=z['aligned'], device=self.device)
+        with span('deploy.rans_decode'):
+            z_flat, z_valid = device_rans_decode(
+                z['streams'], z['states'], cdf, cdf_len, off,
+                n_symbols=hz * wz * cz, num_lanes=z_lanes,
+                cyclic_channels=cz, aligned=z['aligned'], device=self.device)
         z_sym = z_flat.reshape(-1, hz, wz, cz)
         y_idx, means = self._hyper_scales(z_sym)
         y_idx = y_idx.reshape(z_sym.shape[0], -1)
         g_cdf, g_len, g_off = self._gtables_dev
-        y_flat, y_valid = device_rans_decode(
-            y['streams'], y['states'], g_cdf, g_len, g_off,
-            n_symbols=hy * wy * cy, num_lanes=y_lanes, aligned=y['aligned'],
-            device=self.device,
-            indexes=y_idx if z_flat.dim() == 2 else y_idx[0],
-            prepared=self._gprepared)
-        logits = self._decode_tail_hyper(y_flat.reshape(-1, hy, wy, cy),
-                                         means, self._decode_module())
+        with span('deploy.rans_decode'):
+            y_flat, y_valid = device_rans_decode(
+                y['streams'], y['states'], g_cdf, g_len, g_off,
+                n_symbols=hy * wy * cy, num_lanes=y_lanes,
+                aligned=y['aligned'], device=self.device,
+                indexes=y_idx if z_flat.dim() == 2 else y_idx[0],
+                prepared=self._gprepared)
+        with span('deploy.decode_tail'):
+            logits = self._decode_tail_hyper(y_flat.reshape(-1, hy, wy, cy),
+                                             means, self._decode_module())
         return logits, z_valid & y_valid
 
     decode_device_streams_hyper_batch = decode_device_streams_hyper
@@ -967,7 +990,15 @@ class SplitClassifierRuntime(AnalyzerHolder):
         ev.record()
         inflight.append(ev)
         while len(inflight) > max(int(depth), 1):
-            inflight.popleft().synchronize()
+            with span('deploy.throttle', wait=True):
+                inflight.popleft().synchronize()
+
+    def _sync(self):
+        """The end of a serving call: wait for the device's queued
+        work."""
+        if self.device.type == 'cuda':
+            with span('deploy.sync', wait=True):
+                torch.cuda.synchronize(self.device)
 
     def stream_deploy_device(self, images, depth: int = 8, workers: int = 4,
                              num_lanes: int | None = None,
@@ -997,27 +1028,38 @@ class SplitClassifierRuntime(AnalyzerHolder):
         del workers
         self._require_splittable()
         images = list(images)
-        n = len(images)
-        if n == 0:
+        if not images:
             return []
-        if wire_batch is not None and wire_batch > 1:
-            if pull_wire:
-                raise ValueError('wire_batch grouping does not support '
-                                 'pull_wire packing')
-            return self._stream_deploy_device_batched(
-                images, wire_batch, depth, num_lanes, timings)
+        batched = wire_batch is not None and wire_batch > 1
+        if batched and pull_wire:
+            raise ValueError('wire_batch grouping does not support '
+                             'pull_wire packing')
+        count('deploy.images', len(images))
+        with span('deploy.request'):
+            if batched:
+                results = self._stream_deploy_device_batched(
+                    images, wire_batch, depth, num_lanes, timings)
+            else:
+                results = self._stream_deploy_device_single(
+                    images, depth, num_lanes, pull_wire, timings)
+            self._sync()
+        return results
 
+    def _stream_deploy_device_single(self, images, depth, num_lanes,
+                                     pull_wire, timings):
+        """One image per coding launch (`stream_deploy_device`)."""
         staged, inflight = [], deque()
         for i, x in enumerate(images):
             ops = self._wire_encode(x, num_lanes)
-            t0 = time.perf_counter()
-            logits, valid = self._wire_decode(ops, num_lanes)
-            add_timing(timings, 'decode_dispatch', time.perf_counter() - t0)
+            with span('deploy.decode', timings, 'decode_dispatch'):
+                logits, valid = self._wire_decode(ops, num_lanes)
             shape_hw = self._shape_hw(ops)
             if pull_wire:
                 # packing needs the stream content: sync here
-                ok, nbytes = ops['meta'].tolist()
-                if ok and bool(valid):
+                with span('deploy.pull.read', wait=True):
+                    ok, nbytes = ops['meta'].tolist()
+                    valid = bool(valid)
+                if ok and valid:
                     wire = self._pull_device_wire(ops)
                     if len(wire) != nbytes:
                         raise RuntimeError(
@@ -1030,18 +1072,19 @@ class SplitClassifierRuntime(AnalyzerHolder):
             staged.append((ops['meta'], shape_hw, logits, valid))
             self._throttle(inflight, depth)
 
-        t_acct = time.perf_counter()
         results = []
-        if pull_wire:
-            for i, (wire, shape_hw, logits, ok) in enumerate(staged):
-                if wire is None:
-                    results.append(self._escape(images[i], ok, i))
-                    continue
-                self.analyze({'strings': [[wire]], 'shape': shape_hw})
-                results.append(logits)
-        else:
-            metas = torch.stack([s[0] for s in staged]).cpu().numpy()
-            valids = torch.stack([s[3] for s in staged]).cpu().numpy()
+        with span('deploy.drain', timings, 'account_d2h'):
+            if pull_wire:
+                for i, (wire, shape_hw, logits, ok) in enumerate(staged):
+                    if wire is None:
+                        results.append(self._escape(images[i], ok, i))
+                        continue
+                    self.analyze({'strings': [[wire]], 'shape': shape_hw})
+                    results.append(logits)
+                return results
+            with span('deploy.drain.read', wait=True):
+                metas = torch.stack([s[0] for s in staged]).cpu().numpy()
+                valids = torch.stack([s[3] for s in staged]).cpu().numpy()
             for i, (_, shape_hw, logits, _) in enumerate(staged):
                 if not metas[i, 0] or not valids[i]:
                     results.append(self._escape(images[i], metas[i, 0], i))
@@ -1051,9 +1094,6 @@ class SplitClassifierRuntime(AnalyzerHolder):
                 self.analyze({'strings': [[bytes(int(metas[i, 1]))]],
                               'shape': shape_hw})
                 results.append(logits)
-        add_timing(timings, 'account_d2h', time.perf_counter() - t_acct)
-        if self.device.type == 'cuda':
-            torch.cuda.synchronize(self.device)
         return results
 
     def _stream_deploy_device_batched(self, images, k, depth, num_lanes,
@@ -1075,27 +1115,25 @@ class SplitClassifierRuntime(AnalyzerHolder):
         staged, inflight = [], deque()
         for j0, j1 in groups:
             ops = self._wire_encode_batch(images[j0:j1], num_lanes)
-            t0 = time.perf_counter()
-            logits, valid = self._wire_decode_batch(ops, num_lanes)
-            add_timing(timings, 'decode_dispatch', time.perf_counter() - t0)
+            with span('deploy.decode', timings, 'decode_dispatch'):
+                logits, valid = self._wire_decode_batch(ops, num_lanes)
             staged.append((ops['meta'], self._shape_hw(ops), logits, valid))
             self._throttle(inflight, depth)
 
-        t_acct = time.perf_counter()
-        metas = torch.cat([s[0] for s in staged]).cpu().numpy()
-        valids = torch.cat([s[3] for s in staged]).cpu().numpy()
-        results, i = [], 0
-        for _, shape_hw, logits, _ in staged:
-            for j in range(_num_rows(logits)):
-                if not metas[i, 0] or not valids[i]:
-                    results.append(self._escape(images[i], metas[i, 0], i))
+        with span('deploy.drain', timings, 'account_d2h'):
+            with span('deploy.drain.read', wait=True):
+                metas = torch.cat([s[0] for s in staged]).cpu().numpy()
+                valids = torch.cat([s[3] for s in staged]).cpu().numpy()
+            results, i = [], 0
+            for _, shape_hw, logits, _ in staged:
+                for j in range(_num_rows(logits)):
+                    if not metas[i, 0] or not valids[i]:
+                        results.append(self._escape(images[i], metas[i, 0],
+                                                    i))
+                        i += 1
+                        continue
+                    self.analyze({'strings': [[bytes(int(metas[i, 1]))]],
+                                  'shape': shape_hw})
+                    results.append(_rows(logits, j, j + 1))
                     i += 1
-                    continue
-                self.analyze({'strings': [[bytes(int(metas[i, 1]))]],
-                              'shape': shape_hw})
-                results.append(_rows(logits, j, j + 1))
-                i += 1
-        add_timing(timings, 'account_d2h', time.perf_counter() - t_acct)
-        if self.device.type == 'cuda':
-            torch.cuda.synchronize(self.device)
         return results

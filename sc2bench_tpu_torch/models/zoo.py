@@ -26,7 +26,6 @@ algorithms so that they are bit-equal.
 from __future__ import annotations
 
 import logging
-import time
 
 import numpy as np
 import torch
@@ -38,8 +37,8 @@ from ..ops.entropy.gaussian import GaussianConditional
 from ..ops.gdn import GDN1
 from ..registry import get as registry_get
 from ..registry import register_model
-from .runtime import (FactorizedCodec, HyperpriorCodec, _exact_cudnn,
-                      add_timing)
+from ..utils.profiling import span
+from .runtime import FactorizedCodec, HyperpriorCodec, _exact_cudnn
 
 logger = logging.getLogger(__name__)
 
@@ -260,42 +259,38 @@ class ImageCodecRuntime:
                 ops = self.module.encode_ops(x, self._medians,
                                              self._scale_table)
             ops = {k: _nhwc_numpy(v) for k, v in ops.items()}
-            t0 = time.perf_counter()
-            y_strings = self.codec.compress_y(ops['y_symbols'],
-                                              ops['y_indexes'])
-            z_strings = self.codec.compress_symbols(ops['z_symbols'])
-            add_timing(self.timings, 'host_encode', time.perf_counter() - t0)
+            with span('codec.host_encode', self.timings, 'host_encode'):
+                y_strings = self.codec.compress_y(ops['y_symbols'],
+                                                  ops['y_indexes'])
+                z_strings = self.codec.compress_symbols(ops['z_symbols'])
             return {'strings': [y_strings, z_strings],
                     'shape': tuple(ops['z_symbols'].shape[1:3])}
         symbols = _nhwc_numpy(self.module.encode_ops(
             x, self._medians)['symbols'])
-        t0 = time.perf_counter()
-        strings = self.codec.compress_symbols(symbols)
-        add_timing(self.timings, 'host_encode', time.perf_counter() - t0)
+        with span('codec.host_encode', self.timings, 'host_encode'):
+            strings = self.codec.compress_symbols(symbols)
         return {'strings': [strings], 'shape': tuple(symbols.shape[1:3])}
 
     @torch.no_grad()
     def decompress(self, strings, shape) -> torch.Tensor:
         """The NCHW reconstruction of `compress`'s output."""
         if self.hyper:
-            t0 = time.perf_counter()
-            z_sym = self.codec.decompress_symbols(strings[1], shape,
-                                                  self.module.n)
-            add_timing(self.timings, 'host_decode', time.perf_counter() - t0)
+            with span('codec.host_decode', self.timings, 'host_decode'):
+                z_sym = self.codec.decompress_symbols(strings[1], shape,
+                                                      self.module.n)
             z = nchw(torch.from_numpy(z_sym).to(self.device))
             with _exact_cudnn():
                 y_idx, means = self.module.decode_scales(
                     z, self._medians, self._scale_table)
             y_idx = _nhwc_numpy(y_idx)
-            t0 = time.perf_counter()
-            y_sym = self.codec.decompress_y(strings[0], y_idx)
-            add_timing(self.timings, 'host_decode', time.perf_counter() - t0)
+            with span('codec.host_decode', self.timings, 'host_decode'):
+                y_sym = self.codec.decompress_y(strings[0], y_idx)
             y = nchw(torch.from_numpy(y_sym).to(self.device))
             return self.module.decode_ops(y, means)
         channels = self.codec.tables.medians.shape[0]
-        t0 = time.perf_counter()
-        symbols = self.codec.decompress_symbols(strings[0], shape, channels)
-        add_timing(self.timings, 'host_decode', time.perf_counter() - t0)
+        with span('codec.host_decode', self.timings, 'host_decode'):
+            symbols = self.codec.decompress_symbols(strings[0], shape,
+                                                    channels)
         return self.module.decode_ops(
             nchw(torch.from_numpy(symbols).to(self.device)), self._medians)
 

@@ -31,8 +31,6 @@ runs h_s with cuDNN's deterministic algorithms.
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -46,7 +44,8 @@ from ..ops.math import quantize_noise
 from ..ops.rans.coder import RansCoder, StreamingDecoder
 from ..ops.rans.indexed_tables import prepare_indexed_tables
 from ..registry import register_model
-from .runtime import FactorizedCodec, _exact_cudnn, add_timing
+from ..utils.profiling import span
+from .runtime import FactorizedCodec, _exact_cudnn
 from .zoo import (_conv, _deconv, _on, analysis_transform, nchw,
                   synthesis_transform)
 from .zoo_jahp_device import JointAutoregressiveDeviceMixin
@@ -374,11 +373,10 @@ class JointAutoregressiveRuntime(JointAutoregressiveDeviceMixin):
         act = sch.active_host
         syms, idxs = syms.cpu().numpy()[act], idxs.cpu().numpy()[act]
         z_sym = z_symbols.permute(0, 2, 3, 1).cpu().numpy()
-        t0 = time.perf_counter()
-        y_strings = [self.g_coder.encode_with_indexes(syms.ravel(),
-                                                      idxs.ravel())]
-        z_strings = self.codec.compress_symbols(z_sym)
-        add_timing(self.timings, 'host_encode', time.perf_counter() - t0)
+        with span('codec.host_encode', self.timings, 'host_encode'):
+            y_strings = [self.g_coder.encode_with_indexes(syms.ravel(),
+                                                          idxs.ravel())]
+            z_strings = self.codec.compress_symbols(z_sym)
         return ({'strings': [y_strings, z_strings],
                  'shape': tuple(z_sym.shape[1:3])}, self.latent(y_hat))
 
@@ -393,10 +391,9 @@ class JointAutoregressiveRuntime(JointAutoregressiveDeviceMixin):
         """The decoded y_hat (1, m, h, w): z, then front by front the
         context model on the device and that front's symbols from the
         streaming host decoder."""
-        t0 = time.perf_counter()
-        z_sym = self.codec.decompress_symbols(strings[1], shape,
-                                              self.module.n)
-        add_timing(self.timings, 'host_decode', time.perf_counter() - t0)
+        with span('codec.host_decode', self.timings, 'host_decode'):
+            z_sym = self.codec.decompress_symbols(strings[1], shape,
+                                                  self.module.n)
         hyper = self._hyper(nchw(torch.from_numpy(z_sym).to(self.device)))
         sch = self.schedule(hyper.shape[0], hyper.shape[1])
         y_hat = self._new_latent(sch.h, sch.w)
@@ -407,9 +404,8 @@ class JointAutoregressiveRuntime(JointAutoregressiveDeviceMixin):
             scales, means = self.context.front_params(
                 y_hat, hyper, sch.ii[t], sch.jj[t])
             idx = self._indexes(scales[:n]).cpu().numpy()
-            t0 = time.perf_counter()
-            sym = decoder.decode(idx.ravel()).reshape(n, m)
-            add_timing(self.timings, 'host_decode', time.perf_counter() - t0)
+            with span('codec.host_decode', self.timings, 'host_decode'):
+                sym = decoder.decode(idx.ravel()).reshape(n, m)
             sym = torch.from_numpy(sym).to(self.device)
             sch.write(y_hat, t, sym.to(torch.float32) + means[:n])
         return self.latent(y_hat)

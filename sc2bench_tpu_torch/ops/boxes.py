@@ -14,7 +14,9 @@ iou(j, i) > t to its fixed point, which is unique and is the greedy set.
 The host reads one flag per `_NMS_STEPS` iterations (has the tile
 settled?) together with the kept count: once `max_out` boxes are kept the
 later tiles cannot change the result and are skipped. So a call costs a
-few device-to-host reads a tile, and no host loop over `max_out`.
+few device-to-host reads a tile, and no host loop over `max_out`. Each
+read is a wait span (`detect.nms.read`) and counts in `nms.host_reads`;
+`nms.tiles` counts the tiles swept (`utils/profiling.py`).
 `_nms_mask_serial`, the sequential select-best/suppress loop, is the
 oracle the tests hold it against, and serves small inputs, as in JAX.
 """
@@ -23,6 +25,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..utils.profiling import count, span
 
 # torchvision BoxCoder's clamp on dw, dh
 BBOX_XFORM_CLIP = math.log(1000.0 / 16)
@@ -147,6 +151,7 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor,
     kept = torch.zeros(n_pad, dtype=torch.bool, device=dev)
     n_kept = 0
     for r0 in range(0, n_pad, t_sz):
+        count('nms.tiles')
         tile_base = base[r0:r0 + t_sz]
         if r0:
             tile_base = tile_base & ~(sup[:r0, r0:r0 + t_sz]
@@ -159,12 +164,14 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor,
             for _ in range(_NMS_STEPS):
                 prev = k
                 k = tile_base & ~(tile_sup & k[:, None]).any(0)
-            moved, count = torch.stack([(k != prev).any().long(),
-                                        k.sum()]).tolist()
+            count('nms.host_reads')
+            with span('detect.nms.read', wait=True):
+                moved, tile_kept = torch.stack([(k != prev).any().long(),
+                                                k.sum()]).tolist()
             if not moved:
                 break
         kept[r0:r0 + t_sz] = k
-        n_kept += count
+        n_kept += tile_kept
         if n_kept >= max_out:
             break       # the later tiles cannot enter the first max_out
     pos = torch.arange(n, device=dev)
@@ -208,7 +215,8 @@ def batched_nms_mask(boxes: torch.Tensor, scores: torch.Tensor,
                      idxs: torch.Tensor, iou_threshold: float, max_out: int):
     """Category-aware NMS by the coordinate-offset trick (torchvision
     `batched_nms`): boxes of different `idxs` never overlap."""
-    max_coord = torch.max(boxes) + 1.0
-    offsets = idxs.to(boxes.dtype) * max_coord
-    return nms_mask(boxes + offsets[:, None], scores, iou_threshold,
-                    max_out)
+    with span('detect.nms'):
+        max_coord = torch.max(boxes) + 1.0
+        offsets = idxs.to(boxes.dtype) * max_coord
+        return nms_mask(boxes + offsets[:, None], scores, iou_threshold,
+                        max_out)

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
+
 
 def _sample_grid(x1, y1, roi_w, roi_h, output_size: int, sampling_ratio: int):
     """Sample coordinates (R, out, out, s, s) of the RoIs' bins, in the JAX
@@ -93,20 +95,24 @@ def multiscale_roi_align(features, boxes: torch.Tensor, output_size: int,
     """features: the (C, H_l, W_l) maps of one image (P2 ... P5); boxes
     (R, 4) in canvas coordinates; `scales` each level's map / canvas
     ratio. Returns (R, C, out, out), each RoI pooled from its level."""
-    k = _fpn_level(boxes, len(features), canonical_scale, canonical_level)
-    c = features[0].shape[0]
-    dev = boxes.device
-    table = torch.cat([f.permute(1, 2, 0).reshape(-1, c) for f in features])
-    hs = torch.tensor([f.shape[1] for f in features], device=dev)
-    ws = torch.tensor([f.shape[2] for f in features], device=dev)
-    offs = torch.tensor([sum(f.shape[1] * f.shape[2] for f in features[:i])
-                         for i in range(len(features))], device=dev)
-    scale = torch.tensor(scales, dtype=torch.float32, device=dev)[k]
-    box = boxes * scale[:, None]
-    roi_w = torch.clamp(box[:, 2] - box[:, 0], min=1.0)
-    roi_h = torch.clamp(box[:, 3] - box[:, 1], min=1.0)
-    ys, xs = _sample_grid(box[:, 0], box[:, 1], roi_w, roi_h, output_size,
-                          sampling_ratio)
-    per_roi = (-1, 1, 1, 1, 1)
-    return _bilinear(table, ys, xs, hs[k].view(per_roi),
-                     ws[k].view(per_roi), offs[k].view(per_roi))
+    with span('detect.roi_align'):
+        k = _fpn_level(boxes, len(features), canonical_scale,
+                       canonical_level)
+        c = features[0].shape[0]
+        dev = boxes.device
+        table = torch.cat([f.permute(1, 2, 0).reshape(-1, c)
+                           for f in features])
+        hs = torch.tensor([f.shape[1] for f in features], device=dev)
+        ws = torch.tensor([f.shape[2] for f in features], device=dev)
+        offs = torch.tensor([sum(f.shape[1] * f.shape[2]
+                                 for f in features[:i])
+                             for i in range(len(features))], device=dev)
+        scale = torch.tensor(scales, dtype=torch.float32, device=dev)[k]
+        box = boxes * scale[:, None]
+        roi_w = torch.clamp(box[:, 2] - box[:, 0], min=1.0)
+        roi_h = torch.clamp(box[:, 3] - box[:, 1], min=1.0)
+        ys, xs = _sample_grid(box[:, 0], box[:, 1], roi_w, roi_h,
+                              output_size, sampling_ratio)
+        per_roi = (-1, 1, 1, 1, 1)
+        return _bilinear(table, ys, xs, hs[k].view(per_roi),
+                         ws[k].view(per_roi), offs[k].view(per_roi))

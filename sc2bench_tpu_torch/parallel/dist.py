@@ -22,10 +22,10 @@ explicit:
   confusion matrices and COCO results are summed or gathered over it
   (`utils/`).
 
-The group's two per-step collectives run inside profiler ranges named
-`dist.average_gradients` (the gradient all-reduce) and `dist.group_sum`
-(BatchNorm's statistics, forward and backward), so a trace gives their
-share of a step.
+The group's two per-step collectives are program spans
+(`utils/profiling.py`) named `dist.average_gradients` (the gradient
+all-reduce) and `dist.group_sum` (BatchNorm's statistics, forward and
+backward), so a trace gives their share of a step.
 
 Every rank holds an equal share of the global batch: the loaders shard
 the dataset into equal shards (`datasets/image.py`), so a process's final
@@ -44,7 +44,8 @@ import os
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
+
+from ..utils.profiling import span
 
 
 def is_multi() -> bool:
@@ -165,12 +166,12 @@ class _GroupSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, t):
-        with record_function('dist.group_sum'):
+        with span('dist.group_sum'):
             return all_reduce_sum(t.clone())
 
     @staticmethod
     def backward(ctx, g):
-        with record_function('dist.group_sum'):
+        with span('dist.group_sum'):
             return all_reduce_sum(g.clone())
 
 
@@ -218,7 +219,7 @@ def average_gradients(params) -> None:
         return
     grads = [p.grad for p in params if p.grad is not None]
     w = world_size()
-    with record_function('dist.average_gradients'):
+    with span('dist.average_gradients'):
         for group in _by_dtype(grads):
             flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in group]))
             flat.div_(w)

@@ -26,7 +26,8 @@ process, or gloo with `--device cpu`) each process trains on its shard
 of the training data with the gradients averaged over the group, and
 tests the whole test set; the metrics are summed over the group, rank 0
 writes the checkpoints. `--profile_dir` writes a `torch.profiler` trace
-of the test phase there, one file a process.
+of the test phase there, and the totals of the program's spans
+(`utils/profiling.py`), one pair of files a process.
 """
 from __future__ import annotations
 

@@ -18,6 +18,10 @@ One step, as the JAX step computes it:
   5. the optimizers step (`optim.StageOptimizer`);
   6. metrics {'loss': detail, 'aux_loss', 'acc1'}, tensors on the device
      (`acc1` for a classifier's 2-D logits only).
+While a profiler runs, steps 1-5 are the spans `train.teacher_forward`,
+`train.student_forward`, `train.loss`, `train.backward` (device-timed) and
+`train.optimizer_step`, and `train.steps` counts the steps
+(`utils/profiling.py`).
 A dict output (segmentation's {'out', 'aux'}) is recorded as 'output' (the
 main head) and 'output.<k>' (`record_output`).
 A new box, and so new optimizer state, comes with each stage. The
@@ -36,6 +40,7 @@ import torch
 from ..loss import build_criterion
 from ..ops.entropy.factorized import EntropyBottleneck
 from ..parallel.dist import broadcast_module
+from ..utils.profiling import count, span
 from .optim import StageOptimizer
 
 DEFAULT_CRITERION = {'key': 'CrossEntropyLoss',
@@ -102,24 +107,28 @@ class DistillationBox:
         if self.teacher is None:
             return {}
         io = {}
-        with torch.no_grad():
+        with span('train.teacher_forward'), torch.no_grad():
             record_output(io, self.teacher(x, io=io))
         return io
 
     def train_step(self, x: torch.Tensor, y: torch.Tensor) -> dict:
         """One optimizer step on the batch (x NCHW, y labels); returns the
         step's metrics as device tensors."""
+        count('train.steps')
         teacher_io = self._teacher_io(x)
         self.student.train(self.train_bn)
         try:
             io = {}
-            out = self.student(x, mode=self.student_mode,
-                               generator=self.generator, io=io)
-            record_output(io, out)
-            main_loss, detail = self.criterion(io, teacher_io, y)
-            aux = factorized_aux_loss(self.student)
+            with span('train.student_forward'):
+                out = self.student(x, mode=self.student_mode,
+                                   generator=self.generator, io=io)
+                record_output(io, out)
+            with span('train.loss'):
+                main_loss, detail = self.criterion(io, teacher_io, y)
+                aux = factorized_aux_loss(self.student)
             self.optim.zero_grad()
-            (main_loss + aux).backward()
+            with span('train.backward', device=True):
+                (main_loss + aux).backward()
             self.optim.step()
         finally:
             self.student.eval()

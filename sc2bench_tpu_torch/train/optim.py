@@ -47,6 +47,7 @@ import torch
 
 from ..parallel.dist import average_gradients
 from ..utils.convert import flax_param_path
+from ..utils.profiling import span
 
 
 def _matches(path_str: str, prefix: str) -> bool:
@@ -263,33 +264,35 @@ class StageOptimizer:
         this gradient, or on the mean of the last `grad_accum_step` ones
         when this micro-step completes them. Returns whether the main
         parameters were updated."""
-        average_gradients(self._trainable())
-        if self.aux is not None:
-            self.aux.step()
-        if self.main is None:
-            return False
-        params = self._main_params()
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        k = self.grad_accum_step
-        if k > 1:
-            if self._acc is None:
-                self._acc = [torch.zeros_like(p) for p in params]
-            for p, acc in zip(params, self._acc):
-                acc.add_((p.grad - acc) / (self.mini_step + 1))
-            self.mini_step += 1
-            if self.mini_step < k:
+        with span('train.optimizer_step'):
+            average_gradients(self._trainable())
+            if self.aux is not None:
+                self.aux.step()
+            if self.main is None:
                 return False
-            self.mini_step = 0
-            for p, acc in zip(params, self._acc):
-                p.grad = acc.clone()
-                acc.zero_()
-        for group, schedule in zip(self.main.param_groups, self._schedules):
-            group['lr'] = schedule(self.count)
-        self.main.step()
-        self.count += 1
-        return True
+            params = self._main_params()
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            k = self.grad_accum_step
+            if k > 1:
+                if self._acc is None:
+                    self._acc = [torch.zeros_like(p) for p in params]
+                for p, acc in zip(params, self._acc):
+                    acc.add_((p.grad - acc) / (self.mini_step + 1))
+                self.mini_step += 1
+                if self.mini_step < k:
+                    return False
+                self.mini_step = 0
+                for p, acc in zip(params, self._acc):
+                    p.grad = acc.clone()
+                    acc.zero_()
+            for group, schedule in zip(self.main.param_groups,
+                                       self._schedules):
+                group['lr'] = schedule(self.count)
+            self.main.step()
+            self.count += 1
+            return True
 
     def state_dict(self) -> dict:
         return {'main': self.main.state_dict() if self.main else None,

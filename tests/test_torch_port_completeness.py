@@ -49,6 +49,7 @@ MOVED = {
         'models/runtime.py SplitClassifierRuntime.encode_device',
     'models/runtime.py copy_async':
         'models/runtime.py SplitClassifierRuntime._encode_to_host',
+    'models/runtime.py add_timing': 'utils/profiling.py span',
     'ops/rans/pallas_kernel.py pallas_cyclic_encode':
         'ops/rans/kernels.py cyclic_encode',
     'ops/rans/pallas_kernel.py pallas_cyclic_decode':

@@ -45,7 +45,7 @@ from sc2bench_tpu_torch.models.runtime import SplitClassifierRuntime
 from sc2bench_tpu_torch.models.serving_pool import ServingPool
 from sc2bench_tpu_torch.utils.ckpt import save_ckpt
 from sc2bench_tpu_torch.utils.convert import state_dict_from_flax
-from sc2bench_tpu_torch.utils.profiling import StageTimer, trace
+from sc2bench_tpu_torch.utils.profiling import StageTimer, count, span, trace
 from test_torch_port_detection import (CANVAS, CLASSES, COCO, FP, STAGES,
                                        det_variables, jax_small, nchw,
                                        random_boxes)
@@ -339,20 +339,35 @@ def test_serving_pool_matches_the_runtime(wire):
 
 
 def test_trace_and_stage_timer_in_one_process(tmp_path):
-    """`trace` writes rank 0's Chrome trace of the block; `StageTimer`
-    counts each stage's calls and their milliseconds."""
+    """`trace` writes rank 0's Chrome trace of the block and the program
+    recorder's spans and counters of the block (cleared on entry);
+    `StageTimer` counts each stage's calls and their milliseconds, with or
+    without a profiler."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        count('test.before')
     timer = StageTimer()
     with trace(tmp_path / 'prof'):
         for _ in range(2):
-            with timer.stage('conv'):
+            with timer.stage('conv'), span('test.conv'):
                 torch.nn.functional.conv2d(torch.ones(1, 3, 8, 8),
                                            torch.ones(4, 3, 3, 3))
+        count('test.images', 2)
     events = json.loads((tmp_path / 'prof' / 'trace_rank0.json')
                         .read_text())['traceEvents']
-    assert 'aten::conv2d' in {e.get('name') for e in events}
+    assert {'aten::conv2d', 'conv', 'test.conv'} <= {e.get('name')
+                                                     for e in events}
     summary = timer.summarize()['conv']
     assert summary['count'] == 2 and summary['total_ms'] > 0
     assert summary['mean_ms'] == pytest.approx(summary['total_ms'] / 2)
+    spans = json.loads((tmp_path / 'prof' / 'spans_rank0.json').read_text())
+    assert spans['test.conv']['count'] == 2
+    assert 0 < spans['test.conv']['total_ms'] <= summary['total_ms']
+    assert spans['test.images'] == {'count': 2}
+    assert 'test.before' not in spans
+    with timer.stage('conv'):
+        pass
+    assert timer.summarize()['conv']['count'] == 3
     timer.clear()
     assert timer.summarize() == {}
 
