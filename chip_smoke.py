@@ -304,7 +304,16 @@ which fails loudly with a nonzero exit:
     single stream); `fast_nms_mask` on the card equal to the CPU at the
     RPN's per-level shape (4,096 boxes, 1,000 out, IoU 0.7) and on
     RetinaNet's 4,000 candidates (IoU 0.5), timed beside `nms_mask`;
-23. print the kernels line (all ten kernels; it fails if one never
+23. the device wire's encoder replayed as one CUDA graph a coding launch
+    (`SplitClassifierRuntime._wire_symbols`) against the eager path:
+    FP-24 symbols at 224x224 for k = 1 and 32 over four launches of
+    distinct images (eager, capture, replay, replay) bitwise equal,
+    `stream_deploy_device(wire_batch=32, depth=4)` over three requests of
+    128 images equal in metas, valid flags, logits and sizes, the Faster
+    R-CNN student's symbols and metas on the 800x1344 and 1344x800
+    canvases in turns, and the host us of one launch replayed beside
+    one eager (and the device ms of both);
+24. print the kernels line (all ten kernels; it fails if one never
     launched on its path or differs from its plain version, if a cyclic
     or indexed kernel never launched in phase 14, or a cyclic one in
     phase 15, 16, 21 or 22, or a cyclic one on phase 18's bfloat16 device
@@ -5541,6 +5550,142 @@ def mesh_phase(torch, kernels, rt, images, device):
     return total
 
 
+def host_us(torch, fn, reps=30):
+    """Median host microseconds of `fn()` (the dispatch: the device is
+    idle at each start) and mean device ms of its work, CUDA events
+    around each call."""
+    host, dev = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e6)
+        end.record()
+        end.synchronize()
+        dev.append(start.elapsed_time(end))
+    return statistics.median(host), statistics.fmean(dev)
+
+
+def encode_graph_phase(torch, model, device):
+    """Phase 23: the device wire's encoder of a coding launch replayed as
+    one CUDA graph (`_wire_symbols`, `utils/graphs.py`) against the eager
+    path (`_wire_symbols` replaced by `_encode_rows`): FP-24 symbols at 224x224 for k = 1
+    and 32 over four launches of distinct images each (eager, capture,
+    replay, replay), `stream_deploy_device(wire_batch=32, depth=4)` over
+    three requests of 128 images (metas, valid flags, logits, sizes), the
+    Faster R-CNN student's symbols and metas at k = 1 on both canvases in
+    turns, and the host us of one launch replayed and eager."""
+    from sc2bench_tpu_torch.models.detection.wrapper import \
+        SplitDetectionRuntime
+    from sc2bench_tpu_torch.models.runtime import SplitClassifierRuntime
+    rng = np.random.default_rng(2323)
+
+    def draw(n, hw=(HW, HW)):
+        return [torch.from_numpy(rng.normal(0, 1, (1, 3, *hw))
+                                 .astype(np.float32)).to(device)
+                for _ in range(n)]
+
+    def runtime(model, cls=SplitClassifierRuntime, graphs=True):
+        r = cls(model, device=device)
+        r.update()
+        r.eval()
+        if not graphs:   # the eager encoder: the graphs' reference
+            r._wire_symbols = lambda xs: r._encode_rows(
+                xs, r._encode_module())
+        return r
+
+    for k in (1, 32):
+        g = runtime(model)
+        enc = g._encode_module()
+        for launch in range(4):
+            xs = draw(k)
+            got = g._wire_symbols(xs)[0].clone()
+            want = torch.cat([g._symbols_nhwc(x, enc)[0] for x in xs])
+            check(torch.equal(got, want), f'phase 23: k = {k}, launch '
+                  f'{launch}: replayed symbols differ from eager')
+        check(g._encode_graphs.captures == 1
+              and g._encode_graphs.replays == 3 * k,
+              f'phase 23: k = {k}: {g._encode_graphs.captures} captures, '
+              f'{g._encode_graphs.replays} images replayed')
+    log('phase 23: FP-24 symbols at k = 1 and 32, four launches of '
+        'distinct images each: replay equals eager bitwise (1 capture)')
+
+    requests = [draw(128) for _ in range(3)]
+    served = {}
+    for graphs in (True, False):
+        r = runtime(model, graphs=graphs)
+        r.activate_analysis()
+        metas, valids = [], []
+        encode, decode = r._wire_encode_batch, r._wire_decode_batch
+
+        def rec_encode(xs, lanes, encode=encode, metas=metas):
+            ops = encode(xs, lanes)
+            metas.append(ops['meta'])
+            return ops
+
+        def rec_decode(ops, lanes, decode=decode, valids=valids):
+            out = decode(ops, lanes)
+            valids.append(out[1])
+            return out
+        r._wire_encode_batch, r._wire_decode_batch = rec_encode, rec_decode
+        logits = torch.cat([torch.cat(r.stream_deploy_device(
+            req, wire_batch=32, depth=4)) for req in requests])
+        served[graphs] = (torch.cat(metas), torch.cat(valids), logits,
+                          list(r.analyzers[0].file_size_list),
+                          dict(r.escapes), r._encode_graphs)
+    (m1, v1, l1, s1, e1, cache), (m0, v0, l0, s0, e0, _) = \
+        served[True], served[False]
+    check(torch.equal(m1, m0) and torch.equal(v1, v0)
+          and torch.equal(l1, l0) and s1 == s0 and e1 == e0,
+          'phase 23: stream_deploy_device(wire_batch=32) with the graph '
+          'differs from eager')
+    check(cache.captures == 1 and cache.replays == 3 * 128 - 32,
+          f'phase 23: serving: {cache.captures} captures, {cache.replays} '
+          'images replayed')
+    log(f'phase 23: stream_deploy_device(wire_batch=32, depth=4), 3 '
+        f'requests of 128: metas, valid, logits and sizes equal eager '
+        f'(escapes {e1}); {cache.replays} images replayed')
+
+    det = build_det_student(torch, device)
+    dg = runtime(det, SplitDetectionRuntime)
+    de = runtime(det, SplitDetectionRuntime, graphs=False)
+    canvases = [det_canvases(torch, 3, device, hw=hw, seed=23)
+                for hw in (DET_LAND, DET_PORT)]
+    enc = dg._encode_module()
+    for i in range(3):
+        for side in canvases:
+            x = side[i]
+            meta = dg.encode_device_wire(x)['meta'].clone()
+            got = dg._wire_symbols([x])[0].clone()
+            want = dg._symbols_nhwc(x, enc)[0]
+            check(torch.equal(got, want) and torch.equal(
+                meta, de.encode_device_wire(x)['meta']),
+                  f'phase 23: detection canvas {tuple(x.shape[-2:])}, image '
+                  f'{i}: replay differs from eager')
+    check(dg._encode_graphs.captures == 2, 'phase 23: detection: '
+          f'{dg._encode_graphs.captures} captures, expected one a canvas')
+    log('phase 23: Faster R-CNN FP-24 on the 800x1344 and 1344x800 '
+        'canvases in turns: symbols and metas equal eager (2 captures)')
+    del det, dg, de, canvases
+
+    out = {}
+    for k in (1, 32):
+        g, e = runtime(model), runtime(model, graphs=False)
+        xs = draw(k)
+        for _ in range(3):
+            g._wire_symbols(xs)
+        out[k] = {'replay': host_us(torch, lambda: g._wire_symbols(xs)),
+                  'eager': host_us(torch, lambda: e._wire_symbols(xs))}
+        (rh, rd), (eh, ed) = out[k]['replay'], out[k]['eager']
+        log(f'phase 23: k = {k}: host {rh:.1f} us a launch replayed '
+            f'({rh / k:.1f} an image), {eh:.1f} us eager ({eh / k:.1f} an '
+            f'image); device {rd:.3f} / {ed:.3f} ms')
+    return out
+
+
 def smi_query(fields):
     out = subprocess.run(
         ['nvidia-smi', '--id=0', f'--query-gpu={fields}',
@@ -5699,7 +5844,10 @@ def run():
     mesh_launches = timed('phase 22', mesh_phase, torch, kernels, rt,
                           images, device)
 
-    # ---- phase 23: the kernels line ----
+    # ---- phase 23: the encoder's CUDA graph ----
+    timed('phase 23', encode_graph_phase, torch, model, device)
+
+    # ---- phase 24: the kernels line ----
 
     rows = []
     for name in kernels.ALL_KERNELS:

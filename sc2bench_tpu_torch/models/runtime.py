@@ -51,7 +51,10 @@ Spans and counters (`utils/profiling.py`, recorded while a profiler runs):
 a serving call is `deploy.request`; in it the encoder and rounding of
 the images of one coding launch is `deploy.encode` (one range for a
 group of `wire_batch` images, as a profiler range costs tens to hundreds
-of us amid the serving loop's work), the coder launches
+of us amid the serving loop's work; on the device wire that is one copy
+and one CUDA graph replay once the launch's key has been seen twice, and
+the counter `deploy.encode_graph.replays` counts the images a replay
+encoded), the coder launches
 `deploy.rans_encode` and `deploy.rans_decode`, the decoder and tail
 `deploy.decode_tail` (inside `deploy.decode`, the server half's
 dispatch), the read of the sizes and flags `deploy.drain` and an escape
@@ -117,6 +120,7 @@ from ..ops.rans.device import (auto_lanes, device_rans_decode,
                                device_rans_encode, pack_stream,
                                pack_stream_aligned)
 from ..ops.rans.indexed_tables import prepare_indexed_tables
+from ..utils.graphs import GraphCache
 from ..utils.profiling import count, span
 from .layer import (EntropyBottleneckLayer, FPBasedResNetBottleneck,
                     SHPBasedResNetBottleneck)
@@ -311,6 +315,8 @@ class SplitClassifierRuntime(AnalyzerHolder):
         self._gtables_dev = None
         self._gprepared = None
         self._scale_table = None
+        # the device wire's encoder of a coding launch, as a CUDA graph
+        self._encode_graphs = GraphCache('deploy.encode_graph')
 
     @property
     def module(self):
@@ -740,6 +746,35 @@ class SplitClassifierRuntime(AnalyzerHolder):
         n, c, h, w = sym.shape
         return sym.permute(0, 2, 3, 1).reshape(n, -1), (h, w, c)
 
+    def _encode_rows(self, xs, module):
+        """`_symbols_nhwc` of each tensor of `xs` (one call each, at its
+        own shape) with `module`, concatenated: (flat (k, N), (h, w, c))."""
+        rows = [self._symbols_nhwc(x, module) for x in xs]
+        shape = rows[0][1]
+        if any(s != shape for _, s in rows):
+            raise ValueError('encode_device_wire_batch needs images of one '
+                             'shape')
+        if len(rows) == 1:
+            return rows[0]
+        return torch.cat([f for f, _ in rows]), shape
+
+    def _wire_symbols(self, xs):
+        """The device wire's `_encode_rows` of one coding launch, replayed
+        as a CUDA graph per (encoder module, k, shape, dtype) once a
+        launch of that key has run eagerly (`utils/graphs.py`): the
+        graph's kernels are the eager calls', one batch-1 encoder call an
+        image, so the symbols are bitwise the eager ones. Its flat
+        symbols are the graph's static output, rewritten by the next
+        launch of the key: read them on this stream before then."""
+        enc = self._encode_module()
+        ops = self._split_bottleneck(enc)
+        weights = itertools.chain(ops.parameters(), ops.buffers(),
+                                  (self._medians,), () if self._norm_mean
+                                  is None else (self._norm_mean,
+                                                self._norm_std))
+        return self._encode_graphs(ops, weights, xs,
+                                   lambda rows: self._encode_rows(rows, enc))
+
     def _with_meta(self, out, shape, input_hw):
         # ok + exact wire size in one small tensor, read once at harvest
         out['meta'] = torch.stack([out['ok'].to(torch.int32), out['nbytes']],
@@ -752,10 +787,12 @@ class SplitClassifierRuntime(AnalyzerHolder):
     def encode_device_wire(self, x, num_lanes=None):
         """Mobile side: encoder and rANS encode on the device, compacted
         streams (`device_rans_encode`; aligned at k = 1 when the latent is
-        beyond the batch-1 kernels, and then `aligned` says so)."""
+        beyond the batch-1 kernels, and then `aligned` says so). The
+        encoder is replayed as a CUDA graph per input shape, as in
+        `encode_device_wire_batch` at k = 1."""
         self._require_splittable()
         with span('deploy.encode'):
-            flat, shape = self._symbols_nhwc(x, self._encode_module())
+            flat, shape = self._wire_symbols([x])
         if num_lanes is None:
             num_lanes = self._auto_wire_lanes(shape)
         cdf, cdf_len, off = self._tables_dev
@@ -771,21 +808,27 @@ class SplitClassifierRuntime(AnalyzerHolder):
         time-aligned streams. The encoder runs per image, at the batch-1
         shape: cuDNN may choose another algorithm for a batch of k, and its
         float sums could move a symbol across a rounding boundary, while
-        each image's bitstream must equal its batch-1 one."""
+        each image's bitstream must equal its batch-1 one.
+
+        On a CUDA device the launch's k encoder calls, roundings and
+        flattens are replayed as one CUDA graph (`_wire_symbols`): a
+        launch of k images of one shape and dtype runs eagerly the first
+        time, is captured the second, and is one copy of the images into
+        the graph's static input and one replay after that, where the
+        eager path dispatches about 25 kernels an image. The runtime
+        keeps a few graphs (`utils/graphs.py`); keys seen once never push
+        one out. `_encode_graphs.captures` counts the captures and, with
+        a profiler running, `deploy.encode_graph.replays` the images a
+        replay encoded."""
         self._require_splittable()
-        enc = self._encode_module()
         with span('deploy.encode'):
-            rows = [self._symbols_nhwc(x, enc) for x in xs_list]
-        shape = rows[0][1]
-        if any(s != shape for _, s in rows):
-            raise ValueError('encode_device_wire_batch needs images of one '
-                             'shape')
+            flat, shape = self._wire_symbols(xs_list)
         if num_lanes is None:
             num_lanes = self._auto_wire_lanes(shape)
         cdf, cdf_len, off = self._tables_dev
         with span('deploy.rans_encode'):
-            out = device_rans_encode(torch.cat([f for f, _ in rows]), cdf,
-                                     cdf_len, off, num_lanes=num_lanes,
+            out = device_rans_encode(flat, cdf, cdf_len, off,
+                                     num_lanes=num_lanes,
                                      cyclic_channels=shape[-1], aligned=True)
         return self._with_meta(out, shape, tuple(xs_list[0].shape[-2:]))
 

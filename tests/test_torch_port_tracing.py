@@ -278,6 +278,7 @@ def test_nested_spans_split_self_and_wait_time(tmp_path):
 # ---- the benchmark's readers ------------------------------------------------
 
 SUMMARY = {'deploy.encode': {'count': 128, 'total_ms': 64.0},
+           'deploy.encode_graph.replays': {'count': 96},
            'deploy.images': {'count': 128},
            'deploy.request': {'count': 2, 'total_ms': 130.0,
                               'wait_ms': 20.0},
@@ -289,7 +290,8 @@ READERS = {'encode_dispatch_ms_per_image.wb32': 64.0 / 128,
            'host_busy_ms_per_image.wb32': 110.0 / 128,
            'host_busy_ms_per_image.serve': 110.0 / 128,
            'nms_host_reads_per_image.det': 32 / 128,
-           'backward_ms_per_step.train': 300.0}
+           'backward_ms_per_step.train': 300.0,
+           'encode_graph_share.wb32': 100.0 * 96 / 128}
 
 
 class _Recorder:
