@@ -6,7 +6,10 @@
                                     post-transforms, then the classifier
   NeuralInputCompressionClassifier  each image through a neural codec's
                                     `compress`/`decompress` (`zoo.py`,
-                                    `zoo_jahp.py`), then the classifier
+                                    `zoo_jahp.py`), or with
+                                    `wire='device'` its device wire
+                                    (`zoo_jahp_device.py`), then the
+                                    classifier
   CodecFeatureCompressionClassifier the classifier up to `split_layer`,
                                     the feature through a codec transform
                                     on the host, then the rest
@@ -29,12 +32,14 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import transforms  # noqa: F401  (fills the transform registry)
 from ..analysis import AnalyzerHolder
 from ..device import resolve_device
 from ..registry import get as registry_get
 from ..registry import register_wrapper
+from ..utils.profiling import count, span
 from .registry import get_compression_model, load_classification_model
 from .runtime import SplitClassifierRuntime
 
@@ -114,16 +119,45 @@ class CodecInputCompressionClassifier(AnalyzerHolder):
             torch.float32)
 
 
+def _device_pads(cfg):
+    """The `AdaptivePad` transforms of a `pre_transform` config, which the
+    device wire applies to a tensor on the device; any other transform
+    raises."""
+    cfgs = [] if cfg is None else cfg if isinstance(cfg, (list, tuple)) \
+        else [cfg]
+    other = [c['key'] for c in cfgs if c['key'] != 'AdaptivePad']
+    if other:
+        raise ValueError(f"wire='device' pads on the device and takes no "
+                         f"other pre_transform: {other}")
+    return [_build_transform(c) for c in cfgs]
+
+
 @register_wrapper
 class NeuralInputCompressionClassifier(AnalyzerHolder):
     """Each image through `pre_transform`, the neural codec's `compress`
     (the compressed object analyzed when `analyzes_after_compress` or the
     analysis is active) and `decompress` on the device, and
-    `post_transform`, then the classifier on the reconstructions."""
+    `post_transform`, then the classifier on the reconstructions.
+
+    `wire='device'` codes each image on the codec's device wire instead
+    (`encode_device_wire`/`decode_device_wire`; today the joint
+    autoregressive codec's, `zoo_jahp_device.py`; another codec raises):
+    an image is a (1, 3, h, w) tensor or an HWC array, padded on the
+    device by the `AdaptivePad` of `pre_transform`; its wire size
+    (`nbytes`) is analyzed. That size is the lane format's, states and
+    lengths of every lane included, and is not comparable with the host
+    wire's sizes (the paper's data size): about 29 % more at quality 8 on
+    224 px images. The request's flags and sizes cross to the
+    host once, after the classifier is queued: an image whose symbols
+    left the tables' support (`ok` false) is re-coded on the host wire and
+    counted in `escapes['ok']` (the classifier then runs again), and a
+    decode that did not return to its initial state (`valid` false) is
+    counted in `invalid`. While a profiler runs, `codec.classify` is a
+    span and `codec.images` and `codec.escapes` count."""
 
     def __init__(self, classifier, compression_model=None,
                  pre_transform=None, post_transform=None,
-                 analysis_config=None, device=None, **kwargs):
+                 analysis_config=None, device=None, wire='host', **kwargs):
         analysis_config = analysis_config or {}
         super().__init__(analysis_config.get('analyzer_configs', []))
         self.device = resolve_device(device)
@@ -133,9 +167,24 @@ class NeuralInputCompressionClassifier(AnalyzerHolder):
         self.pre_transform = _build_transform(pre_transform)
         self.post_transform = _build_transform(post_transform)
         self.classifier = classifier.to(self.device).eval()
+        if wire not in ('host', 'device'):
+            raise ValueError(f"wire must be 'host' or 'device', not {wire!r}")
+        self.wire = wire
+        self.escapes = {'ok': 0}
+        self.invalid = 0
+        if wire == 'device':
+            if not hasattr(compression_model, 'encode_device_wire'):
+                raise ValueError(
+                    f"wire='device' needs a codec with a device wire "
+                    f"(encode_device_wire/decode_device_wire, the joint "
+                    f"autoregressive codec's); "
+                    f"{type(compression_model).__name__} has none")
+            self._pads = _device_pads(pre_transform)
 
     @torch.no_grad()
     def __call__(self, images) -> torch.Tensor:
+        if self.wire == 'device':
+            return self._call_device_wire(images)
         batch = []
         for img in images:
             if self.pre_transform is not None:
@@ -143,14 +192,66 @@ class NeuralInputCompressionClassifier(AnalyzerHolder):
             x = _nchw_batch([img], self.device)
             if self.compression_model is not None:
                 compressed = self.compression_model.compress(x)
-                if self.analyzes_after_compress or self.activated_analysis:
-                    self.analyze(compressed)
+                self._account(compressed)
                 x = self.compression_model.decompress(**compressed)
-            if self.post_transform is not None:
-                x = _nchw_batch([self.post_transform(
-                    x[0].permute(1, 2, 0).cpu().numpy())], self.device)
-            batch.append(x.to(torch.float32))
+            batch.append(self._post(x))
         return self.classifier(torch.cat(batch)).to(torch.float32)
+
+    def _account(self, compressed):
+        if self.analyzes_after_compress or self.activated_analysis:
+            self.analyze(compressed)
+
+    def _post(self, x):
+        if self.post_transform is not None:
+            x = _nchw_batch([self.post_transform(
+                x[0].permute(1, 2, 0).cpu().numpy())], self.device)
+        return x.to(torch.float32)
+
+    def _device_input(self, img) -> torch.Tensor:
+        """A (1, 3, h, w) float32 tensor on the device, padded."""
+        if isinstance(img, torch.Tensor) and img.ndim == 4:
+            x = img.to(self.device, torch.float32)
+        else:
+            x = _nchw_batch([img], self.device)
+        for pad in self._pads:
+            h, w = x.shape[-2:]
+            ph, pw = pad.padded_size(h, w)
+            dh, dw = ph - h, pw - w
+            top, left = (dh // 2, dw // 2) if pad.centered else (0, 0)
+            x = F.pad(x, (left, dw - left, top, dh - top), value=pad.fill)
+        return x
+
+    def _classify(self, recon):
+        with span('codec.classify'):
+            return self.classifier(torch.cat(recon)).to(torch.float32)
+
+    def _call_device_wire(self, images):
+        cm = self.compression_model
+        xs = [self._device_input(img) for img in images]
+        count('codec.images', len(xs))
+        recon, flags = [], []
+        for x in xs:
+            ops = cm.encode_device_wire(x)
+            img, valid = cm.decode_device_wire(ops)
+            recon.append(self._post(img))
+            flags.append(torch.stack([ops['ok'].to(torch.int64),
+                                      valid.to(torch.int64),
+                                      ops['nbytes'].to(torch.int64)]))
+        logits = self._classify(recon)
+        escaped = False
+        for i, (ok, valid, nbytes) in enumerate(
+                torch.stack(flags).tolist()):
+            if not ok:
+                self.escapes['ok'] += 1
+                count('codec.escapes')
+                compressed = cm.compress(xs[i])
+                self._account(compressed)
+                recon[i] = self._post(cm.decompress(**compressed))
+                escaped = True
+                continue
+            self.invalid += int(not valid)
+            self._account({'strings': [[bytes(nbytes)]]})
+        return self._classify(recon) if escaped else logits
 
 
 @register_wrapper

@@ -41,10 +41,12 @@ from ..ops.entropy.factorized import EntropyBottleneck
 from ..ops.entropy.gaussian import GaussianConditional, get_scale_table
 from ..ops.entropy.tables import build_gaussian_tables
 from ..ops.math import quantize_noise
+from ..ops.rans import kernels
 from ..ops.rans.coder import RansCoder, StreamingDecoder
 from ..ops.rans.indexed_tables import prepare_indexed_tables
 from ..registry import register_model
-from ..utils.profiling import span
+from ..utils.graphs import GraphCache
+from ..utils.profiling import count, span
 from .runtime import FactorizedCodec, _exact_cudnn
 from .zoo import (_conv, _deconv, _on, analysis_transform, nchw,
                   synthesis_transform)
@@ -313,6 +315,10 @@ class JointAutoregressiveRuntime(JointAutoregressiveDeviceMixin):
                       self.g_tables.offset))
         self._g_prepared = prepare_indexed_tables(*self._g_tables_dev)
         self.context = ContextModel(self.module)
+        self._scan_graphs = GraphCache('codec.scan_graph',
+                                       tally=kernels.LAUNCHES)
+        self._front_graphs = GraphCache('codec.front_graph',
+                                        tally=kernels.LAUNCHES)
         return True
 
     def schedule(self, h: int, w: int) -> Schedule:
@@ -345,7 +351,14 @@ class JointAutoregressiveRuntime(JointAutoregressiveDeviceMixin):
     def forward_scan(self, y: torch.Tensor, hyper: torch.Tensor):
         """Quantize y front by front: (symbols (T, F, m) int32, indexes
         (T, F, m) int32, halo-padded y_hat), pad slots included (the
-        caller drops them)."""
+        caller drops them). The loop is the span `codec.scan`."""
+        count('codec.front_steps', self.schedule(y.shape[0],
+                                                 y.shape[1]).steps)
+        with span('codec.scan'):
+            return self._scan_loop(y, hyper)
+
+    def _scan_loop(self, y: torch.Tensor, hyper: torch.Tensor):
+        """`forward_scan`'s loop."""
         sch = self.schedule(y.shape[0], y.shape[1])
         y_hat = self._new_latent(sch.h, sch.w)
         syms, idxs = [], []

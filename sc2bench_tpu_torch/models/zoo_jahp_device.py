@@ -25,6 +25,22 @@ as the lane wire packs them, then the chunks) plus z's lane wire. A symbol
 outside its row's support cannot be coded on lanes: it clears `ok` (the
 caller re-codes the image on the host wire). `valid` is true when z
 decoded valid and every y lane returned to its initial state.
+
+Each wavefront loop queues hundreds of small launches an image (about
+15 a front), more than the host can queue in the time the card runs
+them. On the card the device wire replays each loop as one CUDA graph a
+latent shape (`utils/graphs.py` `GraphCache`: the runtime's
+`_scan_graphs` and `_front_graphs`, which `update()` makes anew), eager
+on the CPU and at a shape's first call; a replay computes what the eager
+loop computes, bit for bit, and counts its launches in
+`kernels.LAUNCHES` as the eager loop does.
+
+While a profiler runs, each stage of an image is one span
+(`utils/profiling.py`), never one a front: `codec.encode` (g_a, h_a, h_s
+and z's lanes), `codec.scan` (the encoder's wavefront loop),
+`codec.masked_encode` (y's lanes), `codec.decode_z` (z and h_s),
+`codec.fronts` (the decoder's wavefront loop) and `codec.synthesis`
+(g_s); the counter `codec.front_steps` adds the fronts each loop runs.
 """
 from __future__ import annotations
 
@@ -33,6 +49,7 @@ import torch
 from ..ops.rans import kernels
 from ..ops.rans.device import (RANS_L, auto_lanes, device_rans_decode,
                                device_rans_encode)
+from ..utils.profiling import count, span
 from .zoo import nchw
 
 
@@ -65,20 +82,26 @@ class JointAutoregressiveDeviceMixin:
         {'y_streams' (N, T) int32, 'y_states' (N,) int64, 'y_lengths' (N,)
         int32, 'z' (the cyclic encode's dict), 'ok', 'nbytes', 'y_hat'
         (1, m, h, w), 'shape' (h, w) of y}."""
-        y, z_symbols, hyper = self._encode_ops(x)
+        with span('codec.encode'):
+            y, z_symbols, hyper = self._encode_ops(x)
+            zh, zw = z_symbols.shape[2:]
+            z_out = device_rans_encode(
+                z_symbols.permute(0, 2, 3, 1).reshape(-1), *self._z_tables,
+                num_lanes=self._z_lanes(zh, zw),
+                cyclic_channels=self.module.n, aligned=True)
         hh, ww, m = y.shape
         sch = self.schedule(hh, ww)
-        syms, idxs, y_hat = self.forward_scan(y, hyper)
-        vc, idx, ok = self.masked_values(syms, idxs, sch)
-        streams, lengths, states = kernels.masked_encode_aligned(
-            self._g_tables_dev[0], vc, idx, sch.active, m,
-            prepared=self._g_prepared)
+        count('codec.front_steps', sch.steps)
+        with span('codec.scan'):
+            syms, idxs, y_hat = _copies(self._scan_graphs(
+                'scan', (), (y.contiguous(), hyper),
+                lambda t: self._scan_loop(*t), rows=1))
+        with span('codec.masked_encode'):
+            vc, idx, ok = self.masked_values(syms, idxs, sch)
+            streams, lengths, states = kernels.masked_encode_aligned(
+                self._g_tables_dev[0], vc, idx, sch.active, m,
+                prepared=self._g_prepared)
         N = idx.shape[1]
-        n = self.module.n
-        zh, zw = z_symbols.shape[2:]
-        z_out = device_rans_encode(
-            z_symbols.permute(0, 2, 3, 1).reshape(-1), *self._z_tables,
-            num_lanes=self._z_lanes(zh, zw), cyclic_channels=n, aligned=True)
         nbytes = 4 + 6 * N + 2 * lengths.sum() + z_out['nbytes']
         return {'y_streams': streams, 'y_states': states,
                 'y_lengths': lengths, 'z': z_out,
@@ -89,18 +112,30 @@ class JointAutoregressiveDeviceMixin:
     def decode_device_latent(self, ops):
         """(y_hat (1, m, h, w), valid) of `encode_device_wire`'s ops."""
         hh, ww = ops['shape']
-        sch = self.schedule(hh, ww)
-        n, m = self.module.n, self.module.m
+        n = self.module.n
         zh, zw = -(-hh // 4), -(-ww // 4)
-        z_flat, z_valid = device_rans_decode(
-            ops['z']['streams'], ops['z']['states'], *self._z_tables,
-            n_symbols=zh * zw * n, num_lanes=self._z_lanes(zh, zw),
-            cyclic_channels=n, aligned=True)
-        hyper = self._hyper(nchw(z_flat.reshape(1, zh, zw, n)))
+        with span('codec.decode_z'):
+            z_flat, z_valid = device_rans_decode(
+                ops['z']['streams'], ops['z']['states'], *self._z_tables,
+                n_symbols=zh * zw * n, num_lanes=self._z_lanes(zh, zw),
+                cyclic_channels=n, aligned=True)
+            hyper = self._hyper(nchw(z_flat.reshape(1, zh, zw, n)))
+        sch = self.schedule(hh, ww)
+        count('codec.front_steps', sch.steps)
+        with span('codec.fronts'):
+            y_hat, x = _copies(self._front_graphs(
+                'fronts', (), (ops['y_streams'], ops['y_states'], hyper),
+                lambda t: self._fronts_loop(sch, *t), rows=1))
+        valid = z_valid & (x == RANS_L).all()
+        return self.latent(y_hat), valid
+
+    def _fronts_loop(self, sch, streams, x, hyper):
+        """The decoder's wavefront loop on schedule `sch`: (halo-padded
+        y_hat, the lanes' final states) of y's streams and initial states
+        and the hyper feature."""
         cdf, cdf_len, off = self._g_tables_dev
-        y_hat = self._new_latent(hh, ww)
-        x = ops['y_states']
-        streams = ops['y_streams']
+        m = self.module.m
+        y_hat = self._new_latent(sch.h, sch.w)
         for t in range(sch.steps):
             scales, means = self.context.front_params(
                 y_hat, hyper, sch.ii[t], sch.jj[t])
@@ -109,12 +144,16 @@ class JointAutoregressiveDeviceMixin:
                 streams, t, x, cdf, cdf_len, off, idx, sch.active[t], m,
                 prepared=self._g_prepared)
             sch.write(y_hat, t, sym.reshape(-1, m).to(torch.float32) + means)
-        valid = z_valid & (x == RANS_L).all()
-        return self.latent(y_hat), valid
+        return y_hat, x
 
     def decode_device_wire(self, ops):
         """The server side: (NCHW image, valid)."""
         y_hat, valid = self.decode_device_latent(ops)
-        with torch.no_grad():
+        with torch.no_grad(), span('codec.synthesis'):
             img = self.module.decode_image(y_hat)
         return img, valid
+
+
+def _copies(out):
+    """Copies of a loop's outputs, which the next replay rewrites."""
+    return tuple(t.clone() for t in out)

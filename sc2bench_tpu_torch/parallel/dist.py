@@ -25,7 +25,9 @@ explicit:
 The group's two per-step collectives are program spans
 (`utils/profiling.py`) named `dist.average_gradients` (the gradient
 all-reduce) and `dist.group_sum` (BatchNorm's statistics, forward and
-backward), so a trace gives their share of a step.
+backward), so a trace gives their share of a step; `dist.allreduce`, a
+device-timed span (a CUDA event pair) inside the first, times the
+coalesced all-reduce itself on the device.
 
 Every rank holds an equal share of the global batch: the loaders shard
 the dataset into equal shards (`datasets/image.py`), so a process's final
@@ -221,7 +223,9 @@ def average_gradients(params) -> None:
     w = world_size()
     with span('dist.average_gradients'):
         for group in _by_dtype(grads):
-            flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in group]))
+            flat = torch.cat([g.reshape(-1) for g in group])
+            with span('dist.allreduce', device=True):
+                all_reduce_sum(flat)
             flat.div_(w)
             _scatter_back(flat, group, lambda t: t)
 

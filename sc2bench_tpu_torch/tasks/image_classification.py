@@ -18,8 +18,13 @@ the device-rANS wire, else the host coder) -> top-1/top-5 of the teacher
 unless `-student_only`. A `models.wrapper` config (the input- and
 feature-compression baselines: a classifier behind JPEG/WebP/BPG/VTM or a
 neural image codec, or a codec on a split feature) is test-only: top-1/
-top-5 and the wrapper's data-size summary. The device is the card unless
-`--device cpu`; it raises when there is none.
+top-5 and the wrapper's data-size summary; `deploy_wire: device` codes
+the images of a neural input-compression wrapper whose codec has a
+device wire (the joint autoregressive codec) on that wire, the images
+padded on the card, and raises for any other wrapper; its data-size
+summary is then the lane format's, which carries the lanes' states and
+lengths and is not comparable with the host wire's or the paper's. The device is the
+card unless `--device cpu`; it raises when there is none.
 
 Over N processes (`torchrun`, `--world_size N`: NCCL on the cards, one a
 process, or gloo with `--device cpu`) each process trains on its shard

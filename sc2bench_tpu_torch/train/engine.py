@@ -40,7 +40,14 @@ builds the wrapper alone (`models/wrapper.py`: a classifier behind a host
 codec, a neural image codec, or a codec on a split feature) and is
 test-only, as in the JAX engine: `train()` raises, and `test()` hands the
 wrapper each batch as a list of HWC images, giving top-1/top-5 and the
-wrapper's data-size summaries.
+wrapper's data-size summaries. For a neural input-compression wrapper
+whose codec has a device wire (the joint autoregressive codec),
+`deploy_wire: device` codes every image on that wire
+(`NeuralInputCompressionClassifier` with `wire='device'`); any other
+wrapper raises. The data-size summary then measures the device wire's
+lane format (with its lanes' states and lengths: about 29 % more than
+the host wire at quality 8 on 224 px images), which is not comparable
+with the host wire's sizes or the paper's.
 """
 from __future__ import annotations
 
@@ -190,9 +197,18 @@ class ClassificationEngine:
         self.teacher = None
         self.wrapper = None
         if 'wrapper' in models_config:
+            wire = {}
+            if config.get('deploy_wire') == 'device':
+                key = models_config['wrapper']['key']
+                if key != 'NeuralInputCompressionClassifier':
+                    raise ValueError(
+                        f'deploy_wire: device applies to the neural '
+                        f'input-compression wrapper '
+                        f'(NeuralInputCompressionClassifier), not {key}')
+                wire['wire'] = 'device'
             torch.manual_seed(0)
             self.wrapper = get_wrapped_classification_model(
-                models_config['wrapper'], device=self.device)
+                models_config['wrapper'], device=self.device, **wire)
             return
         if 'teacher_model' in models_config:
             tm_cfg = models_config['teacher_model']

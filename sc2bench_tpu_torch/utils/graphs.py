@@ -1,16 +1,16 @@
 """A chain of small kernels replayed as one CUDA graph.
 
-`GraphCache` runs `fn(inputs)`, a function of a list of same-shape
-tensors, either eagerly or as the replay of a CUDA graph of it. Per key
-(the caller's key, the number of inputs, their shape and dtype, and the
-cuDNN and matmul flags), the first `CAPTURE_AFTER - 1` calls run eagerly:
-the first is the warm-up a capture needs (cuDNN's algorithm choice and
-workspace, lazily built handles), and a shape seen once never pays for a
-capture. The next call captures `fn` over a static copy of the inputs and
-replays it; every later call copies its inputs into that static buffer
-(one multi-tensor copy) and replays. The graph's kernels are the eager
-call's, launched on the same shapes under the same flags, so a replay
-computes what the eager call computes, bit for bit.
+`GraphCache` runs `fn(inputs)`, a function of a list of tensors, either
+eagerly or as the replay of a CUDA graph of it. Per key (the caller's
+key, each input's shape and dtype, and the cuDNN and matmul flags), the
+first `CAPTURE_AFTER - 1` calls run eagerly: the first is the warm-up a
+capture needs (cuDNN's algorithm choice and workspace, lazily built
+handles), and a shape seen once never pays for a capture. The next call
+captures `fn` over a static copy of the inputs and replays it; every
+later call copies its inputs into those static tensors (one multi-tensor
+copy) and replays. The graph's kernels are the eager call's, launched on
+the same shapes under the same flags, so a replay computes what the
+eager call computes, bit for bit.
 
 A replay writes the same static output tensors every time: whatever the
 caller reads of launch g must be read (or copied) before launch g+1's
@@ -21,12 +21,20 @@ its inputs) where they lay when it was captured: an in-place update is
 read by the next replay, and a weight given new storage makes the next
 call capture again. Keys still running eagerly are counted apart from the
 graphs (at most `SEEN_LIMIT`, least recently used first out), so a stream
-of new shapes never pushes a graph out. At most `GRAPH_LIMIT` graphs are
-kept, least recently used first out; a key whose graph went out starts
-its count again. Inputs a graph cannot hold stay eager and leave the
-cache as it is: tensors on another device type, of several shapes or
-dtypes, not contiguous, or not 16-byte aligned (cuDNN's choice of kernels
-depends on its operands' alignment, so a static row must match it).
+of new shapes never pushes a graph out; an eager call that raises is not
+counted. At most `GRAPH_LIMIT` graphs are kept, least recently used first
+out; a key whose graph went out starts its count again. Inputs a graph
+cannot hold stay eager and leave the cache as it is: tensors on another
+device type or on several devices, not contiguous, or not 16-byte
+aligned (cuDNN's choice of kernels depends on its operands' alignment,
+so a static copy must match it; the caching allocator aligns each one to
+512 bytes).
+
+A capture does not run `fn`'s kernels, but `fn`'s host code runs once:
+what it adds to a dict of counts (`tally`, say the rANS kernels'
+`LAUNCHES`) is taken back after the capture and added again after each
+replay, so that the counts follow the launches a replay makes, as the
+eager call's do.
 
 The attributes `captures` and `replays` count captures and the rows
 (images) served by a replay; with a profiler running
@@ -43,8 +51,6 @@ from .profiling import count
 GRAPH_LIMIT = 4
 SEEN_LIMIT = 64
 CAPTURE_AFTER = 2
-# bytes: each static row is aligned as the caching allocator aligns a tensor
-_ROW_ALIGN = 512
 
 
 def capture_cuda_graph(fn, rows):
@@ -77,37 +83,38 @@ def _backend_flags():
 
 
 class _Graph:
-    """One captured key: the static input rows, the replay and its
-    output, and where its weights lay."""
+    """One captured key: the static inputs, the replay and its output,
+    where its weights lay, and the counts of `tally` a replay adds."""
 
-    def __init__(self, weights_at, inputs, fn, capture):
-        x = inputs[0]
-        numel, size = x.numel(), x.element_size()
-        stride = -(-numel * size // _ROW_ALIGN) * _ROW_ALIGN // size
-        buf = torch.empty(len(inputs) * stride, dtype=x.dtype,
-                          device=x.device)
-        self.rows = [buf[i * stride:i * stride + numel].view(x.shape)
-                     for i in range(len(inputs))]
+    def __init__(self, weights_at, inputs, fn, capture, tally):
+        self.rows = [torch.empty_like(t) for t in inputs]
         self.weights_at = weights_at
         self.load(inputs)
+        before = dict(tally or {})
         self.replay, self.output = capture(fn, self.rows)
+        self.tallied = {k: v - before.get(k, 0)
+                        for k, v in (tally or {}).items()
+                        if v != before.get(k, 0)}
+        for k, v in self.tallied.items():
+            tally[k] -= v
 
     def load(self, inputs):
         torch._foreach_copy_(self.rows, list(inputs))
 
 
 class GraphCache:
-    """CUDA graphs of a function of same-shape tensors, by key (the
-    module doc); `name` prefixes its counter. `capture(fn, rows) ->
-    (replay, output)` records `fn`; `device_type` is the device type whose
-    inputs it takes (another capture and device type let the CPU tests
-    drive the cache)."""
+    """CUDA graphs of a function of tensors, by key (the module doc);
+    `name` prefixes its counter, and `tally` is a dict of counts that
+    `fn` adds to. `capture(fn, rows) -> (replay, output)` records `fn`;
+    `device_type` is the device type whose inputs it takes (another
+    capture and device type let the CPU tests drive the cache)."""
 
     def __init__(self, name: str, capture=capture_cuda_graph,
-                 device_type: str = 'cuda'):
+                 device_type: str = 'cuda', tally: dict | None = None):
         self.name = name
         self._capture = capture
         self._device_type = device_type
+        self._tally = tally
         # key -> eager calls so far, and key -> _Graph; least recent first
         self._seen = OrderedDict()
         self._graphs = OrderedDict()
@@ -123,32 +130,34 @@ class GraphCache:
                 and x.device.index != torch.cuda.current_device():
             return False
         return all(isinstance(t, torch.Tensor) and t.device == x.device
-                   and t.dtype == x.dtype and t.shape == x.shape
                    and t.is_contiguous() and t.data_ptr() % 16 == 0
                    for t in inputs)
 
-    def __call__(self, key, weights, inputs, fn):
+    def __call__(self, key, weights, inputs, fn, rows=None):
         """`fn(inputs)`, eagerly or replayed (the module doc); `weights`
         the tensors `fn` reads besides `inputs`, and `key` what else
-        decides its kernels (the module that runs, say). The result of a
-        replay is the graph's static output."""
+        decides its kernels (the module that runs, say). `rows`: the rows
+        (images) a call serves, by default the inputs' first dimensions
+        summed. The result of a replay is the graph's static output."""
         inputs = list(inputs)
         if not inputs or not self._holds(inputs):
             return fn(inputs)
-        x = inputs[0]
-        key = (key, len(inputs), tuple(x.shape), x.dtype, _backend_flags())
+        key = (key, tuple((tuple(t.shape), t.dtype) for t in inputs),
+               _backend_flags())
         entry = self._graphs.pop(key, None)
         if entry is None:
             calls = self._seen.pop(key, 0) + 1
             if calls < CAPTURE_AFTER:
+                out = fn(inputs)
                 self._seen[key] = calls
                 if len(self._seen) > SEEN_LIMIT:
                     self._seen.popitem(last=False)
-                return fn(inputs)
+                return out
         weights_at = tuple(t.data_ptr() for t in weights)
         if entry is None or entry.weights_at != weights_at:
             entry = None    # free a stale graph before its successor
-            entry = _Graph(weights_at, inputs, fn, self._capture)
+            entry = _Graph(weights_at, inputs, fn, self._capture,
+                           self._tally)
             self.captures += 1
         else:
             entry.load(inputs)
@@ -156,7 +165,10 @@ class GraphCache:
         if len(self._graphs) > GRAPH_LIMIT:
             self._graphs.popitem(last=False)
         entry.replay()
-        rows = len(inputs) * x.shape[0]
+        for k, v in entry.tallied.items():
+            self._tally[k] += v
+        if rows is None:
+            rows = sum(t.shape[0] for t in inputs)
         self.replays += rows
         count(f'{self.name}.replays', rows)
         return entry.output

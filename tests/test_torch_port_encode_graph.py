@@ -149,7 +149,7 @@ def _counting_cache():
 
 
 def _widths(keys):
-    return [k[2][1] for k in keys]
+    return [k[1][0][0][1] for k in keys]
 
 
 def test_the_lru_limit_holds():
@@ -197,6 +197,40 @@ def test_keys_seen_once_never_push_a_graph_out():
     call(100)               # forgotten: eager again
     assert cache.captures == GRAPH_LIMIT + 1
     assert len(cache._seen) == SEEN_LIMIT
+
+
+def test_inputs_of_several_shapes_and_a_tally():
+    """A function of tensors of two shapes and dtypes (a wavefront loop's
+    latent and lane states, say) is cached like same-shape rows; what its
+    host code adds to `tally` is taken back after the capture and added
+    again after every replay, so the tally counts every call's launches
+    once; `rows` sets what `replays` counts."""
+    tally = {'launches': 0}
+    fake = FakeCapture()
+
+    def capture(fn, rows):
+        replay, out = fake(fn, rows)
+
+        def device_only():      # a replay runs no host code
+            saved = dict(tally)
+            replay()
+            tally.update(saved)
+        return device_only, out
+
+    cache = GraphCache('test.loop', capture=capture, device_type='cpu',
+                       tally=tally)
+
+    def fn(t):
+        tally['launches'] += 3
+        return (t[0] * t[1].sum().to(t[0].dtype),)
+
+    for i in range(4):
+        xs = [torch.full((2, 3), float(i)), torch.arange(5) + i]
+        out = cache('loop', (), xs, fn, rows=1)
+        assert torch.equal(out[0], xs[0] * xs[1].sum().float())
+        assert tally['launches'] == 3 * (i + 1)
+    assert fake.calls == [2]
+    assert (cache.captures, cache.replays) == (1, 3)
 
 
 @pytest.mark.parametrize('change', ['new_weight_storage', 'new_medians',
