@@ -344,7 +344,8 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {'cyclic': 'sc2bench_tpu_torch/csrc/rans_cyclic.cu',
-           'indexed': 'sc2bench_tpu_torch/csrc/rans_indexed.cu'}
+           'indexed': 'sc2bench_tpu_torch/csrc/rans_indexed.cu',
+           'front': 'sc2bench_tpu_torch/csrc/jahp_front.cu'}
 PALLAS = 'sc2bench_tpu/ops/rans/pallas_kernel.py'
 SCAN = 'sc2bench_tpu/ops/rans/device.py'
 JAHP_DEVICE = 'sc2bench_tpu/models/zoo_jahp_device.py'
@@ -367,6 +368,15 @@ REPLACES = {
     'rans_masked_decode_front': f'{JAHP_DEVICE}:142 _rans_decode_step, one '
                                 'a front in the :331 scan (XLA scan, no '
                                 'Pallas kernel)',
+    'jahp_front_ctx': f'{JAHP_DEVICE}:87 front_params, the taps\' gather '
+                      'and product (XLA ops, no Pallas kernel)',
+    'jahp_front_hidden': f'{JAHP_DEVICE}:87 front_params, the entropy '
+                         'parameters\' hidden layers (XLA ops)',
+    'jahp_front_params': f'{JAHP_DEVICE}:87 front_params\' last layer, '
+                         ':106 _scale_indexes and the scan\'s round and '
+                         'write (XLA ops)',
+    'jahp_front_write': f'{JAHP_DEVICE}: the decode scan\'s write of a '
+                        'front (XLA scatter)',
 }
 N_FLOAT, N_UINT8, WIRE_BATCH, HW = 16, 4, 8, 224
 LOGIT_TOL = 1e-3
@@ -572,6 +582,25 @@ def device_ms(torch, fn, reps, tries=3):
     raise SmokeFailure(f'enqueue took {queued_s:.4f} s in each of {tries} '
                        'runs, longer than the sleep covering it: the timing '
                        'saw idle gaps')
+
+
+def graph_ms(torch, fn, reps=20):
+    """Device ms per replay of `fn()` captured as one CUDA graph (as the
+    device wire replays its loops), `reps` replays queued back to back
+    after two warm-up replays."""
+    from sc2bench_tpu_torch.utils.graphs import capture_cuda_graph
+    fn()                            # the eager warm-up a capture needs
+    replay, _ = capture_cuda_graph(lambda rows: fn(), [])
+    for _ in range(2):
+        replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def bound(nbytes, ops):
@@ -2573,6 +2602,248 @@ def masked_zero_frequency(torch, td, kernels, sch, m, device):
     return err, zero
 
 
+# The front kernels against their plain versions (tests/test_torch_port_
+# jahp_front_kernel.py): floats within FRONT_TOL of the largest magnitude
+# (float32 summed in another order), rows and symbols equal but for
+# FRONT_BOUNDARY_SHARE of them on a table or rounding boundary, each one
+# step away; y_hat's writes bit for bit.
+FRONT_TOL = 1e-5
+FRONT_BOUNDARY_SHARE = 1e-4
+# The rate at which every SM of an H100 80GB HBM3 reads a working set of
+# about 21 MB that stays in its 50 MB L2 (3.87-3.94 TB/s, a read-only
+# kernel): the front kernels' weights stay there from front to front, so
+# their floor is their bytes over this rate, below the HBM bound.
+L2_BYTES_PER_S = 3.9e12
+
+
+def plain_layers(torch, ctx, y_hat, hyper, ii, jj):
+    """`ContextModel.front_params`' steps at one front, each layer's
+    output kept: [ctx (F, 2m), h1, h2, params (F, 2m)]."""
+    ii, jj = ii.clamp_min(0), jj.clamp_min(0)
+    taps = y_hat[ii[:, None] + ctx.dr, jj[:, None] + ctx.dc]
+    out = [taps.reshape(taps.shape[0], -1) @ ctx.kernel + ctx.bias]
+    feat = torch.cat([hyper[ii, jj], out[0]], dim=1)
+    for li, (w, b) in enumerate(ctx.ep):
+        feat = feat @ w + b
+        if li < 2:
+            feat = torch.where(feat > 0, feat, 0.01 * feat)
+        out.append(feat)
+    return out
+
+
+def front_kernel_part(torch, rt, x, tag):
+    """The front kernels of runtime `rt` on image `x`, each against its
+    plain version front by front, teacher-forced on the plain scan's
+    latent: `jahp_front_ctx` on that latent, each later layer on the plain
+    version's input to it (hidden layers and activations within
+    FRONT_TOL; `jahp_front_params`' scales and means within FRONT_TOL, its
+    rows and the scan's symbols against `scale_indexes` and round(y -
+    mean) but for FRONT_BOUNDARY_SHARE, the scan's y_hat write against
+    `Schedule.write` of its symbols plus the decoder's means bit for bit);
+    `jahp_front_write` against `Schedule.write` on the same inputs, bit
+    for bit; the whole decoder's front against `front_params`. Then, at
+    the middle front, each launch alone (a call with its host dispatch,
+    and device ms back to back) against its plain version's ops, one scan
+    front's launches back to back, the scan loop (device ms a front,
+    replayed as one CUDA graph as the device wire does) and the plain
+    front. Bounds: the bytes a launch reads and writes once over 3.35
+    TB/s (HBM) and over L2_BYTES_PER_S (the weights in L2). Returns
+    {kernel name: stats} for the kernels line."""
+    from sc2bench_tpu_torch.models.zoo_jahp import scale_indexes
+    fk = rt._front_kernels
+    check(fk is not None, f'{tag}: the runtime has no front kernels')
+    with torch.no_grad():
+        y, _, hyper = rt._encode_ops(x)
+    y = y.contiguous()
+    sch = rt.schedule(*y.shape[:2])
+    rt._front_kernels = None
+    try:
+        _, _, y_hat = rt._scan_loop(y, hyper)           # the plain scan
+    finally:
+        rt._front_kernels = fk
+    ctx, m, F, dev = rt.context, rt.module.m, sch.slots, y.device
+    widths = [ctx.kernel.shape[1]] + [w.shape[1] for w, _ in ctx.ep]
+    names = ('jahp_front_ctx', 'jahp_front_hidden', 'jahp_front_params',
+             'jahp_front_write')
+    abs_err = dict.fromkeys(names, 0.0)
+    rel_err = dict.fromkeys(names, 0.0)
+    front_rel, off, far, total = 0.0, 0, 0, 0
+
+    def held(name, got, want):
+        abs_err[name] = max(abs_err[name],
+                            float((got - want).abs().max()))
+        rel_err[name] = max(rel_err[name], float(
+            (got - want).abs().max() / want.abs().max()))
+
+    def steps_off(got, want):
+        nonlocal off, far, total
+        d = (got.to(torch.int64) - want.to(torch.int64)).abs()
+        far += int((d > 1).sum())
+        off += int((d > 0).sum())
+        total += d.numel()
+
+    acts = fk.buffers(F)
+    scales = torch.empty((F, m), device=dev)
+    means = torch.empty((F, m), device=dev)
+    idx = torch.empty((F, m), dtype=torch.int32, device=dev)
+    idx_scan = torch.empty_like(idx)
+    syms = torch.empty_like(idx)
+    for t in range(sch.steps):
+        n = sch.counts[t]
+        ii, jj = sch.ii[t], sch.jj[t]
+        P = plain_layers(torch, ctx, y_hat, hyper, ii, jj)
+        s_p, mu_p = ctx.front_params(y_hat, hyper, ii, jj)
+        check(torch.equal(P[3], torch.cat([s_p, mu_p], dim=1)),
+              f'{tag}: plain_layers differs from front_params')
+        for i in range(3):
+            if i:
+                acts[i - 1].zero_()
+                acts[i - 1][:, :widths[i - 1]] = P[i - 1]
+            fk.layer(i, y_hat, hyper, sch, t, acts)
+            held(names[min(i, 1)], acts[i][:n, :widths[i]], P[i][:n])
+        acts[2].zero_()
+        acts[2][:, :widths[2]] = P[2]
+        fk.params(acts, sch, t, idx, means=means, scales=scales)
+        held(names[2], torch.cat([scales[:n], means[:n]], dim=1), P[3][:n])
+        yy = y[sch.ii[t, :n], sch.jj[t, :n]]
+        steps_off(idx[:n], scale_indexes(s_p, rt._scale_table)[:n])
+        # the scan's epilogue on the same input
+        y_scan = y_hat.clone()
+        fk.params(acts, sch, t, idx_scan, y=y, y_hat=y_scan, syms=syms)
+        steps_off(syms[:n], torch.round(yy - mu_p[:n]))
+        check(torch.equal(idx_scan, idx), f'{tag}: front {t}: the scan\'s '
+              'rows differ from the decoder\'s')
+        want = y_hat.clone()
+        sch.write(want, t, syms.to(torch.float32) + means)
+        check(torch.equal(y_scan, want), f'{tag}: front {t}: the scan\'s '
+              'y_hat write differs from Schedule.write of its symbols plus '
+              'the means')
+        got = y_hat.clone()
+        fk.write(got, sch, t, syms.reshape(-1), means)
+        held(names[3], got, want)
+        check(torch.equal(got, want), f'{tag}: front {t}: jahp_front_write '
+              'differs from Schedule.write')
+        # the whole decoder's front
+        means_f, _ = fk.front(y_hat, hyper, sch, t, scales=scales)
+        for got, want in ((scales[:n], s_p[:n]), (means_f[:n], mu_p[:n])):
+            front_rel = max(front_rel, float((got - want).abs().max()
+                                             / want.abs().max()))
+    worst = max(rel_err[k] for k in names[:3])
+    check(max(worst, front_rel) <= FRONT_TOL, f'{tag}: the front kernels '
+          f'are {rel_err} (a layer) and {front_rel:.3g} (a front) off their '
+          'plain versions')
+    check(far == 0 and off <= FRONT_BOUNDARY_SHARE * total,
+          f'{tag}: {off} of {total} rows and symbols differ from the plain '
+          f'version\'s ({far} by more than one step)')
+    # timings at the middle front
+    t = sch.steps // 2
+    ii, jj = sch.ii[t], sch.jj[t]
+    yh = y_hat.clone()
+    out = torch.empty((F, m), dtype=torch.int32, device=dev)
+    sym = torch.zeros(F * m, dtype=torch.int32, device=dev)
+    P = plain_layers(torch, ctx, y_hat, hyper, ii, jj)
+    ic, jc = ii.clamp_min(0), jj.clamp_min(0)
+
+    def layer(i):
+        return lambda: fk.layer(i, yh, hyper, sch, t, acts)
+
+    def params():
+        fk.params(acts, sch, t, out, y=y, y_hat=yh, syms=syms)
+
+    def front():
+        for i in range(3):
+            fk.layer(i, yh, hyper, sch, t, acts)
+        params()
+
+    def leaky(v):
+        return torch.where(v > 0, v, 0.01 * v)
+
+    def plain_ctx():
+        taps = yh[ic[:, None] + ctx.dr, jc[:, None] + ctx.dc]
+        return taps.reshape(F, -1) @ ctx.kernel + ctx.bias
+
+    def plain_hidden1():
+        (w, b) = ctx.ep[0]
+        return leaky(torch.cat([hyper[ic, jc], P[0]], dim=1) @ w + b)
+
+    def plain_hidden2():
+        (w, b) = ctx.ep[1]
+        return leaky(P[1] @ w + b)
+
+    def plain_params():
+        (w, b) = ctx.ep[2]
+        p = P[2] @ w + b
+        scale_indexes(p[:, :m], rt._scale_table)
+        sym_p = torch.round(y[ic, jc] - p[:, m:])
+        sch.write(yh, t, sym_p + p[:, m:])
+
+    def plain_write():
+        sch.write(yh, t, sym.reshape(-1, m).to(torch.float32) + means)
+
+    def plain_front():
+        s_p, mu_p = ctx.front_params(yh, hyper, ii, jj)
+        scale_indexes(s_p, rt._scale_table)
+        sym_p = torch.round(y[ic, jc] - mu_p)
+        sch.write(yh, t, sym_p + mu_p)
+
+    n = sch.counts[t]
+    weights = [4 * (w.numel() + b.numel()) for w, b in
+               [(ctx.kernel, ctx.bias)] + list(ctx.ep)]
+    ins = [ctx.kernel.shape[0]] + [w.shape[0] for w, _ in ctx.ep]
+    io = [4 * F * (a + b) for a, b in zip(ins, widths)]
+    fns = {'jahp_front_ctx': ([layer(0)], [plain_ctx],
+                              [weights[0] + io[0]]),
+           'jahp_front_hidden': ([layer(1), layer(2)],
+                                 [plain_hidden1, plain_hidden2],
+                                 [weights[1] + io[1], weights[2] + io[2]]),
+           'jahp_front_params': ([params], [plain_params],
+                                 [weights[3] + io[3]]),
+           'jahp_front_write': ([lambda: fk.write(yh, sch, t, sym, means)],
+                                [plain_write], [12 * n * m])}
+    front_dev = device_ms(torch, front, reps=100)
+    loop_dev = graph_ms(torch, lambda: fk.scan(
+        y, hyper, sch, rt._new_latent(sch.h, sch.w))) / sch.steps
+    plain_dev = device_ms(torch, plain_front, reps=20)
+    front_bytes = sum(weights) + sum(io)
+    front_bound = bound(front_bytes, 0)[0]
+    front_bound_l2 = front_bytes / L2_BYTES_PER_S * 1e3
+    stats = {}
+    for name, (calls, plains, nbytes) in fns.items():
+        stats[name] = dict(
+            ms=statistics.mean(per_call_ms(torch, c, reps=30)
+                               for c in calls),
+            device_ms=statistics.mean(device_ms(torch, c, reps=100)
+                                      for c in calls),
+            plain_ms=statistics.mean(device_ms(torch, c, reps=20)
+                                     for c in plains),
+            bound_ms=statistics.mean(bound(b, 0)[0] for b in nbytes),
+            bound_l2_ms=statistics.mean(b / L2_BYTES_PER_S * 1e3
+                                        for b in nbytes),
+            bound_by='bytes', max_abs_err=abs_err[name],
+            max_rel_err=rel_err[name], front_device_ms=front_dev,
+            front_loop_device_ms=loop_dev, front_plain_ms=plain_dev,
+            front_bound_ms=front_bound, front_bound_l2_ms=front_bound_l2,
+            front_max_rel_err=front_rel, front_boundary_mismatches=off,
+            front_compared=total)
+        log(f'{tag}: {name}: {stats[name]["device_ms"] * 1e3:.2f} us a '
+            f'launch on the card ({stats[name]["ms"] * 1e3:.1f} us a call), '
+            f'plain {stats[name]["plain_ms"] * 1e3:.1f} us, bound '
+            f'{stats[name]["bound_l2_ms"] * 1e3:.2f} us (L2) / '
+            f'{stats[name]["bound_ms"] * 1e3:.2f} us (HBM); max abs err '
+            f'{abs_err[name]:.3g} (relative {rel_err[name]:.3g})')
+    log(f'{tag}: m={m}, {F} slots, {sch.steps} fronts: a scan front\'s '
+        f'launches {front_dev * 1e3:.2f} us back to back, {loop_dev * 1e3:.2f}'
+        f' us a front in the scan loop\'s graph, bound '
+        f'{front_bound_l2 * 1e3:.2f} us over L2 at 3.9 TB/s and '
+        f'{front_bound * 1e3:.2f} us over HBM ({sum(weights) / 1e6:.2f} MB '
+        f'of weights); the plain front {plain_dev * 1e3:.2f} us; the '
+        f'decoder\'s front against front_params: scales and means within '
+        f'{front_rel:.3g}; {off} of {total} rows and symbols one step away '
+        '(a boundary); the scan\'s y_hat writes and jahp_front_write equal '
+        'Schedule.write bit for bit')
+    return stats
+
+
 def jahp_phase(torch, kernels, td, images):
     """Phase 13 (JAHP): the joint autoregressive codec q1 (192, 192) at
     256 px on the host wire and on the device wire. Checks: every image in
@@ -2585,10 +2856,13 @@ def jahp_phase(torch, kernels, td, images):
     and the masked encoder also on tables with zero-frequency entries
     (`masked_zero_frequency`). The masked kernels' timings come with their
     launch floor: an empty kernel on their grid, timed the same way.
-    Returns (launches, kernel stats of the two masked kernels)."""
+    Then the front kernels against their plain version and timed
+    (`front_kernel_part`), on this codec and at quality 8. Returns
+    (launches, kernel stats of the masked and front kernels)."""
     import pickle
     from sc2bench_tpu_torch.models import zoo
     from sc2bench_tpu_torch.models.zoo_jahp import JointAutoregressiveRuntime
+    from sc2bench_tpu_torch.models import zoo_jahp_front
     device = images[0].device
     torch.manual_seed(3)
     module = zoo.registry_get('model', JAHP_KEY)(quality=1, device=device)
@@ -2643,9 +2917,14 @@ def jahp_phase(torch, kernels, td, images):
           'JAHP: the masked encoder was not handed the tables update() '
           'prepared on each image')
     sch = rt.schedule(*ops['shape'])
+    groups = len(zoo_jahp_front.groups(sch.slots))   # launches a layer
     want = {'rans_masked_encode_aligned': n,
             'rans_masked_decode_front': n * sch.steps,
-            'rans_cyclic_encode_aligned': n, 'rans_cyclic_decode_aligned': n}
+            'rans_cyclic_encode_aligned': n, 'rans_cyclic_decode_aligned': n,
+            'jahp_front_ctx': 2 * n * sch.steps * groups,
+            'jahp_front_hidden': 4 * n * sch.steps * groups,
+            'jahp_front_params': 2 * n * sch.steps * groups,
+            'jahp_front_write': n * sch.steps * groups}
     check(launches == {k: want.get(k, 0) for k in kernels.ALL_KERNELS},
           f'JAHP device wire launched {launches}, expected {want}')
     with torch.no_grad():
@@ -2740,6 +3019,15 @@ def jahp_phase(torch, kernels, td, images):
                       reps=100)
     for name in kernels.MASKED_KERNELS:
         stats[name]['launch_floor_ms'] = floor
+    front_kernel_part(torch, rt, images[-1], 'phase 13 (JAHP q1)')
+    # the front kernels at the benchmark's quality 8 (m = 320)
+    torch.manual_seed(3)
+    module8 = zoo.registry_get('model', JAHP_KEY)(quality=8, device=device)
+    codec_weights(torch, module8, 3, images[0])
+    rt8 = JointAutoregressiveRuntime(module8, device=device)
+    rt8.update()
+    stats.update(front_kernel_part(torch, rt8, images[-1],
+                                   'phase 13 (JAHP q8)'))
     log(f'phase 13: launch floor of the masked kernels ({lanes} lanes, an '
         f'empty kernel on their grid): {floor:.4f} ms on the card; the '
         f'masked encoder equals its plain version on tables with '
@@ -3959,8 +4247,11 @@ def det_ic_phase(torch, kernels, device):
     detection CLI at full width on `N_DET_IC` synthetic 480x640 images
     (the detector with its fresh weights, as in JAX; a neural codec's
     `codec_weights` saved as its ckpt). Checks: every image accounted with
-    a positive size, the 12 metrics in range, no kernel launched (host
-    coders). Returns each config's {'AP', 'KB', 'model_time', 'wall'}."""
+    a positive size, the 12 metrics in range, no rANS kernel launched (host
+    coders), and the joint autoregressive codec's fronts through its front
+    kernels (each layer as often in the encoder's scan as in the decoder's
+    fronts, no write kernel: the host decoder writes y_hat). Returns each
+    config's {'AP', 'KB', 'model_time', 'wall'}."""
     import tempfile
     from sc2bench_tpu_torch.models import zoo
     from sc2bench_tpu_torch.tasks.object_detection import main as cli
@@ -3988,7 +4279,17 @@ def det_ic_phase(torch, kernels, device):
             run = cli(['--config', os.path.join(REPO, config), '--json',
                        json.dumps(over), '-test_only'])
             wall = time.perf_counter() - t0
-            check(all(v == 0 for v in kernels.LAUNCHES.values()),
+            fronts = {k: kernels.LAUNCHES[k] for k in kernels.FRONT_KERNELS}
+            check(all(kernels.LAUNCHES[k] == 0 for k in kernels.ALL_KERNELS
+                      if k not in kernels.FRONT_KERNELS)
+                  and (key != JAHP_KEY or (
+                      fronts['jahp_front_ctx'] > 0
+                      and fronts['jahp_front_params']
+                      == fronts['jahp_front_ctx']
+                      and fronts['jahp_front_hidden']
+                      == 2 * fronts['jahp_front_ctx']
+                      and fronts['jahp_front_write'] == 0))
+                  and (key == JAHP_KEY or not any(fronts.values())),
                   f'{config}: launched {dict(kernels.LAUNCHES)}')
             summary, res = run['summaries'][0], run['result']
             check(summary['num_samples'] == N_DET_IC and summary['mean'] > 0,
@@ -4000,6 +4301,9 @@ def det_ic_phase(torch, kernels, device):
             host = '' if rt is None else ', host coding ' + ', '.join(
                 f'{k} {1e3 * v / N_DET_IC:.3f}'
                 for k, v in sorted(rt.timings.items())) + ' ms an image'
+            if key == JAHP_KEY:
+                host += ', front kernels ' + ', '.join(
+                    f'{k} {v}' for k, v in fronts.items())
             log(f'phase 17: {config}: {N_DET_IC} images of 480x640 on the '
                 f'1344x1344 canvas, mAP {res["AP"]:.6f} (AP50 '
                 f'{res["AP50"]:.6f}), {summary["mean"]:.6f} KB an image '
@@ -5714,7 +6018,9 @@ def run():
 
     # ---- phase 1: build ----
     t0 = time.perf_counter()
-    libs = kernels.build_libraries()
+    from sc2bench_tpu_torch.models import zoo_jahp_front
+    libs = kernels.build_libraries((kernels.SOURCE, kernels.INDEXED_SOURCE,
+                                    zoo_jahp_front.SOURCE))
     log(f'phase 1: built ' + ', '.join(os.path.relpath(lib, REPO)
                                       for lib in libs)
         + f' in {time.perf_counter() - t0:.1f} s (one nvcc per source, '
@@ -5852,12 +6158,14 @@ def run():
     rows = []
     for name in kernels.ALL_KERNELS:
         indexed = name in kernels.INDEXED_KERNELS
-        masked = name in kernels.MASKED_KERNELS
+        masked = name in kernels.MASKED_KERNELS + kernels.FRONT_KERNELS
         aligned = name.endswith('_aligned')
         main = jahp if masked else (mshp_bk if aligned else mshp_b1) \
             if indexed else launches
         row = dict(name=name, route='cuda',
                    source=SOURCES['cyclic' if name in kernels.KERNELS
+                                  else 'front'
+                                  if name in kernels.FRONT_KERNELS
                                   else 'indexed'],
                    replaces=REPLACES[name], launches=main[name],
                    max_abs_err=stats[name]['max_abs_err'],
@@ -5886,7 +6194,13 @@ def run():
                    **{key: stats[name][key]
                       for key in ('device_ms_k128', 'bound_ms_k128',
                                   'launch_floor_ms', 'images_per_block',
-                                  'tile_steps', 'prepare_ms')
+                                  'tile_steps', 'prepare_ms',
+                                  'front_device_ms', 'front_loop_device_ms',
+                                  'front_plain_ms', 'front_bound_ms',
+                                  'front_bound_l2_ms', 'bound_l2_ms',
+                                  'max_rel_err', 'front_max_rel_err',
+                                  'front_boundary_mismatches',
+                                  'front_compared')
                       if key in stats[name]})
         if name in backbone_stats:
             b = backbone_stats[name]
@@ -5910,10 +6224,11 @@ def run():
         rows.append(row)
     for r in rows:
         check(r['launches'] > 0, f'{r["name"]} never launched on the path')
-        if r['name'] not in kernels.MASKED_KERNELS:
+        jahp_only = kernels.MASKED_KERNELS + kernels.FRONT_KERNELS
+        if r['name'] not in jahp_only:
             check(r['launches_backbones'] > 0, f'{r["name"]} never launched '
                   'on the RegNetY and hybrid-ViT paths')
-        if r['name'] not in kernels.MASKED_KERNELS:
+        if r['name'] not in jahp_only:
             check(r['launches_bf16'] > 0, f'{r["name"]} never launched on '
                   'the bfloat16 device wire')
         if r['name'] in FP_BATCH1:
@@ -5935,8 +6250,15 @@ def run():
         if r['name'] in kernels.KERNELS:
             check(r['launches_mesh'] > 0, f'{r["name"]} never launched on '
                   'the sharded latents\' device wire')
-        check(r['max_abs_err'] == 0, f'{r["name"]} differs from its plain '
-              f'version by {r["max_abs_err"]}')
+        # the front kernels' float32 sums run in another order than
+        # front_params': held to FRONT_TOL (phase 13); the rest, the write
+        # kernel included, bit for bit
+        if r['name'] in kernels.FRONT_KERNELS[:3]:
+            check(r['max_rel_err'] <= FRONT_TOL, f'{r["name"]} is '
+                  f'{r["max_rel_err"]} off its plain version')
+        else:
+            check(r['max_abs_err'] == 0, f'{r["name"]} differs from its '
+                  f'plain version by {r["max_abs_err"]}')
     print(json.dumps({'kernels': rows}), flush=True)
     print(smi_query('name,power.limit'), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -25,9 +25,13 @@ Two wires share that scan:
 
 Both evaluate the context model with the same function on the same shapes
 (every front padded to the widest one), so the host path's y_hat and the
-device wire's are bit-equal. Encoder and decoder agree bit for bit only if
-the arithmetic is repeatable: on the card the runtime turns TF32 off and
-runs h_s with cuDNN's deterministic algorithms.
+device wire's are bit-equal. On the card that function is four
+hand-written kernels a front (`zoo_jahp_front.py`, `csrc/jahp_front.cu`),
+chosen once by `update()`; on the CPU it is `ContextModel.front_params`,
+their plain version. Encoder and decoder agree bit for bit only if the
+arithmetic is repeatable: the kernels sum in one fixed order, and on the
+card the runtime turns TF32 off and runs h_s with cuDNN's deterministic
+algorithms.
 """
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ from .runtime import FactorizedCodec, _exact_cudnn
 from .zoo import (_conv, _deconv, _on, analysis_transform, nchw,
                   synthesis_transform)
 from .zoo_jahp_device import JointAutoregressiveDeviceMixin
+from .zoo_jahp_front import front_kernels
 
 HALO = 2                      # the 5x5 context kernel's reach
 
@@ -165,7 +170,10 @@ class ContextModel:
     of the masked kernel gathered from the halo-padded y_hat and packed
     into one (F, 12m) x (12m, 2m) matmul, then the three 1x1 layers as
     matmuls with LeakyReLU 0.01 (the host half of the JAX package's
-    `_HostAutoregressive` and its device twin, one op order)."""
+    `_HostAutoregressive` and its device twin, one op order). As library
+    ops that is about 15 launches a front; `front_params` is the plain
+    version of the front kernels (`zoo_jahp_front.py`), which the loops
+    run on the card."""
 
     def __init__(self, module: JointAutoregressiveCodec):
         cp = module.context_prediction
@@ -288,6 +296,7 @@ class JointAutoregressiveRuntime(JointAutoregressiveDeviceMixin):
         self.g_coder = None
         self.timings = {}
         self._schedules = {}
+        self._front_kernels = None
 
     def update(self):
         """Build z's tables, the Gaussian tables of y, their device copies
@@ -315,6 +324,8 @@ class JointAutoregressiveRuntime(JointAutoregressiveDeviceMixin):
                       self.g_tables.offset))
         self._g_prepared = prepare_indexed_tables(*self._g_tables_dev)
         self.context = ContextModel(self.module)
+        self._front_kernels = front_kernels(self.context, self._scale_table,
+                                            self.module.m)
         self._scan_graphs = GraphCache('codec.scan_graph',
                                        tally=kernels.LAUNCHES)
         self._front_graphs = GraphCache('codec.front_graph',
@@ -325,6 +336,13 @@ class JointAutoregressiveRuntime(JointAutoregressiveDeviceMixin):
         if (h, w) not in self._schedules:
             self._schedules[(h, w)] = Schedule(h, w, self.device)
         return self._schedules[(h, w)]
+
+    def _count_fronts(self, sch: Schedule) -> None:
+        """The counters of a loop over `sch`'s fronts: `codec.front_steps`,
+        and `codec.fused_fronts` when the front kernels run them."""
+        count('codec.front_steps', sch.steps)
+        if self._front_kernels is not None:
+            count('codec.fused_fronts', sch.steps)
 
     # ---- the shared scan ------------------------------------------------------
     def _encode_ops(self, x):
@@ -352,8 +370,7 @@ class JointAutoregressiveRuntime(JointAutoregressiveDeviceMixin):
         """Quantize y front by front: (symbols (T, F, m) int32, indexes
         (T, F, m) int32, halo-padded y_hat), pad slots included (the
         caller drops them). The loop is the span `codec.scan`."""
-        count('codec.front_steps', self.schedule(y.shape[0],
-                                                 y.shape[1]).steps)
+        self._count_fronts(self.schedule(y.shape[0], y.shape[1]))
         with span('codec.scan'):
             return self._scan_loop(y, hyper)
 
@@ -361,6 +378,8 @@ class JointAutoregressiveRuntime(JointAutoregressiveDeviceMixin):
         """`forward_scan`'s loop."""
         sch = self.schedule(y.shape[0], y.shape[1])
         y_hat = self._new_latent(sch.h, sch.w)
+        if self._front_kernels is not None:
+            return self._front_kernels.scan(y, hyper, sch, y_hat)
         syms, idxs = [], []
         for t in range(sch.steps):
             ii, jj = sch.ii[t], sch.jj[t]
@@ -412,11 +431,16 @@ class JointAutoregressiveRuntime(JointAutoregressiveDeviceMixin):
         y_hat = self._new_latent(sch.h, sch.w)
         decoder = StreamingDecoder(self.g_coder, strings[0][0])
         m = self.module.m
+        fk = self._front_kernels
         for t in range(sch.steps):
             n = sch.counts[t]
-            scales, means = self.context.front_params(
-                y_hat, hyper, sch.ii[t], sch.jj[t])
-            idx = self._indexes(scales[:n]).cpu().numpy()
+            if fk is None:
+                scales, means = self.context.front_params(
+                    y_hat, hyper, sch.ii[t], sch.jj[t])
+                idx = self._indexes(scales[:n]).cpu().numpy()
+            else:
+                means, rows = fk.front(y_hat, hyper, sch, t)
+                idx = rows[:n * m].cpu().numpy()
             with span('codec.host_decode', self.timings, 'host_decode'):
                 sym = decoder.decode(idx.ravel()).reshape(n, m)
             sym = torch.from_numpy(sym).to(self.device)

@@ -16,9 +16,11 @@ chunk of front t, and the decoder reads it there directly.
           T fronts in reverse, then z on the cyclic aligned lanes
           (`rans_cyclic_encode_aligned`);
   decode  z (`rans_cyclic_decode_aligned`), h_s, then per front the
-          context model (torch ops on the device) and one masked decode
-          step for every lane (`rans_masked_decode_front`, on the Gaussian
-          tables' prepared form that `update()` builds once).
+          context model (on the card four hand-written kernels,
+          `zoo_jahp_front.py`; elsewhere `ContextModel.front_params`), one
+          masked decode step for every lane (`rans_masked_decode_front`, on
+          the Gaussian tables' prepared form that `update()` builds once)
+          and the front's write into y_hat.
 
 Wire bytes: 4 + 6N + 2 * sum(lengths) for y (header, lengths and states
 as the lane wire packs them, then the chunks) plus z's lane wire. A symbol
@@ -26,13 +28,15 @@ outside its row's support cannot be coded on lanes: it clears `ok` (the
 caller re-codes the image on the host wire). `valid` is true when z
 decoded valid and every y lane returned to its initial state.
 
-Each wavefront loop queues hundreds of small launches an image (about
-15 a front), more than the host can queue in the time the card runs
-them. On the card the device wire replays each loop as one CUDA graph a
-latent shape (`utils/graphs.py` `GraphCache`: the runtime's
-`_scan_graphs` and `_front_graphs`, which `update()` makes anew), eager
-on the CPU and at a shape's first call; a replay computes what the eager
-loop computes, bit for bit, and counts its launches in
+Each wavefront loop queues hundreds of small launches an image (on the
+card four a scan front of at most 8 positions and six a decode front, the
+masked step and the write included; about 15 a front as library ops),
+more than the host can queue in the time the card runs them. On the card
+the device wire replays each loop as one CUDA graph a latent shape
+(`utils/graphs.py` `GraphCache`: the runtime's `_scan_graphs` and
+`_front_graphs`, which `update()` makes anew), eager on the CPU and at a
+shape's first call; a replay computes what the eager loop computes, bit
+for bit, and counts its launches in
 `kernels.LAUNCHES` as the eager loop does.
 
 While a profiler runs, each stage of an image is one span
@@ -40,7 +44,8 @@ While a profiler runs, each stage of an image is one span
 and z's lanes), `codec.scan` (the encoder's wavefront loop),
 `codec.masked_encode` (y's lanes), `codec.decode_z` (z and h_s),
 `codec.fronts` (the decoder's wavefront loop) and `codec.synthesis`
-(g_s); the counter `codec.front_steps` adds the fronts each loop runs.
+(g_s); the counter `codec.front_steps` adds the fronts each loop runs,
+and `codec.fused_fronts` those that the front kernels run.
 """
 from __future__ import annotations
 
@@ -49,7 +54,7 @@ import torch
 from ..ops.rans import kernels
 from ..ops.rans.device import (RANS_L, auto_lanes, device_rans_decode,
                                device_rans_encode)
-from ..utils.profiling import count, span
+from ..utils.profiling import span
 from .zoo import nchw
 
 
@@ -91,7 +96,7 @@ class JointAutoregressiveDeviceMixin:
                 cyclic_channels=self.module.n, aligned=True)
         hh, ww, m = y.shape
         sch = self.schedule(hh, ww)
-        count('codec.front_steps', sch.steps)
+        self._count_fronts(sch)
         with span('codec.scan'):
             syms, idxs, y_hat = _copies(self._scan_graphs(
                 'scan', (), (y.contiguous(), hyper),
@@ -121,7 +126,7 @@ class JointAutoregressiveDeviceMixin:
                 cyclic_channels=n, aligned=True)
             hyper = self._hyper(nchw(z_flat.reshape(1, zh, zw, n)))
         sch = self.schedule(hh, ww)
-        count('codec.front_steps', sch.steps)
+        self._count_fronts(sch)
         with span('codec.fronts'):
             y_hat, x = _copies(self._front_graphs(
                 'fronts', (), (ops['y_streams'], ops['y_states'], hyper),
@@ -136,14 +141,22 @@ class JointAutoregressiveDeviceMixin:
         cdf, cdf_len, off = self._g_tables_dev
         m = self.module.m
         y_hat = self._new_latent(sch.h, sch.w)
+        fk = self._front_kernels
         for t in range(sch.steps):
-            scales, means = self.context.front_params(
-                y_hat, hyper, sch.ii[t], sch.jj[t])
-            idx = self._indexes(scales).reshape(-1)
+            if fk is None:
+                scales, means = self.context.front_params(
+                    y_hat, hyper, sch.ii[t], sch.jj[t])
+                idx = self._indexes(scales).reshape(-1)
+            else:
+                means, idx = fk.front(y_hat, hyper, sch, t)
             sym, x = kernels.masked_decode_front(
                 streams, t, x, cdf, cdf_len, off, idx, sch.active[t], m,
                 prepared=self._g_prepared)
-            sch.write(y_hat, t, sym.reshape(-1, m).to(torch.float32) + means)
+            if fk is None:
+                sch.write(y_hat, t,
+                          sym.reshape(-1, m).to(torch.float32) + means)
+            else:
+                fk.write(y_hat, sch, t, sym, means)
         return y_hat, x
 
     def decode_device_wire(self, ops):

@@ -12,7 +12,10 @@ runs the two compilers at once.
 
 `LAUNCHES` counts kernel launches per kernel name; a wrapper adds one where
 it launches its kernel and nowhere else, so a caller can show that a path
-went through the kernels (`reset_launches()` zeroes the counts).
+went through the kernels (`reset_launches()` zeroes the counts). It is the
+one tally of the port's hand-written kernels: the joint autoregressive
+codec's context-model front kernels (`FRONT_KERNELS`, built and launched
+by `models/zoo_jahp_front.py`) count their launches here too.
 
 Every kernel keeps its lane tables (16 or 8 bytes per CDF entry and lane)
 in shared memory when they fit beside the block's staging; when they do
@@ -74,7 +77,9 @@ INDEXED_KERNELS = ('rans_indexed_encode', 'rans_indexed_decode',
                    'rans_indexed_encode_aligned',
                    'rans_indexed_decode_aligned')
 MASKED_KERNELS = ('rans_masked_encode_aligned', 'rans_masked_decode_front')
-ALL_KERNELS = KERNELS + INDEXED_KERNELS + MASKED_KERNELS
+FRONT_KERNELS = ('jahp_front_ctx', 'jahp_front_hidden', 'jahp_front_params',
+                 'jahp_front_write')
+ALL_KERNELS = KERNELS + INDEXED_KERNELS + MASKED_KERNELS + FRONT_KERNELS
 LAUNCHES = dict.fromkeys(ALL_KERNELS, 0)
 
 _lib = None
